@@ -1,0 +1,210 @@
+"""The federated round skeleton shared by the central-aggregate algorithms
+(counterpart of ``neuroimagedisttraining_tpu/algorithms/base.py``, the parts
+the SalientGrads training path runs).
+
+Where the reference vmaps the cohort inside one compiled program, this loops
+over the selected clients: each trains a copy of the global model on its own
+shard, and the server takes the sample-weighted mean of the local models.
+"""
+from __future__ import annotations
+
+import abc
+import logging
+import time
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..core.state import HyperParams, Tree, clone_tree, weighted_tree_sum
+from ..core.trainer import make_eval_fn
+from ..data.types import FederatedData
+from ..models import make_apply_fn
+
+logger = logging.getLogger(__name__)
+
+
+def _personal_metrics(correct, loss_sum, total) -> Dict[str, torch.Tensor]:
+    """Per-client eval terms -> the personal-eval protocol metrics: the mean
+    of per-client accuracies and the mean of per-client mean losses."""
+    totals = torch.clamp(total, min=1)
+    acc = correct.to(torch.float32) / totals
+    return {
+        "acc_per_client": acc,
+        "acc": acc.mean(),
+        "loss": (loss_sum / totals).mean(),
+        "correct": correct, "loss_sum": loss_sum, "total": total,
+    }
+
+
+def sample_client_indexes(round_idx: int, client_num_in_total: int,
+                          client_num_per_round: int) -> np.ndarray:
+    """Per-round client sampling with numpy reseeded by the round index, so
+    every algorithm (and the reference) draws the same subsets; full
+    participation is ``arange``."""
+    if client_num_in_total == client_num_per_round:
+        return np.arange(client_num_in_total, dtype=np.int32)
+    np.random.seed(round_idx)
+    return np.random.choice(range(client_num_in_total), client_num_per_round,
+                            replace=False).astype(np.int32)
+
+
+class FedAlgorithm(abc.ABC):
+    """Owns the model, data, hyperparameters and the apply/eval functions.
+
+    ``device`` defaults to CUDA (and raises without it); the data is moved
+    there. ``compute_dtype`` (e.g. ``"bfloat16"``) casts parameters and
+    inputs for the forward and backward passes; master weights, momentum and
+    losses stay float32."""
+
+    name = "base"
+
+    def __init__(self, model: torch.nn.Module, data: FederatedData,
+                 hp: HyperParams, loss_type: str = "bce", frac: float = 1.0,
+                 eval_batch: int = 32, seed: int = 0,
+                 compute_dtype: Optional[str] = None, device=None):
+        self.device = resolve_device(device)
+        self.model = model.to(self.device)
+        self.data = data.to(self.device)
+        self.hp = hp
+        self.loss_type = loss_type
+        self.seed = seed
+        self.num_clients = data.num_clients
+        self.clients_per_round = max(1, int(round(self.num_clients * frac)))
+        self.compute_dtype = (getattr(torch, compute_dtype)
+                              if compute_dtype is not None else None)
+        self.apply_fn = make_apply_fn(self.model, self.compute_dtype)
+        self.eval_client = make_eval_fn(self.apply_fn, loss_type, eval_batch)
+        self._n_train = [int(n) for n in data.n_train]
+        self._n_test = [int(n) for n in data.n_test]
+        self._build()
+
+    @abc.abstractmethod
+    def _build(self) -> None:
+        """Construct the round and eval functions."""
+
+    @abc.abstractmethod
+    def init_state(self, generator: Optional[torch.Generator] = None) -> Any:
+        """The initial server state."""
+
+    @abc.abstractmethod
+    def run_round(self, state: Any, round_idx: int, **seams) -> Any:
+        """One federated round; returns (state, train-metrics dict)."""
+
+    def finalize(self, state: Any):
+        """Optional end-of-training pass; returns ``(state, record or
+        None)``, the record appended to the history with ``round = -1``."""
+        return state, None
+
+    def generator(self, seed: Optional[int] = None) -> torch.Generator:
+        """A generator on this algorithm's device, seeded by ``seed`` (the
+        run seed by default)."""
+        return torch.Generator(device=self.device).manual_seed(
+            self.seed if seed is None else seed)
+
+    # -- shared helpers --------------------------------------------------------
+    def _selected_client_indexes(self, round_idx: int) -> np.ndarray:
+        return sample_client_indexes(round_idx, self.num_clients,
+                                     self.clients_per_round)
+
+    def _full_batches(self) -> bool:
+        """Every client's shard covers ``steps_per_epoch * batch_size`` rows,
+        so every batch is full and every step active."""
+        need = self.hp.steps_per_epoch * self.hp.batch_size
+        return all(n >= need for n in self._n_train)
+
+    def _aggregate(self, stacked: Tree, weights: torch.Tensor) -> Tree:
+        """The dense sample-weighted mean over the stacked client axis."""
+        return weighted_tree_sum(stacked, weights)
+
+    def _train_selected_weighted(self, client_update, global_params: Tree,
+                                 mask: Tree, sel_idx: np.ndarray,
+                                 round_idx: int, generator, perms=None,
+                                 dropout=None):
+        """Every selected client trains a copy of the global model on its
+        shard; returns (new global, stacked local models, mean loss).
+
+        ``perms`` / ``dropout``, when given, hold each selected client's
+        epoch permutations / per-step dropout masks (indexed by position in
+        ``sel_idx``)."""
+        d = self.data
+        locals_, losses = [], []
+        for i, c in enumerate(sel_idx):
+            c = int(c)
+            params, _, loss = client_update(
+                clone_tree(global_params), mask, d.x_train[c], d.y_train[c],
+                self._n_train[c], round_idx,
+                perms=None if perms is None else perms[i],
+                dropout=None if dropout is None else dropout[i],
+                generator=generator)
+            locals_.append(params)
+            losses.append(loss)
+        stacked = {k: torch.stack([p[k] for p in locals_])
+                   for k in global_params}
+        n_sel = torch.tensor([self._n_train[int(c)] for c in sel_idx],
+                             dtype=torch.float32, device=self.device)
+        weights = n_sel / torch.clamp(n_sel.sum(), min=1.0)
+        new_global = self._aggregate(stacked, weights)
+        return new_global, stacked, torch.stack(losses).mean()
+
+    def _eval_global(self, params: Tree) -> Dict[str, torch.Tensor]:
+        """The global model on every client's test shard."""
+        d = self.data
+        terms = [self.eval_client(params, d.x_test[c], d.y_test[c], n)
+                 for c, n in enumerate(self._n_test)]
+        correct = torch.stack([t[0] for t in terms])
+        loss_sum = torch.stack([t[1] for t in terms])
+        total = torch.tensor([t[2] for t in terms], device=self.device)
+        acc = correct.to(torch.float32) / torch.clamp(total, min=1)
+        return {"acc_per_client": acc, "acc": acc.mean(),
+                "loss": loss_sum.sum() / torch.clamp(total.sum(), min=1)}
+
+    def _eval_personal(self, personal: Tree) -> Dict[str, torch.Tensor]:
+        """Each client's personal model on its own test shard."""
+        d = self.data
+        terms = [self.eval_client({k: v[c] for k, v in personal.items()},
+                                  d.x_test[c], d.y_test[c], n)
+                 for c, n in enumerate(self._n_test)]
+        return _personal_metrics(
+            torch.stack([t[0] for t in terms]),
+            torch.stack([t[1] for t in terms]),
+            torch.tensor([t[2] for t in terms], device=self.device))
+
+    @abc.abstractmethod
+    def evaluate(self, state: Any) -> Dict[str, Any]:
+        """The reference's eval protocol for this algorithm: global and/or
+        personal per-client evaluation."""
+
+    # -- driver ----------------------------------------------------------------
+    def run(self, comm_rounds: int, eval_every: int = 1, state: Any = None,
+            finalize: bool = True):
+        """The federated training loop: ``comm_rounds`` rounds, an eval every
+        ``eval_every`` rounds, then the algorithm's final pass. Returns
+        ``(state, history)``; history values are Python floats."""
+        if state is None:
+            state = self.init_state()
+        history: List[Dict[str, Any]] = []
+        for r in range(comm_rounds):
+            t0 = time.perf_counter()
+            state, train_metrics = self.run_round(state, r)
+            record = {"round": r, **train_metrics}
+            if eval_every and (r + 1) % eval_every == 0:
+                ev = self.evaluate(state)
+                record.update({k: v for k, v in ev.items()
+                               if not k.startswith("acc_per")})
+            record = {k: _to_float(v) for k, v in record.items()}
+            record["round_time_s"] = time.perf_counter() - t0
+            logger.info("%s round %d: %s", self.name, r, record)
+            history.append(record)
+        if finalize:
+            state, final = self.finalize(state)
+            if final is not None:
+                history.append({k: _to_float(v) for k, v in final.items()})
+        return state, history
+
+
+def _to_float(v):
+    if isinstance(v, torch.Tensor):
+        return float(v) if v.numel() == 1 else v.tolist()
+    return v

@@ -1,0 +1,120 @@
+"""SalientGrads: SNIP-masked sparse federated training (counterpart of
+``neuroimagedisttraining_tpu/algorithms/salientgrads.py``).
+
+1. Before round 0 every client scores SNIP saliency on its own shard; the
+   server averages the scores and thresholds one global mask at
+   ``dense_ratio`` (the threshold and score-mask kernels on the GPU).
+2. Then FedAvg rounds in which every local SGD step re-masks the weights
+   (the masked SGD kernel) and the aggregate is the sample-weighted mean.
+
+Each trained client's local weights are kept as its personal model, and the
+eval protocol tests the global model and every personal model on each
+client's test shard, plus one final eval after the last round.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional
+
+import torch
+
+from ..core.state import Tree, broadcast_tree
+from ..core.trainer import make_client_update
+from ..models import init_params
+from ..ops.sparsity import make_snip_score_fn, mask_density, mask_from_scores
+from .base import FedAlgorithm
+
+
+@dataclasses.dataclass
+class SalientGradsState:
+    global_params: Tree
+    mask: Tree
+    #: [C, ...] per leaf: each client's last locally trained (masked)
+    #: weights, initialized to dense copies of the initial global model
+    personal_params: Tree
+    #: the round loop's draws (epoch permutations, dropout masks)
+    generator: torch.Generator
+
+
+class SalientGrads(FedAlgorithm):
+    name = "salientgrads"
+
+    def __init__(self, *args, dense_ratio: float = 0.5,
+                 itersnip_iterations: int = 1, **kwargs):
+        self.dense_ratio = dense_ratio
+        self.itersnip_iterations = itersnip_iterations
+        super().__init__(*args, **kwargs)
+
+    def _build(self) -> None:
+        self.client_update = make_client_update(
+            self.apply_fn, self.loss_type, self.hp,
+            full_batches=self._full_batches())
+        self.snip_scores = make_snip_score_fn(
+            self.apply_fn, self.loss_type, self.hp.batch_size)
+
+    def global_mask(self, params: Tree, generator=None,
+                    snip_idx=None) -> Tree:
+        """Every client scores its own shard; mean over clients; global
+        top-k. ``snip_idx`` (per client, ``[n_iters, batch]``) replaces the
+        drawn SNIP batches."""
+        d = self.data
+        total = None
+        for c in range(self.num_clients):
+            s = self.snip_scores(
+                params, d.x_train[c], d.y_train[c], self._n_train[c],
+                self.itersnip_iterations,
+                idx=None if snip_idx is None else snip_idx[c], rng=generator)
+            total = s if total is None else {k: total[k] + s[k] for k in s}
+        mean = {k: v / self.num_clients for k, v in total.items()}
+        return mask_from_scores(mean, self.dense_ratio)
+
+    def init_state(self, generator: Optional[torch.Generator] = None,
+                   params: Optional[Tree] = None,
+                   snip_idx=None) -> SalientGradsState:
+        """Fresh parameters (or the given ``params``), the SNIP mask, and
+        dense personal copies. ``generator`` defaults to one seeded by the
+        run seed and drives init, SNIP and every later round."""
+        g = generator if generator is not None else self.generator()
+        if params is None:
+            params = init_params(self.model, g)
+        params = {k: v.to(self.device, torch.float32) for k, v in
+                  params.items()}
+        mask = self.global_mask(params, g, snip_idx)
+        return SalientGradsState(
+            global_params=params, mask=mask,
+            personal_params=broadcast_tree(params, self.num_clients),
+            generator=g)
+
+    def run_round(self, state: SalientGradsState, round_idx: int, *,
+                  perms=None, dropout=None):
+        """One round. ``perms`` / ``dropout`` (per selected client) replace
+        the drawn epoch permutations / dropout masks."""
+        sel = self._selected_client_indexes(round_idx)
+        new_global, locals_, mean_loss = self._train_selected_weighted(
+            self.client_update, state.global_params, state.mask, sel,
+            round_idx, state.generator, perms=perms, dropout=dropout)
+        personal = state.personal_params
+        idx = torch.as_tensor(sel, dtype=torch.int64, device=self.device)
+        for k in personal:
+            personal[k][idx] = locals_[k]
+        new_state = dataclasses.replace(state, global_params=new_global,
+                                        personal_params=personal)
+        return new_state, {"train_loss": mean_loss}
+
+    def finalize(self, state: SalientGradsState):
+        """One final global and personal eval after the last round."""
+        ev = self.evaluate(state)
+        return state, {"round": -1, **{k: v for k, v in ev.items()
+                                       if not k.startswith("acc_per")}}
+
+    def evaluate(self, state: SalientGradsState) -> Dict[str, Any]:
+        ev = self._eval_global(state.global_params)
+        evp = self._eval_personal(state.personal_params)
+        return {
+            "global_acc": ev["acc"],
+            "global_loss": ev["loss"],
+            "mask_density": mask_density(state.mask),
+            "acc_per_client": ev["acc_per_client"],
+            "personal_acc": evp["acc"],
+            "personal_loss": evp["loss"],
+        }

@@ -1,0 +1,142 @@
+"""Local training and evaluation of one client (counterpart of
+``neuroimagedisttraining_tpu/core/trainer.py``).
+
+Where the reference vmaps a pure function over clients and scans over
+steps, this runs one client at a time with a Python step loop. The
+semantics are the reference's epoch batching: per epoch, a shuffle of the
+client's valid rows; each client consumes its own ``ceil(n_i / batch)``
+batches, the last one partial (padded slots carry zero loss weight), and
+steps past that are no-ops (skipped here, since nothing runs in lockstep).
+
+The random draws enter at seams — the epoch permutations and the dropout
+masks are optional arguments, so a test can feed the reference's draws; in
+production they come from a ``torch.Generator``.
+"""
+from __future__ import annotations
+
+from typing import Callable, Optional, Sequence
+
+import torch
+
+from ..ops import kernels
+from .losses import PER_EXAMPLE_LOSSES, predictions
+from .optim import clip_by_global_norm
+from .state import HyperParams, Tree
+
+
+def round_lr(hp: HyperParams, round_idx: int) -> torch.Tensor:
+    """``lr * lr_decay ** round`` in float32, as the reference computes it
+    (a 0-d CPU tensor)."""
+    f32 = torch.float32
+    return torch.tensor(hp.lr, dtype=f32) * torch.pow(
+        torch.tensor(hp.lr_decay, dtype=f32),
+        torch.tensor(float(round_idx), dtype=f32))
+
+
+def epoch_permutations(generator: torch.Generator, n_valid: int, epochs: int,
+                       length: int, n_rows: int = 0) -> torch.Tensor:
+    """``[epochs, length]`` shuffles: per epoch, a uniform order of the valid
+    rows ``[0, n_valid)`` first, then the padded rows in order (their loss
+    weight is zero). The draw domain is ``max(length, n_rows)``, as in the
+    reference."""
+    domain = max(length, int(n_rows))
+    dev = generator.device
+    rows = []
+    for _ in range(epochs):
+        perm = torch.randperm(int(n_valid), generator=generator, device=dev)
+        pad = torch.arange(int(n_valid), domain, device=dev)
+        rows.append(torch.cat([perm, pad])[:length])
+    return torch.stack(rows).to(torch.int64)
+
+
+def make_client_update(apply_fn, loss_type: str, hp: HyperParams,
+                       full_batches: bool = False) -> Callable:
+    """Build ``client_update(params, mask, x, y, n_valid, round_idx, *,
+    perms=None, dropout=None, generator=None) -> (params, momentum,
+    mean_loss)``.
+
+    ``params`` is updated in place (pass a copy); the optimizer step is
+    clip-by-global-norm, then the masked SGD kernel
+    (:func:`ops.kernels.fused_masked_sgd_step`) with the post-step
+    ``p *= mask`` of SalientGrads.
+    ``full_batches`` asserts every client holds at least
+    ``steps_per_epoch * batch_size`` rows, so every batch is full and every
+    step active.
+
+    ``perms`` is an ``[epochs, steps_per_epoch * batch_size]`` index array
+    and ``dropout`` a per-step sequence of dropout keep-mask sequences; when
+    absent they are drawn from ``generator``."""
+    per_example = PER_EXAMPLE_LOSSES[loss_type]
+    spe, bs = hp.steps_per_epoch, hp.batch_size
+
+    def client_update(params: Tree, mask: Tree, x, y, n_valid: int,
+                      round_idx: int, *, perms=None,
+                      dropout: Optional[Sequence] = None,
+                      generator: Optional[torch.Generator] = None):
+        n_valid = int(n_valid)
+        names = list(params)
+        leaves = [params[k].detach().requires_grad_(True) for k in names]
+        moms = [torch.zeros_like(p) for p in leaves]
+        masks = [mask[k] for k in names]
+        lr = round_lr(hp, round_idx)
+        if perms is None:
+            perms = epoch_permutations(generator, n_valid, hp.local_epochs,
+                                       spe * bs, n_rows=x.shape[0])
+        flat = torch.as_tensor(perms).reshape(-1).to(x.device)
+        losses = []
+        for s in range(hp.local_steps):
+            pos = s % spe
+            if not full_batches and pos * bs >= n_valid:
+                continue  # past this client's ceil(n_i / bs) batches
+            start = (s // spe) * (spe * bs) + pos * bs
+            idx = torch.clamp(flat[start:start + bs], max=x.shape[0] - 1)
+            xb, yb = x[idx], y[idx]
+            drop = generator if dropout is None else dropout[s]
+            logits = apply_fn(dict(zip(names, leaves)), xb, train=True,
+                              rng=drop)
+            per_ex = per_example(logits, yb).float()
+            if full_batches:
+                loss = per_ex.mean()
+            else:
+                w = ((pos * bs + torch.arange(bs, device=x.device))
+                     < n_valid).float()
+                loss = torch.sum(per_ex * w) / torch.clamp(w.sum(), min=1.0)
+            grads = torch.autograd.grad(loss, leaves)
+            with torch.no_grad():
+                grads = clip_by_global_norm(list(grads), hp.grad_clip)
+                kernels.fused_masked_sgd_step(
+                    leaves, moms, grads, masks, lr, momentum=hp.momentum,
+                    wd=hp.weight_decay)
+            losses.append(loss.detach())
+        mean_loss = (torch.stack(losses).mean() if losses
+                     else torch.zeros((), device=x.device))
+        out = {k: p.detach() for k, p in zip(names, leaves)}
+        return out, dict(zip(names, moms)), mean_loss
+
+    return client_update
+
+
+def make_eval_fn(apply_fn, loss_type: str, eval_batch: int = 32) -> Callable:
+    """``eval_client(params, x, y, n_valid) -> (correct, loss_sum, total)``
+    over a padded ``[m_max, ...]`` test shard in chunks of
+    ``min(eval_batch, m_max)``; rows at index >= n_valid are ignored."""
+    per_example = PER_EXAMPLE_LOSSES[loss_type]
+
+    @torch.no_grad()
+    def eval_client(params: Tree, x, y, n_valid: int):
+        m_max = x.shape[0]
+        eb = max(1, min(eval_batch, m_max))
+        correct = torch.zeros((), dtype=torch.int64, device=x.device)
+        loss_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+        for start in range(0, m_max, eb):
+            xb, yb = x[start:start + eb], y[start:start + eb]
+            logits = apply_fn(params, xb, train=False)
+            valid = (start + torch.arange(xb.shape[0], device=x.device)) \
+                < int(n_valid)
+            preds = predictions(logits, loss_type)
+            correct += torch.sum((preds == yb.to(torch.int32)) & valid)
+            per_ex = per_example(logits, yb)
+            loss_sum += torch.sum(per_ex * valid.to(per_ex.dtype))
+        return correct, loss_sum, int(n_valid)
+
+    return eval_client

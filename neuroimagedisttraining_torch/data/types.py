@@ -1,0 +1,57 @@
+"""Federated dataset container (counterpart of
+``neuroimagedisttraining_tpu/data/types.py``): per-client shards padded to a
+common length, with valid-count vectors."""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass
+class FederatedData:
+    """Stacked per-client shards.
+
+    x_train: [C, n_max, *sample_shape]   y_train: [C, n_max]
+    x_test:  [C, m_max, *sample_shape]   y_test:  [C, m_max]
+    n_train, n_test: [C] int32 valid counts
+    """
+
+    x_train: torch.Tensor
+    y_train: torch.Tensor
+    n_train: torch.Tensor
+    x_test: torch.Tensor
+    y_test: torch.Tensor
+    n_test: torch.Tensor
+    class_num: int = 2
+
+    @property
+    def num_clients(self) -> int:
+        return self.x_train.shape[0]
+
+    @property
+    def sample_shape(self):
+        return tuple(self.x_train.shape[2:])
+
+    def to(self, device) -> "FederatedData":
+        """The same shards on ``device``; the valid counts stay on the CPU,
+        where the round loop reads them."""
+        return dataclasses.replace(
+            self, x_train=self.x_train.to(device),
+            y_train=self.y_train.to(device), x_test=self.x_test.to(device),
+            y_test=self.y_test.to(device))
+
+
+def pad_stack(arrays, pad_to=None, dtype=None):
+    """Stack variable-length per-client arrays into ``[C, n_max, ...]`` plus
+    int32 counts (CPU tensors)."""
+    n = [len(a) for a in arrays]
+    n_max = pad_to or max(n)
+    first = np.asarray(arrays[0])
+    out = np.zeros((len(arrays), n_max) + first.shape[1:],
+                   dtype or first.dtype)
+    for i, a in enumerate(arrays):
+        a = np.asarray(a)
+        out[i, : len(a)] = a
+    return torch.from_numpy(out), torch.from_numpy(np.array(n, np.int32))

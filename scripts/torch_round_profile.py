@@ -1,0 +1,123 @@
+#!/usr/bin/env python3
+"""Where one training round's device time goes, for the PyTorch/CUDA port.
+
+    python3 scripts/torch_round_profile.py [--rounds-warm 1]
+
+Builds the main-path workload (SalientGrads, AlexNet3DS2D, 8 clients x 40
+phased 121x145x121 volumes, batch 8, 5 steps, bf16, dropout 0.5), runs the
+SNIP init and warm rounds unprofiled, then traces one round with
+``torch.profiler`` (CPU + CUDA). Prints one JSON line: the round's wall
+time, the summed device time and the device's busy share, device time by
+kernel class, the top kernels by self device time, and the top aten ops
+(device time including children) with their input shapes. Needs one GPU.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+#: kernel classes, matched in order against the lower-cased kernel name
+CLASSES = (
+    ("port_kernels", ("masked_sgd_kernel", "threshold_", "score_mask_kernel")),
+    ("conv", ("conv", "cudnn", "xmma", "implicit", "wgrad", "dgrad",
+              "fprop", "sm90", "cutlass", "gemm", "nchw", "ndhwc")),
+    ("pool", ("max_pool", "pool")),
+    ("reduce", ("reduce", "sum", "mean", "norm")),
+    ("copy", ("copy", "memcpy", "memset", "cat", "index", "gather",
+              "scatter")),
+)
+
+
+def classify(name: str) -> str:
+    low = name.lower()
+    for cls, keys in CLASSES:
+        if any(k in low for k in keys):
+            return cls
+    return "elementwise_other"
+
+
+def main() -> int:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from neuroimagedisttraining_torch.algorithms import SalientGrads
+    from neuroimagedisttraining_torch.core.state import HyperParams
+    from neuroimagedisttraining_torch.data import device_synthetic_federated
+    from neuroimagedisttraining_torch.models import create_model
+    from neuroimagedisttraining_torch.ops import kernels
+    from neuroimagedisttraining_torch.ops.s2d import phased_sample_shape
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--rounds-warm", type=int, default=1)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("torch_round_profile: CUDA is not available", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda")
+    kernels.build()
+    ss = phased_sample_shape((121, 145, 121))
+    data = device_synthetic_federated(
+        8, 40, ss, torch.Generator(device=dev).manual_seed(0),
+        test_per_client=10)
+    hp = HyperParams(lr=1e-3, lr_decay=0.998, momentum=0.9,
+                     weight_decay=5e-4, grad_clip=10.0, local_epochs=1,
+                     steps_per_epoch=5, batch_size=8)
+    algo = SalientGrads(create_model("3dcnn_s2d", sample_shape=ss), data, hp,
+                        loss_type="bce", dense_ratio=0.5,
+                        compute_dtype="bfloat16")
+    state = algo.init_state()
+    for r in range(args.rounds_warm):
+        state, met = algo.run_round(state, r)
+        float(met["train_loss"])
+    torch.cuda.synchronize()
+    r = args.rounds_warm
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        t0 = time.perf_counter()
+        state, met = algo.run_round(state, r)
+        float(met["train_loss"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = []
+    for ev in prof.key_averages():
+        dt = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0.0))
+        if dt > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
+            rows.append((ev.key, dt / 1e3, ev.count))
+    device_ms = sum(ms for _, ms, _ in rows)
+    by_class = {}
+    for name, ms, _ in rows:
+        c = classify(name)
+        by_class[c] = by_class.get(c, 0.0) + ms
+    rows.sort(key=lambda t: -t[1])
+    ops = []  # aten ops by device time, with their input shapes
+    for ev in prof.key_averages(group_by_input_shape=True):
+        dt = getattr(ev, "device_time_total",
+                     getattr(ev, "cuda_time_total", 0.0))
+        if ev.key.startswith("aten::") and dt > 0:
+            ops.append({"op": ev.key, "ms": dt / 1e3, "count": ev.count,
+                        "shapes": str(ev.input_shapes)[:160]})
+    ops.sort(key=lambda o: -o["ms"])
+    print(json.dumps({
+        "round_wall_ms": wall * 1e3, "device_ms": device_ms,
+        "device_busy_share": device_ms / (wall * 1e3) if wall else None,
+        "by_class_ms": dict(sorted(by_class.items(), key=lambda t: -t[1])),
+        "top": [{"kernel": n[:120], "ms": ms, "count": c}
+                for n, ms, c in rows[:15]],
+        "top_ops": ops[:12],
+        "device": torch.cuda.get_device_name(0),
+    }), flush=True)
+    if not rows:
+        print("torch_round_profile: the trace holds no device time",
+              file=sys.stderr)
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

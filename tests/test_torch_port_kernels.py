@@ -1,0 +1,165 @@
+"""The port's kernel modules against the JAX package's Pallas kernels.
+
+On the CPU every wrapper in ``neuroimagedisttraining_torch/ops/kernels.py``
+runs its plain PyTorch version; these tests hold that plain version to the
+Pallas kernel (interpret mode on the CPU) BIT FOR BIT, on the same
+numpy-seeded inputs. The CUDA kernels themselves are held to the plain
+versions on the card (``tests/test_torch_port_cuda.py`` and
+``chip_smoke.py``).
+"""
+import numpy as np
+import pytest
+
+import jax.numpy as jnp
+
+torch = pytest.importorskip("torch")
+
+from neuroimagedisttraining_tpu.ops import pallas_kernels as pk  # noqa: E402
+from neuroimagedisttraining_tpu.ops import topk_select as jts  # noqa: E402
+from neuroimagedisttraining_torch.core import optim  # noqa: E402
+from neuroimagedisttraining_torch.ops import kernels  # noqa: E402
+from neuroimagedisttraining_torch.ops import topk_select as tts  # noqa: E402
+
+LR = np.float32(1e-3) * np.float32(0.998) ** np.float32(3)
+MOM, WD = 0.9, 5e-4
+
+
+def _sgd_inputs(shape, seed):
+    rng = np.random.RandomState(seed)
+    p = rng.randn(*shape).astype(np.float32)
+    m = rng.randn(*shape).astype(np.float32)
+    g = rng.randn(*shape).astype(np.float32)
+    k = (rng.rand(*shape) > 0.5).astype(np.float32)
+    return p, m, g, k
+
+
+def _bitwise(a, b):
+    a = np.asarray(a)
+    b = np.asarray(b)
+    assert a.shape == b.shape and a.dtype == b.dtype, (a.shape, b.shape,
+                                                       a.dtype, b.dtype)
+    np.testing.assert_array_equal(a.view(np.int32), b.view(np.int32))
+
+
+@pytest.mark.parametrize("shape", [(7,), (5, 3), (4, 4, 4, 2), (300, 7),
+                                   (3, 3, 3, 8, 5), (1030,)])
+@pytest.mark.parametrize("mask_grads", [False, True])
+def test_masked_sgd_plain_bitwise_vs_pallas(shape, mask_grads):
+    p, m, g, k = _sgd_inputs(shape, seed=len(shape) * 7 + shape[0])
+    jp, jm = pk.fused_masked_sgd_leaf(
+        jnp.asarray(p), jnp.asarray(m), jnp.asarray(g), jnp.asarray(k),
+        jnp.float32(LR), momentum=MOM, wd=WD, mask_grads=mask_grads)
+    tp, tm = kernels.masked_sgd_plain(
+        torch.from_numpy(p), torch.from_numpy(m), torch.from_numpy(g),
+        torch.from_numpy(k), torch.tensor(LR), MOM, WD, mask_grads)
+    _bitwise(tp.numpy(), jp)
+    _bitwise(tm.numpy(), jm)
+
+
+def test_fused_masked_sgd_step_in_place_bitwise_vs_pallas_tree():
+    shapes = {"a": (33, 9), "b": (9,), "c": (2, 3, 4)}
+    ins = {n: _sgd_inputs(s, seed=i) for i, (n, s) in enumerate(shapes.items())}
+    jp, jm = pk.fused_masked_sgd_step(
+        {n: jnp.asarray(v[0]) for n, v in ins.items()},
+        {n: jnp.asarray(v[1]) for n, v in ins.items()},
+        {n: jnp.asarray(v[2]) for n, v in ins.items()},
+        {n: jnp.asarray(v[3]) for n, v in ins.items()},
+        jnp.float32(LR), momentum=MOM, wd=WD)
+    names = list(shapes)
+    tp = [torch.from_numpy(ins[n][0].copy()) for n in names]
+    tm = [torch.from_numpy(ins[n][1].copy()) for n in names]
+    kernels.reset_launches()
+    kernels.fused_masked_sgd_step(
+        tp, tm, [torch.from_numpy(ins[n][2]) for n in names],
+        [torch.from_numpy(ins[n][3]) for n in names], float(LR),
+        momentum=MOM, wd=WD)
+    assert kernels.LAUNCHES["masked_sgd"] == 0  # the plain version ran
+    for n, a, b in zip(names, tp, tm):
+        _bitwise(a.numpy(), jp[n])
+        _bitwise(b.numpy(), jm[n])
+
+
+def test_fma_is_correctly_rounded():
+    """The plain version's single-rounding multiply-add against an exact
+    rational evaluation, on inputs built to land near rounding ties."""
+    from fractions import Fraction
+
+    rng = np.random.RandomState(3)
+    a = rng.randn(400).astype(np.float32)
+    b = rng.randn(400).astype(np.float32)
+    c = (-(a.astype(np.float64) * b) * (1 + 2.0 ** -30)).astype(np.float32)
+    got = optim.fma(torch.from_numpy(a), torch.from_numpy(b),
+                    torch.from_numpy(c)).numpy()
+    for i in range(a.size):
+        exact = Fraction(float(a[i])) * Fraction(float(b[i])) + \
+            Fraction(float(c[i]))
+        lo = np.float32(float(exact))
+        cands = [lo, np.nextafter(lo, np.float32(np.inf)),
+                 np.nextafter(lo, np.float32(-np.inf))]
+        errs = [abs(Fraction(float(x)) - exact) for x in cands]
+        best = min(errs)
+        assert abs(Fraction(float(got[i])) - exact) == best, i
+
+
+def _threshold_rows():
+    rng = np.random.RandomState(5)
+    ties = np.repeat(np.abs(rng.randn(37)).astype(np.float32), 11)
+    rng.shuffle(ties)
+    sparse = np.abs(rng.randn(500)).astype(np.float32)
+    sparse[rng.rand(500) < 0.7] = 0.0
+    return {
+        "random": (np.abs(rng.randn(1, 3000)).astype(np.float32), 1234),
+        "ties": (ties[None], 200),
+        "zeros": (np.zeros((1, 777), np.float32), 300),
+        "mostly_zero": (sparse[None], 400),
+        "rows": (np.abs(rng.randn(4, 1500)).astype(np.float32), 17),
+        "k_eq_n": (np.abs(rng.randn(2, 64)).astype(np.float32), 64),
+        "k_1": (np.abs(rng.randn(3, 640)).astype(np.float32), 1),
+    }
+
+
+@pytest.mark.parametrize("case", list(_threshold_rows()))
+def test_threshold_plain_bitwise_vs_pallas(case):
+    av, k = _threshold_rows()[case]
+    jt = pk.threshold_topk(jnp.asarray(av), k)
+    tt = kernels.threshold_topk(torch.from_numpy(av), k)
+    _bitwise(tt.numpy(), jt)
+    # and it IS the k-th largest
+    ref = -np.sort(-av, axis=-1)[:, k - 1:k]
+    _bitwise(tt.numpy(), ref)
+
+
+def test_threshold_full_row_beyond_vmem_cap_vs_exact_threshold():
+    """A row longer than the Pallas kernel's THRESHOLD_MAX_N: the reference
+    routes it to its XLA search; the port's search has no cap."""
+    n = pk.THRESHOLD_MAX_N + 4099
+    assert not pk.threshold_supported(n)
+    rng = np.random.RandomState(11)
+    av = np.abs(rng.randn(1, n)).astype(np.float32)
+    av[0, rng.rand(n) < 0.3] = 0.0
+    k = n // 2
+    jt = jts.select_threshold(jnp.asarray(av), k, kernels="pallas")
+    tt = tts.select_threshold(torch.from_numpy(av), k)
+    _bitwise(tt.numpy(), jt)
+    _bitwise(tt.numpy(), jts.exact_threshold(jnp.asarray(av), k))
+
+
+@pytest.mark.parametrize("n", [5, 1024, 5000])
+def test_score_mask_plain_bitwise_vs_pallas(n):
+    rng = np.random.RandomState(n)
+    s = np.abs(rng.randn(n)).astype(np.float32)
+    norm = np.float32(s.sum(dtype=np.float32))
+    thr = np.float32(np.sort(s / norm)[n // 2])
+    jm = pk.fused_score_mask_leaf(jnp.asarray(s), jnp.float32(norm),
+                                  jnp.float32(thr))
+    tm = kernels.fused_score_mask([torch.from_numpy(s)], torch.tensor(norm),
+                                  torch.tensor(thr))[0]
+    _bitwise(tm.numpy(), jm)
+
+
+def test_wrappers_reject_mismatched_inputs():
+    a = torch.zeros(4)
+    with pytest.raises(ValueError):
+        kernels.fused_masked_sgd_step([a], [a], [a], [torch.zeros(5)], 0.1)
+    with pytest.raises(ValueError):
+        kernels.threshold_topk(torch.zeros(1, 4), 5)
