@@ -8,17 +8,28 @@ Phases, each printing one JSON line:
 1. build   — compile every CUDA kernel from ``neuroimagedisttraining_torch/csrc``
    (one ``nvcc`` per source, all started together).
 2. kernels — hold each kernel against its plain PyTorch version, bit for bit,
-   at the shapes the training path gives it (full-width AlexNet3DS2D), and
+   at the shapes the training paths give it (full-width AlexNet3DS2D), and
    time both (CUDA events, median of 30 after warmup, each launch queued
-   behind a device-side sleep so host enqueue time is not counted).
+   behind a device-side sleep so host enqueue time is not counted); also the
+   f32 aggregate with TF32 on against TF32 off.
 3. parity  — a narrow model, one SalientGrads round on the CPU (plain
-   versions) and on the GPU (kernels) from the same parameters, mask and
-   batch order: parameters and metrics must agree.
+   versions) and on the GPU (kernels) from the same parameters, mask, batch
+   order and int8 uniforms, for the dense, bf16, int8 and top-k wires: the
+   card's aggregate equals the CPU's on the card's own inputs bit for bit,
+   and parameters and metrics agree (see ``small_parity``).
 4. main    — the training path at full width through the library entry
    points: SalientGrads on AlexNet3DS2D, 8 clients x 40 phased 121x145x121
    volumes, batch 8, 5 local steps, bf16 compute, dropout 0.5, SNIP mask
    init, 3 rounds, then the global and personal eval. The launch counters
    are zeroed just before and read just after.
+5. wires   — the same configuration: SalientGrads, SNIP once, then 2 rounds
+   on each aggregation wire (dense, bucketed, bf16, int8, sparse, topk,
+   hier), each from a copy of the same state and generator seed; then
+   FedAvg, 2 rounds each on dense, int8 and topk from one init, and the
+   final fine-tune. Counters are zeroed before each and read after; every
+   aggregate is timed (CUDA events) and, for dense, bucketed, sparse and
+   hier, held against the plain dense aggregate of the same locals bit for
+   bit.
 
 Then a ``kernels`` JSON line, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``. Any failure raises and the
@@ -42,10 +53,20 @@ REPLACES = {
     "masked_sgd": "neuroimagedisttraining_tpu/ops/pallas_kernels.py:98",
     "threshold": "neuroimagedisttraining_tpu/ops/pallas_kernels.py:258",
     "score_mask": "neuroimagedisttraining_tpu/ops/pallas_kernels.py:424",
+    "mask_apply": "neuroimagedisttraining_tpu/ops/pallas_kernels.py:385",
+    "weighted_sum": "neuroimagedisttraining_tpu/ops/pallas_kernels.py:165",
+    "quantize_reduce": "neuroimagedisttraining_tpu/ops/pallas_kernels.py:349",
 }
 
 N_CLIENTS, SAMPLES, TEST, BATCH, STEPS, ROUNDS = 8, 40, 10, 8, 5, 3
 VOLUME = (121, 145, 121)
+#: the wires phase: SalientGrads' wires, FedAvg's, the wires held bitwise
+#: against the plain dense aggregate of the same locals, rounds per wire,
+#: the top-k density
+WIRES = ("dense", "bucketed", "bf16", "int8", "sparse", "topk", "hier")
+FEDAVG_WIRES = ("dense", "int8", "topk")
+TWINS = ("dense", "bucketed", "sparse", "hier")
+WIRE_ROUNDS, TOPK_DENSITY = 2, 0.1
 
 
 def emit(obj) -> None:
@@ -174,12 +195,229 @@ def check_kernels(dev):
         max_abs_err=max(float((a - b).abs().max()) for a, b in zip(got, want)),
         ms=ms_kernel, plain_ms=ms_plain, bound_ms=b_ms, bound_by=b_by,
         library_ms=None, shape=f"{len(scores)} leaves, {n} f32")
+    out.update(check_agg_kernels(dev, g, params))
     return out
+
+
+def _bitwise_or_raise(name, got, want):
+    import torch
+
+    torch.cuda.synchronize()
+    pairs = list(zip(got, want))
+    if not all(torch.equal(a, b) for a, b in pairs):
+        err = max(float((a - b).abs().max()) for a, b in pairs)
+        raise AssertionError(f"{name} differs from its plain version: max "
+                             f"err {err}")
+    return max(float((a - b).abs().max()) for a, b in pairs)
+
+
+def check_agg_kernels(dev, g, params):
+    """The aggregation wires' kernels at full-width shapes: mask apply over
+    the 24 leaves, the weighted sum over [8, leaf] for every leaf, the int8
+    quantize-reduce at [8, 10, 262144] (and at b = 1000, with an all-zero
+    bucket), the threshold at [8, n] for the largest top-k leaf group."""
+    import torch
+
+    from neuroimagedisttraining_torch.core.state import weighted_sum
+    from neuroimagedisttraining_torch.ops import kernels
+    from neuroimagedisttraining_torch.ops.sparsity import kernel_flags
+    from neuroimagedisttraining_torch.ops.topk_select import exact_threshold
+    from neuroimagedisttraining_torch.parallel import collectives as tc
+
+    out = {}
+    names = list(params)
+    n_params = sum(v.numel() for v in params.values())
+    flags = kernel_flags(params)
+    mask = {k: (torch.rand(v.shape, generator=g, device=dev) < 0.5).float()
+            if flags[k] else torch.ones_like(v) for k, v in params.items()}
+    # client trees: the params plus per-client noise, masked
+    stacked = {k: (v[None] + 0.01 * torch.randn((N_CLIENTS,) + v.shape,
+                                                generator=g, device=dev))
+               * mask[k][None] for k, v in params.items()}
+    w = torch.rand(N_CLIENTS, generator=g, device=dev)
+    w = w / w.sum()
+
+    # -- mask apply: the SalientGrads re-mask over the 24 leaves -------------
+    tree = {k: stacked[k][0].contiguous() + 0.5 for k in names}
+    got = kernels.fused_mask_apply(tree, mask)
+    err = _bitwise_or_raise("mask_apply", [got[k] for k in names],
+                            [kernels.mask_apply_plain(tree[k], mask[k])
+                             for k in names])
+    ps, ks = [tree[k] for k in names], [mask[k] for k in names]
+    b_ms, b_by = bound(12.0 * n_params, 1.0 * n_params)
+    out["mask_apply"] = dict(
+        max_abs_err=err,
+        ms=device_ms(lambda: kernels.fused_mask_apply(tree, mask)),
+        plain_ms=device_ms(lambda: [kernels.mask_apply_plain(p, m)
+                                    for p, m in zip(ps, ks)]),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=device_ms(lambda: torch._foreach_mul(ps, ks)),
+        shape=f"{len(names)} leaves, {n_params} f32")
+
+    # -- weighted sum: [8, leaf] for every leaf -------------------------------
+    got = kernels.fused_weighted_sum(stacked, w)
+    err = _bitwise_or_raise("weighted_sum", [got[k] for k in names],
+                            [weighted_sum(stacked[k], w) for k in names])
+    flat = torch.cat([stacked[k].reshape(N_CLIENTS, -1) for k in names], 1)
+    b_ms, b_by = bound(4.0 * (N_CLIENTS + 1) * n_params + 4.0 * N_CLIENTS,
+                       2.0 * N_CLIENTS * n_params)
+    out["weighted_sum"] = dict(
+        max_abs_err=err,
+        ms=device_ms(lambda: kernels.fused_weighted_sum(stacked, w)),
+        plain_ms=device_ms(lambda: [weighted_sum(stacked[k], w)
+                                    for k in names]),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=device_ms(lambda: torch.tensordot(w, flat, dims=1)),
+        shape=f"[{N_CLIENTS}, leaf] x {len(names)} leaves, f32")
+
+    # -- int8 quantize-reduce: the int8 wire's [8, 10, 262144] buckets --------
+    mat = tc.stacked_to_mat(stacked)
+    buckets = tc._buckets(mat, tc.DEFAULT_BUCKET_SIZE)
+    buckets[0, 3] = 0.0  # an all-zero bucket: scale 1.0
+    cases = {"main": buckets,
+             "b1000": tc._buckets(mat, 1000)}
+    errs = []
+    for label, x in cases.items():
+        u = torch.rand(x.shape, generator=g, device=dev)
+        sc = tc._int8_scale(x)[..., 0].contiguous()
+        got = kernels.fused_quantize_reduce(x, w, u, sc)
+        errs.append(_bitwise_or_raise(
+            f"quantize_reduce ({label}, {tuple(x.shape)})", [got],
+            [kernels.quantize_reduce_plain(x, w, u, sc)]))
+        if label == "main":
+            args = (x, w, u, sc)
+    if float(args[3][0, 3]) != 1.0:
+        raise AssertionError("the all-zero bucket's scale is not 1.0")
+    c, nb, b = buckets.shape
+    n = c * nb * b
+    b_ms, b_by = bound(8.0 * n + 4.0 * (c * nb + c) + 4.0 * nb * b, 11.0 * n)
+    out["quantize_reduce"] = dict(
+        max_abs_err=max(errs),
+        ms=device_ms(lambda: kernels.fused_quantize_reduce(*args)),
+        plain_ms=device_ms(lambda: kernels.quantize_reduce_plain(*args),
+                           reps=20),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        shape=f"[{c}, {nb}, {b}] f32, and [{c}, "
+              f"{cases['b1000'].shape[1]}, 1000]")
+
+    # -- threshold at [8, n] for the largest top-k leaf group ----------------
+    plan = tc.build_sparse_plan(mask)
+    comp = tc._compress(stacked, plan)
+    start, end = max(tc.topk_groups(stacked, tc.DEFAULT_BUCKET_SIZE, plan),
+                     key=lambda se: se[1] - se[0])
+    av = comp[:, start:end].abs()
+    k = tc.topk_count(end - start, TOPK_DENSITY)
+    err = _bitwise_or_raise("threshold ([8, n_group])",
+                            [kernels.threshold_topk(av, k).view(torch.int32)],
+                            [exact_threshold(av, k).view(torch.int32)])
+    nn = av.numel()
+    b_ms, b_by = bound(4.0 * nn + 4.0 * c, 31.0 * nn)
+    out["threshold_topk_group"] = dict(
+        max_abs_err=err,
+        ms=device_ms(lambda: kernels.threshold_topk(av, k)),
+        plain_ms=device_ms(lambda: exact_threshold(av, k), reps=20),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=device_ms(lambda: torch.topk(av, k).values[..., -1],
+                             reps=20),
+        shape=f"{list(av.shape)} f32, k={k}")
+
+    # -- the f32 aggregate does not move with TF32 ----------------------------
+    off = tc.weighted_mean(stacked, w)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    on = tc.weighted_mean(stacked, w)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if not all(torch.equal(on[k], off[k]) for k in names):
+        raise AssertionError("the f32 aggregate moved with TF32")
+    out["aggregate_tf32_inert"] = True
+    return out
+
+
+def _to_cpu(x):
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.cpu()
+    if isinstance(x, dict):
+        return {k: _to_cpu(v) for k, v in x.items()}
+    if isinstance(x, tuple):
+        return tuple(_to_cpu(v) for v in x)
+    return x
+
+
+def _tensors(x):
+    """The tensors of a tree, a tuple of trees or a tensor, in order."""
+    if isinstance(x, dict):
+        return [t for v in x.values() for t in _tensors(v)]
+    if isinstance(x, tuple):
+        return [t for v in x for t in _tensors(v)]
+    return [x]
+
+
+class AggCapture:
+    """Keeps the inputs and the output of a round's one aggregate (the
+    algorithm's ``_aggregate``, or ``_topk_aggregate`` under top-k)."""
+
+    def __init__(self, algo):
+        self.name = ("_topk_aggregate" if algo.agg_impl == "topk"
+                     else "_aggregate")
+        fn = getattr(algo, self.name)
+
+        def call(*args):
+            out = fn(*args)
+            self.args, self.out = args, out
+            return out
+
+        setattr(algo, self.name, call)
+
+
+def _wire_images(algo, args, out, bucket):
+    """Each client's row as the wire delivers it to the reduce, ``[C, N]``
+    in the reference's flat layout, and the wire's decisions on it (the
+    int8 payload, the bf16 casts, the top-k selection) — from one side's
+    captured aggregate, on the CPU."""
+    import torch
+
+    from neuroimagedisttraining_torch.parallel import collectives as tc
+
+    impl = algo.agg_impl
+    if impl == "topk":
+        locals_, global_params, res_in, _, w = args
+        comp = {k: (locals_[k] - global_params[k][None]) + res_in[k]
+                for k in locals_}
+        comp = tc.plan_dead_select(comp, algo._agg_sparse_plan)
+        img = tc.stacked_to_mat({k: comp[k] - out[1][k] for k in comp})
+        return img, img != 0, w
+    stacked, w, u = args
+    mat = tc.stacked_to_mat(stacked)
+    if impl == "dense":
+        return mat, torch.zeros(0), w
+    if impl == "bf16":
+        img = tc.wire_roundtrip_mat(mat, "bf16")
+        return img, img, w
+    q, _ = tc._quantize_int8(tc._buckets(mat, bucket), u)
+    return tc.wire_roundtrip_mat(mat, "int8", bucket_size=bucket,
+                                 uniforms=u), q, w
 
 
 def small_parity(dev):
     """One narrow SalientGrads round on the CPU and on the GPU from the
-    same parameters, mask and batch order."""
+    same parameters, mask, batch order and int8 uniforms, per wire (dense,
+    bf16, int8, topk). For each wire:
+
+    * the card's aggregate equals, bit for bit, the CPU's aggregate of the
+      very inputs the card's got (its locals, weights, uniforms, residual):
+      the card's wire routing (the reference layout, the uniforms seam, the
+      per-bucket scales, the top-k groups, the re-mask's input) against the
+      CPU's;
+    * the locals agree norm-wise within 1e-5 (local training, CPU vs GPU);
+    * the wire's decisions (int8 quanta, bf16 casts, top-k selections) that
+      differ between the two sides' locals are counted and bounded: a value
+      within round-off of a decision edge may flip, each flip worth a whole
+      quantum of one client's value;
+    * the global models differ by those flips and round-off only: after
+      removing the weighted difference of the two sides' wire images, what
+      remains is within 1e-5 of the model's norm; with no flip the models
+      agree within 1e-5 norm-wise per kernel leaf outright."""
     import torch
 
     from neuroimagedisttraining_torch.algorithms import SalientGrads
@@ -187,7 +425,9 @@ def small_parity(dev):
     from neuroimagedisttraining_torch.core.trainer import epoch_permutations
     from neuroimagedisttraining_torch.data import make_synthetic_federated
     from neuroimagedisttraining_torch.models import create_model, init_params
+    from neuroimagedisttraining_torch.ops import kernels
     from neuroimagedisttraining_torch.ops.s2d import phased_sample_shape
+    from neuroimagedisttraining_torch.parallel import collectives as tc
 
     ss = phased_sample_shape((69, 69, 69))
     mk = dict(num_classes=1, widths=(8, 16, 16, 16, 16), dropout_rate=0.0,
@@ -203,35 +443,99 @@ def small_parity(dev):
     perms = [epoch_permutations(g, n, 1, 12, n_rows=data.x_train.shape[1])
              for n in nvals]
     snip_idx = [torch.randint(0, n, (1, 4), generator=g) for n in nvals]
-    runs = {}
-    for label, device in (("cpu", "cpu"), ("gpu", dev)):
-        algo = SalientGrads(create_model("3dcnn_s2d", **mk), data, hp,
-                            loss_type="bce", dense_ratio=0.5, device=device)
-        state = algo.init_state(
-            generator=torch.Generator(device=device).manual_seed(1),
-            params=params, snip_idx=snip_idx)
-        own_mask = {k: v.cpu() for k, v in state.mask.items()}
-        if label == "gpu":  # train from the CPU run's mask
-            state.mask = {k: v.to(device) for k, v in runs["cpu"][1].items()}
-        state, met = algo.run_round(state, 0, perms=perms)
-        ev = algo.evaluate(state)
-        runs[label] = (
-            {k: v.cpu() for k, v in state.global_params.items()}, own_mask,
-            float(met["train_loss"]), {k: float(v) for k, v in ev.items()
-                                       if not k.startswith("acc_per")})
-    (pc, mc, lc, ec), (pg, mg, lg, eg) = runs["cpu"], runs["gpu"]
-    agree = sum(int((mc[k] == mg[k]).sum()) for k in mc) / \
-        sum(v.numel() for v in mc.values())
-    rel = max(float((pg[k] - pc[k]).norm() / pc[k].norm())
-              for k in pc if k.endswith(".kernel"))
-    res = {"phase": "parity", "mask_agreement": agree,
-           "max_kernel_rel_err": rel, "train_loss_cpu": lc,
-           "train_loss_gpu": lg, "eval_cpu": ec, "eval_gpu": eg}
-    emit(res)
-    if agree < 0.999 or rel > 1e-4 or abs(lc - lg) > 1e-4 * abs(lc) or \
-            abs(ec["global_loss"] - eg["global_loss"]) > \
-            1e-4 * abs(ec["global_loss"]):
-        raise AssertionError(f"GPU round disagrees with the CPU round: {res}")
+    bucket = 4096
+    n_params = sum(v.numel() for v in params.values())
+    uniforms = torch.rand((3,) + tc.bucket_shape(n_params, bucket),
+                          generator=g)
+    #: the most wire decisions, as a share of the C x N wire values, that
+    #: may flip between the two sides' locals
+    flip_cap = {"dense": 0.0, "bf16": 1e-2, "int8": 1e-3, "topk": 1e-3}
+    results = {}
+    for impl in ("dense", "bf16", "int8", "topk"):
+        runs = {}
+        for label, device in (("cpu", "cpu"), ("gpu", dev)):
+            algo = SalientGrads(create_model("3dcnn_s2d", **mk), data, hp,
+                                loss_type="bce", dense_ratio=0.5,
+                                agg_impl=impl, agg_bucket_size=bucket,
+                                agg_topk_density=TOPK_DENSITY, device=device)
+            state = algo.init_state(
+                generator=torch.Generator(device=device).manual_seed(1),
+                params=params, snip_idx=snip_idx)
+            own_mask = {k: v.cpu() for k, v in state.mask.items()}
+            if label == "gpu":  # train from the CPU run's mask
+                state.mask = {k: v.to(device)
+                              for k, v in runs["cpu"]["mask"].items()}
+            cap = AggCapture(algo)
+            kernels.reset_launches()
+            state, met = algo.run_round(state, 0, perms=perms,
+                                        agg_uniforms=uniforms)
+            launches = dict(kernels.LAUNCHES)
+            ev = algo.evaluate(state)
+            runs[label] = dict(
+                algo=algo, cap=cap, mask=own_mask,
+                params={k: v.cpu() for k, v in state.global_params.items()},
+                loss=float(met["train_loss"]),
+                ev={k: float(v) for k, v in ev.items()
+                    if not k.startswith("acc_per")}, launches=launches)
+        cpu, gpu = runs["cpu"], runs["gpu"]
+        # the card's wire against the CPU's, on the card's own inputs
+        gpu_args = _to_cpu(gpu["cap"].args)
+        again = getattr(type(cpu["algo"]), cpu["cap"].name)(cpu["algo"],
+                                                            *gpu_args)
+        routed = [a.equal(b) for a, b in zip(_tensors(again),
+                                             _tensors(_to_cpu(gpu["cap"].out)))]
+        # the wire's decisions and images on each side's inputs
+        img_c, dec_c, w = _wire_images(cpu["algo"], cpu["cap"].args,
+                                       cpu["cap"].out, bucket)
+        img_g, dec_g, _ = _wire_images(cpu["algo"], gpu_args,
+                                       _to_cpu(gpu["cap"].out), bucket)
+        flips = int((dec_c != dec_g).sum())
+        n_values = img_c.numel()
+        locals_c = tc.stacked_to_mat(cpu["cap"].args[0])
+        locals_g = tc.stacked_to_mat(gpu_args[0])
+        locals_rel = float((locals_g - locals_c).norm() / locals_c.norm())
+        pc, pg = cpu["params"], gpu["params"]
+        delta = (w[:, None] * (img_g - img_c)).sum(0)
+        vc, vg = tc.tree_to_vec(pc), tc.tree_to_vec(pg)
+        unexplained = float(((vg - vc) - delta).norm() / vc.norm())
+        agree = sum(int((cpu["mask"][k] == gpu["mask"][k]).sum())
+                    for k in pc) / sum(v.numel() for v in pc.values())
+        rel = max(float((pg[k] - pc[k]).norm() / pc[k].norm())
+                  for k in pc if k.endswith(".kernel"))
+        lau = gpu["launches"]
+        res = {"phase": "parity", "agg_impl": impl, "mask_agreement": agree,
+               "wire_equals_cpu_on_card_inputs": all(routed),
+               "locals_rel_err": locals_rel, "wire_flips": flips,
+               "wire_values": n_values, "unexplained_rel_err": unexplained,
+               "max_kernel_rel_err": rel, "train_loss_cpu": cpu["loss"],
+               "train_loss_gpu": gpu["loss"], "eval_cpu": cpu["ev"],
+               "eval_gpu": gpu["ev"], "gpu_launches": lau}
+        emit(res)
+        ec, eg = cpu["ev"], gpu["ev"]
+        tol = 1e-4 if impl == "dense" else 1e-2
+        if agree < 0.999 or (impl == "dense" and rel > tol) or \
+                abs(cpu["loss"] - gpu["loss"]) > 1e-4 * abs(cpu["loss"]) or \
+                abs(ec["global_loss"] - eg["global_loss"]) > \
+                tol * abs(ec["global_loss"]):
+            raise AssertionError(f"GPU round disagrees with the CPU round: "
+                                 f"{res}")
+        if not all(routed):
+            raise AssertionError(f"parity {impl}: the card's aggregate "
+                                 "differs from the CPU's on the same inputs")
+        if locals_rel > 1e-5 or flips > flip_cap[impl] * n_values or \
+                unexplained > 1e-5 or (flips == 0 and rel > 1e-5):
+            raise AssertionError(f"parity {impl}: {res}")
+        groups = len(tc.topk_groups(gpu_args[0], bucket,
+                                    gpu["algo"]._agg_sparse_plan))
+        want = {"dense": {"weighted_sum": 1, "quantize_reduce": 0},
+                "bf16": {"weighted_sum": 1, "quantize_reduce": 0},
+                "int8": {"quantize_reduce": 1, "weighted_sum": 0},
+                "topk": {"mask_apply": 1, "weighted_sum": 1,
+                         "threshold": groups}}[impl]
+        if any(lau[k] != v for k, v in want.items()):
+            raise AssertionError(f"parity {impl}: launches {lau}, want {want}")
+        results[impl] = res
+    return results
 
 
 def main_path(dev):
@@ -295,14 +599,220 @@ def main_path(dev):
         raise AssertionError(f"mask density {final['mask_density']}")
     want_sgd = ROUNDS * N_CLIENTS * STEPS * 1  # one launch per step
     if launches["masked_sgd"] != want_sgd or launches["threshold"] != 1 \
-            or launches["score_mask"] != 1:
+            or launches["score_mask"] != 1 or \
+            launches["weighted_sum"] != ROUNDS:
         raise AssertionError(f"launch counts {launches}, expected "
                              f"masked_sgd={want_sgd}, threshold=1, "
-                             "score_mask=1")
+                             f"score_mask=1, weighted_sum={ROUNDS}")
     for p in state.global_params.values():
         if not bool(torch.isfinite(p).all()):
             raise AssertionError("non-finite global parameters")
     return launches
+
+
+class AggProbe:
+    """Times every aggregate of ``algo`` with CUDA events (its
+    ``_aggregate``, and ``_topk_aggregate`` under top-k) and, with
+    ``twin``, holds each ``_aggregate`` against the plain dense aggregate
+    of the same locals (``weighted_tree_sum``: multi-tensor ops, no kernel
+    launch)."""
+
+    def __init__(self, algo, twin: bool):
+        import torch
+
+        from neuroimagedisttraining_torch.core.state import weighted_tree_sum
+
+        self.events, self.twin_equal = [], True
+
+        def timed(fn):
+            def call(*args):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = fn(*args)
+                end.record()
+                self.events.append((start, end))
+                return out
+            return call
+
+        def aggregate(stacked, weights, uniforms=None):
+            out = timed(agg)(stacked, weights, uniforms)
+            if twin:
+                dense = weighted_tree_sum(stacked, weights)
+                self.twin_equal &= all(torch.equal(out[k], dense[k])
+                                       for k in dense)
+            return out
+
+        agg = algo._aggregate
+        algo._aggregate = aggregate
+        algo._topk_aggregate = timed(algo._topk_aggregate)
+
+    def ms(self):
+        import torch
+
+        torch.cuda.synchronize()
+        return [s.elapsed_time(e) for s, e in self.events]
+
+
+def _drive_wire(algo, state, phase, impl, want, twin):
+    """WIRE_ROUNDS rounds of ``algo`` from ``state``, the launch counters
+    zeroed just before and read just after; every aggregate timed (CUDA
+    events) and, with ``twin``, held against the plain dense aggregate of
+    the same locals. Checks finite losses and parameters and the launches
+    ``want``; returns (state, result line)."""
+    import torch
+
+    from neuroimagedisttraining_torch.ops import kernels
+
+    probe = AggProbe(algo, twin=twin)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    round_s, losses = [], []
+    for r in range(WIRE_ROUNDS):
+        t0 = time.perf_counter()
+        state, met = algo.run_round(state, r)
+        losses.append(float(met["train_loss"]))
+        round_s.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    res = {"phase": phase, "agg_impl": impl, "rounds": WIRE_ROUNDS,
+           "round_s": round_s, "rounds_per_sec_last": 1 / round_s[-1],
+           "agg_device_ms": probe.ms(), "train_loss": losses,
+           "launches": launches}
+    if twin:
+        res["equals_dense_twin"] = probe.twin_equal
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{phase} {impl}: non-finite loss {losses}")
+    for p in state.global_params.values():
+        if not bool(torch.isfinite(p).all()):
+            raise AssertionError(f"{phase} {impl}: non-finite global "
+                                 "parameters")
+    want = {**{k: 0 for k in kernels.LAUNCHES}, **want}
+    if launches != want:
+        emit(res)
+        raise AssertionError(f"{phase} {impl}: launches {launches}, want "
+                             f"{want}")
+    if not probe.twin_equal:
+        emit(res)
+        raise AssertionError(f"{phase} {impl}: aggregate differs from the "
+                             "dense aggregate of the same locals")
+    return state, res
+
+
+def wires_path(dev):
+    """The main configuration's cohort, at full width.
+
+    * SalientGrads: SNIP once, then WIRE_ROUNDS rounds per ``agg_impl``,
+      each from a copy of the same state and generator seed.
+    * FedAvg (the dense twin, every weight trained, a personal stack of the
+      last locals): WIRE_ROUNDS rounds on "dense", "int8" and "topk" (top-k
+      over the whole flat model: no plan), each from the same init, then
+      the final fine-tune of every client after the dense rounds.
+
+    Returns the launches per path."""
+    import torch
+
+    from neuroimagedisttraining_torch.algorithms import (
+        FedAvg,
+        SalientGrads,
+        SalientGradsState,
+    )
+    from neuroimagedisttraining_torch.core.state import (
+        HyperParams,
+        clone_tree,
+        zeros_like_tree,
+    )
+    from neuroimagedisttraining_torch.data import device_synthetic_federated
+    from neuroimagedisttraining_torch.models import create_model
+    from neuroimagedisttraining_torch.ops import kernels
+    from neuroimagedisttraining_torch.ops.s2d import phased_sample_shape
+    from neuroimagedisttraining_torch.ops.sparsity import mask_density
+    from neuroimagedisttraining_torch.parallel import collectives as tc
+
+    data = device_synthetic_federated(
+        N_CLIENTS, SAMPLES, phased_sample_shape(VOLUME),
+        torch.Generator(device=dev).manual_seed(0), test_per_client=TEST)
+    hp = HyperParams(lr=1e-3, lr_decay=0.998, momentum=0.9,
+                     weight_decay=5e-4, grad_clip=10.0, local_epochs=1,
+                     steps_per_epoch=STEPS, batch_size=BATCH)
+    model = create_model("3dcnn_s2d", num_classes=1,
+                         sample_shape=phased_sample_shape(VOLUME))
+    kw = dict(loss_type="bce", frac=1.0, seed=0, compute_dtype="bfloat16",
+              agg_topk_density=TOPK_DENSITY)
+    sg_kw = dict(dense_ratio=0.5, itersnip_iterations=1, **kw)
+    state0 = SalientGrads(model, data, hp, **sg_kw).init_state()
+    sgd = WIRE_ROUNDS * N_CLIENTS * STEPS
+    out = {}
+    for impl in WIRES:
+        algo = SalientGrads(model, data, hp, agg_impl=impl, **sg_kw)
+        state = SalientGradsState(
+            global_params=clone_tree(state0.global_params), mask=state0.mask,
+            personal_params=clone_tree(state0.personal_params),
+            generator=torch.Generator(device=dev).manual_seed(7),
+            agg_residual=(zeros_like_tree(state0.personal_params)
+                          if impl == "topk" else None))
+        algo._ensure_agg_plan(state)
+        want = {"masked_sgd": sgd,
+                "weighted_sum": 0 if impl == "int8" else WIRE_ROUNDS,
+                "quantize_reduce": WIRE_ROUNDS if impl == "int8" else 0,
+                "mask_apply": WIRE_ROUNDS if impl == "topk" else 0}
+        if impl == "topk":
+            want["threshold"] = WIRE_ROUNDS * len(tc.topk_groups(
+                state.personal_params, algo.agg_bucket_size,
+                algo._agg_sparse_plan))
+        state, res = _drive_wire(algo, state, "wires", impl, want,
+                                 twin=impl in TWINS)
+        res["global_kernel_density"] = mask_density(state.global_params)
+        emit(res)
+        if impl == "topk" and abs(res["global_kernel_density"] - 0.5) > 1e-3:
+            raise AssertionError("topk: the re-mask did not hold, global "
+                                 f"density {res['global_kernel_density']}")
+        if abs(mask_density(state.mask) - 0.5) > 1e-3:
+            raise AssertionError(f"mask density {mask_density(state.mask)}")
+        out[f"wires/{impl}"] = res["launches"]
+    del state0, state
+
+    for impl in FEDAVG_WIRES:
+        algo = FedAvg(model, data, hp, agg_impl=impl, **kw)
+        state = algo.init_state()
+        want = {"masked_sgd": sgd,
+                "weighted_sum": 0 if impl == "int8" else WIRE_ROUNDS,
+                "quantize_reduce": WIRE_ROUNDS if impl == "int8" else 0}
+        if impl == "topk":
+            # no plan: the groups cut the whole flat model
+            want["threshold"] = WIRE_ROUNDS * len(tc.topk_groups(
+                state.personal_params, algo.agg_bucket_size))
+        state, res = _drive_wire(algo, state, "fedavg", impl, want,
+                                 twin=impl in TWINS)
+        emit(res)
+        out[f"fedavg/{impl}"] = res["launches"]
+        if impl != "dense":
+            continue
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        state, rec = algo.finalize(state)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        fin = {"phase": "fedavg", "step": "finalize",
+               "seconds": time.perf_counter() - t0, "launches": launches,
+               **{k: float(v) for k, v in rec.items()}}
+        emit(fin)
+        want = {**{k: 0 for k in launches},
+                "masked_sgd": N_CLIENTS * STEPS}
+        if launches != want:
+            raise AssertionError(f"fedavg finalize: launches {launches}, "
+                                 f"want {want}")
+        if not all(math.isfinite(fin[k]) for k in
+                   ("global_loss", "personal_loss", "global_acc",
+                    "personal_acc")):
+            raise AssertionError(f"fedavg finalize: {fin}")
+        for p in state.personal_params.values():
+            if not bool(torch.isfinite(p).all()):
+                raise AssertionError("fedavg finalize: non-finite personal "
+                                     "parameters")
+        out["fedavg/finalize"] = launches
+    return out
 
 
 def main() -> int:
@@ -334,14 +844,24 @@ def main() -> int:
     measured = check_kernels(dev)
     emit({"phase": "kernels", **measured})
     small_parity(dev)
-    launches = main_path(dev)
+    paths = {"main": main_path(dev)}
+    paths.update(wires_path(dev))
 
-    emit({"kernels": [dict(
-        name=name, route="cuda",
-        source=f"neuroimagedisttraining_torch/csrc/{kernels.SOURCES[name]}",
-        replaces=REPLACES[name], launches=launches[name],
-        **{k: v for k, v in measured[name].items() if k != "shape"})
-        for name in kernels.SOURCES]})
+    line = []
+    for name in kernels.SOURCES:
+        entry = dict(
+            name=name, route="cuda",
+            source=f"neuroimagedisttraining_torch/csrc/"
+                   f"{kernels.SOURCES[name]}",
+            replaces=REPLACES[name],
+            launches=sum(p[name] for p in paths.values()),
+            launches_by_path={k: p[name] for k, p in paths.items()
+                              if p[name]},
+            **{k: v for k, v in measured[name].items() if k != "shape"})
+        if name == "threshold":
+            entry["at_topk_group"] = measured["threshold_topk_group"]
+        line.append(entry)
+    emit({"kernels": line})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -1,0 +1,138 @@
+"""FedAvg: centralized federated averaging (counterpart of
+``neuroimagedisttraining_tpu/algorithms/fedavg.py``).
+
+Each round samples ``frac * N`` clients; each runs local SGD from the global
+model, and the server takes the sample-count-weighted mean through the
+``agg_impl`` wire ("sparse" needs a static mask, which FedAvg has not, and
+is refused at the first aggregate, as in the reference). Each client's last
+locally trained weights are kept as its personal model, and both the global
+and the personal models are evaluated. After the last round every client
+fine-tunes once from the final global model at ``round_idx = -1``
+(:meth:`FedAvg.finalize`) and the pair is evaluated one final time.
+
+The local update is the masked SGD kernel with an all-ones mask, which is
+the reference's fused spelling of plain SGD (``p * 1`` is ``p``).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional
+
+import torch
+
+from ..core.state import Tree, broadcast_tree, clone_tree, zeros_like_tree
+from ..core.trainer import make_client_update
+from ..models import init_params
+from .base import FedAlgorithm
+
+
+@dataclasses.dataclass
+class FedAvgState:
+    global_params: Tree
+    #: [C, ...] per leaf: each client's last locally trained weights,
+    #: initialized to copies of the initial global model; None when
+    #: ``track_personal`` is off
+    personal_params: Optional[Tree]
+    #: the round loop's draws (epoch permutations, dropout masks, the int8
+    #: wire's uniforms)
+    generator: torch.Generator
+    #: [C, ...] error-feedback residual of agg_impl="topk", else None
+    agg_residual: Optional[Tree] = None
+
+
+class FedAvg(FedAlgorithm):
+    name = "fedavg"
+    topk_supported = True
+
+    def __init__(self, *args, track_personal: bool = True, **kwargs):
+        # track_personal=False drops the [C, model] personal stack and the
+        # final fine-tune that exists to produce it
+        self.track_personal = track_personal
+        super().__init__(*args, **kwargs)
+
+    def _build(self) -> None:
+        self.client_update = make_client_update(
+            self.apply_fn, self.loss_type, self.hp,
+            full_batches=self._full_batches())
+        self._ones: Optional[Tree] = None
+
+    def _ones_mask(self, params: Tree) -> Tree:
+        if self._ones is None:
+            self._ones = {k: torch.ones_like(v) for k, v in params.items()}
+        return self._ones
+
+    def init_state(self, generator: Optional[torch.Generator] = None,
+                   params: Optional[Tree] = None) -> FedAvgState:
+        """Fresh parameters (or the given ``params``), personal copies and,
+        under "topk", a zero residual. ``generator`` defaults to one seeded
+        by the run seed and drives init and every later round."""
+        g = generator if generator is not None else self.generator()
+        if params is None:
+            params = init_params(self.model, g)
+        params = {k: v.to(self.device, torch.float32)
+                  for k, v in params.items()}
+        personal = (broadcast_tree(params, self.num_clients)
+                    if self.track_personal else None)
+        residual = None
+        if self.agg_impl == "topk":
+            residual = zeros_like_tree(
+                broadcast_tree(params, self.num_clients))
+        return FedAvgState(global_params=params, personal_params=personal,
+                           generator=g, agg_residual=residual)
+
+    def run_round(self, state: FedAvgState, round_idx: int, *, perms=None,
+                  dropout=None, agg_uniforms=None):
+        """One round. ``perms`` / ``dropout`` (per selected client) replace
+        the drawn epoch permutations / dropout masks, ``agg_uniforms`` the
+        int8 wire's draw."""
+        sel = self._selected_client_indexes(round_idx)
+        new_global, locals_, mean_loss, residual = \
+            self._train_selected_weighted(
+                self.client_update, state.global_params,
+                self._ones_mask(state.global_params), sel, round_idx,
+                state.generator, perms=perms, dropout=dropout,
+                residual=state.agg_residual, agg_uniforms=agg_uniforms)
+        personal = state.personal_params
+        if personal is not None:
+            idx = torch.as_tensor(sel, dtype=torch.int64, device=self.device)
+            for k in personal:
+                personal[k][idx] = locals_[k]
+        new_state = dataclasses.replace(state, global_params=new_global,
+                                        personal_params=personal,
+                                        agg_residual=residual)
+        return new_state, {"train_loss": mean_loss}
+
+    def finalize(self, state: FedAvgState, *, perms=None, dropout=None):
+        """Every client fine-tunes once from the final global model at
+        ``round_idx = -1``; those become the personal models, and both are
+        evaluated. ``perms`` / ``dropout`` (per client) replace the draws.
+        Without personal tracking there is nothing to produce."""
+        if not self.track_personal:
+            return state, None
+        d = self.data
+        ones = self._ones_mask(state.global_params)
+        rows = []
+        for c in range(self.num_clients):
+            params, _, _ = self.client_update(
+                clone_tree(state.global_params), ones, d.x_train[c],
+                d.y_train[c], self._n_train[c], -1,
+                perms=None if perms is None else perms[c],
+                dropout=None if dropout is None else dropout[c],
+                generator=state.generator)
+            rows.append(params)
+        personal = {k: torch.stack([r[k] for r in rows])
+                    for k in state.global_params}
+        state = dataclasses.replace(state, personal_params=personal)
+        ev = self.evaluate(state)
+        return state, {"round": -1, "finetune": True,
+                       **{k: v for k, v in ev.items()
+                          if not k.startswith("acc_per")}}
+
+    def evaluate(self, state: FedAvgState) -> Dict[str, Any]:
+        ev = self._eval_global(state.global_params)
+        out = {"global_acc": ev["acc"], "global_loss": ev["loss"],
+               "acc_per_client": ev["acc_per_client"]}
+        if state.personal_params is not None:
+            evp = self._eval_personal(state.personal_params)
+            out.update(personal_acc=evp["acc"], personal_loss=evp["loss"])
+        return out

@@ -5,7 +5,11 @@
    server averages the scores and thresholds one global mask at
    ``dense_ratio`` (the threshold and score-mask kernels on the GPU).
 2. Then FedAvg rounds in which every local SGD step re-masks the weights
-   (the masked SGD kernel) and the aggregate is the sample-weighted mean.
+   (the masked SGD kernel) and the aggregate is the sample-weighted mean,
+   through the ``agg_impl`` wire. The sparse wires ("sparse", "topk", the
+   "hier" sparse wire) reduce only the mask's live coordinates, by a plan
+   built once from the fixed mask; after a "topk" aggregate the global
+   model is re-masked (the mask-apply kernel).
 
 Each trained client's local weights are kept as its personal model, and the
 eval protocol tests the global model and every personal model on each
@@ -18,9 +22,10 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from ..core.state import Tree, broadcast_tree
+from ..core.state import Tree, broadcast_tree, zeros_like_tree
 from ..core.trainer import make_client_update
 from ..models import init_params
+from ..ops import kernels
 from ..ops.sparsity import make_snip_score_fn, mask_density, mask_from_scores
 from .base import FedAlgorithm
 
@@ -32,12 +37,17 @@ class SalientGradsState:
     #: [C, ...] per leaf: each client's last locally trained (masked)
     #: weights, initialized to dense copies of the initial global model
     personal_params: Tree
-    #: the round loop's draws (epoch permutations, dropout masks)
+    #: the round loop's draws (epoch permutations, dropout masks, the int8
+    #: wire's uniforms)
     generator: torch.Generator
+    #: [C, ...] error-feedback residual of agg_impl="topk", else None. Locals
+    #: honor the static mask, so it is zero on dead coordinates.
+    agg_residual: Optional[Tree] = None
 
 
 class SalientGrads(FedAlgorithm):
     name = "salientgrads"
+    topk_supported = True
 
     def __init__(self, *args, dense_ratio: float = 0.5,
                  itersnip_iterations: int = 1, **kwargs):
@@ -80,25 +90,49 @@ class SalientGrads(FedAlgorithm):
         params = {k: v.to(self.device, torch.float32) for k, v in
                   params.items()}
         mask = self.global_mask(params, g, snip_idx)
+        personal = broadcast_tree(params, self.num_clients)
         return SalientGradsState(
-            global_params=params, mask=mask,
-            personal_params=broadcast_tree(params, self.num_clients),
-            generator=g)
+            global_params=params, mask=mask, personal_params=personal,
+            generator=g,
+            agg_residual=(zeros_like_tree(personal)
+                          if self.agg_impl == "topk" else None))
+
+    def _ensure_agg_plan(self, state: SalientGradsState) -> None:
+        """Build the sparse wires' gather plan from the concrete mask, once:
+        the SNIP mask is fixed for the run, which is why SalientGrads can
+        run "sparse", the compressed "topk" selection and the "hier" sparse
+        wire."""
+        needs_plan = self.agg_impl in ("sparse", "topk") or (
+            self.agg_impl == "hier" and self.agg_hier_wire == "sparse")
+        if needs_plan and self._agg_sparse_plan is None:
+            from ..parallel.collectives import build_sparse_plan
+
+            self._agg_sparse_plan = build_sparse_plan(state.mask)
 
     def run_round(self, state: SalientGradsState, round_idx: int, *,
-                  perms=None, dropout=None):
+                  perms=None, dropout=None, agg_uniforms=None):
         """One round. ``perms`` / ``dropout`` (per selected client) replace
-        the drawn epoch permutations / dropout masks."""
+        the drawn epoch permutations / dropout masks, ``agg_uniforms`` the
+        int8 wire's draw."""
+        self._ensure_agg_plan(state)
         sel = self._selected_client_indexes(round_idx)
-        new_global, locals_, mean_loss = self._train_selected_weighted(
-            self.client_update, state.global_params, state.mask, sel,
-            round_idx, state.generator, perms=perms, dropout=dropout)
+        new_global, locals_, mean_loss, residual = \
+            self._train_selected_weighted(
+                self.client_update, state.global_params, state.mask, sel,
+                round_idx, state.generator, perms=perms, dropout=dropout,
+                residual=state.agg_residual, agg_uniforms=agg_uniforms)
+        if self.agg_impl == "topk":
+            # the delta update leaves round 0's dense init on dead
+            # coordinates: re-mask so the global model keeps the SNIP
+            # sparsity (p * m, bit-equal to the reference's either backend)
+            new_global = kernels.fused_mask_apply(new_global, state.mask)
         personal = state.personal_params
         idx = torch.as_tensor(sel, dtype=torch.int64, device=self.device)
         for k in personal:
             personal[k][idx] = locals_[k]
         new_state = dataclasses.replace(state, global_params=new_global,
-                                        personal_params=personal)
+                                        personal_params=personal,
+                                        agg_residual=residual)
         return new_state, {"train_loss": mean_loss}
 
     def finalize(self, state: SalientGradsState):

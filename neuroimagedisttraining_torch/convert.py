@@ -10,10 +10,18 @@ result maps this package's parameter names to float32 CPU tensors:
   on both sides, so no row permutation;
 * GroupNorm ``scale``/``bias`` and the stem stage's ``scale``/``bias_gn``
   unchanged.
+
+The aggregation wires flatten a tree the reference's way (``tree_to_vec``
+in ``parallel/collectives.py``): leaves in ``jax.tree_util.tree_leaves``
+order, which is sorted flax keys (:func:`reference_leaf_order`), each leaf in
+the reference's layout (:func:`to_reference_layout`). The int8 wire's
+bucket scales and the top-k leaf groups depend on which values share a
+bucket, so this makes the port's ``[C, N]`` matrix the reference's, element
+for element.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Iterable, List, Mapping
 
 import numpy as np
 import torch
@@ -41,3 +49,40 @@ def jax_params_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
             out[f"{module}.{name}"] = torch.from_numpy(
                 np.array(_leaf(module, name, value), order="C"))
     return out
+
+
+def reference_leaf_order(keys: Iterable[str]) -> List[str]:
+    """The ``state_dict`` names in the reference's ``tree_leaves`` order:
+    sorted by module, then by leaf name (``Conv3d_i`` wraps a single
+    ``Conv_0``, which does not change the order)."""
+    return sorted(keys, key=lambda k: tuple(k.rsplit(".", 1)))
+
+
+def _is_kernel(name: str) -> bool:
+    return name.rsplit(".", 1)[-1] == "kernel"
+
+
+def to_reference_layout(name: str, t: torch.Tensor,
+                        lead: int = 0) -> torch.Tensor:
+    """Leaf ``name`` in the reference's layout, as a permuted view: conv and
+    stem kernels OIDHW -> DHWIO, dense kernels ``(out, in)`` -> ``(in, out)``,
+    every other leaf unchanged. The first ``lead`` axes (a client axis) stay
+    in front. The inverse of :func:`jax_params_to_torch`'s per-leaf
+    transpose."""
+    nd = t.dim() - lead
+    if _is_kernel(name) and nd in (2, 5):
+        keep = tuple(range(lead))
+        perm = (2, 3, 4, 1, 0) if nd == 5 else (1, 0)
+        return t.permute(keep + tuple(lead + i for i in perm))
+    return t
+
+
+def from_reference_layout(name: str, t: torch.Tensor,
+                          lead: int = 0) -> torch.Tensor:
+    """The inverse of :func:`to_reference_layout`, as a permuted view."""
+    nd = t.dim() - lead
+    if _is_kernel(name) and nd in (2, 5):
+        keep = tuple(range(lead))
+        perm = (4, 3, 0, 1, 2) if nd == 5 else (1, 0)
+        return t.permute(keep + tuple(lead + i for i in perm))
+    return t

@@ -47,8 +47,50 @@ def broadcast_tree(tree: Tree, n: int) -> Tree:
             for k, v in tree.items()}
 
 
+def zeros_like_tree(tree: Tree) -> Tree:
+    return {k: torch.zeros_like(v) for k, v in tree.items()}
+
+
+def tree_index(tree: Tree, idx: torch.Tensor) -> Tree:
+    """Rows ``idx`` of the leading (client) axis of every leaf."""
+    return {k: v.index_select(0, idx) for k, v in tree.items()}
+
+
+def tree_scatter_update(tree: Tree, idx: torch.Tensor, update: Tree) -> Tree:
+    """``tree`` with rows ``idx`` of every leaf replaced by ``update``'s
+    (leading axis ``len(idx)``); out of place, like the reference."""
+    return {k: v.index_copy(0, idx, update[k]) for k, v in tree.items()}
+
+
+def _weighted_sums(xs, weights: torch.Tensor):
+    """``sum_c w[c] * x[c]`` over the leading axis of each tensor of ``xs``,
+    from zero, in static client order, one rounding per multiply and per
+    add, as multi-tensor ops (two launches per client for all tensors)."""
+    w = weights.to(xs[0].dtype)
+    acc = [torch.zeros_like(x[0]) for x in xs]
+    for c in range(xs[0].shape[0]):
+        acc = torch._foreach_add(acc, torch._foreach_mul([x[c] for x in xs],
+                                                         w[c]))
+    return acc
+
+
+def weighted_sum(x: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """``sum_c w[c] * x[c]`` over the leading axis of ``x``, from zero, in
+    static client order, one rounding per multiply and per add.
+
+    This is the plain version of the weighted-sum kernel
+    (``ops/kernels.py::fused_weighted_sum``), through which every f32 and
+    bf16 aggregate of the port contracts: the kernel on the card, this on
+    the CPU, the same bits on both. It is elementwise per output value, so
+    it gives the same bits for a whole leaf as for any bucket cut from it
+    (``agg_impl`` "bucketed" equals "dense" bit for bit), and no global
+    setting can move it (a ``tensordot`` on the card would run in TF32 when
+    ``torch.backends.cuda.matmul.allow_tf32`` is set)."""
+    return _weighted_sums([x], weights)[0]
+
+
 def weighted_tree_sum(stacked: Tree, weights: torch.Tensor) -> Tree:
-    """Weighted sum over the leading client axis of every leaf — the dense
-    sample-weighted aggregation."""
-    return {k: torch.tensordot(weights.to(x.dtype), x, dims=1)
-            for k, x in stacked.items()}
+    """:func:`weighted_sum` over every leaf at once, as multi-tensor ops:
+    the plain version of the dense sample-weighted aggregation."""
+    return dict(zip(stacked, _weighted_sums(list(stacked.values()),
+                                            weights)))

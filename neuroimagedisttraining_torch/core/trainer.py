@@ -103,7 +103,11 @@ def make_client_update(apply_fn, loss_type: str, hp: HyperParams,
                 loss = torch.sum(per_ex * w) / torch.clamp(w.sum(), min=1.0)
             grads = torch.autograd.grad(loss, leaves)
             with torch.no_grad():
-                grads = clip_by_global_norm(list(grads), hp.grad_clip)
+                # cuDNN may hand a conv's weight gradient back channels-last
+                # (SmallCNN3D's channel-1 input is); the kernel reads dense
+                # row-major leaves
+                grads = clip_by_global_norm([g.contiguous() for g in grads],
+                                            hp.grad_clip)
                 kernels.fused_masked_sgd_step(
                     leaves, moms, grads, masks, lr, momentum=hp.momentum,
                     wd=hp.weight_decay)

@@ -32,6 +32,7 @@ from typing import Dict, List, Sequence, Tuple
 import torch
 
 from ..core.optim import sgd_momentum_step
+from ..core.state import weighted_sum, weighted_tree_sum
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -42,6 +43,9 @@ SOURCES = {
     "masked_sgd": "masked_sgd.cu",
     "threshold": "threshold.cu",
     "score_mask": "score_mask.cu",
+    "mask_apply": "mask_apply.cu",
+    "weighted_sum": "weighted_sum.cu",
+    "quantize_reduce": "quantize_reduce.cu",
 }
 _HEADERS = ("leaf_table.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -132,9 +136,18 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
     elif name == "threshold":
         fn = lib.nidt_threshold
         fn.argtypes = [vp, i64, i64, i32, vp, vp, i32, vp]
-    else:
+    elif name == "score_mask":
         fn = lib.nidt_score_mask
         fn.argtypes = [i32, ptrs, ptrs, sizes, vp, vp, vp]
+    elif name == "mask_apply":
+        fn = lib.nidt_mask_apply
+        fn.argtypes = [i32, ptrs, ptrs, ptrs, sizes, vp]
+    elif name == "weighted_sum":
+        fn = lib.nidt_weighted_sum
+        fn.argtypes = [i32, ptrs, ptrs, sizes, vp, i32, vp]
+    else:
+        fn = lib.nidt_quantize_reduce
+        fn.argtypes = [vp, vp, vp, vp, vp, i32, i64, i64, i32, vp]
     fn.restype = ctypes.c_int
     return lib
 
@@ -286,3 +299,109 @@ def fused_score_mask(scores: List[torch.Tensor], norm: torch.Tensor,
         _check("score_mask", rc)
         LAUNCHES["score_mask"] += 1
     return outs
+
+
+# -- mask apply ---------------------------------------------------------------
+
+def mask_apply_plain(p: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    return p * m
+
+
+def fused_mask_apply(tree: Dict[str, torch.Tensor],
+                     mask: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """``p * m`` for every leaf of ``tree`` against ``mask`` (same names and
+    shapes), out of place, in one launch over all leaves."""
+    names = list(tree)
+    ps = [tree[k] for k in names]
+    ks = [mask[k] for k in names]
+    for k, p, m in zip(names, ps, ks):
+        if p.shape != m.shape:
+            raise ValueError(f"fused_mask_apply: {k} has shape {p.shape}, "
+                             f"its mask {m.shape}")
+    if _is_cpu(ps + ks):
+        return {k: mask_apply_plain(p, m) for k, p, m in zip(names, ps, ks)}
+    dev = _require_cuda("fused_mask_apply", ps + ks)
+    outs = [torch.empty_like(p) for p in ps]
+    fn = _lib("mask_apply").nidt_mask_apply
+    for s in range(0, len(ps), MAX_LEAVES):
+        sl = slice(s, s + MAX_LEAVES)
+        rc = fn(len(ps[sl]), _ptrs(ps[sl]), _ptrs(ks[sl]), _ptrs(outs[sl]),
+                _sizes(ps[sl]), _stream(dev))
+        _check("mask_apply", rc)
+        LAUNCHES["mask_apply"] += 1
+    return dict(zip(names, outs))
+
+
+# -- weighted sum -------------------------------------------------------------
+
+def fused_weighted_sum(stacked: Dict[str, torch.Tensor],
+                       weights: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """``sum_c w[c] * x[c]`` over the leading client axis of every leaf, in
+    static client order with one rounding per multiply and per add; its
+    plain version is :func:`core.state.weighted_tree_sum`. Every f32 and
+    bf16 aggregate contracts through it: the dense one over the parameter
+    tree, the bucketed wires over one ``[C, nb, b]`` bucket tensor."""
+    names = list(stacked)
+    xs = [stacked[k] for k in names]
+    c = xs[0].shape[0]
+    if weights.shape != (c,) or any(x.shape[0] != c for x in xs):
+        raise ValueError(f"fused_weighted_sum: weights {tuple(weights.shape)} "
+                         f"against a client axis of {c}")
+    if _is_cpu(xs + [weights]):
+        return weighted_tree_sum(stacked, weights)
+    dev = _require_cuda("fused_weighted_sum", xs + [weights])
+    outs = [torch.empty(x.shape[1:], dtype=torch.float32, device=dev)
+            for x in xs]
+    fn = _lib("weighted_sum").nidt_weighted_sum
+    for s in range(0, len(xs), MAX_LEAVES):
+        sl = slice(s, s + MAX_LEAVES)
+        rc = fn(len(xs[sl]), _ptrs(xs[sl]), _ptrs(outs[sl]), _sizes(outs[sl]),
+                weights.data_ptr(), c, _stream(dev))
+        _check("weighted_sum", rc)
+        LAUNCHES["weighted_sum"] += 1
+    return dict(zip(names, outs))
+
+
+# -- int8 quantize + weighted reduce ------------------------------------------
+
+def quantize_reduce_plain(buckets: torch.Tensor, weights: torch.Tensor,
+                          uniforms: torch.Tensor,
+                          scales: torch.Tensor) -> torch.Tensor:
+    """The plain version: the wire's own quantize
+    (``parallel/collectives.py::_quantize_int8``) on the given uniforms and
+    scales, dequantize, then the static-order client sum."""
+    from ..parallel.collectives import _quantize_int8
+
+    q, scale = _quantize_int8(buckets, uniforms, scales[..., None])
+    return weighted_sum(q.to(torch.float32) * scale, weights)
+
+
+def fused_quantize_reduce(buckets: torch.Tensor, weights: torch.Tensor,
+                          uniforms: torch.Tensor,
+                          scales: torch.Tensor) -> torch.Tensor:
+    """``out[b, j] = sum_c w[c] * dequant(int8(buckets[c, b, j]))`` for a
+    ``[C, nb, b]`` f32 bucket tensor with its ``[C, nb, b]`` uniforms and
+    ``[C, nb]`` scales; returns ``[nb, b]`` f32. Any bucket size."""
+    if buckets.dim() != 3:
+        raise ValueError(f"fused_quantize_reduce: expected [C, nb, b], got "
+                         f"{tuple(buckets.shape)}")
+    c, nb, b = buckets.shape
+    if uniforms.shape != buckets.shape or scales.shape != (c, nb) or \
+            weights.shape != (c,):
+        raise ValueError(
+            f"fused_quantize_reduce: buckets {tuple(buckets.shape)}, uniforms "
+            f"{tuple(uniforms.shape)}, scales {tuple(scales.shape)}, weights "
+            f"{tuple(weights.shape)}")
+    ts = [buckets, uniforms, scales, weights]
+    if _is_cpu(ts):
+        return quantize_reduce_plain(buckets, weights, uniforms, scales)
+    dev = _require_cuda("fused_quantize_reduce", ts)
+    out = torch.empty((nb, b), dtype=torch.float32, device=dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    blocks = max(1, min(-(-(nb * b) // 256), 32 * sms))
+    rc = _lib("quantize_reduce").nidt_quantize_reduce(
+        buckets.data_ptr(), uniforms.data_ptr(), scales.data_ptr(),
+        weights.data_ptr(), out.data_ptr(), c, nb, b, blocks, _stream(dev))
+    _check("quantize_reduce", rc)
+    LAUNCHES["quantize_reduce"] += 1
+    return out

@@ -10,10 +10,11 @@ runs).
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
 
+from ..convert import reference_leaf_order, to_reference_layout
 from ..core.losses import make_loss_fn
 from ..core.state import Tree
 
@@ -29,6 +30,29 @@ def mask_density(mask: Tree) -> float:
     leaves = [m for k, m in mask.items() if flags[k]]
     nnz = sum(int(torch.count_nonzero(m)) for m in leaves)
     return nnz / sum(m.numel() for m in leaves)
+
+
+def host_live_indices(mask: Tree,
+                      stacked: bool = False) -> List[Optional[torch.Tensor]]:
+    """The gather plan of mask-aware sparse aggregation
+    (``parallel/collectives.py``): for each leaf, in the reference's leaf
+    order (:func:`convert.reference_leaf_order`), the int64 flat indices of
+    its live (nonzero) coordinates in the reference's layout — or ``None``
+    for leaves that stay dense (non-kernel leaves, and kernels with no dead
+    coordinate). ``stacked=True`` reads ``[C, ...]`` per-client masks and
+    returns the union of live coordinates over the client axis. The indices
+    stay on the mask's device."""
+    flags = kernel_flags(mask)
+    out = []
+    for k in reference_leaf_order(mask):
+        m = to_reference_layout(k, mask[k], lead=int(stacked))
+        live = (m != 0).any(dim=0) if stacked else m != 0
+        live = live.reshape(-1)
+        if not flags[k] or bool(live.all()):
+            out.append(None)
+        else:
+            out.append(torch.nonzero(live).reshape(-1))
+    return out
 
 
 def make_snip_score_fn(apply_fn, loss_type: str, batch_size: int) -> Callable:

@@ -34,10 +34,33 @@ def exact_threshold(av: torch.Tensor, k: int) -> torch.Tensor:
     return lo.view(torch.float32)
 
 
-def select_threshold(av: torch.Tensor, k: int) -> torch.Tensor:
+def sampled_threshold(av: torch.Tensor, k: int, sample: int) -> torch.Tensor:
+    """The ``agg_topk_sample`` estimator (Deep Gradient Compression's
+    sampling): a fixed-stride ~``sample``-element subsample of each row,
+    the exact top-k of the candidates with k scaled by the stride
+    (``torch.topk``, where the reference takes ``lax.top_k``). The shipped
+    count is only about k; the error-feedback residual absorbs the rest."""
+    n = av.shape[-1]
+    stride = max(1, n // int(sample))
+    cand = av[..., ::stride]
+    ks = min(cand.shape[-1], max(1, int(round(k / stride))))
+    return torch.topk(cand, ks, dim=-1).values[..., -1:]
+
+
+def select_threshold(av: torch.Tensor, k: int,
+                     sample: int = 0) -> torch.Tensor:
     """Per-row threshold for ``av >= thr`` top-k selection of a ``[C, n]``
-    matrix: the CUDA kernel for CUDA tensors (any ``n``), the plain search
-    on the CPU."""
+    matrix: the strided estimator when ``0 < sample < n``, else the exact
+    search — the CUDA kernel for CUDA tensors (any ``n``), the plain search
+    on the CPU.
+
+    The port has no backend switch. The reference's round body reaches the
+    XLA search even under ``agg_kernels="pallas"`` (``_topk_aggregate``
+    passes no ``kernels=``), but every backend converges to the same unique
+    bit pattern, so taking the kernel here changes no bit."""
     from .kernels import threshold_topk
 
-    return threshold_topk(av, k)
+    n = av.shape[-1]
+    if sample and n > sample:
+        return sampled_threshold(av, k, sample)
+    return threshold_topk(av.contiguous(), k)

@@ -1,4 +1,5 @@
-"""The CUDA kernels against their plain versions, on the card.
+"""The CUDA kernels against their plain versions, and the aggregate against
+the CPU's, on the card.
 
 Marked ``cuda``: each test skips itself without an NVIDIA GPU. This file
 imports no JAX, so it runs where only PyTorch is installed:
@@ -10,6 +11,8 @@ torch = pytest.importorskip("torch")
 
 from neuroimagedisttraining_torch.ops import kernels  # noqa: E402
 from neuroimagedisttraining_torch.ops import topk_select as tts  # noqa: E402
+from neuroimagedisttraining_torch.core.state import weighted_sum  # noqa: E402
+from neuroimagedisttraining_torch.parallel import collectives as tc  # noqa: E402
 
 LR = 1e-3 * 0.998 ** 3
 MOM, WD = 0.9, 5e-4
@@ -45,3 +48,130 @@ def test_cuda_kernels_match_plain():
     thr = tts.exact_threshold((s / norm)[None], 2000).reshape(())
     assert torch.equal(kernels.fused_score_mask([s], norm, thr)[0],
                        kernels.score_mask_plain(s, norm, thr))
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with sm_90a (H100)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_cuda_aggregation_kernels_match_plain():
+    """Mask apply, the weighted sum and the int8 quantize-reduce (a
+    1024-multiple bucket, b = 1000, an all-zero bucket) bit for bit; the
+    threshold on an [8, n] row block."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(1)
+    shapes = {"a": (64, 8, 3, 3, 3), "b": (1000,), "c": (33, 9)}
+    ps = {k: torch.randn(s, generator=g, device=dev) for k, s in
+          shapes.items()}
+    ms = {k: (torch.rand(s, generator=g, device=dev) > 0.5).float()
+          for k, s in shapes.items()}
+    got = kernels.fused_mask_apply(ps, ms)
+    for k in shapes:
+        assert torch.equal(got[k], kernels.mask_apply_plain(ps[k], ms[k]))
+    xs = {k: torch.randn((8,) + s, generator=g, device=dev)
+          for k, s in shapes.items()}
+    w = torch.rand(8, generator=g, device=dev)
+    w = w / w.sum()
+    got = kernels.fused_weighted_sum(xs, w)
+    for k in shapes:
+        assert torch.equal(got[k], weighted_sum(xs[k], w))
+    for nb, b in ((3, 4096), (5, 1000)):
+        x = torch.randn((8, nb, b), generator=g, device=dev)
+        x[:, 0] = 0.0
+        u = torch.rand((8, nb, b), generator=g, device=dev)
+        s = tc._int8_scale(x)[..., 0].contiguous()
+        got = kernels.fused_quantize_reduce(x, w, u, s)
+        assert torch.equal(got, kernels.quantize_reduce_plain(x, w, u, s))
+    av = torch.rand((8, 70000), generator=g, device=dev)
+    assert torch.equal(kernels.threshold_topk(av, 7000),
+                       tts.exact_threshold(av, 7000))
+
+
+@pytest.mark.cuda
+def test_cuda_aggregate_ignores_tf32():
+    """The f32 wires contract without a matmul, so TF32 cannot touch them:
+    the card's aggregate equals the CPU's bit for bit with TF32 on."""
+    dev = _card()
+    g = torch.Generator().manual_seed(2)
+    tree = {"k": torch.randn(8, 40, 300, generator=g),
+            "b": torch.randn(8, 300, generator=g)}
+    w = torch.rand(8, generator=g)
+    w = w / w.sum()
+    want = tc.weighted_mean(tree, w, bucket_size=4096)
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = tc.weighted_mean({k: v.to(dev) for k, v in tree.items()},
+                               w.to(dev), bucket_size=4096)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+    for k in tree:
+        assert torch.equal(got[k].cpu(), want[k])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["dense", "int8", "topk"])
+def test_cuda_fedavg_round_and_finetune_match_cpu(impl):
+    """A FedAvg round on each of its wires and the final fine-tune, on the
+    CPU and on the card from the same parameters, batch order and int8
+    uniforms, with cuDNN's TF32 off: the card launches the kernels of the
+    path, and the models agree (round-off on the dense wire; norm-wise
+    within 1e-2 where an int8 rounding or a top-k selection within
+    round-off of its edge may flip)."""
+    from neuroimagedisttraining_torch.algorithms import FedAvg
+    from neuroimagedisttraining_torch.core.state import HyperParams
+    from neuroimagedisttraining_torch.core.trainer import epoch_permutations
+    from neuroimagedisttraining_torch.data import make_synthetic_federated
+    from neuroimagedisttraining_torch.models import create_model, init_params
+
+    dev = _card()
+    clients, steps, bs, bucket = 4, 2, 4, 1024
+    data = make_synthetic_federated(seed=5, n_clients=clients,
+                                    samples_per_client=8, test_per_client=4,
+                                    sample_shape=(8, 8, 8, 1))
+    hp = HyperParams(lr=0.05, momentum=0.9, local_epochs=1,
+                     steps_per_epoch=steps, batch_size=bs)
+    g = torch.Generator().manual_seed(0)
+    params = init_params(create_model("small3dcnn", num_classes=1), g)
+    n_rows = data.x_train.shape[1]
+    perms = [[epoch_permutations(g, int(n), 1, steps * bs, n_rows=n_rows)
+              for n in data.n_train] for _ in range(2)]
+    n = sum(v.numel() for v in params.values())
+    u = torch.rand((clients,) + tc.bucket_shape(n, bucket), generator=g)
+    out = {}
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False  # f32 convs, as on the CPU
+    try:
+        for device in ("cpu", dev):
+            algo = FedAvg(create_model("small3dcnn", num_classes=1), data,
+                          hp, loss_type="bce", agg_impl=impl,
+                          agg_bucket_size=bucket, device=device)
+            state = algo.init_state(params=params)
+            kernels.reset_launches()
+            state, met = algo.run_round(state, 0, perms=perms[0],
+                                        agg_uniforms=u)
+            launches = dict(kernels.LAUNCHES)
+            state, rec = algo.finalize(state, perms=perms[1])
+            out[device] = (
+                {k: v.cpu() for k, v in state.global_params.items()},
+                {k: v.cpu() for k, v in state.personal_params.items()},
+                float(met["train_loss"]), rec, launches)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    (gc, pc_, lc, rc, _), (gg, pg, lg, rg, lau) = out["cpu"], out[dev]
+    groups = len(tc.topk_groups(pc_, bucket)) if impl == "topk" else 0
+    assert lau == {"masked_sgd": clients * steps, "threshold": groups,
+                   "score_mask": 0, "mask_apply": 0,
+                   "weighted_sum": 0 if impl == "int8" else 1,
+                   "quantize_reduce": 1 if impl == "int8" else 0}, lau
+    assert abs(lg - lc) <= 1e-5 * abs(lc)
+    tol = 1e-5 if impl == "dense" else 1e-2
+    for a, b in ((gg, gc), (pg, pc_)):
+        va, vb = tc.tree_to_vec(a), tc.tree_to_vec(b)
+        err = float((va - vb).norm() / vb.norm())
+        assert err < tol, (impl, err)
+    for k in ("global_loss", "personal_loss"):
+        assert abs(float(rg[k]) - float(rc[k])) <= tol * abs(float(rc[k]))

@@ -157,9 +157,118 @@ def test_score_mask_plain_bitwise_vs_pallas(n):
     _bitwise(tm.numpy(), jm)
 
 
+def test_mask_apply_plain_bitwise_vs_pallas():
+    rng = np.random.RandomState(12)
+    shapes = {"a": (33, 9), "b": (9,), "c": (2, 3, 4, 5, 6), "d": (1030,)}
+    ps = {k: rng.randn(*s).astype(np.float32) for k, s in shapes.items()}
+    ps["b"][0] = np.float32(-0.0)
+    ms = {k: (rng.rand(*s) < 0.5).astype(np.float32)
+          for k, s in shapes.items()}
+    want = pk.fused_mask_apply({k: jnp.asarray(v) for k, v in ps.items()},
+                               {k: jnp.asarray(v) for k, v in ms.items()})
+    kernels.reset_launches()
+    got = kernels.fused_mask_apply(
+        {k: torch.from_numpy(v) for k, v in ps.items()},
+        {k: torch.from_numpy(v) for k, v in ms.items()})
+    assert kernels.LAUNCHES["mask_apply"] == 0  # the plain version ran
+    assert list(got) == list(shapes)
+    for k in shapes:
+        _bitwise(got[k].numpy(), want[k])
+
+
+def _qr_inputs(c, nb, b, seed):
+    """Buckets with per-bucket scales spread over decades, an all-zero
+    bucket (scale 1.0), the reference's uniforms and its jitted scales."""
+    import jax
+
+    from neuroimagedisttraining_tpu.parallel import collectives as jc
+
+    rng = np.random.RandomState(seed)
+    x = (rng.randn(c, nb, b) *
+         np.exp(rng.randn(c, nb, 1) * 2)).astype(np.float32)
+    x[:, 0] = 0.0
+    key = jax.random.PRNGKey(seed)
+    u = np.array(jax.random.uniform(key, (c, nb, b)))
+    w = rng.rand(c).astype(np.float32)
+    w /= w.sum()
+    s = np.array(jax.jit(jc._int8_scale)(jnp.asarray(x)))[..., 0]
+    return x, u, w, s, key
+
+
+@pytest.mark.parametrize("b", [1024, 4096])
+def test_quantize_reduce_plain_vs_pallas(b):
+    """The int8 payload and the scales bit for bit; the reduced sum within
+    rtol 1e-6 (the reference's sum shares XLA's dot, the port's rounds each
+    multiply and add in client order)."""
+    import jax
+
+    from neuroimagedisttraining_tpu.parallel import collectives as jc
+    from neuroimagedisttraining_torch.parallel import collectives as tc
+
+    x, u, w, s, key = _qr_inputs(5, 3, b, seed=b)
+    jq, js = jax.jit(jc._quantize_int8)(jnp.asarray(x), key)
+    tq, ts = tc._quantize_int8(torch.from_numpy(x), torch.from_numpy(u))
+    _bitwise(tq.numpy(), jq)
+    _bitwise(ts.numpy(), js)
+    _bitwise(ts[..., 0].numpy(), s)
+    assert float(ts[0, 0, 0]) == 1.0  # the all-zero bucket
+    assert pk.quantize_reduce_supported(b)
+    want = np.asarray(pk.fused_quantize_reduce(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(u), jnp.asarray(s)))
+    kernels.reset_launches()
+    got = kernels.fused_quantize_reduce(
+        torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(u),
+        torch.from_numpy(s)).numpy()
+    assert kernels.LAUNCHES["quantize_reduce"] == 0
+    np.testing.assert_allclose(got, want, rtol=1e-6,
+                               atol=1e-6 * float(np.abs(want).max()))
+    deq = tq.numpy().astype(np.float32) * ts.numpy()
+    np.testing.assert_array_equal(got, kernels.quantize_reduce_plain(
+        torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(u),
+        torch.from_numpy(s)).numpy())
+    assert np.abs(got - np.tensordot(w, deq, axes=1)).max() < \
+        1e-6 * np.abs(got).max()
+
+
+def test_quantize_reduce_takes_any_bucket_size():
+    """b = 1000 is no multiple of the reference kernel's 1024 tile: the
+    reference routes it to its XLA chain; the port's kernel takes it."""
+    x, u, w, s, _ = _qr_inputs(3, 4, 1000, seed=7)
+    assert not pk.quantize_reduce_supported(1000)
+    got = kernels.fused_quantize_reduce(
+        torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(u),
+        torch.from_numpy(s))
+    assert got.shape == (4, 1000)
+    assert bool(torch.all(got[0] == 0))
+
+
+@pytest.mark.parametrize("c", [1, 3, 8])
+def test_weighted_sum_plain_vs_pallas(c):
+    rng = np.random.RandomState(c)
+    shapes = {"k": (3, 3, 3, 4, 8), "b": (8,), "d": (130, 7)}
+    xs = {k: rng.randn(c, *s).astype(np.float32) for k, s in shapes.items()}
+    w = rng.rand(c).astype(np.float32)
+    w /= w.sum()
+    want = pk.fused_weighted_sum({k: jnp.asarray(v) for k, v in xs.items()},
+                                 jnp.asarray(w))
+    got = kernels.fused_weighted_sum(
+        {k: torch.from_numpy(v) for k, v in xs.items()}, torch.from_numpy(w))
+    for k in shapes:
+        ref = np.asarray(want[k])
+        np.testing.assert_allclose(got[k].numpy(), ref, rtol=1e-6,
+                                   atol=1e-6 * float(np.abs(ref).max()))
+
+
 def test_wrappers_reject_mismatched_inputs():
     a = torch.zeros(4)
     with pytest.raises(ValueError):
         kernels.fused_masked_sgd_step([a], [a], [a], [torch.zeros(5)], 0.1)
     with pytest.raises(ValueError):
         kernels.threshold_topk(torch.zeros(1, 4), 5)
+    with pytest.raises(ValueError):
+        kernels.fused_mask_apply({"a": a}, {"a": torch.zeros(5)})
+    with pytest.raises(ValueError):
+        kernels.fused_weighted_sum({"a": torch.zeros(3, 4)}, torch.ones(2))
+    with pytest.raises(ValueError):
+        kernels.fused_quantize_reduce(torch.zeros(2, 3, 4), torch.ones(2),
+                                      torch.zeros(2, 3, 4), torch.ones(3))
