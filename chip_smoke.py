@@ -6,17 +6,26 @@
 Phases, each printing one JSON line:
 
 1. build   — compile every CUDA kernel from ``neuroimagedisttraining_torch/csrc``
-   (one ``nvcc`` per source, all started together).
-2. kernels — hold each kernel against its plain PyTorch version, bit for bit,
-   at the shapes the training paths give it (full-width AlexNet3DS2D), and
-   time both (CUDA events, median of 30 after warmup, each launch queued
-   behind a device-side sleep so host enqueue time is not counted); also the
-   f32 aggregate with TF32 on against TF32 off.
+   (eight sources, one ``nvcc`` each, all started together).
+2. kernels — hold each kernel against its plain PyTorch version at the
+   shapes the training paths give it (full-width AlexNet3DS2D), and time
+   both (CUDA events, median of 30 after warmup, each launch queued behind a
+   device-side sleep so host enqueue time is not counted); also the f32
+   aggregate with TF32 on against TF32 off. Bit for bit, except the stem
+   forward, whose conv sums 216 products in another order than cuDNN: the
+   conv within one ulp of the working type or, where it cancels to near
+   zero, within 1e-5 of the sum of its terms' magnitudes (f32 case: within
+   that everywhere, TF32 off); ``zs`` bitwise that conv plus the bias in the
+   working type; the pool bitwise the max-pool of its own ``zs``, the sums
+   within 1e-5 of the sums of its own ``zs``. The stem backward is bitwise
+   under both tie rules. The four stem entry points (``ops/experimental``)
+   run once each at full width against their plain counterparts.
 3. parity  — a narrow model, one SalientGrads round on the CPU (plain
-   versions) and on the GPU (kernels) from the same parameters, mask, batch
-   order and int8 uniforms, for the dense, bf16, int8 and top-k wires: the
-   card's aggregate equals the CPU's on the card's own inputs bit for bit,
-   and parameters and metrics agree (see ``small_parity``).
+   versions) and on the GPU (kernels, the stem's included) from the same
+   parameters, mask, batch order and int8 uniforms, for the dense, bf16,
+   int8 and top-k wires: the card's aggregate equals the CPU's on the card's
+   own inputs bit for bit, and parameters and metrics agree (see
+   ``small_parity``).
 4. main    — the training path at full width through the library entry
    points: SalientGrads on AlexNet3DS2D, 8 clients x 40 phased 121x145x121
    volumes, batch 8, 5 local steps, bf16 compute, dropout 0.5, SNIP mask
@@ -31,9 +40,15 @@ Phases, each printing one JSON line:
    hier, held against the plain dense aggregate of the same locals bit for
    bit.
 
-Then a ``kernels`` JSON line, the card's name and power limit, and as the
-last line ``{"ok": true, "device": {...}}``. Any failure raises and the
-script exits non-zero; without CUDA it exits 2 before printing a result.
+Every training step, SNIP batch and eval forward of these paths runs the
+stem kernels (one forward, and in training one backward); the launch counts
+asserted per path include them.
+
+Then a ``kernels`` JSON line (one entry per kernel; ``replaces`` names the
+Pallas call site, or the list of sites when one kernel replaces several),
+the card's name and power limit, and as the last line ``{"ok": true,
+"device": {...}}``. Any failure raises and the script exits non-zero;
+without CUDA it exits 2 before printing a result.
 """
 from __future__ import annotations
 
@@ -47,8 +62,11 @@ import time
 #: published H100 SXM peaks (NVIDIA data sheet) used for the bounds
 HBM_BYTES_PER_S = 3.35e12
 CUDA_CORE_OPS_PER_S = 67e12  # f32 (and, as the CUDA-core rate, int32) ops
+TENSOR_CORE_BF16_OPS_PER_S = 989e12  # dense bf16, 2 ops per multiply-add
 
-#: the JAX package's Pallas kernels these replace (file:line of pallas_call)
+_EXP = "neuroimagedisttraining_tpu/ops/experimental/"
+#: the JAX package's Pallas kernels these replace (file:line of pallas_call;
+#: a list where one kernel replaces several)
 REPLACES = {
     "masked_sgd": "neuroimagedisttraining_tpu/ops/pallas_kernels.py:98",
     "threshold": "neuroimagedisttraining_tpu/ops/pallas_kernels.py:258",
@@ -56,6 +74,9 @@ REPLACES = {
     "mask_apply": "neuroimagedisttraining_tpu/ops/pallas_kernels.py:385",
     "weighted_sum": "neuroimagedisttraining_tpu/ops/pallas_kernels.py:165",
     "quantize_reduce": "neuroimagedisttraining_tpu/ops/pallas_kernels.py:349",
+    "stem_fwd": [_EXP + "pallas_stem_fused.py:126", _EXP + "pallas_stem_v3.py:166",
+                 _EXP + "pallas_stem.py:102"],
+    "stem_bwd": _EXP + "pallas_stem_bwd.py:146",
 }
 
 N_CLIENTS, SAMPLES, TEST, BATCH, STEPS, ROUNDS = 8, 40, 10, 8, 5, 3
@@ -93,9 +114,12 @@ def device_ms(fn, reps: int = 30, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: float, ops: float):
+def bound(nbytes: float, ops: float, ops_per_s: float = CUDA_CORE_OPS_PER_S):
+    """The least time (ms) for moving ``nbytes`` and doing ``ops`` operations
+    at the card's peak rate for their type, and which of the two bounds
+    it."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / CUDA_CORE_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -196,6 +220,7 @@ def check_kernels(dev):
         ms=ms_kernel, plain_ms=ms_plain, bound_ms=b_ms, bound_by=b_by,
         library_ms=None, shape=f"{len(scores)} leaves, {n} f32")
     out.update(check_agg_kernels(dev, g, params))
+    out.update(check_stem_kernels(dev, g, model))
     return out
 
 
@@ -329,6 +354,218 @@ def check_agg_kernels(dev, g, params):
     if not all(torch.equal(on[k], off[k]) for k in names):
         raise AssertionError("the f32 aggregate moved with TF32")
     out["aggregate_tf32_inert"] = True
+    return out
+
+
+def _zs_agreement(name, zs, want, scale):
+    """The stem conv output ``zs`` against its plain version ``want``: every
+    element within one ulp of the working type, or, where the conv cancels
+    to near zero, within 1e-5 of ``scale``, the sum of its terms'
+    magnitudes (two f32 sums of 216 products in different orders differ by
+    round-off of that size). Returns the counts, raises past them."""
+    import torch
+
+    from neuroimagedisttraining_torch.ops import kernels
+
+    torch.cuda.synchronize()
+    ulp = kernels.ulp_distance(zs, want)
+    err = (zs.float() - want.float()).abs()
+    over = ulp > 1
+    rel = err / scale.float().clamp(min=1e-30)
+    res = {"elements": zs.numel(), "differing": int((ulp > 0).sum()),
+           "over_one_ulp": int(over.sum()),
+           "max_abs_err": float(err.max()),
+           "max_err_over_terms": float(rel.max()),
+           "max_err_over_terms_past_one_ulp":
+               float(rel[over].max()) if bool(over.any()) else 0.0}
+    if bool((over & (rel > 1e-5)).any()):
+        raise AssertionError(f"{name}: zs disagrees with its plain version: "
+                             f"{res}")
+    return res
+
+
+def check_stem_kernels(dev, g, model):
+    """The stem kernels at the main path's shapes: a batch of 8 phased
+    121x145x121 bf16 volumes (standard normal plus the label shift of
+    +-0.75, as the main path's data), the main model's init stem kernel,
+    masked and sign-folded, and a bias of 0.1 * N(0, 1) (the init bias is
+    zero; the trained one is not). Plus the narrow f32 model's stem (F = 8,
+    phased 69^3, TF32 off), and each of the four stem entry points once."""
+    import torch
+    import torch.nn.functional as F
+
+    from neuroimagedisttraining_torch.models import create_model, init_params
+    from neuroimagedisttraining_torch.ops import kernels
+    from neuroimagedisttraining_torch.ops.experimental import (
+        pallas_stem,
+        pallas_stem_bwd,
+        pallas_stem_fused,
+        pallas_stem_v3,
+    )
+    from neuroimagedisttraining_torch.ops.s2d import phased_sample_shape
+
+    bf16 = torch.bfloat16
+    out = {}
+    stem = model.S2DStemStage_0
+    with torch.no_grad():
+        sign = torch.where(stem.scale >= 0, 1.0, -1.0)
+        w = (stem.masked() * sign.reshape(-1, 1, 1, 1, 1)).to(bf16)
+        f = w.shape[0]
+        bias = (0.1 * torch.randn(f, generator=g, device=dev)).to(bf16)
+    ss = phased_sample_shape(VOLUME)
+    x = torch.randn((BATCH,) + ss, generator=g, device=dev, dtype=bf16)
+    shift = (torch.rand(BATCH, generator=g, device=dev) < 0.5).to(bf16) \
+        * 1.5 - 0.75
+    x += shift.reshape(-1, 1, 1, 1, 1)
+
+    # -- stem forward: bf16 at full width ------------------------------------
+    # the conv (no bias) against cuDNN's; then the bias epilogue bitwise: the
+    # kernel's zs is its own rounded conv plus the bias, rounded, in bf16
+    conv, _, _, _ = kernels.stem_fwd(x, w, None, pool=False, stats=False)
+    want, _, _, _ = kernels.stem_fwd_plain(x, w, None, pool=False,
+                                           stats=False)
+    terms, _, _, _ = kernels.stem_fwd_plain(x.abs(), w.abs(), None,
+                                            pool=False, stats=False)
+    agree = _zs_agreement("stem_fwd", conv, want, terms)
+    zs, pooled, s1, s2 = kernels.stem_fwd(x, w, bias)
+    _bitwise_or_raise("stem_fwd bias epilogue", [zs], [conv + bias])
+    agree["with_bias_max_abs_err"] = float(
+        (zs.float() - (want + bias).float()).abs().max())
+    del conv, want
+    own_pool = F.max_pool3d(zs.permute(0, 4, 1, 2, 3), 3, 3).permute(
+        0, 2, 3, 4, 1)
+    _bitwise_or_raise("stem_fwd pooled (max-pool of its own zs)", [pooled],
+                      [own_pool])
+    p1, p2 = kernels.stem_stats_plain(zs)
+    mag = zs.double().abs().sum((1, 2, 3))
+    s1_rel = float(((s1.double() - p1.double()).abs() / mag).max())
+    s2_rel = float(((s2.double() - p2.double()).abs() / p2.double()).max())
+    if s1_rel > 1e-5 or s2_rel > 1e-5:
+        raise AssertionError(f"stem_fwd sums: s1 {s1_rel}, s2 {s2_rel}")
+    b, d, h, wd, _ = zs.shape
+    macs = b * d * h * wd * f * 216
+    nbytes = 2.0 * (x.numel() + zs.numel() + pooled.numel() + w.numel() + f) \
+        + 8.0 * b * f
+    b_ms, b_by = bound(nbytes, 2.0 * macs, TENSOR_CORE_BF16_OPS_PER_S)
+    out["stem_fwd"] = dict(
+        max_abs_err=agree["max_abs_err"],
+        ms=device_ms(lambda: kernels.stem_fwd(x, w, bias)),
+        plain_ms=device_ms(lambda: kernels.stem_fwd_plain(x, w, bias),
+                           reps=10),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        zs_agreement=agree, s1_rel_err_over_terms=s1_rel, s2_rel_err=s2_rel,
+        bound_at_cuda_core_ms=2.0 * macs / CUDA_CORE_OPS_PER_S * 1e3,
+        shape=f"x {list(x.shape)} bf16, F={f}, {macs} multiply-adds")
+
+    # -- the narrow f32 model's stem (TF32 off) -------------------------------
+    nss = phased_sample_shape((69, 69, 69))
+    narrow = create_model("3dcnn_s2d", num_classes=1,
+                          widths=(8, 16, 16, 16, 16), dropout_rate=0.0,
+                          sample_shape=nss).to(dev)
+    init_params(narrow, g)
+    with torch.no_grad():
+        w32 = narrow.S2DStemStage_0.masked().contiguous()
+    b32 = 0.1 * torch.randn(w32.shape[0], generator=g, device=dev)
+    x32 = torch.randn((4,) + nss, generator=g, device=dev) + 0.75
+    z32, p32, s132, s232 = kernels.stem_fwd(x32, w32, b32)
+    want32, _, _, _ = kernels.stem_fwd_plain(x32, w32, b32, pool=False,
+                                             stats=False)
+    terms32, _, _, _ = kernels.stem_fwd_plain(x32.abs(), w32.abs(),
+                                              b32.abs(), pool=False,
+                                              stats=False)
+    rel32 = float(((z32 - want32).abs() / terms32).max())
+    if rel32 > 1e-5:
+        raise AssertionError(f"stem_fwd f32: zs {rel32} of its terms")
+    ulp32 = kernels.ulp_distance(z32, want32)
+    _bitwise_or_raise("stem_fwd f32 pooled", [p32], [F.max_pool3d(
+        z32.permute(0, 4, 1, 2, 3), 3, 3).permute(0, 2, 3, 4, 1)])
+    q1, q2 = kernels.stem_stats_plain(z32)
+    if not (torch.allclose(s132, q1, rtol=1e-5, atol=1e-5 * float(
+            z32.abs().sum((1, 2, 3)).max())) and
+            torch.allclose(s232, q2, rtol=1e-5)):
+        raise AssertionError("stem_fwd f32 sums")
+    out["stem_fwd"]["f32_narrow"] = dict(
+        shape=list(x32.shape), zs_err_over_terms=rel32,
+        differing=int((ulp32 > 0).sum()), over_one_ulp=int((ulp32 > 1).sum()),
+        max_abs_err=float((z32 - want32).abs().max()))
+
+    # -- stem backward: both tie rules on the kernel's own bf16 zs ------------
+    gp = torch.randn(pooled.shape, generator=g, device=dev).to(bf16)
+    g1 = torch.randn(s1.shape, generator=g, device=dev)
+    g2 = 1e-3 * torch.randn(s1.shape, generator=g, device=dev)
+    errs = []
+    for ties in kernels.STEM_TIES:
+        errs.append(_bitwise_or_raise(
+            f"stem_bwd ({ties})",
+            [kernels.stem_bwd(zs, pooled, gp, g1, g2, ties=ties)],
+            [kernels.stem_bwd_plain(zs, pooled, gp, g1, g2, ties=ties)]))
+    pd, ph, pw = pooled.shape[1:4]
+    core = zs[:, :3 * pd, :3 * ph, :3 * pw].reshape(b, pd, 3, ph, 3, pw, 3, f)
+    count = (core == pooled[:, :, None, :, None, :, None, :]).sum((2, 4, 6))
+    nbytes = 2.0 * (2 * zs.numel() + 2 * pooled.numel()) + 8.0 * b * f
+    b_ms, b_by = bound(nbytes, 4.0 * zs.numel())
+    out["stem_bwd"] = dict(
+        max_abs_err=max(errs),
+        ms=device_ms(lambda: kernels.stem_bwd(zs, pooled, gp, g1, g2,
+                                              ties="first")),
+        plain_ms=device_ms(lambda: kernels.stem_bwd_plain(
+            zs, pooled, gp, g1, g2, ties="first"), reps=10),
+        split_ms=device_ms(lambda: kernels.stem_bwd(zs, pooled, gp, g1, g2,
+                                                    ties="split")),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        tied_window_fraction=float((count > 1).float().mean()),
+        shape=f"zs {list(zs.shape)} bf16")
+
+    # -- the four entry points, once each at full width -----------------------
+    wt = w.permute(0, 2, 3, 4, 1).reshape(f, 216)   # k = ((dz*3+dy)*3+dx)*8+p
+    w_dhwio = w.permute(2, 3, 4, 1, 0)
+    xin = x.permute(0, 3, 1, 2, 4)
+    conv = pallas_stem.stem_conv_pallas(x, wt)
+    want0, _, _, _ = kernels.stem_fwd_plain(x, w, None, pool=False,
+                                            stats=False)
+    b_ms, b_by = bound(2.0 * (x.numel() + conv.numel() + w.numel()),
+                       2.0 * macs, TENSOR_CORE_BF16_OPS_PER_S)
+    entries = {"stem_conv_pallas": dict(
+        zs_agreement=_zs_agreement("stem_conv_pallas", conv, want0, terms),
+        ms=device_ms(lambda: pallas_stem.stem_conv_pallas(x, wt)),
+        plain_ms=device_ms(lambda: kernels.stem_fwd_plain(
+            x, w, None, pool=False, stats=False)),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=device_ms(lambda: F.conv3d(xin, w)))}
+    for label, got, ref_out in (
+            ("fused_stem_fwd", pallas_stem_fused.fused_stem_fwd(x, wt),
+             pallas_stem_fused.ref(x, w_dhwio)),
+            ("fused_stem_fwd_v3", pallas_stem_v3.fused_stem_fwd_v3(
+                x, pallas_stem_v3.make_stem_lhs(w_dhwio), bias.float()),
+             pallas_stem_v3.ref(x, w_dhwio, bias.float()))):
+        gz, gpool, gst = got
+        rz, _, (rs1, rs2) = ref_out
+        if label == "fused_stem_fwd":
+            res = dict(zs_agreement=_zs_agreement(label, gz, rz.contiguous(),
+                                                  terms))
+        else:  # the conv is stem_conv_pallas's; the bias epilogue bitwise
+            _bitwise_or_raise(f"{label} zs", [gz], [conv + bias])
+            res = dict(with_bias_max_abs_err=float(
+                (gz.float() - rz.float()).abs().max()))
+        _bitwise_or_raise(f"{label} pooled", [gpool], [F.max_pool3d(
+            gz.permute(0, 4, 1, 2, 3), 3, 3).permute(0, 2, 3, 4, 1)])
+        tot = gst.sum(1)
+        zmag = gz.double().abs().sum((1, 2, 3))
+        res["s1_rel_err_over_terms"] = float(
+            ((tot[:, 0].double() - rs1.double()).abs() / zmag).max())
+        res["s2_rel_err"] = float(
+            ((tot[:, 1] - rs2).abs() / rs2.abs()).max())
+        if res["s1_rel_err_over_terms"] > 1e-5 or res["s2_rel_err"] > 1e-5:
+            raise AssertionError(f"{label}: statistics {res}")
+        entries[label] = res
+    zr = zs.detach().clone().requires_grad_(True)
+    m, r1, r2 = pallas_stem_bwd.pool_sum_sumsq(zr)
+    (dz,) = torch.autograd.grad([m, r1, r2], [zr], [gp, g1, g2])
+    _bitwise_or_raise("pool_sum_sumsq pooled", [m.detach()], [own_pool])
+    entries["pool_sum_sumsq"] = dict(max_abs_err=_bitwise_or_raise(
+        "pool_sum_sumsq backward (split)", [dz],
+        [kernels.stem_bwd_plain(zs, pooled, gp, g1, g2, ties="split")]))
+    out["stem_fwd"]["entry_points"] = entries
     return out
 
 
@@ -532,10 +769,18 @@ def small_parity(dev):
                 "int8": {"quantize_reduce": 1, "weighted_sum": 0},
                 "topk": {"mask_apply": 1, "weighted_sum": 1,
                          "threshold": groups}}[impl]
+        # one stem forward and backward per active local step
+        want["stem_fwd"] = want["stem_bwd"] = sum(
+            min(hp.steps_per_epoch, -(-n // hp.batch_size)) for n in nvals)
         if any(lau[k] != v for k, v in want.items()):
             raise AssertionError(f"parity {impl}: launches {lau}, want {want}")
         results[impl] = res
     return results
+
+
+def _eval_chunks() -> int:
+    """Forwards per client and eval of a TEST-row shard (eval batch 32)."""
+    return -(-TEST // min(32, TEST))
 
 
 def main_path(dev):
@@ -598,12 +843,14 @@ def main_path(dev):
     if abs(final["mask_density"] - 0.5) > 1e-3:
         raise AssertionError(f"mask density {final['mask_density']}")
     want_sgd = ROUNDS * N_CLIENTS * STEPS * 1  # one launch per step
-    if launches["masked_sgd"] != want_sgd or launches["threshold"] != 1 \
-            or launches["score_mask"] != 1 or \
-            launches["weighted_sum"] != ROUNDS:
-        raise AssertionError(f"launch counts {launches}, expected "
-                             f"masked_sgd={want_sgd}, threshold=1, "
-                             f"score_mask=1, weighted_sum={ROUNDS}")
+    # the stem: one forward and one backward per training step and SNIP
+    # batch, one forward per eval chunk (global and personal, every client)
+    want = {"masked_sgd": want_sgd, "threshold": 1, "score_mask": 1,
+            "weighted_sum": ROUNDS,
+            "stem_fwd": want_sgd + N_CLIENTS + 2 * N_CLIENTS * _eval_chunks(),
+            "stem_bwd": want_sgd + N_CLIENTS}
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"launch counts {launches}, expected {want}")
     for p in state.global_params.values():
         if not bool(torch.isfinite(p).all()):
             raise AssertionError("non-finite global parameters")
@@ -752,7 +999,7 @@ def wires_path(dev):
             agg_residual=(zeros_like_tree(state0.personal_params)
                           if impl == "topk" else None))
         algo._ensure_agg_plan(state)
-        want = {"masked_sgd": sgd,
+        want = {"masked_sgd": sgd, "stem_fwd": sgd, "stem_bwd": sgd,
                 "weighted_sum": 0 if impl == "int8" else WIRE_ROUNDS,
                 "quantize_reduce": WIRE_ROUNDS if impl == "int8" else 0,
                 "mask_apply": WIRE_ROUNDS if impl == "topk" else 0}
@@ -775,7 +1022,7 @@ def wires_path(dev):
     for impl in FEDAVG_WIRES:
         algo = FedAvg(model, data, hp, agg_impl=impl, **kw)
         state = algo.init_state()
-        want = {"masked_sgd": sgd,
+        want = {"masked_sgd": sgd, "stem_fwd": sgd, "stem_bwd": sgd,
                 "weighted_sum": 0 if impl == "int8" else WIRE_ROUNDS,
                 "quantize_reduce": WIRE_ROUNDS if impl == "int8" else 0}
         if impl == "topk":
@@ -799,7 +1046,10 @@ def wires_path(dev):
                **{k: float(v) for k, v in rec.items()}}
         emit(fin)
         want = {**{k: 0 for k in launches},
-                "masked_sgd": N_CLIENTS * STEPS}
+                "masked_sgd": N_CLIENTS * STEPS,
+                "stem_fwd": N_CLIENTS * STEPS
+                + 2 * N_CLIENTS * _eval_chunks(),
+                "stem_bwd": N_CLIENTS * STEPS}
         if launches != want:
             raise AssertionError(f"fedavg finalize: launches {launches}, "
                                  f"want {want}")

@@ -14,7 +14,9 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.autograd.function import once_differentiable
 
+from ..ops import kernels
 from .layers import (
     Conv3d,
     Dense,
@@ -32,16 +34,76 @@ from .layers import (
 def _group_stats(zf, groups: int, eps: float):
     """Per-(sample, group) mean and std of an NCDHW f32 tensor, broadcast
     back per channel as ``(B, C, 1, 1, 1)``; variance ``E[z^2] - E[z]^2``
-    clipped at 0. Shared by both S2DStemStage branches."""
-    b, c = zf.shape[:2]
+    clipped at 0 (the textbook branch of S2DStemStage)."""
+    b = zf.shape[0]
     zg = zf.reshape(b, groups, -1)
-    mu = zg.mean(-1)
-    var = (zg * zg).mean(-1) - mu * mu
+    return _broadcast_stats(zg.mean(-1), (zg * zg).mean(-1), zf.shape[1],
+                            eps)
+
+
+def _group_stats_from_sums(s1, s2, groups: int, count: int, eps: float):
+    """:func:`_group_stats` from per-(sample, channel) f32 sums ``s1`` of z
+    and ``s2`` of z^2 over ``count`` voxels each (the pool-first branch,
+    which never holds z in float32)."""
+    b, c = s1.shape
+    n = float(count * (c // groups))
+    return _broadcast_stats(s1.reshape(b, groups, -1).sum(-1) / n,
+                            s2.reshape(b, groups, -1).sum(-1) / n, c, eps)
+
+
+def _broadcast_stats(mu, ez2, channels: int, eps: float):
+    var = ez2 - mu * mu
     sig = torch.sqrt(torch.clamp(var, min=0.0) + eps)
-    per = c // groups
-    shape = (b, c, 1, 1, 1)
+    per = channels // mu.shape[1]
+    shape = (mu.shape[0], channels, 1, 1, 1)
     return (mu.repeat_interleave(per, dim=1).reshape(shape),
             sig.repeat_interleave(per, dim=1).reshape(shape))
+
+
+class StemStage(torch.autograd.Function):
+    """The pool-first stem stage's full-resolution part as one autograd node:
+    ``(x, ws, bs) -> (pooled, s1, s2)``.
+
+    ``x`` is the phased volume ``(B, D', H', 8, W')``, ``ws`` the masked,
+    sign-folded kernel ``(F, 8, 3, 3, 3)`` and ``bs`` the sign-folded bias;
+    ``pooled`` is the 3x3x3/s3 max-pool of the conv output ``zs`` (returned
+    as an NCDHW view of channels-last storage), ``s1`` and ``s2`` the f32
+    (f64 for a float64 stage) per-(sample, channel) sums of ``zs`` and
+    ``zs^2``. Forward is :func:`ops.kernels.stem_fwd`; backward is
+    :func:`ops.kernels.stem_bwd` with ``ties="first"`` (torch's max-pool
+    rule, so the gradient is the plain composition's), then the conv's
+    weight and input gradients (``torch.nn.grad``, cuDNN on the card) and
+    the bias gradient as ``dzs`` summed per channel. Only ``x``, ``ws``,
+    ``zs`` and ``pooled`` are kept for the backward. On the CPU both
+    kernels run their plain versions, so the same composition runs on every
+    device."""
+
+    @staticmethod
+    def forward(ctx, x, ws, bs):
+        zs, pooled, s1, s2 = kernels.stem_fwd(x, ws, bs)
+        ctx.save_for_backward(x, ws, zs, pooled)
+        return pooled.permute(0, 4, 1, 2, 3), s1, s2
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g_pooled, g_s1, g_s2):
+        x, ws, zs, pooled = ctx.saved_tensors
+        gp = g_pooled.permute(0, 2, 3, 4, 1).to(zs.dtype).contiguous()
+        dzs = kernels.stem_bwd(zs, pooled, gp, g_s1.contiguous(),
+                               g_s2.contiguous(), ties="first")
+        dz = dzs.permute(0, 4, 1, 2, 3)  # NCDHW view of channels-last
+        # channels-last input too, so the conv backward takes dz as it is
+        # (cuDNN's kernels are NDHWC) instead of copying it to NCDHW
+        xin = phased_input(x).contiguous(memory_format=torch.channels_last_3d)
+        dx = dws = dbs = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.nn.grad.conv3d_input(
+                xin.shape, ws, dz).permute(0, 2, 3, 1, 4)
+        if ctx.needs_input_grad[1]:
+            dws = torch.nn.grad.conv3d_weight(xin, ws.shape, dz)
+        if ctx.needs_input_grad[2]:
+            dbs = dzs.sum(dim=(0, 1, 2, 3))
+        return dx, dws, dbs
 
 
 class S2DStemStage(PhasedStemKernel):
@@ -54,8 +116,11 @@ class S2DStemStage(PhasedStemKernel):
     ``sign(scale)`` is folded into the conv kernel and bias: one max-pool on
     the signed conv output ``zs`` serves every channel, and the full-size
     normalized tensor is never built. The GroupNorm statistics always come
-    from the pre-pool conv output. ``pool_first=False`` is the textbook
-    order with the same parameters.
+    from the pre-pool conv output. The pool-first branch runs its
+    full-resolution part (conv, bias, pool, sums) as :class:`StemStage`, on
+    the stem kernels on the card; only ``(B, F, D/3, H/3, W/3)`` and
+    ``(B, F)`` tensors are left for plain torch. ``pool_first=False`` is the
+    textbook order with the same parameters (``F.conv3d``).
 
     Parameters: ``kernel`` (masked phased conv), ``bias``, and the GroupNorm
     pair ``scale``/``bias_gn``. Input phased, output NCDHW."""
@@ -79,21 +144,24 @@ class S2DStemStage(PhasedStemKernel):
         nn.init.zeros_(self.bias_gn)
 
     def forward(self, x):
-        x = phased_input(x)
         w = self.masked()
         gamma = self.scale.float().reshape(1, -1, 1, 1, 1)
         beta = self.bias_gn.float().reshape(1, -1, 1, 1, 1)
         if not self.pool_first:
-            z = F.conv3d(x, w, self.bias)
+            z = F.conv3d(phased_input(x), w, self.bias)
             mu, sig = _group_stats(z.float(), self.groups, self.eps)
             y = torch.relu((z.float() - mu) / sig * gamma + beta).to(z.dtype)
             return max_pool3d(y, 3, 3)
         sign = torch.where(self.scale >= 0, 1.0, -1.0).to(w.dtype)
-        zs = F.conv3d(x, w * sign.reshape(-1, 1, 1, 1, 1), self.bias * sign)
-        sf = sign.float().reshape(1, -1, 1, 1, 1)
-        mu, sig = _group_stats(zs.float() * sf, self.groups, self.eps)
-        sel = max_pool3d(zs, 3, 3).float() * sf
-        return torch.relu((sel - mu) / sig * gamma + beta).to(zs.dtype)
+        pooled, s1, s2 = StemStage.apply(
+            x, w * sign.reshape(-1, 1, 1, 1, 1), self.bias * sign)
+        sf = sign.float()
+        # sum(z) = sign * sum(zs); sum(z^2) = sum(zs^2)
+        count = (x.shape[1] - 2) * (x.shape[2] - 2) * (x.shape[4] - 2)
+        mu, sig = _group_stats_from_sums(s1 * sf, s2, self.groups, count,
+                                         self.eps)
+        sel = pooled.float() * sf.reshape(1, -1, 1, 1, 1)
+        return torch.relu((sel - mu) / sig * gamma + beta).to(pooled.dtype)
 
 
 def _alexnet_flat_width(sample_shape: Tuple[int, ...], width: int) -> int:

@@ -16,7 +16,10 @@ Every wrapper here:
   launched work on the card, and nowhere else.
 
 One threshold "launch" is one search: a memset, 31 count passes and a
-finishing grid on the stream (see ``csrc/threshold.cu``).
+finishing grid on the stream (see ``csrc/threshold.cu``). One ``stem_fwd``
+launch is the weight layout pass, the fused conv/pool/statistics grid and,
+with statistics on, the fixed-order reduction of its partials
+(``csrc/stem_fwd.cu``).
 """
 from __future__ import annotations
 
@@ -30,6 +33,7 @@ from pathlib import Path
 from typing import Dict, List, Sequence, Tuple
 
 import torch
+import torch.nn.functional as nnf
 
 from ..core.optim import sgd_momentum_step
 from ..core.state import weighted_sum, weighted_tree_sum
@@ -46,6 +50,8 @@ SOURCES = {
     "mask_apply": "mask_apply.cu",
     "weighted_sum": "weighted_sum.cu",
     "quantize_reduce": "quantize_reduce.cu",
+    "stem_fwd": "stem_fwd.cu",
+    "stem_bwd": "stem_bwd.cu",
 }
 _HEADERS = ("leaf_table.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -145,9 +151,17 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
     elif name == "weighted_sum":
         fn = lib.nidt_weighted_sum
         fn.argtypes = [i32, ptrs, ptrs, sizes, vp, i32, vp]
-    else:
+    elif name == "quantize_reduce":
         fn = lib.nidt_quantize_reduce
         fn.argtypes = [vp, vp, vp, vp, vp, i32, i64, i64, i32, vp]
+    elif name == "stem_fwd":
+        fn = lib.nidt_stem_fwd
+        fn.argtypes = [vp] * 9 + [i32] * 8 + [vp]
+        lib.nidt_stem_fwd_blocks.argtypes = [i32] * 5
+        lib.nidt_stem_fwd_blocks.restype = ctypes.c_int
+    else:
+        fn = lib.nidt_stem_bwd
+        fn.argtypes = [vp] * 6 + [i32] * 8 + [vp]
     fn.restype = ctypes.c_int
     return lib
 
@@ -175,16 +189,23 @@ def _sizes(ts: Sequence[torch.Tensor]):
     return (ctypes.c_longlong * len(ts))(*[t.numel() for t in ts])
 
 
-def _require_cuda(name: str, ts: Sequence[torch.Tensor]) -> torch.device:
+def _require_cuda(name: str, ts: Sequence[torch.Tensor],
+                  dtypes: Tuple[torch.dtype, ...] = (torch.float32,),
+                  aligned: bool = False) -> torch.device:
+    """The device of ``ts``, which must all lie on one CUDA device, be
+    contiguous, of one of ``dtypes`` and, with ``aligned``, start on a
+    16-byte boundary (the kernels that move 16-byte vectors)."""
     dev = ts[0].device
     for t in ts:
         if not t.is_cuda or t.device != dev:
             raise ValueError(f"{name}: all tensors must be on {dev}, got "
                              f"{t.device}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name}: expected float32, got {t.dtype}")
+        if t.dtype not in dtypes:
+            raise ValueError(f"{name}: expected {dtypes}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")
+        if aligned and t.data_ptr() % 16:
+            raise ValueError(f"{name}: tensors must be 16-byte aligned")
     return dev
 
 
@@ -405,3 +426,221 @@ def fused_quantize_reduce(buckets: torch.Tensor, weights: torch.Tensor,
     _check("quantize_reduce", rc)
     LAUNCHES["quantize_reduce"] += 1
     return out
+
+
+# -- stem stage: conv + max-pool + statistics, and its backward ---------------
+
+#: the stem kernels take F, a multiple of 8, up to this many channels
+STEM_MAX_F = 64
+STEM_DTYPES = (torch.bfloat16, torch.float32)
+#: how the stem backward routes a window's cotangent among tied maxima
+STEM_TIES = ("first", "split")
+
+
+def _check_stem_channels(name: str, f: int) -> None:
+    if f % 8 or not 8 <= f <= STEM_MAX_F:
+        raise ValueError(f"{name}: F = {f} channels; the stem kernels take a "
+                         f"multiple of 8 up to {STEM_MAX_F}")
+
+
+def stem_stats_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The type of the stem's statistics and of their cotangents: float32,
+    or float64 for a float64 stage (the plain versions take any float type
+    on the CPU; the kernels take bf16 and f32)."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+def stem_stats_plain(zs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-(sample, channel) sum and sum of squares of a channels-last
+    ``(B, D, H, W, F)`` tensor, accumulated in float64 and rounded once to
+    :func:`stem_stats_dtype`, as the kernel accumulates them."""
+    zd = zs.double()
+    out = stem_stats_dtype(zs.dtype)
+    return zd.sum((1, 2, 3)).to(out), (zd * zd).sum((1, 2, 3)).to(out)
+
+
+def stem_fwd_plain(x: torch.Tensor, w: torch.Tensor, bias=None, *,
+                   pool: bool = True, stats: bool = True):
+    """The plain version of :func:`stem_fwd`: ``F.conv3d`` on the phased
+    input, the bias added in the working type, ``max_pool3d`` and the
+    float64-accumulated sums."""
+    z = nnf.conv3d(x.permute(0, 3, 1, 2, 4), w)
+    if bias is not None:
+        z = z + bias.reshape(1, -1, 1, 1, 1)
+    zs = z.permute(0, 2, 3, 4, 1).contiguous()
+    pooled = (nnf.max_pool3d(z, 3, 3).permute(0, 2, 3, 4, 1).contiguous()
+              if pool else None)
+    s1, s2 = stem_stats_plain(zs) if stats else (None, None)
+    return zs, pooled, s1, s2
+
+
+def stem_fwd(x: torch.Tensor, w: torch.Tensor, bias=None, *,
+             pool: bool = True, stats: bool = True):
+    """The stem stage's full-resolution forward in one pass.
+
+    ``x`` is the phased volume ``(B, D', H', 8, W')`` (read in place), ``w``
+    the stem kernel ``(F, 8, 3, 3, 3)`` and ``bias`` ``(F,)`` or None, all in
+    one working type (bf16 or f32). Returns ``(zs, pooled, s1, s2)``:
+
+    * ``zs`` ``(B, D, H, W, F)`` channels-last, D = D'-2 etc.: the conv
+      accumulated in f32, rounded to the working type, plus the bias in the
+      working type;
+    * ``pooled`` ``(B, D//3, H//3, W//3, F)``: the floor-mode 3x3x3/s3
+      max-pool of ``zs`` (None with ``pool=False``);
+    * ``s1``, ``s2`` ``(B, F)`` f32: the sum and sum of squares of ``zs``
+      over ``(D, H, W)`` (None with ``stats=False``).
+
+    Any B, D', H', W' >= 3; F a multiple of 8 up to 64."""
+    if x.dim() != 5 or x.shape[3] != 8:
+        raise ValueError(f"stem_fwd: expected a phased (B, D', H', 8, W') "
+                         f"volume, got {tuple(x.shape)}")
+    if w.dim() != 5 or tuple(w.shape[1:]) != (8, 3, 3, 3):
+        raise ValueError(f"stem_fwd: expected an (F, 8, 3, 3, 3) kernel, got "
+                         f"{tuple(w.shape)}")
+    b, dp, hp, _, wp = x.shape
+    f = w.shape[0]
+    _check_stem_channels("stem_fwd", f)
+    if min(dp, hp, wp) < 3:
+        raise ValueError(f"stem_fwd: phased extents {(dp, hp, wp)} < 3")
+    ts = [x, w] + ([] if bias is None else [bias])
+    if not x.dtype.is_floating_point or any(t.dtype != x.dtype for t in ts):
+        raise ValueError(f"stem_fwd: x, w and bias must share one float "
+                         f"type, got {[t.dtype for t in ts]}")
+    if bias is not None and tuple(bias.shape) != (f,):
+        raise ValueError(f"stem_fwd: bias {tuple(bias.shape)}, want ({f},)")
+    if _is_cpu(ts):
+        return stem_fwd_plain(x, w, bias, pool=pool, stats=stats)
+    dev = _require_cuda("stem_fwd", ts, STEM_DTYPES)
+    lib = _lib("stem_fwd")
+    d, h, wd = dp - 2, hp - 2, wp - 2
+    zs = torch.empty((b, d, h, wd, f), dtype=x.dtype, device=dev)
+    pooled = (torch.empty((b, d // 3, h // 3, wd // 3, f), dtype=x.dtype,
+                          device=dev) if pool else None)
+    s1 = s2 = partials = None
+    if stats:
+        nblk = lib.nidt_stem_fwd_blocks(dp, hp, wp, f,
+                                        int(x.dtype == torch.bfloat16))
+        partials = torch.empty((b, nblk, 2, f), dtype=torch.float64,
+                               device=dev)
+        s1 = torch.empty((b, f), dtype=torch.float32, device=dev)
+        s2 = torch.empty((b, f), dtype=torch.float32, device=dev)
+    wscratch = torch.empty((216, f), dtype=torch.float32, device=dev)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    rc = lib.nidt_stem_fwd(
+        x.data_ptr(), w.data_ptr(), ptr(bias), zs.data_ptr(), ptr(pooled),
+        ptr(partials), ptr(s1), ptr(s2), wscratch.data_ptr(), b, dp, hp, wp,
+        f, int(x.dtype == torch.bfloat16), int(pool), int(stats),
+        _stream(dev))
+    _check("stem_fwd", rc)
+    LAUNCHES["stem_fwd"] += 1
+    return zs, pooled, s1, s2
+
+
+def stem_bwd_plain(zs: torch.Tensor, pooled: torch.Tensor,
+                   g_pooled: torch.Tensor, g_s1: torch.Tensor,
+                   g_s2: torch.Tensor, *, ties: str) -> torch.Tensor:
+    """The plain version of :func:`stem_bwd`: the same operations on whole
+    tensors, each multiply and add rounded once in float32."""
+    b, d, h, w, f = zs.shape
+    pd, ph, pw = d // 3, h // 3, w // 3
+    zf = zs.to(g_s1.dtype)
+    dense = g_s1[:, None, None, None, :] + \
+        (2.0 * g_s2)[:, None, None, None, :] * zf
+    term = torch.zeros_like(zf)
+    if pd and ph and pw:
+        core = zf[:, :3 * pd, :3 * ph, :3 * pw].reshape(b, pd, 3, ph, 3, pw,
+                                                       3, f)
+        m = pooled.to(zf.dtype)[:, :, None, :, None, :, None, :]
+        g = g_pooled.to(zf.dtype)[:, :, None, :, None, :, None, :]
+        eq = core == m
+        if ties == "split":
+            count = eq.sum((2, 4, 6), keepdim=True).to(zf.dtype)
+            t = torch.where(eq, g / count.clamp(min=1.0), 0.0)
+        else:
+            # the first equal position of each window in (d, h, w) order
+            k = eq.permute(0, 1, 3, 5, 7, 2, 4, 6).reshape(b, pd, ph, pw, f,
+                                                           27)
+            hit = k & (torch.cumsum(k, dim=-1) == 1)
+            hit = hit.reshape(b, pd, ph, pw, f, 3, 3, 3).permute(
+                0, 1, 5, 2, 6, 3, 7, 4)
+            t = torch.where(hit, g, 0.0)
+        term[:, :3 * pd, :3 * ph, :3 * pw] = t.reshape(b, 3 * pd, 3 * ph,
+                                                       3 * pw, f)
+    return (dense + term).to(zs.dtype)
+
+
+def stem_bwd(zs: torch.Tensor, pooled: torch.Tensor, g_pooled: torch.Tensor,
+             g_s1: torch.Tensor, g_s2: torch.Tensor, *,
+             ties: str) -> torch.Tensor:
+    """The cotangent of channels-last ``zs`` ``(B, D, H, W, F)`` through
+    ``(max_pool3(zs), sum(zs), sum(zs^2))``, in one pass:
+    ``dzs = g_s1 + 2 g_s2 zs + pool_term``, in ``zs``'s type.
+
+    ``pooled`` and ``g_pooled`` are ``(B, D//3, H//3, W//3, F)`` in ``zs``'s
+    type, ``g_s1`` and ``g_s2`` ``(B, F)`` f32. ``ties="first"`` routes each
+    window's cotangent to its first maximum in (d, h, w) order (torch's
+    max-pool backward); ``ties="split"`` splits it evenly among equal
+    maxima (the reference kernel's contract)."""
+    if ties not in STEM_TIES:
+        raise ValueError(f"stem_bwd: ties={ties!r} not in {STEM_TIES}")
+    if zs.dim() != 5:
+        raise ValueError(f"stem_bwd: expected zs (B, D, H, W, F), got "
+                         f"{tuple(zs.shape)}")
+    b, d, h, w, f = zs.shape
+    _check_stem_channels("stem_bwd", f)
+    pshape = (b, d // 3, h // 3, w // 3, f)
+    if tuple(pooled.shape) != pshape or tuple(g_pooled.shape) != pshape or \
+            tuple(g_s1.shape) != (b, f) or tuple(g_s2.shape) != (b, f):
+        raise ValueError(
+            f"stem_bwd: zs {tuple(zs.shape)}, pooled {tuple(pooled.shape)}, "
+            f"g_pooled {tuple(g_pooled.shape)}, g_s1 {tuple(g_s1.shape)}, "
+            f"g_s2 {tuple(g_s2.shape)}")
+    sdt = stem_stats_dtype(zs.dtype)
+    if not zs.dtype.is_floating_point or pooled.dtype != zs.dtype or \
+            g_pooled.dtype != zs.dtype or g_s1.dtype != sdt or \
+            g_s2.dtype != sdt:
+        raise ValueError(
+            f"stem_bwd: zs, pooled, g_pooled in one float type and g_s1, "
+            f"g_s2 in {sdt}, got {zs.dtype}, {pooled.dtype}, "
+            f"{g_pooled.dtype}, {g_s1.dtype}, {g_s2.dtype}")
+    ts = [zs, pooled, g_pooled, g_s1, g_s2]
+    if _is_cpu(ts):
+        return stem_bwd_plain(zs, pooled, g_pooled, g_s1, g_s2, ties=ties)
+    dev = _require_cuda("stem_bwd", [zs, pooled, g_pooled], STEM_DTYPES,
+                        aligned=True)
+    if _require_cuda("stem_bwd", [g_s1, g_s2]) != dev:
+        raise ValueError(f"stem_bwd: g_s1, g_s2 must be on {dev}")
+    out = torch.empty_like(zs)
+    cells = b * (-(-d // 3)) * (-(-h // 3)) * (-(-w // 3)) * (f // 8)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    blocks = max(1, min(-(-cells // 256), 32 * sms))
+    rc = _lib("stem_bwd").nidt_stem_bwd(
+        zs.data_ptr(), pooled.data_ptr(), g_pooled.data_ptr(),
+        g_s1.data_ptr(), g_s2.data_ptr(), out.data_ptr(), b, d, h, w, f,
+        int(zs.dtype == torch.bfloat16), int(ties == "split"), blocks,
+        _stream(dev))
+    _check("stem_bwd", rc)
+    LAUNCHES["stem_bwd"] += 1
+    return out
+
+
+def ulp_distance(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Elementwise distance in units in the last place between two bf16 or
+    f32 tensors of one type (0 where bitwise equal; +0 and -0 are 0 apart),
+    as int64. The stem forward's ``zs`` is held to its plain version within
+    one ulp of the working type."""
+    if a.dtype != b.dtype or a.dtype not in STEM_DTYPES:
+        raise ValueError(f"ulp_distance: {a.dtype} vs {b.dtype}")
+    if a.dtype == torch.bfloat16:
+        ia, ib, mag = a.view(torch.int16), b.view(torch.int16), 0x7FFF
+    else:
+        ia, ib, mag = a.view(torch.int32), b.view(torch.int32), 0x7FFFFFFF
+
+    def ordered(i):
+        i = i.to(torch.int64)
+        return torch.where(i < 0, -(i & mag), i)
+
+    return (ordered(ia) - ordered(ib)).abs()

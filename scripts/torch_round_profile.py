@@ -8,22 +8,29 @@ phased 121x145x121 volumes, batch 8, 5 steps, bf16, dropout 0.5), runs the
 SNIP init and warm rounds unprofiled, then traces one round with
 ``torch.profiler`` (CPU + CUDA). Prints one JSON line: the round's wall
 time, the summed device time and the device's busy share, device time by
-kernel class, the top kernels by self device time, and the top aten ops
-(device time including children) with their input shapes. Needs one GPU.
+kernel class (the stem kernels apart), the top kernels by self device time,
+the top aten ops (device time including children) with their input shapes,
+and the card's name and power limit. Needs one GPU.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import os
+import subprocess
 import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-#: kernel classes, matched in order against the lower-cased kernel name
+#: kernel classes, matched in order against the lower-cased kernel name;
+#: the stem kernels (csrc/stem_fwd.cu, csrc/stem_bwd.cu) are a class of
+#: their own, the port's other kernels another
 CLASSES = (
-    ("port_kernels", ("masked_sgd_kernel", "threshold_", "score_mask_kernel")),
+    ("stem_kernels", ("stem_fwd", "stem_bwd", "stem_wprep", "stem_stats")),
+    ("port_kernels", ("masked_sgd_kernel", "threshold_", "score_mask_kernel",
+                      "mask_apply_kernel", "weighted_sum_kernel",
+                      "quantize_reduce_kernel")),
     ("conv", ("conv", "cudnn", "xmma", "implicit", "wgrad", "dgrad",
               "fprop", "sm90", "cutlass", "gemm", "nchw", "ndhwc")),
     ("pool", ("max_pool", "pool")),
@@ -111,6 +118,10 @@ def main() -> int:
                 for n, ms, c in rows[:15]],
         "top_ops": ops[:12],
         "device": torch.cuda.get_device_name(0),
+        "name_power_limit": subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip(),
     }), flush=True)
     if not rows:
         print("torch_round_profile: the trace holds no device time",

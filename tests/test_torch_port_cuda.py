@@ -166,7 +166,8 @@ def test_cuda_fedavg_round_and_finetune_match_cpu(impl):
     assert lau == {"masked_sgd": clients * steps, "threshold": groups,
                    "score_mask": 0, "mask_apply": 0,
                    "weighted_sum": 0 if impl == "int8" else 1,
-                   "quantize_reduce": 1 if impl == "int8" else 0}, lau
+                   "quantize_reduce": 1 if impl == "int8" else 0,
+                   "stem_fwd": 0, "stem_bwd": 0}, lau
     assert abs(lg - lc) <= 1e-5 * abs(lc)
     tol = 1e-5 if impl == "dense" else 1e-2
     for a, b in ((gg, gc), (pg, pc_)):
@@ -175,3 +176,65 @@ def test_cuda_fedavg_round_and_finetune_match_cpu(impl):
         assert err < tol, (impl, err)
     for k in ("global_loss", "personal_loss"):
         assert abs(float(rg[k]) - float(rc[k])) <= tol * abs(float(rc[k]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_cuda_stem_kernels_match_plain(dtype):
+    """The stem forward against its plain version (the conv within one ulp
+    of the working type or, where it cancels to near zero, within 1e-5 of
+    the sum of its terms' magnitudes; in f32 with TF32 off within that
+    everywhere; zs bitwise that conv plus the bias, rounded in the working
+    type; pooled bitwise the max-pool of the kernel's own zs; the
+    sums within 1e-5 of the sums of the kernel's zs), and the stem backward
+    bitwise under both tie rules, at narrow shapes with ragged windows and
+    more than one block of window columns."""
+    dev = _card()
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=dev).manual_seed(3)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        # F = 8 and 48 take the CUDA-core path in bf16, 16 and 64 the
+        # tensor cores; W' = 101 spans two w-tiles of either
+        for shape, f in (((2, 11, 13, 8, 11), 8), ((2, 12, 14, 8, 13), 64),
+                         ((1, 8, 9, 8, 101), 16), ((1, 7, 8, 8, 70), 48)):
+            x = (torch.randn(shape, generator=g, device=dev) + 0.5).to(dt)
+            w = (0.2 * torch.randn((f, 8, 3, 3, 3), generator=g,
+                                   device=dev)).to(dt)
+            bias = (0.1 * torch.randn(f, generator=g, device=dev)).to(dt)
+            kernels.reset_launches()
+            zs, pooled, s1, s2 = kernels.stem_fwd(x, w, bias)
+            assert kernels.LAUNCHES["stem_fwd"] == 1
+            conv, _, _, _ = kernels.stem_fwd(x, w, None, pool=False,
+                                             stats=False)
+            want, _, _, _ = kernels.stem_fwd_plain(x, w, None, pool=False,
+                                                   stats=False)
+            terms, _, _, _ = kernels.stem_fwd_plain(
+                x.abs(), w.abs(), None, pool=False, stats=False)
+            near = (conv.float() - want.float()).abs() <= 1e-5 * terms.float()
+            if dt == torch.float32:
+                assert bool(near.all())
+            # the conv within one ulp, but where it cancels to near zero;
+            # the bias added to the rounded conv in the working type
+            assert bool(((kernels.ulp_distance(conv, want) <= 1) | near).all())
+            assert torch.equal(zs, conv + bias)
+            ncdhw = zs.permute(0, 4, 1, 2, 3)
+            assert torch.equal(pooled, torch.nn.functional.max_pool3d(
+                ncdhw, 3, 3).permute(0, 2, 3, 4, 1))
+            p1, p2 = kernels.stem_stats_plain(zs)
+            mag = zs.double().abs().sum((1, 2, 3))
+            assert bool(((s1.double() - p1.double()).abs()
+                         <= 1e-5 * mag).all())
+            assert bool(((s2 - p2).abs() <= 1e-5 * p2.abs()).all())
+            # the backward on the kernel's own zs, real ties in bf16
+            gp = torch.randn(pooled.shape, generator=g, device=dev).to(dt)
+            g1 = torch.randn(s1.shape, generator=g, device=dev)
+            g2 = 0.01 * torch.randn(s1.shape, generator=g, device=dev)
+            for ties in kernels.STEM_TIES:
+                got = kernels.stem_bwd(zs, pooled, gp, g1, g2, ties=ties)
+                assert torch.equal(got, kernels.stem_bwd_plain(
+                    zs, pooled, gp, g1, g2, ties=ties)), (shape, ties)
+            assert kernels.LAUNCHES["stem_bwd"] == 2
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
