@@ -19,7 +19,13 @@ Phases, each printing one JSON line:
    working type; the pool bitwise the max-pool of its own ``zs``, the sums
    within 1e-5 of the sums of its own ``zs``. The stem backward is bitwise
    under both tie rules. The four stem entry points (``ops/experimental``)
-   run once each at full width against their plain counterparts.
+   run once each at full width against their plain counterparts. The
+   threshold (a radix select in three digit passes) is also held bitwise
+   on its edge cases at full width (+inf, NaN and -0.0 in the row, k = 1,
+   k = n, all zeros, ties, a [8, n_group] view off a 16-byte boundary),
+   and the weighted sum on edge leaves (n odd, bases 4 and 16 bytes off)
+   for 1, 3, 8 and 16 clients. A ``bound_share`` line follows: each
+   kernel's bound over its measured time.
 3. parity  — a narrow model, one SalientGrads round on the CPU (plain
    versions) and on the GPU (kernels, the stem's included) from the same
    parameters, mask, batch order and int8 uniforms, for the dense, bf16,
@@ -78,6 +84,10 @@ REPLACES = {
                  _EXP + "pallas_stem.py:102"],
     "stem_bwd": _EXP + "pallas_stem_bwd.py:146",
 }
+
+#: the threshold kernel's digit passes (csrc/threshold.cu), each a compare
+#: and count per element
+THRESHOLD_PASSES = 3.0
 
 N_CLIENTS, SAMPLES, TEST, BATCH, STEPS, ROUNDS = 8, 40, 10, 8, 5, 3
 VOLUME = (121, 145, 121)
@@ -182,21 +192,36 @@ def check_kernels(dev):
     row = torch.randn((1, n), generator=g, device=dev).abs()
     ties = torch.randint(0, 50, (1, n), generator=g, device=dev).float() / 7
     zeros = torch.zeros((1, n), device=dev)
+    # +inf, NaN (counted as +inf) and -0.0 (counted as 0) in the row
+    r = torch.rand((1, n), generator=g, device=dev)
+    special = torch.where(r < 0.01, float("inf"), row)
+    special = torch.where((r >= 0.01) & (r < 0.02), float("nan"), special)
+    special = torch.where((r >= 0.02) & (r < 0.1), -0.0, special)
+    cases = [("random", row, k), ("ties", ties, k), ("zeros", zeros, k),
+             ("inf_nan_negzero", special, k), ("inf_nan_negzero k=1",
+                                               special, 1),
+             ("inf_nan_negzero k=n", special, n), ("random k=1", row, 1),
+             ("random k=n", row, n)]
     err = 0.0
-    for name, av in (("random", row), ("ties", ties), ("zeros", zeros)):
-        got = kernels.threshold_topk(av, k)
-        want = exact_threshold(av, k)
+    for name, av, kk in cases:
+        got = kernels.threshold_topk(av, kk)
+        want = exact_threshold(av, kk)
         torch.cuda.synchronize()
         if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
             raise AssertionError(f"threshold ({name}) {got} != {want}")
-        err = max(err, float((got - want).abs().max()))
+        if name.startswith("random"):
+            err = max(err, float((got - want).abs().max()))
     ms_kernel = device_ms(lambda: kernels.threshold_topk(row, k))
     ms_plain = device_ms(lambda: exact_threshold(row, k), reps=20)
     ms_lib = device_ms(lambda: torch.topk(row, k).values[..., -1], reps=20)
-    b_ms, b_by = bound(4.0 * n + 4.0, 31.0 * n)
+    b_ms, b_by = bound(4.0 * n + 4.0, THRESHOLD_PASSES * n)
     out["threshold"] = dict(
         max_abs_err=err, ms=ms_kernel, plain_ms=ms_plain, bound_ms=b_ms,
-        bound_by=b_by, library_ms=ms_lib, shape=f"[1, {n}] f32, k={k}")
+        bound_by=b_by, library_ms=ms_lib, shape=f"[1, {n}] f32, k={k}",
+        bitwise_cases=[c[0] for c in cases],
+        # tie-heavy rows: every element of the zero row hits one bin
+        ties_ms=device_ms(lambda: kernels.threshold_topk(ties, k)),
+        zeros_ms=device_ms(lambda: kernels.threshold_topk(zeros, k)))
 
     # -- score mask: the seven kernel leaves ----------------------------------
     scores = [torch.rand(s, generator=g, device=dev) for s in kernel_shapes]
@@ -283,6 +308,7 @@ def check_agg_kernels(dev, g, params):
     got = kernels.fused_weighted_sum(stacked, w)
     err = _bitwise_or_raise("weighted_sum", [got[k] for k in names],
                             [weighted_sum(stacked[k], w) for k in names])
+    vec = sum(kernels.weighted_sum_vector_leaf(v) for v in stacked.values())
     flat = torch.cat([stacked[k].reshape(N_CLIENTS, -1) for k in names], 1)
     b_ms, b_by = bound(4.0 * (N_CLIENTS + 1) * n_params + 4.0 * N_CLIENTS,
                        2.0 * N_CLIENTS * n_params)
@@ -293,7 +319,9 @@ def check_agg_kernels(dev, g, params):
                                     for k in names]),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=device_ms(lambda: torch.tensordot(w, flat, dims=1)),
-        shape=f"[{N_CLIENTS}, leaf] x {len(names)} leaves, f32")
+        shape=f"[{N_CLIENTS}, leaf] x {len(names)} leaves, f32 "
+              f"({vec} on the 16-byte path)",
+        edge_leaves=check_weighted_sum_edges(dev, g, n_params))
 
     # -- int8 quantize-reduce: the int8 wire's [8, 10, 262144] buckets --------
     mat = tc.stacked_to_mat(stacked)
@@ -332,11 +360,16 @@ def check_agg_kernels(dev, g, params):
                      key=lambda se: se[1] - se[0])
     av = comp[:, start:end].abs()
     k = tc.topk_count(end - start, TOPK_DENSITY)
+    # the same rows as a contiguous view whose base is off a 16-byte boundary
+    big = torch.empty(av.numel() + 1, device=dev)
+    shifted = big[1:].view(av.shape)
+    shifted.copy_(av)
     err = _bitwise_or_raise("threshold ([8, n_group])",
-                            [kernels.threshold_topk(av, k).view(torch.int32)],
-                            [exact_threshold(av, k).view(torch.int32)])
+                            [kernels.threshold_topk(x, k).view(torch.int32)
+                             for x in (av, shifted)],
+                            [exact_threshold(av, k).view(torch.int32)] * 2)
     nn = av.numel()
-    b_ms, b_by = bound(4.0 * nn + 4.0 * c, 31.0 * nn)
+    b_ms, b_by = bound(4.0 * nn + 4.0 * c, THRESHOLD_PASSES * nn)
     out["threshold_topk_group"] = dict(
         max_abs_err=err,
         ms=device_ms(lambda: kernels.threshold_topk(av, k)),
@@ -355,6 +388,40 @@ def check_agg_kernels(dev, g, params):
         raise AssertionError("the f32 aggregate moved with TF32")
     out["aggregate_tf32_inert"] = True
     return out
+
+
+def check_weighted_sum_edges(dev, g, n_params):
+    """The weighted sum's edge leaves at full width, bitwise against the
+    plain version, for 1, 3, 8 and 16 clients: the flat model (n odd, the
+    scalar path), the same values less one at a 4-byte offset (scalar) and
+    at a 16-byte offset (the 16-byte path), in one launch. Returns the
+    8-client launch's time and the leaves' paths."""
+    import torch
+
+    from neuroimagedisttraining_torch.core.state import weighted_sum
+    from neuroimagedisttraining_torch.ops import kernels
+
+    res = {}
+    for c in (1, 3, 8, 16):
+        m = n_params - 1
+        big = torch.randn(c * m + 4, generator=g, device=dev)
+        xs = {"odd_n": torch.randn((c, n_params), generator=g, device=dev),
+              "offset_4": big[1:1 + c * m].view(c, m),
+              "offset_16": big[4:4 + c * m].view(c, m)}
+        w = torch.rand(c, generator=g, device=dev)
+        w = w / w.sum()
+        got = kernels.fused_weighted_sum(xs, w)
+        _bitwise_or_raise(f"weighted_sum edge leaves (C={c})",
+                          list(got.values()),
+                          [weighted_sum(x, w) for x in xs.values()])
+        if c == 8:
+            res["paths"] = {k: "16-byte" if kernels.weighted_sum_vector_leaf(
+                x) else "scalar" for k, x in xs.items()}
+            res["ms_c8"] = device_ms(lambda: kernels.fused_weighted_sum(xs, w))
+            res["bound_ms_c8"] = bound(4.0 * (c + 1) * (n_params + 2 * m), 0)[0]
+        del big, xs, got
+    res["clients_checked"] = [1, 3, 8, 16]
+    return res
 
 
 def _zs_agreement(name, zs, want, scale):
@@ -1092,7 +1159,14 @@ def main() -> int:
                     for k, v in kernels.BUILD_LOG.items()}})
 
     measured = check_kernels(dev)
+    # each kernel's share of its bound: bound_ms over its measured ms
+    for m in measured.values():
+        if isinstance(m, dict) and "bound_ms" in m:
+            m["bound_share"] = m["bound_ms"] / m["ms"]
     emit({"phase": "kernels", **measured})
+    emit({"phase": "bound_share", **{
+        name: m["bound_share"] for name, m in measured.items()
+        if isinstance(m, dict) and "bound_share" in m}})
     small_parity(dev)
     paths = {"main": main_path(dev)}
     paths.update(wires_path(dev))

@@ -1,4 +1,6 @@
-// Shared by the multi-leaf kernels (masked_sgd.cu, score_mask.cu).
+// Shared by the four multi-leaf kernels (masked_sgd.cu, score_mask.cu,
+// mask_apply.cu, weighted_sum.cu); the first three also share its block plan
+// (kThreads, kPerThread, plan_blocks), weighted_sum.cu has its own.
 //
 // A "leaf table" lets one launch cover every tensor of a parameter tree: the
 // host packs the leaves' pointers and sizes into a struct passed by value as a

@@ -15,11 +15,12 @@ Every wrapper here:
 * adds one to ``LAUNCHES[name]`` for each call into the C entry that
   launched work on the card, and nowhere else.
 
-One threshold "launch" is one search: a memset, 31 count passes and a
-finishing grid on the stream (see ``csrc/threshold.cu``). One ``stem_fwd``
-launch is the weight layout pass, the fused conv/pool/statistics grid and,
-with statistics on, the fixed-order reduction of its partials
-(``csrc/stem_fwd.cu``).
+One threshold "launch" is one search: the memset of its scratch
+(``torch.zeros``) and three radix digit passes on the stream (see
+``csrc/threshold.cu``). One weighted-sum launch is one grid per 16 clients
+(one at the port's cohorts of 8). One ``stem_fwd`` launch is the weight
+layout pass, the fused conv/pool/statistics grid and, with statistics on,
+the fixed-order reduction of its partials (``csrc/stem_fwd.cu``).
 """
 from __future__ import annotations
 
@@ -59,8 +60,6 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 #: leaves per launch of the leaf-table kernels (kMaxLeaves in leaf_table.cuh)
 MAX_LEAVES = 32
-#: count passes of the threshold search (kIters in threshold.cu)
-SEARCH_ITERS = 31
 
 #: launches of each kernel since the last :func:`reset_launches`
 LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
@@ -141,7 +140,9 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
                        vp]
     elif name == "threshold":
         fn = lib.nidt_threshold
-        fn.argtypes = [vp, i64, i64, i32, vp, vp, i32, vp]
+        fn.argtypes = [vp, i64, i64, i64, vp, vp, i32, vp]
+        lib.nidt_threshold_scratch.argtypes = []
+        lib.nidt_threshold_scratch.restype = ctypes.c_int
     elif name == "score_mask":
         fn = lib.nidt_score_mask
         fn.argtypes = [i32, ptrs, ptrs, sizes, vp, vp, vp]
@@ -150,7 +151,8 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         fn.argtypes = [i32, ptrs, ptrs, ptrs, sizes, vp]
     elif name == "weighted_sum":
         fn = lib.nidt_weighted_sum
-        fn.argtypes = [i32, ptrs, ptrs, sizes, vp, i32, vp]
+        fn.argtypes = [i32, ptrs, ptrs, sizes, ctypes.POINTER(i32), vp, i32,
+                       vp]
     elif name == "quantize_reduce":
         fn = lib.nidt_quantize_reduce
         fn.argtypes = [vp, vp, vp, vp, vp, i32, i64, i64, i32, vp]
@@ -268,11 +270,17 @@ def fused_masked_sgd_step(params: List[torch.Tensor],
 
 # -- threshold ----------------------------------------------------------------
 
+#: rows of one threshold search (the grid's y dimension)
+THRESHOLD_MAX_ROWS = 65535
+
+
 def threshold_topk(av: torch.Tensor, k: int) -> torch.Tensor:
     """Exact k-th largest value of each row of a non-negative f32 ``[C, n]``
     matrix; returns ``[C, 1]`` f32, bit-identical to
-    :func:`ops.topk_select.exact_threshold` (its plain version). No cap on
-    ``n``."""
+    :func:`ops.topk_select.exact_threshold` (its plain version). On the
+    card, a radix select in three digit passes (the algorithm of
+    :func:`ops.topk_select.radix_threshold`). No cap on ``n``; at most
+    THRESHOLD_MAX_ROWS rows."""
     from .topk_select import exact_threshold
 
     if av.dim() != 2:
@@ -283,12 +291,21 @@ def threshold_topk(av: torch.Tensor, k: int) -> torch.Tensor:
     if av.device.type == "cpu":
         return exact_threshold(av, k)
     dev = _require_cuda("threshold_topk", [av])
-    counts = torch.empty((c, SEARCH_ITERS), dtype=torch.int32, device=dev)
+    if c > THRESHOLD_MAX_ROWS:
+        raise ValueError(f"threshold_topk: {c} rows, at most "
+                         f"{THRESHOLD_MAX_ROWS} (the grid's y)")
+    lib = _lib("threshold")
+    # per row: three histograms, their tickets, the digit state
+    scratch = torch.zeros((c, lib.nidt_threshold_scratch()),
+                          dtype=torch.int64, device=dev)
     out = torch.empty((c, 1), dtype=torch.float32, device=dev)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    blocks = max(1, min(-(-n // 2048), 8 * sms))
-    rc = _lib("threshold").nidt_threshold(
-        av.data_ptr(), c, n, int(k), counts.data_ptr(), out.data_ptr(),
+    # blocks per row: one per 8192 elements (four steps per thread, the
+    # kernel's preload, so zeroing and flushing a block's 2048-bin histogram
+    # stay a small share of its work), at most four per SM over all rows
+    blocks = max(1, min(-(-n // 8192), 4 * sms // c))
+    rc = lib.nidt_threshold(
+        av.data_ptr(), c, n, int(k), scratch.data_ptr(), out.data_ptr(),
         blocks, _stream(dev))
     _check("threshold", rc)
     LAUNCHES["threshold"] += 1
@@ -355,13 +372,24 @@ def fused_mask_apply(tree: Dict[str, torch.Tensor],
 
 # -- weighted sum -------------------------------------------------------------
 
+def weighted_sum_vector_leaf(x: torch.Tensor) -> bool:
+    """Whether a contiguous ``[C, ...]`` leaf takes the weighted-sum kernel's
+    16-byte path: its base on a 16-byte boundary and ``n % 4 == 0`` for its
+    per-client size ``n``, so that every client row is aligned too. Any
+    other leaf (an odd size, an offset view) takes the scalar path of the
+    same launch."""
+    return x.data_ptr() % 16 == 0 and x[0].numel() % 4 == 0
+
+
 def fused_weighted_sum(stacked: Dict[str, torch.Tensor],
                        weights: torch.Tensor) -> Dict[str, torch.Tensor]:
     """``sum_c w[c] * x[c]`` over the leading client axis of every leaf, in
     static client order with one rounding per multiply and per add; its
     plain version is :func:`core.state.weighted_tree_sum`. Every f32 and
     bf16 aggregate contracts through it: the dense one over the parameter
-    tree, the bucketed wires over one ``[C, nb, b]`` bucket tensor."""
+    tree, the bucketed wires over one ``[C, nb, b]`` bucket tensor. On the
+    card each leaf takes the kernel's 16-byte or scalar path
+    (:func:`weighted_sum_vector_leaf`), one launch per 32 leaves."""
     names = list(stacked)
     xs = [stacked[k] for k in names]
     c = xs[0].shape[0]
@@ -373,11 +401,13 @@ def fused_weighted_sum(stacked: Dict[str, torch.Tensor],
     dev = _require_cuda("fused_weighted_sum", xs + [weights])
     outs = [torch.empty(x.shape[1:], dtype=torch.float32, device=dev)
             for x in xs]
+    vec = [weighted_sum_vector_leaf(x) for x in xs]
     fn = _lib("weighted_sum").nidt_weighted_sum
     for s in range(0, len(xs), MAX_LEAVES):
         sl = slice(s, s + MAX_LEAVES)
+        flags = (ctypes.c_int * len(vec[sl]))(*vec[sl])
         rc = fn(len(xs[sl]), _ptrs(xs[sl]), _ptrs(outs[sl]), _sizes(outs[sl]),
-                weights.data_ptr(), c, _stream(dev))
+                flags, weights.data_ptr(), c, _stream(dev))
         _check("weighted_sum", rc)
         LAUNCHES["weighted_sum"] += 1
     return dict(zip(names, outs))

@@ -6,7 +6,9 @@ the k-th largest value of a row is the largest bit pattern ``b`` with
 ``count(bits >= b) >= k``. Thirty-one count passes binary-search that ``b``
 over ``[0, 0x7F800001)``; the result is a unique integer, the same float
 ``torch.topk(x, k).values[..., -1]`` gives, so ``x >= thr`` keeps every
-value tying the threshold.
+value tying the threshold. The CUDA kernel reaches the same integer by a
+radix select over the clamped bit pattern in three digit passes
+(:func:`radix_threshold` spells its algorithm in plain PyTorch).
 """
 from __future__ import annotations
 
@@ -32,6 +34,49 @@ def exact_threshold(av: torch.Tensor, k: int) -> torch.Tensor:
         ok = (bits >= mid).sum(dim=-1, keepdim=True) >= k
         lo, hi = torch.where(ok, mid, lo), torch.where(ok, hi, mid)
     return lo.view(torch.float32)
+
+
+#: the widths of the radix select's digits over the 31 key bits, top first
+#: (``csrc/threshold.cu``: one pass each)
+RADIX_DIGITS = (11, 10, 10)
+#: the +inf bit pattern: keys are bit patterns clamped to [0, KEY_MAX]
+KEY_MAX = 0x7F800000
+
+
+def radix_threshold(av: torch.Tensor, k: int) -> torch.Tensor:
+    """The CUDA threshold kernel's algorithm in plain PyTorch, on no path:
+    the same value as :func:`exact_threshold`, by a radix select.
+
+    The key of an element is its bit pattern clamped to ``[0, KEY_MAX]``
+    (negative patterns count as 0, NaN as +inf, as the plain search's
+    ``count(bits >= mid)`` treats them). Per digit, top first: a histogram
+    of the digit over the elements whose higher digits equal the prefix
+    chosen so far, then, from the top bin down, the bin where the running
+    count reaches ``k_remaining``; the prefix takes that bin and
+    ``k_remaining`` drops by the count above it. The final prefix is the
+    k-th largest key."""
+    n = av.shape[-1]
+    lead = av.shape[:-1]
+    key = av.to(torch.float32).contiguous().view(torch.int32).reshape(-1, n)
+    key = key.clamp(0, KEY_MAX).to(torch.int64)
+    rows = key.shape[0]
+    prefix = torch.zeros((rows, 1), dtype=torch.int64, device=av.device)
+    k_rem = torch.full((rows, 1), int(k), dtype=torch.int64, device=av.device)
+    row_id = torch.arange(rows, device=av.device)[:, None].expand_as(key)
+    low = 31
+    for width in RADIX_DIGITS:
+        low -= width
+        bins = 1 << width
+        hit = (key >> (low + width)) == prefix
+        digit = (key >> low) & (bins - 1)
+        hist = torch.bincount((row_id * bins + digit)[hit],
+                              minlength=rows * bins).reshape(rows, bins)
+        at_or_above = hist.flip(-1).cumsum(-1).flip(-1)
+        chosen = (at_or_above >= k_rem).sum(-1, keepdim=True) - 1
+        above = at_or_above.gather(-1, chosen) - hist.gather(-1, chosen)
+        prefix = (prefix << width) | chosen
+        k_rem = k_rem - above
+    return prefix.to(torch.int32).view(torch.float32).reshape(lead + (1,))
 
 
 def sampled_threshold(av: torch.Tensor, k: int, sample: int) -> torch.Tensor:

@@ -91,6 +91,64 @@ def test_cuda_aggregation_kernels_match_plain():
 
 
 @pytest.mark.cuda
+def test_cuda_threshold_edge_cases_match_plain():
+    """The radix select bit for bit against the plain search and its own
+    plain spelling: +inf, NaN and -0.0 in a row (NaN counts as +inf), k = 1
+    and k = n, all-zero and few-valued rows, n not a multiple of 4, and a
+    contiguous [C, n] view whose base is off a 16-byte boundary."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(4)
+    n = 100_003
+    row = torch.rand((1, n), generator=g, device=dev)
+    r = torch.rand((1, n), generator=g, device=dev)
+    special = torch.where(r < 0.02, float("inf"), row)
+    special = torch.where((r >= 0.02) & (r < 0.04), float("nan"), special)
+    special = torch.where((r >= 0.04) & (r < 0.2), -0.0, special)
+    few = torch.randint(0, 3, (2, n), generator=g, device=dev).float() / 3
+    c, m = 8, 50_001
+    big = torch.rand(c * m + 1, generator=g, device=dev)
+    offset = big[1:].view(c, m)
+    assert offset.data_ptr() % 16 == 4
+    cases = [(special, 1), (special, 29), (special, n // 2), (special, n),
+             (row, 1), (row, n), (torch.zeros((3, n), device=dev), 7),
+             (few, n // 3), (offset, 1), (offset, m // 10), (offset, m)]
+    for av, k in cases:
+        kernels.reset_launches()
+        got = kernels.threshold_topk(av, k).view(torch.int32)
+        assert kernels.LAUNCHES["threshold"] == 1
+        assert torch.equal(got, tts.exact_threshold(av, k).view(torch.int32))
+        assert torch.equal(got, tts.radix_threshold(av, k).view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [1, 3, 8, 16, 20])
+def test_cuda_weighted_sum_edge_leaves_match_plain(c):
+    """Both paths of the weighted sum in one launch, bit for bit: aligned
+    leaves (16-byte path), n % 4 != 0, an offset base, tiny leaves; 20
+    clients run as two chunks, the second resuming from the first's sums."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(5 + c)
+    big = torch.randn(c * 3000 + 4, generator=g, device=dev)
+    xs = {"aligned": torch.randn((c, 64, 4, 4), generator=g, device=dev),
+          "odd": torch.randn((c, 1001), generator=g, device=dev),
+          "offset": big[1:1 + c * 3000].view(c, 3000),
+          "offset16": big[4:4 + c * 3000].view(c, 3000),
+          "tiny": torch.randn((c, 3), generator=g, device=dev),
+          "one": torch.randn((c,), generator=g, device=dev)}
+    want_vec = {"aligned": True, "odd": False, "offset": False,
+                "offset16": True, "tiny": False, "one": False}
+    assert {k: kernels.weighted_sum_vector_leaf(v) for k, v in xs.items()} \
+        == want_vec
+    w = torch.rand(c, generator=g, device=dev)
+    w = w / w.sum()
+    kernels.reset_launches()
+    got = kernels.fused_weighted_sum(xs, w)
+    assert kernels.LAUNCHES["weighted_sum"] == 1
+    for k, x in xs.items():
+        assert torch.equal(got[k], weighted_sum(x, w)), k
+
+
+@pytest.mark.cuda
 def test_cuda_aggregate_ignores_tf32():
     """The f32 wires contract without a matmul, so TF32 cannot touch them:
     the card's aggregate equals the CPU's bit for bit with TF32 on."""

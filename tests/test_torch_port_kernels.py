@@ -12,6 +12,11 @@ import pytest
 
 import jax.numpy as jnp
 
+try:
+    from hypothesis import given, settings, strategies as st
+except ImportError:  # the repo's deterministic stand-in
+    from _hypothesis_fallback import given, settings, strategies as st
+
 torch = pytest.importorskip("torch")
 
 from neuroimagedisttraining_tpu.ops import pallas_kernels as pk  # noqa: E402
@@ -129,6 +134,74 @@ def test_threshold_plain_bitwise_vs_pallas(case):
     _bitwise(tt.numpy(), ref)
 
 
+def _threshold_edge_rows():
+    """The radix select's edge cases: non-finite and signed-zero patterns
+    (NaN counts as +inf, -0.0 as 0), n not a multiple of 4, rows whose
+    starts fall off a 16-byte boundary in the flat buffer."""
+    rng = np.random.RandomState(6)
+    odd = np.abs(rng.randn(1, 1001)).astype(np.float32)
+    odd[0, rng.rand(1001) < 0.05] = np.inf
+    odd[0, rng.rand(1001) < 0.05] = np.nan
+    odd[0, rng.rand(1001) < 0.2] = -0.0
+    nan_top = odd.copy()
+    nan_top[0, :40] = np.nan
+    return {
+        "inf_nan_negzero": (odd, 500),
+        "inf_nan_negzero_k_small": (odd, 3),
+        "nan_ties_inf": (nan_top, 60),
+        "inf_nan_negzero_k_n": (odd, 1001),
+        "odd_n": (np.abs(rng.randn(1, 4099)).astype(np.float32), 100),
+        "ragged_rows": (np.abs(rng.randn(3, 1003)).astype(np.float32), 1003 // 2),
+        "one": (np.array([[0.5]], np.float32), 1),
+        "bit_edges": (np.array([[1e-45, 1.17549435e-38, 3.4028235e38, 0.0,
+                                 np.inf, 2.0, 1.9999999, 1e-45]], np.float32),
+                      5),
+    }
+
+
+@pytest.mark.parametrize("case", list(_threshold_rows()) +
+                         list(_threshold_edge_rows()))
+def test_radix_threshold_bitwise_vs_exact_and_pallas(case):
+    """The kernel's algorithm (``radix_threshold``) against the plain search
+    and the Pallas kernel (interpret mode), bit for bit."""
+    rows = {**_threshold_rows(), **_threshold_edge_rows()}
+    av, k = rows[case]
+    got = tts.radix_threshold(torch.from_numpy(av), k)
+    _bitwise(got.numpy(), tts.exact_threshold(torch.from_numpy(av), k))
+    _bitwise(got.numpy(), pk.threshold_topk(jnp.asarray(av), k))
+    _bitwise(got.numpy(), jts.exact_threshold(jnp.asarray(av), k))
+
+
+def test_radix_threshold_row_beyond_vmem_cap():
+    """A row longer than the Pallas kernel's THRESHOLD_MAX_N (the reference
+    takes its XLA search there), with n not a multiple of 4."""
+    n = pk.THRESHOLD_MAX_N + 4099
+    rng = np.random.RandomState(12)
+    av = np.abs(rng.randn(1, n)).astype(np.float32)
+    av[0, rng.rand(n) < 0.3] = 0.0
+    for k in (1, n // 3, n):
+        got = tts.radix_threshold(torch.from_numpy(av), k)
+        _bitwise(got.numpy(), jts.select_threshold(jnp.asarray(av), k,
+                                                   kernels="pallas"))
+        _bitwise(got.numpy(), tts.exact_threshold(torch.from_numpy(av), k))
+
+
+@settings(max_examples=60, deadline=None)
+@given(seed=st.integers(0, 2 ** 31 - 1))
+def test_radix_threshold_tie_heavy_rows(seed):
+    """Few distinct values, many zeros, k anywhere in [1, n]: the radix
+    select equals the plain search and the sort spelling."""
+    rng = np.random.RandomState(seed)
+    c, n = rng.randint(1, 4), rng.randint(1, 3000)
+    values = np.abs(rng.randn(rng.randint(1, 6))).astype(np.float32)
+    av = values[rng.randint(0, values.size, (c, n))]
+    av[rng.rand(c, n) < rng.rand()] = 0.0
+    k = rng.randint(1, n + 1)
+    got = tts.radix_threshold(torch.from_numpy(av), k)
+    _bitwise(got.numpy(), tts.exact_threshold(torch.from_numpy(av), k))
+    _bitwise(got.numpy(), -np.sort(-av, axis=-1)[:, k - 1:k])
+
+
 def test_threshold_full_row_beyond_vmem_cap_vs_exact_threshold():
     """A row longer than the Pallas kernel's THRESHOLD_MAX_N: the reference
     routes it to its XLA search; the port's search has no cap."""
@@ -242,7 +315,7 @@ def test_quantize_reduce_takes_any_bucket_size():
     assert bool(torch.all(got[0] == 0))
 
 
-@pytest.mark.parametrize("c", [1, 3, 8])
+@pytest.mark.parametrize("c", [1, 3, 8, 16])
 def test_weighted_sum_plain_vs_pallas(c):
     rng = np.random.RandomState(c)
     shapes = {"k": (3, 3, 3, 4, 8), "b": (8,), "d": (130, 7)}
@@ -257,6 +330,20 @@ def test_weighted_sum_plain_vs_pallas(c):
         ref = np.asarray(want[k])
         np.testing.assert_allclose(got[k].numpy(), ref, rtol=1e-6,
                                    atol=1e-6 * float(np.abs(ref).max()))
+
+
+def test_weighted_sum_vector_leaf_decision():
+    """The kernel's 16-byte path takes a leaf whose base is 16-byte aligned
+    and whose per-client size is a multiple of 4; an odd size or an offset
+    view takes the scalar path."""
+    big = torch.zeros(8 * 1000 + 8)
+    assert big.data_ptr() % 16 == 0
+    assert kernels.weighted_sum_vector_leaf(big[:8000].view(8, 1000))
+    assert kernels.weighted_sum_vector_leaf(big[:8 * 12].view(8, 3, 4))
+    assert not kernels.weighted_sum_vector_leaf(big[:7 * 999].view(7, 999))
+    assert not kernels.weighted_sum_vector_leaf(big[1:8001].view(8, 1000))
+    assert kernels.weighted_sum_vector_leaf(big[4:8004].view(8, 1000))
+    assert not kernels.weighted_sum_vector_leaf(big[:8].view(8))
 
 
 def test_wrappers_reject_mismatched_inputs():
