@@ -24,8 +24,11 @@ Phases, each printing one JSON line:
    on its edge cases at full width (+inf, NaN and -0.0 in the row, k = 1,
    k = n, all zeros, ties, a [8, n_group] view off a 16-byte boundary),
    and the weighted sum on edge leaves (n odd, bases 4 and 16 bytes off)
-   for 1, 3, 8 and 16 clients. A ``bound_share`` line follows: each
-   kernel's bound over its measured time.
+   for 1, 3, 8 and 16 clients. The stem forward's record also holds its
+   persistent launch (grid, tiles, threads, shared memory, registers) and
+   a second launch on the same inputs, bitwise equal to the first. A
+   ``bound_share`` line follows: each kernel's bound over its measured
+   time.
 3. parity  — a narrow model, one SalientGrads round on the CPU (plain
    versions) and on the GPU (kernels, the stem's included) from the same
    parameters, mask, batch order and int8 uniforms, for the dense, bf16,
@@ -39,9 +42,11 @@ Phases, each printing one JSON line:
    are zeroed just before and read just after.
 5. wires   — the same configuration: SalientGrads, SNIP once, then 2 rounds
    on each aggregation wire (dense, bucketed, bf16, int8, sparse, topk,
-   hier), each from a copy of the same state and generator seed; then
-   FedAvg, 2 rounds each on dense, int8 and topk from one init, and the
-   final fine-tune. Counters are zeroed before each and read after; every
+   hier), each from ``clone_state`` of the same state; then FedAvg, 2
+   rounds each on dense, int8 and topk from one init, and the final
+   fine-tune. First it times a round's out-of-place personal update (the
+   full-width stack) against the in-place row write it replaced. Counters
+   are zeroed before each and read after; every
    aggregate is timed (CUDA events) and, for dense, bucketed, sparse and
    hier, held against the plain dense aggregate of the same locals bit for
    bit.
@@ -58,6 +63,7 @@ without CUDA it exits 2 before printing a result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import statistics
@@ -451,6 +457,18 @@ def _zs_agreement(name, zs, want, scale):
     return res
 
 
+def _ptxas_registers(log: str, kernel: str):
+    """The registers per thread that ptxas reported for the entry function
+    whose name holds ``kernel`` (from ``nvcc -Xptxas -v``), or None."""
+    lines = log.splitlines()
+    for i, ln in enumerate(lines):
+        if "Compiling entry function" in ln and kernel in ln:
+            for nxt in lines[i + 1:i + 6]:
+                if "Used" in nxt and "registers" in nxt:
+                    return int(nxt.split("Used")[1].split("registers")[0])
+    return None
+
+
 def check_stem_kernels(dev, g, model):
     """The stem kernels at the main path's shapes: a batch of 8 phased
     121x145x121 bf16 volumes (standard normal plus the label shift of
@@ -509,6 +527,12 @@ def check_stem_kernels(dev, g, model):
     s2_rel = float(((s2.double() - p2.double()).abs() / p2.double()).max())
     if s1_rel > 1e-5 or s2_rel > 1e-5:
         raise AssertionError(f"stem_fwd sums: s1 {s1_rel}, s2 {s2_rel}")
+    # a second launch on the same inputs: the same bits (one writer per
+    # output, fixed-order statistics)
+    again = kernels.stem_fwd(x, w, bias)
+    _bitwise_or_raise("stem_fwd repeat launch", list(again),
+                      [zs, pooled, s1, s2])
+    del again
     b, d, h, wd, _ = zs.shape
     macs = b * d * h * wd * f * 216
     nbytes = 2.0 * (x.numel() + zs.numel() + pooled.numel() + w.numel() + f) \
@@ -521,6 +545,10 @@ def check_stem_kernels(dev, g, model):
                            reps=10),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         zs_agreement=agree, s1_rel_err_over_terms=s1_rel, s2_rel_err=s2_rel,
+        repeat_launch_bitwise=True,
+        launch=dict(kernels.stem_fwd_config(b, d + 2, h + 2, wd + 2, f),
+                    registers=_ptxas_registers(kernels.BUILD_LOG.get(
+                        "stem_fwd", ""), "stem_fwd_mma_kernel")),
         bound_at_cuda_core_ms=2.0 * macs / CUDA_CORE_OPS_PER_S * 1e3,
         shape=f"x {list(x.shape)} bf16, F={f}, {macs} multiply-adds")
 
@@ -1017,7 +1045,7 @@ def wires_path(dev):
     """The main configuration's cohort, at full width.
 
     * SalientGrads: SNIP once, then WIRE_ROUNDS rounds per ``agg_impl``,
-      each from a copy of the same state and generator seed.
+      each from ``clone_state`` of the same state (generator included).
     * FedAvg (the dense twin, every weight trained, a personal stack of the
       last locals): WIRE_ROUNDS rounds on "dense", "int8" and "topk" (top-k
       over the whole flat model: no plan), each from the same init, then
@@ -1026,14 +1054,11 @@ def wires_path(dev):
     Returns the launches per path."""
     import torch
 
-    from neuroimagedisttraining_torch.algorithms import (
-        FedAvg,
-        SalientGrads,
-        SalientGradsState,
-    )
+    from neuroimagedisttraining_torch.algorithms import FedAvg, SalientGrads
     from neuroimagedisttraining_torch.core.state import (
         HyperParams,
         clone_tree,
+        tree_scatter_update,
         zeros_like_tree,
     )
     from neuroimagedisttraining_torch.data import device_synthetic_federated
@@ -1057,12 +1082,28 @@ def wires_path(dev):
     state0 = SalientGrads(model, data, hp, **sg_kw).init_state()
     sgd = WIRE_ROUNDS * N_CLIENTS * STEPS
     out = {}
+    # the out-of-place personal update of a round (run_round leaves its
+    # input state as it was) against the in-place row write it replaced, on
+    # the full-width [C, ...] stack
+    idx = torch.arange(N_CLIENTS, device=dev)
+    rows = clone_tree(state0.personal_params)
+    copy_ms = device_ms(lambda: tree_scatter_update(
+        state0.personal_params, idx, rows))
+    inplace = clone_tree(state0.personal_params)
+
+    def write_rows():
+        for k in inplace:
+            inplace[k][idx] = rows[k]
+
+    emit({"phase": "wires", "step": "personal_update",
+          "out_of_place_ms": copy_ms, "in_place_ms": device_ms(write_rows),
+          "bytes": sum(v.numel() * v.element_size()
+                       for v in rows.values())})
+    del rows, inplace
     for impl in WIRES:
         algo = SalientGrads(model, data, hp, agg_impl=impl, **sg_kw)
-        state = SalientGradsState(
-            global_params=clone_tree(state0.global_params), mask=state0.mask,
-            personal_params=clone_tree(state0.personal_params),
-            generator=torch.Generator(device=dev).manual_seed(7),
+        state = dataclasses.replace(
+            algo.clone_state(state0),
             agg_residual=(zeros_like_tree(state0.personal_params)
                           if impl == "topk" else None))
         algo._ensure_agg_plan(state)

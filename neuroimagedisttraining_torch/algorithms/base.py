@@ -11,6 +11,7 @@ routed by ``agg_impl`` through the aggregation wires
 from __future__ import annotations
 
 import abc
+import dataclasses
 import logging
 import time
 from typing import Any, Dict, List, Optional
@@ -22,6 +23,7 @@ from .. import resolve_device
 from ..core.state import (
     HyperParams,
     Tree,
+    clone_generator,
     clone_tree,
     tree_index,
     tree_scatter_update,
@@ -154,6 +156,25 @@ class FedAlgorithm(abc.ABC):
         run seed by default)."""
         return torch.Generator(device=self.device).manual_seed(
             self.seed if seed is None else seed)
+
+    def clone_state(self, state: Any) -> Any:
+        """A deep copy of ``state`` on its device: every tensor (and tree of
+        tensors) cloned, the generator copied into a fresh one in the same
+        state. :meth:`run_round` leaves its input state as it was, so this
+        is for a caller that runs several rounds or cells from one state
+        (the reference's ``clone_state`` borrow API)."""
+        def copy(v):
+            if isinstance(v, torch.Generator):
+                return clone_generator(v)
+            if isinstance(v, torch.Tensor):
+                return v.clone()
+            if isinstance(v, dict):
+                return clone_tree(v)
+            return v
+
+        return dataclasses.replace(state, **{
+            f.name: copy(getattr(state, f.name))
+            for f in dataclasses.fields(state)})
 
     # -- shared helpers --------------------------------------------------------
     def _selected_client_indexes(self, round_idx: int) -> np.ndarray:

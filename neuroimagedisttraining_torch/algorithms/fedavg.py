@@ -20,7 +20,14 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from ..core.state import Tree, broadcast_tree, clone_tree, zeros_like_tree
+from ..core.state import (
+    Tree,
+    broadcast_tree,
+    clone_generator,
+    clone_tree,
+    tree_scatter_update,
+    zeros_like_tree,
+)
 from ..core.trainer import make_client_update
 from ..models import init_params
 from .base import FedAlgorithm
@@ -82,34 +89,38 @@ class FedAvg(FedAlgorithm):
 
     def run_round(self, state: FedAvgState, round_idx: int, *, perms=None,
                   dropout=None, agg_uniforms=None):
-        """One round. ``perms`` / ``dropout`` (per selected client) replace
-        the drawn epoch permutations / dropout masks, ``agg_uniforms`` the
-        int8 wire's draw."""
+        """One round, a pure function of ``state``: the input state is left
+        as it was (its generator too; the round draws from a copy, which the
+        new state carries). ``perms`` / ``dropout`` (per selected client)
+        replace the drawn epoch permutations / dropout masks,
+        ``agg_uniforms`` the int8 wire's draw."""
         sel = self._selected_client_indexes(round_idx)
+        g = clone_generator(state.generator)
         new_global, locals_, mean_loss, residual = \
             self._train_selected_weighted(
                 self.client_update, state.global_params,
-                self._ones_mask(state.global_params), sel, round_idx,
-                state.generator, perms=perms, dropout=dropout,
-                residual=state.agg_residual, agg_uniforms=agg_uniforms)
+                self._ones_mask(state.global_params), sel, round_idx, g,
+                perms=perms, dropout=dropout, residual=state.agg_residual,
+                agg_uniforms=agg_uniforms)
         personal = state.personal_params
         if personal is not None:
             idx = torch.as_tensor(sel, dtype=torch.int64, device=self.device)
-            for k in personal:
-                personal[k][idx] = locals_[k]
+            personal = tree_scatter_update(personal, idx, locals_)
         new_state = dataclasses.replace(state, global_params=new_global,
                                         personal_params=personal,
-                                        agg_residual=residual)
+                                        generator=g, agg_residual=residual)
         return new_state, {"train_loss": mean_loss}
 
     def finalize(self, state: FedAvgState, *, perms=None, dropout=None):
         """Every client fine-tunes once from the final global model at
         ``round_idx = -1``; those become the personal models, and both are
         evaluated. ``perms`` / ``dropout`` (per client) replace the draws.
-        Without personal tracking there is nothing to produce."""
+        Like a round, it leaves its input state as it was. Without personal
+        tracking there is nothing to produce."""
         if not self.track_personal:
             return state, None
         d = self.data
+        g = clone_generator(state.generator)
         ones = self._ones_mask(state.global_params)
         rows = []
         for c in range(self.num_clients):
@@ -118,11 +129,12 @@ class FedAvg(FedAlgorithm):
                 d.y_train[c], self._n_train[c], -1,
                 perms=None if perms is None else perms[c],
                 dropout=None if dropout is None else dropout[c],
-                generator=state.generator)
+                generator=g)
             rows.append(params)
         personal = {k: torch.stack([r[k] for r in rows])
                     for k in state.global_params}
-        state = dataclasses.replace(state, personal_params=personal)
+        state = dataclasses.replace(state, personal_params=personal,
+                                    generator=g)
         ev = self.evaluate(state)
         return state, {"round": -1, "finetune": True,
                        **{k: v for k, v in ev.items()

@@ -22,7 +22,13 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from ..core.state import Tree, broadcast_tree, zeros_like_tree
+from ..core.state import (
+    Tree,
+    broadcast_tree,
+    clone_generator,
+    tree_scatter_update,
+    zeros_like_tree,
+)
 from ..core.trainer import make_client_update
 from ..models import init_params
 from ..ops import kernels
@@ -111,28 +117,29 @@ class SalientGrads(FedAlgorithm):
 
     def run_round(self, state: SalientGradsState, round_idx: int, *,
                   perms=None, dropout=None, agg_uniforms=None):
-        """One round. ``perms`` / ``dropout`` (per selected client) replace
-        the drawn epoch permutations / dropout masks, ``agg_uniforms`` the
-        int8 wire's draw."""
+        """One round, a pure function of ``state``: the input state is left
+        as it was (its generator too; the round draws from a copy, which the
+        new state carries). ``perms`` / ``dropout`` (per selected client)
+        replace the drawn epoch permutations / dropout masks,
+        ``agg_uniforms`` the int8 wire's draw."""
         self._ensure_agg_plan(state)
         sel = self._selected_client_indexes(round_idx)
+        g = clone_generator(state.generator)
         new_global, locals_, mean_loss, residual = \
             self._train_selected_weighted(
                 self.client_update, state.global_params, state.mask, sel,
-                round_idx, state.generator, perms=perms, dropout=dropout,
+                round_idx, g, perms=perms, dropout=dropout,
                 residual=state.agg_residual, agg_uniforms=agg_uniforms)
         if self.agg_impl == "topk":
             # the delta update leaves round 0's dense init on dead
             # coordinates: re-mask so the global model keeps the SNIP
             # sparsity (p * m, bit-equal to the reference's either backend)
             new_global = kernels.fused_mask_apply(new_global, state.mask)
-        personal = state.personal_params
         idx = torch.as_tensor(sel, dtype=torch.int64, device=self.device)
-        for k in personal:
-            personal[k][idx] = locals_[k]
+        personal = tree_scatter_update(state.personal_params, idx, locals_)
         new_state = dataclasses.replace(state, global_params=new_global,
                                         personal_params=personal,
-                                        agg_residual=residual)
+                                        generator=g, agg_residual=residual)
         return new_state, {"train_loss": mean_loss}
 
     def finalize(self, state: SalientGradsState):

@@ -41,6 +41,14 @@ def clone_tree(tree: Tree) -> Tree:
     return {k: v.clone() for k, v in tree.items()}
 
 
+def clone_generator(g: torch.Generator) -> torch.Generator:
+    """A fresh generator on ``g``'s device in ``g``'s exact state: drawing
+    from either leaves the other where it was."""
+    out = torch.Generator(device=g.device)
+    out.set_state(g.get_state())
+    return out
+
+
 def broadcast_tree(tree: Tree, n: int) -> Tree:
     """``n`` copies of ``tree`` along a new leading client axis."""
     return {k: v.unsqueeze(0).repeat((n,) + (1,) * v.dim())

@@ -161,6 +161,8 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         fn.argtypes = [vp] * 9 + [i32] * 8 + [vp]
         lib.nidt_stem_fwd_blocks.argtypes = [i32] * 5
         lib.nidt_stem_fwd_blocks.restype = ctypes.c_int
+        lib.nidt_stem_fwd_config.argtypes = [i32] * 5 + [ctypes.POINTER(i32)]
+        lib.nidt_stem_fwd_config.restype = ctypes.c_int
     else:
         fn = lib.nidt_stem_bwd
         fn.argtypes = [vp] * 6 + [i32] * 8 + [vp]
@@ -473,6 +475,27 @@ def _check_stem_channels(name: str, f: int) -> None:
                          f"multiple of 8 up to {STEM_MAX_F}")
 
 
+#: channel counts the bf16 stem forward runs on the tensor cores (others
+#: take its CUDA-core kernel)
+STEM_MMA_CHANNELS = (16, 32, 64)
+
+
+def stem_fwd_config(b: int, dp: int, hp: int, wp: int, f: int
+                    ) -> Dict[str, int]:
+    """The tensor-core stem forward's persistent launch at these shapes, on
+    the current CUDA device: ``grid`` blocks walk ``tiles`` tiles, each
+    block ``threads`` threads and ``smem`` bytes of dynamic shared memory,
+    ``blocks_per_sm`` resident on an SM."""
+    if f not in STEM_MMA_CHANNELS:
+        raise ValueError(f"stem_fwd_config: F = {f} is not on the tensor "
+                         f"cores {STEM_MMA_CHANNELS}")
+    out = (ctypes.c_int * 5)()
+    _check("stem_fwd", _lib("stem_fwd").nidt_stem_fwd_config(
+        b, dp, hp, wp, f, out))
+    return dict(zip(("grid", "tiles", "threads", "smem", "blocks_per_sm"),
+                    out))
+
+
 def stem_stats_dtype(dtype: torch.dtype) -> torch.dtype:
     """The type of the stem's statistics and of their cotangents: float32,
     or float64 for a float64 stage (the plain versions take any float type
@@ -541,6 +564,10 @@ def stem_fwd(x: torch.Tensor, w: torch.Tensor, bias=None, *,
     if _is_cpu(ts):
         return stem_fwd_plain(x, w, bias, pool=pool, stats=stats)
     dev = _require_cuda("stem_fwd", ts, STEM_DTYPES)
+    if (x.dtype == torch.bfloat16 and f in STEM_MMA_CHANNELS
+            and x.data_ptr() % 16):
+        raise ValueError("stem_fwd: the bf16 tensor-core path reads x by TMA "
+                         "and needs it on a 16-byte boundary")
     lib = _lib("stem_fwd")
     d, h, wd = dp - 2, hp - 2, wp - 2
     zs = torch.empty((b, d, h, wd, f), dtype=x.dtype, device=dev)

@@ -236,17 +236,52 @@ def test_cuda_fedavg_round_and_finetune_match_cpu(impl):
         assert abs(float(rg[k]) - float(rc[k])) <= tol * abs(float(rc[k]))
 
 
+def _check_stem_fwd(x, w, bias):
+    """``kernels.stem_fwd`` on the card against its plain version: the conv
+    within one ulp of the working type or, where it cancels to near zero,
+    within 1e-5 of the sum of its terms' magnitudes (in f32, TF32 off,
+    within that everywhere); zs bitwise that conv plus the bias, rounded in
+    the working type; pooled bitwise the max-pool of the kernel's own zs;
+    the sums within 1e-5 of the sums of the kernel's zs. Returns the
+    kernel's (zs, pooled, s1, s2)."""
+    kernels.reset_launches()
+    zs, pooled, s1, s2 = kernels.stem_fwd(x, w, bias)
+    assert kernels.LAUNCHES["stem_fwd"] == 1
+    conv, _, _, _ = kernels.stem_fwd(x, w, None, pool=False, stats=False)
+    want, _, _, _ = kernels.stem_fwd_plain(x, w, None, pool=False,
+                                           stats=False)
+    terms, _, _, _ = kernels.stem_fwd_plain(
+        x.abs(), w.abs(), None, pool=False, stats=False)
+    near = (conv.float() - want.float()).abs() <= 1e-5 * terms.float()
+    if x.dtype == torch.float32:
+        assert bool(near.all())
+    # the conv within one ulp, but where it cancels to near zero; the bias
+    # added to the rounded conv in the working type
+    assert bool(((kernels.ulp_distance(conv, want) <= 1) | near).all())
+    assert torch.equal(zs, conv + bias)
+    ncdhw = zs.permute(0, 4, 1, 2, 3)
+    assert torch.equal(pooled, torch.nn.functional.max_pool3d(
+        ncdhw, 3, 3).permute(0, 2, 3, 4, 1))
+    p1, p2 = kernels.stem_stats_plain(zs)
+    mag = zs.double().abs().sum((1, 2, 3))
+    assert bool(((s1.double() - p1.double()).abs() <= 1e-5 * mag).all())
+    assert bool(((s2 - p2).abs() <= 1e-5 * p2.abs()).all())
+    return zs, pooled, s1, s2
+
+
+def _stem_inputs(g, dev, shape, f, dt):
+    x = (torch.randn(shape, generator=g, device=dev) + 0.5).to(dt)
+    w = (0.2 * torch.randn((f, 8, 3, 3, 3), generator=g, device=dev)).to(dt)
+    bias = (0.1 * torch.randn(f, generator=g, device=dev)).to(dt)
+    return x, w, bias
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_cuda_stem_kernels_match_plain(dtype):
-    """The stem forward against its plain version (the conv within one ulp
-    of the working type or, where it cancels to near zero, within 1e-5 of
-    the sum of its terms' magnitudes; in f32 with TF32 off within that
-    everywhere; zs bitwise that conv plus the bias, rounded in the working
-    type; pooled bitwise the max-pool of the kernel's own zs; the
-    sums within 1e-5 of the sums of the kernel's zs), and the stem backward
-    bitwise under both tie rules, at narrow shapes with ragged windows and
-    more than one block of window columns."""
+    """The stem forward against its plain version (``_check_stem_fwd``),
+    and the stem backward bitwise under both tie rules, at narrow shapes
+    with ragged windows and more than one block of window columns."""
     dev = _card()
     dt = getattr(torch, dtype)
     g = torch.Generator(device=dev).manual_seed(3)
@@ -257,34 +292,8 @@ def test_cuda_stem_kernels_match_plain(dtype):
         # tensor cores; W' = 101 spans two w-tiles of either
         for shape, f in (((2, 11, 13, 8, 11), 8), ((2, 12, 14, 8, 13), 64),
                          ((1, 8, 9, 8, 101), 16), ((1, 7, 8, 8, 70), 48)):
-            x = (torch.randn(shape, generator=g, device=dev) + 0.5).to(dt)
-            w = (0.2 * torch.randn((f, 8, 3, 3, 3), generator=g,
-                                   device=dev)).to(dt)
-            bias = (0.1 * torch.randn(f, generator=g, device=dev)).to(dt)
-            kernels.reset_launches()
-            zs, pooled, s1, s2 = kernels.stem_fwd(x, w, bias)
-            assert kernels.LAUNCHES["stem_fwd"] == 1
-            conv, _, _, _ = kernels.stem_fwd(x, w, None, pool=False,
-                                             stats=False)
-            want, _, _, _ = kernels.stem_fwd_plain(x, w, None, pool=False,
-                                                   stats=False)
-            terms, _, _, _ = kernels.stem_fwd_plain(
-                x.abs(), w.abs(), None, pool=False, stats=False)
-            near = (conv.float() - want.float()).abs() <= 1e-5 * terms.float()
-            if dt == torch.float32:
-                assert bool(near.all())
-            # the conv within one ulp, but where it cancels to near zero;
-            # the bias added to the rounded conv in the working type
-            assert bool(((kernels.ulp_distance(conv, want) <= 1) | near).all())
-            assert torch.equal(zs, conv + bias)
-            ncdhw = zs.permute(0, 4, 1, 2, 3)
-            assert torch.equal(pooled, torch.nn.functional.max_pool3d(
-                ncdhw, 3, 3).permute(0, 2, 3, 4, 1))
-            p1, p2 = kernels.stem_stats_plain(zs)
-            mag = zs.double().abs().sum((1, 2, 3))
-            assert bool(((s1.double() - p1.double()).abs()
-                         <= 1e-5 * mag).all())
-            assert bool(((s2 - p2).abs() <= 1e-5 * p2.abs()).all())
+            x, w, bias = _stem_inputs(g, dev, shape, f, dt)
+            zs, pooled, s1, s2 = _check_stem_fwd(x, w, bias)
             # the backward on the kernel's own zs, real ties in bf16
             gp = torch.randn(pooled.shape, generator=g, device=dev).to(dt)
             g1 = torch.randn(s1.shape, generator=g, device=dev)
@@ -296,3 +305,78 @@ def test_cuda_stem_kernels_match_plain(dtype):
             assert kernels.LAUNCHES["stem_bwd"] == 2
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,f", [
+    ((8, 38, 38, 8, 40), 64),   # 1,152 tiles, more than the grid's blocks
+    ((2, 9, 10, 8, 140), 16),   # W' > 66: three w-tiles
+    ((2, 10, 8, 8, 70), 32),    # W' > 66: two w-tiles
+    ((3, 12, 14, 8, 13), 64),   # D = 10, H = 12: partial 3-row tiles
+    ((1, 8, 9, 8, 101), 64),    # B = 1
+    ((1, 5, 5, 8, 5), 64),      # one window, boxes larger than the volume
+])
+def test_cuda_stem_fwd_tensor_core_shapes(shape, f):
+    """The persistent tensor-core stem forward (bf16, F = 16, 32 or 64)
+    against its plain version (``_check_stem_fwd``) at shapes that take
+    every path of its tile loop, and a second launch on the same inputs
+    bitwise equal to the first (zs, pooled, s1, s2)."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(11)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        x, w, bias = _stem_inputs(g, dev, shape, f, torch.bfloat16)
+        first = _check_stem_fwd(x, w, bias)
+        again = kernels.stem_fwd(x, w, bias)
+        for a, b in zip(first, again):
+            assert torch.equal(a, b)
+        cfg = kernels.stem_fwd_config(shape[0], shape[1], shape[2],
+                                      shape[4], f)
+        # pool-aligned tiles of 3 d-planes x 3 h-rows x 63 w-columns
+        d, h, wd = shape[1] - 2, shape[2] - 2, shape[4] - 2
+        assert cfg["tiles"] == shape[0] * (-(-d // 3)) * (-(-h // 3)) * (
+            -(-wd // 63))
+        assert 1 <= cfg["grid"] <= cfg["tiles"]
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+
+
+@pytest.mark.cuda
+def test_cuda_round_leaves_its_input_state_unchanged():
+    """On the card, as ``tests/test_torch_port_state.py`` on the CPU: a
+    round leaves the state it is given bitwise as it was (its generator
+    too), and two rounds from ``clone_state`` copies agree bitwise."""
+    dev = _card()
+    from neuroimagedisttraining_torch.algorithms import SalientGrads
+    from neuroimagedisttraining_torch.core.state import HyperParams
+    from neuroimagedisttraining_torch.data import make_synthetic_federated
+    from neuroimagedisttraining_torch.models import create_model
+    from neuroimagedisttraining_torch.ops.s2d import phased_sample_shape
+
+    ss = phased_sample_shape((69, 69, 69))
+    data = make_synthetic_federated(seed=9, n_clients=3, samples_per_client=6,
+                                    test_per_client=5, sample_shape=ss,
+                                    uneven=True)
+    hp = HyperParams(lr=0.01, momentum=0.9, weight_decay=5e-4,
+                     local_epochs=1, steps_per_epoch=2, batch_size=4)
+    algo = SalientGrads(create_model("3dcnn_s2d", num_classes=1,
+                                     widths=(16, 16, 16, 16, 16),
+                                     dropout_rate=0.0, sample_shape=ss),
+                        data, hp, dense_ratio=0.5, agg_impl="topk",
+                        agg_bucket_size=4096, compute_dtype="bfloat16",
+                        device=dev)
+    state = algo.init_state()
+    keep = algo.clone_state(state)
+    gen = state.generator.get_state().clone()
+    new, _ = algo.run_round(state, 0)
+    for name in ("global_params", "mask", "personal_params", "agg_residual"):
+        a, b = getattr(state, name), getattr(keep, name)
+        assert all(torch.equal(a[k], b[k]) for k in b), name
+    assert torch.equal(state.generator.get_state(), gen)
+    a, ma = algo.run_round(algo.clone_state(state), 0)
+    b, mb = algo.run_round(algo.clone_state(state), 0)
+    assert torch.equal(ma["train_loss"], mb["train_loss"])
+    for name in ("global_params", "personal_params", "agg_residual"):
+        x, y = getattr(a, name), getattr(b, name)
+        assert all(torch.equal(x[k], y[k]) for k in x), name
