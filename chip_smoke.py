@@ -18,11 +18,15 @@ Phases, each printing one JSON line:
    that everywhere, TF32 off); ``zs`` bitwise that conv plus the bias in the
    working type; the pool bitwise the max-pool of its own ``zs``, the sums
    within 1e-5 of the sums of its own ``zs``. The stem backward is bitwise
-   under both tie rules. The four stem entry points (``ops/experimental``)
-   run once each at full width against their plain counterparts. The
-   threshold (a radix select in three digit passes) is also held bitwise
-   on its edge cases at full width (+inf, NaN and -0.0 in the row, k = 1,
-   k = n, all zeros, ties, a [8, n_group] view off a 16-byte boundary),
+   under both tie rules, with and without its fused bias gradient, which is
+   held within one bf16 ulp of the plain per-channel sum of ``dzs`` (or
+   1e-5 of its magnitude where it cancels) and timed against ``dzs.sum``;
+   its record also holds its persistent launch. The four stem entry points
+   (``ops/experimental``) run once each at full width against their plain
+   counterparts. The threshold (a radix select in three digit passes) is
+   also held bitwise on its edge cases at full width (+inf, NaN and -0.0 in
+   the row, k = 1, k = n, all zeros, ties, a [8, n_group] view off a
+   16-byte boundary),
    and the weighted sum on edge leaves (n odd, bases 4 and 16 bytes off)
    for 1, 3, 8 and 16 clients. The stem forward's record also holds its
    persistent launch (grid, tiles, threads, shared memory, registers) and
@@ -585,31 +589,55 @@ def check_stem_kernels(dev, g, model):
         max_abs_err=float((z32 - want32).abs().max()))
 
     # -- stem backward: both tie rules on the kernel's own bf16 zs ------------
+    # dzs bitwise; the fused bias gradient's dzs bitwise the same, its dbias
+    # within one bf16 ulp of the plain per-channel sum of dzs or, where that
+    # sum cancels, within 1e-5 of the channel's sum of magnitudes (another
+    # order of the sum); a second launch bitwise the first
     gp = torch.randn(pooled.shape, generator=g, device=dev).to(bf16)
     g1 = torch.randn(s1.shape, generator=g, device=dev)
     g2 = 1e-3 * torch.randn(s1.shape, generator=g, device=dev)
-    errs = []
+    args = (zs, pooled, gp, g1, g2)
+    errs, dbias_ulp, dbias_rel = [], 0, 0.0
     for ties in kernels.STEM_TIES:
-        errs.append(_bitwise_or_raise(
-            f"stem_bwd ({ties})",
-            [kernels.stem_bwd(zs, pooled, gp, g1, g2, ties=ties)],
-            [kernels.stem_bwd_plain(zs, pooled, gp, g1, g2, ties=ties)]))
+        want = kernels.stem_bwd_plain(*args, ties=ties)
+        got = kernels.stem_bwd(*args, ties=ties)
+        fused, dbias = kernels.stem_bwd(*args, ties=ties, bias_grad=True)
+        again, dbias2 = kernels.stem_bwd(*args, ties=ties, bias_grad=True)
+        errs.append(_bitwise_or_raise(f"stem_bwd ({ties})", [got], [want]))
+        _bitwise_or_raise(f"stem_bwd ({ties}) bias_grad dzs and repeat",
+                          [fused, again, dbias2], [got, got, dbias])
+        torch.cuda.synchronize()
+        ulp, rel = kernels.dbias_agreement(dbias, want)
+        if rel > 1e-5:
+            raise AssertionError(f"stem_bwd ({ties}): dbias {dbias.tolist()}"
+                                 f" against the plain sum of dzs")
+        dbias_ulp, dbias_rel = max(dbias_ulp, ulp), max(dbias_rel, rel)
+        del want, got, fused, again
     pd, ph, pw = pooled.shape[1:4]
     core = zs[:, :3 * pd, :3 * ph, :3 * pw].reshape(b, pd, 3, ph, 3, pw, 3, f)
     count = (core == pooled[:, :, None, :, None, :, None, :]).sum((2, 4, 6))
     nbytes = 2.0 * (2 * zs.numel() + 2 * pooled.numel()) + 8.0 * b * f
     b_ms, b_by = bound(nbytes, 4.0 * zs.numel())
+    dzs = kernels.stem_bwd(*args, ties="first")
     out["stem_bwd"] = dict(
         max_abs_err=max(errs),
-        ms=device_ms(lambda: kernels.stem_bwd(zs, pooled, gp, g1, g2,
-                                              ties="first")),
+        ms=device_ms(lambda: kernels.stem_bwd(*args, ties="first")),
         plain_ms=device_ms(lambda: kernels.stem_bwd_plain(
-            zs, pooled, gp, g1, g2, ties="first"), reps=10),
-        split_ms=device_ms(lambda: kernels.stem_bwd(zs, pooled, gp, g1, g2,
-                                                    ties="split")),
+            *args, ties="first"), reps=10),
+        split_ms=device_ms(lambda: kernels.stem_bwd(*args, ties="split")),
+        bias_grad_ms=device_ms(lambda: kernels.stem_bwd(
+            *args, ties="first", bias_grad=True)),
+        sum_ms=device_ms(lambda: dzs.sum(dim=(0, 1, 2, 3))),
+        dbias_max_ulp=dbias_ulp, dbias_err_over_magnitude=dbias_rel,
+        repeat_launch_bitwise=True,
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         tied_window_fraction=float((count > 1).float().mean()),
+        launch=dict(kernels.stem_bwd_config(b, d, h, wd, f, bf16),
+                    registers=_ptxas_registers(
+                        kernels.BUILD_LOG.get("stem_bwd", ""),
+                        "stem_bwd_kernelI13__nv_bfloat16Li64E")),
         shape=f"zs {list(zs.shape)} bf16")
+    del dzs
 
     # -- the four entry points, once each at full width -----------------------
     wt = w.permute(0, 2, 3, 4, 1).reshape(f, 216)   # k = ((dz*3+dy)*3+dx)*8+p

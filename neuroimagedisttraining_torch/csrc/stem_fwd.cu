@@ -96,6 +96,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "tma.cuh"
+
 namespace {
 
 constexpr int kFc = 8;          // channels per thread
@@ -383,31 +385,12 @@ constexpr int kBoxStride = 4096;             // kBoxBytes rounded up to 128
 constexpr int kStageBytes = 8 * kBoxStride;
 constexpr int kHaloBytes = 5 * 5 * kXCols * 8 * 2;
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred done;\n"
-      "WAIT_%=:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-      "@!done bra WAIT_%=;\n"
-      "}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
 // One thread: expect the eight boxes' bytes on bar, then issue them.
 __device__ __forceinline__ void fetch_halo(const CUtensorMap* xmap,
                                            uint32_t stage, uint32_t bar,
                                            int b, int d0, int h0, int wbase,
                                            int Wp) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar),
-               "r"(8 * kBoxBytes)
-               : "memory");
+  mbar_expect_tx(bar, 8 * kBoxBytes);
 #pragma unroll
   for (int p = 0; p < 8; ++p) {
     asm volatile(
@@ -443,17 +426,6 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(addr)
       : "memory");
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
 }
 
 // A barrier among the n threads (a multiple of 32) of one warp group.
@@ -516,7 +488,7 @@ __global__ void __launch_bounds__(512)
       mbar_init(bars + 8 + 8 * k, G);
       mbar_init(bars + 24 + 8 * k, G);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 
@@ -766,38 +738,6 @@ Plan plan(int Dp, int Hp, int Wp, bool mma) {
   return p;
 }
 
-// cuTensorMapEncodeTiled, looked up through the runtime (no -lcuda).
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
-                                  cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-cudaError_t encode_tiled(EncodeTiledFn* out) {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                              cudaEnableDefault, &q);
-#endif
-    if (err != cudaSuccess) {
-      return err;
-    }
-    if (q != cudaDriverEntryPointSuccess || p == nullptr) {
-      return cudaErrorSymbolNotFound;
-    }
-    fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  *out = fn;
-  return cudaSuccess;
-}
-
 // The persistent launch: tiles, dynamic shared memory, blocks per SM (what
 // the shared memory and registers allow) and the grid, min(tiles, that
 // times the SMs).
@@ -847,7 +787,6 @@ cudaError_t mma_config(int B, int Dp, int Hp, int Wp, int F, MmaConfig* c) {
 // The tensor map of x as the 4-D view (B, D', H', 8 W') in bf16, boxes of
 // kBoxW x 5 x 5 x 1, zeros out of bounds. Returns a cudaError_t, or
 // kTensorMapError + the CUresult when the encoding is refused.
-constexpr int kTensorMapError = 10000;
 
 int x_tensor_map(const void* x, int B, int Dp, int Hp, int Wp,
                  CUtensorMap* map) {

@@ -71,12 +71,12 @@ class StemStage(torch.autograd.Function):
     (f64 for a float64 stage) per-(sample, channel) sums of ``zs`` and
     ``zs^2``. Forward is :func:`ops.kernels.stem_fwd`; backward is
     :func:`ops.kernels.stem_bwd` with ``ties="first"`` (torch's max-pool
-    rule, so the gradient is the plain composition's), then the conv's
-    weight and input gradients (``torch.nn.grad``, cuDNN on the card) and
-    the bias gradient as ``dzs`` summed per channel. Only ``x``, ``ws``,
-    ``zs`` and ``pooled`` are kept for the backward. On the CPU both
-    kernels run their plain versions, so the same composition runs on every
-    device."""
+    rule, so the gradient is the plain composition's), which also returns
+    the bias gradient (``dzs`` summed per channel, in the same pass on the
+    card), then the conv's weight and input gradients (``torch.nn.grad``,
+    cuDNN on the card). Only ``x``, ``ws``, ``zs`` and ``pooled`` are kept
+    for the backward. On the CPU both kernels run their plain versions, so
+    the same composition runs on every device."""
 
     @staticmethod
     def forward(ctx, x, ws, bs):
@@ -89,20 +89,21 @@ class StemStage(torch.autograd.Function):
     def backward(ctx, g_pooled, g_s1, g_s2):
         x, ws, zs, pooled = ctx.saved_tensors
         gp = g_pooled.permute(0, 2, 3, 4, 1).to(zs.dtype).contiguous()
-        dzs = kernels.stem_bwd(zs, pooled, gp, g_s1.contiguous(),
-                               g_s2.contiguous(), ties="first")
+        want_db = ctx.needs_input_grad[2]
+        res = kernels.stem_bwd(zs, pooled, gp, g_s1.contiguous(),
+                               g_s2.contiguous(), ties="first",
+                               bias_grad=want_db)
+        dzs, dbs = res if want_db else (res, None)
         dz = dzs.permute(0, 4, 1, 2, 3)  # NCDHW view of channels-last
         # channels-last input too, so the conv backward takes dz as it is
         # (cuDNN's kernels are NDHWC) instead of copying it to NCDHW
         xin = phased_input(x).contiguous(memory_format=torch.channels_last_3d)
-        dx = dws = dbs = None
+        dx = dws = None
         if ctx.needs_input_grad[0]:
             dx = torch.nn.grad.conv3d_input(
                 xin.shape, ws, dz).permute(0, 2, 3, 1, 4)
         if ctx.needs_input_grad[1]:
             dws = torch.nn.grad.conv3d_weight(xin, ws.shape, dz)
-        if ctx.needs_input_grad[2]:
-            dbs = dzs.sum(dim=(0, 1, 2, 3))
         return dx, dws, dbs
 
 

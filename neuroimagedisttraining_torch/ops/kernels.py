@@ -20,7 +20,9 @@ One threshold "launch" is one search: the memset of its scratch
 ``csrc/threshold.cu``). One weighted-sum launch is one grid per 16 clients
 (one at the port's cohorts of 8). One ``stem_fwd`` launch is the weight
 layout pass, the fused conv/pool/statistics grid and, with statistics on,
-the fixed-order reduction of its partials (``csrc/stem_fwd.cu``).
+the fixed-order reduction of its partials (``csrc/stem_fwd.cu``); one
+``stem_bwd`` launch is its grid and, with the bias gradient, the
+fixed-order reduction of its partials (``csrc/stem_bwd.cu``).
 """
 from __future__ import annotations
 
@@ -54,7 +56,7 @@ SOURCES = {
     "stem_fwd": "stem_fwd.cu",
     "stem_bwd": "stem_bwd.cu",
 }
-_HEADERS = ("leaf_table.cuh",)
+_HEADERS = ("leaf_table.cuh", "tma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -165,7 +167,9 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         lib.nidt_stem_fwd_config.restype = ctypes.c_int
     else:
         fn = lib.nidt_stem_bwd
-        fn.argtypes = [vp] * 6 + [i32] * 8 + [vp]
+        fn.argtypes = [vp] * 8 + [i32] * 7 + [vp]
+        lib.nidt_stem_bwd_config.argtypes = [i32] * 6 + [ctypes.POINTER(i32)]
+        lib.nidt_stem_bwd_config.restype = ctypes.c_int
     fn.restype = ctypes.c_int
     return lib
 
@@ -598,9 +602,10 @@ def stem_fwd(x: torch.Tensor, w: torch.Tensor, bias=None, *,
 
 def stem_bwd_plain(zs: torch.Tensor, pooled: torch.Tensor,
                    g_pooled: torch.Tensor, g_s1: torch.Tensor,
-                   g_s2: torch.Tensor, *, ties: str) -> torch.Tensor:
+                   g_s2: torch.Tensor, *, ties: str, bias_grad: bool = False):
     """The plain version of :func:`stem_bwd`: the same operations on whole
-    tensors, each multiply and add rounded once in float32."""
+    tensors, each multiply and add rounded once in float32; with
+    ``bias_grad``, also ``dzs.sum(dim=(0, 1, 2, 3))``."""
     b, d, h, w, f = zs.shape
     pd, ph, pw = d // 3, h // 3, w // 3
     zf = zs.to(g_s1.dtype)
@@ -626,12 +631,28 @@ def stem_bwd_plain(zs: torch.Tensor, pooled: torch.Tensor,
             t = torch.where(hit, g, 0.0)
         term[:, :3 * pd, :3 * ph, :3 * pw] = t.reshape(b, 3 * pd, 3 * ph,
                                                        3 * pw, f)
-    return (dense + term).to(zs.dtype)
+    dzs = (dense + term).to(zs.dtype)
+    return (dzs, dzs.sum(dim=(0, 1, 2, 3))) if bias_grad else dzs
+
+
+def stem_bwd_config(b: int, d: int, h: int, w: int, f: int,
+                    dtype: torch.dtype) -> Dict[str, int]:
+    """The stem backward's persistent launch at zs ``(b, d, h, w, f)`` of
+    ``dtype`` on the current CUDA device: ``grid`` blocks walk ``slabs``
+    slabs through a ring of ``stages``, each block ``threads`` threads and
+    ``smem`` bytes of dynamic shared memory, ``blocks_per_sm`` resident on
+    an SM."""
+    _check_stem_channels("stem_bwd_config", f)
+    out = (ctypes.c_int * 6)()
+    _check("stem_bwd", _lib("stem_bwd").nidt_stem_bwd_config(
+        b, d, h, w, f, int(dtype == torch.bfloat16), out))
+    return dict(zip(("grid", "slabs", "threads", "smem", "blocks_per_sm",
+                     "stages"), out))
 
 
 def stem_bwd(zs: torch.Tensor, pooled: torch.Tensor, g_pooled: torch.Tensor,
-             g_s1: torch.Tensor, g_s2: torch.Tensor, *,
-             ties: str) -> torch.Tensor:
+             g_s1: torch.Tensor, g_s2: torch.Tensor, *, ties: str,
+             bias_grad: bool = False):
     """The cotangent of channels-last ``zs`` ``(B, D, H, W, F)`` through
     ``(max_pool3(zs), sum(zs), sum(zs^2))``, in one pass:
     ``dzs = g_s1 + 2 g_s2 zs + pool_term``, in ``zs``'s type.
@@ -640,9 +661,16 @@ def stem_bwd(zs: torch.Tensor, pooled: torch.Tensor, g_pooled: torch.Tensor,
     type, ``g_s1`` and ``g_s2`` ``(B, F)`` f32. ``ties="first"`` routes each
     window's cotangent to its first maximum in (d, h, w) order (torch's
     max-pool backward); ``ties="split"`` splits it evenly among equal
-    maxima (the reference kernel's contract)."""
+    maxima (the reference kernel's contract).
+
+    With ``bias_grad=True`` returns ``(dzs, dbias)``: ``dbias`` ``(F,)`` in
+    ``zs``'s type is ``dzs`` summed per channel (the gradient of a bias
+    added to ``zs``), on the card in the same pass, accumulated in f64 and
+    rounded once; its plain version is ``dzs.sum(dim=(0, 1, 2, 3))``."""
     if ties not in STEM_TIES:
         raise ValueError(f"stem_bwd: ties={ties!r} not in {STEM_TIES}")
+    if not isinstance(bias_grad, bool):
+        raise ValueError(f"stem_bwd: bias_grad={bias_grad!r} is not a bool")
     if zs.dim() != 5:
         raise ValueError(f"stem_bwd: expected zs (B, D, H, W, F), got "
                          f"{tuple(zs.shape)}")
@@ -665,23 +693,28 @@ def stem_bwd(zs: torch.Tensor, pooled: torch.Tensor, g_pooled: torch.Tensor,
             f"{g_pooled.dtype}, {g_s1.dtype}, {g_s2.dtype}")
     ts = [zs, pooled, g_pooled, g_s1, g_s2]
     if _is_cpu(ts):
-        return stem_bwd_plain(zs, pooled, g_pooled, g_s1, g_s2, ties=ties)
+        return stem_bwd_plain(zs, pooled, g_pooled, g_s1, g_s2, ties=ties,
+                              bias_grad=bias_grad)
     dev = _require_cuda("stem_bwd", [zs, pooled, g_pooled], STEM_DTYPES,
                         aligned=True)
     if _require_cuda("stem_bwd", [g_s1, g_s2]) != dev:
         raise ValueError(f"stem_bwd: g_s1, g_s2 must be on {dev}")
+    lib = _lib("stem_bwd")
     out = torch.empty_like(zs)
-    cells = b * (-(-d // 3)) * (-(-h // 3)) * (-(-w // 3)) * (f // 8)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    blocks = max(1, min(-(-cells // 256), 32 * sms))
-    rc = _lib("stem_bwd").nidt_stem_bwd(
+    partials = dbias = None
+    if bias_grad:
+        grid = stem_bwd_config(b, d, h, w, f, zs.dtype)["grid"]
+        partials = torch.empty((grid, f), dtype=torch.float64, device=dev)
+        dbias = torch.empty((f,), dtype=zs.dtype, device=dev)
+    rc = lib.nidt_stem_bwd(
         zs.data_ptr(), pooled.data_ptr(), g_pooled.data_ptr(),
-        g_s1.data_ptr(), g_s2.data_ptr(), out.data_ptr(), b, d, h, w, f,
-        int(zs.dtype == torch.bfloat16), int(ties == "split"), blocks,
-        _stream(dev))
+        g_s1.data_ptr(), g_s2.data_ptr(), out.data_ptr(),
+        None if partials is None else partials.data_ptr(),
+        None if dbias is None else dbias.data_ptr(), b, d, h, w, f,
+        int(zs.dtype == torch.bfloat16), int(ties == "split"), _stream(dev))
     _check("stem_bwd", rc)
     LAUNCHES["stem_bwd"] += 1
-    return out
+    return (out, dbias) if bias_grad else out
 
 
 def ulp_distance(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -701,3 +734,20 @@ def ulp_distance(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return torch.where(i < 0, -(i & mag), i)
 
     return (ordered(ia) - ordered(ib)).abs()
+
+
+def dbias_agreement(dbias: torch.Tensor, dzs: torch.Tensor
+                    ) -> Tuple[int, float]:
+    """The stem backward's fused bias gradient against the plain per-channel
+    sum ``dzs.sum(dim=(0, 1, 2, 3))``: the largest ulp distance, and the
+    largest error over the channel's sum of magnitudes among the channels
+    more than one ulp apart. The card holds the two within one ulp, or
+    within 1e-5 of the magnitude where the sum cancels (the kernel sums in
+    f64 in another order)."""
+    want = dzs.sum(dim=(0, 1, 2, 3))
+    ulp = ulp_distance(dbias, want)
+    mag = dzs.double().abs().sum(dim=(0, 1, 2, 3))
+    rel = (dbias.double() - want.double()).abs() / mag
+    over = ulp > 1
+    worst = float(rel[over].max()) if bool(over.any()) else 0.0
+    return int(ulp.max()), worst

@@ -10,7 +10,9 @@ SNIP init and warm rounds unprofiled, then traces one round with
 time, the summed device time and the device's busy share, device time by
 kernel class (the stem kernels apart), the top kernels by self device time,
 the top aten ops (device time including children) with their input shapes,
-and the card's name and power limit. Needs one GPU.
+every aten op on a tensor of the stem's full-resolution shape (such as a
+sum over the stem backward's ``dzs``), and the card's name and power
+limit. Needs one GPU.
 """
 from __future__ import annotations
 
@@ -103,12 +105,15 @@ def main() -> int:
         by_class[c] = by_class.get(c, 0.0) + ms
     rows.sort(key=lambda t: -t[1])
     ops = []  # aten ops by device time, with their input shapes
+    zs_shape = str([8, ss[0] - 2, ss[1] - 2, ss[3] - 2, 64])
     for ev in prof.key_averages(group_by_input_shape=True):
         dt = getattr(ev, "device_time_total",
                      getattr(ev, "cuda_time_total", 0.0))
         if ev.key.startswith("aten::") and dt > 0:
+            shapes = str(ev.input_shapes)
             ops.append({"op": ev.key, "ms": dt / 1e3, "count": ev.count,
-                        "shapes": str(ev.input_shapes)[:160]})
+                        "shapes": shapes[:160],
+                        "on_zs": shapes.startswith("[" + zs_shape)})
     ops.sort(key=lambda o: -o["ms"])
     print(json.dumps({
         "round_wall_ms": wall * 1e3, "device_ms": device_ms,
@@ -117,6 +122,9 @@ def main() -> int:
         "top": [{"kernel": n[:120], "ms": ms, "count": c}
                 for n, ms, c in rows[:15]],
         "top_ops": ops[:12],
+        # every aten op whose first input is the stem's full-resolution zs
+        # or its cotangent (B, D, H, W, F) at batch 8
+        "ops_on_zs": [o for o in ops if o["on_zs"]],
         "device": torch.cuda.get_device_name(0),
         "name_power_limit": subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -343,6 +343,92 @@ def test_cuda_stem_fwd_tensor_core_shapes(shape, f):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("shape", [
+    (2, 9, 10, 11, 64),    # D, H, W = 0, 1, 2 mod 3
+    (2, 10, 11, 9, 16),    # D, H, W = 1, 2, 0 mod 3
+    (1, 11, 9, 99, 48),    # four w-chunks of 10 windows, the last ragged
+    (2, 8, 7, 101, 64),    # five w-chunks of 8 windows, the last ragged
+    (1, 4, 5, 200, 8),     # two w-chunks of 64 windows at F = 8
+    (1, 3, 3, 3, 16),      # one window
+    (2, 2, 4, 5, 8),       # no whole window (D < 3)
+])
+def test_cuda_stem_bwd_slab_shapes(shape, dtype):
+    """The slab-loop stem backward at shapes that take every edge of its
+    slabs: dzs bitwise its plain version under both tie rules (zs on a grid
+    of 1/4, so windows tie), with and without the bias gradient; dbias
+    within one ulp of the plain per-channel sum of dzs, or within 1e-5 of
+    the channel's sum of magnitudes where that sum cancels; a second launch
+    bitwise equal to the first."""
+    dev = _card()
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=dev).manual_seed(17)
+    zs = (torch.round(4 * torch.randn(shape, generator=g, device=dev)) / 4
+          ).to(dt)
+    b, d, h, w, f = shape
+    if min(d, h, w) >= 3:
+        pooled = torch.nn.functional.max_pool3d(
+            zs.permute(0, 4, 1, 2, 3), 3, 3).permute(0, 2, 3, 4,
+                                                     1).contiguous()
+    else:  # no whole window: torch's max-pool refuses an empty output
+        pooled = zs.new_empty((b, d // 3, h // 3, w // 3, f))
+    gp = torch.randn(pooled.shape, generator=g, device=dev).to(dt)
+    g1 = torch.randn((shape[0], shape[4]), generator=g, device=dev)
+    g2 = 0.01 * torch.randn((shape[0], shape[4]), generator=g, device=dev)
+    args = (zs, pooled, gp, g1, g2)
+    for ties in kernels.STEM_TIES:
+        want = kernels.stem_bwd_plain(*args, ties=ties)
+        got = kernels.stem_bwd(*args, ties=ties)
+        fused, dbias = kernels.stem_bwd(*args, ties=ties, bias_grad=True)
+        again, dbias2 = kernels.stem_bwd(*args, ties=ties, bias_grad=True)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), ties
+        assert torch.equal(fused, want) and torch.equal(again, want), ties
+        assert torch.equal(dbias, dbias2), ties
+        assert kernels.dbias_agreement(dbias, want)[1] <= 1e-5, ties
+    cfg = kernels.stem_bwd_config(*shape, dt)
+    assert 1 <= cfg["grid"] <= cfg["slabs"]
+
+
+@pytest.mark.cuda
+def test_cuda_stem_bwd_under_autograd():
+    """The stem backward launched by autograd, which runs a backward on a
+    thread of its own (the kernel's tensor maps are encoded there):
+    ``pool_sum_sumsq``'s cotangent bitwise the plain version's (split
+    ties), and ``StemStage``'s bias gradient within one ulp of the plain
+    sum of its dzs (or 1e-5 of its magnitude where that sum cancels)."""
+    from neuroimagedisttraining_torch.models.alexnet3d import StemStage
+    from neuroimagedisttraining_torch.ops.experimental import pallas_stem_bwd
+
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(19)
+    bf = torch.bfloat16
+    zs = (torch.round(4 * torch.randn((2, 9, 12, 10, 64), generator=g,
+                                      device=dev)) / 4).to(bf)
+    zr = zs.clone().requires_grad_(True)
+    m, s1, s2 = pallas_stem_bwd.pool_sum_sumsq(zr)
+    gp = torch.randn(m.shape, generator=g, device=dev).to(bf)
+    g1 = torch.randn(s1.shape, generator=g, device=dev)
+    g2 = 0.01 * torch.randn(s1.shape, generator=g, device=dev)
+    (dz,) = torch.autograd.grad([m, s1, s2], [zr], [gp, g1, g2])
+    assert torch.equal(dz, kernels.stem_bwd_plain(
+        zs, m.detach(), gp, g1, g2, ties="split"))
+    x, w, bias = _stem_inputs(g, dev, (2, 11, 14, 8, 12), 64, bf)
+    leaves = [t.clone().requires_grad_(True) for t in (x, w, bias)]
+    outs = StemStage.apply(*leaves)
+    cts = [torch.randn(o.shape, generator=g, device=dev).to(o.dtype)
+           for o in outs]
+    kernels.reset_launches()
+    _, _, dbias = torch.autograd.grad(outs, leaves, cts)
+    assert kernels.LAUNCHES["stem_bwd"] == 1
+    zs2, pooled, _, _ = kernels.stem_fwd(x, w, bias)
+    gpool = cts[0].permute(0, 2, 3, 4, 1).contiguous()
+    dzs = kernels.stem_bwd_plain(zs2, pooled, gpool, cts[1], cts[2],
+                                 ties="first")
+    assert kernels.dbias_agreement(dbias, dzs)[1] <= 1e-5
+
+
+@pytest.mark.cuda
 def test_cuda_round_leaves_its_input_state_unchanged():
     """On the card, as ``tests/test_torch_port_state.py`` on the CPU: a
     round leaves the state it is given bitwise as it was (its generator

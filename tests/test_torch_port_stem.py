@@ -265,6 +265,104 @@ def test_stem_bwd_first_matches_torch_autograd_on_ties(shape):
     assert got_b.dtype == torch.bfloat16 and torch.equal(got_b, want_b)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("ties", ["first", "split"])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_stem_bwd_bias_grad_is_the_sum_of_dzs(shape, ties, dtype):
+    """``bias_grad=True`` returns the default call's dzs bit for bit and,
+    as its bias gradient, ``dzs.sum(dim=(0, 1, 2, 3))`` bit for bit (the
+    plain version's spelling; the card's kernel is held to it within one
+    ulp)."""
+    dt = getattr(torch, dtype)
+    zs, gm, g1, g2 = _zs_cotangents(shape, 8, quantize=True)
+    zt = torch.from_numpy(zs).to(dt)
+    pooled = max_pool3d(zt.permute(0, 4, 1, 2, 3), 3, 3).permute(
+        0, 2, 3, 4, 1).contiguous()
+    args = (zt, pooled, torch.from_numpy(gm).to(dt), torch.from_numpy(g1),
+            torch.from_numpy(g2))
+    dzs = kernels.stem_bwd(*args, ties=ties)
+    got, dbias = kernels.stem_bwd(*args, ties=ties, bias_grad=True)
+    assert got.dtype == dt and dbias.dtype == dt
+    assert tuple(dbias.shape) == (F,)
+    assert torch.equal(got, dzs)
+    assert torch.equal(dbias, dzs.sum(dim=(0, 1, 2, 3)))
+
+
+def test_dbias_agreement_counts_ulps_and_cancellation():
+    """The card's gate for the fused bias gradient: ulps against the plain
+    per-channel sum, and, past one ulp, the error over the channel's sum of
+    magnitudes (large only where the sum does not cancel)."""
+    dzs = torch.tensor([[[[[1.0, 1000.0], [2.0, -1000.0]]]]],
+                       dtype=torch.bfloat16)  # (1, 1, 1, 2, 2)
+    want = dzs.sum(dim=(0, 1, 2, 3))  # [3, 0]
+    assert kernels.dbias_agreement(want.clone(), dzs) == (0, 0.0)
+    one_up = (want.view(torch.int16) + 1).view(torch.bfloat16)
+    assert kernels.dbias_agreement(one_up, dzs)[0] == 1
+    # 2 ulp off a sum of 3 fails the gate; 2e-3 off a sum of 1000 and -1000
+    # that cancels to 0 passes it (1e-6 of the magnitude)
+    off = torch.tensor([3.03125, 0.002], dtype=torch.bfloat16)
+    ulps, worst = kernels.dbias_agreement(off, dzs)
+    assert ulps > 1 and worst > 1e-5
+    off = torch.tensor([3.0, 0.002], dtype=torch.bfloat16)
+    ulps, worst = kernels.dbias_agreement(off, dzs)
+    assert ulps > 1 and worst <= 1e-5
+
+
+def _parent_stem_grads(x, ws, bs, g_pooled, g_s1, g_s2):
+    """StemStage's backward as it was spelled before the bias gradient
+    moved into ``stem_bwd``: dzs, the conv's gradients, then ``dzs``
+    summed per channel."""
+    zs, pooled, _, _ = kernels.stem_fwd(x, ws, bs)
+    gp = g_pooled.permute(0, 2, 3, 4, 1).to(zs.dtype).contiguous()
+    dzs = kernels.stem_bwd(zs, pooled, gp, g_s1.contiguous(),
+                           g_s2.contiguous(), ties="first")
+    dz = dzs.permute(0, 4, 1, 2, 3)
+    xin = phased_input(x).contiguous(memory_format=torch.channels_last_3d)
+    dx = torch.nn.grad.conv3d_input(xin.shape, ws, dz).permute(0, 2, 3, 1, 4)
+    dws = torch.nn.grad.conv3d_weight(xin, ws.shape, dz)
+    return dx, dws, dzs.sum(dim=(0, 1, 2, 3))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_stem_stage_gradients_bitwise_the_parent_spelling(shape, dtype):
+    """StemStage's gradients, the bias's now from ``stem_bwd(...,
+    bias_grad=True)``, are bitwise those of the backward that summed dzs
+    itself; and with the bias frozen no bias gradient is asked for."""
+    from neuroimagedisttraining_torch.models.alexnet3d import StemStage
+
+    dt = getattr(torch, dtype)
+    x_np, w_np, b_np = _inputs(shape, 12)
+    x = torch.from_numpy(x_np).to(dt)
+    ws = _port_w(w_np).to(dt)
+    bs = torch.from_numpy(b_np).to(dt)
+    rng = np.random.RandomState(13)
+    d, h, w = shape[0] - 2, shape[1] - 2, shape[3] - 2
+    g_pooled = torch.from_numpy(rng.randn(
+        B, F, d // 3, h // 3, w // 3).astype(np.float32)).to(dt)
+    g_s1 = torch.from_numpy(rng.randn(B, F).astype(np.float32))
+    g_s2 = torch.from_numpy((0.01 * rng.randn(B, F)).astype(np.float32))
+    leaves = [t.clone().requires_grad_(True) for t in (x, ws, bs)]
+    outs = StemStage.apply(*leaves)
+    got = torch.autograd.grad(outs, leaves, [g_pooled, g_s1, g_s2])
+    want = _parent_stem_grads(x, ws, bs, g_pooled, g_s1, g_s2)
+    for name, a, b in zip(("x", "kernel", "bias"), got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b), name
+    frozen = [leaves[0], leaves[1], bs]
+    outs = StemStage.apply(*frozen)
+    dx, dws = torch.autograd.grad(outs, frozen[:2], [g_pooled, g_s1, g_s2])
+    assert torch.equal(dx, want[0]) and torch.equal(dws, want[1])
+
+
+def test_stem_bwd_refuses_a_bias_grad_that_is_not_a_bool():
+    zs = torch.zeros(1, 3, 3, 3, 8)
+    p = torch.zeros(1, 1, 1, 1, 8)
+    g = torch.zeros(1, 8)
+    for flag in (1, None, "yes"):
+        with pytest.raises(ValueError):
+            kernels.stem_bwd(zs, p, p, g, g, ties="first", bias_grad=flag)
+
+
 def _old_stem(x, w, bias, scale, bias_gn, groups, eps=1e-6):
     """The pool-first stage as the port spelled it before the stem kernels:
     cuDNN conv with the sign-folded bias, f32 statistics, one max-pool."""
