@@ -1,0 +1,153 @@
+#!/usr/bin/env python3
+"""Benchmark of the PyTorch/CUDA port: federated rounds/s on the headline
+workload, on one NVIDIA GPU.
+
+    python3 bench_torch.py
+
+The port of ``bench.py``'s main workload, at its constants: SalientGrads on
+``3dcnn_s2d`` (AlexNet3D over phase-decomposed volumes), 8 clients x 40
+phased 121x145x121 bf16 volumes made on the card, batch 8, 5 local steps,
+``dense_ratio`` 0.5, bf16 compute, SGD with momentum 0.9, weight decay 5e-4
+and clip 10. The SNIP mask is built once; then, each from a clone of that
+one state (``FedAlgorithm.clone_state``):
+
+* one warm round and 10 timed rounds with no eval (the headline ``value``);
+* one warm round and eval, then 8 timed rounds with the full eval protocol
+  (global and personal models on every client's test shard) after every
+  round, each eval's metric fetched one round late
+  (``extra.rounds_per_sec_eval_every_1``).
+
+Prints one JSON line in ``bench.py``'s shape: ``metric``, ``value``,
+``unit``, ``vs_baseline`` (value over the 10 rounds/s target) and ``extra``
+(the eval rate, client-rounds/s per card, the SNIP init seconds, peak device
+memory, the card's name and power limit). It imports nothing of JAX. Without
+CUDA it exits 2 before printing a result.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from typing import Optional
+
+N_CLIENTS = 8
+SAMPLES_PER_CLIENT = 40  # = STEPS * BATCH: 5 full batches per client
+VOLUME = (121, 145, 121)  # the ABCD volume, stored phase-decomposed
+BATCH = 8
+STEPS = 5
+TARGET_ROUNDS_PER_SEC = 10.0
+MODEL_KEY = "3dcnn_s2d"
+METRIC = f"salientgrads_rounds_per_sec_abcd_alexnet3d_{N_CLIENTS}clients"
+
+
+def _acc(ev):
+    return ev["global_acc"] if "global_acc" in ev else ev["personal_acc"]
+
+
+def timed_rounds(algo, state, n_rounds: int = 10,
+                 eval_every_round: bool = False) -> float:
+    """Rounds/s over ``n_rounds`` rounds after one warm round (and, with
+    ``eval_every_round``, one warm eval). With the eval, each round's
+    accuracy is fetched after the next round is queued, so the host waits
+    on the card once per round at most, as ``FedAlgorithm.run`` does."""
+    import torch
+
+    state, _ = algo.run_round(state, 0)
+    if eval_every_round:
+        float(_acc(algo.evaluate(state)))
+    torch.cuda.synchronize()
+    prev = None
+    t0 = time.perf_counter()
+    for r in range(1, n_rounds + 1):
+        state, _ = algo.run_round(state, r)
+        if eval_every_round:
+            if prev is not None:
+                float(_acc(prev))
+            prev = algo.evaluate(state)
+    if prev is not None:
+        float(_acc(prev))
+    torch.cuda.synchronize()
+    return n_rounds / (time.perf_counter() - t0)
+
+
+def card_name_and_power_limit() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip()
+
+
+def main(emit: bool = True) -> Optional[dict]:
+    """Measure and (with ``emit``) print the one JSON line; returns the
+    record, or None without CUDA."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("bench_torch: CUDA is not available", file=sys.stderr)
+        return None
+    from neuroimagedisttraining_torch.algorithms import SalientGrads
+    from neuroimagedisttraining_torch.core.state import HyperParams
+    from neuroimagedisttraining_torch.data import device_synthetic_federated
+    from neuroimagedisttraining_torch.models import create_model
+    from neuroimagedisttraining_torch.ops import kernels
+    from neuroimagedisttraining_torch.ops.s2d import phased_sample_shape
+
+    dev = torch.device("cuda")
+    kernels.build()
+    torch.cuda.reset_peak_memory_stats(dev)
+    sample_shape = phased_sample_shape(VOLUME)
+    data = device_synthetic_federated(
+        N_CLIENTS, SAMPLES_PER_CLIENT, sample_shape,
+        torch.Generator(device=dev).manual_seed(0))
+    model = create_model(MODEL_KEY, num_classes=1, sample_shape=sample_shape)
+    hp = HyperParams(lr=1e-3, lr_decay=0.998, momentum=0.9,
+                     weight_decay=5e-4, grad_clip=10.0, local_epochs=1,
+                     steps_per_epoch=STEPS, batch_size=BATCH)
+    algo = SalientGrads(model, data, hp, loss_type="bce", frac=1.0, seed=0,
+                        dense_ratio=0.5, itersnip_iterations=1,
+                        compute_dtype="bfloat16")
+    t0 = time.perf_counter()
+    state = algo.init_state()  # includes the SNIP pass
+    torch.cuda.synchronize()
+    snip_s = time.perf_counter() - t0
+
+    rps = timed_rounds(algo, algo.clone_state(state))
+    rps_eval = timed_rounds(algo, algo.clone_state(state), n_rounds=8,
+                            eval_every_round=True)
+    n_cards = 1  # the whole cohort trains on one card
+    result = {
+        "metric": METRIC,
+        "value": round(rps, 4),
+        "unit": "rounds/sec",
+        "vs_baseline": round(rps / TARGET_ROUNDS_PER_SEC, 4),
+        "extra": {
+            "rounds_per_sec_eval_every_1": round(rps_eval, 4),
+            "client_rounds_per_sec_per_chip": round(
+                rps * N_CLIENTS / n_cards, 2),
+            "client_samples_per_sec": round(
+                rps * N_CLIENTS * STEPS * BATCH, 2),
+            "snip_init_s": snip_s,
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
+            "device": card_name_and_power_limit(),
+            "n_devices": n_cards,
+            "volume": list(VOLUME),
+            "sample_shape": list(sample_shape),
+            "clients": N_CLIENTS,
+            "samples_per_client": SAMPLES_PER_CLIENT,
+            "local_steps": STEPS,
+            "batch_size": BATCH,
+            "compute_dtype": "bfloat16",
+            "timed_rounds": 10,
+            "timed_rounds_eval_every_1": 8,
+            "torch": torch.__version__,
+            "cuda": torch.version.cuda,
+        },
+    }
+    if emit:
+        print(json.dumps(result), flush=True)
+    return result
+
+
+if __name__ == "__main__":
+    sys.exit(0 if main() is not None else 2)

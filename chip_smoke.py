@@ -54,6 +54,18 @@ Phases, each printing one JSON line:
    aggregate is timed (CUDA events) and, for dense, bucketed, sparse and
    hier, held against the plain dense aggregate of the same locals bit for
    bit.
+6. cli     — the command-line entry point in-process on the card
+   (``experiments.runner.main``): SalientGrads and FedAvg, ``--dataset
+   synthetic --model small3dcnn --comm_round 2`` (no stem stage on this
+   model), each with its counters zeroed just before and read just after;
+   the cohort and the parameters on CUDA, the losses finite, ``stat_info``
+   (pickle and ``.json``) written under a temporary ``--results_dir``. The
+   ABCD cohort-file step is not here: the loaders need ``h5py``, which the
+   card's machine does not have.
+7. bench   — ``bench_torch.main()``, the port's bench of the headline
+   workload (SNIP, 1 + 10 rounds without eval, 1 + 8 with the eval every
+   round, each from a clone of one state), its record printed; its launch
+   counts asserted.
 
 Every training step, SNIP batch and eval forward of these paths runs the
 stem kernels (one forward, and in training one backward); the launch counts
@@ -951,10 +963,13 @@ def main_path(dev):
         "samples_per_client": SAMPLES, "sample_shape":
             list(phased_sample_shape(VOLUME)), "batch": BATCH,
         "steps": STEPS, "rounds": ROUNDS, "compute_dtype": "bfloat16",
+        # run() fetches each round's record one round late and stamps its
+        # time at that flush: the sum is the rounds' wall time, a round's
+        # share is right to within one round. The steady rate is the
+        # bench phase's.
         "data_s": data_s, "init_snip_s": init_s, "round_s": round_s,
-        "rounds_per_sec_after_first":
-            (len(round_s) - 1) / sum(round_s[1:]),
-        "first_round_s": round_s[0], "run_with_final_eval_s": run_s,
+        "rounds_per_sec_with_first": len(round_s) / sum(round_s),
+        "run_with_final_eval_s": run_s,
         "train_loss": [h["train_loss"] for h in rounds],
         "final_eval": final, "peak_mem_bytes": peak, "launches": launches,
     }
@@ -1201,6 +1216,107 @@ def wires_path(dev):
     return out
 
 
+def _cli_argv(algo: str, tmp: str):
+    return ["--algo", algo, "--dataset", "synthetic", "--model", "small3dcnn",
+            "--comm_round", "2", "--results_dir", f"{tmp}/results",
+            "--log_dir", f"{tmp}/log"]
+
+
+def cli_path(dev):
+    """The CLI's two algorithms on the card, through the entry point a user
+    calls. Returns the launches per path."""
+    import os
+    import tempfile
+
+    import torch
+
+    from neuroimagedisttraining_torch.experiments import runner
+    from neuroimagedisttraining_torch.ops import kernels
+
+    built = {}
+    build_algorithm = runner.build_algorithm
+
+    def capture(*args, **kwargs):
+        built["algo"], built["data"] = build_algorithm(*args, **kwargs)
+        return built["algo"], built["data"]
+
+    out = {}
+    runner.build_algorithm = capture
+    try:
+        for algo in ("salientgrads", "fedavg"):
+            with tempfile.TemporaryDirectory() as tmp:
+                kernels.reset_launches()
+                t0 = time.perf_counter()
+                res = runner.main(_cli_argv(algo, tmp))
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                launches = dict(kernels.LAUNCHES)
+                stat = res["stat_path"]
+                wrote = (stat is not None and os.path.isfile(stat)
+                         and os.path.isfile(stat + ".json"))
+            data = built["data"]
+            on_card = (data.x_train.is_cuda and data.x_test.is_cuda
+                       and all(p.is_cuda for p in
+                               res["state"].global_params.values()))
+            losses = [h["train_loss"] for h in res["history"]
+                      if h["round"] >= 0]
+            final = {k: float(v) for k, v in res["final_eval"].items()
+                     if getattr(v, "ndim", 0) == 0}
+            emit({"phase": "cli", "algo": algo, "seconds": seconds,
+                  "identity": res["identity"], "stat_info_written": wrote,
+                  "on_cuda": on_card, "train_loss": losses,
+                  "final_eval": final, "launches": launches})
+            if not (wrote and on_card and len(losses) == 2):
+                raise AssertionError(
+                    f"cli {algo}: stat_info written {wrote}, on cuda "
+                    f"{on_card}, rounds {len(losses)}")
+            vals = losses + list(final.values())
+            if not all(math.isfinite(v) for v in vals):
+                raise AssertionError(f"cli {algo}: non-finite {vals}")
+            want = (("masked_sgd", "threshold", "score_mask")
+                    if algo == "salientgrads" else ("masked_sgd",))
+            if not all(launches[k] > 0 for k in want) or \
+                    launches["weighted_sum"] != 2:
+                raise AssertionError(f"cli {algo}: launches {launches}")
+            out[f"cli/{algo}"] = launches
+    finally:
+        runner.build_algorithm = build_algorithm
+    return out
+
+
+def bench_path(dev):
+    """``bench_torch.main()`` with its counters zeroed just before and read
+    just after. Returns the launches per path."""
+    import bench_torch as b
+    from neuroimagedisttraining_torch.ops import kernels
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    rec = b.main(emit=False)
+    seconds = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    emit({"phase": "bench", "seconds": seconds, "record": rec,
+          "launches": launches})
+    if not (math.isfinite(rec["value"]) and rec["value"] > 0
+            and rec["extra"]["rounds_per_sec_eval_every_1"] > 0):
+        raise AssertionError(f"bench: {rec}")
+    # a warm round and the timed rounds, twice; SNIP once per client; the
+    # eval (global and personal, every client) after the warm round and
+    # after every timed round of the second run
+    steps = (2 + 10 + 8) * b.N_CLIENTS * b.STEPS
+    test_rows = max(4, b.SAMPLES_PER_CLIENT // 4)
+    chunks = -(-test_rows // min(32, test_rows))
+    want = {"masked_sgd": steps, "threshold": 1, "score_mask": 1,
+            "weighted_sum": 2 + 10 + 8,
+            "stem_fwd": (steps + b.N_CLIENTS
+                         + (1 + 8) * 2 * b.N_CLIENTS * chunks),
+            "stem_bwd": steps + b.N_CLIENTS}
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"bench launch counts {launches}, expected "
+                             f"{want}")
+    return {"bench": launches}
+
+
 def main() -> int:
     import torch
 
@@ -1239,6 +1355,8 @@ def main() -> int:
     small_parity(dev)
     paths = {"main": main_path(dev)}
     paths.update(wires_path(dev))
+    paths.update(cli_path(dev))
+    paths.update(bench_path(dev))
 
     line = []
     for name in kernels.SOURCES:

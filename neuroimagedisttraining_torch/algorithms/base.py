@@ -13,7 +13,6 @@ from __future__ import annotations
 import abc
 import dataclasses
 import logging
-import time
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -352,30 +351,39 @@ class FedAlgorithm(abc.ABC):
             finalize: bool = True):
         """The federated training loop: ``comm_rounds`` rounds, an eval every
         ``eval_every`` rounds, then the algorithm's final pass. Returns
-        ``(state, history)``; history values are Python floats."""
+        ``(state, history)``; history values are Python floats.
+
+        Each round's metrics are fetched to the host one round late
+        (:class:`utils.records.DeferredRecords`), so the card is never
+        idle waiting on the host's conversion; ``round_time_s`` is stamped
+        at those flushes, so the sum over the run is its wall time."""
+        from ..utils.records import DeferredRecords, to_float
+
         if state is None:
             state = self.init_state()
         history: List[Dict[str, Any]] = []
-        for r in range(comm_rounds):
-            t0 = time.perf_counter()
-            state, train_metrics = self.run_round(state, r)
-            record = {"round": r, **train_metrics}
-            if eval_every and (r + 1) % eval_every == 0:
-                ev = self.evaluate(state)
-                record.update({k: v for k, v in ev.items()
-                               if not k.startswith("acc_per")})
-            record = {k: _to_float(v) for k, v in record.items()}
-            record["round_time_s"] = time.perf_counter() - t0
-            logger.info("%s round %d: %s", self.name, r, record)
-            history.append(record)
+        deferred = DeferredRecords(
+            log=lambda rec: logger.info(
+                "%s round %s: %s", self.name, rec["round"], rec),
+            timed=True)
+        try:
+            for r in range(comm_rounds):
+                state, train_metrics = self.run_round(state, r)
+                record = {"round": r, **train_metrics}
+                if eval_every and (r + 1) % eval_every == 0:
+                    ev = self.evaluate(state)
+                    record.update({k: v for k, v in ev.items()
+                                   if not k.startswith("acc_per")})
+                history.append(record)
+                deferred.push(record)
+        except BaseException:
+            deferred.flush_safely()  # emit the last completed round
+            raise
+        deferred.flush()
         if finalize:
             state, final = self.finalize(state)
             if final is not None:
-                history.append({k: _to_float(v) for k, v in final.items()})
+                record = {k: to_float(v) for k, v in final.items()}
+                history.append(record)
+                logger.info("%s final: %s", self.name, record)
         return state, history
-
-
-def _to_float(v):
-    if isinstance(v, torch.Tensor):
-        return float(v) if v.numel() == 1 else v.tolist()
-    return v

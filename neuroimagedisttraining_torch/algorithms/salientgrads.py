@@ -14,6 +14,9 @@
 Each trained client's local weights are kept as its personal model, and the
 eval protocol tests the global model and every personal model on each
 client's test shard, plus one final eval after the last round.
+``track_personal=False`` keeps no personal stack and evaluates the global
+model alone; ``snip_mask=False`` is the dense control, an all-ones mask in
+place of the SNIP pass.
 """
 from __future__ import annotations
 
@@ -41,8 +44,9 @@ class SalientGradsState:
     global_params: Tree
     mask: Tree
     #: [C, ...] per leaf: each client's last locally trained (masked)
-    #: weights, initialized to dense copies of the initial global model
-    personal_params: Tree
+    #: weights, initialized to dense copies of the initial global model;
+    #: None when ``track_personal`` is off
+    personal_params: Optional[Tree]
     #: the round loop's draws (epoch permutations, dropout masks, the int8
     #: wire's uniforms)
     generator: torch.Generator
@@ -56,9 +60,20 @@ class SalientGrads(FedAlgorithm):
     topk_supported = True
 
     def __init__(self, *args, dense_ratio: float = 0.5,
-                 itersnip_iterations: int = 1, **kwargs):
+                 itersnip_iterations: int = 1, snip_mask: bool = True,
+                 stratified_sampling: bool = False,
+                 track_personal: bool = True, **kwargs):
+        if stratified_sampling:
+            raise ValueError(
+                "stratified_sampling: the stratified SNIP draws and fold "
+                "schedules are not ported yet (ROADMAP item 5)")
         self.dense_ratio = dense_ratio
         self.itersnip_iterations = itersnip_iterations
+        # snip_mask=False: all-ones mask, the reference's dense control
+        self.snip_mask = snip_mask
+        # track_personal=False drops the [C, model] personal stack and the
+        # personal half of the eval
+        self.track_personal = track_personal
         super().__init__(*args, **kwargs)
 
     def _build(self) -> None:
@@ -87,21 +102,28 @@ class SalientGrads(FedAlgorithm):
     def init_state(self, generator: Optional[torch.Generator] = None,
                    params: Optional[Tree] = None,
                    snip_idx=None) -> SalientGradsState:
-        """Fresh parameters (or the given ``params``), the SNIP mask, and
-        dense personal copies. ``generator`` defaults to one seeded by the
-        run seed and drives init, SNIP and every later round."""
+        """Fresh parameters (or the given ``params``), the SNIP mask (all
+        ones without ``snip_mask``), and dense personal copies (none
+        without ``track_personal``). ``generator`` defaults to one seeded
+        by the run seed and drives init, SNIP and every later round."""
         g = generator if generator is not None else self.generator()
         if params is None:
             params = init_params(self.model, g)
         params = {k: v.to(self.device, torch.float32) for k, v in
                   params.items()}
-        mask = self.global_mask(params, g, snip_idx)
-        personal = broadcast_tree(params, self.num_clients)
+        if self.snip_mask:
+            mask = self.global_mask(params, g, snip_idx)
+        else:
+            mask = {k: torch.ones_like(v) for k, v in params.items()}
+        personal = (broadcast_tree(params, self.num_clients)
+                    if self.track_personal else None)
+        residual = None
+        if self.agg_impl == "topk":
+            residual = zeros_like_tree(
+                broadcast_tree(params, self.num_clients))
         return SalientGradsState(
             global_params=params, mask=mask, personal_params=personal,
-            generator=g,
-            agg_residual=(zeros_like_tree(personal)
-                          if self.agg_impl == "topk" else None))
+            generator=g, agg_residual=residual)
 
     def _ensure_agg_plan(self, state: SalientGradsState) -> None:
         """Build the sparse wires' gather plan from the concrete mask, once:
@@ -135,27 +157,30 @@ class SalientGrads(FedAlgorithm):
             # coordinates: re-mask so the global model keeps the SNIP
             # sparsity (p * m, bit-equal to the reference's either backend)
             new_global = kernels.fused_mask_apply(new_global, state.mask)
-        idx = torch.as_tensor(sel, dtype=torch.int64, device=self.device)
-        personal = tree_scatter_update(state.personal_params, idx, locals_)
+        personal = state.personal_params
+        if personal is not None:
+            idx = torch.as_tensor(sel, dtype=torch.int64, device=self.device)
+            personal = tree_scatter_update(personal, idx, locals_)
         new_state = dataclasses.replace(state, global_params=new_global,
                                         personal_params=personal,
                                         generator=g, agg_residual=residual)
         return new_state, {"train_loss": mean_loss}
 
     def finalize(self, state: SalientGradsState):
-        """One final global and personal eval after the last round."""
+        """One final global (and personal) eval after the last round."""
         ev = self.evaluate(state)
         return state, {"round": -1, **{k: v for k, v in ev.items()
                                        if not k.startswith("acc_per")}}
 
     def evaluate(self, state: SalientGradsState) -> Dict[str, Any]:
         ev = self._eval_global(state.global_params)
-        evp = self._eval_personal(state.personal_params)
-        return {
+        out = {
             "global_acc": ev["acc"],
             "global_loss": ev["loss"],
             "mask_density": mask_density(state.mask),
             "acc_per_client": ev["acc_per_client"],
-            "personal_acc": evp["acc"],
-            "personal_loss": evp["loss"],
         }
+        if state.personal_params is not None:
+            evp = self._eval_personal(state.personal_params)
+            out.update(personal_acc=evp["acc"], personal_loss=evp["loss"])
+        return out

@@ -22,6 +22,7 @@ def make_synthetic_federated(
     n_clients: int = 8,
     samples_per_client: int = 24,
     test_per_client: int = 8,
+    val_per_client: int = 0,
     sample_shape: Tuple[int, ...] = (8, 8, 8, 1),
     class_num: int = 2,
     site_shift: float = 0.3,
@@ -29,16 +30,18 @@ def make_synthetic_federated(
     uneven: bool = True,
 ) -> FederatedData:
     """Site-partitioned volumes with a class signal planted along a smooth
-    probe and a per-site intensity shift; CPU tensors."""
+    probe and a per-site intensity shift; CPU tensors. ``val_per_client``
+    rows per client after the test rows form the validation split."""
     rng = np.random.RandomState(seed)
     probe = 1.0 + 0.5 * np.abs(rng.randn(*sample_shape)).astype(np.float32)
     probe /= np.sqrt(np.mean(probe**2))
 
-    xs_tr, ys_tr, xs_te, ys_te = [], [], [], []
+    xs_tr, ys_tr, xs_te, ys_te, xs_va, ys_va = [], [], [], [], [], []
     for _ in range(n_clients):
         n_tr = samples_per_client + (rng.randint(0, samples_per_client // 2 + 1)
                                      if uneven else 0)
-        n = n_tr + test_per_client
+        n_te = test_per_client
+        n = n_tr + n_te + val_per_client
         y = rng.randint(0, class_num, size=n)
         x = rng.randn(n, *sample_shape).astype(np.float32)
         x += site_shift * rng.randn()
@@ -46,16 +49,23 @@ def make_synthetic_federated(
         x += signal * coef[(...,) + (None,) * len(sample_shape)] * probe
         xs_tr.append(x[:n_tr])
         ys_tr.append(y[:n_tr])
-        xs_te.append(x[n_tr:])
-        ys_te.append(y[n_tr:])
+        xs_te.append(x[n_tr:n_tr + n_te])
+        ys_te.append(y[n_tr:n_tr + n_te])
+        xs_va.append(x[n_tr + n_te:])
+        ys_va.append(y[n_tr + n_te:])
 
     x_train, n_train = pad_stack(xs_tr)
     y_train, _ = pad_stack([y.astype(np.int32) for y in ys_tr])
     x_test, n_test = pad_stack(xs_te)
     y_test, _ = pad_stack([y.astype(np.int32) for y in ys_te])
+    kwargs = {}
+    if val_per_client:
+        x_val, n_val = pad_stack(xs_va)
+        y_val, _ = pad_stack([y.astype(np.int32) for y in ys_va])
+        kwargs = dict(x_val=x_val, y_val=y_val, n_val=n_val)
     return FederatedData(x_train=x_train, y_train=y_train, n_train=n_train,
                          x_test=x_test, y_test=y_test, n_test=n_test,
-                         class_num=class_num)
+                         class_num=class_num, **kwargs)
 
 
 def device_synthetic_federated(

@@ -4,6 +4,7 @@ common length, with valid-count vectors."""
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -16,6 +17,10 @@ class FederatedData:
     x_train: [C, n_max, *sample_shape]   y_train: [C, n_max]
     x_test:  [C, m_max, *sample_shape]   y_test:  [C, m_max]
     n_train, n_test: [C] int32 valid counts
+    x_val/y_val/n_val: the optional per-client validation split, carved
+    from train when a loader is given ``val_fraction`` (the JAX CLI's
+    unified ``--algo`` parser always passes fedfomo's 0.1). No ported
+    algorithm reads it, so it stays on the CPU.
     """
 
     x_train: torch.Tensor
@@ -25,6 +30,9 @@ class FederatedData:
     y_test: torch.Tensor
     n_test: torch.Tensor
     class_num: int = 2
+    x_val: Optional[torch.Tensor] = None
+    y_val: Optional[torch.Tensor] = None
+    n_val: Optional[torch.Tensor] = None
 
     @property
     def num_clients(self) -> int:

@@ -1,0 +1,4 @@
+from .runner import main
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,470 @@
+"""Experiment runner: flags -> data -> model -> algorithm -> round loop
+(counterpart of ``neuroimagedisttraining_tpu/experiments/runner.py``, its
+single-process path for ``fedavg`` and ``salientgrads``).
+
+The run writes what the JAX CLI writes for the same command line: the
+per-run log ``<log_dir>/<identity>.log`` and the ``stat_info`` pickle (plus
+its ``.json``) at ``<results_dir>/<dataset>/<identity>``, with the same
+top-level keys. It runs on ``--device`` (CUDA by default, with no fallback).
+
+A flag of a feature the port has not got (another algorithm, checkpoints,
+telemetry, faults and defenses, the mesh, fused rounds, ...) ends the run
+before any work with ``SystemExit`` naming the flag and the ROADMAP item
+that ports it (:func:`refuse_unported`). A knob that leaves the JAX
+package's results bit-identical (``--client_chunk``, ``--donate_state``,
+``--agg_overlap``, ``--agg_kernels``, ...) is accepted, and the run logs once
+that it has no effect here.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import functools
+import json
+import logging
+import os
+import pickle
+import random
+from typing import Any, Dict, Optional, Sequence
+
+import numpy as np
+import torch
+
+from .config import parse_args, run_identity
+from .logging_utils import (
+    add_run_file_logger,
+    configure_console,
+    remove_run_file_logger,
+)
+
+logger = logging.getLogger(__name__)
+
+#: the algorithms the port runs; the JAX package's other seven are ROADMAP
+#: item 10
+PORTED_ALGOS = ("fedavg", "salientgrads")
+
+# phased-stem twins of the reference models, with each stem's
+# (kernel, pad) decomposition spec (ops/s2d.py)
+S2D_TWINS = {"3dcnn": "3dcnn_s2d", "3dresnet": "3dresnet_s2d",
+             "small3dcnn": "small3dcnn_s2d"}
+S2D_SPECS = {"3dcnn_s2d": (5, 0), "3dresnet_s2d": (3, 3),
+             "small3dcnn_s2d": (3, 1)}
+
+#: flag attribute -> ROADMAP item of the feature it drives, refused at any
+#: value but its default
+_UNPORTED = {
+    # 4: core
+    "remat": 4,
+    # 5: SNIP
+    "stratified_sampling": 5, "stratified_mode": 5,
+    # 6: algorithms
+    "eval_cache": 6, "eval_clients": 6,
+    # 9: robustness
+    "fault_spec": 9, "guard": 9, "watchdog": 9, "watchdog_loss": 9,
+    "watchdog_norm": 9, "max_round_retries": 9, "retry_backoff_s": 9,
+    "defense_type": 9, "norm_bound": 9, "stddev": 9, "robust_agg": 9,
+    "robust_trim": 9, "robust_krum_f": 9,
+    # 12: the wire and the state tier
+    "checkpoint_dir": 12, "resume": 12, "client_store": 12,
+    "store_hot_clients": 12, "fed_role": 12, "fed_mode": 12,
+    "fed_backend": 12, "fed_sites": 12, "fed_site_rank": 12,
+    "fed_endpoints": 12, "fed_buffer_k": 12, "fed_staleness_bound": 12,
+    "fed_timeout_s": 12, "fed_retries": 12, "fed_backoff_s": 12,
+    "fed_trace": 12, "fed_replay": 12, "fed_site_faults": 12, "fed_out": 12,
+    # 13: serving
+    "serve_role": 13, "serve_backend": 13, "serve_endpoints": 13,
+    "serve_requests": 13, "serve_rps": 13, "serve_batch": 13,
+    "serve_linger_ms": 13, "serve_zipf": 13, "serve_wire": 13,
+    "serve_push_every": 13, "serve_ckpt_dir": 13, "serve_out": 13,
+    "serve_trace": 13, "serve_replay": 13, "serve_store": 13,
+    "serve_timeout_s": 13, "serve_workers": 13, "serve_probe_every": 13,
+    # 14: observability
+    "obs": 14, "obs_jsonl": 14, "trace_dir": 14, "xtrace": 14,
+    "xtrace_dir": 14, "obs_heartbeat_every": 14, "obs_prom_port": 14,
+    "obs_watch_every": 14, "obs_watch_color": 14, "obs_sample_every": 14,
+    "obs_tb_dir": 14, "obs_numerics": 14, "obs_comm": 14, "obs_catalog": 14,
+    "slo_spec": 14, "slo_enforce": 14, "flight_recorder": 14,
+    "flight_window": 14, "flight_profile": 14, "profile_dir": 14,
+    # 15: multi-process and spatial sharding
+    "multihost": 15, "coordinator_address": 15, "num_processes": 15,
+    "process_id": 15, "multihost_timeout_s": 15, "multihost_retries": 15,
+    "mesh_space": 15,
+    # the rest: the values other than the default that the port runs are
+    # in _ALLOWED
+    "layout": 3, "batching": 4, "fuse_rounds": 6, "mesh_devices": 7,
+}
+#: attribute -> the values of it the port runs, where that is not just the
+#: parser's default (``derive`` resolves the sentinels of guard, watchdog
+#: and batching; 1 device, 1 depth shard and 1-round blocks are the
+#: default's behavior)
+_ALLOWED = {
+    "guard": (0,), "watchdog": (0,), "batching": ("epoch",),
+    "fuse_rounds": (0, 1), "mesh_devices": (0, 1), "mesh_space": (0, 1),
+    "layout": ("channels", "s2d"),
+}
+#: knobs that leave the JAX package's results bit-identical, and why the
+#: port has nothing for them to change
+_INERT = {
+    "client_chunk": "clients train one after another",
+    "donate_state": "a round never writes into its input state",
+    "agg_overlap": "the aggregate is one kernel launch, not a collective",
+    "agg_kernels": "the aggregation always runs the CUDA kernels",
+    "fused_kernels": "the optimizer update always runs the CUDA kernel",
+    "gpu": "--device names the card",
+    "type": "it is dead code in the original too",
+}
+#: model keys of the JAX package that the port has not got, by ROADMAP item
+_MODEL_ITEMS = {"3dcnn": 3, "3dcnn_deeper": 3, "3dcnn_regression": 3}
+
+
+def seed_everything(seed: int) -> None:
+    """Python, numpy and torch seeding (the algorithm draws from its own
+    generator, seeded by ``--seed`` as well)."""
+    random.seed(seed)
+    np.random.seed(seed)
+    torch.manual_seed(seed)
+
+
+def _is_abcd_h5(dataset: str) -> bool:
+    """The cohort-file datasets whose loaders take a ``layout`` (the
+    synthetic stand-ins always store NDHWC)."""
+    return dataset.lower() in ("abcd", "abcd_site", "abcd_rescale")
+
+
+def _model_key(args: argparse.Namespace) -> str:
+    if getattr(args, "layout", "channels") == "s2d":
+        return S2D_TWINS.get(args.model, args.model)
+    return args.model
+
+
+@functools.lru_cache(maxsize=None)
+def _default(attr: str):
+    from .config import build_parser
+
+    return build_parser().get_default(attr)
+
+
+def refuse_unported(args: argparse.Namespace, algo_name: str) -> None:
+    """``SystemExit`` naming the first flag of a feature the port has not
+    got, set to anything but its default, and the ROADMAP item that ports
+    it."""
+    from ..data import AUGMENTABLE_DATASETS
+    from ..models import MODEL_NAMES
+
+    if algo_name not in PORTED_ALGOS:
+        raise SystemExit(
+            f"--algo {algo_name}: not ported to PyTorch yet (ROADMAP item "
+            f"10); the port runs {', '.join(PORTED_ALGOS)}")
+    for attr, item in _UNPORTED.items():
+        if not hasattr(args, attr):
+            continue
+        v = getattr(args, attr)
+        ok = _ALLOWED.get(attr, (_default(attr),))
+        if v not in ok:
+            raise SystemExit(
+                f"--{attr} {v!r}: not ported to PyTorch yet (ROADMAP item "
+                f"{item}); drop the flag, or run the JAX package's CLI")
+    if args.dataset.lower() in AUGMENTABLE_DATASETS:
+        raise SystemExit(f"--dataset {args.dataset}: not ported to PyTorch "
+                         "yet (ROADMAP item 11)")
+    key = _model_key(args)
+    if key.lower() not in MODEL_NAMES:
+        raise SystemExit(
+            f"--model {key}: not ported to PyTorch yet (ROADMAP item "
+            f"{_MODEL_ITEMS.get(key, 11)}); the port has "
+            f"{', '.join(MODEL_NAMES)}")
+
+
+def _log_inert(args: argparse.Namespace) -> None:
+    for attr, why in _INERT.items():
+        v = getattr(args, attr, None)
+        if v is not None and v != _default(attr):
+            logger.info("--%s %s has no effect in the PyTorch port: %s",
+                        attr, v, why)
+
+
+def build_data(args: argparse.Namespace):
+    from ..data import load_federated_data
+
+    kwargs: Dict[str, Any] = {}
+    if args.dataset.lower() in ("synthetic", "abcd_synth"):
+        # CI-scale default; real ABCD shapes come from the .h5 itself
+        kwargs["sample_shape"] = (8, 8, 8, 1)
+        kwargs["samples_per_client"] = max(args.batch_size, 16)
+    elif _is_abcd_h5(args.dataset):
+        kwargs["layout"] = getattr(args, "layout", "channels")
+        if kwargs["layout"] == "s2d":
+            # decompose for the stem the resolved model actually has
+            kwargs["s2d_spec"] = S2D_SPECS.get(_model_key(args))
+    return load_federated_data(
+        args.dataset,
+        data_dir=args.data_dir,
+        client_number=args.client_num_in_total,
+        partition_method=args.partition_method,
+        partition_alpha=args.partition_alpha,
+        val_fraction=getattr(args, "val_fraction", 0.0),
+        seed=42,  # the original's fixed split seed
+        **kwargs,
+    )
+
+
+def infer_loss_type(args: argparse.Namespace, class_num: int) -> str:
+    """The ABCD/3D path uses BCE-with-logits, the image path CE."""
+    if args.model.startswith("3d") and class_num == 2:
+        return "bce"
+    if args.dataset.lower().startswith(("abcd", "synthetic")) and \
+            class_num == 2:
+        return "bce"
+    return "ce"
+
+
+def build_algorithm(args: argparse.Namespace, algo_name: str):
+    """The algorithm the flags describe, on ``--device``; returns
+    ``(algo, data)``, the data as the algorithm holds it (on the device,
+    moved there once after the ``--data_dtype`` cast)."""
+    from ..algorithms import FedAvg, SalientGrads
+    from ..core.state import HyperParams
+    from ..models import create_model
+
+    refuse_unported(args, algo_name)
+    # the layout/dataset/model coupling, checked before any data IO
+    layout = getattr(args, "layout", "channels")
+    model_key = args.model
+    if layout != "channels" and not _is_abcd_h5(args.dataset):
+        raise SystemExit(
+            f"--layout {layout} requires an ABCD cohort dataset "
+            "(abcd | abcd_site | abcd_rescale); other loaders store NDHWC")
+    if layout == "s2d":
+        model_key = S2D_TWINS.get(model_key, model_key)
+        if model_key not in S2D_SPECS:
+            raise SystemExit(
+                f"--layout s2d feeds phase-decomposed input that only the "
+                f"s2d-stem models consume; --model {model_key} would "
+                "misread the phase axis. Use --model "
+                f"{'/'.join(S2D_TWINS)} (auto-mapped) or drop --layout s2d")
+    elif model_key in S2D_SPECS:
+        raise SystemExit(
+            f"--model {model_key} consumes phase-decomposed input; pair it "
+            f"with --layout s2d (got --layout {layout})")
+    if getattr(args, "client_optimizer", "sgd") != "sgd":
+        raise SystemExit(
+            f"--client_optimizer {args.client_optimizer!r}: only 'sgd' is "
+            "implemented (the original crashes on anything else too)")
+    data = build_data(args)
+    ddt = getattr(args, "data_dtype", "")
+    if ddt:
+        dt = getattr(torch, ddt)
+        data = dataclasses.replace(
+            data, x_train=data.x_train.to(dt), x_test=data.x_test.to(dt),
+            x_val=None if data.x_val is None else data.x_val.to(dt))
+    loss_type = infer_loss_type(args, data.class_num)
+    num_outputs = 1 if loss_type == "bce" else data.class_num
+    model_kw = ({"sample_shape": tuple(data.sample_shape)}
+                if model_key == "3dcnn_s2d" else {})
+    model = create_model(model_key, num_classes=num_outputs, **model_kw)
+
+    # epoch batching: each client iterates ceil(n_i/batch) shuffled batches
+    # per epoch; the step count is the largest client's, and the smaller
+    # clients' extra steps are masked no-ops (core/trainer.py)
+    counts = np.asarray(data.n_train)
+    steps_per_epoch = max(1, -(-int(np.max(counts)) // args.batch_size))
+    hp = HyperParams(
+        lr=args.lr, lr_decay=args.lr_decay, momentum=args.momentum,
+        weight_decay=args.wd, grad_clip=args.grad_clip,
+        local_epochs=args.epochs, steps_per_epoch=steps_per_epoch,
+        batch_size=args.batch_size,
+    )
+    agg_impl = getattr(args, "agg_impl", "dense")
+    if agg_impl == "sparse" and algo_name != "salientgrads":
+        raise SystemExit(
+            "--agg_impl sparse needs a static sparsity mask; only "
+            "salientgrads (fixed SNIP mask) supports it")
+    if agg_impl == "hier" and \
+            getattr(args, "agg_hier_wire", "bf16") == "sparse" and \
+            algo_name != "salientgrads":
+        raise SystemExit(
+            "--agg_hier_wire sparse compresses the cross-slice hop to a "
+            "static mask's live coordinates; only salientgrads (fixed "
+            "SNIP mask) supports it")
+    common = dict(
+        loss_type=loss_type, frac=args.frac, seed=args.seed,
+        compute_dtype=getattr(args, "compute_dtype", "") or None,
+        agg_impl=agg_impl,
+        agg_bucket_size=getattr(args, "agg_bucket_size", 0),
+        agg_topk_density=getattr(args, "agg_topk_density", 0.1),
+        agg_topk_sample=getattr(args, "agg_topk_sample", 0),
+        agg_hier_wire=getattr(args, "agg_hier_wire", "bf16"),
+        agg_hier_inner=getattr(args, "agg_hier_inner", 0),
+        device=getattr(args, "device", "cuda"),
+    )
+    track_personal = bool(getattr(args, "track_personal", 1))
+    if algo_name == "salientgrads":
+        algo = SalientGrads(
+            model, data, hp, dense_ratio=args.dense_ratio,
+            itersnip_iterations=args.itersnip_iteration,
+            snip_mask=bool(getattr(args, "snip_mask", 1)),
+            stratified_sampling=bool(getattr(args, "stratified_sampling",
+                                             0)),
+            track_personal=track_personal, **common)
+    else:
+        algo = FedAvg(model, data, hp, track_personal=track_personal,
+                      **common)
+    return algo, algo.data
+
+
+def save_stat_info(args: argparse.Namespace, identity: str,
+                   history, final_eval, cost=None,
+                   avg_inference_flops: float = 0.0,
+                   fault_counters=None) -> Optional[str]:
+    """End-of-run artifact: the ``stat_info`` pickle, and its JSON sidecar,
+    under ``<results_dir>/<dataset>/<identity>``."""
+    if not args.results_dir:
+        return None
+    out_dir = os.path.join(args.results_dir, args.dataset)
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, identity)
+    stat_info = {
+        "config": vars(args),
+        "history": history,
+        "final_eval": {k: float(v) for k, v in final_eval.items()
+                       if np.ndim(v) == 0},
+        "global_test_acc": [h.get("global_acc") for h in history
+                            if "global_acc" in h],
+        "person_test_acc": [h.get("personal_acc") for h in history
+                            if "personal_acc" in h],
+        # DisPFL's local-test series (empty for the ported algorithms)
+        "old_mask_test_acc": [h["old_mask_test_acc"] for h in history
+                              if "old_mask_test_acc" in h],
+        "new_mask_test_acc": [h["new_mask_test_acc"] for h in history
+                              if "new_mask_test_acc" in h],
+        "sum_training_flops": getattr(cost, "sum_training_flops", 0.0),
+        "sum_comm_params": getattr(cost, "sum_comm_params", 0),
+        "avg_inference_flops": avg_inference_flops,
+    }
+    if fault_counters is not None:
+        stat_info["fault_recovery"] = dict(fault_counters)
+    with open(path, "wb") as f:
+        pickle.dump(stat_info, f)
+    with open(path + ".json", "w") as f:
+        json.dump(stat_info, f, default=str, indent=1)
+    return path
+
+
+def _cost_snapshot(state):
+    """(params, mask) the FLOPs/comm counters price: the global model and
+    its mask (None for FedAvg)."""
+    return state.global_params, getattr(state, "mask", None)
+
+
+def run_experiment(args: argparse.Namespace,
+                   algo_name: Optional[str] = None) -> Dict[str, Any]:
+    from .. import resolve_device
+    from ..utils.flops import CostTracker, inference_flops
+    from ..utils.records import DeferredRecords, RunCounters, to_float
+
+    algo_name = algo_name or getattr(args, "algo", "fedavg")
+    refuse_unported(args, algo_name)
+    try:
+        resolve_device(getattr(args, "device", "cuda"))
+    except RuntimeError as e:
+        raise SystemExit(f"--device {args.device}: {e}")
+    log_handler = None
+    try:
+        identity = run_identity(args, algo_name)
+        configure_console()
+        log_handler = add_run_file_logger(
+            args.log_dir, getattr(args, "logfile", "") or identity)
+        logger.info("run identity: %s", identity)
+        _log_inert(args)
+        seed_everything(args.seed)
+
+        algo, data = build_algorithm(args, algo_name)
+        state = algo.init_state()
+
+        # per-round cost accounting (stat_info's sum_training_flops /
+        # sum_comm_params): each client consumes its own n_i samples per
+        # epoch, the cohort mean standing in for the sampled subset
+        cost = CostTracker(model=algo.model,
+                           sample_shape=tuple(data.sample_shape))
+        samples_per_client = algo.hp.local_epochs * int(
+            np.mean(np.asarray(data.n_train)))
+
+        history = []
+        final_eval = None
+        counters = RunCounters()
+
+        def _emit(rec):
+            counters.update(rec)
+            logger.info("%s round %s: %s", algo_name, rec["round"], rec)
+
+        # round r's record is converted and logged after round r+1 is
+        # queued (utils/records.py)
+        deferred = DeferredRecords(log=_emit)
+        try:
+            for r in range(args.comm_round):
+                state, rec = algo.run_round(state, r)
+                record = {"round": r, **dict(rec)}
+                # the masks are fixed, so round 0's count repeats (no
+                # device-to-host pull after it)
+                crec = cost.record_repeat() if cost.per_round else \
+                    cost.record_round(*_cost_snapshot(state),
+                                      n_clients=algo.clients_per_round,
+                                      samples_per_client=samples_per_client)
+                record["sum_training_flops"] = crec["sum_training_flops"]
+                record["sum_comm_params"] = crec["sum_comm_params"]
+                final_eval = None  # state changed; any cached eval is stale
+                if args.frequency_of_the_test and \
+                        (r + 1) % args.frequency_of_the_test == 0:
+                    final_eval = algo.evaluate(state)
+                    record.update({
+                        k: v for k, v in final_eval.items()
+                        if not k.startswith("acc_per")})
+                history.append(record)
+                deferred.push(record)
+        except BaseException:
+            deferred.flush_safely()  # emit the last completed round
+            raise
+        deferred.flush()
+
+        fin_rec = None
+        if getattr(args, "final_finetune", 1):
+            state, fin_rec = algo.finalize(state)
+        if fin_rec is not None:
+            # the final record (round -1)
+            record = {k: v if k in ("round", "finetune") else to_float(v)
+                      for k, v in fin_rec.items()}
+            history.append(record)
+            logger.info("%s final: %s", algo_name, record)
+            # only a finalize that trained (FedAvg's fine-tune) counts
+            # toward the FLOPs/comm counters
+            if record.get("finetune"):
+                cost.record_round(*_cost_snapshot(state),
+                                  n_clients=algo.num_clients,
+                                  samples_per_client=samples_per_client)
+            final_eval = {k: v for k, v in fin_rec.items()
+                          if k not in ("round", "finetune")}
+        if final_eval is None:  # the last round was not an eval round
+            final_eval = algo.evaluate(state)
+        avg_inf = 0.0
+        if args.results_dir:
+            params, mask = _cost_snapshot(state)
+            avg_inf = inference_flops(algo.model, params,
+                                      tuple(data.sample_shape), mask)
+        stat_path = save_stat_info(
+            args, identity, history, final_eval, cost=cost,
+            avg_inference_flops=avg_inf, fault_counters=counters.summary())
+        return {
+            "identity": identity,
+            "history": history,
+            "final_eval": final_eval,
+            "stat_path": stat_path,
+            "state": state,
+        }
+    finally:
+        remove_run_file_logger(log_handler)
+
+
+def main(argv: Optional[Sequence[str]] = None,
+         algo: Optional[str] = None) -> Dict[str, Any]:
+    args = parse_args(argv, algo)
+    return run_experiment(args, algo)

@@ -23,6 +23,10 @@ _REGISTRY = {
 }
 
 
+#: the model keys this package has
+MODEL_NAMES = tuple(sorted(_REGISTRY))
+
+
 def create_model(name: str, num_classes: int = 1, **kwargs) -> torch.nn.Module:
     key = name.lower()
     if key not in _REGISTRY:
@@ -62,5 +66,6 @@ def make_apply_fn(model: torch.nn.Module,
     return apply_fn
 
 
-__all__ = ["AlexNet3DS2D", "SmallCNN3D", "SmallCNN3DS2D", "create_model",
+__all__ = ["AlexNet3DS2D", "MODEL_NAMES", "SmallCNN3D", "SmallCNN3DS2D",
+           "create_model",
            "init_params", "make_apply_fn"]

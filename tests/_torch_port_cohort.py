@@ -1,7 +1,9 @@
 """Shared by the port's wire tests (``tests/test_torch_port_wires.py``,
-``tests/test_torch_port_fedavg.py``): ``tests/test_torch_port_round.py``'s
-narrow cohort, the reference's per-round random draws (epoch permutations,
-the int8 wire's uniforms) and the comparisons of the two sides' trees."""
+``tests/test_torch_port_fedavg.py``) and CLI and data tests
+(``tests/test_torch_port_cli.py``, ``tests/test_torch_port_data.py``):
+``tests/test_torch_port_round.py``'s narrow cohort, the reference's per-round
+random draws (epoch permutations, the int8 wire's uniforms) and the
+comparisons of the two sides' trees and datasets."""
 import numpy as np
 import torch
 
@@ -134,3 +136,26 @@ def wire_flips(t_locals, j_locals, impl, u) -> int:
     tq, _ = tc._quantize_int8(tc._buckets(tm, BUCKET), u)
     jq, _ = tc._quantize_int8(tc._buckets(jm, BUCKET), u)
     return int((tq != jq).sum())
+
+
+FIELDS = ("x_train", "y_train", "n_train", "x_test", "y_test", "n_test",
+          "x_val", "y_val", "n_val")
+
+
+def assert_data_equal(t, j):
+    """Every array of two FederatedData bit for bit, ``class_num`` and the
+    dtypes included (a missing validation split on both sides is equal)."""
+    assert t.class_num == j.class_num
+    for f in FIELDS:
+        tv, jv = getattr(t, f), getattr(j, f)
+        assert (tv is None) == (jv is None), f
+        if tv is None:
+            continue
+        jv = np.asarray(jv)
+        if tv.dtype == torch.bfloat16:
+            assert str(jv.dtype) == "bfloat16", f
+            tv, jv = tv.float().numpy(), jv.astype(np.float32)
+        else:
+            tv = tv.numpy()
+        assert tv.dtype == jv.dtype, (f, tv.dtype, jv.dtype)
+        np.testing.assert_array_equal(tv, jv, err_msg=f)

@@ -1,0 +1,440 @@
+"""The port's command-line entry point against the JAX package's, on the CPU.
+
+* Flags and identity: over a table of command lines, both ``parse_args``
+  give equal namespaces (the port's own ``--device`` aside) and both
+  ``run_identity`` equal strings, so logs and results land at the same
+  paths.
+* Every flag of a feature the port has not got ends the run with
+  ``SystemExit`` naming the flag, before any work.
+* Both ``build_algorithm`` give equal hyperparameters, loss type and data
+  from one command line, and two rounds of each agree (the reference's
+  draws fed to the port at its seams; losses rtol 1e-5, parameters rtol
+  1e-5 / atol 2e-7, as ``test_salientgrads_two_rounds_match_reference``).
+* The CLI end to end: ``stat_info`` at the JAX CLI's path with its
+  top-level keys, and history records with its keys at its cadence.
+"""
+import argparse
+import os
+import pickle
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+
+torch = pytest.importorskip("torch")
+
+import _torch_port_cohort as pc  # noqa: E402
+from neuroimagedisttraining_tpu.core.trainer import epoch_permutations  # noqa: E402
+from neuroimagedisttraining_tpu.experiments import config as jconfig  # noqa: E402
+from neuroimagedisttraining_tpu.experiments import runner as jrunner  # noqa: E402
+from neuroimagedisttraining_tpu.utils import records as jrecords  # noqa: E402
+from neuroimagedisttraining_torch.algorithms import (  # noqa: E402
+    FedAvgState,
+    SalientGradsState,
+)
+from neuroimagedisttraining_torch.convert import jax_params_to_torch  # noqa: E402
+from neuroimagedisttraining_torch.core.state import broadcast_tree  # noqa: E402
+from neuroimagedisttraining_torch.experiments import config as tconfig  # noqa: E402
+from neuroimagedisttraining_torch.experiments import runner as trunner  # noqa: E402
+from neuroimagedisttraining_torch.utils import records as trecords  # noqa: E402
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SMALL = ["--dataset", "synthetic", "--model", "small3dcnn"]
+
+#: (per-algorithm main or None for the unified --algo parser, argv)
+COMMAND_LINES = [
+    (None, ["--algo", "salientgrads"] + SMALL),
+    (None, ["--algo", "fedavg"] + SMALL),
+    ("salientgrads", SMALL),
+    ("fedavg", SMALL),
+    (None, ["--algo", "salientgrads", "--dataset", "abcd_rescale",
+            "--layout", "s2d", "--model", "3dcnn", "--compute_dtype",
+            "bfloat16", "--data_dtype", "bfloat16", "--data_dir", "x.h5"]),
+    ("salientgrads", ["--dataset", "abcd", "--layout", "channels",
+                      "--model", "small3dcnn", "--client_num_in_total", "0"]),
+    ("salientgrads", SMALL + ["--dense_ratio", "0.2",
+                              "--itersnip_iteration", "3"]),
+    ("salientgrads", SMALL + ["--track_personal", "0"]),
+    ("fedavg", SMALL + ["--track_personal", "0", "--final_finetune", "0"]),
+    ("salientgrads", SMALL + ["--snip_mask", "0"]),
+    (None, ["--algo", "salientgrads", "--frac", "0.5", "--seed", "3",
+            "--lr", "0.01", "--epochs", "1", "--batch_size", "4",
+            "--comm_round", "7", "--tag", "t1", "--ci", "1"]),
+    (None, ["--algo", "dispfl", "--cs", "ring", "--active", "0.7"]),
+    (None, ["--algo", "fedavg", "--defense_type", "weak_dp",
+            "--robust_agg", "norm_krum", "--eval_cache", "1"]),
+    (None, ["--algo", "fedavg", "--fed_role", "aggregator", "--fed_sites",
+            "3", "--fed_mode", "buffered", "--batching", "replacement"]),
+] + [
+    (None, ["--algo", a, "--agg_impl", impl, "--agg_topk_density", "0.05",
+            "--agg_topk_sample", "100", "--agg_hier_wire", "int8",
+            "--agg_hier_inner", "2", "--agg_bucket_size", "4096"])
+    for a in ("salientgrads", "fedavg")
+    for impl in ("dense", "bucketed", "bf16", "int8", "sparse", "topk",
+                 "hier")
+]
+
+
+def _ids(table):
+    return [" ".join([m or "unified"] + argv) for m, argv in table]
+
+
+@pytest.mark.parametrize("algo,argv", COMMAND_LINES,
+                         ids=_ids(COMMAND_LINES))
+def test_flags_and_identity_match_reference(algo, argv):
+    j = jconfig.parse_args(argv, algo)
+    t = tconfig.parse_args(argv, algo)
+    tv = vars(t)
+    assert tv.pop("device") == "cuda"
+    assert tv == vars(j)
+    for ck in (False, True):
+        assert tconfig.run_identity(t, algo, for_checkpoint=ck) == \
+            jconfig.run_identity(j, algo, for_checkpoint=ck)
+    assert tconfig.run_identity(tconfig.parse_args(
+        argv + ["--device", "cpu"], algo), algo) == \
+        jconfig.run_identity(j, algo)
+
+
+def test_flag_table_matches_reference():
+    for algo in (None,) + jconfig.ALGO_NAMES:
+        jp, tp = jconfig.build_parser(algo), tconfig.build_parser(algo)
+        jflags = {a.dest: (a.default, a.choices, a.type)
+                  for a in jp._actions}
+        tflags = {a.dest: (a.default, a.choices, a.type)
+                  for a in tp._actions}
+        assert tflags.pop("device")[0] == "cuda"
+        assert tflags == jflags
+    assert tconfig.ALGO_NAMES == jconfig.ALGO_NAMES
+
+
+#: (extra argv, flag the refusal names): every unported feature, set
+REFUSED = [
+    (["--algo", a], "--algo") for a in
+    ("dispfl", "subavg", "dpsgd", "ditto", "fedfomo", "local",
+     "turboaggregate")
+] + [
+    (["--checkpoint_dir", "ck"], "--checkpoint_dir"),
+    (["--resume"], "--resume"),
+    (["--obs", "1"], "--obs"),
+    (["--obs_numerics", "1"], "--obs_numerics"),
+    (["--obs_comm", "1"], "--obs_comm"),
+    (["--trace_dir", "tr"], "--trace_dir"),
+    (["--fault_spec", "drop=0.2"], "--fault_spec"),
+    (["--slo_spec", "p99:round_time_s<2"], "--slo_spec"),
+    (["--flight_recorder", "guard"], "--flight_recorder"),
+    (["--guard", "1"], "--guard"),
+    (["--watchdog", "1"], "--watchdog"),
+    (["--robust_agg", "median"], "--robust_agg"),
+    (["--defense_type", "norm_diff_clipping"], "--defense_type"),
+    (["--norm_bound", "2"], "--norm_bound"),
+    (["--mesh_devices", "2"], "--mesh_devices"),
+    (["--mesh_space", "2"], "--mesh_space"),
+    (["--multihost"], "--multihost"),
+    (["--fuse_rounds", "4"], "--fuse_rounds"),
+    (["--client_store", "host", "--frac", "0.5"], "--client_store"),
+    (["--eval_cache", "1"], "--eval_cache"),
+    (["--eval_clients", "2"], "--eval_clients"),
+    (["--serve_role", "worker"], "--serve_role"),
+    (["--fed_role", "aggregator", "--fed_sites", "2"], "--fed_role"),
+    (["--fed_role", "aggregator", "--fed_sites", "2", "--fed_site_faults",
+      "1:drop=1.0"], "--fed_site_faults"),
+    (["--profile_dir", "prof"], "--profile_dir"),
+    (["--remat", "1"], "--remat"),
+    (["--batching", "replacement"], "--batching"),
+    (["--stratified_sampling", "1"], "--stratified_sampling"),
+    (["--layout", "flat", "--dataset", "abcd"], "--layout"),
+    (["--dataset", "cifar10"], "--dataset"),
+    (["--model", "3dcnn"], "--model"),
+    (["--model", "resnet18"], "--model"),
+    (["--model", "3dresnet", "--layout", "s2d", "--dataset", "abcd"],
+     "--model"),
+]
+
+
+@pytest.mark.parametrize("extra,flag", REFUSED,
+                         ids=[" ".join(e) for e, _ in REFUSED])
+def test_unported_flags_refused_before_any_work(tmp_path, extra, flag):
+    argv = (["--algo", "salientgrads", "--dataset", "synthetic", "--model",
+             "small3dcnn", "--device", "cpu", "--results_dir",
+             str(tmp_path / "res"), "--log_dir", str(tmp_path / "log")]
+            + extra)
+    with pytest.raises(SystemExit) as e:
+        trunner.main(argv)
+    assert str(e.value.code).startswith(flag + ":") or \
+        str(e.value.code).startswith(flag + " "), e.value.code
+    assert "ROADMAP item" in str(e.value.code)
+    assert not (tmp_path / "res").exists() and \
+        not (tmp_path / "log").exists()
+
+
+def test_cli_without_cuda_exits_naming_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA")
+    out = subprocess.run(
+        [sys.executable, "-m", "neuroimagedisttraining_torch.experiments",
+         "--algo", "salientgrads"] + SMALL + [
+         "--results_dir", str(tmp_path / "res"), "--log_dir",
+         str(tmp_path / "log")],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0 and "CUDA" in out.stderr, out.stderr
+    assert not (tmp_path / "res").exists()
+    bench = subprocess.run([sys.executable, "bench_torch.py"], cwd=ROOT,
+                           capture_output=True, text=True, timeout=300)
+    assert bench.returncode == 2 and bench.stdout == "", bench
+    assert "CUDA" in bench.stderr
+
+
+# -- the algorithm the CLI builds --------------------------------------------
+
+def _built(algo, argv):
+    """Both sides' ``build_algorithm`` from one unified-parser command
+    line (whose fedfomo ``--val_fraction`` default carves a validation
+    split on both)."""
+    argv = ["--algo", algo] + argv
+    j_algo, j_data = jrunner.build_algorithm(jconfig.parse_args(argv), algo)
+    t_algo, t_data = trunner.build_algorithm(
+        tconfig.parse_args(argv + ["--device", "cpu"]), algo)
+    return j_algo, j_data, t_algo, t_data
+
+
+@pytest.mark.parametrize("algo,seed,extra", [
+    ("salientgrads", 0, []),
+    ("salientgrads", 0, ["--track_personal", "0", "--snip_mask", "0"]),
+    ("fedavg", 9, []),
+    ("fedavg", 9, ["--track_personal", "0"]),
+])
+def test_cli_built_rounds_match_reference(algo, seed, extra):
+    argv = SMALL + ["--seed", str(seed), "--epochs", "1", "--lr", "0.01",
+                    "--momentum", "0.9", "--wd", "5e-4", "--batch_size",
+                    "8"] + extra
+    ja, jd, ta, td = _built(algo, argv)
+    pc.assert_data_equal(td, jd)  # the unified parser's val split too
+    for f in ("lr", "lr_decay", "momentum", "weight_decay", "grad_clip",
+              "local_epochs", "steps_per_epoch", "batch_size"):
+        assert getattr(ta.hp, f) == getattr(ja.hp, f), f
+    assert ta.hp.local_steps == ja.hp.local_steps
+    assert ta.loss_type == ja.loss_type == "bce"
+    assert (ta.num_clients, ta.clients_per_round) == \
+        (ja.num_clients, ja.clients_per_round)
+
+    jstate = ja.init_state(jax.random.PRNGKey(seed))
+    g = jax_params_to_torch(pc.np_tree(jstate.global_params))
+    personal = (None if jstate.personal_params is None
+                else broadcast_tree(g, ta.num_clients))
+    assert (ta.init_state().personal_params is None) == (personal is None)
+    if algo == "salientgrads":
+        if "--snip_mask" in extra:  # the dense control: all ones
+            assert all(bool((m == 1).all()) for m in
+                       ta.init_state().mask.values())
+            assert all(bool((np.asarray(m) == 1).all()) for m in
+                       jax.tree_util.tree_leaves(jstate.mask))
+        state = SalientGradsState(
+            global_params=g, mask=jax_params_to_torch(pc.np_tree(jstate.mask)),
+            personal_params=personal, generator=torch.Generator())
+    else:
+        state = FedAvgState(global_params=g, personal_params=personal,
+                            generator=torch.Generator())
+    nvals = [int(n) for n in np.asarray(jd.n_train)]
+    spe, bs = ja.hp.steps_per_epoch, ja.hp.batch_size
+    rng = jstate.rng
+    for r in range(2):
+        rng, round_key = jax.random.split(rng)
+        keys = jax.random.split(round_key, ta.num_clients + 1)
+        perms = [np.array(epoch_permutations(
+            jax.random.split(keys[c])[0], jnp.int32(nvals[c]), 1, spe * bs,
+            n_rows=jd.x_train.shape[1])) for c in range(ta.num_clients)]
+        jstate, jmet = ja.run_round(jstate, r)
+        state, tmet = ta.run_round(state, r, perms=perms)
+        np.testing.assert_allclose(float(tmet["train_loss"]),
+                                   float(jmet["train_loss"]), rtol=1e-5)
+    pc.compare(state.global_params, jstate.global_params, "dense")
+    for c in range(ta.num_clients if personal is not None else 0):
+        pc.compare({k: v[c] for k, v in state.personal_params.items()},
+                   jax.tree_util.tree_map(lambda x: x[c],
+                                          jstate.personal_params), "dense")
+    jev, tev = ja.evaluate(jstate), ta.evaluate(state)
+    assert sorted(tev) == sorted(jev)
+    np.testing.assert_array_equal(tev["acc_per_client"].numpy(),
+                                  np.asarray(jev["acc_per_client"]))
+    if algo == "salientgrads":
+        assert tev["mask_density"] == float(jev["mask_density"])
+
+
+def test_cli_built_uneven_epoch_steps(tmp_path):
+    """The step count is the largest client's, over an uneven cohort read
+    from a cohort file; the smaller clients' extra steps are masked."""
+    rng = np.random.RandomState(0)
+    n = 40
+    path = str(tmp_path / "c.h5")
+    from neuroimagedisttraining_torch.data import write_abcd_h5
+
+    write_abcd_h5(path, rng.rand(n, 10, 12, 10).astype(np.float32),
+                  rng.randint(0, 2, n), rng.choice([0, 1, 2], n,
+                                                   p=[0.6, 0.3, 0.1]))
+    argv = ["--dataset", "abcd_site", "--data_dir", path,
+            "--model", "small3dcnn_s2d", "--layout", "s2d",
+            "--batch_size", "4", "--client_num_in_total", "0"]
+    ja, jd, ta, td = _built("fedavg", argv)
+    pc.assert_data_equal(td, jd)
+    counts = np.asarray(td.n_train)
+    assert counts.max() > counts.min()
+    assert ta.hp.steps_per_epoch == ja.hp.steps_per_epoch == \
+        -(-int(counts.max()) // 4)
+    assert not ta._full_batches()
+
+
+# -- the CLI end to end ------------------------------------------------------
+
+def _stat_keys(tmp_path):
+    """The top-level keys of the reference's stat_info for a clean run."""
+    ns = argparse.Namespace(results_dir=str(tmp_path / "keys"),
+                            dataset="synthetic")
+    path = jrunner.save_stat_info(ns, "x", [], {}, fault_counters={})
+    with open(path, "rb") as f:
+        return sorted(pickle.load(f))
+
+
+def test_cli_end_to_end_writes_stat_info_at_reference_path(tmp_path):
+    argv = ["--algo", "salientgrads"] + SMALL + [
+        "--comm_round", "2", "--results_dir", str(tmp_path / "res"),
+        "--log_dir", str(tmp_path / "log"), "--client_chunk", "2"]
+    out = subprocess.run(
+        [sys.executable, "-m", "neuroimagedisttraining_torch.experiments"]
+        + argv + ["--device", "cpu"], cwd=ROOT, capture_output=True,
+        text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    identity = jconfig.run_identity(jconfig.parse_args(argv))
+    path = tmp_path / "res" / "synthetic" / identity
+    assert path.is_file() and (tmp_path / "res" / "synthetic" /
+                               (identity + ".json")).is_file()
+    with open(path, "rb") as f:
+        stat = pickle.load(f)
+    assert sorted(stat) == _stat_keys(tmp_path)
+    assert stat["config"]["device"] == "cpu"
+    rounds = [h for h in stat["history"] if h["round"] >= 0]
+    assert [h["round"] for h in stat["history"]] == [0, 1, -1]
+    for h in rounds:
+        assert {"train_loss", "global_acc", "global_loss",
+                "personal_acc", "personal_loss", "mask_density",
+                "sum_training_flops", "sum_comm_params"} <= set(h)
+        assert all(isinstance(v, (int, float)) for v in h.values())
+    assert len(stat["global_test_acc"]) == 3  # two rounds and the final
+    assert stat["avg_inference_flops"] > 0 and stat["sum_comm_params"] > 0
+    log = (tmp_path / "log" / (identity + ".log")).read_text()
+    assert "--client_chunk 2 has no effect in the PyTorch port" in log
+
+
+@pytest.mark.parametrize("main,algo", [
+    ("main_salientgrads", "salientgrads"),
+    ("main_sailentgrads", "salientgrads"),
+    ("main_fedavg", "fedavg"),
+])
+def test_per_algorithm_mains_run_on_cpu(tmp_path, main, algo):
+    argv = SMALL + ["--comm_round", "1", "--epochs", "1", "--results_dir",
+                    str(tmp_path / "res"), "--log_dir", ""]
+    out = subprocess.run(
+        [sys.executable, "-m",
+         f"neuroimagedisttraining_torch.experiments.{main}"]
+        + argv + ["--device", "cpu"], cwd=ROOT, capture_output=True,
+        text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    identity = jconfig.run_identity(jconfig.parse_args(argv, algo), algo)
+    assert (tmp_path / "res" / "synthetic" / identity).is_file()
+
+
+@pytest.mark.parametrize("algo", ["salientgrads", "fedavg"])
+def test_cli_history_matches_reference_cadence(tmp_path, algo):
+    """The same command line through both CLIs in-process: the same
+    identity and stat_info path, the same record keys round by round at
+    ``--frequency_of_the_test 2`` and the same cost counters."""
+    argv = SMALL + ["--comm_round", "3", "--frequency_of_the_test", "2",
+                    "--epochs", "1"]
+    j = jrunner.main(argv + ["--results_dir", str(tmp_path / "j"),
+                             "--log_dir", ""], algo)
+    t = trunner.main(argv + ["--results_dir", str(tmp_path / "t"),
+                             "--log_dir", "", "--device", "cpu"], algo)
+    assert t["identity"] == j["identity"]
+    assert os.path.relpath(t["stat_path"], tmp_path / "t") == \
+        os.path.relpath(j["stat_path"], tmp_path / "j")
+    assert [sorted(h) for h in t["history"]] == \
+        [sorted(h) for h in j["history"]]
+    assert [h["round"] for h in t["history"]] == [0, 1, 2, -1]
+    assert "global_acc" in t["history"][1] and \
+        "global_acc" not in t["history"][0]
+    with open(t["stat_path"], "rb") as f:
+        ts = pickle.load(f)
+    with open(j["stat_path"], "rb") as f:
+        js = pickle.load(f)
+    assert sorted(ts) == sorted(js)
+    # FedAvg's model is dense on both sides, so the counters agree exactly;
+    # SalientGrads' SNIP masks come from each side's own draws
+    for k in ("sum_comm_params", "sum_training_flops",
+              "avg_inference_flops"):
+        assert ts[k] > 0
+        if algo == "fedavg":
+            assert ts[k] == js[k], k
+
+
+def test_cli_abcd_rescale_s2d_end_to_end(tmp_path):
+    rng = np.random.RandomState(1)
+    n = 60
+    path = str(tmp_path / "final_dataset_60subs.h5")
+    from neuroimagedisttraining_torch.data import write_abcd_h5
+
+    write_abcd_h5(path, rng.rand(n, 10, 12, 10).astype(np.float32),
+                  rng.randint(0, 2, n), rng.randint(0, 3, n))
+    argv = ["--algo", "salientgrads", "--dataset", "abcd_rescale",
+            "--data_dir", path, "--layout", "s2d", "--model", "small3dcnn",
+            "--client_num_in_total", "4", "--batch_size", "4",
+            "--comm_round", "2", "--results_dir", str(tmp_path / "res"),
+            "--log_dir", ""]
+    res = trunner.main(argv + ["--device", "cpu"])
+    identity = jconfig.run_identity(jconfig.parse_args(argv))
+    assert res["identity"] == identity
+    assert res["stat_path"] == str(tmp_path / "res" / "abcd_rescale" /
+                                   identity)
+    losses = [h["train_loss"] for h in res["history"] if h["round"] >= 0]
+    assert len(losses) == 2 and np.all(np.isfinite(losses))
+    assert set(res["state"].global_params) >= {"S2DStemConv_0.kernel"}
+
+
+# -- the deferred records ----------------------------------------------------
+
+def test_deferred_records_match_reference():
+    logs = {"j": [], "t": []}
+    jd = jrecords.DeferredRecords(log=logs["j"].append, timed=True)
+    td = trecords.DeferredRecords(log=logs["t"].append, timed=True)
+    for r in range(3):
+        jd.push({"round": r, "loss": jnp.float32(r / 3),
+                 "acc": np.float32(0.5), "vec": np.arange(2)})
+        td.push({"round": r, "loss": torch.tensor(r / 3),
+                 "acc": np.float32(0.5), "vec": torch.arange(2)})
+        assert len(logs["t"]) == len(logs["j"]) == r
+    jd.flush()
+    td.flush()
+    for a, b in zip(logs["t"], logs["j"]):
+        assert sorted(a) == sorted(b)
+        assert a["round"] == b["round"] and isinstance(a["round"], int)
+        assert a["loss"] == b["loss"] and isinstance(a["loss"], float)
+        assert isinstance(a["vec"], torch.Tensor)
+        assert a["round_time_s"] >= 0
+    assert trecords.to_float(torch.tensor([1.0, 2.0])).shape == (2,)
+    counters = trecords.RunCounters()
+    counters.update({"clients_dropped": torch.tensor(2.0)})
+    counters.update({"clients_dropped": 1.0, "round": 3})
+    assert counters.summary() == {"clients_dropped": 3.0}
+
+
+def test_salientgrads_stratified_sampling_refused():
+    from neuroimagedisttraining_torch.algorithms import SalientGrads
+    from neuroimagedisttraining_torch.core.state import HyperParams
+
+    _, tm = pc.models()
+    _, td = pc.data()
+    with pytest.raises(ValueError, match="ROADMAP item 5"):
+        SalientGrads(tm, td, pc.hp(HyperParams, 2), stratified_sampling=True,
+                     device="cpu")

@@ -281,8 +281,16 @@ def _imports(path):
 
 def test_port_imports_no_jax():
     files = sorted((ROOT / "neuroimagedisttraining_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py", ROOT / "bench_torch.py"]
     assert len(files) > 15
+    names = {f.relative_to(ROOT).as_posix() for f in files}
+    for mod in ("experiments/__init__", "experiments/__main__",
+                "experiments/config", "experiments/runner",
+                "experiments/logging_utils", "experiments/main_salientgrads",
+                "experiments/main_sailentgrads", "experiments/main_fedavg",
+                "utils/__init__", "utils/records", "utils/flops",
+                "data/abcd", "data/partition"):
+        assert f"neuroimagedisttraining_torch/{mod}.py" in names, mod
     banned = ("jax", "flax", "neuroimagedisttraining_tpu")
     for f in files:
         for mod in _imports(f):
