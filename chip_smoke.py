@@ -28,7 +28,10 @@ Phases, each printing one JSON line:
    the row, k = 1, k = n, all zeros, ties, a [8, n_group] view off a
    16-byte boundary),
    and the weighted sum on edge leaves (n odd, bases 4 and 16 bytes off)
-   for 1, 3, 8 and 16 clients. The stem forward's record also holds its
+   for 1, 3, 8 and 16 clients; the int8 quantize-reduce at b = 1000 and
+   b = 1001 (the scalar path) and for 17 clients (two launches), its record
+   naming the path and tile its wrapper chose and ptxas's registers for the
+   8-client kernel. The stem forward's record also holds its
    persistent launch (grid, tiles, threads, shared memory, registers) and
    a second launch on the same inputs, bitwise equal to the first. A
    ``bound_share`` line follows: each kernel's bound over its measured
@@ -286,8 +289,9 @@ def _bitwise_or_raise(name, got, want):
 def check_agg_kernels(dev, g, params):
     """The aggregation wires' kernels at full-width shapes: mask apply over
     the 24 leaves, the weighted sum over [8, leaf] for every leaf, the int8
-    quantize-reduce at [8, 10, 262144] (and at b = 1000, with an all-zero
-    bucket), the threshold at [8, n] for the largest top-k leaf group."""
+    quantize-reduce at [8, 10, 262144] (and at b = 1000 and b = 1001, and
+    for 17 clients, with an all-zero bucket), the threshold at [8, n] for
+    the largest top-k leaf group."""
     import torch
 
     from neuroimagedisttraining_torch.core.state import weighted_sum
@@ -349,16 +353,29 @@ def check_agg_kernels(dev, g, params):
     mat = tc.stacked_to_mat(stacked)
     buckets = tc._buckets(mat, tc.DEFAULT_BUCKET_SIZE)
     buckets[0, 3] = 0.0  # an all-zero bucket: scale 1.0
+    # 17 clients (two launches, the second resuming from the first's sums)
+    # and b = 1001 (the scalar path)
     cases = {"main": buckets,
-             "b1000": tc._buckets(mat, 1000)}
-    errs = []
+             "b1000": tc._buckets(mat, 1000),
+             "b1001": tc._buckets(mat, 1001),
+             "c17": torch.cat([buckets, 0.5 * buckets, 3.0 * buckets[:1]])}
+    w17 = torch.rand(17, generator=g, device=dev)
+    w17 = w17 / w17.sum()
+    errs, plans = [], {}
     for label, x in cases.items():
         u = torch.rand(x.shape, generator=g, device=dev)
         sc = tc._int8_scale(x)[..., 0].contiguous()
-        got = kernels.fused_quantize_reduce(x, w, u, sc)
+        ww = w17 if label == "c17" else w
+        got = kernels.fused_quantize_reduce(x, ww, u, sc)
         errs.append(_bitwise_or_raise(
             f"quantize_reduce ({label}, {tuple(x.shape)})", [got],
-            [kernels.quantize_reduce_plain(x, w, u, sc)]))
+            [kernels.quantize_reduce_plain(x, ww, u, sc)]))
+        plan = kernels.quantize_reduce_plan(
+            *x.shape, [x.data_ptr(), u.data_ptr(), got.data_ptr()])
+        plans[label] = dict(shape=list(x.shape),
+                            path="16-byte" if plan["vec"] else "scalar",
+                            tile=plan["tile"], grid=list(plan["grid"]),
+                            launches=len(plan["chunks"]))
         if label == "main":
             args = (x, w, u, sc)
     if float(args[3][0, 3]) != 1.0:
@@ -372,8 +389,11 @@ def check_agg_kernels(dev, g, params):
         plain_ms=device_ms(lambda: kernels.quantize_reduce_plain(*args),
                            reps=20),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        shape=f"[{c}, {nb}, {b}] f32, and [{c}, "
-              f"{cases['b1000'].shape[1]}, 1000]")
+        path=plans["main"]["path"], tile=plans["main"]["tile"],
+        registers=_ptxas_registers(kernels.BUILD_LOG.get(
+            "quantize_reduce", ""), f"quantize_reduce_kernelILi{c}E"),
+        plans=plans,
+        shape=f"[{c}, {nb}, {b}] f32, and b = 1000, b = 1001, 17 clients")
 
     # -- threshold at [8, n] for the largest top-k leaf group ----------------
     plan = tc.build_sparse_plan(mask)

@@ -17,12 +17,14 @@ Every wrapper here:
 
 One threshold "launch" is one search: the memset of its scratch
 (``torch.zeros``) and three radix digit passes on the stream (see
-``csrc/threshold.cu``). One weighted-sum launch is one grid per 16 clients
-(one at the port's cohorts of 8). One ``stem_fwd`` launch is the weight
-layout pass, the fused conv/pool/statistics grid and, with statistics on,
-the fixed-order reduction of its partials (``csrc/stem_fwd.cu``); one
-``stem_bwd`` launch is its grid and, with the bias gradient, the
-fixed-order reduction of its partials (``csrc/stem_bwd.cu``).
+``csrc/threshold.cu``). One weighted-sum or quantize-reduce launch is one
+grid per 16 clients (one at the port's cohorts of 8; the quantize-reduce
+wrapper calls its C entry once per grid and counts the call once). One
+``stem_fwd`` launch is the weight layout pass, the fused
+conv/pool/statistics grid and, with statistics on, the fixed-order
+reduction of its partials (``csrc/stem_fwd.cu``); one ``stem_bwd`` launch
+is its grid and, with the bias gradient, the fixed-order reduction of its
+partials (``csrc/stem_bwd.cu``).
 """
 from __future__ import annotations
 
@@ -157,7 +159,7 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
                        vp]
     elif name == "quantize_reduce":
         fn = lib.nidt_quantize_reduce
-        fn.argtypes = [vp, vp, vp, vp, vp, i32, i64, i64, i32, vp]
+        fn.argtypes = [vp] * 5 + [i32] * 8 + [vp]
     elif name == "stem_fwd":
         fn = lib.nidt_stem_fwd
         fn.argtypes = [vp] * 9 + [i32] * 8 + [vp]
@@ -433,12 +435,44 @@ def quantize_reduce_plain(buckets: torch.Tensor, weights: torch.Tensor,
     return weighted_sum(q.to(torch.float32) * scale, weights)
 
 
+#: outputs per block along a bucket (kTile in csrc/quantize_reduce.cu), the
+#: clients per launch (kMaxChunk) and the grid's y limit
+QUANTIZE_REDUCE_TILE = 1024
+QUANTIZE_REDUCE_MAX_CHUNK = 16
+_MAX_GRID_Y = 65535
+
+
+def quantize_reduce_plan(c: int, nb: int, b: int, ptrs: Sequence[int],
+                         tile: int = QUANTIZE_REDUCE_TILE) -> Dict:
+    """The quantize-reduce kernel's launches for ``c`` clients of ``nb``
+    buckets of ``b`` values, with ``ptrs`` the data pointers of ``x``,
+    ``u`` and ``out``: ``chunks``, the ``(first client, count)`` of each
+    launch, 16 clients at most, in client order; ``vec``, whether the
+    16-byte path is taken (``b % 4 == 0`` and every pointer on a 16-byte
+    boundary; else the scalar path of the same kernel); ``grid``,
+    ``(ceil(b / tile), min(nb, 65535))``, a block per tile of a bucket; and
+    ``tile``, the outputs a block owns along its bucket."""
+    if min(c, nb, b) < 1:
+        raise ValueError(f"quantize_reduce_plan: c={c}, nb={nb}, b={b}")
+    if b > 2 ** 31 - 1 - tile or nb > 2 ** 31 - 1:
+        raise ValueError(f"quantize_reduce_plan: a bucket index or position "
+                         f"(nb={nb}, b={b}) must fit in 32 bits")
+    chunks = [(c0, min(QUANTIZE_REDUCE_MAX_CHUNK, c - c0))
+              for c0 in range(0, c, QUANTIZE_REDUCE_MAX_CHUNK)]
+    vec = b % 4 == 0 and all(p % 16 == 0 for p in ptrs)
+    return dict(chunks=chunks, vec=vec, grid=(-(-b // tile),
+                                              min(nb, _MAX_GRID_Y)),
+                tile=tile)
+
+
 def fused_quantize_reduce(buckets: torch.Tensor, weights: torch.Tensor,
                           uniforms: torch.Tensor,
                           scales: torch.Tensor) -> torch.Tensor:
     """``out[b, j] = sum_c w[c] * dequant(int8(buckets[c, b, j]))`` for a
     ``[C, nb, b]`` f32 bucket tensor with its ``[C, nb, b]`` uniforms and
-    ``[C, nb]`` scales; returns ``[nb, b]`` f32. Any bucket size."""
+    ``[C, nb]`` scales; returns ``[nb, b]`` f32. Any bucket size. On the
+    card, the launches of :func:`quantize_reduce_plan`: one grid per 16
+    clients, counted as one launch."""
     if buckets.dim() != 3:
         raise ValueError(f"fused_quantize_reduce: expected [C, nb, b], got "
                          f"{tuple(buckets.shape)}")
@@ -454,12 +488,15 @@ def fused_quantize_reduce(buckets: torch.Tensor, weights: torch.Tensor,
         return quantize_reduce_plain(buckets, weights, uniforms, scales)
     dev = _require_cuda("fused_quantize_reduce", ts)
     out = torch.empty((nb, b), dtype=torch.float32, device=dev)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    blocks = max(1, min(-(-(nb * b) // 256), 32 * sms))
-    rc = _lib("quantize_reduce").nidt_quantize_reduce(
-        buckets.data_ptr(), uniforms.data_ptr(), scales.data_ptr(),
-        weights.data_ptr(), out.data_ptr(), c, nb, b, blocks, _stream(dev))
-    _check("quantize_reduce", rc)
+    plan = quantize_reduce_plan(c, nb, b, [buckets.data_ptr(),
+                                           uniforms.data_ptr(),
+                                           out.data_ptr()])
+    fn = _lib("quantize_reduce").nidt_quantize_reduce
+    for c0, chunk in plan["chunks"]:
+        rc = fn(buckets.data_ptr(), uniforms.data_ptr(), scales.data_ptr(),
+                weights.data_ptr(), out.data_ptr(), c, nb, b, c0, chunk,
+                int(plan["vec"]), *plan["grid"], _stream(dev))
+        _check("quantize_reduce", rc)
     LAUNCHES["quantize_reduce"] += 1
     return out
 

@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""A stem kernel against another version of itself, on one GPU.
+"""A kernel of the port against another version of itself, on one GPU.
 
     python3 scripts/stem_kernel_ab.py --kernel stem_fwd --other OTHER/stem_fwd.cu
     python3 scripts/stem_kernel_ab.py --kernel stem_bwd --other OTHER/stem_bwd.cu
+    python3 scripts/stem_kernel_ab.py --kernel quantize_reduce \
+        --other OTHER/quantize_reduce.cu
 
 Builds ``neuroimagedisttraining_torch/csrc/<kernel>.cu`` (through
 ``kernels.build``) and ``--other`` (another version of the same source, for
@@ -29,6 +31,16 @@ and power limit.
   64) bf16. There it also times the fused bias gradient against
   the kernel plus ``dzs.sum``, and a device-to-device copy of the bound's
   523 MB (half read, half written) as the practical ceiling.
+* ``quantize_reduce``: the int8 wire's aggregate, against the other
+  version and the plain version (and each variant against the plain one),
+  at eight ``[C, nb, b]`` shapes (1 to 33 clients, b = 1000, 1001, 1024,
+  262144, an all-zero bucket, a quarter of the values +0.0 or -0.0); the
+  main one is ``[8, 10, 262144]``, timed on masked inputs (half the values
+  zero, as a SalientGrads wire sends them) and on dense ones. There it
+  also times this version's scalar path on the same inputs and a
+  device-to-device copy of the bound's 178 MB. Either C entry is bound:
+  this tree's (a bucket-aligned grid, one launch per 16 clients) or the
+  grid-stride one before it.
 
 Needs one GPU; exits 2 without one, 1 if any comparison differs.
 """
@@ -462,12 +474,187 @@ def _time_bwd(libs, args):
     return ms
 
 
+# -- quantize_reduce: variants of the bucket-aligned kernel -------------------
+_QR_BLOCKS = "  return C <= 8 ? 2 : 1;"
+_QR_DIV = ("  const bool z = x == 0.0f && fabsf(s) < INFINITY && s != 0.0f;"
+           "\n  const float y = z ? __fmul_rn(x, s) : __fdiv_rn(z ? s : x, s);"
+           "\n")
+QR_ABLATIONS = {
+    "groups_2": [("kGroups = 1;", "kGroups = 2;")],
+    "threads_128": [("kThreads = 256;", "kThreads = 128;"),
+                    (_QR_BLOCKS, "  return C <= 8 ? 4 : 2;")],
+    "natural_registers": [(_QR_BLOCKS, "  return 1;")],
+    "no_streaming_hint": [("xv[g][c] = __ldcs(", "xv[g][c] = __ldg("),
+                          ("uv[g][c] = __ldcs(", "uv[g][c] = __ldg(")],
+    # every zero numerator divided, down the division's slow path
+    "no_zero_shortcut": [(_QR_DIV, "  const float y = __fdiv_rn(x, s);\n")],
+    # not bitwise: how much of the time the IEEE division takes
+    "no_divide": [(_QR_DIV, "  const float y = __fmul_rn(x, s);\n")],
+}
+#: the main shape's shares of zero values: the masked wire's (a SalientGrads
+#: mask keeps half of every kernel leaf) and none
+QR_ZERO_SHARES = (0.5, 0.0)
+#: [C, nb, b]: the main path's, then b = 1000, 1001, 1024 and 262144 at 1 to
+#: 33 clients
+QR_SHAPES = ((8, 10, 262144), (8, 3, 1000), (8, 3, 1001), (1, 2, 1024),
+             (3, 4, 1001), (16, 2, 262144), (17, 3, 4096), (33, 2, 1000))
+
+
+def _bind_qr(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Either C entry: this tree's (one launch per client chunk on a
+    bucket-aligned grid, a tile query) or the grid-stride one before it."""
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    if hasattr(lib, "nidt_quantize_reduce_tile"):
+        lib.nidt_quantize_reduce.argtypes = [vp] * 5 + [i32] * 8 + [vp]
+        lib.nidt_quantize_reduce_tile.argtypes = []
+        lib.nidt_quantize_reduce_tile.restype = i32
+    else:
+        lib.nidt_quantize_reduce.argtypes = [vp] * 5 + [i32, i64, i64, i32,
+                                                        vp]
+    lib.nidt_quantize_reduce.restype = i32
+    return lib
+
+
+def _run_qr(lib, x, w, u, s, vec=None):
+    """One call of a built ``quantize_reduce.cu`` through its C entry, as
+    its version of ``kernels.fused_quantize_reduce`` launches it; ``vec``
+    overrides the plan's path (this tree's entry only)."""
+    import torch
+
+    from neuroimagedisttraining_torch.ops import kernels
+
+    c, nb, b = x.shape
+    out = torch.empty((nb, b), device=x.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs = (x.data_ptr(), u.data_ptr(), s.data_ptr(), w.data_ptr(),
+            out.data_ptr())
+    if hasattr(lib, "nidt_quantize_reduce_tile"):
+        plan = kernels.quantize_reduce_plan(
+            c, nb, b, [x.data_ptr(), u.data_ptr(), out.data_ptr()],
+            tile=lib.nidt_quantize_reduce_tile())
+        path = plan["vec"] if vec is None else vec
+        for c0, chunk in plan["chunks"]:
+            rc = lib.nidt_quantize_reduce(*ptrs, c, nb, b, c0, chunk,
+                                          int(path), *plan["grid"], stream)
+            if rc != 0:
+                break
+    else:
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        rc = lib.nidt_quantize_reduce(
+            *ptrs, c, nb, b, max(1, min(-(-(nb * b) // 256), 32 * sms)),
+            stream)
+    if rc != 0:
+        raise RuntimeError(f"quantize_reduce launch failed: {rc}")
+    return out
+
+
+def _qr_inputs(g, dev, shape, zero_share=0.0):
+    """Buckets with per-bucket scales spread over decades, bucket 0 all
+    zero, a ``zero_share`` of the rest zero (+0.0 and -0.0, as a masked
+    model sends them), uniforms, the wire's scales and normalised
+    weights."""
+    import torch
+
+    from neuroimagedisttraining_torch.parallel import collectives as tc
+
+    c, nb, b = shape
+    x = torch.randn(shape, generator=g, device=dev) * torch.exp(
+        2 * torch.randn((c, nb, 1), generator=g, device=dev))
+    if zero_share:
+        r = torch.rand(shape, generator=g, device=dev)
+        x = torch.where(r < zero_share, torch.where(r < zero_share / 8,
+                                                    -0.0, 0.0), x)
+    x[:, 0] = 0.0
+    u = torch.rand(shape, generator=g, device=dev)
+    s = tc._int8_scale(x)[..., 0].contiguous()
+    w = torch.rand(c, generator=g, device=dev)
+    return x, w / w.sum(), u, s
+
+
+def _qr_time(libs, args):
+    """The two versions in turns (other, this, this, other), this
+    version's scalar path and every variant, on ``args``."""
+    from neuroimagedisttraining_torch.ops import kernels
+
+    ms = {}
+    for lab, fn in (
+            ("other_a", lambda: _run_qr(libs["other"], *args)),
+            ("this_a", lambda: kernels.fused_quantize_reduce(*args)),
+            ("this_b", lambda: kernels.fused_quantize_reduce(*args)),
+            ("other_b", lambda: _run_qr(libs["other"], *args))):
+        ms[lab] = _device_ms(fn)
+    ms["this_scalar_path"] = _device_ms(
+        lambda: _run_qr(libs["this"], *args, vec=False))
+    for name, lib in libs.items():
+        if "/" in name:
+            ms[name] = _device_ms(lambda lib=lib: _run_qr(lib, *args),
+                                  label=name)
+    return ms
+
+
+def ab_qr(libs) -> bool:
+    import torch
+
+    from neuroimagedisttraining_torch.ops import kernels
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    ok = True
+    cases = [(QR_SHAPES[0], share) for share in QR_ZERO_SHARES] + \
+        [(shape, 0.25) for shape in QR_SHAPES[1:]]
+    for shape, share in cases:
+        args = _qr_inputs(g, dev, shape, share)
+        x, w, u, s = args
+        mine = kernels.fused_quantize_reduce(*args)
+        again = kernels.fused_quantize_reduce(*args)
+        scalar = _run_qr(libs["this"], *args, vec=False)
+        theirs = _run_qr(libs["other"], *args)
+        plain = kernels.quantize_reduce_plain(x, w, u, s)
+        torch.cuda.synchronize()
+        rec = {"shape": list(shape), "zero_share": share,
+               "path": "16-byte" if kernels.quantize_reduce_plan(
+                   *shape, [x.data_ptr(), u.data_ptr(), mine.data_ptr()]
+               )["vec"] else "scalar",
+               "bitwise_vs_other": bool(mine.equal(theirs)),
+               "bitwise_vs_plain": bool(mine.equal(plain)),
+               "scalar_path_bitwise": bool(scalar.equal(plain)),
+               "repeat_bitwise": bool(mine.equal(again))}
+        ok &= all(v for v in rec.values() if isinstance(v, bool))
+        for name, lib in libs.items():
+            if "/" in name and "no_divide" not in name:
+                rec[f"bitwise_{name}"] = bool(_run_qr(lib, *args).equal(
+                    plain))
+        if shape == QR_SHAPES[0]:
+            rec["ms"] = _qr_time(libs, args)
+            if share == QR_ZERO_SHARES[0]:
+                # the practical ceiling: the bound's bytes as one copy
+                nbytes = 4 * (2 * x.numel() + mine.numel())
+                src = torch.empty(nbytes // 2, dtype=torch.uint8, device=dev)
+                dst = torch.empty_like(src)
+                rec["ms"]["copy_bytes"] = nbytes
+                rec["ms"]["copy"] = _device_ms(lambda: dst.copy_(src))
+                del src, dst
+        print(json.dumps(rec), flush=True)
+    return ok
+
+
+def _ptxas_by_entry(log: str):
+    """``nvcc -Xptxas -v``'s register and spill lines, each after the name
+    of the entry function it is for."""
+    out = []
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            out.append(ln.split("'")[1] if "'" in ln else ln.strip())
+        elif "registers" in ln or "spill" in ln:
+            out.append(ln.strip())
+    return out
+
+
 def main() -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kernel", choices=("stem_fwd", "stem_bwd"),
-                    default="stem_fwd")
+    ap.add_argument("--kernel", choices=tuple(KERNELS), default="stem_fwd")
     ap.add_argument("--other", required=True,
                     help="another version of csrc/<kernel>.cu")
     ap.add_argument("--out", default=str(ROOT / "neuroimagedisttraining_torch"
@@ -479,9 +666,7 @@ def main() -> int:
         return 2
     from neuroimagedisttraining_torch.ops import kernels
 
-    fwd = args.kernel == "stem_fwd"
-    ablations = FWD_ABLATIONS if fwd else BWD_ABLATIONS
-    bind = _bind_fwd if fwd else _bind_bwd
+    ablations, bind = KERNELS[args.kernel]
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
     this_src = (kernels.CSRC / kernels.SOURCES[args.kernel]).read_text()
@@ -519,12 +704,21 @@ def main() -> int:
             failed.append(name)
             continue
         libs[name] = bind(ctypes.CDLL(str(cu.with_suffix(".so"))))
-    if "other" in failed or (fwd and failed):
-        return 1
-    ok = ab_fwd(libs) if fwd else ab_bwd(libs, "this" not in failed)
+    if args.kernel == "stem_bwd":
+        if "other" in failed:
+            return 1
+        ok = ab_bwd(libs, "this" not in failed)
+    elif args.kernel == "stem_fwd":
+        if failed:
+            return 1
+        ok = ab_fwd(libs)
+    else:
+        if "other" in failed or "this" in failed:
+            return 1
+        libs["this"] = bind(kernels._lib("quantize_reduce"))
+        ok = ab_qr(libs)
     print(json.dumps({"ablations_skipped": skipped, "build_failed": failed,
-                      "ptxas": {k: [ln.strip() for ln in v.splitlines()
-                                    if "registers" in ln or "spill" in ln]
+                      "ptxas": {k: _ptxas_by_entry(v)
                                 for k, v in ptxas.items()}}), flush=True)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -532,6 +726,12 @@ def main() -> int:
         timeout=60).stdout.strip(), flush=True)
     print(json.dumps({"all_bitwise": ok}), flush=True)
     return 0 if ok and not failed else 1
+
+
+#: --kernel: its ablations and the binder of a built variant
+KERNELS = {"stem_fwd": (FWD_ABLATIONS, _bind_fwd),
+           "stem_bwd": (BWD_ABLATIONS, _bind_bwd),
+           "quantize_reduce": (QR_ABLATIONS, _bind_qr)}
 
 
 if __name__ == "__main__":

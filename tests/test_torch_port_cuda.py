@@ -149,6 +149,55 @@ def test_cuda_weighted_sum_edge_leaves_match_plain(c):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b", [1000, 1001, 1024, 262144])
+@pytest.mark.parametrize("c", [1, 3, 8, 16, 17, 33])
+def test_cuda_quantize_reduce_edges_match_plain(c, b):
+    """The int8 quantize-reduce bit for bit against its plain version on
+    both of its paths, over one to three launches of 16 clients: an
+    all-zero bucket (scale 1.0), a bucket with +0.0 and -0.0 among its
+    values, a bucket whose scale is a quarter of its max-abs/127 (values
+    clip at +-127), a bucket of subnormal values (a subnormal scale), and
+    the same inputs as contiguous views 4 bytes off a 16-byte boundary (the
+    scalar path)."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(100 * c + b % 97)
+    nb = 4
+    n = c * nb * b
+    big = torch.randn(2 * n + 8, generator=g, device=dev)
+    big[n + 4:] = torch.rand(n + 4, generator=g, device=dev)
+    x = big[:n].view(c, nb, b)
+    x[:, 0] = 0.0
+    x[:, 1, ::3] = 0.0
+    x[:, 1, 1::3] = -0.0
+    x[:, 3] *= 1e-40
+    u = big[n + 4:2 * n + 4].view(c, nb, b)
+    s = tc._int8_scale(x)[..., 0].contiguous()
+    s[:, 2] *= 0.25
+    assert 0.0 < float(s[:, 3].max()) < torch.finfo(torch.float32).tiny
+    w = torch.rand(c, generator=g, device=dev)
+    w = w / w.sum()
+    assert float(s[0, 0]) == 1.0
+    x_off = torch.empty(n + 1, device=dev)[1:].view(c, nb, b)
+    u_off = torch.empty(n + 1, device=dev)[1:].view(c, nb, b)
+    x_off.copy_(x)
+    u_off.copy_(u)
+    assert x_off.data_ptr() % 16 == 4
+    want = kernels.quantize_reduce_plain(x, w, u, s)
+    q = torch.floor(x[:, 2] / s[:, 2, None])
+    assert bool((q.abs() > 127).any())  # the clip is exercised
+    for xx, uu, vec in ((x, u, b % 4 == 0), (x_off, u_off, False)):
+        plan = kernels.quantize_reduce_plan(
+            c, nb, b, [xx.data_ptr(), uu.data_ptr(), 0])
+        assert plan["vec"] == vec
+        assert len(plan["chunks"]) == -(-c // 16)
+        kernels.reset_launches()
+        got = kernels.fused_quantize_reduce(xx, w, uu, s)
+        assert kernels.LAUNCHES["quantize_reduce"] == 1
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+        assert bool(torch.all(got[0] == 0))
+
+
+@pytest.mark.cuda
 def test_cuda_aggregate_ignores_tf32():
     """The f32 wires contract without a matmul, so TF32 cannot touch them:
     the card's aggregate equals the CPU's bit for bit with TF32 on."""

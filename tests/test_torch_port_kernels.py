@@ -268,17 +268,19 @@ def _qr_inputs(c, nb, b, seed):
     return x, u, w, s, key
 
 
+@pytest.mark.parametrize("c", [1, 3, 5, 8, 17])
 @pytest.mark.parametrize("b", [1024, 4096])
-def test_quantize_reduce_plain_vs_pallas(b):
+def test_quantize_reduce_plain_vs_pallas(b, c):
     """The int8 payload and the scales bit for bit; the reduced sum within
     rtol 1e-6 (the reference's sum shares XLA's dot, the port's rounds each
-    multiply and add in client order)."""
+    multiply and add in client order). 17 clients are more than one launch
+    of the card's kernel takes (it runs them as chunks of 16)."""
     import jax
 
     from neuroimagedisttraining_tpu.parallel import collectives as jc
     from neuroimagedisttraining_torch.parallel import collectives as tc
 
-    x, u, w, s, key = _qr_inputs(5, 3, b, seed=b)
+    x, u, w, s, key = _qr_inputs(c, 3, b, seed=b + c)
     jq, js = jax.jit(jc._quantize_int8)(jnp.asarray(x), key)
     tq, ts = tc._quantize_int8(torch.from_numpy(x), torch.from_numpy(u))
     _bitwise(tq.numpy(), jq)
@@ -313,6 +315,44 @@ def test_quantize_reduce_takes_any_bucket_size():
         torch.from_numpy(s))
     assert got.shape == (4, 1000)
     assert bool(torch.all(got[0] == 0))
+
+
+def test_quantize_reduce_plan():
+    """The card kernel's launches, decided on the host: chunks of at most 16
+    clients in client order, the 16-byte path only for b % 4 == 0 with x, u
+    and out on 16-byte boundaries (a view 4 bytes off takes the scalar path),
+    and a bucket-aligned grid of (ceil(b / tile), nb)."""
+    plan = kernels.quantize_reduce_plan
+    tile = kernels.QUANTIZE_REDUCE_TILE
+    big = torch.zeros(8 * 3 * 4096 + 8)
+    base = big.data_ptr()
+    assert base % 16 == 0
+    assert plan(8, 3, 4096, [base] * 3)["chunks"] == [(0, 8)]
+    assert plan(16, 3, 4096, [base] * 3)["chunks"] == [(0, 16)]
+    assert plan(17, 3, 4096, [base] * 3)["chunks"] == [(0, 16), (16, 1)]
+    assert plan(40, 3, 4096, [base] * 3)["chunks"] == [(0, 16), (16, 16),
+                                                        (32, 8)]
+    x = big[:8 * 3 * 4096].view(8, 3, 4096)
+    u = big[4:4 + 8 * 3 * 4096].view(8, 3, 4096)
+    off = big[1:1 + 8 * 3 * 4096].view(8, 3, 4096)
+    assert off.data_ptr() % 16 == 4
+    assert plan(8, 3, 4096, [x.data_ptr(), u.data_ptr(), base])["vec"]
+    assert plan(8, 3, 1000, [base] * 3)["vec"]
+    assert not plan(8, 3, 1001, [base] * 3)["vec"]
+    assert not plan(8, 3, 4096, [off.data_ptr(), u.data_ptr(), base])["vec"]
+    assert not plan(8, 3, 4096, [x.data_ptr(), off.data_ptr(), base])["vec"]
+    assert not plan(8, 3, 4096, [base, base, base + 4])["vec"]
+    for nb, b in ((10, 262144), (3, 1000), (3, 1001), (5, 1024), (2, 1025),
+                  (1, 1)):
+        p = plan(8, nb, b, [base] * 3)
+        assert p["tile"] == tile
+        assert p["grid"] == (-(-b // tile), nb)
+        assert (p["grid"][0] - 1) * tile < b <= p["grid"][0] * tile
+    assert plan(8, 70000, 16, [base] * 3)["grid"] == (1, 65535)
+    assert plan(8, 3, 4096, [base] * 3, tile=2048)["grid"] == (2, 3)
+    for bad in ((0, 3, 4096), (8, 0, 4096), (8, 3, 0), (8, 3, 2 ** 31)):
+        with pytest.raises(ValueError):
+            plan(*bad, [base] * 3)
 
 
 @pytest.mark.parametrize("c", [1, 3, 8, 16])
