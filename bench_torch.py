@@ -11,17 +11,25 @@ phased 121x145x121 bf16 volumes made on the card, batch 8, 5 local steps,
 and clip 10. The SNIP mask is built once; then, each from a clone of that
 one state (``FedAlgorithm.clone_state``):
 
-* one warm round and 10 timed rounds with no eval (the headline ``value``);
-* one warm round and eval, then 8 timed rounds with the full eval protocol
-  (global and personal models on every client's test shard) after every
-  round, each eval's metric fetched one round late
-  (``extra.rounds_per_sec_eval_every_1``).
+* the Python loop: one warm round and 10 timed rounds with no eval
+  (``extra.rounds_per_sec_python_loop``); one warm round and eval, then 8
+  timed rounds with the full eval protocol (global and personal models on
+  every client's test shard) after every round, each eval's metric fetched
+  one round late (``extra.rounds_per_sec_eval_every_1_python_loop``);
+* the fused spelling (``FedAlgorithm.run_rounds_fused``: each round one
+  replay of a captured CUDA graph, the block's metrics fetched once): a
+  block of rounds 10..19 with no eval (``extra.rounds_per_sec_fused``) and
+  of rounds 8..15 with the eval every round
+  (``extra.rounds_per_sec_eval_every_1_fused``), each timed after
+  FUSED_WARM_CALLS runs of the same call (the first captures the graphs).
 
-Prints one JSON line in ``bench.py``'s shape: ``metric``, ``value``,
-``unit``, ``vs_baseline`` (value over the 10 rounds/s target) and ``extra``
-(the eval rate, client-rounds/s per card, the SNIP init seconds, peak device
-memory, the card's name and power limit). It imports nothing of JAX. Without
-CUDA it exits 2 before printing a result.
+As in ``bench.py``, ``value`` is the better of the two spellings without
+eval and ``extra.rounds_per_sec_eval_every_1`` the better with it; both
+spellings stay recorded. Prints one JSON line in ``bench.py``'s shape:
+``metric``, ``value``, ``unit``, ``vs_baseline`` (value over the 10
+rounds/s target) and ``extra`` (the rates, client-rounds/s per card, the
+SNIP init seconds, peak device memory, the card's name and power limit). It
+imports nothing of JAX. Without CUDA it exits 2 before printing a result.
 """
 from __future__ import annotations
 
@@ -37,6 +45,8 @@ VOLUME = (121, 145, 121)  # the ABCD volume, stored phase-decomposed
 BATCH = 8
 STEPS = 5
 TARGET_ROUNDS_PER_SEC = 10.0
+#: runs of the timed fused call before it is timed
+FUSED_WARM_CALLS = 2
 MODEL_KEY = "3dcnn_s2d"
 METRIC = f"salientgrads_rounds_per_sec_abcd_alexnet3d_{N_CLIENTS}clients"
 
@@ -68,6 +78,26 @@ def timed_rounds(algo, state, n_rounds: int = 10,
     if prev is not None:
         float(_acc(prev))
     torch.cuda.synchronize()
+    return n_rounds / (time.perf_counter() - t0)
+
+
+def timed_rounds_fused(algo, state, n_rounds: int = 10,
+                       eval_every: int = 0) -> float:
+    """Rounds/s of one fused block, rounds ``n_rounds .. 2 n_rounds - 1``
+    from ``state`` (``run_rounds_fused`` leaves it as it was), timed after
+    FUSED_WARM_CALLS runs of the same call: the host clock around the
+    dispatch and the one fetch of the block's metrics, which waits for the
+    block to finish."""
+    import torch
+
+    for _ in range(FUSED_WARM_CALLS):
+        algo.run_rounds_fused(state, n_rounds, n_rounds,
+                              eval_every=eval_every)[1].materialize()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, ys = algo.run_rounds_fused(state, n_rounds, n_rounds,
+                                  eval_every=eval_every)
+    ys.materialize()
     return n_rounds / (time.perf_counter() - t0)
 
 
@@ -112,9 +142,14 @@ def main(emit: bool = True) -> Optional[dict]:
     torch.cuda.synchronize()
     snip_s = time.perf_counter() - t0
 
-    rps = timed_rounds(algo, algo.clone_state(state))
-    rps_eval = timed_rounds(algo, algo.clone_state(state), n_rounds=8,
-                            eval_every_round=True)
+    rps_loop = timed_rounds(algo, algo.clone_state(state))
+    rps_eval_loop = timed_rounds(algo, algo.clone_state(state), n_rounds=8,
+                                 eval_every_round=True)
+    rps_fused = timed_rounds_fused(algo, state)
+    rps_eval_fused = timed_rounds_fused(algo, state, n_rounds=8,
+                                        eval_every=1)
+    rps, rps_eval = max(rps_loop, rps_fused), max(rps_eval_loop,
+                                                  rps_eval_fused)
     n_cards = 1  # the whole cohort trains on one card
     result = {
         "metric": METRIC,
@@ -123,6 +158,11 @@ def main(emit: bool = True) -> Optional[dict]:
         "vs_baseline": round(rps / TARGET_ROUNDS_PER_SEC, 4),
         "extra": {
             "rounds_per_sec_eval_every_1": round(rps_eval, 4),
+            "rounds_per_sec_python_loop": round(rps_loop, 4),
+            "rounds_per_sec_fused": round(rps_fused, 4),
+            "rounds_per_sec_eval_every_1_python_loop": round(
+                rps_eval_loop, 4),
+            "rounds_per_sec_eval_every_1_fused": round(rps_eval_fused, 4),
             "client_rounds_per_sec_per_chip": round(
                 rps * N_CLIENTS / n_cards, 2),
             "client_samples_per_sec": round(
@@ -140,6 +180,7 @@ def main(emit: bool = True) -> Optional[dict]:
             "compute_dtype": "bfloat16",
             "timed_rounds": 10,
             "timed_rounds_eval_every_1": 8,
+            "fused_warm_calls": FUSED_WARM_CALLS,
             "torch": torch.__version__,
             "cuda": torch.version.cuda,
         },

@@ -57,17 +57,28 @@ Phases, each printing one JSON line:
    aggregate is timed (CUDA events) and, for dense, bucketed, sparse and
    hier, held against the plain dense aggregate of the same locals bit for
    bit.
-6. cli     — the command-line entry point in-process on the card
+6. fused   — the fused round loop (``run_rounds_fused``: each round one
+   replay of a captured CUDA graph) on the same configuration: SalientGrads
+   and FedAvg on every wire of the wires phase, 3 rounds with the eval
+   after every round, each gated bitwise against 3 eager rounds from the
+   same state (or within the spread of two eager runs, printed, if that is
+   not zero); every wire must capture, or the phase fails.
+   Launches per replay, peak memory of both spellings and, on the dense
+   wires, their rounds/s in interleaved pairs (see ``fused_path``).
+7. cli     — the command-line entry point in-process on the card
    (``experiments.runner.main``): SalientGrads and FedAvg, ``--dataset
    synthetic --model small3dcnn --comm_round 2`` (no stem stage on this
-   model), each with its counters zeroed just before and read just after;
-   the cohort and the parameters on CUDA, the losses finite, ``stat_info``
-   (pickle and ``.json``) written under a temporary ``--results_dir``. The
-   ABCD cohort-file step is not here: the loaders need ``h5py``, which the
-   card's machine does not have.
-7. bench   — ``bench_torch.main()``, the port's bench of the headline
-   workload (SNIP, 1 + 10 rounds without eval, 1 + 8 with the eval every
-   round, each from a clone of one state), its record printed; its launch
+   model), and SalientGrads with ``--fuse_rounds 2``, whose history must
+   equal the unfused run's; each with its counters zeroed just before and
+   read just after; the cohort and the parameters on CUDA, the losses
+   finite, ``stat_info`` (pickle and ``.json``) written under a temporary
+   ``--results_dir``. The ABCD cohort-file step is not here: the loaders
+   need ``h5py``, which the card's machine does not have.
+8. bench   — ``bench_torch.main()``, the port's bench of the headline
+   workload (SNIP; the Python loop: 1 + 10 rounds without eval, 1 + 8 with
+   the eval every round, each from a clone of one state; the fused
+   spelling: blocks of 10 and of 8 rounds with the eval, each after its
+   warm calls), its record printed (both spellings' rates); its launch
    counts asserted.
 
 Every training step, SNIP batch and eval forward of these paths runs the
@@ -123,6 +134,8 @@ WIRES = ("dense", "bucketed", "bf16", "int8", "sparse", "topk", "hier")
 FEDAVG_WIRES = ("dense", "int8", "topk")
 TWINS = ("dense", "bucketed", "sparse", "hier")
 WIRE_ROUNDS, TOPK_DENSITY = 2, 0.1
+#: the fused phase: rounds per wire, the eval after each
+FUSED_ROUNDS = 3
 
 
 def emit(obj) -> None:
@@ -924,9 +937,11 @@ def small_parity(dev):
                 "int8": {"quantize_reduce": 1, "weighted_sum": 0},
                 "topk": {"mask_apply": 1, "weighted_sum": 1,
                          "threshold": groups}}[impl]
-        # one stem forward and backward per active local step
+        # one stem forward and backward per active local step, and the
+        # dropout probe's forward at a new algorithm's first round
         want["stem_fwd"] = want["stem_bwd"] = sum(
             min(hp.steps_per_epoch, -(-n // hp.batch_size)) for n in nvals)
+        want["stem_fwd"] += 1
         if any(lau[k] != v for k, v in want.items()):
             raise AssertionError(f"parity {impl}: launches {lau}, want {want}")
         results[impl] = res
@@ -1003,9 +1018,11 @@ def main_path(dev):
     want_sgd = ROUNDS * N_CLIENTS * STEPS * 1  # one launch per step
     # the stem: one forward and one backward per training step and SNIP
     # batch, one forward per eval chunk (global and personal, every client)
+    # and the dropout probe's (FedAlgorithm._dropout_calls, once)
     want = {"masked_sgd": want_sgd, "threshold": 1, "score_mask": 1,
             "weighted_sum": ROUNDS,
-            "stem_fwd": want_sgd + N_CLIENTS + 2 * N_CLIENTS * _eval_chunks(),
+            "stem_fwd": (want_sgd + N_CLIENTS + 2 * N_CLIENTS * _eval_chunks()
+                         + 1),
             "stem_bwd": want_sgd + N_CLIENTS}
     if any(launches[k] != v for k, v in want.items()):
         raise AssertionError(f"launch counts {launches}, expected {want}")
@@ -1170,7 +1187,8 @@ def wires_path(dev):
             agg_residual=(zeros_like_tree(state0.personal_params)
                           if impl == "topk" else None))
         algo._ensure_agg_plan(state)
-        want = {"masked_sgd": sgd, "stem_fwd": sgd, "stem_bwd": sgd,
+        # a new algorithm: its first round runs the dropout probe's forward
+        want = {"masked_sgd": sgd, "stem_fwd": sgd + 1, "stem_bwd": sgd,
                 "weighted_sum": 0 if impl == "int8" else WIRE_ROUNDS,
                 "quantize_reduce": WIRE_ROUNDS if impl == "int8" else 0,
                 "mask_apply": WIRE_ROUNDS if impl == "topk" else 0}
@@ -1193,7 +1211,7 @@ def wires_path(dev):
     for impl in FEDAVG_WIRES:
         algo = FedAvg(model, data, hp, agg_impl=impl, **kw)
         state = algo.init_state()
-        want = {"masked_sgd": sgd, "stem_fwd": sgd, "stem_bwd": sgd,
+        want = {"masked_sgd": sgd, "stem_fwd": sgd + 1, "stem_bwd": sgd,
                 "weighted_sum": 0 if impl == "int8" else WIRE_ROUNDS,
                 "quantize_reduce": WIRE_ROUNDS if impl == "int8" else 0}
         if impl == "topk":
@@ -1236,20 +1254,226 @@ def wires_path(dev):
     return out
 
 
+def _eager_rounds(algo, state, rounds):
+    """``rounds`` rounds of ``algo`` from ``state`` through ``run_round``,
+    the full eval after each: (state, losses, eval rows, launches of the
+    rounds, launches of the evals), the counters zeroed just before."""
+    import torch
+
+    from neuroimagedisttraining_torch.ops import kernels
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    losses, evals = [], []
+    ev_launches = {k: 0 for k in kernels.LAUNCHES}
+    for r in range(rounds):
+        state, met = algo.run_round(state, r)
+        losses.append(met["train_loss"])
+        before = dict(kernels.LAUNCHES)
+        ev = algo.evaluate(state)
+        for k in ev_launches:
+            ev_launches[k] += kernels.LAUNCHES[k] - before[k]
+        evals.append({k: v for k, v in ev.items()
+                      if not k.startswith("acc_per")})
+    torch.cuda.synchronize()
+    round_launches = {k: kernels.LAUNCHES[k] - ev_launches[k]
+                      for k in ev_launches}
+    return (state, [float(v) for v in losses],
+            [{k: float(v) for k, v in ev.items()} for ev in evals],
+            round_launches, ev_launches)
+
+
+def _spread(a_state, a_losses, a_evals, b_state, b_losses, b_evals):
+    """The largest absolute difference between two runs: losses, eval rows,
+    global and personal parameters."""
+    diffs = [abs(x - y) for x, y in zip(a_losses, b_losses)]
+    diffs += [abs(x[k] - y[k]) for x, y in zip(a_evals, b_evals) for k in x]
+    for name in ("global_params", "personal_params"):
+        a, b = getattr(a_state, name), getattr(b_state, name)
+        diffs += [float((a[k] - b[k]).abs().max()) for k in a]
+    return max(diffs)
+
+
+def _rates_in_pairs(algo, state, rounds):
+    """Rounds/s of ``rounds`` rounds with the eval after each, through
+    ``run_round`` + ``evaluate`` (no host fetch until the end) and through
+    ``run_rounds_fused`` (its metrics fetched once), in the order eager,
+    fused, fused, eager; each ends in a synchronize."""
+    import torch
+
+    def eager():
+        s = state
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for r in range(rounds):
+            s, _ = algo.run_round(s, r)
+            algo.evaluate(s)
+        torch.cuda.synchronize()
+        return rounds / (time.perf_counter() - t0)
+
+    def fused():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        algo.run_rounds_fused(state, 0, rounds, eval_every=1)[1].materialize()
+        torch.cuda.synchronize()
+        return rounds / (time.perf_counter() - t0)
+
+    out = {"eager": [], "fused": []}
+    for kind in ("eager", "fused", "fused", "eager"):
+        out[kind].append(eager() if kind == "eager" else fused())
+    return out
+
+
+def fused_path(dev):
+    """The fused round loop (``FedAlgorithm.run_rounds_fused``) on the main
+    configuration at full width: SalientGrads (SNIP once) and FedAvg, each
+    on every wire of the wires phase, FUSED_ROUNDS rounds with the eval
+    after every round, from the same state as FUSED_ROUNDS eager rounds
+    (``run_round`` + ``evaluate``; SalientGrads' state a ``clone_state``
+    copy of one post-SNIP state, FedAvg's a fresh ``init_state``). Each
+    round is one replay of a captured CUDA graph, each eval one replay of
+    the eval's graph.
+
+    Gates: train losses, eval rows, final global and personal parameters
+    bitwise equal to eager's, or, if two eager runs of the dense wire
+    differ (cuDNN's own spread), within that spread, printed; the graphs'
+    launches per replay equal eager's per round and per eval, and the
+    run's launches are (FUSED_WARMUPS + FUSED_ROUNDS) rounds and evals.
+    Every wire must capture: a capture error (``ValueError``) or any other
+    error fails the phase. On the dense wires, the eager and fused rates
+    in interleaved pairs, and the peak memory of both. Returns the
+    launches per path."""
+    import gc
+
+    import torch
+
+    from neuroimagedisttraining_torch.algorithms import FedAvg, SalientGrads
+    from neuroimagedisttraining_torch.algorithms.base import FUSED_WARMUPS
+    from neuroimagedisttraining_torch.core.state import (
+        HyperParams,
+        zeros_like_tree,
+    )
+    from neuroimagedisttraining_torch.data import device_synthetic_federated
+    from neuroimagedisttraining_torch.models import create_model
+    from neuroimagedisttraining_torch.ops import kernels
+    from neuroimagedisttraining_torch.ops.s2d import phased_sample_shape
+
+    data = device_synthetic_federated(
+        N_CLIENTS, SAMPLES, phased_sample_shape(VOLUME),
+        torch.Generator(device=dev).manual_seed(0), test_per_client=TEST)
+    hp = HyperParams(lr=1e-3, lr_decay=0.998, momentum=0.9,
+                     weight_decay=5e-4, grad_clip=10.0, local_epochs=1,
+                     steps_per_epoch=STEPS, batch_size=BATCH)
+    model = create_model("3dcnn_s2d", num_classes=1,
+                         sample_shape=phased_sample_shape(VOLUME))
+    kw = dict(loss_type="bce", frac=1.0, seed=0, compute_dtype="bfloat16",
+              agg_topk_density=TOPK_DENSITY)
+    sg_kw = dict(dense_ratio=0.5, itersnip_iterations=1, **kw)
+    sg0 = SalientGrads(model, data, hp, **sg_kw).init_state()
+    configs = [("salientgrads", w) for w in WIRES] + \
+        [("fedavg", w) for w in FEDAVG_WIRES]
+    configs.sort(key=lambda c: c[1] != "dense")  # both dense wires first
+    out, spread = {}, None
+    n = FUSED_ROUNDS
+    for name, impl in configs:
+        if name == "salientgrads":
+            algo = SalientGrads(model, data, hp, agg_impl=impl, **sg_kw)
+            state = dataclasses.replace(
+                algo.clone_state(sg0),
+                agg_residual=(zeros_like_tree(sg0.personal_params)
+                              if impl == "topk" else None))
+        else:
+            algo = FedAvg(model, data, hp, agg_impl=impl, **kw)
+            state = algo.init_state()
+        torch.cuda.reset_peak_memory_stats(dev)
+        ea = _eager_rounds(algo, algo.clone_state(state), n)
+        peak_eager = torch.cuda.max_memory_allocated(dev)
+        res = {"phase": "fused", "algo": name, "agg_impl": impl, "rounds": n,
+               "eval_every": 1, "train_loss": ea[1]}
+        if impl == "dense":
+            eb = _eager_rounds(algo, algo.clone_state(state), n)
+            s = _spread(*ea[:3], *eb[:3])
+            res["eager_vs_eager_spread"] = s
+            spread = s if spread is None else max(spread, s)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        sf, ys = algo.run_rounds_fused(algo.clone_state(state), 0, n,
+                                       eval_every=1)
+        host = ys.materialize()
+        torch.cuda.synchronize()
+        res["first_block_s"] = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        res["peak_mem_bytes_eager"] = peak_eager
+        res["peak_mem_bytes_fused"] = torch.cuda.max_memory_allocated(dev)
+        fz = algo._fused
+        (graph,) = fz.rounds.values()
+        res["launches"] = launches
+        res["launches_per_replay"] = graph.launches
+        res["eval_launches_per_replay"] = fz.eval.launches
+        diffs = _spread(ea[0], ea[1], ea[2], sf,
+                        [float(v) for v in host["train_loss"]],
+                        [{k: float(v[i]) for k, v in host["eval"].items()}
+                         for i in range(n)])
+        res["fused_vs_eager_max_abs"] = diffs
+        res["bitwise"] = diffs == 0.0 and all(
+            torch.equal(getattr(ea[0], f)[k], getattr(sf, f)[k])
+            for f in ("global_params", "personal_params")
+            for k in getattr(ea[0], f))
+        if impl == "dense":
+            torch.cuda.reset_peak_memory_stats(dev)
+            res["rounds_per_sec_pairs"] = _rates_in_pairs(algo, state, n)
+        emit(res)
+        if not (res["bitwise"] or diffs <= spread):
+            raise AssertionError(
+                f"fused {name} {impl}: differs from eager by {diffs} "
+                f"(eager vs eager: {spread})")
+        # the first eager round of the new algorithm ran the dropout
+        # probe's forward (FedAlgorithm._dropout_calls, once per algorithm)
+        eager_rounds = {**ea[3], "stem_fwd": ea[3]["stem_fwd"] - 1}
+        per_round = {k: v // n for k, v in eager_rounds.items() if v}
+        per_eval = {k: v // n for k, v in ea[4].items() if v}
+        want = {k: (per_round.get(k, 0) + per_eval.get(k, 0))
+                * (FUSED_WARMUPS + n) for k in kernels.LAUNCHES}
+        if graph.launches != per_round or fz.eval.launches != per_eval \
+                or launches != want:
+            raise AssertionError(
+                f"fused {name} {impl}: launches {launches} (per replay "
+                f"{graph.launches}, eval {fz.eval.launches}), want {want} "
+                f"(per round {per_round}, per eval {per_eval})")
+        out[f"fused/{name}/{impl}"] = launches
+        del algo, graph, fz
+        ea = eb = sf = ys = host = None  # free the states before the next
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit({"phase": "fused", "step": "summary",
+          "eager_vs_eager_spread": spread})
+    return out
+
+
 def _cli_argv(algo: str, tmp: str):
     return ["--algo", algo, "--dataset", "synthetic", "--model", "small3dcnn",
             "--comm_round", "2", "--results_dir", f"{tmp}/results",
             "--log_dir", f"{tmp}/log"]
 
 
+#: the cli phase's runs: (path name, --algo, extra flags)
+CLI_RUNS = (("salientgrads", "salientgrads", []), ("fedavg", "fedavg", []),
+            ("salientgrads_fused", "salientgrads", ["--fuse_rounds", "2"]))
+
+
 def cli_path(dev):
     """The CLI's two algorithms on the card, through the entry point a user
-    calls. Returns the launches per path."""
+    calls, and SalientGrads again with ``--fuse_rounds 2`` (one fused block
+    of both rounds), whose history must equal the unfused run's. Returns
+    the launches per path."""
     import os
     import tempfile
 
     import torch
 
+    from neuroimagedisttraining_torch.algorithms.base import FUSED_WARMUPS
     from neuroimagedisttraining_torch.experiments import runner
     from neuroimagedisttraining_torch.ops import kernels
 
@@ -1260,14 +1484,14 @@ def cli_path(dev):
         built["algo"], built["data"] = build_algorithm(*args, **kwargs)
         return built["algo"], built["data"]
 
-    out = {}
+    out, histories = {}, {}
     runner.build_algorithm = capture
     try:
-        for algo in ("salientgrads", "fedavg"):
+        for path, algo, extra in CLI_RUNS:
             with tempfile.TemporaryDirectory() as tmp:
                 kernels.reset_launches()
                 t0 = time.perf_counter()
-                res = runner.main(_cli_argv(algo, tmp))
+                res = runner.main(_cli_argv(algo, tmp) + extra)
                 torch.cuda.synchronize()
                 seconds = time.perf_counter() - t0
                 launches = dict(kernels.LAUNCHES)
@@ -1282,23 +1506,31 @@ def cli_path(dev):
                       if h["round"] >= 0]
             final = {k: float(v) for k, v in res["final_eval"].items()
                      if getattr(v, "ndim", 0) == 0}
-            emit({"phase": "cli", "algo": algo, "seconds": seconds,
+            emit({"phase": "cli", "algo": algo, "flags": extra,
+                  "seconds": seconds,
                   "identity": res["identity"], "stat_info_written": wrote,
                   "on_cuda": on_card, "train_loss": losses,
                   "final_eval": final, "launches": launches})
             if not (wrote and on_card and len(losses) == 2):
                 raise AssertionError(
-                    f"cli {algo}: stat_info written {wrote}, on cuda "
+                    f"cli {path}: stat_info written {wrote}, on cuda "
                     f"{on_card}, rounds {len(losses)}")
             vals = losses + list(final.values())
             if not all(math.isfinite(v) for v in vals):
-                raise AssertionError(f"cli {algo}: non-finite {vals}")
+                raise AssertionError(f"cli {path}: non-finite {vals}")
             want = (("masked_sgd", "threshold", "score_mask")
                     if algo == "salientgrads" else ("masked_sgd",))
+            # a fused run adds the round graph's warm-up runs
+            aggs = 2 + (FUSED_WARMUPS if extra else 0)
             if not all(launches[k] > 0 for k in want) or \
-                    launches["weighted_sum"] != 2:
-                raise AssertionError(f"cli {algo}: launches {launches}")
-            out[f"cli/{algo}"] = launches
+                    launches["weighted_sum"] != aggs:
+                raise AssertionError(f"cli {path}: launches {launches}")
+            histories[path] = [h for h in res["history"] if h["round"] >= 0]
+            out[f"cli/{path}"] = launches
+        if histories["salientgrads_fused"] != histories["salientgrads"]:
+            raise AssertionError(
+                f"cli: --fuse_rounds 2 history {histories['salientgrads_fused']}"
+                f" differs from --fuse_rounds 1's {histories['salientgrads']}")
     finally:
         runner.build_algorithm = build_algorithm
     return out
@@ -1308,6 +1540,7 @@ def bench_path(dev):
     """``bench_torch.main()`` with its counters zeroed just before and read
     just after. Returns the launches per path."""
     import bench_torch as b
+    from neuroimagedisttraining_torch.algorithms.base import FUSED_WARMUPS
     from neuroimagedisttraining_torch.ops import kernels
 
     kernels.reset_launches()
@@ -1317,19 +1550,30 @@ def bench_path(dev):
     launches = dict(kernels.LAUNCHES)
     emit({"phase": "bench", "seconds": seconds, "record": rec,
           "launches": launches})
-    if not (math.isfinite(rec["value"]) and rec["value"] > 0
-            and rec["extra"]["rounds_per_sec_eval_every_1"] > 0):
+    extra = rec["extra"]
+    rates = [rec["value"]] + [extra[k] for k in (
+        "rounds_per_sec_eval_every_1", "rounds_per_sec_fused",
+        "rounds_per_sec_eval_every_1_fused")]
+    if not all(math.isfinite(v) and v > 0 for v in rates) or \
+            rec["value"] != max(extra["rounds_per_sec_python_loop"],
+                                extra["rounds_per_sec_fused"]):
         raise AssertionError(f"bench: {rec}")
-    # a warm round and the timed rounds, twice; SNIP once per client; the
-    # eval (global and personal, every client) after the warm round and
-    # after every timed round of the second run
-    steps = (2 + 10 + 8) * b.N_CLIENTS * b.STEPS
+    # the Python loop: a warm round and the timed rounds, twice, the eval
+    # (global and personal, every client) after the warm round and after
+    # every timed round of the second run; the fused spelling: the round
+    # graph's and the eval graph's warm-ups, then each timed block and its
+    # warm calls (10 rounds; 8 rounds, each with the eval); SNIP once per
+    # client, and the dropout probe (one forward, at the first round)
+    calls = b.FUSED_WARM_CALLS + 1
+    rounds = 2 + 10 + 8 + FUSED_WARMUPS + calls * (10 + 8)
+    evals = 1 + 8 + FUSED_WARMUPS + calls * 8
+    steps = rounds * b.N_CLIENTS * b.STEPS
     test_rows = max(4, b.SAMPLES_PER_CLIENT // 4)
     chunks = -(-test_rows // min(32, test_rows))
     want = {"masked_sgd": steps, "threshold": 1, "score_mask": 1,
-            "weighted_sum": 2 + 10 + 8,
-            "stem_fwd": (steps + b.N_CLIENTS
-                         + (1 + 8) * 2 * b.N_CLIENTS * chunks),
+            "weighted_sum": rounds,
+            "stem_fwd": (steps + b.N_CLIENTS + 1
+                         + evals * 2 * b.N_CLIENTS * chunks),
             "stem_bwd": steps + b.N_CLIENTS}
     if any(launches[k] != v for k, v in want.items()):
         raise AssertionError(f"bench launch counts {launches}, expected "
@@ -1375,6 +1619,7 @@ def main() -> int:
     small_parity(dev)
     paths = {"main": main_path(dev)}
     paths.update(wires_path(dev))
+    paths.update(fused_path(dev))
     paths.update(cli_path(dev))
     paths.update(bench_path(dev))
 

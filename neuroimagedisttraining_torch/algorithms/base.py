@@ -7,13 +7,22 @@ over the selected clients: each trains a copy of the global model on its own
 shard, and the server takes the sample-weighted mean of the local models,
 routed by ``agg_impl`` through the aggregation wires
 (``parallel/collectives.py``) off the mesh.
+
+A round is split in two: what the host decides (the seeded client draw, the
+decayed learning rate, the random draws of the generator) and a body that
+reads only tensors (:meth:`FedAlgorithm._round_body`). The fused round loop
+(:meth:`FedAlgorithm.run_rounds_fused`, the reference's K-round ``lax.scan``)
+keeps the body's inputs and the state in buffers that stay put and, on the
+card, replays the body from a captured CUDA graph, one replay per round: no
+Python between the kernels of a round.
 """
 from __future__ import annotations
 
 import abc
 import dataclasses
 import logging
-from typing import Any, Dict, List, Optional
+import time
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -27,9 +36,15 @@ from ..core.state import (
     tree_index,
     tree_scatter_update,
 )
-from ..core.trainer import make_eval_fn
+from ..core.trainer import (
+    active_steps,
+    epoch_permutations,
+    make_eval_fn,
+    round_lr,
+)
 from ..data.types import FederatedData
 from ..models import make_apply_fn
+from ..models.layers import DropoutProbe
 from ..ops import kernels
 from ..parallel import collectives
 
@@ -61,6 +76,277 @@ def sample_client_indexes(round_idx: int, client_num_in_total: int,
                             replace=False).astype(np.int32)
 
 
+class FusedMetrics:
+    """A fused block's per-round metric series, fetched lazily in ONE host
+    transfer: the block's packed float64 stack, one row per series, which
+    the card fills after each round (zeros on a round without eval). Until
+    materialized, holding it costs nothing; the block loop dispatches the
+    next block first, then materializes the previous one."""
+
+    def __init__(self, names: Sequence[str], eval_names: Sequence[str],
+                 packed: torch.Tensor):
+        self._names, self._eval_names = list(names), list(eval_names)
+        self._packed = packed
+        self._host: Optional[Dict[str, Any]] = None
+
+    def materialize(self) -> Dict[str, Any]:
+        """``{name: [K] array}`` for each round metric, and under ``eval``
+        the same for each eval metric; waits for the block to finish."""
+        if self._host is None:
+            vals = self._packed.cpu().numpy()  # one transfer for the block
+            n = len(self._names)
+            self._host = {k: vals[i] for i, k in enumerate(self._names)}
+            if self._eval_names:
+                self._host["eval"] = {k: vals[n + j] for j, k in
+                                      enumerate(self._eval_names)}
+            self._packed = None  # free the device stack
+        return self._host
+
+    def __getitem__(self, key):
+        return self.materialize()[key]
+
+    def __contains__(self, key):
+        return key in self.materialize()
+
+
+@dataclasses.dataclass
+class RoundInputs:
+    """What a round's body reads besides the state (:meth:`FedAlgorithm.
+    _round_body`), per selected client in draw order, made by
+    :meth:`FedAlgorithm._round_inputs`.
+
+    ``n_valid`` (host ints) fixes the steps each client runs and its loss
+    weights. The rest is on the device: ``sel`` the client ids (int64),
+    ``n_sel`` their sample counts (f32), ``lr`` the round's rate (0-d f32),
+    ``perms`` the epoch permutations ``[S, epochs, steps_per_epoch *
+    batch]``, ``dropout`` per client and local step the dropout keep masks
+    by slot (None for a step the client does not run; None for a model
+    without dropout) and ``uniforms`` the int8 wire's ``[S, nb, b]`` draw
+    (None on the other wires)."""
+
+    n_valid: List[int]
+    sel: torch.Tensor
+    n_sel: torch.Tensor
+    lr: torch.Tensor
+    perms: torch.Tensor
+    dropout: Optional[List[List[Optional[List[torch.Tensor]]]]] = None
+    uniforms: Optional[torch.Tensor] = None
+
+
+#: runs of a body on a side stream before its capture: they set up cuDNN,
+#: cuBLAS, autograd and the kernels' launch attributes outside the graph
+FUSED_WARMUPS = 2
+
+#: the stream every graph's warm-ups and capture run on, one per device:
+#: cuBLAS keeps a workspace per stream for good, so a stream per graph
+#: would leave one behind at each capture
+_CAPTURE_STREAMS: Dict[torch.device, Any] = {}
+
+
+class _Graph:
+    """``fn(warm)`` replayed from a CUDA graph on the card (after
+    FUSED_WARMUPS runs of ``fn(warm=True)`` on a side stream, then the
+    capture of ``fn(warm=False)`` on the same stream), or called as is on
+    the CPU. Calling it returns ``fn``'s output; on the card that is the
+    captured output, which each replay rewrites in place. ``launches``: the
+    kernel launches one replay makes, added to ``kernels.LAUNCHES`` per
+    replay.
+
+    An error of a warm-up run propagates as it is; an error of the capture
+    itself is raised as ``ValueError`` naming ``what``."""
+
+    def __init__(self, fn: Callable, device: torch.device, what: str):
+        self.fn, self.launches = fn, {}
+        self.graph = self.out = None
+        if device.type != "cuda":
+            return
+        caller = torch.cuda.current_stream(device)
+        side = _CAPTURE_STREAMS.get(device)
+        if side is None:
+            side = _CAPTURE_STREAMS[device] = torch.cuda.Stream(device)
+        side.wait_stream(caller)
+        with torch.cuda.stream(side):
+            for _ in range(FUSED_WARMUPS):
+                fn(warm=True)
+        caller.wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        before = dict(kernels.LAUNCHES)
+        try:
+            with torch.cuda.graph(graph, stream=side):
+                out = fn(warm=False)
+        except RuntimeError as e:
+            # a failed capture can leave its stream current
+            torch.cuda.set_stream(caller)
+            raise ValueError(f"{what} cannot be captured in a CUDA graph: "
+                             f"{e}") from e
+        finally:
+            # a capture queues no work: take back what its wrappers
+            # counted, and add it at each replay
+            captured = {k: kernels.LAUNCHES[k] - n for k, n in before.items()}
+            kernels.LAUNCHES.update(before)
+        self.graph, self.out = graph, out
+        self.launches = {k: n for k, n in captured.items() if n}
+
+    def __call__(self):
+        if self.graph is None:
+            return self.fn(warm=False)
+        self.graph.replay()
+        kernels.add_launches(self.launches)
+        return self.out
+
+    def release(self) -> None:
+        """Drop the graph, its output and its private memory pool."""
+        if self.graph is not None:
+            self.graph.reset()
+        self.fn = self.graph = self.out = None
+
+
+def _is_buffer(v) -> bool:
+    return isinstance(v, (torch.Tensor, dict))
+
+
+def _copy_into(dst, src) -> None:
+    """``dst`` (a tensor or tree of tensors) overwritten with ``src``'s
+    values, leaf by leaf; a leaf that already is its destination is left."""
+    if isinstance(dst, dict):
+        for k, t in dst.items():
+            _copy_into(t, src[k])
+    elif src is not dst:
+        dst.copy_(src)
+
+
+def _clone(v):
+    return clone_tree(v) if isinstance(v, dict) else v.clone()
+
+
+def _to_device(x, device: torch.device) -> torch.Tensor:
+    """A host array on ``device`` without waiting on the card (through
+    pinned memory, for a copy the stream orders)."""
+    t = torch.as_tensor(x)
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+#: round graphs a fused loop keeps, one per client-draw key: past this,
+#: the least recently replayed one is released (its memory pool with it)
+FUSED_MAX_GRAPHS = 4
+
+
+class _FusedRounds:
+    """What an algorithm's fused blocks run in (:meth:`FedAlgorithm.
+    run_rounds_fused`): buffers that stay put, and the graphs that read
+    them.
+
+    * ``state``: the state with every tensor and tree of tensors replaced
+      by a buffer of its own; a block copies its input state in and clones
+      its output state out, so no caller ever holds a buffer.
+    * the host inputs of a round (:class:`RoundInputs`): the client ids,
+      the learning rate, the epoch permutations, the dropout keep masks of
+      every client and step, the int8 wire's uniforms, rewritten on the
+      card before each round (:meth:`write`);
+    * a round graph per client-draw key, the selected clients' sample
+      counts, which fix the steps each runs and the aggregate's weights
+      (one key at full participation or with equal shards), at most
+      FUSED_MAX_GRAPHS of them, and one eval graph."""
+
+    def __init__(self, algo: "FedAlgorithm", state: Any):
+        dev, hp = algo.device, algo.hp
+        s = algo.clients_per_round
+        self.fields = [f.name for f in dataclasses.fields(state)
+                       if _is_buffer(getattr(state, f.name))]
+        self.state = dataclasses.replace(state, **{
+            f: _clone(getattr(state, f)) for f in self.fields})
+        self.sel = torch.zeros(s, dtype=torch.int64, device=dev)
+        self.lr = torch.zeros((), dtype=torch.float32, device=dev)
+        self.perms = torch.arange(
+            hp.steps_per_epoch * hp.batch_size, device=dev).repeat(
+                s, hp.local_epochs, 1)
+        drop_calls = algo._dropout_calls(state.global_params)
+        self.dropout = None
+        if drop_calls:
+            self.dropout = [[algo._keep_masks(
+                drop_calls, lambda shape, _: torch.ones(
+                    shape, dtype=torch.bool, device=dev))
+                for _ in range(hp.local_steps)] for _ in range(s)]
+        self.uniforms = None
+        if algo.agg_impl == "int8":
+            self.uniforms = torch.full(
+                algo._uniforms_shape(state.global_params), 0.5, device=dev)
+        self.rounds: Dict[tuple, _Graph] = {}  # least recently used first
+        self.evicted = 0
+        self.eval: Optional[_Graph] = None
+        self.eval_names: List[str] = []
+
+    def load(self, state: Any) -> None:
+        for f in self.fields:
+            _copy_into(getattr(self.state, f), getattr(state, f))
+
+    def export(self, template: Any, generator: torch.Generator) -> Any:
+        """The state in the buffers, cloned out (``template``'s other
+        fields, the given generator)."""
+        return dataclasses.replace(template, generator=generator, **{
+            f: _clone(getattr(self.state, f)) for f in self.fields})
+
+    def write(self, inp: RoundInputs) -> None:
+        """A round's inputs copied into the buffers the graphs read, on
+        the stream (a step a client does not run keeps its old masks)."""
+        self.sel.copy_(inp.sel)
+        self.lr.copy_(inp.lr)
+        self.perms.copy_(inp.perms)
+        if self.dropout is not None:
+            for bufs, steps in zip(self.dropout, inp.dropout):
+                for buf, keep in zip(bufs, steps):
+                    for b, k in zip(buf, keep or ()):
+                        if b is not None:
+                            b.copy_(k)
+        if self.uniforms is not None:
+            self.uniforms.copy_(inp.uniforms)
+
+    def round_graph(self, algo: "FedAlgorithm", key: tuple) -> _Graph:
+        graph = self.rounds.pop(key, None)
+        if graph is None:
+            if len(self.rounds) >= FUSED_MAX_GRAPHS:
+                self.rounds.pop(next(iter(self.rounds))).release()
+                if not self.evicted:
+                    logger.warning(
+                        "%s: more than %d client-draw keys; a new one is "
+                        "captured anew", algo.name, FUSED_MAX_GRAPHS)
+                self.evicted += 1
+            inp = RoundInputs(
+                n_valid=list(key), sel=self.sel,
+                n_sel=torch.tensor(key, dtype=torch.float32,
+                                   device=algo.device),
+                lr=self.lr, perms=self.perms, dropout=self.dropout,
+                uniforms=self.uniforms)
+
+            def body(warm: bool):
+                new, metrics = algo._round_body(self.state, inp)
+                if not warm:  # a warm-up leaves the state where it was
+                    for f in self.fields:
+                        _copy_into(getattr(self.state, f), getattr(new, f))
+                return torch.stack([metrics[k].double().reshape(())
+                                    for k in algo._round_metric_names])
+
+            graph = _Graph(
+                body, algo.device,
+                f"{algo.name}: the round (agg_impl={algo.agg_impl!r})")
+        self.rounds[key] = graph  # now the most recently used
+        return graph
+
+    def eval_graph(self, algo: "FedAlgorithm") -> _Graph:
+        if self.eval is None:
+            def body(warm: bool):
+                ev = algo.evaluate(self.state)
+                self.eval_names = [k for k in ev
+                                   if not k.startswith("acc_per")]
+                return torch.stack([torch.as_tensor(ev[k]).double().reshape(
+                    ()) for k in self.eval_names])
+
+            self.eval = _Graph(body, algo.device, f"{algo.name}: the eval")
+        return self.eval
+
+
 class FedAlgorithm(abc.ABC):
     """Owns the model, data, hyperparameters and the apply/eval functions.
 
@@ -82,6 +368,12 @@ class FedAlgorithm(abc.ABC):
     name = "base"
     #: the algorithm carries the error-feedback residual of agg_impl="topk"
     topk_supported = False
+    #: the algorithm's only per-round host work is the seeded client draw
+    #: and the generator's draws, so its rounds can run as fused blocks
+    #: (:meth:`run_rounds_fused`)
+    supports_fused = False
+    #: the round metrics :meth:`_round_body` returns
+    _round_metric_names = ("train_loss",)
 
     def __init__(self, model: torch.nn.Module, data: FederatedData,
                  hp: HyperParams, loss_type: str = "bce", frac: float = 1.0,
@@ -131,6 +423,12 @@ class FedAlgorithm(abc.ABC):
         self.eval_client = make_eval_fn(self.apply_fn, loss_type, eval_batch)
         self._n_train = [int(n) for n in data.n_train]
         self._n_test = [int(n) for n in data.n_test]
+        #: the test shards' row counts on the device: the eval's totals
+        self._n_test_dev = torch.tensor(self._n_test, device=self.device)
+        #: the dropout layers a training forward meets (_dropout_calls)
+        self._drop_calls: Optional[List[tuple]] = None
+        #: the fused round loop's buffers and graphs (run_rounds_fused)
+        self._fused: Optional[_FusedRounds] = None
         self._build()
 
     @abc.abstractmethod
@@ -141,9 +439,54 @@ class FedAlgorithm(abc.ABC):
     def init_state(self, generator: Optional[torch.Generator] = None) -> Any:
         """The initial server state."""
 
+    def run_round(self, state: Any, round_idx: int, *, perms=None,
+                  dropout=None, agg_uniforms=None):
+        """One round, a pure function of ``state``: the input state is left
+        as it was (its generator too; the round draws from a copy, which the
+        new state carries). ``perms`` / ``dropout`` (per selected client)
+        replace the drawn epoch permutations / dropout masks,
+        ``agg_uniforms`` the int8 wire's draw. Returns ``(state,
+        {"train_loss": ...})``."""
+        self._prepare_round(state)
+        sel = self._selected_client_indexes(round_idx)
+        g = clone_generator(state.generator)
+        inp = self._round_inputs(
+            state.global_params, sel,
+            _to_device(sel.astype(np.int64), self.device),
+            _to_device(round_lr(self.hp, round_idx), self.device), g,
+            dict(perms=perms, dropout=dropout, agg_uniforms=agg_uniforms))
+        new_state, metrics = self._round_body(state, inp)
+        return dataclasses.replace(new_state, generator=g), metrics
+
+    def _prepare_round(self, state: Any) -> None:
+        """Host work a round needs once, before any round runs."""
+
     @abc.abstractmethod
-    def run_round(self, state: Any, round_idx: int, **seams) -> Any:
-        """One federated round; returns (state, train-metrics dict)."""
+    def _round_mask(self, state: Any) -> Tree:
+        """The mask the local SGD re-applies after each step."""
+
+    def _post_aggregate(self, new_global: Tree, state: Any) -> Tree:
+        """The new global model after the aggregate (the identity here)."""
+        return new_global
+
+    def _round_body(self, state: Any, inp: RoundInputs):
+        """The round on tensors: every selected client trains, the server
+        aggregates, the trained rows become the personal models. Returns
+        ``(state, metrics)`` with the state's generator untouched. It reads
+        the host only through ``inp.n_valid``: the body a CUDA graph
+        holds."""
+        new_global, locals_, mean_loss, residual = \
+            self._train_selected_weighted(
+                state.global_params, self._round_mask(state), inp,
+                residual=state.agg_residual)
+        new_global = self._post_aggregate(new_global, state)
+        personal = state.personal_params
+        if personal is not None:
+            personal = tree_scatter_update(personal, inp.sel, locals_)
+        new_state = dataclasses.replace(state, global_params=new_global,
+                                        personal_params=personal,
+                                        agg_residual=residual)
+        return new_state, {"train_loss": mean_loss}
 
     def finalize(self, state: Any):
         """Optional end-of-training pass; returns ``(state, record or
@@ -229,7 +572,7 @@ class FedAlgorithm(abc.ABC):
                                          uniforms=uniforms, **kw)
 
     def _topk_aggregate(self, locals_: Tree, global_params: Tree,
-                        residual: Tree, sel_idx: np.ndarray,
+                        residual: Tree, idx: torch.Tensor,
                         weights: torch.Tensor):
         """The ``agg_impl='topk'`` round aggregate with error feedback (Deep
         Gradient Compression on the federated round), guard off:
@@ -241,13 +584,13 @@ class FedAlgorithm(abc.ABC):
         3. the unsent remainder becomes the client's new residual row;
         4. ``new_global = global + aggregate``.
 
+        ``idx`` holds the selected clients' ids (int64, on the device).
         Returns ``(new_global, new_residual)``."""
         if residual is None:
             raise ValueError(
                 f"{self.name}: agg_impl='topk' round body called without the "
                 "residual stack — init_state must seed State.agg_residual")
         full = self.clients_per_round == self.num_clients
-        idx = torch.as_tensor(sel_idx, dtype=torch.int64, device=self.device)
         res_sel = residual if full else tree_index(residual, idx)
         comp = {k: (locals_[k] - global_params[k][None]) + res_sel[k]
                 for k in locals_}
@@ -266,56 +609,40 @@ class FedAlgorithm(abc.ABC):
             residual, idx, new_rows)
         return new_global, new_residual
 
-    def _train_selected_weighted(self, client_update, global_params: Tree,
-                                 mask: Tree, sel_idx: np.ndarray,
-                                 round_idx: int, generator, perms=None,
-                                 dropout=None, residual: Optional[Tree] = None,
-                                 agg_uniforms=None):
-        """Every selected client trains a copy of the global model on its
-        shard; returns (new global, stacked local models, mean loss, new
-        error-feedback residual).
-
-        ``perms`` / ``dropout``, when given, hold each selected client's
-        epoch permutations / per-step dropout masks (indexed by position in
-        ``sel_idx``). ``residual`` is the ``[C, ...]`` error-feedback stack
-        (``agg_impl='topk'`` only; returned unchanged otherwise).
-        ``agg_uniforms`` is the int8 wire's ``[S, nb, b]`` draw over the
-        reference's flat layout (:func:`collectives.bucket_shape`); without
-        it the wire draws from ``generator``."""
+    def _train_clients(self, global_params: Tree, mask: Tree,
+                       inp: RoundInputs):
+        """Every client of ``inp`` trains a copy of the global model on its
+        own rows; returns (stacked local models, mean loss)."""
         d = self.data
         locals_, losses = [], []
-        for i, c in enumerate(sel_idx):
-            c = int(c)
-            params, _, loss = client_update(
-                clone_tree(global_params), mask, d.x_train[c], d.y_train[c],
-                self._n_train[c], round_idx,
-                perms=None if perms is None else perms[i],
-                dropout=None if dropout is None else dropout[i],
-                generator=generator)
+        for i, n in enumerate(inp.n_valid):
+            params, _, loss = self.client_update(
+                clone_tree(global_params), mask, d.x_train, d.y_train, n,
+                inp.sel[i:i + 1], inp.perms[i], inp.lr,
+                None if inp.dropout is None else inp.dropout[i])
             locals_.append(params)
             losses.append(loss)
         stacked = {k: torch.stack([p[k] for p in locals_])
                    for k in global_params}
-        n_sel = torch.tensor([self._n_train[int(c)] for c in sel_idx],
-                             dtype=torch.float32, device=self.device)
-        weights = n_sel / torch.clamp(n_sel.sum(), min=1.0)
-        mean_loss = torch.stack(losses).mean()
+        return stacked, torch.stack(losses).mean()
+
+    def _train_selected_weighted(self, global_params: Tree, mask: Tree,
+                                 inp: RoundInputs,
+                                 residual: Optional[Tree] = None):
+        """Every selected client trains a copy of the global model; returns
+        (new global, stacked local models, mean loss, new error-feedback
+        residual).
+
+        ``inp`` (:class:`RoundInputs`) holds the clients, the rate and the
+        draws. ``residual`` is the ``[C, ...]`` error-feedback stack
+        (``agg_impl='topk'`` only; returned unchanged otherwise)."""
+        stacked, mean_loss = self._train_clients(global_params, mask, inp)
+        weights = inp.n_sel / torch.clamp(inp.n_sel.sum(), min=1.0)
         if self.agg_impl == "topk":
             new_global, residual = self._topk_aggregate(
-                stacked, global_params, residual, sel_idx, weights)
+                stacked, global_params, residual, inp.sel, weights)
             return new_global, stacked, mean_loss, residual
-        uniforms = None
-        if self.agg_impl == "int8":
-            uniforms = agg_uniforms
-            if uniforms is None:
-                n = sum(v[0].numel() for v in stacked.values())
-                nb, b = collectives.bucket_shape(n, self.agg_bucket_size)
-                uniforms = torch.rand((len(sel_idx), nb, b),
-                                      generator=generator,
-                                      device=self.device)
-            uniforms = torch.as_tensor(uniforms, dtype=torch.float32,
-                                       device=self.device)
-        new_global = self._aggregate(stacked, weights, uniforms)
+        new_global = self._aggregate(stacked, weights, inp.uniforms)
         return new_global, stacked, mean_loss, residual
 
     def _eval_global(self, params: Tree) -> Dict[str, torch.Tensor]:
@@ -325,7 +652,7 @@ class FedAlgorithm(abc.ABC):
                  for c, n in enumerate(self._n_test)]
         correct = torch.stack([t[0] for t in terms])
         loss_sum = torch.stack([t[1] for t in terms])
-        total = torch.tensor([t[2] for t in terms], device=self.device)
+        total = self._n_test_dev
         acc = correct.to(torch.float32) / torch.clamp(total, min=1)
         return {"acc_per_client": acc, "acc": acc.mean(),
                 "loss": loss_sum.sum() / torch.clamp(total.sum(), min=1)}
@@ -338,17 +665,255 @@ class FedAlgorithm(abc.ABC):
                  for c, n in enumerate(self._n_test)]
         return _personal_metrics(
             torch.stack([t[0] for t in terms]),
-            torch.stack([t[1] for t in terms]),
-            torch.tensor([t[2] for t in terms], device=self.device))
+            torch.stack([t[1] for t in terms]), self._n_test_dev)
 
     @abc.abstractmethod
     def evaluate(self, state: Any) -> Dict[str, Any]:
         """The reference's eval protocol for this algorithm: global and/or
-        personal per-client evaluation."""
+        personal per-client evaluation, as tensors on the device (no wait
+        on the card: the fused loop replays it from a CUDA graph)."""
+
+    # -- the round's host inputs ---------------------------------------------
+    def _dropout_calls(self, params: Tree) -> List[tuple]:
+        """The dropout layers a training forward meets, ``(slot, shape,
+        keep_prob)`` in call order, from one forward of a batch of client
+        0's first row (a :class:`~..models.layers.DropoutProbe`), once per
+        algorithm."""
+        if self._drop_calls is None:
+            probe = DropoutProbe()
+            rows = torch.zeros(self.hp.batch_size, dtype=torch.int64,
+                               device=self.device)
+            with torch.no_grad():
+                self.apply_fn(params, self.data.x_train[0][rows], train=True,
+                              rng=probe)
+            self._drop_calls = probe.calls
+        return self._drop_calls
+
+    @staticmethod
+    def _keep_masks(drop_calls, make) -> List[Optional[torch.Tensor]]:
+        """One step's keep masks by slot, ``make(shape, keep_prob)`` for
+        each dropout call in call order."""
+        masks: List[Optional[torch.Tensor]] = \
+            [None] * (1 + max(c[0] for c in drop_calls))
+        for slot, shape, keep_prob in drop_calls:
+            masks[slot] = make(shape, keep_prob)
+        return masks
+
+    def _uniforms_shape(self, params: Tree) -> tuple:
+        """The int8 wire's draw, ``[S, nb, b]`` over the reference's flat
+        layout (:func:`collectives.bucket_shape`)."""
+        n = sum(v.numel() for v in params.values())
+        return (self.clients_per_round,) + collectives.bucket_shape(
+            n, self.agg_bucket_size)
+
+    def _round_inputs(self, params: Tree, sel: np.ndarray,
+                      sel_dev: torch.Tensor, lr: torch.Tensor,
+                      g: torch.Generator,
+                      seams: Optional[Dict[str, Any]] = None,
+                      aggregate: bool = True) -> RoundInputs:
+        """A round's inputs (:class:`RoundInputs`), fresh on the device: the
+        clients ``sel`` (``sel_dev`` on the device), the rate ``lr``, then
+        the draws of ``g`` in the order the round consumes them: per client
+        its epoch permutations, then each step it runs its dropout keep
+        masks; after all clients, with ``aggregate``, the int8 wire's
+        uniforms. ``seams`` (``run_round``'s ``perms``, ``dropout``,
+        ``agg_uniforms``) replace the draws they name. Both round loops
+        draw through here."""
+        seams = seams or {}
+        hp, dev = self.hp, self.device
+        n_valid = [self._n_train[int(c)] for c in sel]
+        n_rows = self.data.x_train.shape[1]
+        full = self._full_batches()
+        drop_calls = self._dropout_calls(params)
+        given_perms, given_drop = seams.get("perms"), seams.get("dropout")
+        perms, dropout = [], ([] if drop_calls else None)
+        for i, n in enumerate(n_valid):
+            perms.append(
+                torch.as_tensor(given_perms[i], dtype=torch.int64,
+                                device=dev) if given_perms is not None else
+                epoch_permutations(g, n, hp.local_epochs,
+                                   hp.steps_per_epoch * hp.batch_size,
+                                   n_rows=n_rows))
+            if dropout is None:
+                continue
+            steps: List[Optional[List]] = [None] * hp.local_steps
+            for s in active_steps(hp, n, full):
+                steps[s] = (
+                    [torch.as_tensor(m, device=dev) for m in given_drop[i][s]]
+                    if given_drop is not None else self._keep_masks(
+                        drop_calls, lambda shape, kp: torch.rand(
+                            shape, generator=g, device=dev) < kp))
+            dropout.append(steps)
+        uniforms = None
+        if aggregate and self.agg_impl == "int8":
+            u = seams.get("agg_uniforms")
+            uniforms = (torch.as_tensor(u, dtype=torch.float32, device=dev)
+                        if u is not None else
+                        torch.rand(self._uniforms_shape(params), generator=g,
+                                   device=dev))
+        return RoundInputs(
+            n_valid=n_valid, sel=sel_dev,
+            n_sel=_to_device(np.asarray(n_valid, np.float32), dev), lr=lr,
+            perms=torch.stack(perms), dropout=dropout, uniforms=uniforms)
+
+    # -- fused multi-round execution -------------------------------------------
+    def _get_fused_fn(self, state: Any) -> _FusedRounds:
+        """The fused loop's buffers and graphs, built at the first block
+        (states of one algorithm share their shapes)."""
+        if self._fused is None:
+            self._fused = _FusedRounds(self, state)
+        return self._fused
+
+    def run_rounds_fused(self, state: Any, start_round: int, n_rounds: int,
+                         eval_every: int = 0,
+                         seams: Optional[Sequence[Dict[str, Any]]] = None):
+        """Run rounds ``start_round .. start_round + n_rounds - 1`` as one
+        block: on the card each round is one replay of a captured CUDA graph
+        of :meth:`_round_body` (captured at the first block of its client-
+        draw key, after FUSED_WARMUPS warm-up runs), each eval round
+        (``(r + 1) % eval_every == 0``) one replay of the eval's graph; on
+        the CPU the same bodies run as they are. Between replays the host
+        writes the round's client ids, rate and draws into the buffers the
+        graph reads (:meth:`_FusedRounds.write`), drawn from a copy of the
+        state's generator by :meth:`_round_inputs`, as :meth:`run_round`
+        draws them, so a block equals ``n_rounds`` ``run_round`` calls bit
+        for bit.
+        ``seams``, one dict per round of ``run_round``'s ``perms``,
+        ``dropout`` and ``agg_uniforms``, replace the draws they name.
+
+        Returns ``(state, ys)``, ``ys`` a :class:`FusedMetrics` whose
+        ``train_loss`` is ``[n_rounds]`` and whose ``eval`` (with
+        ``eval_every``) holds each eval metric, zero on rounds without eval.
+        The input state is left as it was, generator included; the returned
+        state is a copy, never the graph's buffers. A round the card cannot
+        capture raises ``ValueError``: there is no eager fallback."""
+        if not self.supports_fused:
+            raise ValueError(
+                f"{self.name}: fused rounds need every per-round host input "
+                "to be a pure function of round_idx; run it with "
+                "fuse_rounds=1")
+        if seams is not None and len(seams) != n_rounds:
+            raise ValueError(f"seams: {len(seams)} rounds for a block of "
+                             f"{n_rounds}")
+        self._prepare_round(state)
+        fused = self._get_fused_fn(state)
+        fused.load(state)
+        g = clone_generator(state.generator)
+        rounds = range(start_round, start_round + n_rounds)
+        sels = [self._selected_client_indexes(r) for r in rounds]
+        sel_dev = _to_device(np.stack(sels).astype(np.int64), self.device)
+        lrs = _to_device(torch.stack([round_lr(self.hp, r) for r in rounds]),
+                         self.device)
+        names = list(self._round_metric_names)
+        rows = torch.zeros((len(names), n_rounds), dtype=torch.float64,
+                           device=self.device)
+        ev_rows = None
+        for k, r in enumerate(rounds):
+            inp = self._round_inputs(state.global_params, sels[k],
+                                     sel_dev[k], lrs[k], g,
+                                     None if seams is None else seams[k])
+            fused.write(inp)
+            rows[:, k].copy_(fused.round_graph(self, tuple(inp.n_valid))())
+            if eval_every and (r + 1) % eval_every == 0:
+                ev = fused.eval_graph(self)()
+                if ev_rows is None:
+                    ev_rows = torch.zeros((len(ev), n_rounds),
+                                          dtype=torch.float64,
+                                          device=self.device)
+                ev_rows[:, k].copy_(ev)
+        packed = rows if ev_rows is None else torch.cat([rows, ev_rows])
+        return (fused.export(state, g),
+                FusedMetrics(names, fused.eval_names if ev_rows is not None
+                             else [], packed))
+
+    def _fused_block_loop(self, state: Any, start_round: int, total: int,
+                          block: int, eval_every: int, on_record,
+                          timed: bool = False):
+        """The shared fused-block loop (``run(fuse_rounds=K)`` and the
+        CLI's ``--fuse_rounds``): dispatch block b+1, then materialize and
+        emit block b's per-round records, so the card's queue never drains.
+        ``on_record(round_idx, rec, state_out)`` receives each round's
+        record in order with the emitting block's output state.
+
+        ``timed=True`` stamps ``round_time_s`` as the block's flush-to-flush
+        wall time split evenly: the per-run sum is the wall time, a round's
+        share right to within one block. A success-path flush error
+        propagates; with an exception already unwinding, the last flush is
+        best effort."""
+        mark = time.perf_counter()
+        pending = None  # the previous block, dispatched, not yet fetched
+
+        def flush(p):
+            nonlocal mark
+            r0, k, ys, state_out = p
+            host = dict(ys.materialize())  # waits for the block
+            now = time.perf_counter()
+            wall, mark = now - mark, now
+            ev = host.pop("eval", None)
+            for i in range(k):
+                rec: Dict[str, Any] = {"round": r0 + i}
+                for name in self._round_metric_names:
+                    rec[name] = float(host[name][i])
+                if ev is not None and (r0 + i + 1) % eval_every == 0:
+                    rec.update({k2: float(v[i]) for k2, v in ev.items()})
+                if timed:
+                    rec["round_time_s"] = wall / k
+                on_record(r0 + i, rec, state_out)
+
+        try:
+            for r0 in range(start_round, total, block):
+                k = min(block, total - r0)
+                state, ys = self.run_rounds_fused(state, r0, k,
+                                                  eval_every=eval_every)
+                if pending is not None:
+                    # cleared before the flush: if it raises mid-way, the
+                    # finally must not emit its records again
+                    p, pending = pending, None
+                    flush(p)
+                pending = (r0, k, ys, state)
+            if pending is not None:
+                p, pending = pending, None
+                flush(p)  # success path: a flush error propagates
+        finally:
+            if pending is not None:  # an exception is unwinding
+                try:
+                    flush(pending)
+                except Exception:
+                    logger.exception("fused block metrics lost")
+        return state
+
+    def _run_fused(self, comm_rounds: int, eval_every: int, state: Any,
+                   finalize: bool, block: int):
+        """:meth:`run` with the round loop in fused blocks."""
+        if state is None:
+            state = self.init_state()
+        history: List[Dict[str, Any]] = []
+
+        def on_record(r, rec, _state_out):
+            history.append(rec)
+            logger.info("%s round %d: %s", self.name, r, rec)
+
+        state = self._fused_block_loop(state, 0, comm_rounds, block,
+                                       eval_every, on_record, timed=True)
+        return self._finalize_into_history(state, history, finalize)
+
+    def _finalize_into_history(self, state: Any, history: List, finalize:
+                               bool):
+        """The shared tail of both round loops: the algorithm's final pass, its
+        record (round = -1) appended to the history."""
+        from ..utils.records import to_float
+
+        if finalize:
+            state, final = self.finalize(state)
+            if final is not None:
+                record = {k: to_float(v) for k, v in final.items()}
+                history.append(record)
+                logger.info("%s final: %s", self.name, record)
+        return state, history
 
     # -- driver ----------------------------------------------------------------
     def run(self, comm_rounds: int, eval_every: int = 1, state: Any = None,
-            finalize: bool = True):
+            finalize: bool = True, fuse_rounds: int = 1):
         """The federated training loop: ``comm_rounds`` rounds, an eval every
         ``eval_every`` rounds, then the algorithm's final pass. Returns
         ``(state, history)``; history values are Python floats.
@@ -356,9 +921,15 @@ class FedAlgorithm(abc.ABC):
         Each round's metrics are fetched to the host one round late
         (:class:`utils.records.DeferredRecords`), so the card is never
         idle waiting on the host's conversion; ``round_time_s`` is stamped
-        at those flushes, so the sum over the run is its wall time."""
-        from ..utils.records import DeferredRecords, to_float
+        at those flushes, so the sum over the run is its wall time.
+        ``fuse_rounds=K`` > 1 runs the rounds in K-round fused blocks
+        (:meth:`run_rounds_fused`), the same history but ``round_time_s``
+        (a block's time split evenly)."""
+        from ..utils.records import DeferredRecords
 
+        if fuse_rounds > 1:
+            return self._run_fused(comm_rounds, eval_every, state, finalize,
+                                   fuse_rounds)
         if state is None:
             state = self.init_state()
         history: List[Dict[str, Any]] = []
@@ -380,10 +951,4 @@ class FedAlgorithm(abc.ABC):
             deferred.flush_safely()  # emit the last completed round
             raise
         deferred.flush()
-        if finalize:
-            state, final = self.finalize(state)
-            if final is not None:
-                record = {k: to_float(v) for k, v in final.items()}
-                history.append(record)
-                logger.info("%s final: %s", self.name, record)
-        return state, history
+        return self._finalize_into_history(state, history, finalize)

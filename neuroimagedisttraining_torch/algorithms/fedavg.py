@@ -18,19 +18,18 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 
 from ..core.state import (
     Tree,
     broadcast_tree,
     clone_generator,
-    clone_tree,
-    tree_scatter_update,
     zeros_like_tree,
 )
-from ..core.trainer import make_client_update
+from ..core.trainer import make_client_update, round_lr
 from ..models import init_params
-from .base import FedAlgorithm
+from .base import FedAlgorithm, _to_device
 
 
 @dataclasses.dataclass
@@ -50,6 +49,7 @@ class FedAvgState:
 class FedAvg(FedAlgorithm):
     name = "fedavg"
     topk_supported = True
+    supports_fused = True
 
     def __init__(self, *args, track_personal: bool = True, **kwargs):
         # track_personal=False drops the [C, model] personal stack and the
@@ -87,29 +87,11 @@ class FedAvg(FedAlgorithm):
         return FedAvgState(global_params=params, personal_params=personal,
                            generator=g, agg_residual=residual)
 
-    def run_round(self, state: FedAvgState, round_idx: int, *, perms=None,
-                  dropout=None, agg_uniforms=None):
-        """One round, a pure function of ``state``: the input state is left
-        as it was (its generator too; the round draws from a copy, which the
-        new state carries). ``perms`` / ``dropout`` (per selected client)
-        replace the drawn epoch permutations / dropout masks,
-        ``agg_uniforms`` the int8 wire's draw."""
-        sel = self._selected_client_indexes(round_idx)
-        g = clone_generator(state.generator)
-        new_global, locals_, mean_loss, residual = \
-            self._train_selected_weighted(
-                self.client_update, state.global_params,
-                self._ones_mask(state.global_params), sel, round_idx, g,
-                perms=perms, dropout=dropout, residual=state.agg_residual,
-                agg_uniforms=agg_uniforms)
-        personal = state.personal_params
-        if personal is not None:
-            idx = torch.as_tensor(sel, dtype=torch.int64, device=self.device)
-            personal = tree_scatter_update(personal, idx, locals_)
-        new_state = dataclasses.replace(state, global_params=new_global,
-                                        personal_params=personal,
-                                        generator=g, agg_residual=residual)
-        return new_state, {"train_loss": mean_loss}
+    def _prepare_round(self, state: FedAvgState) -> None:
+        self._ones_mask(state.global_params)
+
+    def _round_mask(self, state: FedAvgState) -> Tree:
+        return self._ones_mask(state.global_params)
 
     def finalize(self, state: FedAvgState, *, perms=None, dropout=None):
         """Every client fine-tunes once from the final global model at
@@ -119,20 +101,14 @@ class FedAvg(FedAlgorithm):
         tracking there is nothing to produce."""
         if not self.track_personal:
             return state, None
-        d = self.data
         g = clone_generator(state.generator)
-        ones = self._ones_mask(state.global_params)
-        rows = []
-        for c in range(self.num_clients):
-            params, _, _ = self.client_update(
-                clone_tree(state.global_params), ones, d.x_train[c],
-                d.y_train[c], self._n_train[c], -1,
-                perms=None if perms is None else perms[c],
-                dropout=None if dropout is None else dropout[c],
-                generator=g)
-            rows.append(params)
-        personal = {k: torch.stack([r[k] for r in rows])
-                    for k in state.global_params}
+        sel = np.arange(self.num_clients)
+        inp = self._round_inputs(
+            state.global_params, sel, _to_device(sel, self.device),
+            _to_device(round_lr(self.hp, -1), self.device), g,
+            dict(perms=perms, dropout=dropout), aggregate=False)
+        personal, _ = self._train_clients(
+            state.global_params, self._ones_mask(state.global_params), inp)
         state = dataclasses.replace(state, personal_params=personal,
                                     generator=g)
         ev = self.evaluate(state)

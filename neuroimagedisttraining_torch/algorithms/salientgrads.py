@@ -25,17 +25,15 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from ..core.state import (
-    Tree,
-    broadcast_tree,
-    clone_generator,
-    tree_scatter_update,
-    zeros_like_tree,
-)
+from ..core.state import Tree, broadcast_tree, zeros_like_tree
 from ..core.trainer import make_client_update
 from ..models import init_params
 from ..ops import kernels
-from ..ops.sparsity import make_snip_score_fn, mask_density, mask_from_scores
+from ..ops.sparsity import (
+    make_snip_score_fn,
+    mask_density_tensor,
+    mask_from_scores,
+)
 from .base import FedAlgorithm
 
 
@@ -58,6 +56,7 @@ class SalientGradsState:
 class SalientGrads(FedAlgorithm):
     name = "salientgrads"
     topk_supported = True
+    supports_fused = True
 
     def __init__(self, *args, dense_ratio: float = 0.5,
                  itersnip_iterations: int = 1, snip_mask: bool = True,
@@ -137,34 +136,20 @@ class SalientGrads(FedAlgorithm):
 
             self._agg_sparse_plan = build_sparse_plan(state.mask)
 
-    def run_round(self, state: SalientGradsState, round_idx: int, *,
-                  perms=None, dropout=None, agg_uniforms=None):
-        """One round, a pure function of ``state``: the input state is left
-        as it was (its generator too; the round draws from a copy, which the
-        new state carries). ``perms`` / ``dropout`` (per selected client)
-        replace the drawn epoch permutations / dropout masks,
-        ``agg_uniforms`` the int8 wire's draw."""
+    def _prepare_round(self, state: SalientGradsState) -> None:
         self._ensure_agg_plan(state)
-        sel = self._selected_client_indexes(round_idx)
-        g = clone_generator(state.generator)
-        new_global, locals_, mean_loss, residual = \
-            self._train_selected_weighted(
-                self.client_update, state.global_params, state.mask, sel,
-                round_idx, g, perms=perms, dropout=dropout,
-                residual=state.agg_residual, agg_uniforms=agg_uniforms)
+
+    def _round_mask(self, state: SalientGradsState) -> Tree:
+        return state.mask
+
+    def _post_aggregate(self, new_global: Tree,
+                        state: SalientGradsState) -> Tree:
         if self.agg_impl == "topk":
             # the delta update leaves round 0's dense init on dead
             # coordinates: re-mask so the global model keeps the SNIP
             # sparsity (p * m, bit-equal to the reference's either backend)
-            new_global = kernels.fused_mask_apply(new_global, state.mask)
-        personal = state.personal_params
-        if personal is not None:
-            idx = torch.as_tensor(sel, dtype=torch.int64, device=self.device)
-            personal = tree_scatter_update(personal, idx, locals_)
-        new_state = dataclasses.replace(state, global_params=new_global,
-                                        personal_params=personal,
-                                        generator=g, agg_residual=residual)
-        return new_state, {"train_loss": mean_loss}
+            return kernels.fused_mask_apply(new_global, state.mask)
+        return new_global
 
     def finalize(self, state: SalientGradsState):
         """One final global (and personal) eval after the last round."""
@@ -177,7 +162,7 @@ class SalientGrads(FedAlgorithm):
         out = {
             "global_acc": ev["acc"],
             "global_loss": ev["loss"],
-            "mask_density": mask_density(state.mask),
+            "mask_density": mask_density_tensor(state.mask),
             "acc_per_client": ev["acc_per_client"],
         }
         if state.personal_params is not None:

@@ -8,13 +8,13 @@ client's valid rows; each client consumes its own ``ceil(n_i / batch)``
 batches, the last one partial (padded slots carry zero loss weight), and
 steps past that are no-ops (skipped here, since nothing runs in lockstep).
 
-The random draws enter at seams — the epoch permutations and the dropout
-masks are optional arguments, so a test can feed the reference's draws; in
-production they come from a ``torch.Generator``.
+The random draws enter as arguments — the epoch permutations and the
+dropout masks, drawn by the round from its ``torch.Generator``
+(``algorithms/base.py``), so a test can feed the reference's draws.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import torch
 
@@ -49,11 +49,20 @@ def epoch_permutations(generator: torch.Generator, n_valid: int, epochs: int,
     return torch.stack(rows).to(torch.int64)
 
 
+def active_steps(hp: HyperParams, n_valid: int,
+                 full_batches: bool = False) -> List[int]:
+    """The local steps a client of ``n_valid`` rows runs: per epoch its
+    first ``ceil(n_valid / batch_size)`` batches (every step with
+    ``full_batches``); the others are no-ops."""
+    return [s for s in range(hp.local_steps)
+            if full_batches
+            or (s % hp.steps_per_epoch) * hp.batch_size < int(n_valid)]
+
+
 def make_client_update(apply_fn, loss_type: str, hp: HyperParams,
                        full_batches: bool = False) -> Callable:
-    """Build ``client_update(params, mask, x, y, n_valid, round_idx, *,
-    perms=None, dropout=None, generator=None) -> (params, momentum,
-    mean_loss)``.
+    """Build ``client_update(params, mask, x, y, n_valid, client, perms, lr,
+    dropout=None) -> (params, momentum, mean_loss)``.
 
     ``params`` is updated in place (pass a copy); the optimizer step is
     clip-by-global-norm, then the masked SGD kernel
@@ -63,35 +72,35 @@ def make_client_update(apply_fn, loss_type: str, hp: HyperParams,
     ``steps_per_epoch * batch_size`` rows, so every batch is full and every
     step active.
 
-    ``perms`` is an ``[epochs, steps_per_epoch * batch_size]`` index array
-    and ``dropout`` a per-step sequence of dropout keep-mask sequences; when
-    absent they are drawn from ``generator``."""
+    ``x`` and ``y`` are the whole cohort's ``[C, rows, ...]`` arrays and
+    ``client`` a one-element int64 tensor on their device: each batch is
+    gathered from that client's rows through it. ``perms`` is the client's
+    ``[epochs, steps_per_epoch * batch_size]`` row order, ``lr`` the round's
+    rate as a 0-d float32 tensor (on the card, the masked SGD kernel reads
+    it there) and ``dropout`` a per-step sequence of dropout keep-mask
+    sequences (None for a model without dropout). A client update reads
+    nothing the host decides per round but ``n_valid``: the round body of
+    ``algorithms/base.py``, which a CUDA graph can hold."""
     per_example = PER_EXAMPLE_LOSSES[loss_type]
     spe, bs = hp.steps_per_epoch, hp.batch_size
 
     def client_update(params: Tree, mask: Tree, x, y, n_valid: int,
-                      round_idx: int, *, perms=None,
-                      dropout: Optional[Sequence] = None,
-                      generator: Optional[torch.Generator] = None):
+                      client: torch.Tensor, perms: torch.Tensor,
+                      lr: torch.Tensor, dropout: Optional[Sequence] = None):
         n_valid = int(n_valid)
+        n_rows = x.shape[1]
         names = list(params)
         leaves = [params[k].detach().requires_grad_(True) for k in names]
         moms = [torch.zeros_like(p) for p in leaves]
         masks = [mask[k] for k in names]
-        lr = round_lr(hp, round_idx)
-        if perms is None:
-            perms = epoch_permutations(generator, n_valid, hp.local_epochs,
-                                       spe * bs, n_rows=x.shape[0])
-        flat = torch.as_tensor(perms).reshape(-1).to(x.device)
+        flat = perms.reshape(-1)
         losses = []
-        for s in range(hp.local_steps):
+        for s in active_steps(hp, n_valid, full_batches):
             pos = s % spe
-            if not full_batches and pos * bs >= n_valid:
-                continue  # past this client's ceil(n_i / bs) batches
             start = (s // spe) * (spe * bs) + pos * bs
-            idx = torch.clamp(flat[start:start + bs], max=x.shape[0] - 1)
-            xb, yb = x[idx], y[idx]
-            drop = generator if dropout is None else dropout[s]
+            idx = torch.clamp(flat[start:start + bs], max=n_rows - 1)
+            xb, yb = x[client, idx], y[client, idx]
+            drop = None if dropout is None else dropout[s]
             logits = apply_fn(dict(zip(names, leaves)), xb, train=True,
                               rng=drop)
             per_ex = per_example(logits, yb).float()

@@ -22,6 +22,12 @@
 // launch per optimizer step covers all leaves instead of one per leaf; each
 // thread handles kPerThread elements strided by the block width, so
 // neighbouring threads touch neighbouring addresses.
+//
+// The learning rate comes by value (nidt_masked_sgd) or from a 0-d f32
+// device buffer (nidt_masked_sgd_lr_ptr): a CUDA graph freezes the
+// arguments of the launches it captures, so a round replayed from a graph
+// reads its decayed rate from the buffer the host rewrites before each
+// replay. Both entries run the same kernel on the same f32 value.
 #include <cuda_runtime.h>
 
 #include "leaf_table.cuh"
@@ -39,8 +45,10 @@ struct SgdTable {
 };
 
 __global__ void __launch_bounds__(kThreads)
-    masked_sgd_kernel(const SgdTable t, float lr, float momentum, float wd,
+    masked_sgd_kernel(const SgdTable t, const float* __restrict__ lr_ptr,
+                      float lr_value, float momentum, float wd,
                       int mask_grads) {
+  const float lr = lr_ptr != nullptr ? __ldg(lr_ptr) : lr_value;
   const int leaf = find_leaf(t.block_start, t.n_leaves, blockIdx.x);
   const long long n = t.n[leaf];
   float* __restrict__ p = t.p[leaf];
@@ -68,15 +76,9 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-}  // namespace
-
-// One launch over count <= kMaxLeaves leaves (the caller splits longer
-// lists). Pointers are f32 device buffers; p and m are updated in place.
-// Returns cudaGetLastError() after the launch.
-extern "C" int nidt_masked_sgd(int count, void** p, void** m, void** g,
-                               void** k, const long long* n, float lr,
-                               float momentum, float wd, int mask_grads,
-                               void* stream) {
+int launch(int count, void** p, void** m, void** g, void** k,
+           const long long* n, const float* lr_ptr, float lr, float momentum,
+           float wd, int mask_grads, void* stream) {
   if (count < 1 || count > kMaxLeaves) return cudaErrorInvalidValue;
   SgdTable t;
   for (int i = 0; i < count; ++i) {
@@ -91,7 +93,32 @@ extern "C" int nidt_masked_sgd(int count, void** p, void** m, void** g,
   if (blocks > 0) {
     masked_sgd_kernel<<<blocks, kThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
-        t, lr, momentum, wd, mask_grads);
+        t, lr_ptr, lr, momentum, wd, mask_grads);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// One launch over count <= kMaxLeaves leaves (the caller splits longer
+// lists). Pointers are f32 device buffers; p and m are updated in place.
+// Returns cudaGetLastError() after the launch.
+extern "C" int nidt_masked_sgd(int count, void** p, void** m, void** g,
+                               void** k, const long long* n, float lr,
+                               float momentum, float wd, int mask_grads,
+                               void* stream) {
+  return launch(count, p, m, g, k, n, nullptr, lr, momentum, wd, mask_grads,
+                stream);
+}
+
+// The same launch with the learning rate read on the card from lr, a 0-d
+// f32 device buffer.
+extern "C" int nidt_masked_sgd_lr_ptr(int count, void** p, void** m,
+                                      void** g, void** k, const long long* n,
+                                      const void* lr, float momentum,
+                                      float wd, int mask_grads,
+                                      void* stream) {
+  if (lr == nullptr) return cudaErrorInvalidValue;
+  return launch(count, p, m, g, k, n, static_cast<const float*>(lr), 0.0f,
+                momentum, wd, mask_grads, stream);
 }

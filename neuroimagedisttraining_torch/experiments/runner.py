@@ -8,7 +8,7 @@ its ``.json``) at ``<results_dir>/<dataset>/<identity>``, with the same
 top-level keys. It runs on ``--device`` (CUDA by default, with no fallback).
 
 A flag of a feature the port has not got (another algorithm, checkpoints,
-telemetry, faults and defenses, the mesh, fused rounds, ...) ends the run
+telemetry, faults and defenses, the mesh, ...) ends the run
 before any work with ``SystemExit`` naming the flag and the ROADMAP item
 that ports it (:func:`refuse_unported`). A knob that leaves the JAX
 package's results bit-identical (``--client_chunk``, ``--donate_state``,
@@ -91,7 +91,7 @@ _UNPORTED = {
     "mesh_space": 15,
     # the rest: the values other than the default that the port runs are
     # in _ALLOWED
-    "layout": 3, "batching": 4, "fuse_rounds": 6, "mesh_devices": 7,
+    "layout": 3, "batching": 4, "mesh_devices": 7,
 }
 #: attribute -> the values of it the port runs, where that is not just the
 #: parser's default (``derive`` resolves the sentinels of guard, watchdog
@@ -99,7 +99,7 @@ _UNPORTED = {
 #: default's behavior)
 _ALLOWED = {
     "guard": (0,), "watchdog": (0,), "batching": ("epoch",),
-    "fuse_rounds": (0, 1), "mesh_devices": (0, 1), "mesh_space": (0, 1),
+    "mesh_devices": (0, 1), "mesh_space": (0, 1),
     "layout": ("channels", "s2d"),
 }
 #: knobs that leave the JAX package's results bit-identical, and why the
@@ -356,6 +356,37 @@ def _cost_snapshot(state):
     return state.global_params, getattr(state, "mask", None)
 
 
+def _cost_round_record(algo, cost, samples_per_client, state):
+    """One round's cost record (shared by the unfused and fused loops): the
+    masks are fixed, so round 0's count repeats (no device-to-host pull
+    after it)."""
+    if cost.per_round:
+        return cost.record_repeat()
+    return cost.record_round(*_cost_snapshot(state),
+                             n_clients=algo.clients_per_round,
+                             samples_per_client=samples_per_client)
+
+
+def _run_fused_rounds(algo, algo_name, state, total, block, ev_every, cost,
+                      samples_per_client, history, counters):
+    """The runner's fused round loop (``--fuse_rounds K``): the shared block
+    loop (``FedAlgorithm._fused_block_loop``) plus the cost accounting.
+    The masks are static, so one snapshot, from the first block's output
+    state, prices every round: its nonzero pattern is the unfused loop's
+    after round 0 (a zero-init bias is nonzero after any trained round;
+    masked weights are exact zeros either way)."""
+    def on_record(r, rec, state_out):
+        crec = _cost_round_record(algo, cost, samples_per_client, state_out)
+        rec["sum_training_flops"] = crec["sum_training_flops"]
+        rec["sum_comm_params"] = crec["sum_comm_params"]
+        counters.update(rec)
+        history.append(rec)
+        logger.info("%s round %d: %s", algo_name, r, rec)
+
+    return algo._fused_block_loop(state, 0, total, block, ev_every,
+                                  on_record)
+
+
 def run_experiment(args: argparse.Namespace,
                    algo_name: Optional[str] = None) -> Dict[str, Any]:
     from .. import resolve_device
@@ -397,34 +428,40 @@ def run_experiment(args: argparse.Namespace,
             counters.update(rec)
             logger.info("%s round %s: %s", algo_name, rec["round"], rec)
 
-        # round r's record is converted and logged after round r+1 is
-        # queued (utils/records.py)
-        deferred = DeferredRecords(log=_emit)
-        try:
-            for r in range(args.comm_round):
-                state, rec = algo.run_round(state, r)
-                record = {"round": r, **dict(rec)}
-                # the masks are fixed, so round 0's count repeats (no
-                # device-to-host pull after it)
-                crec = cost.record_repeat() if cost.per_round else \
-                    cost.record_round(*_cost_snapshot(state),
-                                      n_clients=algo.clients_per_round,
-                                      samples_per_client=samples_per_client)
-                record["sum_training_flops"] = crec["sum_training_flops"]
-                record["sum_comm_params"] = crec["sum_comm_params"]
-                final_eval = None  # state changed; any cached eval is stale
-                if args.frequency_of_the_test and \
-                        (r + 1) % args.frequency_of_the_test == 0:
-                    final_eval = algo.evaluate(state)
-                    record.update({
-                        k: v for k, v in final_eval.items()
-                        if not k.startswith("acc_per")})
-                history.append(record)
-                deferred.push(record)
-        except BaseException:
-            deferred.flush_safely()  # emit the last completed round
-            raise
-        deferred.flush()
+        fuse = max(1, getattr(args, "fuse_rounds", 1) or 1)
+        if fuse > 1:
+            # K-round fused blocks (FedAlgorithm.run_rounds_fused): on the
+            # card one graph replay per round, one metric fetch per block;
+            # the final eval is taken once below
+            state = _run_fused_rounds(
+                algo, algo_name, state, args.comm_round, fuse,
+                args.frequency_of_the_test or 0, cost, samples_per_client,
+                history, counters)
+        else:
+            # round r's record is converted and logged after round r+1 is
+            # queued (utils/records.py)
+            deferred = DeferredRecords(log=_emit)
+            try:
+                for r in range(args.comm_round):
+                    state, rec = algo.run_round(state, r)
+                    record = {"round": r, **dict(rec)}
+                    crec = _cost_round_record(algo, cost, samples_per_client,
+                                              state)
+                    record["sum_training_flops"] = crec["sum_training_flops"]
+                    record["sum_comm_params"] = crec["sum_comm_params"]
+                    final_eval = None  # state changed: a cached eval is stale
+                    if args.frequency_of_the_test and \
+                            (r + 1) % args.frequency_of_the_test == 0:
+                        final_eval = algo.evaluate(state)
+                        record.update({
+                            k: v for k, v in final_eval.items()
+                            if not k.startswith("acc_per")})
+                    history.append(record)
+                    deferred.push(record)
+            except BaseException:
+                deferred.flush_safely()  # emit the last completed round
+                raise
+            deferred.flush()
 
         fin_rec = None
         if getattr(args, "final_finetune", 1):

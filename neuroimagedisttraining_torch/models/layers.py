@@ -131,10 +131,21 @@ def flatten(x):
     return x.reshape(x.shape[0], -1)
 
 
+class DropoutProbe:
+    """Passed as a forward's ``rng``: records each dropout layer it meets as
+    ``(slot, shape, keep_prob)``, in call order, and drops nothing. The
+    fused round (``algorithms/base.py``) sizes its keep-mask buffers from
+    it and draws into them in this order, the order the generator path
+    draws."""
+
+    def __init__(self):
+        self.calls = []
+
+
 def dropout(x, rate: float, train: bool, rng, slot: int):
     """Inverted dropout. ``rng`` is a ``torch.Generator`` (draws keep masks
-    on ``x``'s device) or a sequence of precomputed boolean keep masks, one
-    per dropout layer, indexed by ``slot``."""
+    on ``x``'s device), a sequence of precomputed boolean keep masks, one
+    per dropout layer, indexed by ``slot``, or a :class:`DropoutProbe`."""
     if not train or rate == 0.0:
         return x
     keep_prob = 1.0 - rate
@@ -142,6 +153,9 @@ def dropout(x, rate: float, train: bool, rng, slot: int):
         keep = torch.rand(x.shape, generator=rng, device=x.device) < keep_prob
     elif rng is None:
         raise ValueError("dropout in train mode needs a generator or masks")
+    elif isinstance(rng, DropoutProbe):
+        rng.calls.append((slot, tuple(x.shape), keep_prob))
+        return x
     else:
         keep = torch.as_tensor(rng[slot], device=x.device)
     return torch.where(keep, x / keep_prob, torch.zeros_like(x))

@@ -13,7 +13,8 @@ Every wrapper here:
 * launches the kernel for CUDA tensors, on the current stream, or raises —
   there is no fallback;
 * adds one to ``LAUNCHES[name]`` for each call into the C entry that
-  launched work on the card, and nowhere else.
+  launched work on the card, and nowhere else. A CUDA graph's replay of
+  captured launches adds them through :func:`add_launches`.
 
 One threshold "launch" is one search: the memset of its scratch
 (``torch.zeros``) and three radix digit passes on the stream (see
@@ -76,6 +77,14 @@ BUILD_LOG: Dict[str, str] = {}
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def add_launches(counts: Dict[str, int]) -> None:
+    """Add ``counts`` to :data:`LAUNCHES`: the launches a CUDA graph
+    replays, which pass through no wrapper (the capture counted them, then
+    took them back: a capture queues no work)."""
+    for name, n in counts.items():
+        LAUNCHES[name] += n
 
 
 # -- build ------------------------------------------------------------------
@@ -142,6 +151,10 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         fn = lib.nidt_masked_sgd
         fn.argtypes = [i32, ptrs, ptrs, ptrs, ptrs, sizes, f32, f32, f32, i32,
                        vp]
+        by_ptr = lib.nidt_masked_sgd_lr_ptr
+        by_ptr.argtypes = [i32, ptrs, ptrs, ptrs, ptrs, sizes, vp, f32, f32,
+                           i32, vp]
+        by_ptr.restype = ctypes.c_int
     elif name == "threshold":
         fn = lib.nidt_threshold
         fn.argtypes = [vp, i64, i64, i64, vp, vp, i32, vp]
@@ -248,7 +261,10 @@ def fused_masked_sgd_step(params: List[torch.Tensor],
     """Masked SGD over every leaf, updating ``params`` and ``momenta`` in
     place. ``mask_grads=False`` is SalientGrads (``p' *= mask`` after the
     step); ``True`` masks the gradient instead (DisPFL). ``lr`` is a float32
-    value (a Python float or a 0-d float32 tensor on the CPU)."""
+    value: a Python float or a 0-d float32 tensor on the CPU, passed to the
+    kernel by value; or a 0-d float32 tensor on the leaves' card, which the
+    kernel reads there (the launch a CUDA graph can replay with a new
+    rate)."""
     leaves = list(params) + list(momenta) + list(grads) + list(masks)
     if not (len(params) == len(momenta) == len(grads) == len(masks)):
         raise ValueError("fused_masked_sgd_step: leaf lists differ in length")
@@ -264,13 +280,21 @@ def fused_masked_sgd_step(params: List[torch.Tensor],
                 m.copy_(m_new)
         return
     dev = _require_cuda("fused_masked_sgd_step", leaves)
-    fn = _lib("masked_sgd").nidt_masked_sgd
-    lr_f = float(torch.as_tensor(lr, dtype=torch.float32))
+    lib = _lib("masked_sgd")
+    if isinstance(lr, torch.Tensor) and lr.is_cuda:
+        if lr.shape != () or _require_cuda("fused_masked_sgd_step",
+                                           [lr]) != dev:
+            raise ValueError(f"fused_masked_sgd_step: lr on the card must "
+                             f"be a 0-d float32 tensor on {dev}")
+        fn, lr_arg = lib.nidt_masked_sgd_lr_ptr, lr.data_ptr()
+    else:
+        fn = lib.nidt_masked_sgd
+        lr_arg = float(torch.as_tensor(lr, dtype=torch.float32))
     for s in range(0, len(params), MAX_LEAVES):
         sl = slice(s, s + MAX_LEAVES)
         ps, ms, gs, ks = params[sl], momenta[sl], grads[sl], masks[sl]
         rc = fn(len(ps), _ptrs(ps), _ptrs(ms), _ptrs(gs), _ptrs(ks),
-                _sizes(ps), lr_f, float(momentum), float(wd),
+                _sizes(ps), lr_arg, float(momentum), float(wd),
                 int(mask_grads), _stream(dev))
         _check("masked_sgd", rc)
         LAUNCHES["masked_sgd"] += 1

@@ -26,10 +26,18 @@ def kernel_flags(params: Tree) -> Dict[str, bool]:
 
 def mask_density(mask: Tree) -> float:
     """Fraction of nonzero mask entries over the kernel leaves."""
+    return float(mask_density_tensor(mask))
+
+
+def mask_density_tensor(mask: Tree) -> torch.Tensor:
+    """:func:`mask_density` as a 0-d float64 tensor on the mask's device,
+    with no wait on the card (an eval a CUDA graph can hold): the count is
+    exact in float64 and the division correctly rounded, so it holds the
+    same value as the Python division."""
     flags = kernel_flags(mask)
     leaves = [m for k, m in mask.items() if flags[k]]
-    nnz = sum(int(torch.count_nonzero(m)) for m in leaves)
-    return nnz / sum(m.numel() for m in leaves)
+    nnz = sum(torch.count_nonzero(m) for m in leaves)
+    return nnz.double() / float(sum(m.numel() for m in leaves))
 
 
 def host_live_indices(mask: Tree,

@@ -329,9 +329,10 @@ def plan_dead_select(stacked: Tree, plan: SparsePlan) -> Tree:
         if ix is None:
             continue
         x = stacked[k]
+        # index_fill_ takes its value by value (a CUDA graph can hold it;
+        # an indexed assignment copies a host scalar to the card)
         live = torch.zeros(_numel(x.shape[1:]), dtype=torch.bool,
-                           device=x.device)
-        live[ix] = True
+                           device=x.device).index_fill_(0, ix, True)
         live = _from_ref_flat(k, live, x.shape[1:])
         out[k] = torch.where(live, x, torch.zeros_like(x))
     return out

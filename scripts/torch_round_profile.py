@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where one training round's device time goes, for the PyTorch/CUDA port.
 
-    python3 scripts/torch_round_profile.py [--rounds-warm 1]
+    python3 scripts/torch_round_profile.py [--rounds-warm 1] [--fused]
 
 Builds the main-path workload (SalientGrads, AlexNet3DS2D, 8 clients x 40
 phased 121x145x121 volumes, batch 8, 5 steps, bf16, dropout 0.5), runs the
@@ -12,7 +12,10 @@ kernel class (the stem kernels apart), the top kernels by self device time,
 the top aten ops (device time including children) with their input shapes,
 every aten op on a tensor of the stem's full-resolution shape (such as a
 sum over the stem backward's ``dzs``), and the card's name and power
-limit. Needs one GPU.
+limit. With ``--fused`` it also traces the same round as one block of
+``run_rounds_fused`` (the host's draws, one replay of the captured round
+graph, the block's one metric fetch), after a block that captured it, and
+the line holds both traces under ``eager`` and ``fused``. Needs one GPU.
 """
 from __future__ import annotations
 
@@ -50,9 +53,55 @@ def classify(name: str) -> str:
     return "elementwise_other"
 
 
-def main() -> int:
+def trace(fn, zs_shape: str) -> dict:
+    """``fn()`` (ending in a synchronize) under ``torch.profiler``: its wall
+    time, device time in all, by class and by kernel, and the aten ops."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        t0 = time.perf_counter()
+        fn()
+        wall = time.perf_counter() - t0
+    rows = []
+    for ev in prof.key_averages():
+        dt = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0.0))
+        if dt > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
+            rows.append((ev.key, dt / 1e3, ev.count))
+    device_ms = sum(ms for _, ms, _ in rows)
+    by_class = {}
+    for name, ms, _ in rows:
+        c = classify(name)
+        by_class[c] = by_class.get(c, 0.0) + ms
+    rows.sort(key=lambda t: -t[1])
+    ops = []  # aten ops by device time, with their input shapes
+    for ev in prof.key_averages(group_by_input_shape=True):
+        dt = getattr(ev, "device_time_total",
+                     getattr(ev, "cuda_time_total", 0.0))
+        if ev.key.startswith("aten::") and dt > 0:
+            shapes = str(ev.input_shapes)
+            ops.append({"op": ev.key, "ms": dt / 1e3, "count": ev.count,
+                        "shapes": shapes[:160],
+                        "on_zs": shapes.startswith("[" + zs_shape)})
+    ops.sort(key=lambda o: -o["ms"])
+    return {
+        "round_wall_ms": wall * 1e3, "device_ms": device_ms,
+        "device_busy_share": device_ms / (wall * 1e3) if wall else None,
+        "kernels": sum(c for _, _, c in rows),
+        "by_class_ms": dict(sorted(by_class.items(), key=lambda t: -t[1])),
+        "top": [{"kernel": n[:120], "ms": ms, "count": c}
+                for n, ms, c in rows[:15]],
+        "top_ops": ops[:12],
+        # every aten op whose first input is the stem's full-resolution zs
+        # or its cotangent (B, D, H, W, F) at batch 8
+        "ops_on_zs": [o for o in ops if o["on_zs"]],
+    }
+
+
+def main() -> int:
+    import torch
 
     from neuroimagedisttraining_torch.algorithms import SalientGrads
     from neuroimagedisttraining_torch.core.state import HyperParams
@@ -63,6 +112,7 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rounds-warm", type=int, default=1)
+    ap.add_argument("--fused", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_round_profile: CUDA is not available", file=sys.stderr)
@@ -83,56 +133,33 @@ def main() -> int:
     for r in range(args.rounds_warm):
         state, met = algo.run_round(state, r)
         float(met["train_loss"])
-    torch.cuda.synchronize()
     r = args.rounds_warm
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=True) as prof:
-        t0 = time.perf_counter()
-        state, met = algo.run_round(state, r)
-        float(met["train_loss"])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    rows = []
-    for ev in prof.key_averages():
-        dt = getattr(ev, "self_device_time_total",
-                     getattr(ev, "self_cuda_time_total", 0.0))
-        if dt > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
-            rows.append((ev.key, dt / 1e3, ev.count))
-    device_ms = sum(ms for _, ms, _ in rows)
-    by_class = {}
-    for name, ms, _ in rows:
-        c = classify(name)
-        by_class[c] = by_class.get(c, 0.0) + ms
-    rows.sort(key=lambda t: -t[1])
-    ops = []  # aten ops by device time, with their input shapes
     zs_shape = str([8, ss[0] - 2, ss[1] - 2, ss[3] - 2, 64])
-    for ev in prof.key_averages(group_by_input_shape=True):
-        dt = getattr(ev, "device_time_total",
-                     getattr(ev, "cuda_time_total", 0.0))
-        if ev.key.startswith("aten::") and dt > 0:
-            shapes = str(ev.input_shapes)
-            ops.append({"op": ev.key, "ms": dt / 1e3, "count": ev.count,
-                        "shapes": shapes[:160],
-                        "on_zs": shapes.startswith("[" + zs_shape)})
-    ops.sort(key=lambda o: -o["ms"])
-    print(json.dumps({
-        "round_wall_ms": wall * 1e3, "device_ms": device_ms,
-        "device_busy_share": device_ms / (wall * 1e3) if wall else None,
-        "by_class_ms": dict(sorted(by_class.items(), key=lambda t: -t[1])),
-        "top": [{"kernel": n[:120], "ms": ms, "count": c}
-                for n, ms, c in rows[:15]],
-        "top_ops": ops[:12],
-        # every aten op whose first input is the stem's full-resolution zs
-        # or its cotangent (B, D, H, W, F) at batch 8
-        "ops_on_zs": [o for o in ops if o["on_zs"]],
-        "device": torch.cuda.get_device_name(0),
-        "name_power_limit": subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            timeout=60).stdout.strip(),
-    }), flush=True)
-    if not rows:
-        print("torch_round_profile: the trace holds no device time",
+
+    def eager():
+        float(algo.run_round(state, r)[1]["train_loss"])
+        torch.cuda.synchronize()
+
+    def fused():
+        algo.run_rounds_fused(state, r, 1)[1].materialize()
+        torch.cuda.synchronize()
+
+    torch.cuda.synchronize()
+    out = {"eager": trace(eager, zs_shape)}
+    if args.fused:
+        fused()  # builds and captures the round graph
+        out["fused"] = trace(fused, zs_shape)
+    else:
+        out = out["eager"]
+    out.update(device=torch.cuda.get_device_name(0),
+               name_power_limit=subprocess.run(
+                   ["nvidia-smi", "--query-gpu=name,power.limit",
+                    "--format=csv,noheader"], capture_output=True,
+                   text=True, timeout=60).stdout.strip())
+    print(json.dumps(out), flush=True)
+    traces = [out[k] for k in ("eager", "fused") if k in out] or [out]
+    if not all(t["device_ms"] > 0 for t in traces):
+        print("torch_round_profile: a trace holds no device time",
               file=sys.stderr)
         return 1
     return 0

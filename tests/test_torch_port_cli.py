@@ -134,7 +134,6 @@ REFUSED = [
     (["--mesh_devices", "2"], "--mesh_devices"),
     (["--mesh_space", "2"], "--mesh_space"),
     (["--multihost"], "--multihost"),
-    (["--fuse_rounds", "4"], "--fuse_rounds"),
     (["--client_store", "host", "--frac", "0.5"], "--client_store"),
     (["--eval_cache", "1"], "--eval_cache"),
     (["--eval_clients", "2"], "--eval_clients"),

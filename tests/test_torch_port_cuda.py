@@ -515,3 +515,171 @@ def test_cuda_round_leaves_its_input_state_unchanged():
     for name in ("global_params", "personal_params", "agg_residual"):
         x, y = getattr(a, name), getattr(b, name)
         assert all(torch.equal(x[k], y[k]) for k in x), name
+
+
+@pytest.mark.cuda
+def test_cuda_masked_sgd_lr_by_pointer_matches_by_value():
+    """The launch that reads the learning rate on the card (the one a CUDA
+    graph replays with a new rate) equals the by-value launch and the plain
+    version bit for bit, in both masking modes."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(2)
+    shapes = [(64, 8, 3, 3, 3), (1000,), (33, 9), (7,)]
+    lr_dev = torch.tensor(LR, dtype=torch.float32, device=dev)
+    for mask_grads in (False, True):
+        ps = [torch.randn(s, generator=g, device=dev) for s in shapes]
+        ms = [torch.randn(s, generator=g, device=dev) for s in shapes]
+        gs = [torch.randn(s, generator=g, device=dev) for s in shapes]
+        ks = [(torch.rand(s, generator=g, device=dev) > 0.5).float()
+              for s in shapes]
+        by_value = ([p.clone() for p in ps], [m.clone() for m in ms])
+        kernels.fused_masked_sgd_step(*by_value, gs, ks, LR, momentum=MOM,
+                                      wd=WD, mask_grads=mask_grads)
+        kernels.fused_masked_sgd_step(ps, ms, gs, ks, lr_dev, momentum=MOM,
+                                      wd=WD, mask_grads=mask_grads)
+        for p, m, vp, vm in zip(ps, ms, *by_value):
+            assert torch.equal(p, vp) and torch.equal(m, vm)
+    with pytest.raises(ValueError, match="0-d float32"):
+        kernels.fused_masked_sgd_step(ps, ms, gs, ks, lr_dev[None],
+                                      momentum=MOM, wd=WD)
+
+
+def _narrow_algo(dev, name, impl, frac=1.0):
+    from neuroimagedisttraining_torch.algorithms import FedAvg, SalientGrads
+    from neuroimagedisttraining_torch.core.state import HyperParams
+    from neuroimagedisttraining_torch.data import make_synthetic_federated
+    from neuroimagedisttraining_torch.models import create_model
+    from neuroimagedisttraining_torch.ops.s2d import phased_sample_shape
+
+    ss = phased_sample_shape((69, 69, 69))
+    # shards of 9, 10, 10 and 12 rows
+    data = make_synthetic_federated(seed=9, n_clients=4, samples_per_client=8,
+                                    test_per_client=5, sample_shape=ss)
+    hp = HyperParams(lr=0.01, lr_decay=0.9, momentum=0.9, weight_decay=5e-4,
+                     local_epochs=1, steps_per_epoch=2, batch_size=4)
+    model = create_model("3dcnn_s2d", num_classes=1,
+                         widths=(16, 16, 16, 16, 16), dropout_rate=0.5,
+                         sample_shape=ss)
+    kw = dict(frac=frac, agg_impl=impl, agg_bucket_size=4096,
+              compute_dtype="bfloat16", device=dev)
+    if name == "salientgrads":
+        return SalientGrads(model, data, hp, dense_ratio=0.5, **kw)
+    return FedAvg(model, data, hp, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,impl,frac", [
+    ("salientgrads", "dense", 1.0), ("salientgrads", "int8", 0.5),
+    ("fedavg", "dense", 1.0)])
+def test_cuda_fused_graph_matches_eager(name, impl, frac):
+    """On the card at a narrow width (dropout 0.5, bf16): three rounds, each
+    one replay of the captured round graph and one of the eval's, equal
+    three ``run_round`` + ``evaluate`` calls from the same state bit for
+    bit (losses, eval rows, parameters, generator), launch the kernels the
+    eager rounds launch, and leave the input state as it was."""
+    dev = _card()
+    from neuroimagedisttraining_torch.algorithms.base import FUSED_WARMUPS
+
+    algo = _narrow_algo(dev, name, impl, frac)
+    s0 = algo.init_state()
+    keep = algo.clone_state(s0)
+    su, losses, evals = algo.clone_state(s0), [], []
+    kernels.reset_launches()
+    for r in range(3):
+        su, met = algo.run_round(su, r)
+        losses.append(float(met["train_loss"]))
+        evals.append({k: float(v) for k, v in algo.evaluate(su).items()
+                      if not k.startswith("acc_per")})
+    eager = dict(kernels.LAUNCHES)
+    kernels.reset_launches()
+    sf, ys = algo.run_rounds_fused(s0, 0, 3, eval_every=1)
+    host = ys.materialize()
+    fused = dict(kernels.LAUNCHES)
+    assert [float(v) for v in host["train_loss"]] == losses
+    for i, ev in enumerate(evals):
+        assert {k: float(v[i]) for k, v in host["eval"].items()} == ev
+    for f in ("global_params", "personal_params"):
+        a, b = getattr(su, f), getattr(sf, f)
+        assert all(torch.equal(a[k], b[k]) for k in a), f
+    assert torch.equal(su.generator.get_state(), sf.generator.get_state())
+    assert all(torch.equal(s0.global_params[k], keep.global_params[k])
+               for k in keep.global_params)
+    assert torch.equal(s0.generator.get_state(), keep.generator.get_state())
+    # eager: 3 rounds and 3 evals, and the dropout probe's one forward at
+    # the algorithm's first round; fused: the rounds and evals plus
+    # FUSED_WARMUPS warm-up runs of each graph (a round graph per key: the
+    # sampled draws of uneven shards have several)
+    fz = algo._fused
+    assert frac < 1 or len(fz.rounds) == 1
+    for k, n in eager.items():
+        warm = sum(g.launches.get(k, 0) for g in fz.rounds.values()) + \
+            fz.eval.launches.get(k, 0)
+        assert fused[k] == n - (k == "stem_fwd") + FUSED_WARMUPS * warm, k
+    # a second block replays the graphs and continues the first exactly
+    s2, ys2 = algo.run_rounds_fused(sf, 3, 1)
+    su2, met = algo.run_round(su, 3)
+    assert float(ys2["train_loss"][0]) == float(met["train_loss"])
+    assert all(torch.equal(su2.global_params[k], s2.global_params[k])
+               for k in s2.global_params)
+    # the state the first block returned is not the graph's buffers
+    assert all(torch.equal(sf.global_params[k], su.global_params[k])
+               for k in su.global_params)
+
+
+@pytest.mark.cuda
+def test_cuda_round_graphs_bounded_at_sampled_uneven_cohort():
+    """Two of four uneven shards a round meet more client-draw keys than
+    the loop keeps round graphs: it never holds more than
+    FUSED_MAX_GRAPHS, an evicted graph's memory pool goes back to the card
+    (after the run, the reserved memory exceeds what the full cache took by
+    less than one graph's share of it), and sixteen one-round blocks still
+    equal sixteen ``run_round`` calls bit for bit."""
+    dev = _card()
+    from neuroimagedisttraining_torch.algorithms.base import FUSED_MAX_GRAPHS
+
+    algo = _narrow_algo(dev, "salientgrads", "dense", frac=0.5)
+    rounds = 16
+    keys = [tuple(algo._n_train[int(c)] for c in
+                  algo._selected_client_indexes(r)) for r in range(rounds)]
+    assert len(set(keys)) >= FUSED_MAX_GRAPHS + 2, keys
+    s0 = algo.init_state()
+    su, losses = algo.clone_state(s0), []
+    for r in range(rounds):
+        su, met = algo.run_round(su, r)
+        losses.append(float(met["train_loss"]))
+
+    def reserved():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_reserved(dev)
+
+    base, full, sf, got = reserved(), None, s0, []
+    for r in range(rounds):
+        sf, ys = algo.run_rounds_fused(sf, r, 1)
+        got.append(float(ys["train_loss"][0]))
+        assert len(algo._fused.rounds) <= FUSED_MAX_GRAPHS
+        if full is None and len(algo._fused.rounds) == FUSED_MAX_GRAPHS:
+            full = reserved()
+    end = reserved()
+    assert algo._fused.evicted >= 2
+    assert got == losses
+    assert all(torch.equal(su.global_params[k], sf.global_params[k])
+               for k in su.global_params)
+    assert end - full < (full - base) / FUSED_MAX_GRAPHS, (base, full, end)
+
+
+@pytest.mark.cuda
+def test_cuda_capture_error_raises():
+    """A body the card cannot capture (it waits on the card) raises
+    ``ValueError`` naming what was captured, and the card keeps working."""
+    dev = _card()
+    from neuroimagedisttraining_torch.algorithms.base import _Graph
+
+    x = torch.ones(4, device=dev)
+
+    def body(warm):
+        return torch.full((), float((x * 2).sum()), device=dev)
+
+    with pytest.raises(ValueError, match="the probe cannot be captured"):
+        _Graph(body, dev, "the probe")
+    assert float((x + 1).sum()) == 8.0

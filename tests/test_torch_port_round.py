@@ -233,6 +233,7 @@ def test_client_update_dropout_seam():
     from neuroimagedisttraining_torch.core.trainer import (
         epoch_permutations,
         make_client_update,
+        round_lr,
     )
     from neuroimagedisttraining_torch.models import init_params
 
@@ -252,8 +253,8 @@ def test_client_update_dropout_seam():
     def run(keep):
         drop = [[torch.full((BS, 16), keep)] for _ in range(hp.local_steps)]
         return update({k: v.clone() for k, v in params.items()}, mask,
-                      td.x_train[0], td.y_train[0], 8, 0, perms=perms,
-                      dropout=drop)[0]
+                      td.x_train, td.y_train, 8, torch.tensor([0]), perms,
+                      round_lr(hp, 0), dropout=drop)[0]
 
     a, b, c = run(True), run(True), run(False)
     for k in params:
