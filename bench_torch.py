@@ -23,9 +23,21 @@ one state (``FedAlgorithm.clone_state``):
   (``extra.rounds_per_sec_eval_every_1_fused``), each timed after
   FUSED_WARM_CALLS runs of the same call (the first captures the graphs).
 
+Then ``bench.py``'s two other eval cells, each the better of the same two
+spellings with the eval every round (8 rounds; the loop after a warm round
+and eval, the fused block after its warm calls), each on an algorithm of
+its own from its own ``init_state``:
+
+* ``extra.rounds_per_sec_eval_every_1_eval_cache``: ``eval_cache=True``,
+  the personal eval's per-client terms refreshed inside each round (at
+  full participation every client's personal forward moves from the eval
+  into the round) and the eval a re-reduce of them;
+* ``extra.rounds_per_sec_eval_every_1_global_only``:
+  ``track_personal=False``, no personal stack, the global half alone.
+
 As in ``bench.py``, ``value`` is the better of the two spellings without
-eval and ``extra.rounds_per_sec_eval_every_1`` the better with it; both
-spellings stay recorded. Prints one JSON line in ``bench.py``'s shape:
+eval and ``extra.rounds_per_sec_eval_every_1`` the better with it; every
+spelling stays recorded. Prints one JSON line in ``bench.py``'s shape:
 ``metric``, ``value``, ``unit``, ``vs_baseline`` (value over the 10
 rounds/s target) and ``extra`` (the rates, client-rounds/s per card, the
 SNIP init seconds, peak device memory, the card's name and power limit). It
@@ -134,9 +146,9 @@ def main(emit: bool = True) -> Optional[dict]:
     hp = HyperParams(lr=1e-3, lr_decay=0.998, momentum=0.9,
                      weight_decay=5e-4, grad_clip=10.0, local_epochs=1,
                      steps_per_epoch=STEPS, batch_size=BATCH)
-    algo = SalientGrads(model, data, hp, loss_type="bce", frac=1.0, seed=0,
-                        dense_ratio=0.5, itersnip_iterations=1,
-                        compute_dtype="bfloat16")
+    kw = dict(loss_type="bce", frac=1.0, seed=0, dense_ratio=0.5,
+              itersnip_iterations=1, compute_dtype="bfloat16")
+    algo = SalientGrads(model, data, hp, **kw)
     t0 = time.perf_counter()
     state = algo.init_state()  # includes the SNIP pass
     torch.cuda.synchronize()
@@ -150,6 +162,18 @@ def main(emit: bool = True) -> Optional[dict]:
                                         eval_every=1)
     rps, rps_eval = max(rps_loop, rps_fused), max(rps_eval_loop,
                                                   rps_eval_fused)
+    # bench.py's eval-cache and global-only cells: the eval every round,
+    # the better of the two spellings, each algorithm from its own init
+    cells = {}
+    for cell, cell_kw in (("eval_cache", dict(eval_cache=True)),
+                          ("global_only", dict(track_personal=False))):
+        a = SalientGrads(model, data, hp, **kw, **cell_kw)
+        s = a.init_state()
+        cells[cell] = {
+            "python_loop": timed_rounds(a, a.clone_state(s), n_rounds=8,
+                                        eval_every_round=True),
+            "fused": timed_rounds_fused(a, s, n_rounds=8, eval_every=1)}
+        del a, s
     n_cards = 1  # the whole cohort trains on one card
     result = {
         "metric": METRIC,
@@ -163,6 +187,11 @@ def main(emit: bool = True) -> Optional[dict]:
             "rounds_per_sec_eval_every_1_python_loop": round(
                 rps_eval_loop, 4),
             "rounds_per_sec_eval_every_1_fused": round(rps_eval_fused, 4),
+            **{f"rounds_per_sec_eval_every_1_{cell}": round(max(
+                rates.values()), 4) for cell, rates in cells.items()},
+            **{f"rounds_per_sec_eval_every_1_{cell}_{spelling}": round(r, 4)
+               for cell, rates in cells.items()
+               for spelling, r in rates.items()},
             "client_rounds_per_sec_per_chip": round(
                 rps * N_CLIENTS / n_cards, 2),
             "client_samples_per_sec": round(

@@ -65,7 +65,27 @@ Phases, each printing one JSON line:
    not zero); every wire must capture, or the phase fails.
    Launches per replay, peak memory of both spellings and, on the dense
    wires, their rounds/s in interleaved pairs (see ``fused_path``).
-7. cli     — the command-line entry point in-process on the card
+7. evalcache — the eval protocol on the same configuration: SalientGrads
+   and FedAvg with ``eval_cache=True``, 3 rounds with the eval after each,
+   eager and fused, against the same rounds with the cache off from one
+   state (accuracies bitwise, losses within 4e-7 relative; fused bitwise
+   eager, the cache included); the cached eval runs no personal forward,
+   the round one per client; launches per replay and peak memory of both
+   spellings (and of the cache-off graph), rounds/s in interleaved pairs.
+   Then SalientGrads with ``eval_clients=4``, 2 rounds, fused bitwise
+   eager, its subset printed (see ``evalcache_path``).
+8. dense   — the dense-stem AlexNet3D (``3dcnn``, its stem conv on cuDNN)
+   at full width: SalientGrads, 8 clients x 40 volumes of 121x145x121x1
+   bf16, batch 8, 5 steps, dropout 0.5, SNIP 0.5, the dense wire: SNIP, 2
+   rounds and the eval (finite losses, mask density, launches); masked
+   SGD, the SNIP threshold, the score mask and the weighted sum at this
+   model's leaves and SNIP row, bitwise against their plain versions; one round
+   of the same state stored channel-less (``channel_inject``, the
+   ``--layout flat`` path) bitwise the first; round seconds, peak memory,
+   the stem conv's forward, input- and weight-gradient ms at the step's
+   shape in both memory formats; ``3dcnn_deeper`` and ``3dcnn_regression``
+   one forward and backward each (see ``dense_path``).
+9. cli     — the command-line entry point in-process on the card
    (``experiments.runner.main``): SalientGrads and FedAvg, ``--dataset
    synthetic --model small3dcnn --comm_round 2`` (no stem stage on this
    model), and SalientGrads with ``--fuse_rounds 2``, whose history must
@@ -74,16 +94,18 @@ Phases, each printing one JSON line:
    finite, ``stat_info`` (pickle and ``.json``) written under a temporary
    ``--results_dir``. The ABCD cohort-file step is not here: the loaders
    need ``h5py``, which the card's machine does not have.
-8. bench   — ``bench_torch.main()``, the port's bench of the headline
+10. bench  — ``bench_torch.main()``, the port's bench of the headline
    workload (SNIP; the Python loop: 1 + 10 rounds without eval, 1 + 8 with
    the eval every round, each from a clone of one state; the fused
    spelling: blocks of 10 and of 8 rounds with the eval, each after its
-   warm calls), its record printed (both spellings' rates); its launch
-   counts asserted.
+   warm calls; then the eval-cache and global-only cells, 1 + 8 rounds and
+   a fused block of 8, each with the eval every round), its record printed
+   (every spelling's rates); its launch counts asserted.
 
-Every training step, SNIP batch and eval forward of these paths runs the
-stem kernels (one forward, and in training one backward); the launch counts
-asserted per path include them.
+Every training step, SNIP batch and eval forward of the phased model's
+paths runs the stem kernels (one forward, and in training one backward);
+the launch counts asserted per path include them. The dense model's stem
+is cuDNN's conv: its path launches none of them.
 
 Then a ``kernels`` JSON line (one entry per kernel; ``replaces`` names the
 Pallas call site, or the list of sites when one kernel replaces several),
@@ -136,6 +158,13 @@ TWINS = ("dense", "bucketed", "sparse", "hier")
 WIRE_ROUNDS, TOPK_DENSITY = 2, 0.1
 #: the fused phase: rounds per wire, the eval after each
 FUSED_ROUNDS = 3
+#: the evalcache phase: rounds per algorithm (the eval after each), the
+#: sampled eval's subset size and rounds, the losses' bound against the
+#: cache-off rounds (the reference's subset-width reassociation)
+EVALCACHE_ROUNDS, EVAL_CLIENTS, EVAL_CLIENTS_ROUNDS = 3, 4, 2
+EVALCACHE_LOSS_RTOL = 4e-7
+#: the dense phase: rounds of the dense-stem AlexNet3D
+DENSE_ROUNDS = 2
 
 
 def emit(obj) -> None:
@@ -1452,6 +1481,429 @@ def fused_path(dev):
     return out
 
 
+def _main_config(dev, sample_shape):
+    """The main configuration's cohort (8 clients x 40 volumes, 10 test
+    rows each, bf16, made on the card) at ``sample_shape``, and its
+    hyperparameters."""
+    import torch
+
+    from neuroimagedisttraining_torch.core.state import HyperParams
+    from neuroimagedisttraining_torch.data import device_synthetic_federated
+
+    data = device_synthetic_federated(
+        N_CLIENTS, SAMPLES, sample_shape,
+        torch.Generator(device=dev).manual_seed(0), test_per_client=TEST)
+    hp = HyperParams(lr=1e-3, lr_decay=0.998, momentum=0.9,
+                     weight_decay=5e-4, grad_clip=10.0, local_epochs=1,
+                     steps_per_epoch=STEPS, batch_size=BATCH)
+    return data, hp
+
+
+def _eval_rows_agree(what, on, off):
+    """Eval rows of the cached eval against the full one: accuracies and
+    every other value bitwise, losses within EVALCACHE_LOSS_RTOL."""
+    for r, (a, b) in enumerate(zip(on, off)):
+        for k in b:
+            if k.endswith("loss"):
+                ok = abs(a[k] - b[k]) <= EVALCACHE_LOSS_RTOL * abs(b[k])
+            else:
+                ok = a[k] == b[k]
+            if not ok:
+                raise AssertionError(f"evalcache {what}: round {r} {k} "
+                                     f"{a[k]} against {b[k]}")
+
+
+def _trees_equal(a, b, fields) -> bool:
+    """The trees ``fields`` of two states bitwise (None on both equal)."""
+    import torch
+
+    for f in fields:
+        x, y = getattr(a, f), getattr(b, f)
+        if (x is None) != (y is None):
+            return False
+        if x is not None and not all(torch.equal(x[k], y[k]) for k in x):
+            return False
+    return True
+
+
+def evalcache_path(dev):
+    """The eval protocol on the main configuration at full width.
+
+    * SalientGrads (SNIP once) and FedAvg, each with ``eval_cache=True``:
+      EVALCACHE_ROUNDS rounds with the eval after each through
+      ``run_round`` + ``evaluate`` and through ``run_rounds_fused``, from
+      ``clone_state`` of one state, against the same eager rounds with the
+      cache off. Gates: train losses bitwise; eval accuracies bitwise and
+      losses within EVALCACHE_LOSS_RTOL of the cache-off eval's; fused
+      bitwise eager (losses, eval rows, global, personal and cache); the
+      input state's cache untouched; launches: the cached eval only the
+      global model's forwards, the round one personal forward per client
+      more, the graphs' per replay equal eager's. Peak memory of eager, of
+      the fused cache-on and of the fused cache-off block; rounds/s of
+      eager and fused in interleaved pairs.
+    * SalientGrads with ``eval_clients=EVAL_CLIENTS``: EVAL_CLIENTS_ROUNDS
+      rounds, fused bitwise eager, the eval's launches over the subset
+      only.
+
+    Returns the launches per path."""
+    import gc
+
+    import torch
+
+    from neuroimagedisttraining_torch.algorithms import FedAvg, SalientGrads
+    from neuroimagedisttraining_torch.algorithms.base import FUSED_WARMUPS
+    from neuroimagedisttraining_torch.models import create_model
+    from neuroimagedisttraining_torch.ops import kernels
+    from neuroimagedisttraining_torch.ops.s2d import phased_sample_shape
+
+    ss = phased_sample_shape(VOLUME)
+    data, hp = _main_config(dev, ss)
+    model = create_model("3dcnn_s2d", num_classes=1, sample_shape=ss)
+    kw = dict(loss_type="bce", frac=1.0, seed=0, compute_dtype="bfloat16")
+    sg_kw = dict(dense_ratio=0.5, itersnip_iterations=1, **kw)
+    n, steps = EVALCACHE_ROUNDS, N_CLIENTS * STEPS
+    per_model = N_CLIENTS * _eval_chunks()  # one model's eval forwards
+    fields = ("global_params", "personal_params", "eval_cache")
+    out, sg_state = {}, None
+    for name in ("salientgrads", "fedavg"):
+        cls, ckw = ((SalientGrads, sg_kw) if name == "salientgrads"
+                    else (FedAvg, kw))
+        on = cls(model, data, hp, eval_cache=True, **ckw)
+        off = cls(model, data, hp, **ckw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s0 = on.init_state()
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        keep = {k: v.clone() for k, v in s0.eval_cache.items()}
+        torch.cuda.reset_peak_memory_stats(dev)
+        ea = _eager_rounds(on, on.clone_state(s0), n)
+        peak_eager = torch.cuda.max_memory_allocated(dev)
+        eb = _eager_rounds(off, dataclasses.replace(off.clone_state(s0),
+                                                    eval_cache=None), n)
+        if ea[1] != eb[1]:
+            raise AssertionError(f"evalcache {name}: train losses {ea[1]} "
+                                 f"against the cache-off {eb[1]}")
+        _eval_rows_agree(name, ea[2], eb[2])
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        sf, ys = on.run_rounds_fused(on.clone_state(s0), 0, n, eval_every=1)
+        host = ys.materialize()
+        torch.cuda.synchronize()
+        first_block_s = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        peak_fused = torch.cuda.max_memory_allocated(dev)
+        fz = on._fused
+        (graph,) = fz.rounds.values()
+        diffs = _spread(ea[0], ea[1], ea[2], sf,
+                        [float(v) for v in host["train_loss"]],
+                        [{k: float(v[i]) for k, v in host["eval"].items()}
+                         for i in range(n)])
+        bitwise = diffs == 0.0 and _trees_equal(ea[0], sf, fields)
+        torch.cuda.reset_peak_memory_stats(dev)
+        off.run_rounds_fused(dataclasses.replace(
+            off.clone_state(s0), eval_cache=None), 0, n,
+            eval_every=1)[1].materialize()
+        peak_fused_off = torch.cuda.max_memory_allocated(dev)
+        rates = _rates_in_pairs(on, s0, n)
+        res = {"phase": "evalcache", "algo": name, "rounds": n,
+               "eval_every": 1, "init_s": init_s, "train_loss": ea[1],
+               "eval_cache_on": ea[2], "eval_cache_off": eb[2],
+               "fused_vs_eager_max_abs": diffs, "bitwise": bitwise,
+               "first_block_s": first_block_s, "launches": launches,
+               "launches_per_replay": graph.launches,
+               "eval_launches_per_replay": fz.eval.launches,
+               "eager_eval_launches": ea[4], "cache_off_eval_launches": eb[4],
+               "peak_mem_bytes_eager": peak_eager,
+               "peak_mem_bytes_fused": peak_fused,
+               "peak_mem_bytes_fused_cache_off": peak_fused_off,
+               "rounds_per_sec_pairs": rates}
+        emit(res)
+        if not bitwise:
+            raise AssertionError(f"evalcache {name}: fused differs from "
+                                 f"eager by {diffs}")
+        if not all(torch.equal(keep[k], s0.eval_cache[k]) for k in keep):
+            raise AssertionError(f"evalcache {name}: a round wrote into its "
+                                 "input state's cache")
+        # the cached eval: the global model's forwards only; the round:
+        # one personal forward per client more (the dropout probe's
+        # forward at the algorithm's first round aside)
+        per_round = {"masked_sgd": steps, "stem_fwd": steps + per_model,
+                     "stem_bwd": steps, "weighted_sum": 1}
+        per_eval = {"stem_fwd": per_model}
+        eager_rounds = {**ea[3], "stem_fwd": ea[3]["stem_fwd"] - 1}
+        want = {k: (per_round.get(k, 0) + per_eval.get(k, 0))
+                * (FUSED_WARMUPS + n) for k in kernels.LAUNCHES}
+        nonzero = (lambda d: {k: v for k, v in d.items() if v})
+        if nonzero(eager_rounds) != {k: v * n for k, v in per_round.items()} \
+                or nonzero(ea[4]) != {"stem_fwd": n * per_model} \
+                or nonzero(eb[4]) != {"stem_fwd": n * 2 * per_model} \
+                or graph.launches != per_round \
+                or fz.eval.launches != per_eval or launches != want:
+            raise AssertionError(
+                f"evalcache {name}: launches eager {ea[3]} + evals {ea[4]} "
+                f"(cache off {eb[4]}), fused {launches} (per replay "
+                f"{graph.launches}, eval {fz.eval.launches}), want per "
+                f"round {per_round}, per eval {per_eval}, fused {want}")
+        out[f"evalcache/{name}"] = launches
+        out[f"evalcache/{name}/eager"] = {
+            k: ea[3][k] + ea[4][k] for k in ea[3]}
+        if name == "salientgrads":
+            sg_state = dataclasses.replace(s0, eval_cache=None)
+        del on, off, graph, fz
+        ea = eb = sf = ys = host = None
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    algo = SalientGrads(model, data, hp, eval_clients=EVAL_CLIENTS, **sg_kw)
+    m = EVAL_CLIENTS_ROUNDS
+    ea = _eager_rounds(algo, algo.clone_state(sg_state), m)
+    kernels.reset_launches()
+    sf, ys = algo.run_rounds_fused(algo.clone_state(sg_state), 0, m,
+                                   eval_every=1)
+    host = ys.materialize()
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    diffs = _spread(ea[0], ea[1], ea[2], sf,
+                    [float(v) for v in host["train_loss"]],
+                    [{k: float(v[i]) for k, v in host["eval"].items()}
+                     for i in range(m)])
+    bitwise = diffs == 0.0 and _trees_equal(ea[0], sf, fields[:2])
+    per_eval = {"stem_fwd": 2 * EVAL_CLIENTS * _eval_chunks()}
+    emit({"phase": "evalcache", "algo": "salientgrads",
+          "eval_clients": EVAL_CLIENTS, "subset": algo._eval_rows,
+          "rounds": m, "train_loss": ea[1], "eval": ea[2],
+          "fused_vs_eager_max_abs": diffs, "bitwise": bitwise,
+          "eval_launches_per_replay": algo._fused.eval.launches,
+          "launches": launches})
+    if not bitwise:
+        raise AssertionError(f"evalcache eval_clients: fused differs from "
+                             f"eager by {diffs}")
+    if {k: v for k, v in ea[4].items() if v} != \
+            {"stem_fwd": m * per_eval["stem_fwd"]} or \
+            algo._fused.eval.launches != per_eval:
+        raise AssertionError(f"evalcache eval_clients: eval launches "
+                             f"{ea[4]}, per replay "
+                             f"{algo._fused.eval.launches}, want {per_eval}")
+    out["evalcache/eval_clients"] = launches
+    return out
+
+
+def hold_path_kernels(dev, g, params):
+    """The kernels a SalientGrads round on the dense wire launches, each
+    held bitwise against its plain version at the leaf table of
+    ``params``: masked SGD over every leaf in both modes (the rate a 0-d
+    tensor on the card, as the round passes it), the SNIP threshold over
+    the kernel leaves' row at k = n/2 (random and tie-heavy scores), the
+    score mask over the kernel leaves, the weighted sum over an
+    [N_CLIENTS, leaf] stack of every leaf. Returns each kernel's max abs
+    error and shape."""
+    import torch
+
+    from neuroimagedisttraining_torch.core.state import weighted_sum
+    from neuroimagedisttraining_torch.ops import kernels
+    from neuroimagedisttraining_torch.ops.sparsity import kernel_flags
+    from neuroimagedisttraining_torch.ops.topk_select import exact_threshold
+
+    names = list(params)
+    shapes = [tuple(params[k].shape) for k in names]
+    flags = kernel_flags(params)
+    kernel_names = [k for k in names if flags[k]]
+    n_params = sum(math.prod(s) for s in shapes)
+    out = {}
+
+    lr = torch.tensor(1e-3 * 0.998 ** 2, device=dev)
+    errs = []
+    for mode in (False, True):
+        ps = [params[k].detach().clone() for k in names]
+        ms = [torch.randn(s, generator=g, device=dev) for s in shapes]
+        gs = [torch.randn(s, generator=g, device=dev) for s in shapes]
+        ks = [(torch.rand(s, generator=g, device=dev) < 0.5).float()
+              if flags[k] else torch.ones(s, device=dev)
+              for k, s in zip(names, shapes)]
+        want = [kernels.masked_sgd_plain(p, m, gg, k, lr, 0.9, 5e-4, mode)
+                for p, m, gg, k in zip(ps, ms, gs, ks)]
+        kernels.fused_masked_sgd_step(ps, ms, gs, ks, lr, momentum=0.9,
+                                      wd=5e-4, mask_grads=mode)
+        errs.append(_bitwise_or_raise(
+            f"masked_sgd (mask_grads={mode})", ps + ms,
+            [a for a, _ in want] + [b for _, b in want]))
+    out["masked_sgd"] = dict(max_abs_err=max(errs),
+                             shape=f"{len(names)} leaves, {n_params} f32")
+
+    scores = [torch.rand(tuple(params[k].shape), generator=g, device=dev)
+              for k in kernel_names]
+    n = sum(s.numel() for s in scores)
+    k = int(n * 0.5)
+    norm = torch.cat([s.reshape(-1) for s in scores]).sum()
+    row = (torch.cat([s.reshape(-1) for s in scores]) / norm)[None]
+    ties = torch.randint(0, 50, (1, n), generator=g, device=dev).float() / 7
+    err = _bitwise_or_raise(
+        "threshold (the SNIP row)",
+        [kernels.threshold_topk(x, k).view(torch.int32) for x in (row, ties)],
+        [exact_threshold(x, k).view(torch.int32) for x in (row, ties)])
+    out["threshold"] = dict(max_abs_err=err, shape=f"[1, {n}] f32, k={k}")
+
+    thr = exact_threshold(row, k).reshape(())
+    got = kernels.fused_score_mask(scores, norm, thr)
+    out["score_mask"] = dict(
+        max_abs_err=_bitwise_or_raise(
+            "score_mask", got,
+            [kernels.score_mask_plain(s, norm, thr) for s in scores]),
+        shape=f"{len(scores)} leaves, {n} f32")
+
+    stacked = {k: params[k].detach()[None] + 0.01 * torch.randn(
+        (N_CLIENTS,) + tuple(params[k].shape), generator=g, device=dev)
+        for k in names}
+    w = torch.rand(N_CLIENTS, generator=g, device=dev)
+    w = w / w.sum()
+    got = kernels.fused_weighted_sum(stacked, w)
+    out["weighted_sum"] = dict(
+        max_abs_err=_bitwise_or_raise(
+            "weighted_sum", [got[k] for k in names],
+            [weighted_sum(stacked[k], w) for k in names]),
+        shape=f"[{N_CLIENTS}, leaf] x {len(names)} leaves, f32")
+    return out
+
+
+def dense_path(dev):
+    """The dense-stem AlexNet3D at full width through the library entry
+    points: SalientGrads, SNIP, DENSE_ROUNDS rounds and the eval on the
+    main configuration's cohort stored ``(121, 145, 121, 1)``; the kernels
+    that run launched at this model's shapes, each bitwise against its
+    plain version (:func:`hold_path_kernels`); the same
+    first round from the same state over the cohort stored channel-less
+    with ``channel_inject`` (``--layout flat``), bitwise; the stem conv
+    alone (cuDNN) at the step's shape; the deeper and regression models
+    one forward and backward each. Returns the launches per path."""
+    import torch
+    import torch.nn.functional as F
+
+    from neuroimagedisttraining_torch.algorithms import SalientGrads
+    from neuroimagedisttraining_torch.core.losses import \
+        bce_with_logits_per_example
+    from neuroimagedisttraining_torch.models import (
+        create_model,
+        init_params,
+        make_apply_fn,
+    )
+    from neuroimagedisttraining_torch.ops import kernels
+    from neuroimagedisttraining_torch.ops.sparsity import mask_density
+
+    vol = VOLUME + (1,)
+    t0 = time.perf_counter()
+    data, hp = _main_config(dev, vol)
+    torch.cuda.synchronize()
+    data_s = time.perf_counter() - t0
+    model = create_model("3dcnn", num_classes=1, sample_shape=vol)
+    sg_kw = dict(loss_type="bce", frac=1.0, seed=0, compute_dtype="bfloat16",
+                 dense_ratio=0.5, itersnip_iterations=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launches()
+    algo = SalientGrads(model, data, hp, **sg_kw)
+    t0 = time.perf_counter()
+    s0 = algo.init_state()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    state, round_s, losses, first = s0, [], [], None
+    for r in range(DENSE_ROUNDS):
+        t0 = time.perf_counter()
+        state, met = algo.run_round(state, r)
+        losses.append(float(met["train_loss"]))
+        round_s.append(time.perf_counter() - t0)
+        if r == 0:
+            first = state
+    final = {k: float(v) for k, v in algo.evaluate(state).items()
+             if not k.startswith("acc_per")}
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev)
+    res = {"phase": "dense", "model": "3dcnn", "clients": N_CLIENTS,
+           "samples_per_client": SAMPLES, "sample_shape": list(vol),
+           "batch": BATCH, "steps": STEPS, "rounds": DENSE_ROUNDS,
+           "compute_dtype": "bfloat16", "data_s": data_s,
+           "init_snip_s": init_s, "round_s": round_s, "train_loss": losses,
+           "final_eval": final, "peak_mem_bytes": peak,
+           "launches": launches}
+
+    # the path's kernels at this model's leaf table and SNIP row, bitwise
+    # against their plain versions (after the counters were read)
+    res["kernels_at_path_shapes"] = hold_path_kernels(
+        dev, torch.Generator(device=dev).manual_seed(4321), s0.global_params)
+
+    # the same first round over channel-less storage (--layout flat)
+    flat = dataclasses.replace(data, x_train=data.x_train[..., 0],
+                               x_test=data.x_test[..., 0])
+    algo_f = SalientGrads(model, flat, hp, channel_inject=True, **sg_kw)
+    sf, met_f = algo_f.run_round(s0, 0)
+    res["flat_bitwise"] = float(met_f["train_loss"]) == losses[0] and \
+        _trees_equal(first, sf, ("global_params", "personal_params"))
+
+    # the stem conv alone (cuDNN) at the step's shape, in both formats
+    x = data.x_train[0, :BATCH].permute(0, 4, 1, 2, 3)
+    w = s0.global_params["_Features_0.Conv3d_0.kernel"].to(torch.bfloat16)
+    b = s0.global_params["_Features_0.Conv3d_0.bias"].to(torch.bfloat16)
+    gz = torch.randn_like(F.conv3d(x, w, b, stride=2))
+    stem = {"x": list(x.shape), "z": list(gz.shape),
+            "multiply_adds": gz.numel() * w[0].numel()}
+    for fmt_name, fmt in (("ncdhw", torch.contiguous_format),
+                          ("channels_last_3d", torch.channels_last_3d)):
+        xx, ww = x.contiguous(memory_format=fmt), w.contiguous(
+            memory_format=fmt)
+        gg = gz.contiguous(memory_format=fmt)
+        stem[fmt_name] = {
+            "fwd_ms": device_ms(lambda: F.conv3d(xx, ww, b, stride=2)),
+            "dgrad_ms": device_ms(lambda: torch.nn.grad.conv3d_input(
+                xx.shape, ww, gg, stride=2)),
+            "wgrad_ms": device_ms(lambda: torch.nn.grad.conv3d_weight(
+                xx, ww.shape, gg, stride=2))}
+    res["stem_conv"] = stem
+
+    # the deeper and regression models: one forward and backward each
+    others = {}
+    xb, yb = data.x_train[0, :BATCH], data.y_train[0, :BATCH]
+    for key in ("3dcnn_deeper", "3dcnn_regression"):
+        m = create_model(key, num_classes=1, sample_shape=vol).to(dev)
+        params = {k: v.requires_grad_(True) for k, v in init_params(
+            m, torch.Generator(device=dev).manual_seed(1)).items()}
+        outs = make_apply_fn(m, torch.bfloat16)(
+            params, xb, train=True,
+            rng=torch.Generator(device=dev).manual_seed(2))
+        loss = bce_with_logits_per_example(outs, yb).mean()
+        grads = torch.autograd.grad(loss, list(params.values()))
+        others[key] = {
+            "outputs": [list(o.shape) for o in outs],
+            "loss": float(loss.detach()),
+            "finite": bool(torch.isfinite(loss)) and all(
+                bool(torch.isfinite(g).all()) for g in grads)
+            and all(bool(torch.isfinite(o).all()) for o in outs)}
+    res["others"] = others
+    emit(res)
+
+    if not all(math.isfinite(v) for v in losses + list(final.values())):
+        raise AssertionError(f"dense: non-finite {losses} {final}")
+    if abs(final["mask_density"] - 0.5) > 1e-3:
+        raise AssertionError(f"dense: mask density {final['mask_density']}")
+    if not res["flat_bitwise"]:
+        raise AssertionError("dense: the channel-less (flat) round differs "
+                             "from the channels round")
+    if not all(o["finite"] for o in others.values()):
+        raise AssertionError(f"dense: {others}")
+    # the phased stem's kernels are not on this path: its stem is cuDNN's
+    want = {**{k: 0 for k in launches},
+            "masked_sgd": DENSE_ROUNDS * N_CLIENTS * STEPS, "threshold": 1,
+            "score_mask": 1, "weighted_sum": DENSE_ROUNDS}
+    if launches != want:
+        raise AssertionError(f"dense: launches {launches}, want {want}")
+    for p in state.global_params.values():
+        if not bool(torch.isfinite(p).all()):
+            raise AssertionError("dense: non-finite global parameters")
+    return {"dense": launches}
+
+
 def _cli_argv(algo: str, tmp: str):
     return ["--algo", algo, "--dataset", "synthetic", "--model", "small3dcnn",
             "--comm_round", "2", "--results_dir", f"{tmp}/results",
@@ -1553,7 +2005,9 @@ def bench_path(dev):
     extra = rec["extra"]
     rates = [rec["value"]] + [extra[k] for k in (
         "rounds_per_sec_eval_every_1", "rounds_per_sec_fused",
-        "rounds_per_sec_eval_every_1_fused")]
+        "rounds_per_sec_eval_every_1_fused",
+        "rounds_per_sec_eval_every_1_eval_cache",
+        "rounds_per_sec_eval_every_1_global_only")]
     if not all(math.isfinite(v) and v > 0 for v in rates) or \
             rec["value"] != max(extra["rounds_per_sec_python_loop"],
                                 extra["rounds_per_sec_fused"]):
@@ -1562,19 +2016,26 @@ def bench_path(dev):
     # (global and personal, every client) after the warm round and after
     # every timed round of the second run; the fused spelling: the round
     # graph's and the eval graph's warm-ups, then each timed block and its
-    # warm calls (10 rounds; 8 rounds, each with the eval); SNIP once per
-    # client, and the dropout probe (one forward, at the first round)
+    # warm calls (10 rounds; 8 rounds, each with the eval). Each of the
+    # two cells: 1 + 8 loop rounds and a fused block of 8 (its graphs'
+    # warm-ups, its warm calls), the eval after each; the eval-cache cell
+    # evaluates every client's personal model in each round and its seed,
+    # and only the global model in its eval, the global-only cell only
+    # the global model. SNIP once per client and the dropout probe (one
+    # forward, at the first round) for each of the three algorithms.
     calls = b.FUSED_WARM_CALLS + 1
     rounds = 2 + 10 + 8 + FUSED_WARMUPS + calls * (10 + 8)
     evals = 1 + 8 + FUSED_WARMUPS + calls * 8
-    steps = rounds * b.N_CLIENTS * b.STEPS
+    cell = 1 + 8 + FUSED_WARMUPS + calls * 8  # rounds, and evals, per cell
+    steps = (rounds + 2 * cell) * b.N_CLIENTS * b.STEPS
     test_rows = max(4, b.SAMPLES_PER_CLIENT // 4)
-    chunks = -(-test_rows // min(32, test_rows))
-    want = {"masked_sgd": steps, "threshold": 1, "score_mask": 1,
-            "weighted_sum": rounds,
-            "stem_fwd": (steps + b.N_CLIENTS + 1
-                         + evals * 2 * b.N_CLIENTS * chunks),
-            "stem_bwd": steps + b.N_CLIENTS}
+    per_model = b.N_CLIENTS * -(-test_rows // min(32, test_rows))
+    want = {"masked_sgd": steps, "threshold": 3, "score_mask": 3,
+            "weighted_sum": rounds + 2 * cell,
+            "stem_fwd": (steps + 3 * (b.N_CLIENTS + 1)
+                         + evals * 2 * per_model
+                         + (1 + cell + cell) * per_model + cell * per_model),
+            "stem_bwd": steps + 3 * b.N_CLIENTS}
     if any(launches[k] != v for k, v in want.items()):
         raise AssertionError(f"bench launch counts {launches}, expected "
                              f"{want}")
@@ -1620,6 +2081,8 @@ def main() -> int:
     paths = {"main": main_path(dev)}
     paths.update(wires_path(dev))
     paths.update(fused_path(dev))
+    paths.update(evalcache_path(dev))
+    paths.update(dense_path(dev))
     paths.update(cli_path(dev))
     paths.update(bench_path(dev))
 

@@ -215,6 +215,12 @@ def _copy_into(dst, src) -> None:
         dst.copy_(src)
 
 
+def _buffer_fields(state: Any) -> List[str]:
+    """The fields of ``state`` that hold a tensor or a tree of tensors."""
+    return [f.name for f in dataclasses.fields(state)
+            if _is_buffer(getattr(state, f.name))]
+
+
 def _clone(v):
     return clone_tree(v) if isinstance(v, dict) else v.clone()
 
@@ -253,8 +259,7 @@ class _FusedRounds:
     def __init__(self, algo: "FedAlgorithm", state: Any):
         dev, hp = algo.device, algo.hp
         s = algo.clients_per_round
-        self.fields = [f.name for f in dataclasses.fields(state)
-                       if _is_buffer(getattr(state, f.name))]
+        self.fields = _buffer_fields(state)
         self.state = dataclasses.replace(state, **{
             f: _clone(getattr(state, f)) for f in self.fields})
         self.sel = torch.zeros(s, dtype=torch.int64, device=dev)
@@ -346,6 +351,14 @@ class _FusedRounds:
             self.eval = _Graph(body, algo.device, f"{algo.name}: the eval")
         return self.eval
 
+    def release(self) -> None:
+        """Drop every graph (and its memory pool)."""
+        for graph in self.rounds.values():
+            graph.release()
+        if self.eval is not None:
+            self.eval.release()
+        self.rounds, self.eval = {}, None
+
 
 class FedAlgorithm(abc.ABC):
     """Owns the model, data, hyperparameters and the apply/eval functions.
@@ -363,7 +376,18 @@ class FedAlgorithm(abc.ABC):
     ``agg_topk_sample`` > 0; algorithms that carry the residual only) and
     "hier" (off the mesh the exact f32 bucketed reduce), in buckets of
     ``agg_bucket_size`` values (0 = the default). The reference's
-    ``agg_kernels`` and ``agg_overlap`` change no bit and are left out."""
+    ``agg_kernels`` and ``agg_overlap`` change no bit and are left out.
+
+    ``eval_clients`` = K (0 < K < clients) evaluates a fixed seeded subset
+    of K clients instead of the whole cohort, its means over the subset.
+    ``channel_inject`` appends the channel axis to each batch at apply time
+    (the cohort of ``--layout flat`` is stored channel-less);
+    ``init_sample_shape`` is the per-sample shape the model sees.
+
+    An algorithm that sets ``eval_cache`` (before this constructor) keeps
+    the personal eval's per-client terms in its state and refreshes the
+    trained clients' rows in each round body, so its eval
+    (:meth:`evaluate`) runs no personal forward."""
 
     name = "base"
     #: the algorithm carries the error-feedback residual of agg_impl="topk"
@@ -382,6 +406,7 @@ class FedAlgorithm(abc.ABC):
                  agg_impl: str = "dense", agg_bucket_size: int = 0,
                  agg_topk_density: float = 0.1, agg_topk_sample: int = 0,
                  agg_hier_wire: str = "bf16", agg_hier_inner: int = 0,
+                 eval_clients: int = 0, channel_inject: bool = False,
                  device=None):
         if agg_impl not in collectives.AGG_IMPLS:
             raise ValueError(
@@ -419,12 +444,46 @@ class FedAlgorithm(abc.ABC):
         self.clients_per_round = max(1, int(round(self.num_clients * frac)))
         self.compute_dtype = (getattr(torch, compute_dtype)
                               if compute_dtype is not None else None)
-        self.apply_fn = make_apply_fn(self.model, self.compute_dtype)
+        self.apply_fn = make_apply_fn(self.model, self.compute_dtype,
+                                      channel_inject=channel_inject)
         self.eval_client = make_eval_fn(self.apply_fn, loss_type, eval_batch)
+        #: the per-sample shape the model sees: the stored one, plus the
+        #: channel axis the apply injects
+        self.init_sample_shape = tuple(data.sample_shape) + (
+            (1,) if channel_inject else ())
         self._n_train = [int(n) for n in data.n_train]
         self._n_test = [int(n) for n in data.n_test]
-        #: the test shards' row counts on the device: the eval's totals
+        #: the test shards' row counts on the device
         self._n_test_dev = torch.tensor(self._n_test, device=self.device)
+        # the sampled eval: a fixed seeded subset of the clients (its ids
+        # on the host, where the eval loops over them, and on the device),
+        # or every client
+        self._eval_rows = list(range(self.num_clients))
+        self._eval_idx: Optional[torch.Tensor] = None
+        if eval_clients and eval_clients < self.num_clients:
+            rows = np.sort(np.random.RandomState(seed).choice(
+                self.num_clients, eval_clients, replace=False))
+            self._eval_rows = [int(c) for c in rows]
+            self._eval_idx = torch.as_tensor(rows.astype(np.int64),
+                                             device=self.device)
+        #: the evaluated clients' test row counts: the eval's totals
+        self._n_test_eval = (
+            self._n_test_dev if self._eval_idx is None
+            else self._n_test_dev.index_select(0, self._eval_idx))
+        # the in-state personal-eval cache (subclasses that support it set
+        # self.eval_cache before this constructor)
+        self.eval_cache = bool(getattr(self, "eval_cache", False))
+        if self.eval_cache:
+            if not getattr(self, "track_personal", True):
+                raise ValueError(
+                    f"{self.name}: eval_cache caches the per-client "
+                    "personal-eval terms — it needs the personal stack "
+                    "(track_personal=True)")
+            if self._eval_idx is not None:
+                raise ValueError(
+                    f"{self.name}: eval_cache indexes the full [C] "
+                    "cohort; the sampled-eval subset (eval_clients) "
+                    "composes poorly with it — use one or the other")
         #: the dropout layers a training forward meets (_dropout_calls)
         self._drop_calls: Optional[List[tuple]] = None
         #: the fused round loop's buffers and graphs (run_rounds_fused)
@@ -471,7 +530,8 @@ class FedAlgorithm(abc.ABC):
 
     def _round_body(self, state: Any, inp: RoundInputs):
         """The round on tensors: every selected client trains, the server
-        aggregates, the trained rows become the personal models. Returns
+        aggregates, the trained rows become the personal models (and, with
+        ``eval_cache``, their eval terms the cache's rows). Returns
         ``(state, metrics)`` with the state's generator untouched. It reads
         the host only through ``inp.n_valid``: the body a CUDA graph
         holds."""
@@ -483,9 +543,13 @@ class FedAlgorithm(abc.ABC):
         personal = state.personal_params
         if personal is not None:
             personal = tree_scatter_update(personal, inp.sel, locals_)
+        cache = state.eval_cache
+        if self.eval_cache:
+            cache = self._update_eval_cache(cache, personal, inp.sel)
         new_state = dataclasses.replace(state, global_params=new_global,
                                         personal_params=personal,
-                                        agg_residual=residual)
+                                        agg_residual=residual,
+                                        eval_cache=cache)
         return new_state, {"train_loss": mean_loss}
 
     def finalize(self, state: Any):
@@ -645,27 +709,88 @@ class FedAlgorithm(abc.ABC):
         new_global = self._aggregate(stacked, weights, inp.uniforms)
         return new_global, stacked, mean_loss, residual
 
-    def _eval_global(self, params: Tree) -> Dict[str, torch.Tensor]:
-        """The global model on every client's test shard."""
+    def _eval_terms(self, rows, params_of):
+        """``eval_client`` of ``params_of(c)`` on client ``c``'s test shard
+        for each client id ``c`` of ``rows``: (correct, loss_sum), each
+        stacked over ``rows``."""
         d = self.data
-        terms = [self.eval_client(params, d.x_test[c], d.y_test[c], n)
-                 for c, n in enumerate(self._n_test)]
-        correct = torch.stack([t[0] for t in terms])
-        loss_sum = torch.stack([t[1] for t in terms])
-        total = self._n_test_dev
+        terms = [self.eval_client(params_of(c), d.x_test[c], d.y_test[c],
+                                  self._n_test[c]) for c in rows]
+        return (torch.stack([t[0] for t in terms]),
+                torch.stack([t[1] for t in terms]))
+
+    def _eval_global(self, params: Tree) -> Dict[str, torch.Tensor]:
+        """The global model on every evaluated client's test shard (all,
+        or the ``eval_clients`` subset)."""
+        correct, loss_sum = self._eval_terms(self._eval_rows,
+                                             lambda c: params)
+        total = self._n_test_eval
         acc = correct.to(torch.float32) / torch.clamp(total, min=1)
         return {"acc_per_client": acc, "acc": acc.mean(),
                 "loss": loss_sum.sum() / torch.clamp(total.sum(), min=1)}
 
     def _eval_personal(self, personal: Tree) -> Dict[str, torch.Tensor]:
-        """Each client's personal model on its own test shard."""
+        """Each evaluated client's personal model on its own test shard."""
+        correct, loss_sum = self._eval_terms(
+            self._eval_rows, lambda c: {k: v[c] for k, v in personal.items()})
+        return _personal_metrics(correct, loss_sum, self._n_test_eval)
+
+    # -- the incremental personal eval, in the state (eval_cache) -------------
+    # A round changes only its selected clients' personal models. With
+    # eval_cache the per-client terms are state: each round body evaluates
+    # the selected clients' new personal rows and writes them into the [C]
+    # cache (every row in place at full participation), and an eval
+    # re-reduces the three [C] tensors with no personal forward. Each
+    # client's terms come from the same eval_client call as in the full
+    # pass. The cache is cloned, loaded and exported with the rest of the
+    # state, so it rides a fused block.
+
+    def _seed_eval_cache(self, personal: Optional[Tree]) -> Optional[dict]:
+        """The initial cache: one full personal eval of the fresh stack
+        (None without ``eval_cache`` or a personal stack)."""
+        if not self.eval_cache or personal is None:
+            return None
+        ev = self._eval_personal(personal)
+        return {"correct": ev["correct"], "loss_sum": ev["loss_sum"],
+                "total": ev["total"].clone()}
+
+    def _update_eval_cache(self, cache: Optional[dict], personal: Tree,
+                           sel: torch.Tensor) -> Optional[dict]:
+        """The round body's refresh: the selected clients' new personal
+        rows evaluated, their terms written into the cache, out of place.
+        Full participation evaluates every row in place of a gather of the
+        stack; otherwise the rows, test shards and counts are gathered
+        through the device client ids ``sel``, so a graph can hold it."""
+        if cache is None:
+            return None
+        if self.clients_per_round == self.num_clients:
+            correct, loss_sum = self._eval_terms(
+                range(self.num_clients),
+                lambda c: {k: v[c] for k, v in personal.items()})
+            return {"correct": correct, "loss_sum": loss_sum,
+                    "total": cache["total"]}
         d = self.data
-        terms = [self.eval_client({k: v[c] for k, v in personal.items()},
-                                  d.x_test[c], d.y_test[c], n)
-                 for c, n in enumerate(self._n_test)]
-        return _personal_metrics(
-            torch.stack([t[0] for t in terms]),
-            torch.stack([t[1] for t in terms]), self._n_test_dev)
+        sub = tree_index(personal, sel)
+        xs, ys = d.x_test.index_select(0, sel), d.y_test.index_select(0, sel)
+        ns = self._n_test_dev.index_select(0, sel)
+        terms = [self.eval_client({k: v[i] for k, v in sub.items()}, xs[i],
+                                  ys[i], ns[i]) for i in range(len(ns))]
+        return {"correct": cache["correct"].index_copy(
+                    0, sel, torch.stack([t[0] for t in terms])),
+                "loss_sum": cache["loss_sum"].index_copy(
+                    0, sel, torch.stack([t[1] for t in terms])),
+                "total": cache["total"].index_copy(0, sel, ns)}
+
+    def _eval_personal_state(self, state: Any) -> Dict[str, torch.Tensor]:
+        """The personal half of the eval: the re-reduce of
+        ``state.eval_cache`` where it is live, else the full pass over the
+        state's personal stack (FedAvg's finalize drops the cache: the
+        fine-tune retrained every row)."""
+        cache = getattr(state, "eval_cache", None)
+        if self.eval_cache and cache is not None:
+            return _personal_metrics(cache["correct"], cache["loss_sum"],
+                                     cache["total"])
+        return self._eval_personal(state.personal_params)
 
     @abc.abstractmethod
     def evaluate(self, state: Any) -> Dict[str, Any]:
@@ -759,7 +884,13 @@ class FedAlgorithm(abc.ABC):
     # -- fused multi-round execution -------------------------------------------
     def _get_fused_fn(self, state: Any) -> _FusedRounds:
         """The fused loop's buffers and graphs, built at the first block
-        (states of one algorithm share their shapes)."""
+        (states of one algorithm share their shapes) and anew for a state
+        whose tensor fields are not the buffers' (one whose ``eval_cache``
+        was dropped, as FedAvg's finalize does, or is live again)."""
+        if self._fused is not None and \
+                self._fused.fields != _buffer_fields(state):
+            self._fused.release()
+            self._fused = None
         if self._fused is None:
             self._fused = _FusedRounds(self, state)
         return self._fused

@@ -44,6 +44,9 @@ class FedAvgState:
     generator: torch.Generator
     #: [C, ...] error-feedback residual of agg_impl="topk", else None
     agg_residual: Optional[Tree] = None
+    #: the personal eval's per-client terms ``{"correct", "loss_sum",
+    #: "total"}``, each [C], with ``eval_cache``; else None
+    eval_cache: Optional[Dict[str, torch.Tensor]] = None
 
 
 class FedAvg(FedAlgorithm):
@@ -51,10 +54,13 @@ class FedAvg(FedAlgorithm):
     topk_supported = True
     supports_fused = True
 
-    def __init__(self, *args, track_personal: bool = True, **kwargs):
+    def __init__(self, *args, track_personal: bool = True,
+                 eval_cache: bool = False, **kwargs):
         # track_personal=False drops the [C, model] personal stack and the
         # final fine-tune that exists to produce it
         self.track_personal = track_personal
+        # the in-state personal-eval cache, validated by the base
+        self.eval_cache = bool(eval_cache)
         super().__init__(*args, **kwargs)
 
     def _build(self) -> None:
@@ -70,9 +76,10 @@ class FedAvg(FedAlgorithm):
 
     def init_state(self, generator: Optional[torch.Generator] = None,
                    params: Optional[Tree] = None) -> FedAvgState:
-        """Fresh parameters (or the given ``params``), personal copies and,
-        under "topk", a zero residual. ``generator`` defaults to one seeded
-        by the run seed and drives init and every later round."""
+        """Fresh parameters (or the given ``params``), personal copies,
+        under "topk" a zero residual and, with ``eval_cache``, the cache
+        seeded by one full personal eval. ``generator`` defaults to one
+        seeded by the run seed and drives init and every later round."""
         g = generator if generator is not None else self.generator()
         if params is None:
             params = init_params(self.model, g)
@@ -85,7 +92,8 @@ class FedAvg(FedAlgorithm):
             residual = zeros_like_tree(
                 broadcast_tree(params, self.num_clients))
         return FedAvgState(global_params=params, personal_params=personal,
-                           generator=g, agg_residual=residual)
+                           generator=g, agg_residual=residual,
+                           eval_cache=self._seed_eval_cache(personal))
 
     def _prepare_round(self, state: FedAvgState) -> None:
         self._ones_mask(state.global_params)
@@ -98,7 +106,9 @@ class FedAvg(FedAlgorithm):
         ``round_idx = -1``; those become the personal models, and both are
         evaluated. ``perms`` / ``dropout`` (per client) replace the draws.
         Like a round, it leaves its input state as it was. Without personal
-        tracking there is nothing to produce."""
+        tracking there is nothing to produce. The fine-tune retrains every
+        personal row, so it drops the eval cache: the final eval is a full
+        pass."""
         if not self.track_personal:
             return state, None
         g = clone_generator(state.generator)
@@ -110,7 +120,7 @@ class FedAvg(FedAlgorithm):
         personal, _ = self._train_clients(
             state.global_params, self._ones_mask(state.global_params), inp)
         state = dataclasses.replace(state, personal_params=personal,
-                                    generator=g)
+                                    generator=g, eval_cache=None)
         ev = self.evaluate(state)
         return state, {"round": -1, "finetune": True,
                        **{k: v for k, v in ev.items()
@@ -121,6 +131,6 @@ class FedAvg(FedAlgorithm):
         out = {"global_acc": ev["acc"], "global_loss": ev["loss"],
                "acc_per_client": ev["acc_per_client"]}
         if state.personal_params is not None:
-            evp = self._eval_personal(state.personal_params)
+            evp = self._eval_personal_state(state)
             out.update(personal_acc=evp["acc"], personal_loss=evp["loss"])
         return out

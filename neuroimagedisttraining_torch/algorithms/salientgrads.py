@@ -16,7 +16,8 @@ eval protocol tests the global model and every personal model on each
 client's test shard, plus one final eval after the last round.
 ``track_personal=False`` keeps no personal stack and evaluates the global
 model alone; ``snip_mask=False`` is the dense control, an all-ones mask in
-place of the SNIP pass.
+place of the SNIP pass; ``eval_cache=True`` keeps the personal eval's
+per-client terms in the state (``algorithms/base.py``).
 """
 from __future__ import annotations
 
@@ -51,6 +52,9 @@ class SalientGradsState:
     #: [C, ...] error-feedback residual of agg_impl="topk", else None. Locals
     #: honor the static mask, so it is zero on dead coordinates.
     agg_residual: Optional[Tree] = None
+    #: the personal eval's per-client terms ``{"correct", "loss_sum",
+    #: "total"}``, each [C], with ``eval_cache``; else None
+    eval_cache: Optional[Dict[str, torch.Tensor]] = None
 
 
 class SalientGrads(FedAlgorithm):
@@ -61,7 +65,8 @@ class SalientGrads(FedAlgorithm):
     def __init__(self, *args, dense_ratio: float = 0.5,
                  itersnip_iterations: int = 1, snip_mask: bool = True,
                  stratified_sampling: bool = False,
-                 track_personal: bool = True, **kwargs):
+                 track_personal: bool = True, eval_cache: bool = False,
+                 **kwargs):
         if stratified_sampling:
             raise ValueError(
                 "stratified_sampling: the stratified SNIP draws and fold "
@@ -73,6 +78,8 @@ class SalientGrads(FedAlgorithm):
         # track_personal=False drops the [C, model] personal stack and the
         # personal half of the eval
         self.track_personal = track_personal
+        # the in-state personal-eval cache, validated by the base
+        self.eval_cache = bool(eval_cache)
         super().__init__(*args, **kwargs)
 
     def _build(self) -> None:
@@ -102,9 +109,10 @@ class SalientGrads(FedAlgorithm):
                    params: Optional[Tree] = None,
                    snip_idx=None) -> SalientGradsState:
         """Fresh parameters (or the given ``params``), the SNIP mask (all
-        ones without ``snip_mask``), and dense personal copies (none
-        without ``track_personal``). ``generator`` defaults to one seeded
-        by the run seed and drives init, SNIP and every later round."""
+        ones without ``snip_mask``), dense personal copies (none without
+        ``track_personal``) and, with ``eval_cache``, the cache seeded by
+        one full personal eval. ``generator`` defaults to one seeded by the
+        run seed and drives init, SNIP and every later round."""
         g = generator if generator is not None else self.generator()
         if params is None:
             params = init_params(self.model, g)
@@ -122,7 +130,8 @@ class SalientGrads(FedAlgorithm):
                 broadcast_tree(params, self.num_clients))
         return SalientGradsState(
             global_params=params, mask=mask, personal_params=personal,
-            generator=g, agg_residual=residual)
+            generator=g, agg_residual=residual,
+            eval_cache=self._seed_eval_cache(personal))
 
     def _ensure_agg_plan(self, state: SalientGradsState) -> None:
         """Build the sparse wires' gather plan from the concrete mask, once:
@@ -166,6 +175,6 @@ class SalientGrads(FedAlgorithm):
             "acc_per_client": ev["acc_per_client"],
         }
         if state.personal_params is not None:
-            evp = self._eval_personal(state.personal_params)
+            evp = self._eval_personal_state(state)
             out.update(personal_acc=evp["acc"], personal_loss=evp["loss"])
         return out

@@ -3,7 +3,9 @@
 The reference's params are a nested dict (flax naming, numpy leaves); the
 result maps this package's parameter names to float32 CPU tensors:
 
-* conv kernels DHWIO -> OIDHW (``Conv3d_i/Conv_0/kernel`` -> ``Conv3d_i.kernel``);
+* conv kernels DHWIO -> OIDHW (``Conv3d_i/Conv_0/kernel`` ->
+  ``Conv3d_i.kernel``; nested scopes keep their names,
+  ``_Features_0/Conv3d_i/Conv_0/kernel`` -> ``_Features_0.Conv3d_i.kernel``);
 * the phased stem kernel ``(r, r, r, 8, F)`` -> ``(F, 8, r, r, r)``; its
   slot mask is applied at use, as in the reference;
 * dense kernels ``(in, out)`` -> ``(out, in)``; the flatten is channels-last
@@ -38,24 +40,32 @@ def _leaf(module: str, name: str, value) -> np.ndarray:
     return a
 
 
+def _walk(prefix: str, node: Mapping, out: Dict[str, torch.Tensor]) -> None:
+    if set(node) == {"Conv_0"}:  # Conv3d wraps one flax Conv
+        node = node["Conv_0"]
+    for name, value in node.items():
+        if isinstance(value, Mapping):  # a submodule's scope
+            _walk(f"{prefix}{name}.", value, out)
+        else:
+            out[prefix + name] = torch.from_numpy(
+                np.array(_leaf(prefix[:-1], name, value), order="C"))
+
+
 def jax_params_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
-    """A reference param tree (AlexNet3DS2D, SmallCNN3D, SmallCNN3DS2D) as
-    this package's ``state_dict``."""
-    out = {}
-    for module, leaves in params.items():
-        if set(leaves) == {"Conv_0"}:  # Conv3d wraps one flax Conv
-            leaves = leaves["Conv_0"]
-        for name, value in leaves.items():
-            out[f"{module}.{name}"] = torch.from_numpy(
-                np.array(_leaf(module, name, value), order="C"))
+    """A reference param tree (the AlexNet3D family, SmallCNN3D,
+    SmallCNN3DS2D) as this package's ``state_dict``; nested flax scopes
+    (``_Features_0/Conv3d_i/Conv_0``) become dotted names
+    (``_Features_0.Conv3d_i.kernel``)."""
+    out: Dict[str, torch.Tensor] = {}
+    _walk("", params, out)
     return out
 
 
 def reference_leaf_order(keys: Iterable[str]) -> List[str]:
     """The ``state_dict`` names in the reference's ``tree_leaves`` order:
-    sorted by module, then by leaf name (``Conv3d_i`` wraps a single
+    sorted scope by scope, then by leaf name (``Conv3d_i`` wraps a single
     ``Conv_0``, which does not change the order)."""
-    return sorted(keys, key=lambda k: tuple(k.rsplit(".", 1)))
+    return sorted(keys, key=lambda k: k.split("."))
 
 
 def _is_kernel(name: str) -> bool:

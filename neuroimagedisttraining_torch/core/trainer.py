@@ -132,11 +132,17 @@ def make_client_update(apply_fn, loss_type: str, hp: HyperParams,
 def make_eval_fn(apply_fn, loss_type: str, eval_batch: int = 32) -> Callable:
     """``eval_client(params, x, y, n_valid) -> (correct, loss_sum, total)``
     over a padded ``[m_max, ...]`` test shard in chunks of
-    ``min(eval_batch, m_max)``; rows at index >= n_valid are ignored."""
+    ``min(eval_batch, m_max)``; rows at index >= n_valid are ignored.
+    ``n_valid`` is a host int, or a 0-d device tensor (returned as
+    ``total``): the eval-cache refresh of a round body reads a selected
+    client's count on the device, where a CUDA graph can hold it. Both
+    give the same bits."""
     per_example = PER_EXAMPLE_LOSSES[loss_type]
 
     @torch.no_grad()
-    def eval_client(params: Tree, x, y, n_valid: int):
+    def eval_client(params: Tree, x, y, n_valid):
+        if not isinstance(n_valid, torch.Tensor):
+            n_valid = int(n_valid)
         m_max = x.shape[0]
         eb = max(1, min(eval_batch, m_max))
         correct = torch.zeros((), dtype=torch.int64, device=x.device)
@@ -145,11 +151,11 @@ def make_eval_fn(apply_fn, loss_type: str, eval_batch: int = 32) -> Callable:
             xb, yb = x[start:start + eb], y[start:start + eb]
             logits = apply_fn(params, xb, train=False)
             valid = (start + torch.arange(xb.shape[0], device=x.device)) \
-                < int(n_valid)
+                < n_valid
             preds = predictions(logits, loss_type)
             correct += torch.sum((preds == yb.to(torch.int32)) & valid)
             per_ex = per_example(logits, yb)
             loss_sum += torch.sum(per_ex * valid.to(per_ex.dtype))
-        return correct, loss_sum, int(n_valid)
+        return correct, loss_sum, n_valid
 
     return eval_client

@@ -57,8 +57,6 @@ _UNPORTED = {
     "remat": 4,
     # 5: SNIP
     "stratified_sampling": 5, "stratified_mode": 5,
-    # 6: algorithms
-    "eval_cache": 6, "eval_clients": 6,
     # 9: robustness
     "fault_spec": 9, "guard": 9, "watchdog": 9, "watchdog_loss": 9,
     "watchdog_norm": 9, "max_round_retries": 9, "retry_backoff_s": 9,
@@ -91,7 +89,7 @@ _UNPORTED = {
     "mesh_space": 15,
     # the rest: the values other than the default that the port runs are
     # in _ALLOWED
-    "layout": 3, "batching": 4, "mesh_devices": 7,
+    "batching": 4, "mesh_devices": 7,
 }
 #: attribute -> the values of it the port runs, where that is not just the
 #: parser's default (``derive`` resolves the sentinels of guard, watchdog
@@ -100,7 +98,6 @@ _UNPORTED = {
 _ALLOWED = {
     "guard": (0,), "watchdog": (0,), "batching": ("epoch",),
     "mesh_devices": (0, 1), "mesh_space": (0, 1),
-    "layout": ("channels", "s2d"),
 }
 #: knobs that leave the JAX package's results bit-identical, and why the
 #: port has nothing for them to change
@@ -113,8 +110,8 @@ _INERT = {
     "gpu": "--device names the card",
     "type": "it is dead code in the original too",
 }
-#: model keys of the JAX package that the port has not got, by ROADMAP item
-_MODEL_ITEMS = {"3dcnn": 3, "3dcnn_deeper": 3, "3dcnn_regression": 3}
+#: the models whose first dense layer is sized by the per-sample shape
+_SIZED_MODELS = ("3dcnn", "3dcnn_deeper", "3dcnn_regression", "3dcnn_s2d")
 
 
 def seed_everything(seed: int) -> None:
@@ -144,13 +141,36 @@ def _default(attr: str):
     return build_parser().get_default(attr)
 
 
+def refuse_invalid(args: argparse.Namespace, algo_name: str) -> None:
+    """The JAX CLI's own refusals of flag combinations that the port has
+    the features for, with its messages (``--eval_cache``)."""
+    if getattr(args, "eval_cache", 0):
+        if algo_name not in ("fedavg", "salientgrads"):
+            raise SystemExit(
+                "--eval_cache caches the per-client personal-eval "
+                "terms in algorithm state; only fedavg/salientgrads "
+                f"carry the personal stack it indexes ({algo_name} "
+                "does not)")
+        if not getattr(args, "track_personal", 1):
+            raise SystemExit(
+                "--eval_cache needs the personal stack; it cannot "
+                "combine with --track_personal 0")
+        if getattr(args, "eval_clients", 0):
+            raise SystemExit(
+                "--eval_cache indexes the full cohort; the sampled-"
+                "eval subset (--eval_clients) composes poorly with it "
+                "— use one or the other")
+
+
 def refuse_unported(args: argparse.Namespace, algo_name: str) -> None:
-    """``SystemExit`` naming the first flag of a feature the port has not
-    got, set to anything but its default, and the ROADMAP item that ports
-    it."""
+    """``SystemExit`` for a combination the JAX CLI refuses too
+    (:func:`refuse_invalid`), else naming the first flag of a feature the
+    port has not got, set to anything but its default, and the ROADMAP item
+    that ports it."""
     from ..data import AUGMENTABLE_DATASETS
     from ..models import MODEL_NAMES
 
+    refuse_invalid(args, algo_name)
     if algo_name not in PORTED_ALGOS:
         raise SystemExit(
             f"--algo {algo_name}: not ported to PyTorch yet (ROADMAP item "
@@ -170,9 +190,8 @@ def refuse_unported(args: argparse.Namespace, algo_name: str) -> None:
     key = _model_key(args)
     if key.lower() not in MODEL_NAMES:
         raise SystemExit(
-            f"--model {key}: not ported to PyTorch yet (ROADMAP item "
-            f"{_MODEL_ITEMS.get(key, 11)}); the port has "
-            f"{', '.join(MODEL_NAMES)}")
+            f"--model {key}: not ported to PyTorch yet (ROADMAP item 11); "
+            f"the port has {', '.join(MODEL_NAMES)}")
 
 
 def _log_inert(args: argparse.Namespace) -> None:
@@ -259,8 +278,12 @@ def build_algorithm(args: argparse.Namespace, algo_name: str):
             x_val=None if data.x_val is None else data.x_val.to(dt))
     loss_type = infer_loss_type(args, data.class_num)
     num_outputs = 1 if loss_type == "bce" else data.class_num
-    model_kw = ({"sample_shape": tuple(data.sample_shape)}
-                if model_key == "3dcnn_s2d" else {})
+    # --layout flat stores the cohort channel-less; the apply injects it
+    channel_inject = layout == "flat" and _is_abcd_h5(args.dataset)
+    sample_shape = tuple(data.sample_shape) + ((1,) if channel_inject
+                                               else ())
+    model_kw = ({"sample_shape": sample_shape}
+                if model_key in _SIZED_MODELS else {})
     model = create_model(model_key, num_classes=num_outputs, **model_kw)
 
     # epoch batching: each client iterates ceil(n_i/batch) shuffled batches
@@ -295,9 +318,12 @@ def build_algorithm(args: argparse.Namespace, algo_name: str):
         agg_topk_sample=getattr(args, "agg_topk_sample", 0),
         agg_hier_wire=getattr(args, "agg_hier_wire", "bf16"),
         agg_hier_inner=getattr(args, "agg_hier_inner", 0),
+        eval_clients=getattr(args, "eval_clients", 0),
+        channel_inject=channel_inject,
         device=getattr(args, "device", "cuda"),
+        track_personal=bool(getattr(args, "track_personal", 1)),
+        eval_cache=bool(getattr(args, "eval_cache", 0)),
     )
-    track_personal = bool(getattr(args, "track_personal", 1))
     if algo_name == "salientgrads":
         algo = SalientGrads(
             model, data, hp, dense_ratio=args.dense_ratio,
@@ -305,10 +331,9 @@ def build_algorithm(args: argparse.Namespace, algo_name: str):
             snip_mask=bool(getattr(args, "snip_mask", 1)),
             stratified_sampling=bool(getattr(args, "stratified_sampling",
                                              0)),
-            track_personal=track_personal, **common)
+            **common)
     else:
-        algo = FedAvg(model, data, hp, track_personal=track_personal,
-                      **common)
+        algo = FedAvg(model, data, hp, **common)
     return algo, algo.data
 
 
@@ -416,7 +441,7 @@ def run_experiment(args: argparse.Namespace,
         # sum_comm_params): each client consumes its own n_i samples per
         # epoch, the cohort mean standing in for the sampled subset
         cost = CostTracker(model=algo.model,
-                           sample_shape=tuple(data.sample_shape))
+                           sample_shape=algo.init_sample_shape)
         samples_per_client = algo.hp.local_epochs * int(
             np.mean(np.asarray(data.n_train)))
 
@@ -486,7 +511,7 @@ def run_experiment(args: argparse.Namespace,
         if args.results_dir:
             params, mask = _cost_snapshot(state)
             avg_inf = inference_flops(algo.model, params,
-                                      tuple(data.sample_shape), mask)
+                                      algo.init_sample_shape, mask)
         stat_path = save_stat_info(
             args, identity, history, final_eval, cost=cost,
             avg_inference_flops=avg_inf, fault_counters=counters.summary())

@@ -1,11 +1,13 @@
-"""AlexNet3D over phase-decomposed volumes, and the CI-scale 3D CNNs
-(counterpart of ``neuroimagedisttraining_tpu/models/alexnet3d.py``).
+"""The AlexNet3D family and the CI-scale 3D CNNs (counterpart of
+``neuroimagedisttraining_tpu/models/alexnet3d.py``): AlexNet3D over
+phase-decomposed volumes, the dense-stem :class:`AlexNet3D`,
+:class:`AlexNet3DDeeper` and :class:`AlexNet3DRegression`.
 
 Public inputs keep the reference's layouts — phased ``(B, D', H', 8, W')``
-for the s2d models, ``(B, D, H, W, 1)`` for :class:`SmallCNN3D` — and are
-permuted to NCDHW inside. Spatial arithmetic (VALID convs, floor-mode pools)
-matches the reference, so on the canonical 121x145x121 volume the flatten
-width is 256.
+for the s2d models, ``(B, D, H, W, 1)`` for the dense-stem models and
+:class:`SmallCNN3D` — and are permuted to NCDHW inside. Spatial arithmetic
+(VALID convs, floor-mode pools) matches the reference, so on the canonical
+121x145x121 volume the flatten width is 256 (512 for the deeper model).
 """
 from __future__ import annotations
 
@@ -220,6 +222,150 @@ class AlexNet3DS2D(nn.Module):
         x = torch.relu(self.Dense_0(x))
         x = dropout(x, self.dropout_rate, train, rng, 1)
         return self.Dense_1(x)
+
+
+#: the dense-stem stacks' spatial stages, in order: ("conv", kernel, stride,
+#: padding) or ("pool",) for a 3x3x3/s3 max-pool
+_FEATURES_STAGES = (("conv", 5, 2, 0), ("pool",), ("conv", 3, 1, 0),
+                    ("pool",), ("conv", 3, 1, 1), ("conv", 3, 1, 1),
+                    ("conv", 3, 1, 1), ("pool",))
+_DEEPER_STAGES = _FEATURES_STAGES[:-1] + (("conv", 3, 1, 1), ("pool",))
+
+
+def _dense_flat_width(model: str, sample_shape: Tuple[int, ...],
+                      stages, width: int) -> int:
+    """Flatten width of a dense-stem AlexNet for an NDHWC ``(D, H, W[, 1])``
+    sample; a ``ValueError`` naming the volume where a window no longer
+    fits (the reference's initializer fails there too)."""
+    vol = tuple(int(s) for s in sample_shape[:3])
+    out = 1
+    for s in vol:
+        for st in stages:
+            k, stride, pad = (3, 3, 0) if st[0] == "pool" else st[1:]
+            if s + 2 * pad < k:
+                raise ValueError(
+                    f"{model}: the volume {'x'.join(map(str, vol))} is too "
+                    "small for its convs and three 3x3x3/s3 pools (each "
+                    "side needs at least 69 voxels)")
+            s = (s + 2 * pad - k) // stride + 1
+        out *= s
+    return out * width
+
+
+class _Features(nn.Module):
+    """The 5-conv feature stack of AlexNet3D_Dropout: conv k5/s2, pool,
+    conv k3, pool, three padded k3 convs, pool; each conv followed by
+    GroupNorm and relu. Input and output NCDHW."""
+
+    def __init__(self, widths: tuple = (64, 128, 192, 192, 128)):
+        super().__init__()
+        w1, w2, w3, w4, w5 = widths
+        self.Conv3d_0 = Conv3d(1, w1, kernel_size=5, strides=2)
+        self.GroupNorm_0 = group_norm(w1)
+        self.Conv3d_1 = Conv3d(w1, w2, kernel_size=3)
+        self.GroupNorm_1 = group_norm(w2)
+        self.Conv3d_2 = Conv3d(w2, w3, kernel_size=3, padding=1)
+        self.GroupNorm_2 = group_norm(w3)
+        self.Conv3d_3 = Conv3d(w3, w4, kernel_size=3, padding=1)
+        self.GroupNorm_3 = group_norm(w4)
+        self.Conv3d_4 = Conv3d(w4, w5, kernel_size=3, padding=1)
+        self.GroupNorm_4 = group_norm(w5)
+
+    def forward(self, x):
+        x = max_pool3d(torch.relu(self.GroupNorm_0(self.Conv3d_0(x))), 3, 3)
+        x = max_pool3d(torch.relu(self.GroupNorm_1(self.Conv3d_1(x))), 3, 3)
+        x = torch.relu(self.GroupNorm_2(self.Conv3d_2(x)))
+        x = torch.relu(self.GroupNorm_3(self.Conv3d_3(x)))
+        x = torch.relu(self.GroupNorm_4(self.Conv3d_4(x)))
+        return max_pool3d(x, 3, 3)
+
+
+def _head(model: nn.Module, x, train: bool, rng):
+    """The dense head shared by the dense-stem models: dropout, Dense(64),
+    relu, dropout, Dense (``model.Dense_0``, ``model.Dense_1``)."""
+    x = dropout(flatten(x), model.dropout_rate, train, rng, 0)
+    x = torch.relu(model.Dense_0(x))
+    x = dropout(x, model.dropout_rate, train, rng, 1)
+    return model.Dense_1(x)
+
+
+class AlexNet3D(nn.Module):
+    """AlexNet3D_Dropout with its dense stem: ``Conv3d(1 -> 64, k5, s2)``
+    on the volume itself (cuDNN on the card; the reference runs it through
+    XLA's conv, with no Pallas kernel), then the rest of
+    :class:`_Features` and the dense head. Input ``(B, D, H, W, 1)``;
+    ``sample_shape`` ``(D, H, W, 1)`` fixes the first dense layer's width
+    (256 at 121x145x121) and must be at least 69 per side."""
+
+    def __init__(self, num_classes: int = 1, dropout_rate: float = 0.5,
+                 sample_shape: Tuple[int, ...] = (121, 145, 121, 1)):
+        super().__init__()
+        self.dropout_rate = dropout_rate
+        flat = _dense_flat_width("AlexNet3D", sample_shape, _FEATURES_STAGES,
+                                 128)
+        self._Features_0 = _Features()
+        self.Dense_0 = Dense(flat, 64)
+        self.Dense_1 = Dense(64, num_classes)
+
+    def forward(self, x, train: bool = False, rng=None):
+        x = self._Features_0(x.permute(0, 4, 1, 2, 3))
+        return _head(self, x, train, rng)
+
+
+class AlexNet3DDeeper(nn.Module):
+    """AlexNet3D_Deeper_Dropout: six conv/GroupNorm/relu stages (widths 64,
+    128, 192, 384, 256, 256; pools after the first, second and last), the
+    dense head; returns ``[logits, logits]`` as the reference does. The
+    flatten width is 512 at 121x145x121."""
+
+    WIDTHS = (64, 128, 192, 384, 256, 256)
+
+    def __init__(self, num_classes: int = 1, dropout_rate: float = 0.5,
+                 sample_shape: Tuple[int, ...] = (121, 145, 121, 1)):
+        super().__init__()
+        self.dropout_rate = dropout_rate
+        flat = _dense_flat_width("AlexNet3DDeeper", sample_shape,
+                                 _DEEPER_STAGES, self.WIDTHS[-1])
+        specs = (dict(kernel_size=5, strides=2), dict(kernel_size=3)) + \
+            (dict(kernel_size=3, padding=1),) * 4
+        cin = 1
+        for i, (w, spec) in enumerate(zip(self.WIDTHS, specs)):
+            setattr(self, f"Conv3d_{i}", Conv3d(cin, w, **spec))
+            setattr(self, f"GroupNorm_{i}", group_norm(w))
+            cin = w
+        self.Dense_0 = Dense(flat, 64)
+        self.Dense_1 = Dense(64, num_classes)
+
+    def forward(self, x, train: bool = False, rng=None):
+        x = x.permute(0, 4, 1, 2, 3)
+        for i in range(len(self.WIDTHS)):
+            conv = getattr(self, f"Conv3d_{i}")
+            x = torch.relu(getattr(self, f"GroupNorm_{i}")(conv(x)))
+            if i in (0, 1, 5):
+                x = max_pool3d(x, 3, 3)
+        x = _head(self, x, train, rng)
+        return [x, x]
+
+
+class AlexNet3DRegression(nn.Module):
+    """AlexNet3D_Dropout_Regression: :class:`AlexNet3D`'s stack with
+    ``num_outputs`` outputs; returns ``[pred, features]``, the features the
+    pre-flatten activations in the reference's NDHWC layout."""
+
+    def __init__(self, num_outputs: int = 1, dropout_rate: float = 0.5,
+                 sample_shape: Tuple[int, ...] = (121, 145, 121, 1)):
+        super().__init__()
+        self.dropout_rate = dropout_rate
+        flat = _dense_flat_width("AlexNet3DRegression", sample_shape,
+                                 _FEATURES_STAGES, 128)
+        self._Features_0 = _Features()
+        self.Dense_0 = Dense(flat, 64)
+        self.Dense_1 = Dense(64, num_outputs)
+
+    def forward(self, x, train: bool = False, rng=None):
+        feats = self._Features_0(x.permute(0, 4, 1, 2, 3))
+        pred = _head(self, feats, train, rng)
+        return [pred, feats.permute(0, 2, 3, 4, 1)]
 
 
 class SmallCNN3D(nn.Module):

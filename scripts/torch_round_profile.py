@@ -2,16 +2,20 @@
 """Where one training round's device time goes, for the PyTorch/CUDA port.
 
     python3 scripts/torch_round_profile.py [--rounds-warm 1] [--fused]
+        [--model 3dcnn_s2d|3dcnn]
 
 Builds the main-path workload (SalientGrads, AlexNet3DS2D, 8 clients x 40
-phased 121x145x121 volumes, batch 8, 5 steps, bf16, dropout 0.5), runs the
+phased 121x145x121 volumes, batch 8, 5 steps, bf16, dropout 0.5; with
+``--model 3dcnn`` the dense-stem AlexNet3D on the same volumes stored
+``(121, 145, 121, 1)``, its stem conv on cuDNN), runs the
 SNIP init and warm rounds unprofiled, then traces one round with
 ``torch.profiler`` (CPU + CUDA). Prints one JSON line: the round's wall
 time, the summed device time and the device's busy share, device time by
 kernel class (the stem kernels apart), the top kernels by self device time,
 the top aten ops (device time including children) with their input shapes,
 every aten op on a tensor of the stem's full-resolution shape (such as a
-sum over the stem backward's ``dzs``), and the card's name and power
+sum over the stem backward's ``dzs``; the dense stem's conv output
+``(8, 64, 59, 71, 59)``), and the card's name and power
 limit. With ``--fused`` it also traces the same round as one block of
 ``run_rounds_fused`` (the host's draws, one replay of the captured round
 graph, the block's one metric fetch), after a block that captured it, and
@@ -113,20 +117,24 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rounds-warm", type=int, default=1)
     ap.add_argument("--fused", action="store_true")
+    ap.add_argument("--model", choices=("3dcnn_s2d", "3dcnn"),
+                    default="3dcnn_s2d")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_round_profile: CUDA is not available", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
     kernels.build()
-    ss = phased_sample_shape((121, 145, 121))
+    vol = (121, 145, 121)
+    ss = phased_sample_shape(vol) if args.model == "3dcnn_s2d" else \
+        vol + (1,)
     data = device_synthetic_federated(
         8, 40, ss, torch.Generator(device=dev).manual_seed(0),
         test_per_client=10)
     hp = HyperParams(lr=1e-3, lr_decay=0.998, momentum=0.9,
                      weight_decay=5e-4, grad_clip=10.0, local_epochs=1,
                      steps_per_epoch=5, batch_size=8)
-    algo = SalientGrads(create_model("3dcnn_s2d", sample_shape=ss), data, hp,
+    algo = SalientGrads(create_model(args.model, sample_shape=ss), data, hp,
                         loss_type="bce", dense_ratio=0.5,
                         compute_dtype="bfloat16")
     state = algo.init_state()
@@ -134,7 +142,9 @@ def main() -> int:
         state, met = algo.run_round(state, r)
         float(met["train_loss"])
     r = args.rounds_warm
-    zs_shape = str([8, ss[0] - 2, ss[1] - 2, ss[3] - 2, 64])
+    zs_shape = str([8, ss[0] - 2, ss[1] - 2, ss[3] - 2, 64]
+                   if args.model == "3dcnn_s2d" else
+                   [8, 64] + [(s - 5) // 2 + 1 for s in vol])
 
     def eager():
         float(algo.run_round(state, r)[1]["train_loss"])
@@ -151,7 +161,7 @@ def main() -> int:
         out["fused"] = trace(fused, zs_shape)
     else:
         out = out["eager"]
-    out.update(device=torch.cuda.get_device_name(0),
+    out.update(model=args.model, device=torch.cuda.get_device_name(0),
                name_power_limit=subprocess.run(
                    ["nvidia-smi", "--query-gpu=name,power.limit",
                     "--format=csv,noheader"], capture_output=True,

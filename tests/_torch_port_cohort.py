@@ -68,6 +68,30 @@ def stack(j_stacked):
     return {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
 
 
+def to_jax_tree(tree, template, lead=0):
+    """This package's (stacked, with ``lead`` leading axes) tree as a
+    reference param tree shaped like ``template`` (numpy leaves): the
+    inverse of ``jax_params_to_torch``, each leaf in the reference's
+    layout."""
+    from neuroimagedisttraining_torch.convert import to_reference_layout
+
+    def skeleton(node):
+        return {k: skeleton(v) for k, v in node.items()} \
+            if hasattr(node, "items") else None
+
+    out = skeleton(template)
+    for k, t in tree.items():
+        *scope, leaf = k.split(".")
+        node = out
+        for name in scope:
+            node = node[name]
+        if set(node) == {"Conv_0"}:
+            node = node["Conv_0"]
+        node[leaf] = np.ascontiguousarray(
+            to_reference_layout(k, t, lead=lead).numpy())
+    return out
+
+
 def perms_from_keys(keys, c):
     """The reference's epoch permutation of the client update run on
     ``keys[i]``, for every client."""

@@ -5,7 +5,11 @@
   ``run_identity`` equal strings, so logs and results land at the same
   paths.
 * Every flag of a feature the port has not got ends the run with
-  ``SystemExit`` naming the flag, before any work.
+  ``SystemExit`` naming the flag, before any work; the combinations the
+  JAX CLI refuses (``--eval_cache`` with another algorithm, with
+  ``--track_personal 0`` or with ``--eval_clients``) end it with the JAX
+  CLI's reason, and a volume too small for a dense-stem AlexNet with a
+  ``ValueError`` naming it.
 * Both ``build_algorithm`` give equal hyperparameters, loss type and data
   from one command line, and two rounds of each agree (the reference's
   draws fed to the port at its seams; losses rtol 1e-5, parameters rtol
@@ -69,6 +73,11 @@ COMMAND_LINES = [
             "--robust_agg", "norm_krum", "--eval_cache", "1"]),
     (None, ["--algo", "fedavg", "--fed_role", "aggregator", "--fed_sites",
             "3", "--fed_mode", "buffered", "--batching", "replacement"]),
+    (None, ["--algo", "salientgrads", "--eval_cache", "1"] + SMALL),
+    ("fedavg", SMALL + ["--eval_clients", "3"]),
+    ("salientgrads", ["--dataset", "abcd_site", "--layout", "flat",
+                      "--model", "3dcnn_deeper", "--eval_cache", "1",
+                      "--track_personal", "0"]),
 ] + [
     (None, ["--algo", a, "--agg_impl", impl, "--agg_topk_density", "0.05",
             "--agg_topk_sample", "100", "--agg_hier_wire", "int8",
@@ -135,8 +144,6 @@ REFUSED = [
     (["--mesh_space", "2"], "--mesh_space"),
     (["--multihost"], "--multihost"),
     (["--client_store", "host", "--frac", "0.5"], "--client_store"),
-    (["--eval_cache", "1"], "--eval_cache"),
-    (["--eval_clients", "2"], "--eval_clients"),
     (["--serve_role", "worker"], "--serve_role"),
     (["--fed_role", "aggregator", "--fed_sites", "2"], "--fed_role"),
     (["--fed_role", "aggregator", "--fed_sites", "2", "--fed_site_faults",
@@ -145,9 +152,7 @@ REFUSED = [
     (["--remat", "1"], "--remat"),
     (["--batching", "replacement"], "--batching"),
     (["--stratified_sampling", "1"], "--stratified_sampling"),
-    (["--layout", "flat", "--dataset", "abcd"], "--layout"),
     (["--dataset", "cifar10"], "--dataset"),
-    (["--model", "3dcnn"], "--model"),
     (["--model", "resnet18"], "--model"),
     (["--model", "3dresnet", "--layout", "s2d", "--dataset", "abcd"],
      "--model"),
@@ -168,6 +173,69 @@ def test_unported_flags_refused_before_any_work(tmp_path, extra, flag):
     assert "ROADMAP item" in str(e.value.code)
     assert not (tmp_path / "res").exists() and \
         not (tmp_path / "log").exists()
+
+
+#: (extra argv, the exception, what its message says): the JAX CLI's own
+#: refusals of the flags this port has, and the dense-stem AlexNet on the
+#: synthetic 8^3 volume (the JAX initializer fails there with a
+#: ZeroDivisionError; the port names the volume)
+REFERENCE_REFUSALS = [
+    (["--algo", "dispfl", "--eval_cache", "1"], SystemExit,
+     "--eval_cache caches the per-client personal-eval terms in algorithm "
+     "state; only fedavg/salientgrads"),
+    (["--eval_cache", "1", "--track_personal", "0"], SystemExit,
+     "--eval_cache needs the personal stack; it cannot combine with "
+     "--track_personal 0"),
+    (["--eval_cache", "1", "--eval_clients", "2"], SystemExit,
+     "--eval_cache indexes the full cohort"),
+    (["--model", "3dcnn_deeper"], ValueError,
+     "AlexNet3DDeeper: the volume 8x8x8 is too small"),
+]
+
+
+@pytest.mark.parametrize("extra,exc,says", REFERENCE_REFUSALS,
+                         ids=[" ".join(e) for e, _, _ in REFERENCE_REFUSALS])
+def test_reference_refusals(tmp_path, extra, exc, says):
+    """What the JAX CLI refuses, the port refuses: the ``--eval_cache``
+    combinations before any work, with the JAX CLI's message (its
+    ``build_algorithm`` raises the same), the too-small volume at the
+    model's construction."""
+    argv = (["--algo", "salientgrads", "--dataset", "synthetic", "--model",
+             "small3dcnn", "--results_dir", str(tmp_path / "res"),
+             "--log_dir", str(tmp_path / "log")] + extra)
+    with pytest.raises(exc) as e:
+        trunner.main(argv + ["--device", "cpu"])
+    msg = str(e.value.code if exc is SystemExit else e.value)
+    assert msg.startswith(says), msg
+    if exc is SystemExit:
+        assert not (tmp_path / "res").exists() and \
+            not (tmp_path / "log").exists()
+        jargs = jconfig.parse_args(argv)
+        with pytest.raises(SystemExit) as je:
+            jrunner.build_algorithm(jargs, jargs.algo)
+        assert str(je.value.code) == msg
+
+
+def test_eval_flags_split_run_identity_as_reference():
+    """``--eval_cache`` (with the personal stack) and ``--eval_clients K``
+    change the run identity, ``evcache`` and ``evK<K>``, as the JAX CLI's
+    does; ``--eval_cache`` without the personal stack does not."""
+    base = ["--algo", "salientgrads"] + SMALL
+    ids = {}
+    for tag, extra in (("base", []), ("cache", ["--eval_cache", "1"]),
+                       ("sub", ["--eval_clients", "3"]),
+                       ("nopers", ["--eval_cache", "1", "--track_personal",
+                                   "0"])):
+        t = tconfig.parse_args(base + extra + ["--device", "cpu"])
+        j = jconfig.parse_args(base + extra)
+        for ck in (False, True):
+            assert tconfig.run_identity(t, for_checkpoint=ck) == \
+                jconfig.run_identity(j, for_checkpoint=ck)
+        ids[tag] = tconfig.run_identity(t)
+    assert "evcache" in ids["cache"] and "evcache" not in ids["base"]
+    assert "evK3" in ids["sub"] and "evK" not in ids["base"]
+    assert len({ids["base"], ids["cache"], ids["sub"]}) == 3
+    assert "evcache" not in ids["nopers"]
 
 
 def test_cli_without_cuda_exits_naming_cuda(tmp_path):
@@ -399,6 +467,48 @@ def test_cli_abcd_rescale_s2d_end_to_end(tmp_path):
     losses = [h["train_loss"] for h in res["history"] if h["round"] >= 0]
     assert len(losses) == 2 and np.all(np.isfinite(losses))
     assert set(res["state"].global_params) >= {"S2DStemConv_0.kernel"}
+
+
+def test_cli_dense_alexnet_flat_layout_end_to_end(tmp_path):
+    """The reference's ABCD command line with its default model: ``--model
+    3dcnn`` (the dense stem, full widths) on a 69^3 cohort file the test
+    writes, stored ``--layout flat`` (channel-less, the channel injected at
+    apply time) with the eval cache on: the JAX CLI's identity and path,
+    finite losses, and the same history and final parameters as the
+    ``--layout channels`` run of the same command line, bit for bit."""
+    rng = np.random.RandomState(2)
+    n = 12
+    path = str(tmp_path / "c69.h5")
+    from neuroimagedisttraining_torch.data import write_abcd_h5
+
+    write_abcd_h5(path, rng.rand(n, 69, 69, 69).astype(np.float32),
+                  rng.randint(0, 2, n), np.repeat([0, 1], n // 2))
+    torch_threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        res = {}
+        for layout in ("flat", "channels"):
+            argv = ["--algo", "salientgrads", "--dataset", "abcd_site",
+                    "--data_dir", path, "--layout", layout, "--model",
+                    "3dcnn", "--client_num_in_total", "0", "--batch_size",
+                    "2", "--epochs", "1", "--comm_round", "1",
+                    "--eval_cache", "1", "--results_dir",
+                    str(tmp_path / layout), "--log_dir", ""]
+            res[layout] = trunner.main(argv + ["--device", "cpu"])
+            identity = jconfig.run_identity(jconfig.parse_args(argv))
+            assert res[layout]["identity"] == identity
+            assert res[layout]["stat_path"] == str(
+                tmp_path / layout / "abcd_site" / identity)
+    finally:
+        torch.set_num_threads(torch_threads)
+    flat, chan = res["flat"], res["channels"]
+    assert flat["history"][0]["round"] == 0
+    assert np.isfinite(flat["history"][0]["train_loss"])
+    assert flat["history"] == chan["history"]
+    g_f, g_c = flat["state"].global_params, chan["state"].global_params
+    assert "_Features_0.Conv3d_0.kernel" in g_f
+    assert all(torch.equal(g_f[k], g_c[k]) for k in g_c)
+    assert flat["state"].eval_cache is not None
 
 
 # -- the deferred records ----------------------------------------------------

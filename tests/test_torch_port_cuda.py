@@ -544,7 +544,7 @@ def test_cuda_masked_sgd_lr_by_pointer_matches_by_value():
                                       momentum=MOM, wd=WD)
 
 
-def _narrow_algo(dev, name, impl, frac=1.0):
+def _narrow_algo(dev, name, impl, frac=1.0, **extra):
     from neuroimagedisttraining_torch.algorithms import FedAvg, SalientGrads
     from neuroimagedisttraining_torch.core.state import HyperParams
     from neuroimagedisttraining_torch.data import make_synthetic_federated
@@ -561,7 +561,7 @@ def _narrow_algo(dev, name, impl, frac=1.0):
                          widths=(16, 16, 16, 16, 16), dropout_rate=0.5,
                          sample_shape=ss)
     kw = dict(frac=frac, agg_impl=impl, agg_bucket_size=4096,
-              compute_dtype="bfloat16", device=dev)
+              compute_dtype="bfloat16", device=dev, **extra)
     if name == "salientgrads":
         return SalientGrads(model, data, hp, dense_ratio=0.5, **kw)
     return FedAvg(model, data, hp, **kw)
@@ -624,6 +624,45 @@ def test_cuda_fused_graph_matches_eager(name, impl, frac):
     # the state the first block returned is not the graph's buffers
     assert all(torch.equal(sf.global_params[k], su.global_params[k])
                for k in su.global_params)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,frac,extra", [
+    ("salientgrads", 0.5, dict(eval_cache=True)),
+    ("fedavg", 1.0, dict(eval_cache=True)),
+    ("salientgrads", 0.5, dict(eval_clients=3))])
+def test_cuda_eval_protocol_fused_matches_eager(name, frac, extra):
+    """The eval protocol under capture, at a narrow width: with
+    ``eval_cache`` the round graph refreshes the cache (at ``frac`` 0.5 by
+    gathers and scatters through the device client ids) and the eval graph
+    re-reduces it; with ``eval_clients`` the eval graph covers the subset.
+    Three fused rounds with the eval after each equal three ``run_round`` +
+    ``evaluate`` calls bit for bit, the cache included, and leave the input
+    state's cache as it was."""
+    dev = _card()
+    algo = _narrow_algo(dev, name, "dense", frac, **extra)
+    s0 = algo.init_state()
+    keep = algo.clone_state(s0)
+    su, losses, evals = algo.clone_state(s0), [], []
+    for r in range(3):
+        su, met = algo.run_round(su, r)
+        losses.append(float(met["train_loss"]))
+        evals.append({k: float(v) for k, v in algo.evaluate(su).items()
+                      if not k.startswith("acc_per")})
+    sf, ys = algo.run_rounds_fused(s0, 0, 3, eval_every=1)
+    host = ys.materialize()
+    assert [float(v) for v in host["train_loss"]] == losses
+    for i, ev in enumerate(evals):
+        assert {k: float(v[i]) for k, v in host["eval"].items()} == ev
+    for f in ("global_params", "personal_params", "eval_cache"):
+        a, b = getattr(su, f), getattr(sf, f)
+        assert (a is None) == (b is None) == (
+            f == "eval_cache" and "eval_cache" not in extra), f
+        if a is not None:
+            assert all(torch.equal(a[k], b[k]) for k in a), f
+    if s0.eval_cache is not None:
+        assert all(torch.equal(s0.eval_cache[k], keep.eval_cache[k])
+                   for k in keep.eval_cache)
 
 
 @pytest.mark.cuda
