@@ -42,10 +42,22 @@ spelling stays recorded. Prints one JSON line in ``bench.py``'s shape:
 rounds/s target) and ``extra`` (the rates, client-rounds/s per card, the
 SNIP init seconds, peak device memory, the card's name and power limit). It
 imports nothing of JAX. Without CUDA it exits 2 before printing a result.
+
+    BENCH_CONFIG=byzantine python3 bench_torch.py
+
+runs ``bench.py``'s tracked Byzantine configuration instead (its
+``tracked_config("byzantine")``): FedAvg, 64 clients x 40 volumes of
+61x73x61x1 bf16 (about 1.4 GB, made on the card), ``small3dcnn``, batch 8,
+5 local steps, bf16 compute, the weak-DP defense (clip at 5.0, noise
+0.025), the personal stack kept; one warm round, then 10 timed rounds
+(:func:`byzantine`). Its line has ``bench.py``'s metric name,
+``byzantine_robust_fedavg_rounds_per_sec_64clients``, and ``vs_baseline``
+0 (the reference publishes no number for it).
 """
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -61,6 +73,10 @@ TARGET_ROUNDS_PER_SEC = 10.0
 FUSED_WARM_CALLS = 2
 MODEL_KEY = "3dcnn_s2d"
 METRIC = f"salientgrads_rounds_per_sec_abcd_alexnet3d_{N_CLIENTS}clients"
+#: bench.py's tracked Byzantine configuration
+BYZANTINE_CLIENTS = 64
+BYZANTINE_VOLUME = (61, 73, 61)
+BYZANTINE_METRIC = "byzantine_robust_fedavg_rounds_per_sec_64clients"
 
 
 def _acc(ev):
@@ -219,5 +235,62 @@ def main(emit: bool = True) -> Optional[dict]:
     return result
 
 
+def byzantine(emit: bool = True) -> Optional[dict]:
+    """``bench.py``'s Byzantine configuration (see the module docstring):
+    rounds/s over 10 rounds after a warm one, through ``run_round``. Returns
+    the record (printed with ``emit``), or None without CUDA."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("bench_torch: CUDA is not available", file=sys.stderr)
+        return None
+    from neuroimagedisttraining_torch.algorithms import FedAvg
+    from neuroimagedisttraining_torch.core.state import HyperParams
+    from neuroimagedisttraining_torch.data import device_synthetic_federated
+    from neuroimagedisttraining_torch.models import create_model
+    from neuroimagedisttraining_torch.ops import kernels
+    from neuroimagedisttraining_torch.robust import RobustAggregator
+
+    dev = torch.device("cuda")
+    kernels.build()
+    torch.cuda.reset_peak_memory_stats(dev)
+    data = device_synthetic_federated(
+        BYZANTINE_CLIENTS, STEPS * BATCH, BYZANTINE_VOLUME + (1,),
+        torch.Generator(device=dev).manual_seed(0))
+    model = create_model("small3dcnn", num_classes=1)
+    hp = HyperParams(lr=1e-3, momentum=0.9, local_epochs=1,
+                     steps_per_epoch=STEPS, batch_size=BATCH)
+    algo = FedAvg(model, data, hp, loss_type="bce", frac=1.0, seed=0,
+                  compute_dtype="bfloat16",
+                  defense=RobustAggregator("weak_dp", norm_bound=5.0,
+                                           stddev=0.025))
+    rps = timed_rounds(algo, algo.init_state())
+    result = {
+        "metric": BYZANTINE_METRIC,
+        "value": round(rps, 4),
+        "unit": "rounds/sec",
+        "vs_baseline": 0.0,  # no published number; a tracked configuration
+        "extra": {
+            "clients": BYZANTINE_CLIENTS,
+            "samples_per_client": STEPS * BATCH,
+            "volume": list(BYZANTINE_VOLUME),
+            "model": "small3dcnn",
+            "defense": "weak_dp",
+            "cohort_bytes": data.x_train.numel()
+            * data.x_train.element_size(),
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
+            "timed_rounds": 10,
+            "device": card_name_and_power_limit(),
+        },
+    }
+    if emit:
+        print(json.dumps(result), flush=True)
+    return result
+
+
 if __name__ == "__main__":
-    sys.exit(0 if main() is not None else 2)
+    config = os.environ.get("BENCH_CONFIG", "")
+    if config not in ("", "byzantine"):
+        sys.exit(f"unknown BENCH_CONFIG {config!r}")
+    run = byzantine if config == "byzantine" else main
+    sys.exit(0 if run() is not None else 2)

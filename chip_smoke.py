@@ -85,7 +85,22 @@ Phases, each printing one JSON line:
    the stem conv's forward, input- and weight-gradient ms at the step's
    shape in both memory formats; ``3dcnn_deeper`` and ``3dcnn_regression``
    one forward and backward each (see ``dense_path``).
-9. cli     — the command-line entry point in-process on the card
+9. robust  — the robustness tier on the main configuration: SalientGrads
+   (SNIP once) and FedAvg, 2 rounds eager, the same 2 fused and a timed
+   fused block per configuration: unguarded, guarded clean (bitwise the
+   unguarded), and under ``drop=0.125,nan=0.125,scale=0.125:100x`` with the
+   guard: the plain mean on dense and int8, each ``robust_agg`` on the
+   dense wire, the median on int8, the weak-DP defense (its re-mask
+   through ``fused_mask_apply``, held bitwise against ``p * m`` and
+   counted), top-k under the guard with a NaN client, FedAvg with the
+   defense; the quarantine counters equal to the host replay of the fault
+   draws, fused bitwise eager (see ``robust_path``).
+10. train_opts — ``remat_local`` against remat off (bitwise, peak memory,
+   the stem forward launched twice a step), remat fused, replacement
+   batching eager and fused, and exact stratified SNIP on 50 volumes a
+   client with 25 of each class (seconds, launches, density 0.5; see
+   ``train_opts_path``).
+11. cli     — the command-line entry point in-process on the card
    (``experiments.runner.main``): SalientGrads and FedAvg, ``--dataset
    synthetic --model small3dcnn --comm_round 2`` (no stem stage on this
    model), and SalientGrads with ``--fuse_rounds 2``, whose history must
@@ -94,13 +109,16 @@ Phases, each printing one JSON line:
    finite, ``stat_info`` (pickle and ``.json``) written under a temporary
    ``--results_dir``. The ABCD cohort-file step is not here: the loaders
    need ``h5py``, which the card's machine does not have.
-10. bench  — ``bench_torch.main()``, the port's bench of the headline
+12. bench  — ``bench_torch.main()``, the port's bench of the headline
    workload (SNIP; the Python loop: 1 + 10 rounds without eval, 1 + 8 with
    the eval every round, each from a clone of one state; the fused
    spelling: blocks of 10 and of 8 rounds with the eval, each after its
    warm calls; then the eval-cache and global-only cells, 1 + 8 rounds and
    a fused block of 8, each with the eval every round), its record printed
-   (every spelling's rates); its launch counts asserted.
+   (every spelling's rates); its launch counts asserted. Then
+   ``bench_torch.byzantine()``, ``bench.py``'s tracked Byzantine
+   configuration (FedAvg, 64 clients of 61x73x61 volumes, small3dcnn, the
+   weak-DP defense; 1 + 10 rounds), measured once, its launches asserted.
 
 Every training step, SNIP batch and eval forward of the phased model's
 paths runs the stem kernels (one forward, and in training one backward);
@@ -165,6 +183,32 @@ EVALCACHE_ROUNDS, EVAL_CLIENTS, EVAL_CLIENTS_ROUNDS = 3, 4, 2
 EVALCACHE_LOSS_RTOL = 4e-7
 #: the dense phase: rounds of the dense-stem AlexNet3D
 DENSE_ROUNDS = 2
+#: the robust phase: the fault spec (run seed 0), rounds per
+#: configuration (eager, then the same rounds fused, then a timed fused
+#: block), and the configurations: (name, algorithm, agg_impl, robust_agg,
+#: defense, fault spec or None for the clean guarded round)
+ROBUST_SPEC = "drop=0.125,nan=0.125,scale=0.125:100x"
+ROBUST_ROUNDS = 2
+ROBUST_CONFIGS = (
+    ("plain", "salientgrads", "dense", "none", None, ""),
+    ("guard_clean", "salientgrads", "dense", "none", None, None),
+    ("guard", "salientgrads", "dense", "none", None, ROBUST_SPEC),
+    ("guard_int8", "salientgrads", "int8", "none", None, ROBUST_SPEC),
+    ("median", "salientgrads", "dense", "median", None, ROBUST_SPEC),
+    ("trimmed_mean", "salientgrads", "dense", "trimmed_mean", None,
+     ROBUST_SPEC),
+    ("krum", "salientgrads", "dense", "krum", None, ROBUST_SPEC),
+    ("multikrum", "salientgrads", "dense", "multikrum", None, ROBUST_SPEC),
+    ("norm_krum", "salientgrads", "dense", "norm_krum", None, ROBUST_SPEC),
+    ("int8_median", "salientgrads", "int8", "median", None, ROBUST_SPEC),
+    ("weak_dp", "salientgrads", "dense", "none", "weak_dp", ROBUST_SPEC),
+    ("topk_guarded", "salientgrads", "topk", "none", None, "nan=0.25"),
+    ("fedavg_weak_dp", "fedavg", "dense", "none", "weak_dp", ROBUST_SPEC),
+)
+#: the train_opts phase: rounds per spelling; the exact stratified SNIP's
+#: shard (25 of each class per client, which the 25-fold splitter accepts)
+TRAIN_OPTS_ROUNDS = 2
+STRATIFIED_SAMPLES = 50
 
 
 def emit(obj) -> None:
@@ -815,7 +859,7 @@ def _wire_images(algo, args, out, bucket):
 
     impl = algo.agg_impl
     if impl == "topk":
-        locals_, global_params, res_in, _, w = args
+        locals_, global_params, res_in, _, w = args[:5]
         comp = {k: (locals_[k] - global_params[k][None]) + res_in[k]
                 for k in locals_}
         comp = tc.plan_dead_select(comp, algo._agg_sparse_plan)
@@ -1904,22 +1948,385 @@ def dense_path(dev):
     return {"dense": launches}
 
 
+def _states_equal(a, b) -> bool:
+    """Two states' parameter trees (and residuals) bitwise."""
+    return _trees_equal(a, b, ("global_params", "personal_params",
+                               "agg_residual"))
+
+
+class _MaskApplyProbe:
+    """Holds every ``kernels.fused_mask_apply`` call of an eager round
+    against the plain ``p * m`` of its own inputs, bit for bit (the plain
+    version launches nothing)."""
+
+    def __init__(self):
+        from neuroimagedisttraining_torch.ops import kernels
+
+        self.kernels, self.calls, self.max_abs_err = kernels, 0, 0.0
+        self.fn = kernels.fused_mask_apply
+
+    def __enter__(self):
+        import torch
+
+        def probe(tree, mask):
+            out = self.fn(tree, mask)
+            for k in tree:
+                want = tree[k] * mask[k]
+                self.max_abs_err = max(self.max_abs_err, float(
+                    (out[k] - want).abs().max()))
+                if not torch.equal(out[k], want):
+                    raise AssertionError(f"mask_apply on the path: {k} "
+                                         "differs from p * m")
+            self.calls += 1
+            return out
+
+        self.kernels.fused_mask_apply = probe
+        return self
+
+    def __exit__(self, *exc):
+        self.kernels.fused_mask_apply = self.fn
+
+
+def robust_path(dev):
+    """The robustness tier at full width on the main configuration
+    (SalientGrads, SNIP once; FedAvg from its own init), run seed 0, each
+    configuration of ROBUST_CONFIGS for ROBUST_ROUNDS eager rounds, the
+    same rounds fused (each one graph replay) and a timed fused block:
+
+    * "plain": no guard; "guard_clean": the guard on, no fault: bitwise
+      "plain"; the others under ROBUST_SPEC with the guard: the plain
+      weighted mean on the dense and the int8 wire (the weighted-sum and
+      quantize-reduce kernels on the renormalized weights), each
+      ``robust_agg`` on the dense wire and the median on int8 (the
+      statistic of the wire-decoded deltas), the weak-DP
+      defense (SalientGrads re-masks through ``fused_mask_apply``), top-k
+      under the guard with a NaN client, FedAvg with the defense.
+    * Gates: finite losses and global parameters; ``clients_dropped`` and
+      ``clients_quarantined`` of every round equal to the host replay of
+      the fault draws (``robust.fault_trace_round``: dropped, and NaN-
+      poisoned among those that reported); fused bitwise eager (metrics,
+      global, personal and residual trees); every ``fused_mask_apply`` of
+      an eager round bitwise its plain ``p * m``, and its launches one per
+      round (eager, warm-up, replay) on the defense and top-k paths; the
+      weighted sum (int8: the quantize-reduce) once per round where no
+      robust statistic replaces it.
+    Returns the launches per path (eager and fused runs)."""
+    import gc
+
+    import torch
+
+    from neuroimagedisttraining_torch.algorithms import FedAvg, SalientGrads
+    from neuroimagedisttraining_torch.algorithms.base import FUSED_WARMUPS
+    from neuroimagedisttraining_torch.core.state import zeros_like_tree
+    from neuroimagedisttraining_torch.models import create_model
+    from neuroimagedisttraining_torch.ops import kernels
+    from neuroimagedisttraining_torch.ops.s2d import phased_sample_shape
+    from neuroimagedisttraining_torch.robust import (
+        RobustAggregator,
+        fault_trace_round,
+        parse_fault_spec,
+    )
+
+    shape = phased_sample_shape(VOLUME)
+    data, hp = _main_config(dev, shape)
+    model = create_model("3dcnn_s2d", num_classes=1, sample_shape=shape)
+    kw = dict(loss_type="bce", frac=1.0, seed=0, compute_dtype="bfloat16",
+              agg_topk_density=TOPK_DENSITY)
+    sg_kw = dict(dense_ratio=0.5, itersnip_iterations=1, **kw)
+    sg0 = SalientGrads(model, data, hp, **sg_kw).init_state()
+    n = ROBUST_ROUNDS
+    out, plain = {}, None
+    for name, algo_name, impl, robust, defense, spec in ROBUST_CONFIGS:
+        akw = dict(agg_impl=impl, robust_agg=robust,
+                   fault_spec=spec or "", guard=spec != "",
+                   defense=(RobustAggregator(defense, 5.0, 0.025)
+                            if defense else None))
+        if algo_name == "salientgrads":
+            algo = SalientGrads(model, data, hp, **sg_kw, **akw)
+            state = dataclasses.replace(
+                algo.clone_state(sg0),
+                agg_residual=(zeros_like_tree(sg0.personal_params)
+                              if impl == "topk" else None))
+        else:
+            algo = FedAvg(model, data, hp, **kw, **akw)
+            state = algo.init_state()
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        e, mets = algo.clone_state(state), []
+        with _MaskApplyProbe() as probe:
+            for r in range(n):
+                e, met = algo.run_round(e, r)
+                mets.append({k: float(v) for k, v in met.items()})
+        torch.cuda.synchronize()
+        eager_s = time.perf_counter() - t0
+        eager_launches = dict(kernels.LAUNCHES)
+        kernels.reset_launches()
+        f, ys = algo.run_rounds_fused(algo.clone_state(state), 0, n)
+        host = ys.materialize()
+        torch.cuda.synchronize()
+        fused_launches = dict(kernels.LAUNCHES)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        algo.run_rounds_fused(state, 0, n)[1].materialize()
+        torch.cuda.synchronize()
+        fused_rps = n / (time.perf_counter() - t0)
+        timed_launches = dict(kernels.LAUNCHES)
+        fused_mets = [{k: float(host[k][i]) for k in host} for i in range(n)]
+        res = {"phase": "robust", "config": name, "algo": algo_name,
+               "agg_impl": impl, "robust_agg": robust, "defense": defense,
+               "fault_spec": spec, "rounds": n, "metrics": mets,
+               "eager_s_with_first_round": eager_s,
+               "fused_rounds_per_sec": fused_rps,
+               "fused_bitwise_eager": mets == fused_mets
+               and _states_equal(e, f),
+               "mask_apply_calls_held": probe.calls,
+               "mask_apply_max_abs_err": probe.max_abs_err,
+               "launches_eager": eager_launches,
+               "launches_fused": fused_launches}
+        if name == "guard_clean":
+            res["bitwise_plain"] = _states_equal(e, plain[0]) and [
+                m["train_loss"] for m in mets] == plain[1]
+        emit(res)
+        losses = [m["train_loss"] for m in mets]
+        if not all(math.isfinite(v) for v in losses) or not all(
+                bool(torch.isfinite(p).all())
+                for p in e.global_params.values()):
+            raise AssertionError(f"robust {name}: non-finite {losses}")
+        if not res["fused_bitwise_eager"]:
+            raise AssertionError(f"robust {name}: fused differs from eager")
+        if name == "guard_clean" and not res["bitwise_plain"]:
+            raise AssertionError("robust: the clean guarded round differs "
+                                 "from the unguarded one")
+        if spec:
+            fspec = parse_fault_spec(spec)
+            for r, m in enumerate(mets):
+                t = fault_trace_round(fspec, 0, r, range(N_CLIENTS))
+                want = (float(t["dropped"].sum()),
+                        float((t["poisoned"] & ~t["dropped"]).sum()))
+                if (m["clients_dropped"], m["clients_quarantined"]) != want:
+                    raise AssertionError(
+                        f"robust {name} round {r}: counters {m}, the "
+                        f"host replay {want}")
+        remask = algo_name == "salientgrads" and (defense or impl == "topk")
+        plain_mean = robust == "none" and impl in ("dense", "topk")
+        want = {"mask_apply": n if remask else 0,
+                "weighted_sum": n if plain_mean else 0,
+                "quantize_reduce": (n if robust == "none" and impl == "int8"
+                                    else 0)}
+        for k, v in want.items():
+            if eager_launches[k] != v or \
+                    fused_launches[k] != v // n * (FUSED_WARMUPS + n):
+                raise AssertionError(
+                    f"robust {name}: {k} launched {eager_launches[k]} "
+                    f"eager, {fused_launches[k]} fused; want {v} a run")
+        if remask and probe.calls != n:
+            raise AssertionError(f"robust {name}: mask_apply held "
+                                 f"{probe.calls} times, want {n}")
+        if name == "plain":
+            plain = (e, losses)
+        out[f"robust/{name}"] = {
+            k: eager_launches[k] + fused_launches[k] + timed_launches[k]
+            for k in eager_launches}
+        algo._fused.release()
+        del algo
+        e = f = ys = host = None
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_opts_path(dev):
+    """The training options at full width on the main configuration:
+
+    * ``remat_local``: TRAIN_OPTS_ROUNDS eager rounds (each timed) with
+      and without it from one post-SNIP state, bitwise; the stem forward
+      launched twice a step with it (once without); for each, the same
+      rounds fused bitwise its eager rounds, then a timed fused block;
+      the peak device memory of each eager and fused run;
+    * ``batching="replacement"``: the rounds eager and fused, bitwise,
+      finite;
+    * exact stratified SNIP (``stratified_sampling``, "exact") on a cohort
+      of STRATIFIED_SAMPLES volumes per client with 25 of each class: its
+      seconds, its launches (one stem forward and backward per fold batch)
+      and the mask density at 0.5 within 1e-3.
+    Returns the launches per path."""
+    import torch
+
+    from neuroimagedisttraining_torch.algorithms import SalientGrads
+    from neuroimagedisttraining_torch.data import device_synthetic_federated
+    from neuroimagedisttraining_torch.models import create_model
+    from neuroimagedisttraining_torch.ops import kernels
+    from neuroimagedisttraining_torch.ops.s2d import phased_sample_shape
+    from neuroimagedisttraining_torch.ops.sparsity import mask_density
+
+    shape = phased_sample_shape(VOLUME)
+    data, hp = _main_config(dev, shape)
+    model = create_model("3dcnn_s2d", num_classes=1, sample_shape=shape)
+    sg_kw = dict(loss_type="bce", frac=1.0, seed=0, compute_dtype="bfloat16",
+                 dense_ratio=0.5, itersnip_iterations=1)
+    s0 = SalientGrads(model, data, hp, **sg_kw).init_state()
+    n = TRAIN_OPTS_ROUNDS
+    out, runs = {}, {}
+    steps = n * N_CLIENTS * STEPS
+    for remat in (False, True):
+        algo = SalientGrads(model, data, hp, remat_local=remat, **sg_kw)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launches()
+        e, losses, round_s = algo.clone_state(s0), [], []
+        for r in range(n):
+            t0 = time.perf_counter()
+            e, met = algo.run_round(e, r)
+            losses.append(float(met["train_loss"]))
+            torch.cuda.synchronize()
+            round_s.append(time.perf_counter() - t0)
+        run = dict(state=e, losses=losses, round_s=round_s,
+                   peak=torch.cuda.max_memory_allocated(dev),
+                   launches=dict(kernels.LAUNCHES))
+        kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats(dev)
+        f, ys = algo.run_rounds_fused(algo.clone_state(s0), 0, n)
+        run["fused_bitwise_eager"] = (
+            [float(v) for v in ys["train_loss"]] == losses
+            and _states_equal(e, f))
+        run["peak_fused"] = torch.cuda.max_memory_allocated(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        algo.run_rounds_fused(s0, 0, n)[1].materialize()
+        torch.cuda.synchronize()
+        run["fused_rounds_per_sec"] = n / (time.perf_counter() - t0)
+        run["launches_fused"] = dict(kernels.LAUNCHES)
+        algo._fused.release()
+        runs[remat] = run
+        del algo, f, ys
+    off, on = runs[False], runs[True]
+    res = {"phase": "train_opts", "step": "remat", "rounds": n,
+           "train_loss": on["losses"],
+           "bitwise_remat_off": on["losses"] == off["losses"]
+           and _states_equal(on["state"], off["state"]),
+           "fused_bitwise_eager": on["fused_bitwise_eager"]
+           and off["fused_bitwise_eager"],
+           **{key: {"off": off[f], "on": on[f]} for key, f in (
+               ("eager_round_s", "round_s"), ("peak_mem_bytes", "peak"),
+               ("peak_mem_bytes_fused", "peak_fused"),
+               ("fused_rounds_per_sec", "fused_rounds_per_sec"),
+               ("launches", "launches"),
+               ("launches_fused", "launches_fused"))}}
+    emit(res)
+    # the dropout probe runs one forward at each algorithm's first round
+    if not res["bitwise_remat_off"] or not res["fused_bitwise_eager"] or \
+            off["launches"]["stem_fwd"] != steps + 1 or \
+            on["launches"]["stem_fwd"] != 2 * steps + 1 or \
+            on["launches"]["stem_bwd"] != off["launches"]["stem_bwd"]:
+        raise AssertionError(f"train_opts remat: {res}")
+    for name, run in (("remat", on), ("remat_off", off)):
+        out[f"train_opts/{name}"] = {
+            k: run["launches"][k] + run["launches_fused"][k]
+            for k in kernels.LAUNCHES}
+    runs = None
+
+    algo = SalientGrads(model, data,
+                        dataclasses.replace(hp, batching="replacement"),
+                        **sg_kw)
+    kernels.reset_launches()
+    e, losses = algo.clone_state(s0), []
+    for r in range(n):
+        e, met = algo.run_round(e, r)
+        losses.append(float(met["train_loss"]))
+    f, ys = algo.run_rounds_fused(algo.clone_state(s0), 0, n)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    res = {"phase": "train_opts", "step": "replacement", "rounds": n,
+           "train_loss": losses,
+           "fused_bitwise_eager": [float(v) for v in ys["train_loss"]]
+           == losses and _states_equal(e, f), "launches": launches}
+    emit(res)
+    if not res["fused_bitwise_eager"] or not all(
+            math.isfinite(v) for v in losses):
+        raise AssertionError(f"train_opts replacement: {res}")
+    out["train_opts/replacement"] = launches
+    algo._fused.release()
+    del algo, e, f, s0
+
+    # 25 of each class on every client, drawn apart from the volumes: the
+    # splitter's 25 folds accept it
+    gen = torch.Generator(device=dev).manual_seed(1)
+    sdata = device_synthetic_federated(
+        N_CLIENTS, STRATIFIED_SAMPLES, shape, gen, test_per_client=TEST)
+    half = STRATIFIED_SAMPLES // 2
+    labels = torch.stack([
+        torch.randperm(STRATIFIED_SAMPLES, generator=gen, device=dev)
+        < half for _ in range(N_CLIENTS)]).to(sdata.y_train.dtype)
+    sdata = dataclasses.replace(sdata, y_train=labels)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    algo = SalientGrads(model, sdata, hp, stratified_sampling=True,
+                        stratified_mode="exact", **sg_kw)
+    state = algo.init_state()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    density = mask_density(state.mask)
+    fold_batches = N_CLIENTS * 25
+    res = {"phase": "train_opts", "step": "stratified_exact",
+           "samples_per_client": STRATIFIED_SAMPLES,
+           "fold_rows": int(algo._fold_sched[0].shape[-1]),
+           "snip_s": seconds, "mask_density": density,
+           "launches": launches}
+    emit(res)
+    if abs(density - 0.5) > 1e-3 or launches["threshold"] != 1 or \
+            launches["stem_fwd"] != fold_batches or \
+            launches["stem_bwd"] != fold_batches:
+        raise AssertionError(f"train_opts stratified: {res}")
+    out["train_opts/stratified_exact"] = launches
+    return out
+
+
 def _cli_argv(algo: str, tmp: str):
     return ["--algo", algo, "--dataset", "synthetic", "--model", "small3dcnn",
             "--comm_round", "2", "--results_dir", f"{tmp}/results",
             "--log_dir", f"{tmp}/log"]
 
 
-#: the cli phase's runs: (path name, --algo, extra flags)
-CLI_RUNS = (("salientgrads", "salientgrads", []), ("fedavg", "fedavg", []),
-            ("salientgrads_fused", "salientgrads", ["--fuse_rounds", "2"]))
+_CLI_FAULTS = ["--fault_spec", "drop=0.125,nan=0.125,scale=0.125:100x"]
+#: the cli phase's runs: (path name, --algo, extra flags, the weighted-sum
+#: launches of its 2 rounds: one an aggregate but where a robust statistic
+#: replaces it; a fused run adds its graph's warm-ups)
+CLI_RUNS = (
+    ("salientgrads", "salientgrads", [], 2), ("fedavg", "fedavg", [], 2),
+    ("salientgrads_fused", "salientgrads", ["--fuse_rounds", "2"], 2),
+    ("salientgrads_replacement_remat", "salientgrads",
+     ["--batching", "replacement", "--remat", "1"], 2),
+    ("salientgrads_stratified_balanced", "salientgrads",
+     ["--stratified_sampling", "1", "--stratified_mode", "balanced"], 2),
+    ("salientgrads_stratified_exact", "salientgrads",
+     ["--stratified_sampling", "1", "--batch_size", "50"], 2),
+    ("salientgrads_faults_krum_weak_dp", "salientgrads",
+     _CLI_FAULTS + ["--guard", "1", "--robust_agg", "krum",
+                    "--defense_type", "weak_dp", "--watchdog", "1",
+                    "--frac", "0.5"], 0),
+    ("salientgrads_trimmed_mean_int8", "salientgrads",
+     _CLI_FAULTS + ["--robust_agg", "trimmed_mean", "--agg_impl", "int8"],
+     0),
+    ("salientgrads_norm_krum_topk", "salientgrads",
+     _CLI_FAULTS + ["--robust_agg", "norm_krum", "--agg_impl", "topk"], 0),
+    ("fedavg_faults_median_clip", "fedavg",
+     _CLI_FAULTS + ["--robust_agg", "median", "--defense_type",
+                    "norm_diff_clipping", "--watchdog", "1"], 0),
+    ("fedavg_multikrum", "fedavg", ["--robust_agg", "multikrum"], 0),
+)
 
 
 def cli_path(dev):
     """The CLI's two algorithms on the card, through the entry point a user
     calls, and SalientGrads again with ``--fuse_rounds 2`` (one fused block
-    of both rounds), whose history must equal the unfused run's. Returns
-    the launches per path."""
+    of both rounds), whose history must equal the unfused run's; then the
+    training options (replacement batching, remat, both stratified SNIP
+    modes) and the robustness flags (faults, the guard, every
+    ``--robust_agg``, both defenses, the watchdog). Returns the launches
+    per path."""
     import os
     import tempfile
 
@@ -1939,7 +2346,7 @@ def cli_path(dev):
     out, histories = {}, {}
     runner.build_algorithm = capture
     try:
-        for path, algo, extra in CLI_RUNS:
+        for path, algo, extra, aggs in CLI_RUNS:
             with tempfile.TemporaryDirectory() as tmp:
                 kernels.reset_launches()
                 t0 = time.perf_counter()
@@ -1972,11 +2379,18 @@ def cli_path(dev):
                 raise AssertionError(f"cli {path}: non-finite {vals}")
             want = (("masked_sgd", "threshold", "score_mask")
                     if algo == "salientgrads" else ("masked_sgd",))
-            # a fused run adds the round graph's warm-up runs
-            aggs = 2 + (FUSED_WARMUPS if extra else 0)
+            if "--fuse_rounds" in extra:
+                aggs += FUSED_WARMUPS
+            remask = algo == "salientgrads" and (
+                "--defense_type" in extra or "topk" in extra)
             if not all(launches[k] > 0 for k in want) or \
-                    launches["weighted_sum"] != aggs:
+                    launches["weighted_sum"] != aggs or \
+                    launches["mask_apply"] != (2 if remask else 0):
                 raise AssertionError(f"cli {path}: launches {launches}")
+            if "--fault_spec" in extra and not all(
+                    "clients_quarantined" in h for h in res["history"]
+                    if h["round"] >= 0):
+                raise AssertionError(f"cli {path}: no guard counters")
             histories[path] = [h for h in res["history"] if h["round"] >= 0]
             out[f"cli/{path}"] = launches
         if histories["salientgrads_fused"] != histories["salientgrads"]:
@@ -2039,7 +2453,21 @@ def bench_path(dev):
     if any(launches[k] != v for k, v in want.items()):
         raise AssertionError(f"bench launch counts {launches}, expected "
                              f"{want}")
-    return {"bench": launches}
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    byz = b.byzantine(emit=False)
+    seconds = time.perf_counter() - t0
+    byz_launches = dict(kernels.LAUNCHES)
+    emit({"phase": "bench", "config": "byzantine", "seconds": seconds,
+          "record": byz, "launches": byz_launches})
+    rounds = 1 + byz["extra"]["timed_rounds"]
+    want = {"masked_sgd": rounds * b.BYZANTINE_CLIENTS * b.STEPS,
+            "weighted_sum": rounds, "stem_fwd": 0, "stem_bwd": 0}
+    if not (math.isfinite(byz["value"]) and byz["value"] > 0) or any(
+            byz_launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"bench byzantine: {byz}, launches "
+                             f"{byz_launches}, want {want}")
+    return {"bench": launches, "bench/byzantine": byz_launches}
 
 
 def main() -> int:
@@ -2083,6 +2511,8 @@ def main() -> int:
     paths.update(fused_path(dev))
     paths.update(evalcache_path(dev))
     paths.update(dense_path(dev))
+    paths.update(robust_path(dev))
+    paths.update(train_opts_path(dev))
     paths.update(cli_path(dev))
     paths.update(bench_path(dev))
 

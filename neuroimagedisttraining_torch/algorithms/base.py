@@ -15,6 +15,14 @@ reads only tensors (:meth:`FedAlgorithm._round_body`). The fused round loop
 keeps the body's inputs and the state in buffers that stay put and, on the
 card, replays the body from a captured CUDA graph, one replay per round: no
 Python between the kernels of a round.
+
+The robustness tier rides the same body: the ``fault_spec`` injector after
+local training (its draws keyed by run seed, round and population client id,
+``robust/faults.py``), the clip and weak-DP defenses, the guard's
+quarantine (``robust/guard.py``, always the select spelling, so a clean
+guarded round is bitwise the unguarded one and a graph can hold it) and the
+``robust_agg`` estimators (``robust/aggregation.py``) in place of the
+weighted mean.
 """
 from __future__ import annotations
 
@@ -40,6 +48,7 @@ from ..core.trainer import (
     active_steps,
     epoch_permutations,
     make_eval_fn,
+    replacement_batches,
     round_lr,
 )
 from ..data.types import FederatedData
@@ -47,6 +56,15 @@ from ..models import make_apply_fn
 from ..models.layers import DropoutProbe
 from ..ops import kernels
 from ..parallel import collectives
+from ..robust import guard as _guard
+from ..robust.aggregation import ROBUST_AGGS, robust_combine_mat
+from ..robust.faults import (
+    DRAW_COLUMNS,
+    labelflip_flags,
+    make_fault_fn,
+    make_labelflip_fn,
+    parse_fault_spec,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -65,13 +83,19 @@ def _personal_metrics(correct, loss_sum, total) -> Dict[str, torch.Tensor]:
 
 
 def sample_client_indexes(round_idx: int, client_num_in_total: int,
-                          client_num_per_round: int) -> np.ndarray:
+                          client_num_per_round: int,
+                          retry: int = 0) -> np.ndarray:
     """Per-round client sampling with numpy reseeded by the round index, so
     every algorithm (and the reference) draws the same subsets; full
-    participation is ``arange``."""
+    participation is ``arange``. ``retry`` > 0 re-samples the cohort for a
+    watchdog retry, a pure function of (round, retry): the seed strides by
+    the golden ratio, clear of every round index a run reaches."""
     if client_num_in_total == client_num_per_round:
         return np.arange(client_num_in_total, dtype=np.int32)
-    np.random.seed(round_idx)
+    if retry:
+        np.random.seed((round_idx + 0x9E3779B1 * retry) % (2 ** 32))
+    else:
+        np.random.seed(round_idx)
     return np.random.choice(range(client_num_in_total), client_num_per_round,
                             replace=False).astype(np.int32)
 
@@ -119,10 +143,14 @@ class RoundInputs:
     weights. The rest is on the device: ``sel`` the client ids (int64),
     ``n_sel`` their sample counts (f32), ``lr`` the round's rate (0-d f32),
     ``perms`` the epoch permutations ``[S, epochs, steps_per_epoch *
-    batch]``, ``dropout`` per client and local step the dropout keep masks
-    by slot (None for a step the client does not run; None for a model
-    without dropout) and ``uniforms`` the int8 wire's ``[S, nb, b]`` draw
-    (None on the other wires)."""
+    batch]`` (under replacement batching, the with-replacement batch
+    indices in the same layout), ``dropout`` per client and local step the
+    dropout keep masks by slot (None for a step the client does not run;
+    None for a model without dropout), ``uniforms`` the int8 wire's ``[S,
+    nb, b]`` draw (None where no int8 wire runs), ``faults`` the fault
+    injector's ``[S, 8]`` draws (``robust.faults.DRAW_COLUMNS``),
+    ``collude`` the colluders' direction tree and ``dp_noise`` the weak-DP
+    defense's ``[S, ...]`` standard-normal tree (each None when unused)."""
 
     n_valid: List[int]
     sel: torch.Tensor
@@ -131,6 +159,9 @@ class RoundInputs:
     perms: torch.Tensor
     dropout: Optional[List[List[Optional[List[torch.Tensor]]]]] = None
     uniforms: Optional[torch.Tensor] = None
+    faults: Optional[torch.Tensor] = None
+    collude: Optional[Tree] = None
+    dp_noise: Optional[Tree] = None
 
 
 #: runs of a body on a side stream before its capture: they set up cuDNN,
@@ -248,9 +279,10 @@ class _FusedRounds:
       by a buffer of its own; a block copies its input state in and clones
       its output state out, so no caller ever holds a buffer.
     * the host inputs of a round (:class:`RoundInputs`): the client ids,
-      the learning rate, the epoch permutations, the dropout keep masks of
-      every client and step, the int8 wire's uniforms, rewritten on the
-      card before each round (:meth:`write`);
+      the learning rate, the epoch permutations (or replacement batches),
+      the dropout keep masks of every client and step, the int8 wire's
+      uniforms, the fault draws, the colluders' direction and the weak-DP
+      noise, rewritten on the card before each round (:meth:`write`);
     * a round graph per client-draw key, the selected clients' sample
       counts, which fix the steps each runs and the aggregate's weights
       (one key at full participation or with equal shards), at most
@@ -275,9 +307,20 @@ class _FusedRounds:
                     shape, dtype=torch.bool, device=dev))
                 for _ in range(hp.local_steps)] for _ in range(s)]
         self.uniforms = None
-        if algo.agg_impl == "int8":
+        if algo._needs_uniforms():
             self.uniforms = torch.full(
                 algo._uniforms_shape(state.global_params), 0.5, device=dev)
+        params = state.global_params
+        self.faults = self.collude = self.dp_noise = None
+        if algo.fault_fn is not None:
+            self.faults = torch.zeros((s, len(DRAW_COLUMNS)), device=dev)
+            if algo.fault_spec.collude > 0:
+                self.collude = {k: torch.zeros_like(v)
+                                for k, v in params.items()}
+        if algo._needs_dp_noise():
+            self.dp_noise = {k: torch.zeros((s,) + tuple(v.shape),
+                                            dtype=v.dtype, device=dev)
+                             for k, v in params.items()}
         self.rounds: Dict[tuple, _Graph] = {}  # least recently used first
         self.evicted = 0
         self.eval: Optional[_Graph] = None
@@ -305,8 +348,12 @@ class _FusedRounds:
                     for b, k in zip(buf, keep or ()):
                         if b is not None:
                             b.copy_(k)
-        if self.uniforms is not None:
-            self.uniforms.copy_(inp.uniforms)
+        for buf, src in ((self.uniforms, inp.uniforms),
+                         (self.faults, inp.faults),
+                         (self.collude, inp.collude),
+                         (self.dp_noise, inp.dp_noise)):
+            if buf is not None:
+                _copy_into(buf, src)
 
     def round_graph(self, algo: "FedAlgorithm", key: tuple) -> _Graph:
         graph = self.rounds.pop(key, None)
@@ -323,7 +370,8 @@ class _FusedRounds:
                 n_sel=torch.tensor(key, dtype=torch.float32,
                                    device=algo.device),
                 lr=self.lr, perms=self.perms, dropout=self.dropout,
-                uniforms=self.uniforms)
+                uniforms=self.uniforms, faults=self.faults,
+                collude=self.collude, dp_noise=self.dp_noise)
 
             def body(warm: bool):
                 new, metrics = algo._round_body(self.state, inp)
@@ -380,6 +428,20 @@ class FedAlgorithm(abc.ABC):
 
     ``eval_clients`` = K (0 < K < clients) evaluates a fixed seeded subset
     of K clients instead of the whole cohort, its means over the subset.
+    ``remat_local`` recomputes each training batch's forward in its
+    backward (``core/trainer.py``).
+
+    The robustness tier (the reference's constructor arguments):
+    ``fault_spec`` injects deterministic faults after local training
+    (``robust/faults.py``); ``guard`` (None: on exactly when faults are
+    injected) quarantines the non-finite and dropped clients before the
+    aggregate and reports ``clients_dropped`` / ``clients_quarantined``
+    per round; ``robust_agg`` (with ``robust_trim``, ``robust_krum_f``,
+    ``robust_norm_bound``) replaces the weighted mean by a robust statistic
+    of the clients' deltas, on a compressed wire of the decoded rows, under
+    "topk" of the sparsified rows. A subclass's ``defense`` (a
+    ``robust.RobustAggregator``, set before this constructor) transforms
+    the stacked locals before all of that.
     ``channel_inject`` appends the channel axis to each batch at apply time
     (the cohort of ``--layout flat`` is stored channel-less);
     ``init_sample_shape`` is the per-sample shape the model sees.
@@ -407,7 +469,10 @@ class FedAlgorithm(abc.ABC):
                  agg_topk_density: float = 0.1, agg_topk_sample: int = 0,
                  agg_hier_wire: str = "bf16", agg_hier_inner: int = 0,
                  eval_clients: int = 0, channel_inject: bool = False,
-                 device=None):
+                 remat_local: bool = False, fault_spec: str = "",
+                 guard: Optional[bool] = None, robust_agg: str = "none",
+                 robust_trim: float = 0.2, robust_krum_f: int = 0,
+                 robust_norm_bound: float = 5.0, device=None):
         if agg_impl not in collectives.AGG_IMPLS:
             raise ValueError(
                 f"agg_impl {agg_impl!r} not in {collectives.AGG_IMPLS}")
@@ -434,6 +499,48 @@ class FedAlgorithm(abc.ABC):
         #: the static-mask gather plan of the sparse wires (SalientGrads
         #: builds it from its SNIP mask before the first round)
         self._agg_sparse_plan: Optional[collectives.SparsePlan] = None
+        self.remat_local = bool(remat_local)
+        self.defense = getattr(self, "defense", None)
+        self.fault_spec = parse_fault_spec(fault_spec)
+        self.fault_fn = (make_fault_fn(self.fault_spec, seed)
+                         if self.fault_spec is not None
+                         and self.fault_spec.any_active else None)
+        # the output count, as the reference reads it off its model
+        self.labelflip_fn = make_labelflip_fn(
+            self.fault_spec, seed,
+            int(getattr(model, "num_classes", 2) or 2))
+        self.guard_enabled = (bool(guard) if guard is not None
+                              else self.fault_fn is not None)
+        if self.fault_fn is not None and not self.guard_enabled \
+                and self.fault_spec.drop > 0:
+            raise ValueError(
+                "fault_spec drop=... requires the guard (it is what "
+                "excludes dropped clients from the aggregate); don't "
+                "pass guard=False, or remove drop from the spec")
+        if self.guard_enabled:
+            # the guarded round also reports its quarantine counters
+            self._round_metric_names = tuple(self._round_metric_names) + (
+                "clients_dropped", "clients_quarantined")
+        if robust_agg not in ROBUST_AGGS:
+            raise ValueError(
+                f"robust_agg {robust_agg!r} not in {ROBUST_AGGS}")
+        self.robust_agg = robust_agg
+        if not 0.0 <= float(robust_trim) < 0.5:
+            raise ValueError(
+                f"robust_trim {robust_trim} must be in [0, 0.5) — "
+                "trimming half or more per side leaves no survivors")
+        self.robust_trim = float(robust_trim)
+        if int(robust_krum_f) < 0:
+            raise ValueError(
+                f"robust_krum_f {robust_krum_f} must be >= 0 "
+                "(0 = auto ceil(0.2 * cohort))")
+        self.robust_krum_f = int(robust_krum_f)
+        if float(robust_norm_bound) <= 0:
+            raise ValueError(
+                f"robust_norm_bound {robust_norm_bound} must be > 0")
+        self.robust_norm_bound = float(robust_norm_bound)
+        #: the watchdog's cohort re-draw (set_retry_nonce)
+        self._retry_nonce = 0
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.data = data.to(self.device)
@@ -499,13 +606,18 @@ class FedAlgorithm(abc.ABC):
         """The initial server state."""
 
     def run_round(self, state: Any, round_idx: int, *, perms=None,
-                  dropout=None, agg_uniforms=None):
+                  dropout=None, agg_uniforms=None, batch_idx=None,
+                  faults=None, collude=None, dp_noise=None):
         """One round, a pure function of ``state``: the input state is left
         as it was (its generator too; the round draws from a copy, which the
-        new state carries). ``perms`` / ``dropout`` (per selected client)
-        replace the drawn epoch permutations / dropout masks,
-        ``agg_uniforms`` the int8 wire's draw. Returns ``(state,
-        {"train_loss": ...})``."""
+        new state carries). ``perms`` / ``batch_idx`` / ``dropout`` (per
+        selected client) replace the drawn epoch permutations /
+        with-replacement batch indices (``[local_steps, batch]`` each) /
+        dropout masks, ``agg_uniforms`` the int8 wire's draw, ``faults``
+        the fault draws (``[S, 8]``), ``collude`` the colluders' direction
+        and ``dp_noise`` the weak-DP noise (``[S, ...]`` per leaf). Returns
+        ``(state, metrics)``: ``train_loss``, and under the guard
+        ``clients_dropped`` and ``clients_quarantined``."""
         self._prepare_round(state)
         sel = self._selected_client_indexes(round_idx)
         g = clone_generator(state.generator)
@@ -513,7 +625,9 @@ class FedAlgorithm(abc.ABC):
             state.global_params, sel,
             _to_device(sel.astype(np.int64), self.device),
             _to_device(round_lr(self.hp, round_idx), self.device), g,
-            dict(perms=perms, dropout=dropout, agg_uniforms=agg_uniforms))
+            dict(perms=perms, dropout=dropout, agg_uniforms=agg_uniforms,
+                 batch_idx=batch_idx, faults=faults, collude=collude,
+                 dp_noise=dp_noise), round_idx=round_idx)
         new_state, metrics = self._round_body(state, inp)
         return dataclasses.replace(new_state, generator=g), metrics
 
@@ -531,18 +645,18 @@ class FedAlgorithm(abc.ABC):
     def _round_body(self, state: Any, inp: RoundInputs):
         """The round on tensors: every selected client trains, the server
         aggregates, the trained rows become the personal models (and, with
-        ``eval_cache``, their eval terms the cache's rows). Returns
+        ``eval_cache``, their eval terms the cache's rows; under the guard a
+        quarantined or dropped client keeps its previous row). Returns
         ``(state, metrics)`` with the state's generator untouched. It reads
         the host only through ``inp.n_valid``: the body a CUDA graph
         holds."""
-        new_global, locals_, mean_loss, residual = \
+        new_global, locals_, mean_loss, fstats, residual = \
             self._train_selected_weighted(
                 state.global_params, self._round_mask(state), inp,
                 residual=state.agg_residual)
         new_global = self._post_aggregate(new_global, state)
-        personal = state.personal_params
-        if personal is not None:
-            personal = tree_scatter_update(personal, inp.sel, locals_)
+        personal = self._guarded_personal_update(
+            state.personal_params, locals_, inp.sel, fstats)
         cache = state.eval_cache
         if self.eval_cache:
             cache = self._update_eval_cache(cache, personal, inp.sel)
@@ -550,7 +664,24 @@ class FedAlgorithm(abc.ABC):
                                         personal_params=personal,
                                         agg_residual=residual,
                                         eval_cache=cache)
-        return new_state, {"train_loss": mean_loss}
+        metrics = {"train_loss": mean_loss}
+        if fstats is not None:
+            metrics.update(clients_dropped=fstats["clients_dropped"],
+                           clients_quarantined=fstats["clients_quarantined"])
+        return new_state, metrics
+
+    def _guarded_personal_update(self, personal: Optional[Tree],
+                                 locals_: Tree, sel: torch.Tensor,
+                                 fstats: Optional[Dict[str, Any]]):
+        """The selected clients' trained models scattered into the [C, ...]
+        personal stack; under the guard a quarantined or dropped client
+        keeps its previous row (``guard.merge_updates``)."""
+        if personal is None:
+            return None
+        upd = locals_
+        if fstats is not None:
+            upd = _guard.merge_updates(fstats["ok"], locals_, personal, sel)
+        return tree_scatter_update(personal, sel, upd)
 
     def finalize(self, state: Any):
         """Optional end-of-training pass; returns ``(state, record or
@@ -585,11 +716,21 @@ class FedAlgorithm(abc.ABC):
     # -- shared helpers --------------------------------------------------------
     def _selected_client_indexes(self, round_idx: int) -> np.ndarray:
         return sample_client_indexes(round_idx, self.num_clients,
-                                     self.clients_per_round)
+                                     self.clients_per_round,
+                                     retry=self._retry_nonce)
+
+    def set_retry_nonce(self, nonce: int) -> None:
+        """The watchdog's rollback-retry hook: later client draws re-sample
+        the cohort with this nonce (0 = the reference's draw). The fused
+        loop never retries; the runner keeps the nonce 0 there."""
+        self._retry_nonce = int(nonce)
 
     def _full_batches(self) -> bool:
-        """Every client's shard covers ``steps_per_epoch * batch_size`` rows,
-        so every batch is full and every step active."""
+        """Every batch is full and every step active: every client's shard
+        covers ``steps_per_epoch * batch_size`` rows, or the batching is
+        "replacement"."""
+        if self.hp.batching == "replacement":
+            return True
         need = self.hp.steps_per_epoch * self.hp.batch_size
         return all(n >= need for n in self._n_train)
 
@@ -635,18 +776,60 @@ class FedAlgorithm(abc.ABC):
         return collectives.weighted_mean(stacked, weights, wire=wire,
                                          uniforms=uniforms, **kw)
 
+    def _robust_wire(self) -> str:
+        """The wire whose decode the robust statistic ranks: the
+        ``agg_impl``'s payload format (f32 for the exact wires; "topk" has
+        its own path in :meth:`_topk_aggregate`)."""
+        if self.agg_impl in ("bf16", "int8"):
+            return self.agg_impl
+        if self.agg_impl == "hier" and \
+                self.agg_hier_wire in ("bf16", "int8"):
+            return self.agg_hier_wire
+        return "f32"
+
+    def _robust_aggregate(self, stacked: Tree, weights: torch.Tensor,
+                          global_params: Tree,
+                          uniforms: Optional[torch.Tensor] = None) -> Tree:
+        """The ``robust_agg`` aggregate: the robust statistic of the
+        clients' deltas (local - global) in the reference's flat layout,
+        each delta row first through the wire's encode and decode
+        (``collectives.wire_roundtrip_mat``; int8 on the round's
+        ``uniforms``, the reducing wire's draw), then ``global + combined``.
+        The same (stacked, weights) signature as :meth:`_aggregate`, so the
+        guard's quarantine threads it unchanged."""
+        spec = collectives.flat_spec(stacked, stacked=True)
+        gvec = collectives.tree_to_vec(global_params).to(torch.float32)
+        deltas = collectives.stacked_to_mat(stacked) - gvec[None]
+        deltas = collectives.wire_roundtrip_mat(
+            deltas, self._robust_wire(), bucket_size=self.agg_bucket_size,
+            uniforms=uniforms)
+        combined = robust_combine_mat(
+            deltas, weights, self.robust_agg, trim_frac=self.robust_trim,
+            krum_f=self.robust_krum_f, norm_bound=self.robust_norm_bound)
+        return collectives.vec_to_tree(gvec + combined, spec)
+
     def _topk_aggregate(self, locals_: Tree, global_params: Tree,
                         residual: Tree, idx: torch.Tensor,
-                        weights: torch.Tensor):
+                        weights: torch.Tensor,
+                        ok: Optional[torch.Tensor] = None):
         """The ``agg_impl='topk'`` round aggregate with error feedback (Deep
-        Gradient Compression on the federated round), guard off:
+        Gradient Compression on the federated round):
 
         1. each selected client's delta, local - global, plus its carried
            residual row (dead coordinates of a sparse plan zeroed);
         2. per leaf-group top-k selection and the weighted mean of the
-           sparsified rows;
+           sparsified rows (with ``robust_agg``, the robust statistic of
+           the sparsified rows instead: a rejected client's shipped
+           coordinates still leave its residual);
         3. the unsent remainder becomes the client's new residual row;
         4. ``new_global = global + aggregate``.
+
+        Under the guard (``ok``, the survivor flags): the quarantined rows
+        are select-zeroed before the selection and the weights renormalized
+        (``guard.quarantine``), no survivor carries the previous global,
+        and a quarantined client's residual row keeps its previous value.
+        Always the select spelling, so a clean round is bitwise the
+        unguarded one.
 
         ``idx`` holds the selected clients' ids (int64, on the device).
         Returns ``(new_global, new_residual)``."""
@@ -663,27 +846,48 @@ class FedAlgorithm(abc.ABC):
             # dead coordinates never ship, so they must not enter the
             # residual either (round 0's dense init would sit there forever)
             comp = collectives.plan_dead_select(comp, plan)
-        update, sp = collectives.topk_weighted_mean(
-            comp, weights, self.agg_topk_density, plan=plan,
-            bucket_size=self.agg_bucket_size, sample=self.agg_topk_sample)
+        comp_in, w, survivors = comp, weights, None
+        if ok is not None:
+            comp_in, w, survivors = _guard.quarantine(comp, weights, ok)
+        kw = dict(plan=plan, bucket_size=self.agg_bucket_size,
+                  sample=self.agg_topk_sample)
+        if self.robust_agg != "none":
+            sp = collectives.topk_sparsify(comp_in, self.agg_topk_density,
+                                           **kw)
+            update = collectives.vec_to_tree(
+                robust_combine_mat(
+                    collectives.stacked_to_mat(sp), w, self.robust_agg,
+                    trim_frac=self.robust_trim, krum_f=self.robust_krum_f,
+                    norm_bound=self.robust_norm_bound),
+                collectives.flat_spec(sp, stacked=True))
+        else:
+            update, sp = collectives.topk_weighted_mean(
+                comp_in, w, self.agg_topk_density, **kw)
         new_global = {k: (g + update[k]).to(g.dtype)
                       for k, g in global_params.items()}
-        new_rows = {k: comp[k] - sp[k] for k in comp}
+        new_rows = {k: comp_in[k] - sp[k] for k in comp_in}
+        if ok is not None:
+            new_global = _guard.carry_if_empty(new_global, global_params,
+                                               survivors)
+            new_rows = _guard.merge_residual(ok, new_rows, res_sel)
         new_residual = new_rows if full else tree_scatter_update(
             residual, idx, new_rows)
         return new_global, new_residual
 
     def _train_clients(self, global_params: Tree, mask: Tree,
-                       inp: RoundInputs):
+                       inp: RoundInputs,
+                       flips: Optional[torch.Tensor] = None):
         """Every client of ``inp`` trains a copy of the global model on its
-        own rows; returns (stacked local models, mean loss)."""
+        own rows (client ``i`` on flipped labels where ``flips[i]``, the
+        ``labelflip`` fault); returns (stacked local models, mean loss)."""
         d = self.data
         locals_, losses = [], []
         for i, n in enumerate(inp.n_valid):
             params, _, loss = self.client_update(
                 clone_tree(global_params), mask, d.x_train, d.y_train, n,
                 inp.sel[i:i + 1], inp.perms[i], inp.lr,
-                None if inp.dropout is None else inp.dropout[i])
+                None if inp.dropout is None else inp.dropout[i],
+                None if flips is None else flips[i])
             locals_.append(params)
             losses.append(loss)
         stacked = {k: torch.stack([p[k] for p in locals_])
@@ -694,20 +898,67 @@ class FedAlgorithm(abc.ABC):
                                  inp: RoundInputs,
                                  residual: Optional[Tree] = None):
         """Every selected client trains a copy of the global model; returns
-        (new global, stacked local models, mean loss, new error-feedback
-        residual).
+        (new global, stacked local models, mean loss, fault/guard stats,
+        new error-feedback residual). In the reference's order:
 
+        1. the ``labelflip`` fault on the training labels;
+        2. local training;
+        3. the injector on the trained models (:mod:`robust.faults`): the
+           faulted tree is also what the personal stack sees;
+        4. the defense (clip, weak-DP noise) on the aggregate's copy;
+        5. the guard's screen: ``ok`` = finite and not dropped;
+        6. the robust statistic or the plain weighted mean over the wire,
+           quarantined under the guard (:mod:`robust.guard`).
+
+        The stats are None without the guard, else ``ok`` ([S] survivor
+        flags) and the f32 ``clients_dropped`` / ``clients_quarantined``.
         ``inp`` (:class:`RoundInputs`) holds the clients, the rate and the
         draws. ``residual`` is the ``[C, ...]`` error-feedback stack
         (``agg_impl='topk'`` only; returned unchanged otherwise)."""
-        stacked, mean_loss = self._train_clients(global_params, mask, inp)
+        flips = None
+        if self.labelflip_fn is not None:
+            flips = labelflip_flags(self.fault_spec, inp.faults)
+        stacked, mean_loss = self._train_clients(global_params, mask, inp,
+                                                 flips)
+        dropped = None
+        if self.fault_fn is not None:
+            stacked, dropped = self.fault_fn(stacked, global_params,
+                                             inp.faults, inp.collude)
+        defended = stacked
+        if self.defense is not None:
+            defended = self.defense.apply(stacked, global_params,
+                                          inp.dp_noise)
         weights = inp.n_sel / torch.clamp(inp.n_sel.sum(), min=1.0)
+        fstats = ok = None
+        if self.guard_enabled:
+            finite = _guard.finite_screen(defended)
+            if dropped is not None:
+                ok = finite & ~dropped
+                n_dropped = dropped.to(torch.float32).sum()
+                # quarantined: screened out among the clients that reported
+                n_quar = (~finite & ~dropped).to(torch.float32).sum()
+            else:
+                ok = finite
+                n_dropped = torch.zeros((), device=finite.device)
+                n_quar = (~finite).to(torch.float32).sum()
+            fstats = {"ok": ok, "clients_dropped": n_dropped,
+                      "clients_quarantined": n_quar}
+        if self.robust_agg != "none" and self.agg_impl != "topk":
+            def agg_fn(st, wv):
+                return self._robust_aggregate(st, wv, global_params,
+                                              inp.uniforms)
+        else:
+            def agg_fn(st, wv):
+                return self._aggregate(st, wv, inp.uniforms)
         if self.agg_impl == "topk":
             new_global, residual = self._topk_aggregate(
-                stacked, global_params, residual, inp.sel, weights)
-            return new_global, stacked, mean_loss, residual
-        new_global = self._aggregate(stacked, weights, inp.uniforms)
-        return new_global, stacked, mean_loss, residual
+                defended, global_params, residual, inp.sel, weights, ok)
+        elif self.guard_enabled:
+            new_global = _guard.guarded_aggregate(defended, weights, ok,
+                                                  agg_fn, global_params)
+        else:
+            new_global = agg_fn(defended, weights)
+        return new_global, stacked, mean_loss, fstats, residual
 
     def _eval_terms(self, rows, params_of):
         """``eval_client`` of ``params_of(c)`` on client ``c``'s test shard
@@ -824,6 +1075,16 @@ class FedAlgorithm(abc.ABC):
             masks[slot] = make(shape, keep_prob)
         return masks
 
+    def _needs_uniforms(self) -> bool:
+        """An int8 wire runs: the reducing one, or the robust statistic's
+        roundtrip of hier's int8 cross-slice wire."""
+        return self.agg_impl == "int8" or (
+            self.robust_agg != "none" and self.agg_impl != "topk"
+            and self._robust_wire() == "int8")
+
+    def _needs_dp_noise(self) -> bool:
+        return self.defense is not None and self.defense.needs_noise
+
     def _uniforms_shape(self, params: Tree) -> tuple:
         """The int8 wire's draw, ``[S, nb, b]`` over the reference's flat
         layout (:func:`collectives.bucket_shape`)."""
@@ -835,30 +1096,41 @@ class FedAlgorithm(abc.ABC):
                       sel_dev: torch.Tensor, lr: torch.Tensor,
                       g: torch.Generator,
                       seams: Optional[Dict[str, Any]] = None,
-                      aggregate: bool = True) -> RoundInputs:
+                      aggregate: bool = True,
+                      round_idx: Optional[int] = None) -> RoundInputs:
         """A round's inputs (:class:`RoundInputs`), fresh on the device: the
         clients ``sel`` (``sel_dev`` on the device), the rate ``lr``, then
         the draws of ``g`` in the order the round consumes them: per client
-        its epoch permutations, then each step it runs its dropout keep
-        masks; after all clients, with ``aggregate``, the int8 wire's
-        uniforms. ``seams`` (``run_round``'s ``perms``, ``dropout``,
-        ``agg_uniforms``) replace the draws they name. Both round loops
-        draw through here."""
+        its epoch permutations (or replacement batches), then each step it
+        runs its dropout keep masks; after all clients, with ``aggregate``,
+        the int8 wire's uniforms and the weak-DP noise (per client, per
+        leaf). With ``aggregate`` and faults, the fault draws of round
+        ``round_idx`` (from the run seed, the round and the population
+        client ids alone: ``robust.faults.client_draws``). ``seams``
+        (``run_round``'s ``perms``, ``batch_idx``, ``dropout``,
+        ``agg_uniforms``, ``faults``, ``collude``, ``dp_noise``) replace
+        the draws they name. Both round loops draw through here."""
         seams = seams or {}
         hp, dev = self.hp, self.device
         n_valid = [self._n_train[int(c)] for c in sel]
         n_rows = self.data.x_train.shape[1]
         full = self._full_batches()
         drop_calls = self._dropout_calls(params)
-        given_perms, given_drop = seams.get("perms"), seams.get("dropout")
+        given_drop = seams.get("dropout")
+        replace = hp.batching == "replacement"
+        given_perms = seams.get("batch_idx" if replace else "perms")
         perms, dropout = [], ([] if drop_calls else None)
         for i, n in enumerate(n_valid):
-            perms.append(
-                torch.as_tensor(given_perms[i], dtype=torch.int64,
-                                device=dev) if given_perms is not None else
-                epoch_permutations(g, n, hp.local_epochs,
-                                   hp.steps_per_epoch * hp.batch_size,
-                                   n_rows=n_rows))
+            if given_perms is not None:
+                perms.append(torch.as_tensor(
+                    given_perms[i], dtype=torch.int64,
+                    device=dev).reshape(hp.local_epochs, -1))
+            elif replace:
+                perms.append(replacement_batches(g, n, hp))
+            else:
+                perms.append(epoch_permutations(
+                    g, n, hp.local_epochs,
+                    hp.steps_per_epoch * hp.batch_size, n_rows=n_rows))
             if dropout is None:
                 continue
             steps: List[Optional[List]] = [None] * hp.local_steps
@@ -869,17 +1141,40 @@ class FedAlgorithm(abc.ABC):
                         drop_calls, lambda shape, kp: torch.rand(
                             shape, generator=g, device=dev) < kp))
             dropout.append(steps)
-        uniforms = None
-        if aggregate and self.agg_impl == "int8":
+        uniforms = dp_noise = faults = collude = None
+        if aggregate and self._needs_uniforms():
             u = seams.get("agg_uniforms")
             uniforms = (torch.as_tensor(u, dtype=torch.float32, device=dev)
                         if u is not None else
                         torch.rand(self._uniforms_shape(params), generator=g,
                                    device=dev))
+        if aggregate and self._needs_dp_noise():
+            dp_noise = seams.get("dp_noise")
+            if dp_noise is None:
+                rows = [{k: torch.randn(v.shape, generator=g, device=dev,
+                                        dtype=v.dtype)
+                         for k, v in params.items()} for _ in n_valid]
+                dp_noise = {k: torch.stack([r[k] for r in rows])
+                            for k in params}
+            dp_noise = {k: torch.as_tensor(v, device=dev)
+                        for k, v in dp_noise.items()}
+        if aggregate and self.fault_fn is not None:
+            faults = seams.get("faults")
+            if faults is None:
+                faults = self.fault_fn.draws(round_idx, sel)
+            faults = _to_device(torch.as_tensor(faults, dtype=torch.float32),
+                                dev)
+            collude = seams.get("collude")
+            if collude is None:
+                collude = self.fault_fn.direction(round_idx, params)
+            if collude is not None:
+                collude = {k: _to_device(torch.as_tensor(v), dev)
+                           for k, v in collude.items()}
         return RoundInputs(
             n_valid=n_valid, sel=sel_dev,
             n_sel=_to_device(np.asarray(n_valid, np.float32), dev), lr=lr,
-            perms=torch.stack(perms), dropout=dropout, uniforms=uniforms)
+            perms=torch.stack(perms), dropout=dropout, uniforms=uniforms,
+            faults=faults, collude=collude, dp_noise=dp_noise)
 
     # -- fused multi-round execution -------------------------------------------
     def _get_fused_fn(self, state: Any) -> _FusedRounds:
@@ -909,8 +1204,9 @@ class FedAlgorithm(abc.ABC):
         state's generator by :meth:`_round_inputs`, as :meth:`run_round`
         draws them, so a block equals ``n_rounds`` ``run_round`` calls bit
         for bit.
-        ``seams``, one dict per round of ``run_round``'s ``perms``,
-        ``dropout`` and ``agg_uniforms``, replace the draws they name.
+        ``seams``, one dict per round of ``run_round``'s seams (``perms``,
+        ``batch_idx``, ``dropout``, ``agg_uniforms``, ``faults``,
+        ``collude``, ``dp_noise``), replace the draws they name.
 
         Returns ``(state, ys)``, ``ys`` a :class:`FusedMetrics` whose
         ``train_loss`` is ``[n_rounds]`` and whose ``eval`` (with
@@ -942,7 +1238,8 @@ class FedAlgorithm(abc.ABC):
         for k, r in enumerate(rounds):
             inp = self._round_inputs(state.global_params, sels[k],
                                      sel_dev[k], lrs[k], g,
-                                     None if seams is None else seams[k])
+                                     None if seams is None else seams[k],
+                                     round_idx=r)
             fused.write(inp)
             rows[:, k].copy_(fused.round_graph(self, tuple(inp.n_valid))())
             if eval_every and (r + 1) % eval_every == 0:

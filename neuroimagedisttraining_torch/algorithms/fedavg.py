@@ -54,8 +54,10 @@ class FedAvg(FedAlgorithm):
     topk_supported = True
     supports_fused = True
 
-    def __init__(self, *args, track_personal: bool = True,
+    def __init__(self, *args, defense=None, track_personal: bool = True,
                  eval_cache: bool = False, **kwargs):
+        # an optional robust.RobustAggregator on the aggregate's copy
+        self.defense = defense
         # track_personal=False drops the [C, model] personal stack and the
         # final fine-tune that exists to produce it
         self.track_personal = track_personal
@@ -66,7 +68,8 @@ class FedAvg(FedAlgorithm):
     def _build(self) -> None:
         self.client_update = make_client_update(
             self.apply_fn, self.loss_type, self.hp,
-            full_batches=self._full_batches())
+            full_batches=self._full_batches(), remat=self.remat_local,
+            label_flip=self.labelflip_fn)
         self._ones: Optional[Tree] = None
 
     def _ones_mask(self, params: Tree) -> Tree:

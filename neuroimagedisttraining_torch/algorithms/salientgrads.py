@@ -3,13 +3,17 @@
 
 1. Before round 0 every client scores SNIP saliency on its own shard; the
    server averages the scores and thresholds one global mask at
-   ``dense_ratio`` (the threshold and score-mask kernels on the GPU).
+   ``dense_ratio`` (the threshold and score-mask kernels on the GPU). With
+   ``stratified_sampling`` the scores are class-balanced: "exact" scores
+   the train sides of the original's 25 stratified folds, "balanced" 25
+   batches of class-balanced draws (``ops/sparsity.py``).
 2. Then FedAvg rounds in which every local SGD step re-masks the weights
    (the masked SGD kernel) and the aggregate is the sample-weighted mean,
    through the ``agg_impl`` wire. The sparse wires ("sparse", "topk", the
    "hier" sparse wire) reduce only the mask's live coordinates, by a plan
-   built once from the fixed mask; after a "topk" aggregate the global
-   model is re-masked (the mask-apply kernel).
+   built once from the fixed mask; after a "topk" aggregate, or under a
+   ``defense`` (whose noise lands on every coordinate), the global model is
+   re-masked (the mask-apply kernel).
 
 Each trained client's local weights are kept as its personal model, and the
 eval protocol tests the global model and every personal model on each
@@ -31,9 +35,11 @@ from ..core.trainer import make_client_update
 from ..models import init_params
 from ..ops import kernels
 from ..ops.sparsity import (
+    make_snip_fold_score_fn,
     make_snip_score_fn,
     mask_density_tensor,
     mask_from_scores,
+    stacked_fold_schedules,
 )
 from .base import FedAlgorithm
 
@@ -57,20 +63,29 @@ class SalientGradsState:
     eval_cache: Optional[Dict[str, torch.Tensor]] = None
 
 
+#: the stratified SNIP's batches per client (the original's n_splits)
+STRATIFIED_SPLITS = 25
+
+
 class SalientGrads(FedAlgorithm):
     name = "salientgrads"
     topk_supported = True
     supports_fused = True
 
     def __init__(self, *args, dense_ratio: float = 0.5,
-                 itersnip_iterations: int = 1, snip_mask: bool = True,
-                 stratified_sampling: bool = False,
+                 itersnip_iterations: int = 1, defense=None,
+                 snip_mask: bool = True, stratified_sampling: bool = False,
+                 stratified_mode: str = "exact",
                  track_personal: bool = True, eval_cache: bool = False,
                  **kwargs):
-        if stratified_sampling:
+        # an optional robust.RobustAggregator on the aggregate's copy
+        self.defense = defense
+        self.stratified_sampling = bool(stratified_sampling)
+        if stratified_mode not in ("exact", "balanced"):
             raise ValueError(
-                "stratified_sampling: the stratified SNIP draws and fold "
-                "schedules are not ported yet (ROADMAP item 5)")
+                f"stratified_mode {stratified_mode!r} not in "
+                "('exact', 'balanced')")
+        self.stratified_mode = stratified_mode
         self.dense_ratio = dense_ratio
         self.itersnip_iterations = itersnip_iterations
         # snip_mask=False: all-ones mask, the reference's dense control
@@ -85,22 +100,44 @@ class SalientGrads(FedAlgorithm):
     def _build(self) -> None:
         self.client_update = make_client_update(
             self.apply_fn, self.loss_type, self.hp,
-            full_batches=self._full_batches())
+            full_batches=self._full_batches(), remat=self.remat_local,
+            label_flip=self.labelflip_fn)
+        #: the exact stratified schedule, ``[C, 25, L]`` row indices and
+        #: weights (host arrays), else None
+        self._fold_sched = None
+        if self.snip_mask and self.stratified_sampling and \
+                self.stratified_mode == "exact":
+            self._fold_sched = stacked_fold_schedules(
+                self.data.y_train.cpu().numpy(), self._n_train,
+                n_splits=STRATIFIED_SPLITS)
+            self.snip_fold_scores = make_snip_fold_score_fn(
+                self.apply_fn, self.loss_type)
         self.snip_scores = make_snip_score_fn(
-            self.apply_fn, self.loss_type, self.hp.batch_size)
+            self.apply_fn, self.loss_type, self.hp.batch_size,
+            stratified=self.stratified_sampling,
+            num_classes=self.data.class_num)
 
     def global_mask(self, params: Tree, generator=None,
                     snip_idx=None) -> Tree:
         """Every client scores its own shard; mean over clients; global
-        top-k. ``snip_idx`` (per client, ``[n_iters, batch]``) replaces the
-        drawn SNIP batches."""
+        top-k. The scoring batches per client: ``itersnip_iterations``
+        uniform draws; with ``stratified_sampling`` the 25 fold train sides
+        ("exact") or 25 class-balanced draws ("balanced"). ``snip_idx``
+        (per client, ``[n_iters, batch]``) replaces the drawn batches."""
         d = self.data
+        n_iters = (STRATIFIED_SPLITS if self.stratified_sampling
+                   else self.itersnip_iterations)
         total = None
         for c in range(self.num_clients):
-            s = self.snip_scores(
-                params, d.x_train[c], d.y_train[c], self._n_train[c],
-                self.itersnip_iterations,
-                idx=None if snip_idx is None else snip_idx[c], rng=generator)
+            if self._fold_sched is not None:
+                idx, w = self._fold_sched
+                s = self.snip_fold_scores(params, d.x_train[c], d.y_train[c],
+                                          idx[c], w[c], rng=generator)
+            else:
+                s = self.snip_scores(
+                    params, d.x_train[c], d.y_train[c], self._n_train[c],
+                    n_iters, idx=None if snip_idx is None else snip_idx[c],
+                    rng=generator)
             total = s if total is None else {k: total[k] + s[k] for k in s}
         mean = {k: v / self.num_clients for k, v in total.items()}
         return mask_from_scores(mean, self.dense_ratio)
@@ -153,10 +190,11 @@ class SalientGrads(FedAlgorithm):
 
     def _post_aggregate(self, new_global: Tree,
                         state: SalientGradsState) -> Tree:
-        if self.agg_impl == "topk":
-            # the delta update leaves round 0's dense init on dead
-            # coordinates: re-mask so the global model keeps the SNIP
-            # sparsity (p * m, bit-equal to the reference's either backend)
+        if self.defense is not None or self.agg_impl == "topk":
+            # weak-DP noise lands on every coordinate, and the top-k delta
+            # update leaves round 0's dense init on dead ones: re-mask so
+            # the global model keeps the SNIP sparsity (p * m, bit-equal to
+            # the reference's either backend)
             return kernels.fused_mask_apply(new_global, state.mask)
         return new_global
 

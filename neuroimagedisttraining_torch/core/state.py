@@ -20,8 +20,10 @@ class HyperParams:
     """Local-training hyperparameters: torch.optim.SGD(lr * lr_decay**round,
     momentum, weight_decay), gradient-norm clip at ``grad_clip``,
     ``local_epochs`` epochs of ``steps_per_epoch`` batches of
-    ``batch_size``, drawn as per-epoch shuffles (the reference's "epoch"
-    batching; its "replacement" mode is not ported)."""
+    ``batch_size``. ``batching`` "epoch" (the default) draws per-epoch
+    shuffles, each client consuming its own ``ceil(n_i / batch)`` batches
+    per epoch; "replacement" draws every step's batch uniformly with
+    replacement from the client's valid rows, every step active."""
 
     lr: float = 1e-3
     lr_decay: float = 0.998
@@ -31,6 +33,12 @@ class HyperParams:
     local_epochs: int = 2
     steps_per_epoch: int = 4
     batch_size: int = 16
+    batching: str = "epoch"
+
+    def __post_init__(self):
+        if self.batching not in ("epoch", "replacement"):
+            raise ValueError(f"batching {self.batching!r} not in "
+                             "('epoch', 'replacement')")
 
     @property
     def local_steps(self) -> int:
@@ -68,6 +76,15 @@ def tree_scatter_update(tree: Tree, idx: torch.Tensor, update: Tree) -> Tree:
     """``tree`` with rows ``idx`` of every leaf replaced by ``update``'s
     (leading axis ``len(idx)``); out of place, like the reference."""
     return {k: v.index_copy(0, idx, update[k]) for k, v in tree.items()}
+
+
+def row_sum(x: torch.Tensor) -> torch.Tensor:
+    """``sum`` over the leading axis, added in index order (a fixed order
+    on every device)."""
+    acc = x[0]
+    for i in range(1, x.shape[0]):
+        acc = acc + x[i]
+    return acc
 
 
 def _weighted_sums(xs, weights: torch.Tensor):

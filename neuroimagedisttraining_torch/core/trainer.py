@@ -8,15 +8,21 @@ client's valid rows; each client consumes its own ``ceil(n_i / batch)``
 batches, the last one partial (padded slots carry zero loss weight), and
 steps past that are no-ops (skipped here, since nothing runs in lockstep).
 
-The random draws enter as arguments — the epoch permutations and the
-dropout masks, drawn by the round from its ``torch.Generator``
-(``algorithms/base.py``), so a test can feed the reference's draws.
+``hp.batching == "replacement"`` draws every step's batch uniformly with
+replacement from the client's valid rows instead (the reference's other
+mode): every step runs, each loss the plain mean of its full batch.
+
+The random draws enter as arguments — the epoch permutations (or the
+with-replacement batch indices) and the dropout masks, drawn by the round
+from its ``torch.Generator`` (``algorithms/base.py``), so a test can feed
+the reference's draws.
 """
 from __future__ import annotations
 
 from typing import Callable, List, Optional, Sequence
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..ops import kernels
 from .losses import PER_EXAMPLE_LOSSES, predictions
@@ -49,6 +55,18 @@ def epoch_permutations(generator: torch.Generator, n_valid: int, epochs: int,
     return torch.stack(rows).to(torch.int64)
 
 
+def replacement_batches(generator: torch.Generator, n_valid: int,
+                        hp: HyperParams) -> torch.Tensor:
+    """Replacement batching's row indices for one client, ``[epochs,
+    steps_per_epoch * batch]`` (the layout of :func:`epoch_permutations`,
+    step ``s`` reading the ``s``-th run of ``batch`` values): each uniform
+    in ``[0, max(n_valid, 1))``."""
+    idx = torch.randint(0, max(int(n_valid), 1),
+                        (hp.local_steps * hp.batch_size,),
+                        generator=generator, device=generator.device)
+    return idx.reshape(hp.local_epochs, -1)
+
+
 def active_steps(hp: HyperParams, n_valid: int,
                  full_batches: bool = False) -> List[int]:
     """The local steps a client of ``n_valid`` rows runs: per epoch its
@@ -60,22 +78,33 @@ def active_steps(hp: HyperParams, n_valid: int,
 
 
 def make_client_update(apply_fn, loss_type: str, hp: HyperParams,
-                       full_batches: bool = False) -> Callable:
+                       full_batches: bool = False, remat: bool = False,
+                       label_flip: Optional[Callable] = None) -> Callable:
     """Build ``client_update(params, mask, x, y, n_valid, client, perms, lr,
-    dropout=None) -> (params, momentum, mean_loss)``.
+    dropout=None, flip=None) -> (params, momentum, mean_loss)``.
 
     ``params`` is updated in place (pass a copy); the optimizer step is
     clip-by-global-norm, then the masked SGD kernel
     (:func:`ops.kernels.fused_masked_sgd_step`) with the post-step
     ``p *= mask`` of SalientGrads.
-    ``full_batches`` asserts every client holds at least
-    ``steps_per_epoch * batch_size`` rows, so every batch is full and every
-    step active.
+    ``full_batches`` asserts every batch is full and every step active:
+    every client holds at least ``steps_per_epoch * batch_size`` rows, or
+    the batching is "replacement".
+    ``remat`` runs each batch's forward and loss under
+    ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` with
+    nothing saved): the activations are recomputed in the backward, so the
+    forward runs twice a step (the stem forward kernel too) for less live
+    memory. The dropout masks are inputs, so the recompute is the same
+    function; nothing is drawn inside it.
+    ``flip`` (a 0-d bool tensor) flips the client's labels through
+    ``label_flip(y, flip)``, the ``labelflip`` fault
+    (``robust.faults.make_labelflip_fn``).
 
     ``x`` and ``y`` are the whole cohort's ``[C, rows, ...]`` arrays and
     ``client`` a one-element int64 tensor on their device: each batch is
     gathered from that client's rows through it. ``perms`` is the client's
-    ``[epochs, steps_per_epoch * batch_size]`` row order, ``lr`` the round's
+    ``[epochs, steps_per_epoch * batch_size]`` row order (under
+    replacement batching, :func:`replacement_batches`), ``lr`` the round's
     rate as a 0-d float32 tensor (on the card, the masked SGD kernel reads
     it there) and ``dropout`` a per-step sequence of dropout keep-mask
     sequences (None for a model without dropout). A client update reads
@@ -83,10 +112,19 @@ def make_client_update(apply_fn, loss_type: str, hp: HyperParams,
     ``algorithms/base.py``, which a CUDA graph can hold."""
     per_example = PER_EXAMPLE_LOSSES[loss_type]
     spe, bs = hp.steps_per_epoch, hp.batch_size
+    full_batches = full_batches or hp.batching == "replacement"
+
+    def batch_loss(names, leaves, xb, yb, w, drop):
+        logits = apply_fn(dict(zip(names, leaves)), xb, train=True, rng=drop)
+        per_ex = per_example(logits, yb).float()
+        if w is None:
+            return per_ex.mean()
+        return torch.sum(per_ex * w) / torch.clamp(w.sum(), min=1.0)
 
     def client_update(params: Tree, mask: Tree, x, y, n_valid: int,
                       client: torch.Tensor, perms: torch.Tensor,
-                      lr: torch.Tensor, dropout: Optional[Sequence] = None):
+                      lr: torch.Tensor, dropout: Optional[Sequence] = None,
+                      flip: Optional[torch.Tensor] = None):
         n_valid = int(n_valid)
         n_rows = x.shape[1]
         names = list(params)
@@ -100,16 +138,18 @@ def make_client_update(apply_fn, loss_type: str, hp: HyperParams,
             start = (s // spe) * (spe * bs) + pos * bs
             idx = torch.clamp(flat[start:start + bs], max=n_rows - 1)
             xb, yb = x[client, idx], y[client, idx]
+            if flip is not None:
+                yb = label_flip(yb, flip)
             drop = None if dropout is None else dropout[s]
-            logits = apply_fn(dict(zip(names, leaves)), xb, train=True,
-                              rng=drop)
-            per_ex = per_example(logits, yb).float()
-            if full_batches:
-                loss = per_ex.mean()
+            w = None if full_batches else (
+                (pos * bs + torch.arange(bs, device=x.device))
+                < n_valid).float()
+            if remat:
+                loss = checkpoint(batch_loss, names, leaves, xb, yb, w, drop,
+                                  use_reentrant=False,
+                                  preserve_rng_state=False)
             else:
-                w = ((pos * bs + torch.arange(bs, device=x.device))
-                     < n_valid).float()
-                loss = torch.sum(per_ex * w) / torch.clamp(w.sum(), min=1.0)
+                loss = batch_loss(names, leaves, xb, yb, w, drop)
             grads = torch.autograd.grad(loss, leaves)
             with torch.no_grad():
                 # cuDNN may hand a conv's weight gradient back channels-last

@@ -6,7 +6,7 @@ plus one flag of its own, ``--device`` (the role ``JAX_PLATFORMS`` plays
 there), and gives the same identity string, so logs and results land at the
 same paths. The flags of subsystems the port has not got are parsed all the
 same; the runner refuses them (``runner.refuse_unported``), and ``derive``
-refuses the four whose specs only those subsystems can validate.
+refuses the three whose specs only those subsystems can validate.
 
 Like the JAX package, it rebuilds the original per-algorithm argparse mains
 (``fedml_experiments/standalone/<algo>/main_<algo>.py``) as one shared flag
@@ -837,7 +837,9 @@ def derive(args: argparse.Namespace) -> argparse.Namespace:
     # faults are injected
     fault_spec = getattr(args, "fault_spec", "")
     if fault_spec:
-        _unported("--fault_spec", 9)
+        from ..robust.faults import parse_fault_spec
+
+        parse_fault_spec(fault_spec)  # raises ValueError on bad specs
     # robust aggregation: range-check the estimator knobs at parse time
     # (base.py re-validates for programmatic construction, but a typo'd
     # CLI run must die before it builds a model)

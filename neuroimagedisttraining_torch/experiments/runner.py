@@ -8,7 +8,7 @@ its ``.json``) at ``<results_dir>/<dataset>/<identity>``, with the same
 top-level keys. It runs on ``--device`` (CUDA by default, with no fallback).
 
 A flag of a feature the port has not got (another algorithm, checkpoints,
-telemetry, faults and defenses, the mesh, ...) ends the run
+telemetry, the mesh, ...) ends the run
 before any work with ``SystemExit`` naming the flag and the ROADMAP item
 that ports it (:func:`refuse_unported`). A knob that leaves the JAX
 package's results bit-identical (``--client_chunk``, ``--donate_state``,
@@ -53,15 +53,6 @@ S2D_SPECS = {"3dcnn_s2d": (5, 0), "3dresnet_s2d": (3, 3),
 #: flag attribute -> ROADMAP item of the feature it drives, refused at any
 #: value but its default
 _UNPORTED = {
-    # 4: core
-    "remat": 4,
-    # 5: SNIP
-    "stratified_sampling": 5, "stratified_mode": 5,
-    # 9: robustness
-    "fault_spec": 9, "guard": 9, "watchdog": 9, "watchdog_loss": 9,
-    "watchdog_norm": 9, "max_round_retries": 9, "retry_backoff_s": 9,
-    "defense_type": 9, "norm_bound": 9, "stddev": 9, "robust_agg": 9,
-    "robust_trim": 9, "robust_krum_f": 9,
     # 12: the wire and the state tier
     "checkpoint_dir": 12, "resume": 12, "client_store": 12,
     "store_hot_clients": 12, "fed_role": 12, "fed_mode": 12,
@@ -89,16 +80,16 @@ _UNPORTED = {
     "mesh_space": 15,
     # the rest: the values other than the default that the port runs are
     # in _ALLOWED
-    "batching": 4, "mesh_devices": 7,
+    "mesh_devices": 7,
 }
 #: attribute -> the values of it the port runs, where that is not just the
-#: parser's default (``derive`` resolves the sentinels of guard, watchdog
-#: and batching; 1 device, 1 depth shard and 1-round blocks are the
-#: default's behavior)
-_ALLOWED = {
-    "guard": (0,), "watchdog": (0,), "batching": ("epoch",),
-    "mesh_devices": (0, 1), "mesh_space": (0, 1),
-}
+#: parser's default (1 device and 1 depth shard are the default's
+#: behavior)
+_ALLOWED = {"mesh_devices": (0, 1), "mesh_space": (0, 1)}
+#: the algorithms with a central aggregate the guard, the faults and the
+#: robust statistics act on (the JAX CLI's list; the port has the first
+#: two)
+_CENTRAL = ("fedavg", "salientgrads", "ditto")
 #: knobs that leave the JAX package's results bit-identical, and why the
 #: port has nothing for them to change
 _INERT = {
@@ -143,7 +134,21 @@ def _default(attr: str):
 
 def refuse_invalid(args: argparse.Namespace, algo_name: str) -> None:
     """The JAX CLI's own refusals of flag combinations that the port has
-    the features for, with its messages (``--eval_cache``)."""
+    the features for, with its messages, in its order (the faults, the
+    guard, the robust statistic, the eval cache, the defense, the watchdog
+    in fused blocks)."""
+    if (getattr(args, "fault_spec", "") or getattr(args, "guard", 0)) \
+            and algo_name not in _CENTRAL:
+        raise SystemExit(
+            "--fault_spec/--guard protect the CENTRAL aggregation round "
+            f"(fedavg/salientgrads/ditto); {algo_name} has no central "
+            "aggregate to guard")
+    if getattr(args, "robust_agg", "none") != "none" and \
+            algo_name not in _CENTRAL:
+        raise SystemExit(
+            f"--robust_agg {args.robust_agg} replaces the CENTRAL "
+            f"weighted mean (fedavg/salientgrads/ditto); {algo_name} "
+            "has no central aggregate to robustify")
     if getattr(args, "eval_cache", 0):
         if algo_name not in ("fedavg", "salientgrads"):
             raise SystemExit(
@@ -160,6 +165,18 @@ def refuse_invalid(args: argparse.Namespace, algo_name: str) -> None:
                 "--eval_cache indexes the full cohort; the sampled-"
                 "eval subset (--eval_clients) composes poorly with it "
                 "— use one or the other")
+    if getattr(args, "defense_type", "none") != "none" and \
+            algo_name not in ("fedavg", "salientgrads"):
+        raise SystemExit(
+            f"--defense_type {args.defense_type} guards the global "
+            "aggregation of fedavg/salientgrads; "
+            f"{algo_name} has no central aggregate to defend")
+    if getattr(args, "watchdog", 0) and \
+            max(1, getattr(args, "fuse_rounds", 1) or 1) > 1:
+        raise SystemExit(
+            "--watchdog rolls rounds back and retries them — "
+            "per-round host control that --fuse_rounds removes; "
+            "use --fuse_rounds 1 (or --watchdog 0)")
 
 
 def refuse_unported(args: argparse.Namespace, algo_name: str) -> None:
@@ -244,6 +261,7 @@ def build_algorithm(args: argparse.Namespace, algo_name: str):
     from ..algorithms import FedAvg, SalientGrads
     from ..core.state import HyperParams
     from ..models import create_model
+    from ..robust import RobustAggregator
 
     refuse_unported(args, algo_name)
     # the layout/dataset/model coupling, checked before any data IO
@@ -286,16 +304,20 @@ def build_algorithm(args: argparse.Namespace, algo_name: str):
                 if model_key in _SIZED_MODELS else {})
     model = create_model(model_key, num_classes=num_outputs, **model_kw)
 
-    # epoch batching: each client iterates ceil(n_i/batch) shuffled batches
-    # per epoch; the step count is the largest client's, and the smaller
-    # clients' extra steps are masked no-ops (core/trainer.py)
     counts = np.asarray(data.n_train)
-    steps_per_epoch = max(1, -(-int(np.max(counts)) // args.batch_size))
+    batching = getattr(args, "batching", "epoch")
+    if batching == "epoch":
+        # each client iterates ceil(n_i/batch) shuffled batches per epoch;
+        # the step count is the largest client's, and the smaller clients'
+        # extra steps are masked no-ops (core/trainer.py)
+        steps_per_epoch = max(1, -(-int(np.max(counts)) // args.batch_size))
+    else:  # with-replacement draws: the mean shard's step count
+        steps_per_epoch = max(1, int(np.mean(counts)) // args.batch_size)
     hp = HyperParams(
         lr=args.lr, lr_decay=args.lr_decay, momentum=args.momentum,
         weight_decay=args.wd, grad_clip=args.grad_clip,
         local_epochs=args.epochs, steps_per_epoch=steps_per_epoch,
-        batch_size=args.batch_size,
+        batch_size=args.batch_size, batching=batching,
     )
     agg_impl = getattr(args, "agg_impl", "dense")
     if agg_impl == "sparse" and algo_name != "salientgrads":
@@ -320,20 +342,36 @@ def build_algorithm(args: argparse.Namespace, algo_name: str):
         agg_hier_inner=getattr(args, "agg_hier_inner", 0),
         eval_clients=getattr(args, "eval_clients", 0),
         channel_inject=channel_inject,
+        remat_local=bool(getattr(args, "remat", 0)),
+        fault_spec=getattr(args, "fault_spec", ""),
+        # None: the algorithm resolves it (on iff faults are injected)
+        guard=(bool(args.guard)
+               if getattr(args, "guard", None) is not None else None),
+        robust_agg=getattr(args, "robust_agg", "none"),
+        robust_trim=getattr(args, "robust_trim", 0.2),
+        robust_krum_f=getattr(args, "robust_krum_f", 0),
+        # norm_krum's clip bound is --norm_bound
+        robust_norm_bound=getattr(args, "norm_bound", 5.0),
         device=getattr(args, "device", "cuda"),
         track_personal=bool(getattr(args, "track_personal", 1)),
         eval_cache=bool(getattr(args, "eval_cache", 0)),
     )
+    defense = None
+    if getattr(args, "defense_type", "none") != "none":
+        defense = RobustAggregator(
+            defense_type=args.defense_type,
+            norm_bound=args.norm_bound, stddev=args.stddev)
     if algo_name == "salientgrads":
         algo = SalientGrads(
             model, data, hp, dense_ratio=args.dense_ratio,
-            itersnip_iterations=args.itersnip_iteration,
+            itersnip_iterations=args.itersnip_iteration, defense=defense,
             snip_mask=bool(getattr(args, "snip_mask", 1)),
             stratified_sampling=bool(getattr(args, "stratified_sampling",
                                              0)),
+            stratified_mode=getattr(args, "stratified_mode", "exact"),
             **common)
     else:
-        algo = FedAvg(model, data, hp, **common)
+        algo = FedAvg(model, data, hp, defense=defense, **common)
     return algo, algo.data
 
 
@@ -415,6 +453,8 @@ def _run_fused_rounds(algo, algo_name, state, total, block, ev_every, cost,
 def run_experiment(args: argparse.Namespace,
                    algo_name: Optional[str] = None) -> Dict[str, Any]:
     from .. import resolve_device
+    from ..robust import recovery
+    from ..robust.recovery import RoundWatchdog
     from ..utils.flops import CostTracker, inference_flops
     from ..utils.records import DeferredRecords, RunCounters, to_float
 
@@ -438,12 +478,15 @@ def run_experiment(args: argparse.Namespace,
         state = algo.init_state()
 
         # per-round cost accounting (stat_info's sum_training_flops /
-        # sum_comm_params): each client consumes its own n_i samples per
-        # epoch, the cohort mean standing in for the sampled subset
+        # sum_comm_params): with epoch batching each client consumes its
+        # own n_i samples per epoch, the cohort mean standing in for the
+        # sampled subset; with replacement, steps x batch
         cost = CostTracker(model=algo.model,
                            sample_shape=algo.init_sample_shape)
-        samples_per_client = algo.hp.local_epochs * int(
-            np.mean(np.asarray(data.n_train)))
+        samples_per_client = algo.hp.local_steps * algo.hp.batch_size
+        if algo.hp.batching == "epoch":
+            samples_per_client = algo.hp.local_epochs * int(
+                np.mean(np.asarray(data.n_train)))
 
         history = []
         final_eval = None
@@ -454,6 +497,24 @@ def run_experiment(args: argparse.Namespace,
             logger.info("%s round %s: %s", algo_name, rec["round"], rec)
 
         fuse = max(1, getattr(args, "fuse_rounds", 1) or 1)
+        watchdog = None
+        if getattr(args, "watchdog", 0):
+            # the host-side divergence watchdog with rollback-retry
+            # (robust/recovery.py; refuse_invalid refused fused blocks)
+            retries = getattr(args, "max_round_retries", 2)
+            if algo.clients_per_round == algo.num_clients and retries:
+                # full participation has no other cohort to draw, and a
+                # round is deterministic in (state, round): a retry would
+                # re-run the failed round; go straight to the skip
+                logger.info(
+                    "watchdog: full participation — retries are "
+                    "deterministic re-runs, short-circuiting to skip")
+                retries = 0
+            watchdog = RoundWatchdog(
+                max_retries=retries,
+                backoff_s=getattr(args, "retry_backoff_s", 0.0),
+                loss_threshold=getattr(args, "watchdog_loss", 0.0),
+                norm_threshold=getattr(args, "watchdog_norm", 0.0))
         if fuse > 1:
             # K-round fused blocks (FedAlgorithm.run_rounds_fused): on the
             # card one graph replay per round, one metric fetch per block;
@@ -467,9 +528,29 @@ def run_experiment(args: argparse.Namespace,
             # queued (utils/records.py)
             deferred = DeferredRecords(log=_emit)
             try:
-                for r in range(args.comm_round):
-                    state, rec = algo.run_round(state, r)
+                r = 0
+                while r < args.comm_round:
+                    if watchdog is not None:
+                        # a retry re-samples the cohort (nonce 0 = the
+                        # reference's draw)
+                        algo.set_retry_nonce(watchdog.retries_at(r))
+                    # the round leaves ``state`` as it was: the last good
+                    # state a retry or a skip goes back to
+                    new_state, rec = algo.run_round(state, r)
                     record = {"round": r, **dict(rec)}
+                    if watchdog is not None:
+                        verdict = watchdog.judge(r, record, new_state,
+                                                 state)
+                        if verdict == recovery.RETRY:
+                            # the discarded attempt's faults happened:
+                            # count them (its record is never emitted)
+                            counters.update(record)
+                            continue
+                        if verdict == recovery.SKIP:
+                            new_state = state  # carry the last-good state
+                            record["round_skipped"] = 1.0
+                        record.update(watchdog.round_counters())
+                    state = new_state
                     crec = _cost_round_record(algo, cost, samples_per_client,
                                               state)
                     record["sum_training_flops"] = crec["sum_training_flops"]
@@ -483,6 +564,9 @@ def run_experiment(args: argparse.Namespace,
                             if not k.startswith("acc_per")})
                     history.append(record)
                     deferred.push(record)
+                    r += 1
+                if watchdog is not None:
+                    algo.set_retry_nonce(0)
             except BaseException:
                 deferred.flush_safely()  # emit the last completed round
                 raise
@@ -512,9 +596,12 @@ def run_experiment(args: argparse.Namespace,
             params, mask = _cost_snapshot(state)
             avg_inf = inference_flops(algo.model, params,
                                       algo.init_sample_shape, mask)
+        fault_totals = counters.summary()
+        if watchdog is not None:
+            fault_totals.update(watchdog.totals())
         stat_path = save_stat_info(
             args, identity, history, final_eval, cost=cost,
-            avg_inference_flops=avg_inf, fault_counters=counters.summary())
+            avg_inference_flops=avg_inf, fault_counters=fault_totals)
         return {
             "identity": identity,
             "history": history,

@@ -194,6 +194,7 @@ class AlexNet3DS2D(nn.Module):
         super().__init__()
         w1, w2, w3, w4, w5 = widths
         self.dropout_rate = dropout_rate
+        self.num_classes = num_classes  # the output count
         self.S2DStemStage_0 = S2DStemStage(features=w1, pool_first=pool_first)
         self.Conv3d_0 = Conv3d(w1, w2, kernel_size=3)
         self.GroupNorm_0 = group_norm(w2)
@@ -301,6 +302,7 @@ class AlexNet3D(nn.Module):
                  sample_shape: Tuple[int, ...] = (121, 145, 121, 1)):
         super().__init__()
         self.dropout_rate = dropout_rate
+        self.num_classes = num_classes  # the output count
         flat = _dense_flat_width("AlexNet3D", sample_shape, _FEATURES_STAGES,
                                  128)
         self._Features_0 = _Features()
@@ -324,6 +326,7 @@ class AlexNet3DDeeper(nn.Module):
                  sample_shape: Tuple[int, ...] = (121, 145, 121, 1)):
         super().__init__()
         self.dropout_rate = dropout_rate
+        self.num_classes = num_classes  # the output count
         flat = _dense_flat_width("AlexNet3DDeeper", sample_shape,
                                  _DEEPER_STAGES, self.WIDTHS[-1])
         specs = (dict(kernel_size=5, strides=2), dict(kernel_size=3)) + \
@@ -377,6 +380,7 @@ class SmallCNN3D(nn.Module):
                  dropout_rate: float = 0.0):
         super().__init__()
         self.dropout_rate = dropout_rate
+        self.num_classes = num_classes  # the output count
         self.Conv3d_0 = Conv3d(1, width, kernel_size=3, strides=2, padding=1)
         self.GroupNorm_0 = group_norm(width)
         self.Conv3d_1 = Conv3d(width, width * 2, kernel_size=3, padding=1)
@@ -398,6 +402,7 @@ class SmallCNN3DS2D(nn.Module):
                  dropout_rate: float = 0.0):
         super().__init__()
         self.dropout_rate = dropout_rate
+        self.num_classes = num_classes  # the output count
         self.S2DStemConv_0 = S2DStemConv(width, kernel_size=3)
         self.GroupNorm_0 = group_norm(width)
         self.Conv3d_0 = Conv3d(width, width * 2, kernel_size=3, padding=1)

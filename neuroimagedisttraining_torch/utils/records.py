@@ -68,9 +68,12 @@ class DeferredRecords:
 
 class RunCounters:
     """Run-level fault totals accumulated from per-round records, landing
-    in ``stat_info["fault_recovery"]``. The port has no fault path yet
-    (ROADMAP item 9), so no record carries these fields and the summary is
-    empty, as the reference's is on a clean run."""
+    in ``stat_info["fault_recovery"]`` (beside the watchdog's own
+    ``rounds_retried`` / ``rounds_skipped`` totals). The guarded round
+    reports ``clients_dropped`` and ``clients_quarantined``; the round loops
+    feed every record through :meth:`update`, the attempts a watchdog
+    rolled back too. Without the guard no record carries them and the
+    summary is empty."""
 
     FIELDS = ("clients_dropped", "clients_quarantined")
 

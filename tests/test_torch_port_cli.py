@@ -7,9 +7,16 @@
 * Every flag of a feature the port has not got ends the run with
   ``SystemExit`` naming the flag, before any work; the combinations the
   JAX CLI refuses (``--eval_cache`` with another algorithm, with
-  ``--track_personal 0`` or with ``--eval_clients``) end it with the JAX
-  CLI's reason, and a volume too small for a dense-stem AlexNet with a
-  ``ValueError`` naming it.
+  ``--track_personal 0`` or with ``--eval_clients``; the faults, the guard,
+  the robust statistics and the defenses on an algorithm without a central
+  aggregate; ``--watchdog`` in fused blocks; ``drop=`` without the guard;
+  the estimators' bounds; exact stratified SNIP on small shards) end it
+  with the JAX CLI's reason, and a volume too small for a dense-stem
+  AlexNet with a ``ValueError`` naming it.
+* The training options and the robustness tier run end to end on the CPU
+  (``--batching replacement``, ``--remat``, stratified SNIP, faults and the
+  guard, every ``--robust_agg``, both defenses, the watchdog), under the
+  JAX CLI's identity.
 * Both ``build_algorithm`` give equal hyperparameters, loss type and data
   from one command line, and two rounds of each agree (the reference's
   draws fed to the port at its seams; losses rtol 1e-5, parameters rtol
@@ -22,6 +29,7 @@ import os
 import pickle
 import subprocess
 import sys
+import warnings
 
 import numpy as np
 import pytest
@@ -74,6 +82,26 @@ COMMAND_LINES = [
     (None, ["--algo", "fedavg", "--fed_role", "aggregator", "--fed_sites",
             "3", "--fed_mode", "buffered", "--batching", "replacement"]),
     (None, ["--algo", "salientgrads", "--eval_cache", "1"] + SMALL),
+    # the training options and the robustness tier
+    ("salientgrads", SMALL + ["--batching", "replacement"]),
+    ("fedavg", SMALL + ["--remat", "1"]),
+    ("salientgrads", SMALL + ["--stratified_sampling", "1",
+                              "--stratified_mode", "balanced"]),
+    (None, ["--algo", "salientgrads", "--stratified_sampling", "1"]),
+    (None, ["--algo", "fedavg", "--fault_spec",
+            "drop=0.125,nan=0.125,scale=0.125:100x"] + SMALL),
+    (None, ["--algo", "salientgrads", "--fault_spec", "nan=0.2",
+            "--guard", "0", "--fuse_rounds", "2"]),
+    ("fedavg", SMALL + ["--guard", "1", "--watchdog", "1",
+                        "--max_round_retries", "3", "--retry_backoff_s",
+                        "0.5", "--watchdog_loss", "5", "--watchdog_norm",
+                        "10"]),
+    ("salientgrads", SMALL + ["--robust_agg", "trimmed_mean",
+                              "--robust_trim", "0.1"]),
+    (None, ["--algo", "salientgrads", "--robust_agg", "krum",
+            "--robust_krum_f", "2", "--agg_impl", "int8"]),
+    ("fedavg", SMALL + ["--defense_type", "norm_diff_clipping",
+                        "--norm_bound", "2", "--stddev", "0.05"]),
     ("fedavg", SMALL + ["--eval_clients", "3"]),
     ("salientgrads", ["--dataset", "abcd_site", "--layout", "flat",
                       "--model", "3dcnn_deeper", "--eval_cache", "1",
@@ -132,14 +160,8 @@ REFUSED = [
     (["--obs_numerics", "1"], "--obs_numerics"),
     (["--obs_comm", "1"], "--obs_comm"),
     (["--trace_dir", "tr"], "--trace_dir"),
-    (["--fault_spec", "drop=0.2"], "--fault_spec"),
     (["--slo_spec", "p99:round_time_s<2"], "--slo_spec"),
     (["--flight_recorder", "guard"], "--flight_recorder"),
-    (["--guard", "1"], "--guard"),
-    (["--watchdog", "1"], "--watchdog"),
-    (["--robust_agg", "median"], "--robust_agg"),
-    (["--defense_type", "norm_diff_clipping"], "--defense_type"),
-    (["--norm_bound", "2"], "--norm_bound"),
     (["--mesh_devices", "2"], "--mesh_devices"),
     (["--mesh_space", "2"], "--mesh_space"),
     (["--multihost"], "--multihost"),
@@ -149,9 +171,6 @@ REFUSED = [
     (["--fed_role", "aggregator", "--fed_sites", "2", "--fed_site_faults",
       "1:drop=1.0"], "--fed_site_faults"),
     (["--profile_dir", "prof"], "--profile_dir"),
-    (["--remat", "1"], "--remat"),
-    (["--batching", "replacement"], "--batching"),
-    (["--stratified_sampling", "1"], "--stratified_sampling"),
     (["--dataset", "cifar10"], "--dataset"),
     (["--model", "resnet18"], "--model"),
     (["--model", "3dresnet", "--layout", "s2d", "--dataset", "abcd"],
@@ -214,6 +233,58 @@ def test_reference_refusals(tmp_path, extra, exc, says):
         with pytest.raises(SystemExit) as je:
             jrunner.build_algorithm(jargs, jargs.algo)
         assert str(je.value.code) == msg
+
+
+#: (extra argv, the exception, what its message starts with): the JAX CLI's
+#: refusals of the training options and the robustness tier, at parse
+#: time, in its build or before its round loop
+ROBUST_REFUSALS = [
+    (["--algo", "dispfl", "--fault_spec", "drop=0.2"], SystemExit,
+     "--fault_spec/--guard protect the CENTRAL aggregation round"),
+    (["--algo", "subavg", "--guard", "1"], SystemExit,
+     "--fault_spec/--guard protect the CENTRAL aggregation round"),
+    (["--algo", "local", "--robust_agg", "median"], SystemExit,
+     "--robust_agg median replaces the CENTRAL weighted mean"),
+    (["--algo", "dpsgd", "--defense_type", "weak_dp"], SystemExit,
+     "--defense_type weak_dp guards the global aggregation"),
+    (["--watchdog", "1", "--fuse_rounds", "2"], SystemExit,
+     "--watchdog rolls rounds back and retries them"),
+    (["--fault_spec", "drop=0.2", "--guard", "0"], ValueError,
+     "fault_spec drop=... requires the guard"),
+    (["--fault_spec", "drop=0.2,bogus=1"], ValueError,
+     "unknown fault kind 'bogus'"),
+    (["--robust_agg", "trimmed_mean", "--robust_trim", "0.5"], ValueError,
+     "--robust_trim 0.5 out of range [0, 0.5)"),
+    (["--robust_agg", "krum", "--robust_krum_f", "-1"], ValueError,
+     "--robust_krum_f -1 must be >= 0"),
+    (["--robust_agg", "norm_krum", "--norm_bound", "0"], ValueError,
+     "robust_norm_bound 0.0 must be > 0"),
+    (["--stratified_sampling", "1", "--stratified_mode", "exact"],
+     ValueError, "exact stratified SNIP needs >= 25 samples of every class"),
+]
+
+
+@pytest.mark.parametrize("extra,exc,says", ROBUST_REFUSALS,
+                         ids=[" ".join(e) for e, _, _ in ROBUST_REFUSALS])
+def test_reference_refusals_of_the_lifted_flags(tmp_path, extra, exc, says):
+    """The lifted flags' refusals: the JAX CLI's own, message for message
+    (the port's ``SystemExit`` before any work, the ``ValueError`` where
+    the JAX CLI raises it: its parser or the algorithm's constructor)."""
+    def argv(side):
+        return (["--algo", "salientgrads", "--dataset", "synthetic",
+                 "--model", "small3dcnn", "--comm_round", "1",
+                 "--results_dir", str(tmp_path / side / "res"),
+                 "--log_dir", ""] + extra)
+
+    with pytest.raises(exc) as e:
+        trunner.main(argv("t") + ["--device", "cpu"])
+    msg = str(e.value.code if exc is SystemExit else e.value)
+    assert msg.startswith(says), msg
+    if exc is SystemExit:
+        assert not (tmp_path / "t").exists()
+    with pytest.raises(exc) as je:
+        jrunner.main(argv("j"))
+    assert str(je.value.code if exc is SystemExit else je.value) == msg
 
 
 def test_eval_flags_split_run_identity_as_reference():
@@ -538,12 +609,63 @@ def test_deferred_records_match_reference():
     assert counters.summary() == {"clients_dropped": 3.0}
 
 
-def test_salientgrads_stratified_sampling_refused():
-    from neuroimagedisttraining_torch.algorithms import SalientGrads
-    from neuroimagedisttraining_torch.core.state import HyperParams
+#: the lifted flags' runs on the CPU: (extra argv, what the history shows)
+LIFTED_RUNS = [
+    (["--batching", "replacement"], None),
+    (["--remat", "1"], None),
+    (["--stratified_sampling", "1", "--stratified_mode", "balanced"], None),
+    (["--stratified_sampling", "1", "--batch_size", "50"], None),
+    (["--fault_spec", "drop=0.2,nan=0.2,scale=0.2:100x", "--frac", "0.5"],
+     "guard"),
+    (["--algo", "fedavg", "--fault_spec", "nan=0.5,labelflip=0.3",
+      "--guard", "1", "--watchdog", "1"], "watchdog"),
+] + [
+    (["--robust_agg", kind, "--agg_impl", impl], None)
+    for kind, impl in (("median", "dense"), ("trimmed_mean", "bf16"),
+                       ("krum", "int8"), ("multikrum", "topk"),
+                       ("norm_krum", "dense"))
+] + [
+    (["--algo", a, "--defense_type", d], None)
+    for a, d in (("salientgrads", "weak_dp"),
+                 ("fedavg", "norm_diff_clipping"))
+]
 
-    _, tm = pc.models()
-    _, td = pc.data()
-    with pytest.raises(ValueError, match="ROADMAP item 5"):
-        SalientGrads(tm, td, pc.hp(HyperParams, 2), stratified_sampling=True,
-                     device="cpu")
+
+@pytest.mark.parametrize("extra,shows", LIFTED_RUNS,
+                         ids=[" ".join(e) for e, _ in LIFTED_RUNS])
+def test_cli_runs_the_lifted_flags_on_cpu(tmp_path, extra, shows):
+    """Each training option and robustness flag through
+    ``experiments.runner.main`` on the CPU: the JAX CLI's identity, finite
+    losses, the guard's counters under faults and the watchdog's in the
+    records and in ``stat_info``."""
+    argv = (["--algo", "salientgrads", "--dataset", "synthetic", "--model",
+             "small3dcnn", "--comm_round", "2", "--epochs", "1",
+             "--results_dir", str(tmp_path / "res"), "--log_dir", ""]
+            + extra)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # small ops among the suite's parallel workers
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # the splitter's small classes
+            res = trunner.main(argv + ["--device", "cpu"])
+    finally:
+        torch.set_num_threads(threads)
+    assert res["identity"] == jconfig.run_identity(jconfig.parse_args(argv))
+    rounds = [h for h in res["history"] if h["round"] >= 0]
+    assert [h["round"] for h in rounds] == [0, 1]
+    assert all(np.isfinite(h["train_loss"]) for h in rounds)
+    for v in res["state"].global_params.values():
+        assert bool(torch.isfinite(v).all())
+    with open(res["stat_path"], "rb") as f:
+        fault = pickle.load(f)["fault_recovery"]
+    if shows is None:
+        assert fault == {}
+        assert all("clients_quarantined" not in h for h in rounds)
+        return
+    assert all({"clients_dropped", "clients_quarantined"} <= set(h)
+               for h in rounds)
+    assert fault["clients_quarantined"] == sum(
+        h["clients_quarantined"] for h in rounds) or shows == "watchdog"
+    if shows == "watchdog":
+        assert all("rounds_retried" in h for h in rounds)
+        assert {"rounds_retried", "rounds_skipped"} <= set(fault)

@@ -290,7 +290,9 @@ def test_port_imports_no_jax():
                 "experiments/logging_utils", "experiments/main_salientgrads",
                 "experiments/main_sailentgrads", "experiments/main_fedavg",
                 "utils/__init__", "utils/records", "utils/flops",
-                "data/abcd", "data/partition"):
+                "data/abcd", "data/partition", "robust/__init__",
+                "robust/faults", "robust/guard", "robust/aggregation",
+                "robust/recovery"):
         assert f"neuroimagedisttraining_torch/{mod}.py" in names, mod
     banned = ("jax", "flax", "neuroimagedisttraining_tpu")
     for f in files:
