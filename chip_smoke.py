@@ -100,16 +100,28 @@ Phases, each printing one JSON line:
    batching eager and fused, and exact stratified SNIP on 50 volumes a
    client with 25 of each class (seconds, launches, density 0.5; see
    ``train_opts_path``).
-11. cli     — the command-line entry point in-process on the card
+11. personal — the personalized and decentralized baselines at full width
+   on the main configuration: DisPFL (ERK, ``frac`` 0.5, random
+   neighbors; with ``active`` 0.5; static masks), SubAvg, Ditto, Local and
+   DPSGD, 2 eager rounds (each timed) and an eval each; finite losses,
+   DisPFL's and SubAvg's client weights zero off their masks, SubAvg's new
+   masks inside the old, DisPFL's live counts moved by regrow ties alone
+   (each evolution checked against the reference's rules), the masked SGD
+   kernel's ``mask_grads`` branch launched once a step
+   exactly on the DisPFL and SubAvg paths, every path's stem launches; the
+   steady round seconds and peak memory; then a narrow run of each
+   algorithm on the card against the CPU (see ``personal_path``).
+12. cli     — the command-line entry point in-process on the card
    (``experiments.runner.main``): SalientGrads and FedAvg, ``--dataset
    synthetic --model small3dcnn --comm_round 2`` (no stem stage on this
    model), and SalientGrads with ``--fuse_rounds 2``, whose history must
    equal the unfused run's; each with its counters zeroed just before and
-   read just after; the cohort and the parameters on CUDA, the losses
-   finite, ``stat_info`` (pickle and ``.json``) written under a temporary
+   read just after; then the training options, the robustness flags and
+   each of the five personalized and decentralized algorithms; the cohort
+   and the parameters on CUDA, the losses finite, ``stat_info`` (pickle and ``.json``) written under a temporary
    ``--results_dir``. The ABCD cohort-file step is not here: the loaders
    need ``h5py``, which the card's machine does not have.
-12. bench  — ``bench_torch.main()``, the port's bench of the headline
+13. bench  — ``bench_torch.main()``, the port's bench of the headline
    workload (SNIP; the Python loop: 1 + 10 rounds without eval, 1 + 8 with
    the eval every round, each from a clone of one state; the fused
    spelling: blocks of 10 and of 8 rounds with the eval, each after its
@@ -2284,6 +2296,329 @@ def train_opts_path(dev):
     return out
 
 
+#: the personal phase's full-width runs: (path name, algorithm class,
+#: options); each runs PERSONAL_ROUNDS eager rounds and an eval
+PERSONAL_CONFIGS = (
+    ("dispfl", "DisPFL", dict(frac=0.5, neighbor_mode="random")),
+    ("dispfl_active", "DisPFL", dict(frac=0.5, active=0.5)),
+    ("dispfl_static", "DisPFL", dict(frac=0.5, static_masks=True)),
+    ("subavg", "SubAvg", dict()),
+    ("ditto", "Ditto", dict()),
+    ("local", "LocalOnly", dict()),
+    ("dpsgd", "DPSGD", dict(frac=0.5)),
+)
+PERSONAL_ROUNDS = 2
+#: the narrow CPU-against-card runs' data seeds (default 5). Ditto, Local
+#: and DPSGD train every weight, and a max-pool or relu decision within
+#: float32 round-off of its tie can go one way on the card and the other on
+#: the CPU (a discrete flip, ~1e-3 of a kernel leaf, the same in every
+#: repeat): on the H100 Ditto flips on data seeds 3 and 5, Local on 9,
+#: DPSGD on 8; seed 4 flips none of them
+NARROW_SEEDS = {"ditto": 4, "local": 4, "dpsgd": 4}
+
+
+def _narrow_personal_parity(dev, cls_name, opts, seed):
+    """Two narrow rounds of one algorithm on the CPU and on the card from
+    the same parameters, masks and draws (epoch permutations of both legs,
+    DisPFL's screening rows), two epochs a round (SubAvg's second leg,
+    Ditto's personal leg of two): losses, kernel leaves and masks held at
+    the tolerances the ``parity`` phase holds the dense wire to."""
+    import torch
+
+    from neuroimagedisttraining_torch import algorithms
+    from neuroimagedisttraining_torch.core.state import HyperParams
+    from neuroimagedisttraining_torch.core.trainer import epoch_permutations
+    from neuroimagedisttraining_torch.data import make_synthetic_federated
+    from neuroimagedisttraining_torch.models import create_model, init_params
+    from neuroimagedisttraining_torch.ops.s2d import phased_sample_shape
+
+    ss = phased_sample_shape((69, 69, 69))
+    mk = dict(num_classes=1, widths=(8, 16, 16, 16, 16), dropout_rate=0.0,
+              sample_shape=ss)
+    data = make_synthetic_federated(seed=seed, n_clients=3,
+                                    samples_per_client=6, test_per_client=5,
+                                    sample_shape=ss)
+    hp = HyperParams(lr=0.01, momentum=0.9, weight_decay=5e-4,
+                     grad_clip=10.0, local_epochs=2, steps_per_epoch=2,
+                     batch_size=4)
+    g = torch.Generator().manual_seed(0)
+    params = init_params(create_model("3dcnn_s2d", **mk), g)
+    nvals = [int(n) for n in data.n_train]
+    n_rows = data.x_train.shape[1]
+
+    def perms(epochs):
+        return [epoch_permutations(g, n, epochs, 8, n_rows=n_rows)
+                for n in nvals]
+
+    seams = [dict(perms=perms(2), perms_2=perms(1 if cls_name == "SubAvg"
+                                                else 2),
+                  screen_idx=[torch.randint(0, n, (4,), generator=g)
+                              for n in nvals]) for _ in range(2)]
+    kw = dict(opts, frac=1.0)
+    if cls_name == "Ditto":
+        kw["personal_hp"] = hp
+    masks = None
+    runs = {}
+    for label, device in (("cpu", "cpu"), ("gpu", dev)):
+        algo = getattr(algorithms, cls_name)(
+            create_model("3dcnn_s2d", **mk), data, hp, loss_type="bce",
+            device=device, **kw)
+        init = dict(generator=torch.Generator(device=device).manual_seed(1),
+                    params=params)
+        if cls_name == "DisPFL":
+            init["masks"] = masks
+        state = algo.init_state(**init)
+        if cls_name == "DisPFL" and masks is None:
+            masks = {k: v.cpu() for k, v in state.masks.items()}
+        losses = []
+        for r in range(2):
+            state, met = algo.run_round(
+                state, r, **{k: v for k, v in seams[r].items()
+                             if k != "perms_2" or
+                             algo._second_leg_hp() is not None})
+            losses.append(float(met["train_loss"]))
+        runs[label] = (losses, {f: {k: v.cpu() for k, v in
+                                    getattr(state, f).items()}
+                                for f in ("global_params", "personal_params",
+                                          "masks") if hasattr(state, f)})
+    (lc, sc), (lg, sg) = runs["cpu"], runs["gpu"]
+    # a weight whose mask differs between the sides (a fire or regrow
+    # decision within round-off of its threshold) is counted, not compared
+    same = {k: (sg["masks"][k] == sc["masks"][k]) if "masks" in sc
+            else torch.ones_like(v, dtype=torch.bool)
+            for k, v in sc.get("masks", sc.get("personal_params",
+                                                sc.get("global_params"))
+                               ).items()}
+    rel, worst = 0.0, None
+    for f in ("global_params", "personal_params"):
+        for k, c in sc.get(f, {}).items():
+            if not k.endswith(".kernel"):
+                continue
+            w = same[k] if f == "personal_params" or same[k].dim() == \
+                c.dim() else same[k].all(dim=0)
+            err = float(((sg[f][k] - c) * w).norm() / (c * w).norm())
+            if err > rel:
+                rel, worst = err, f"{f}.{k}"
+    agree = sum(int(v.sum()) for v in same.values()) / sum(
+        v.numel() for v in same.values())
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lg, lc))
+    return {"data_seed": seed, "max_kernel_rel_err": rel,
+            "worst_leaf": worst, "mask_agreement": agree,
+            "loss_rel_err": loss_rel, "ok": rel <= 1e-4 and agree >= 0.999
+            and loss_rel <= 1e-4}
+
+
+def _regrow_ties(rec) -> int:
+    """One captured DisPFL mask evolution ``(masks, trained, rate, scores,
+    new masks)``, checked against the reference's rules: per client and
+    kernel leaf, fire left ``n`` fewer live weights (its own ties
+    included), and regrow grew exactly the dead weights whose score is at
+    least its threshold, which fewer than ``n`` dead scores exceed and at
+    least ``n`` reach. Returns the grown weights beyond ``n``: those tied at
+    the threshold (bf16 gradients tie often), by which alone the live
+    count, and so the mask density, moves."""
+    from neuroimagedisttraining_torch.ops.sparsity import (
+        fire_mask,
+        kernel_flags,
+    )
+
+    masks, trained, rate, scores, new = rec
+    fired = fire_mask(masks, trained, rate, lead=1)
+    flags = kernel_flags(masks)
+    excess = 0
+    for k, m in masks.items():
+        if not flags[k]:
+            continue
+        for c in range(m.shape[0]):
+            dead = fired[k][c] == 0
+            grown = (new[k][c] != 0) & dead
+            n = int((m[c] != 0).sum()) - int((fired[k][c] != 0).sum())
+            if not grown.any():
+                if n:
+                    raise AssertionError(f"regrow {k} client {c}: none of "
+                                         f"{n} grown")
+                continue
+            a = scores[k][c].abs()
+            thr = a[grown].min()
+            above = int((dead & (a > thr)).sum())
+            reach = dead & (a >= thr)
+            if not bool((reach == grown).all()) or not above < n <= int(
+                    reach.sum()):
+                raise AssertionError(
+                    f"regrow {k} client {c}: n {n}, above {above}, "
+                    f"reach {int(reach.sum())}, grown {int(grown.sum())}")
+            excess += int(reach.sum()) - n
+    return excess
+
+
+def personal_path(dev):
+    """The personalized and decentralized baselines at full width on the
+    main configuration (AlexNet3DS2D, 8 clients x 40 phased volumes, bf16,
+    5 steps of batch 8, dropout 0.5): for each of PERSONAL_CONFIGS
+    PERSONAL_ROUNDS eager rounds, each timed, then an eval; the counters
+    zeroed just before and read just after. Checks: finite losses; DisPFL's
+    and SubAvg's client weights zero off their masks (SubAvg's trained
+    clients as its rounds return them), SubAvg's new masks inside the old
+    ones; every DisPFL mask evolution against the reference's fire and
+    regrow rules, and its live counts moved by the regrow ties alone
+    (:func:`_regrow_ties`: fire and regrow keep a live count but for
+    weights tied at the regrow threshold, which bf16 gradients make
+    common, so the density drifts by them); the
+    masked SGD kernel's ``mask_grads`` branch launched once a step (steps x
+    clients) on the DisPFL and SubAvg paths and never elsewhere; the stem
+    launches of every path; a narrow run of each algorithm on the card
+    against the CPU (:func:`_narrow_personal_parity`). Returns the launches
+    per path."""
+    import torch
+
+    from neuroimagedisttraining_torch import algorithms
+    from neuroimagedisttraining_torch.models import create_model
+    from neuroimagedisttraining_torch.ops import kernels
+    from neuroimagedisttraining_torch.ops.s2d import phased_sample_shape
+    from neuroimagedisttraining_torch.ops.sparsity import mean_mask_density
+
+    shape = phased_sample_shape(VOLUME)
+    data, hp = _main_config(dev, shape)
+    model = create_model("3dcnn_s2d", num_classes=1, sample_shape=shape)
+    out, parity = {}, {}
+    chunks = _eval_chunks()
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip()
+    for path, cls_name, opts in PERSONAL_CONFIGS:
+        cls = getattr(algorithms, cls_name)
+        kw = dict(loss_type="bce", seed=0, compute_dtype="bfloat16")
+        kw.update(opts)
+        if cls_name in ("DisPFL", "SubAvg"):
+            kw["dense_ratio"] = 0.5
+        if cls_name == "DisPFL":
+            kw["total_rounds"] = 10
+        algo = cls(model, data, hp, **kw)
+        trained, evolved = [], []
+        if cls_name == "DisPFL" and not algo.static_masks:
+            screen, evolve = algo._screen_gradients, algo._evolve_masks
+
+            def capture_screen(*args, _fn=screen):
+                evolved.append(_fn(*args))
+                return evolved[-1]
+
+            def capture_evolve(masks, trained_, inp, _fn=evolve):
+                new_masks = _fn(masks, trained_, inp)
+                evolved[-1] = (masks, trained_, inp.anneal_rate,
+                               evolved[-1], new_masks)
+                return new_masks
+
+            algo._screen_gradients = capture_screen
+            algo._evolve_masks = capture_evolve
+        if cls_name == "SubAvg":
+            client_round = algo._client_round
+
+            def capture(*args, _fn=client_round):
+                res = _fn(*args)
+                trained.append((res[0], res[1]))
+                return res
+
+            algo._client_round = capture
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launches()
+        state = algo.init_state()
+        masks0 = getattr(state, "masks", None)
+        dens0 = (float(mean_mask_density(masks0)) if masks0 is not None
+                 else None)
+        losses, round_s, subset = [], [], True
+        for r in range(PERSONAL_ROUNDS):
+            t0 = time.perf_counter()
+            new, met = algo.run_round(state, r)
+            losses.append(float(met["train_loss"]))
+            torch.cuda.synchronize()
+            round_s.append(time.perf_counter() - t0)
+            if cls_name == "SubAvg":
+                subset &= all(bool((new.masks[k] <= state.masks[k]).all())
+                              for k in state.masks)
+            state = new
+        ev = {k: float(v) for k, v in algo.evaluate(state).items()
+              if not k.startswith("acc_per")}
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        branch = kernels.BRANCH_LAUNCHES["masked_sgd_mask_grads"]
+        peak = torch.cuda.max_memory_allocated(dev)
+        off_mask = 0
+        if cls_name == "DisPFL":
+            off_mask = sum(int((state.personal_params[k][state.masks[k] == 0]
+                                != 0).sum()) for k in state.masks)
+        elif cls_name == "SubAvg":
+            off_mask = sum(int((p[k][m[k] == 0] != 0).sum())
+                           for p, m in trained for k in m)
+        # the local steps of the run (Ditto's clients train two legs)
+        steps = PERSONAL_ROUNDS * algo.cost_trained_clients_per_round() \
+            * STEPS
+        screens = (PERSONAL_ROUNDS * N_CLIENTS
+                   if algo._draws_screen else 0)
+        # every step one stem forward and backward, every screening batch
+        # the same; DisPFL's two local tests per round, SubAvg's gate on
+        # each client's train shard (40 rows, one chunk of 32 and one of
+        # 8) and the eval (Ditto and DPSGD: global and personal), each
+        # forward chunk a stem forward; the dropout probe's one forward
+        evals = N_CLIENTS * chunks * (2 if cls_name in ("Ditto", "DPSGD")
+                                      else 1)
+        local_tests = (2 * PERSONAL_ROUNDS * N_CLIENTS * chunks
+                       if cls_name == "DisPFL" else 0)
+        gates = (PERSONAL_ROUNDS * N_CLIENTS * -(-SAMPLES // 32)
+                 if cls_name == "SubAvg" else 0)
+        want = {"masked_sgd": steps,
+                "stem_fwd": steps + screens + local_tests + gates + evals
+                + 1,
+                "stem_bwd": steps + screens,
+                "weighted_sum": PERSONAL_ROUNDS if cls_name == "Ditto"
+                else 0,
+                "threshold": 0, "score_mask": 0, "mask_apply": 0,
+                "quantize_reduce": 0}
+        want_branch = steps if cls_name in ("DisPFL", "SubAvg") else 0
+        dens = ties = None
+        if cls_name == "DisPFL":
+            dens = float(mean_mask_density(state.masks))
+            grew = sum(int((state.masks[k] != 0).sum())
+                       - int((masks0[k] != 0).sum()) for k in masks0)
+            ties = sum(_regrow_ties(rec) for rec in evolved)
+            if grew != ties:
+                raise AssertionError(
+                    f"personal {path}: {grew} more live weights after the "
+                    f"rounds, {ties} regrow ties")
+        res = {"phase": "personal", "path": path, "algo": algo.name,
+               "card": card, "options": opts, "rounds": PERSONAL_ROUNDS,
+               "train_loss": losses, "round_s": round_s,
+               "steady_round_s": round_s[-1], "eval": ev,
+               "peak_mem_bytes": peak, "launches": launches,
+               "mask_grads_launches": branch,
+               "weights_off_mask": off_mask,
+               "mask_density_initial": dens0, "mask_density_final": dens,
+               "regrow_ties": ties,
+               "subavg_masks_shrink": subset if cls_name == "SubAvg"
+               else None}
+        if path in ("dispfl", "subavg", "ditto", "local", "dpsgd"):
+            parity[path] = res["narrow_cpu_vs_card"] = \
+                _narrow_personal_parity(dev, cls_name, {
+                    k: v for k, v in opts.items() if k != "frac"},
+                    NARROW_SEEDS.get(path, 5))
+        emit(res)
+        vals = losses + [v for v in ev.values()]
+        if not all(math.isfinite(v) for v in vals):
+            raise AssertionError(f"personal {path}: non-finite {res}")
+        if off_mask or not subset or branch != want_branch:
+            raise AssertionError(f"personal {path}: {res}")
+        if any(launches[k] != v for k, v in want.items()):
+            raise AssertionError(f"personal {path}: launches {launches}, "
+                                 f"want {want}")
+        if path in parity and not parity[path]["ok"]:
+            raise AssertionError(f"personal {path}: the card's narrow run "
+                                 f"disagrees with the CPU's: {parity[path]}")
+        out[f"personal/{path}"] = launches
+        del algo, state
+    return out
+
+
 def _cli_argv(algo: str, tmp: str):
     return ["--algo", algo, "--dataset", "synthetic", "--model", "small3dcnn",
             "--comm_round", "2", "--results_dir", f"{tmp}/results",
@@ -2316,23 +2651,31 @@ CLI_RUNS = (
      _CLI_FAULTS + ["--robust_agg", "median", "--defense_type",
                     "norm_diff_clipping", "--watchdog", "1"], 0),
     ("fedavg_multikrum", "fedavg", ["--robust_agg", "multikrum"], 0),
+    # the personalized and decentralized baselines: Ditto's global leg
+    # aggregates, the others have no central aggregate
+    ("dispfl", "dispfl", [], 0), ("subavg", "subavg", [], 0),
+    ("ditto", "ditto", [], 2), ("local", "local", [], 0),
+    ("dpsgd", "dpsgd", [], 0),
 )
 
 
 def cli_path(dev):
-    """The CLI's two algorithms on the card, through the entry point a user
-    calls, and SalientGrads again with ``--fuse_rounds 2`` (one fused block
-    of both rounds), whose history must equal the unfused run's; then the
-    training options (replacement batching, remat, both stratified SNIP
-    modes) and the robustness flags (faults, the guard, every
-    ``--robust_agg``, both defenses, the watchdog). Returns the launches
-    per path."""
+    """The CLI's two main algorithms on the card, through the entry point a
+    user calls, and SalientGrads again with ``--fuse_rounds 2`` (one fused
+    block of both rounds), whose history must equal the unfused run's; then
+    the training options (replacement batching, remat, both stratified SNIP
+    modes), the robustness flags (faults, the guard, every ``--robust_agg``,
+    both defenses, the watchdog) and the five personalized and
+    decentralized baselines. Returns the launches per path."""
     import os
     import tempfile
 
     import torch
 
-    from neuroimagedisttraining_torch.algorithms.base import FUSED_WARMUPS
+    from neuroimagedisttraining_torch.algorithms.base import (
+        FUSED_WARMUPS,
+        FedAlgorithm,
+    )
     from neuroimagedisttraining_torch.experiments import runner
     from neuroimagedisttraining_torch.ops import kernels
 
@@ -2359,8 +2702,8 @@ def cli_path(dev):
                          and os.path.isfile(stat + ".json"))
             data = built["data"]
             on_card = (data.x_train.is_cuda and data.x_test.is_cuda
-                       and all(p.is_cuda for p in
-                               res["state"].global_params.values()))
+                       and all(p.is_cuda for p in FedAlgorithm._template(
+                           res["state"]).values()))
             losses = [h["train_loss"] for h in res["history"]
                       if h["round"] >= 0]
             final = {k: float(v) for k, v in res["final_eval"].items()
@@ -2513,6 +2856,7 @@ def main() -> int:
     paths.update(dense_path(dev))
     paths.update(robust_path(dev))
     paths.update(train_opts_path(dev))
+    paths.update(personal_path(dev))
     paths.update(cli_path(dev))
     paths.update(bench_path(dev))
 

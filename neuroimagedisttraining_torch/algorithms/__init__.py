@@ -1,6 +1,18 @@
 from .base import FedAlgorithm, sample_client_indexes
+from .dispfl import DisPFL, DisPFLState
+from .ditto import Ditto, DittoState
+from .dpsgd import DPSGD, DPSGDState
 from .fedavg import FedAvg, FedAvgState
+from .local_only import LocalOnly, LocalOnlyState
 from .salientgrads import SalientGrads, SalientGradsState
+from .subavg import SubAvg, SubAvgState
 
-__all__ = ["FedAlgorithm", "FedAvg", "FedAvgState", "SalientGrads",
-           "SalientGradsState", "sample_client_indexes"]
+#: the algorithms by their reference names (the CLI's ``--algo``)
+ALGORITHMS = {cls.name: cls for cls in (
+    FedAvg, SalientGrads, DisPFL, SubAvg, Ditto, LocalOnly, DPSGD)}
+
+__all__ = ["ALGORITHMS", "DPSGD", "DPSGDState", "DisPFL", "DisPFLState",
+           "Ditto", "DittoState", "FedAlgorithm", "FedAvg", "FedAvgState",
+           "LocalOnly", "LocalOnlyState", "SalientGrads",
+           "SalientGradsState", "SubAvg", "SubAvgState",
+           "sample_client_indexes"]

@@ -1,12 +1,14 @@
-"""The federated round skeleton shared by the central-aggregate algorithms
-(counterpart of ``neuroimagedisttraining_tpu/algorithms/base.py``, the parts
-the SalientGrads and FedAvg training paths run).
+"""The federated round skeleton shared by the algorithms (counterpart of
+``neuroimagedisttraining_tpu/algorithms/base.py``, the parts the ported
+algorithms run).
 
 Where the reference vmaps the cohort inside one compiled program, this loops
-over the selected clients: each trains a copy of the global model on its own
-shard, and the server takes the sample-weighted mean of the local models,
-routed by ``agg_impl`` through the aggregation wires
-(``parallel/collectives.py``) off the mesh.
+over the selected clients: in the central round each trains a copy of the
+global model on its own shard, and the server takes the sample-weighted mean
+of the local models, routed by ``agg_impl`` through the aggregation wires
+(``parallel/collectives.py``) off the mesh; the personalized and
+decentralized algorithms train each client's own row of a stacked model
+(:meth:`FedAlgorithm._train_stacked`).
 
 A round is split in two: what the host decides (the seeded client draw, the
 decayed learning rate, the random draws of the generator) and a body that
@@ -52,9 +54,10 @@ from ..core.trainer import (
     round_lr,
 )
 from ..data.types import FederatedData
-from ..models import make_apply_fn
+from ..models import init_params, make_apply_fn
 from ..models.layers import DropoutProbe
 from ..ops import kernels
+from ..ops.sparsity import kernel_flags
 from ..parallel import collectives
 from ..robust import guard as _guard
 from ..robust.aggregation import ROBUST_AGGS, robust_combine_mat
@@ -150,7 +153,19 @@ class RoundInputs:
     nb, b]`` draw (None where no int8 wire runs), ``faults`` the fault
     injector's ``[S, 8]`` draws (``robust.faults.DRAW_COLUMNS``),
     ``collude`` the colluders' direction tree and ``dp_noise`` the weak-DP
-    defense's ``[S, ...]`` standard-normal tree (each None when unused)."""
+    defense's ``[S, ...]`` standard-normal tree (each None when unused).
+
+    The personalized and decentralized algorithms' inputs (None where
+    unused): ``perms_2`` / ``dropout_2`` a second training leg's draws,
+    laid out as ``perms`` / ``dropout`` (SubAvg's later epochs, Ditto's
+    personal leg); ``screen_idx`` (``[S, batch]`` row indices) and
+    ``screen_dropout`` (per client, keep masks by slot) DisPFL's screening
+    batch; ``regrow_u`` DisPFL's ``[S, ...]`` uniform regrow scores per
+    kernel leaf under ``dis_gradient_check``; and the host inputs of the
+    round, a pure function of its index (:meth:`FedAlgorithm.
+    _host_inputs`): ``adjacency`` the ``[C, C]`` float32 neighbor matrix
+    (DisPFL, DPSGD), ``active`` DisPFL's ``[C]`` participation flags and
+    ``anneal_rate`` its 0-d float32 fire rate."""
 
     n_valid: List[int]
     sel: torch.Tensor
@@ -162,6 +177,14 @@ class RoundInputs:
     faults: Optional[torch.Tensor] = None
     collude: Optional[Tree] = None
     dp_noise: Optional[Tree] = None
+    perms_2: Optional[torch.Tensor] = None
+    dropout_2: Optional[List[List[Optional[List[torch.Tensor]]]]] = None
+    screen_idx: Optional[torch.Tensor] = None
+    screen_dropout: Optional[List[Optional[List[torch.Tensor]]]] = None
+    regrow_u: Optional[Tree] = None
+    adjacency: Optional[torch.Tensor] = None
+    active: Optional[torch.Tensor] = None
+    anneal_rate: Optional[torch.Tensor] = None
 
 
 #: runs of a body on a side stream before its capture: they set up cuDNN,
@@ -201,7 +224,7 @@ class _Graph:
                 fn(warm=True)
         caller.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        before = dict(kernels.LAUNCHES)
+        before = kernels.snapshot_launches()
         try:
             with torch.cuda.graph(graph, stream=side):
                 out = fn(warm=False)
@@ -213,8 +236,9 @@ class _Graph:
         finally:
             # a capture queues no work: take back what its wrappers
             # counted, and add it at each replay
-            captured = {k: kernels.LAUNCHES[k] - n for k, n in before.items()}
-            kernels.LAUNCHES.update(before)
+            after = kernels.snapshot_launches()
+            captured = {k: after[k] - n for k, n in before.items()}
+            kernels.restore_launches(before)
         self.graph, self.out = graph, out
         self.launches = {k: n for k, n in captured.items() if n}
 
@@ -254,6 +278,21 @@ def _buffer_fields(state: Any) -> List[str]:
 
 def _clone(v):
     return clone_tree(v) if isinstance(v, dict) else v.clone()
+
+
+def _row(tree: Tree, i: int) -> Tree:
+    """Row ``i`` of a stacked tree (views)."""
+    return {k: v[i] for k, v in tree.items()}
+
+
+def _stack(rows: Sequence[Tree]) -> Tree:
+    """Trees of one client each, stacked along a new leading axis."""
+    return {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
+
+
+def _rows(t: torch.Tensor) -> torch.Tensor:
+    """A stacked leaf as ``[C, n]``."""
+    return t.reshape(t.shape[0], -1)
 
 
 def _to_device(x, device: torch.device) -> torch.Tensor:
@@ -458,8 +497,14 @@ class FedAlgorithm(abc.ABC):
     #: and the generator's draws, so its rounds can run as fused blocks
     #: (:meth:`run_rounds_fused`)
     supports_fused = False
+    #: why an algorithm without ``supports_fused`` has no fused rounds
+    fused_refusal = ("fused rounds need every per-round host input to be a "
+                     "pure function of round_idx")
     #: the round metrics :meth:`_round_body` returns
     _round_metric_names = ("train_loss",)
+    #: the guarded round reports the guard's quarantine counters (Ditto's
+    #: global leg is guarded without them, as in the reference)
+    guard_metrics_supported = True
 
     def __init__(self, model: torch.nn.Module, data: FederatedData,
                  hp: HyperParams, loss_type: str = "bce", frac: float = 1.0,
@@ -517,7 +562,7 @@ class FedAlgorithm(abc.ABC):
                 "fault_spec drop=... requires the guard (it is what "
                 "excludes dropped clients from the aggregate); don't "
                 "pass guard=False, or remove drop from the spec")
-        if self.guard_enabled:
+        if self.guard_enabled and self.guard_metrics_supported:
             # the guarded round also reports its quarantine counters
             self._round_metric_names = tuple(self._round_metric_names) + (
                 "clients_dropped", "clients_quarantined")
@@ -595,6 +640,10 @@ class FedAlgorithm(abc.ABC):
         self._drop_calls: Optional[List[tuple]] = None
         #: the fused round loop's buffers and graphs (run_rounds_fused)
         self._fused: Optional[_FusedRounds] = None
+        #: the round draws DisPFL's mask evolution needs: the screening
+        #: batch, the regrow scores (its _build sets them)
+        self._draws_screen = self._draws_regrow = False
+        self._ones: Optional[Tree] = None
         self._build()
 
     @abc.abstractmethod
@@ -607,7 +656,9 @@ class FedAlgorithm(abc.ABC):
 
     def run_round(self, state: Any, round_idx: int, *, perms=None,
                   dropout=None, agg_uniforms=None, batch_idx=None,
-                  faults=None, collude=None, dp_noise=None):
+                  faults=None, collude=None, dp_noise=None, perms_2=None,
+                  dropout_2=None, screen_idx=None, screen_dropout=None,
+                  regrow_u=None):
         """One round, a pure function of ``state``: the input state is left
         as it was (its generator too; the round draws from a copy, which the
         new state carries). ``perms`` / ``batch_idx`` / ``dropout`` (per
@@ -615,28 +666,45 @@ class FedAlgorithm(abc.ABC):
         with-replacement batch indices (``[local_steps, batch]`` each) /
         dropout masks, ``agg_uniforms`` the int8 wire's draw, ``faults``
         the fault draws (``[S, 8]``), ``collude`` the colluders' direction
-        and ``dp_noise`` the weak-DP noise (``[S, ...]`` per leaf). Returns
-        ``(state, metrics)``: ``train_loss``, and under the guard
-        ``clients_dropped`` and ``clients_quarantined``."""
+        and ``dp_noise`` the weak-DP noise (``[S, ...]`` per leaf);
+        ``perms_2`` / ``dropout_2`` the second leg's, ``screen_idx`` /
+        ``screen_dropout`` DisPFL's screening batch and ``regrow_u`` its
+        regrow scores (:class:`RoundInputs`). Returns ``(state,
+        metrics)``: ``train_loss``, under the guard ``clients_dropped`` and
+        ``clients_quarantined``, and each algorithm's own."""
         self._prepare_round(state)
         sel = self._selected_client_indexes(round_idx)
         g = clone_generator(state.generator)
         inp = self._round_inputs(
-            state.global_params, sel,
+            self._template(state), sel,
             _to_device(sel.astype(np.int64), self.device),
             _to_device(round_lr(self.hp, round_idx), self.device), g,
             dict(perms=perms, dropout=dropout, agg_uniforms=agg_uniforms,
                  batch_idx=batch_idx, faults=faults, collude=collude,
-                 dp_noise=dp_noise), round_idx=round_idx)
+                 dp_noise=dp_noise, perms_2=perms_2, dropout_2=dropout_2,
+                 screen_idx=screen_idx, screen_dropout=screen_dropout,
+                 regrow_u=regrow_u), round_idx=round_idx)
         new_state, metrics = self._round_body(state, inp)
         return dataclasses.replace(new_state, generator=g), metrics
+
+    @staticmethod
+    def _template(state: Any) -> Tree:
+        """One model's parameters of ``state``: the global model, else the
+        first client's personal one (the shapes the draws are made for)."""
+        params = getattr(state, "global_params", None)
+        if params is not None:
+            return params
+        return {k: v[0] for k, v in state.personal_params.items()}
 
     def _prepare_round(self, state: Any) -> None:
         """Host work a round needs once, before any round runs."""
 
-    @abc.abstractmethod
     def _round_mask(self, state: Any) -> Tree:
-        """The mask the local SGD re-applies after each step."""
+        """The mask the local SGD of the central round body re-applies
+        after each step (the algorithms that run :meth:`_round_body` as it
+        is define it)."""
+        raise NotImplementedError(
+            f"{type(self).__name__} runs a round body of its own")
 
     def _post_aggregate(self, new_global: Tree, state: Any) -> Tree:
         """The new global model after the aggregate (the identity here)."""
@@ -713,7 +781,57 @@ class FedAlgorithm(abc.ABC):
             f.name: copy(getattr(state, f.name))
             for f in dataclasses.fields(state)})
 
+    # -- cost accounting -------------------------------------------------------
+    #: per-client masks change between rounds (DisPFL's fire and regrow,
+    #: SubAvg's prune): the runner snapshots the cost after every round
+    masks_evolve = False
+
+    def cost_trained_clients_per_round(self) -> int:
+        """Client training passes a round runs (the runner's FLOPs and
+        communication counters): the sampled clients by default; the
+        algorithms that train the whole cohort, or two legs a client,
+        say so."""
+        return self.clients_per_round
+
+    def cost_snapshot(self, state: Any):
+        """``(params, mask)`` of one representative client for the
+        per-round FLOPs and communication counters: the global model and
+        the global mask where the state has them; with per-client masks the
+        client whose nonzero count is closest to the cohort's mean (the
+        first of a tie), its personal model where there is no global one.
+        Waits on the card (the runner calls it between rounds)."""
+        params = getattr(state, "global_params", None)
+        mask = getattr(state, "mask", None)
+        rep = 0
+        masks = getattr(state, "masks", None)
+        if mask is None and masks is not None:
+            nz = sum(torch.count_nonzero(_rows(m), dim=1).to(torch.float32)
+                     for m in masks.values())
+            dens = nz / torch.clamp(nz.sum(), min=1.0)
+            rep = int(torch.argmin(torch.abs(dens - dens.mean())))
+            mask = {k: m[rep] for k, m in masks.items()}
+        if params is None and getattr(state, "personal_params",
+                                      None) is not None:
+            params = {k: v[rep] for k, v in state.personal_params.items()}
+        return params, mask
+
     # -- shared helpers --------------------------------------------------------
+    def _fresh_params(self, g: torch.Generator,
+                      params: Optional[Tree] = None) -> Tree:
+        """``params`` (fresh ones from ``g`` when None) as float32 on this
+        algorithm's device: the initial model of ``init_state``."""
+        if params is None:
+            params = init_params(self.model, g)
+        return {k: v.to(self.device, torch.float32) for k, v in
+                params.items()}
+
+    def _ones_mask(self, params: Tree) -> Tree:
+        """The all-ones mask of plain SGD through the masked SGD kernel
+        (``p * 1`` is ``p``), made once."""
+        if self._ones is None:
+            self._ones = {k: torch.ones_like(v) for k, v in params.items()}
+        return self._ones
+
     def _selected_client_indexes(self, round_idx: int) -> np.ndarray:
         return sample_client_indexes(round_idx, self.num_clients,
                                      self.clients_per_round,
@@ -890,9 +1008,50 @@ class FedAlgorithm(abc.ABC):
                 None if flips is None else flips[i])
             locals_.append(params)
             losses.append(loss)
-        stacked = {k: torch.stack([p[k] for p in locals_])
-                   for k in global_params}
-        return stacked, torch.stack(losses).mean()
+        return _stack(locals_), torch.stack(losses).mean()
+
+    def _train_stacked(self, client_update, params: Tree, masks: Tree,
+                       inp: RoundInputs, *, leg: int = 1,
+                       shared_mask: bool = False,
+                       prox_target: Optional[Tree] = None):
+        """Every client of ``inp`` trains its own row of the stacked
+        ``params`` on its own shard, from zero momentum, under its row of
+        the stacked ``masks`` (the one tree ``masks`` with
+        ``shared_mask``), pulled toward ``prox_target`` (one tree) where
+        that is given; ``leg`` 2 draws from the second leg's inputs. The
+        whole-cohort (or sampled-rows) local training of the personalized
+        and decentralized algorithms. Returns (stacked params, stacked
+        momenta, ``[S]`` losses)."""
+        d = self.data
+        perms, dropout = ((inp.perms, inp.dropout) if leg == 1
+                          else (inp.perms_2, inp.dropout_2))
+        out, moms, losses = [], [], []
+        for i, n in enumerate(inp.n_valid):
+            p, m, loss = client_update(
+                {k: v[i].clone() for k, v in params.items()},
+                masks if shared_mask else _row(masks, i), d.x_train,
+                d.y_train, n, inp.sel[i:i + 1], perms[i], inp.lr,
+                None if dropout is None else dropout[i],
+                prox_target=prox_target)
+            out.append(p)
+            moms.append(m)
+            losses.append(loss)
+        return _stack(out), _stack(moms), torch.stack(losses)
+
+    def _local_test(self, stacked: Tree) -> Dict[str, torch.Tensor]:
+        """Every client's row of ``stacked`` on its own test shard (the
+        whole cohort, whatever ``eval_clients`` says): DisPFL's local tests
+        around local training, the means of the per-client ratios."""
+        correct, loss_sum = self._eval_terms(
+            range(self.num_clients), lambda c: _row(stacked, c))
+        totals = torch.clamp(self._n_test_dev, min=1)
+        # the reference takes these means in its round program, where XLA
+        # turns the division by the client count into a product by its
+        # float32 reciprocal
+        recip = torch.full((), float(np.float32(1.0) / np.float32(
+            self.num_clients)), dtype=torch.float32, device=totals.device)
+        return {"acc": (correct.to(torch.float32) / totals).sum() * recip,
+                "loss": (loss_sum / totals).sum() * recip}
 
     def _train_selected_weighted(self, global_params: Tree, mask: Tree,
                                  inp: RoundInputs,
@@ -1092,33 +1251,30 @@ class FedAlgorithm(abc.ABC):
         return (self.clients_per_round,) + collectives.bucket_shape(
             n, self.agg_bucket_size)
 
-    def _round_inputs(self, params: Tree, sel: np.ndarray,
-                      sel_dev: torch.Tensor, lr: torch.Tensor,
-                      g: torch.Generator,
-                      seams: Optional[Dict[str, Any]] = None,
-                      aggregate: bool = True,
-                      round_idx: Optional[int] = None) -> RoundInputs:
-        """A round's inputs (:class:`RoundInputs`), fresh on the device: the
-        clients ``sel`` (``sel_dev`` on the device), the rate ``lr``, then
-        the draws of ``g`` in the order the round consumes them: per client
-        its epoch permutations (or replacement batches), then each step it
-        runs its dropout keep masks; after all clients, with ``aggregate``,
-        the int8 wire's uniforms and the weak-DP noise (per client, per
-        leaf). With ``aggregate`` and faults, the fault draws of round
-        ``round_idx`` (from the run seed, the round and the population
-        client ids alone: ``robust.faults.client_draws``). ``seams``
-        (``run_round``'s ``perms``, ``batch_idx``, ``dropout``,
-        ``agg_uniforms``, ``faults``, ``collude``, ``dp_noise``) replace
-        the draws they name. Both round loops draw through here."""
-        seams = seams or {}
-        hp, dev = self.hp, self.device
-        n_valid = [self._n_train[int(c)] for c in sel]
+    def _second_leg_hp(self) -> Optional[HyperParams]:
+        """The hyperparameters of a second training leg a round runs per
+        client (SubAvg's later epochs, Ditto's personal leg), else None."""
+        return None
+
+    def _host_inputs(self, round_idx: Optional[int]) -> Dict[str, Any]:
+        """The round's inputs the host computes from its index alone, as
+        numpy arrays by :class:`RoundInputs` field (DisPFL's and DPSGD's
+        neighbor ``adjacency``, DisPFL's ``active`` flags and
+        ``anneal_rate``): none by default."""
+        return {}
+
+    def _leg_draws(self, hp: HyperParams, n_valid: List[int],
+                   g: torch.Generator, drop_calls, given_perms=None,
+                   given_drop=None):
+        """One training leg's draws for the clients of ``n_valid``, per
+        client in turn: its epoch permutations (or replacement batches),
+        then each step it runs its dropout keep masks. Returns ``(perms
+        [S, epochs, steps_per_epoch * batch], dropout)``; ``given_perms``
+        / ``given_drop`` (per client) replace the draws."""
+        dev = self.device
         n_rows = self.data.x_train.shape[1]
         full = self._full_batches()
-        drop_calls = self._dropout_calls(params)
-        given_drop = seams.get("dropout")
         replace = hp.batching == "replacement"
-        given_perms = seams.get("batch_idx" if replace else "perms")
         perms, dropout = [], ([] if drop_calls else None)
         for i, n in enumerate(n_valid):
             if given_perms is not None:
@@ -1135,12 +1291,86 @@ class FedAlgorithm(abc.ABC):
                 continue
             steps: List[Optional[List]] = [None] * hp.local_steps
             for s in active_steps(hp, n, full):
-                steps[s] = (
-                    [torch.as_tensor(m, device=dev) for m in given_drop[i][s]]
-                    if given_drop is not None else self._keep_masks(
-                        drop_calls, lambda shape, kp: torch.rand(
-                            shape, generator=g, device=dev) < kp))
+                steps[s] = self._step_keep_masks(
+                    drop_calls, g, None if given_drop is None
+                    else given_drop[i][s])
             dropout.append(steps)
+        return torch.stack(perms), dropout
+
+    def _step_keep_masks(self, drop_calls, g: torch.Generator, given=None):
+        """One training forward's dropout keep masks by slot: ``given``
+        on the device, else drawn from ``g``."""
+        dev = self.device
+        if given is not None:
+            return [torch.as_tensor(m, device=dev) for m in given]
+        return self._keep_masks(drop_calls, lambda shape, kp: torch.rand(
+            shape, generator=g, device=dev) < kp)
+
+    def _round_inputs(self, params: Tree, sel: np.ndarray,
+                      sel_dev: torch.Tensor, lr: torch.Tensor,
+                      g: torch.Generator,
+                      seams: Optional[Dict[str, Any]] = None,
+                      aggregate: bool = True,
+                      round_idx: Optional[int] = None) -> RoundInputs:
+        """A round's inputs (:class:`RoundInputs`), fresh on the device: the
+        clients ``sel`` (``sel_dev`` on the device), the rate ``lr``, then
+        the draws of ``g`` in the order the round consumes them: per client
+        its epoch permutations (or replacement batches), then each step it
+        runs its dropout keep masks (:meth:`_leg_draws`); the same again
+        for a second leg (:meth:`_second_leg_hp`); DisPFL's screening batch
+        (per client its rows, then its keep masks) and regrow scores;
+        after all of that, with ``aggregate``, the int8 wire's uniforms and
+        the weak-DP noise (per client, per leaf). With ``aggregate`` and
+        faults, the fault draws of round ``round_idx`` (from the run seed,
+        the round and the population client ids alone:
+        ``robust.faults.client_draws``). Last the host inputs of round
+        ``round_idx`` (:meth:`_host_inputs`). ``seams`` (``run_round``'s
+        ``perms``, ``batch_idx``, ``dropout``, ``agg_uniforms``,
+        ``faults``, ``collude``, ``dp_noise``, ``perms_2``, ``dropout_2``,
+        ``screen_idx``, ``screen_dropout``, ``regrow_u``) replace the draws
+        they name. Both round loops draw through here."""
+        seams = seams or {}
+        hp, dev = self.hp, self.device
+        n_valid = [self._n_train[int(c)] for c in sel]
+        drop_calls = self._dropout_calls(params)
+        replace = hp.batching == "replacement"
+        perms, dropout = self._leg_draws(
+            hp, n_valid, g, drop_calls,
+            seams.get("batch_idx" if replace else "perms"),
+            seams.get("dropout"))
+        perms_2 = dropout_2 = None
+        hp_2 = self._second_leg_hp()
+        if hp_2 is not None:
+            perms_2, dropout_2 = self._leg_draws(
+                hp_2, n_valid, g, drop_calls, seams.get("perms_2"),
+                seams.get("dropout_2"))
+        screen_idx = screen_dropout = regrow_u = None
+        if self._draws_screen:
+            given, given_drop = seams.get("screen_idx"), seams.get(
+                "screen_dropout")
+            rows, screen_dropout = [], ([] if drop_calls else None)
+            for i, n in enumerate(n_valid):
+                rows.append(
+                    torch.as_tensor(given[i], dtype=torch.int64, device=dev)
+                    if given is not None else torch.randint(
+                        0, max(n, 1), (hp.batch_size,), generator=g,
+                        device=dev))
+                if drop_calls:
+                    screen_dropout.append(self._step_keep_masks(
+                        drop_calls, g,
+                        None if given_drop is None else given_drop[i]))
+            screen_idx = torch.stack(rows)
+        if self._draws_regrow:
+            regrow_u = seams.get("regrow_u")
+            flags = kernel_flags(params)
+            regrow_u = (
+                {k: torch.rand((len(n_valid),) + tuple(v.shape),
+                               generator=g, device=dev)
+                 for k, v in params.items() if flags[k]}
+                if regrow_u is None else
+                {k: torch.as_tensor(regrow_u[k], dtype=torch.float32,
+                                    device=dev)
+                 for k in params if flags[k]})
         uniforms = dp_noise = faults = collude = None
         if aggregate and self._needs_uniforms():
             u = seams.get("agg_uniforms")
@@ -1170,11 +1400,15 @@ class FedAlgorithm(abc.ABC):
             if collude is not None:
                 collude = {k: _to_device(torch.as_tensor(v), dev)
                            for k, v in collude.items()}
+        host = {k: _to_device(v, dev)
+                for k, v in self._host_inputs(round_idx).items()}
         return RoundInputs(
             n_valid=n_valid, sel=sel_dev,
             n_sel=_to_device(np.asarray(n_valid, np.float32), dev), lr=lr,
-            perms=torch.stack(perms), dropout=dropout, uniforms=uniforms,
-            faults=faults, collude=collude, dp_noise=dp_noise)
+            perms=perms, dropout=dropout, uniforms=uniforms,
+            faults=faults, collude=collude, dp_noise=dp_noise,
+            perms_2=perms_2, dropout_2=dropout_2, screen_idx=screen_idx,
+            screen_dropout=screen_dropout, regrow_u=regrow_u, **host)
 
     # -- fused multi-round execution -------------------------------------------
     def _get_fused_fn(self, state: Any) -> _FusedRounds:
@@ -1215,10 +1449,8 @@ class FedAlgorithm(abc.ABC):
         state is a copy, never the graph's buffers. A round the card cannot
         capture raises ``ValueError``: there is no eager fallback."""
         if not self.supports_fused:
-            raise ValueError(
-                f"{self.name}: fused rounds need every per-round host input "
-                "to be a pure function of round_idx; run it with "
-                "fuse_rounds=1")
+            raise ValueError(f"{self.name}: {self.fused_refusal}; run it "
+                             "with fuse_rounds=1")
         if seams is not None and len(seams) != n_rounds:
             raise ValueError(f"seams: {len(seams)} rounds for a block of "
                              f"{n_rounds}")
@@ -1380,3 +1612,20 @@ class FedAlgorithm(abc.ABC):
             raise
         deferred.flush()
         return self._finalize_into_history(state, history, finalize)
+
+
+class PersonalAlgorithm(FedAlgorithm):
+    """What the algorithms without a central aggregate share (Local, DPSGD,
+    DisPFL, SubAvg): a refusal of the central aggregate's options, and the
+    fused loop refused until its port (ROADMAP item 6)."""
+
+    fused_refusal = ("its fused round loop is not ported to PyTorch yet "
+                     "(ROADMAP item 6)")
+
+    def __init__(self, *args, **kwargs):
+        for opt in ("fault_spec", "robust_agg", "guard"):
+            if kwargs.get(opt) not in (None, "", "none", False):
+                raise ValueError(
+                    f"{opt}: {self.name} has no central aggregate to guard "
+                    "or robustify")
+        super().__init__(*args, **kwargs)

@@ -28,7 +28,6 @@ from ..core.state import (
     zeros_like_tree,
 )
 from ..core.trainer import make_client_update, round_lr
-from ..models import init_params
 from .base import FedAlgorithm, _to_device
 
 
@@ -70,12 +69,6 @@ class FedAvg(FedAlgorithm):
             self.apply_fn, self.loss_type, self.hp,
             full_batches=self._full_batches(), remat=self.remat_local,
             label_flip=self.labelflip_fn)
-        self._ones: Optional[Tree] = None
-
-    def _ones_mask(self, params: Tree) -> Tree:
-        if self._ones is None:
-            self._ones = {k: torch.ones_like(v) for k, v in params.items()}
-        return self._ones
 
     def init_state(self, generator: Optional[torch.Generator] = None,
                    params: Optional[Tree] = None) -> FedAvgState:
@@ -84,10 +77,7 @@ class FedAvg(FedAlgorithm):
         seeded by one full personal eval. ``generator`` defaults to one
         seeded by the run seed and drives init and every later round."""
         g = generator if generator is not None else self.generator()
-        if params is None:
-            params = init_params(self.model, g)
-        params = {k: v.to(self.device, torch.float32)
-                  for k, v in params.items()}
+        params = self._fresh_params(g, params)
         personal = (broadcast_tree(params, self.num_clients)
                     if self.track_personal else None)
         residual = None

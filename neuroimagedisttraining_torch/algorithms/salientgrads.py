@@ -32,7 +32,6 @@ import torch
 
 from ..core.state import Tree, broadcast_tree, zeros_like_tree
 from ..core.trainer import make_client_update
-from ..models import init_params
 from ..ops import kernels
 from ..ops.sparsity import (
     make_snip_fold_score_fn,
@@ -151,10 +150,7 @@ class SalientGrads(FedAlgorithm):
         one full personal eval. ``generator`` defaults to one seeded by the
         run seed and drives init, SNIP and every later round."""
         g = generator if generator is not None else self.generator()
-        if params is None:
-            params = init_params(self.model, g)
-        params = {k: v.to(self.device, torch.float32) for k, v in
-                  params.items()}
+        params = self._fresh_params(g, params)
         if self.snip_mask:
             mask = self.global_mask(params, g, snip_idx)
         else:

@@ -114,6 +114,21 @@ def weighted_sum(x: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     return _weighted_sums([x], weights)[0]
 
 
+def mix_over_clients(mix: torch.Tensor, stacked: Tree) -> Tree:
+    """Contract a ``[C, C]`` mixing (or adjacency) matrix against the
+    leading client axis of every leaf: ``out_i = sum_j mix[i, j] *
+    leaf_j``, the gossip step of DisPFL and DPSGD. One f32 matrix product
+    per leaf, as the reference's ``tensordot`` is (its order of the sums
+    differs by round-off only; a 0/1 matrix against 0/1 masks gives exact
+    counts)."""
+    out = {}
+    for k, v in stacked.items():
+        c = v.shape[0]
+        out[k] = torch.matmul(mix.to(v.dtype), v.reshape(c, -1)).reshape(
+            v.shape)
+    return out
+
+
 def weighted_tree_sum(stacked: Tree, weights: torch.Tensor) -> Tree:
     """:func:`weighted_sum` over every leaf at once, as multi-tensor ops:
     the plain version of the dense sample-weighted aggregation."""

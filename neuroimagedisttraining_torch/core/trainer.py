@@ -26,7 +26,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops import kernels
 from .losses import PER_EXAMPLE_LOSSES, predictions
-from .optim import clip_by_global_norm
+from .optim import clip_by_global_norm, fma
 from .state import HyperParams, Tree
 
 
@@ -77,16 +77,49 @@ def active_steps(hp: HyperParams, n_valid: int,
             or (s % hp.steps_per_epoch) * hp.batch_size < int(n_valid)]
 
 
+def optimizer_step(params: List[torch.Tensor], momenta: List[torch.Tensor],
+                   grads: List[torch.Tensor], masks: List[torch.Tensor],
+                   lr: torch.Tensor, hp: HyperParams, mask_grads: bool = False,
+                   pull: Optional[torch.Tensor] = None,
+                   targets: Optional[List[torch.Tensor]] = None) -> None:
+    """One local optimizer step on the leaves, in place: clip by the global
+    norm, the masked SGD kernel (the gradient masked with ``mask_grads``,
+    else the weights after the step), then with ``pull`` (``-lr *
+    prox_lambda``, a 0-d float32 tensor) Ditto's prox pull toward
+    ``targets``, ``p + pull * (p - target)`` rounded once."""
+    grads = clip_by_global_norm(grads, hp.grad_clip)
+    kernels.fused_masked_sgd_step(params, momenta, grads, masks, lr,
+                                  momentum=hp.momentum, wd=hp.weight_decay,
+                                  mask_grads=mask_grads)
+    if pull is not None:
+        for p, t in zip(params, targets):
+            p.copy_(fma(pull, p - t, p))
+
+
 def make_client_update(apply_fn, loss_type: str, hp: HyperParams,
                        full_batches: bool = False, remat: bool = False,
-                       label_flip: Optional[Callable] = None) -> Callable:
+                       label_flip: Optional[Callable] = None,
+                       mask_grads: bool = False,
+                       prox_lambda: float = 0.0) -> Callable:
     """Build ``client_update(params, mask, x, y, n_valid, client, perms, lr,
-    dropout=None, flip=None) -> (params, momentum, mean_loss)``.
+    dropout=None, flip=None, momentum=None, prox_target=None) -> (params,
+    momentum, mean_loss)``.
 
     ``params`` is updated in place (pass a copy); the optimizer step is
     clip-by-global-norm, then the masked SGD kernel
-    (:func:`ops.kernels.fused_masked_sgd_step`) with the post-step
-    ``p *= mask`` of SalientGrads.
+    (:func:`ops.kernels.fused_masked_sgd_step`): by default with the
+    post-step ``p *= mask`` of SalientGrads (an all-ones mask is plain
+    SGD); with ``mask_grads`` the gradient is masked instead and no
+    post-step mask is applied (DisPFL's and SubAvg's masked SGD). The
+    reference applies both there; they agree because a masked coordinate
+    starts at zero with zero momentum and so stays zero, which the callers
+    guarantee (DisPFL re-masks after its mask evolution, SubAvg starts
+    from the masked global model).
+    ``prox_lambda`` > 0 is Ditto's pull after each step, ``p <- p - lr *
+    prox_lambda * (p - prox_target)``, one rounding for the multiply-add as
+    the reference's compiled chain has it (:func:`core.optim.fma`).
+    ``momentum`` (a tree, copied) is the initial momentum, zeros when None:
+    SubAvg's second leg continues from its first leg's.
     ``full_batches`` asserts every batch is full and every step active:
     every client holds at least ``steps_per_epoch * batch_size`` rows, or
     the batching is "replacement".
@@ -124,13 +157,21 @@ def make_client_update(apply_fn, loss_type: str, hp: HyperParams,
     def client_update(params: Tree, mask: Tree, x, y, n_valid: int,
                       client: torch.Tensor, perms: torch.Tensor,
                       lr: torch.Tensor, dropout: Optional[Sequence] = None,
-                      flip: Optional[torch.Tensor] = None):
+                      flip: Optional[torch.Tensor] = None,
+                      momentum: Optional[Tree] = None,
+                      prox_target: Optional[Tree] = None):
         n_valid = int(n_valid)
         n_rows = x.shape[1]
         names = list(params)
         leaves = [params[k].detach().requires_grad_(True) for k in names]
-        moms = [torch.zeros_like(p) for p in leaves]
+        moms = [torch.zeros_like(p) if momentum is None
+                else momentum[k].clone() for k, p in zip(names, leaves)]
         masks = [mask[k] for k in names]
+        pull = targets = None
+        if prox_lambda:
+            pull = -(lr * torch.full((), prox_lambda, dtype=torch.float32,
+                                     device=lr.device))
+            targets = [prox_target[k] for k in names]
         flat = perms.reshape(-1)
         losses = []
         for s in active_steps(hp, n_valid, full_batches):
@@ -155,11 +196,9 @@ def make_client_update(apply_fn, loss_type: str, hp: HyperParams,
                 # cuDNN may hand a conv's weight gradient back channels-last
                 # (SmallCNN3D's channel-1 input is); the kernel reads dense
                 # row-major leaves
-                grads = clip_by_global_norm([g.contiguous() for g in grads],
-                                            hp.grad_clip)
-                kernels.fused_masked_sgd_step(
-                    leaves, moms, grads, masks, lr, momentum=hp.momentum,
-                    wd=hp.weight_decay)
+                optimizer_step(leaves, moms, [g.contiguous() for g in grads],
+                               masks, lr, hp, mask_grads=mask_grads,
+                               pull=pull, targets=targets)
             losses.append(loss.detach())
         mean_loss = (torch.stack(losses).mean() if losses
                      else torch.zeros((), device=x.device))

@@ -1,6 +1,6 @@
 """Experiment runner: flags -> data -> model -> algorithm -> round loop
 (counterpart of ``neuroimagedisttraining_tpu/experiments/runner.py``, its
-single-process path for ``fedavg`` and ``salientgrads``).
+single-process path for the algorithms of :data:`PORTED_ALGOS`).
 
 The run writes what the JAX CLI writes for the same command line: the
 per-run log ``<log_dir>/<identity>.log`` and the ``stat_info`` pickle (plus
@@ -39,9 +39,10 @@ from .logging_utils import (
 
 logger = logging.getLogger(__name__)
 
-#: the algorithms the port runs; the JAX package's other seven are ROADMAP
-#: item 10
-PORTED_ALGOS = ("fedavg", "salientgrads")
+#: the algorithms the port runs; the JAX package's other two (fedfomo,
+#: turboaggregate) are ROADMAP item 10
+PORTED_ALGOS = ("fedavg", "salientgrads", "dispfl", "subavg", "ditto",
+                "local", "dpsgd")
 
 # phased-stem twins of the reference models, with each stem's
 # (kernel, pad) decomposition spec (ops/s2d.py)
@@ -135,8 +136,8 @@ def _default(attr: str):
 def refuse_invalid(args: argparse.Namespace, algo_name: str) -> None:
     """The JAX CLI's own refusals of flag combinations that the port has
     the features for, with its messages, in its order (the faults, the
-    guard, the robust statistic, the eval cache, the defense, the watchdog
-    in fused blocks)."""
+    guard, the robust statistic, the eval cache, the aggregation wire, the
+    defense, the watchdog in fused blocks)."""
     if (getattr(args, "fault_spec", "") or getattr(args, "guard", 0)) \
             and algo_name not in _CENTRAL:
         raise SystemExit(
@@ -165,6 +166,28 @@ def refuse_invalid(args: argparse.Namespace, algo_name: str) -> None:
                 "--eval_cache indexes the full cohort; the sampled-"
                 "eval subset (--eval_clients) composes poorly with it "
                 "— use one or the other")
+    agg_impl = getattr(args, "agg_impl", "dense")
+    if agg_impl != "dense" and algo_name not in _CENTRAL:
+        raise SystemExit(
+            f"--agg_impl {agg_impl} routes the CENTRAL weighted mean "
+            f"(fedavg/salientgrads/ditto); {algo_name} has no central "
+            "aggregate")
+    if agg_impl == "sparse" and algo_name != "salientgrads":
+        raise SystemExit(
+            "--agg_impl sparse needs a static sparsity mask; only "
+            "salientgrads (fixed SNIP mask) supports it")
+    if agg_impl == "topk" and algo_name not in ("fedavg", "salientgrads"):
+        raise SystemExit(
+            "--agg_impl topk carries an error-feedback residual in "
+            "algorithm state; only fedavg/salientgrads thread it "
+            f"({algo_name} does not)")
+    if agg_impl == "hier" and \
+            getattr(args, "agg_hier_wire", "bf16") == "sparse" and \
+            algo_name != "salientgrads":
+        raise SystemExit(
+            "--agg_hier_wire sparse compresses the cross-slice hop to a "
+            "static mask's live coordinates; only salientgrads (fixed "
+            "SNIP mask) supports it")
     if getattr(args, "defense_type", "none") != "none" and \
             algo_name not in ("fedavg", "salientgrads"):
         raise SystemExit(
@@ -192,6 +215,7 @@ def refuse_unported(args: argparse.Namespace, algo_name: str) -> None:
         raise SystemExit(
             f"--algo {algo_name}: not ported to PyTorch yet (ROADMAP item "
             f"10); the port runs {', '.join(PORTED_ALGOS)}")
+
     for attr, item in _UNPORTED.items():
         if not hasattr(args, attr):
             continue
@@ -209,6 +233,20 @@ def refuse_unported(args: argparse.Namespace, algo_name: str) -> None:
         raise SystemExit(
             f"--model {key}: not ported to PyTorch yet (ROADMAP item 11); "
             f"the port has {', '.join(MODEL_NAMES)}")
+
+
+def refuse_fused(algo, algo_name: str, fuse: int) -> None:
+    """``--fuse_rounds`` > 1 refused for the built algorithm: the JAX CLI's
+    refusal of evolving masks (their cost is priced each round), then the
+    port's for an algorithm whose fused loop it has not got."""
+    if algo.masks_evolve:
+        raise SystemExit(
+            f"--fuse_rounds: {algo_name}'s per-round cost "
+            "accounting snapshots evolving masks; use "
+            "--fuse_rounds 1")
+    if not algo.supports_fused:
+        raise SystemExit(f"--fuse_rounds {fuse}: {algo_name}: "
+                         f"{algo.fused_refusal}; use --fuse_rounds 1")
 
 
 def _log_inert(args: argparse.Namespace) -> None:
@@ -258,7 +296,7 @@ def build_algorithm(args: argparse.Namespace, algo_name: str):
     """The algorithm the flags describe, on ``--device``; returns
     ``(algo, data)``, the data as the algorithm holds it (on the device,
     moved there once after the ``--data_dtype`` cast)."""
-    from ..algorithms import FedAvg, SalientGrads
+    from ..algorithms import ALGORITHMS
     from ..core.state import HyperParams
     from ..models import create_model
     from ..robust import RobustAggregator
@@ -319,22 +357,10 @@ def build_algorithm(args: argparse.Namespace, algo_name: str):
         local_epochs=args.epochs, steps_per_epoch=steps_per_epoch,
         batch_size=args.batch_size, batching=batching,
     )
-    agg_impl = getattr(args, "agg_impl", "dense")
-    if agg_impl == "sparse" and algo_name != "salientgrads":
-        raise SystemExit(
-            "--agg_impl sparse needs a static sparsity mask; only "
-            "salientgrads (fixed SNIP mask) supports it")
-    if agg_impl == "hier" and \
-            getattr(args, "agg_hier_wire", "bf16") == "sparse" and \
-            algo_name != "salientgrads":
-        raise SystemExit(
-            "--agg_hier_wire sparse compresses the cross-slice hop to a "
-            "static mask's live coordinates; only salientgrads (fixed "
-            "SNIP mask) supports it")
     common = dict(
         loss_type=loss_type, frac=args.frac, seed=args.seed,
         compute_dtype=getattr(args, "compute_dtype", "") or None,
-        agg_impl=agg_impl,
+        agg_impl=getattr(args, "agg_impl", "dense"),
         agg_bucket_size=getattr(args, "agg_bucket_size", 0),
         agg_topk_density=getattr(args, "agg_topk_density", 0.1),
         agg_topk_sample=getattr(args, "agg_topk_sample", 0),
@@ -353,34 +379,70 @@ def build_algorithm(args: argparse.Namespace, algo_name: str):
         # norm_krum's clip bound is --norm_bound
         robust_norm_bound=getattr(args, "norm_bound", 5.0),
         device=getattr(args, "device", "cuda"),
-        track_personal=bool(getattr(args, "track_personal", 1)),
-        eval_cache=bool(getattr(args, "eval_cache", 0)),
     )
     defense = None
     if getattr(args, "defense_type", "none") != "none":
         defense = RobustAggregator(
             defense_type=args.defense_type,
             norm_bound=args.norm_bound, stddev=args.stddev)
+    central = dict(defense=defense,
+                   track_personal=bool(getattr(args, "track_personal", 1)),
+                   eval_cache=bool(getattr(args, "eval_cache", 0)))
+    extra: Dict[str, Any] = {}
     if algo_name == "salientgrads":
-        algo = SalientGrads(
-            model, data, hp, dense_ratio=args.dense_ratio,
-            itersnip_iterations=args.itersnip_iteration, defense=defense,
+        extra = dict(
+            dense_ratio=args.dense_ratio,
+            itersnip_iterations=args.itersnip_iteration,
             snip_mask=bool(getattr(args, "snip_mask", 1)),
             stratified_sampling=bool(getattr(args, "stratified_sampling",
                                              0)),
             stratified_mode=getattr(args, "stratified_mode", "exact"),
-            **common)
-    else:
-        algo = FedAvg(model, data, hp, defense=defense, **common)
+            **central)
+    elif algo_name == "fedavg":
+        extra = central
+    elif algo_name == "dispfl":
+        extra = dict(dense_ratio=args.dense_ratio,
+                     anneal_factor=args.anneal_factor,
+                     neighbor_mode=args.cs, active=args.active,
+                     static_masks=bool(args.static),
+                     total_rounds=args.comm_round,
+                     erk_power_scale=args.erk_power_scale,
+                     sparsity_distribution=(
+                         "uniform" if getattr(args, "uniform", False)
+                         else "erk"),
+                     different_initial=getattr(args, "different_initial",
+                                               False),
+                     diff_spa=getattr(args, "diff_spa", False),
+                     dis_gradient_check=getattr(args, "dis_gradient_check",
+                                                False),
+                     # --frequency_of_the_test 0 drops every eval, the
+                     # per-round local tests too
+                     record_local_tests=bool(
+                         getattr(args, "frequency_of_the_test", 1)))
+    elif algo_name == "dpsgd":
+        extra = dict(neighbor_mode=args.cs)
+    elif algo_name == "subavg":
+        extra = dict(each_prune_ratio=args.each_prune_ratio,
+                     dist_thresh=args.dist_thresh,
+                     acc_thresh=args.acc_thresh,
+                     dense_ratio=args.dense_ratio)
+    elif algo_name == "ditto":
+        personal_hp = None
+        if getattr(args, "local_epochs", 0):
+            personal_hp = dataclasses.replace(hp,
+                                              local_epochs=args.local_epochs)
+        extra = dict(lamda=args.lamda, personal_hp=personal_hp)
+    algo = ALGORITHMS[algo_name](model, data, hp, **common, **extra)
     return algo, algo.data
 
 
 def save_stat_info(args: argparse.Namespace, identity: str,
-                   history, final_eval, cost=None,
+                   history, final_eval, extras=None, cost=None,
                    avg_inference_flops: float = 0.0,
                    fault_counters=None) -> Optional[str]:
     """End-of-run artifact: the ``stat_info`` pickle, and its JSON sidecar,
-    under ``<results_dir>/<dataset>/<identity>``."""
+    under ``<results_dir>/<dataset>/<identity>``; ``extras`` (DisPFL's
+    final masks and mask distances) go into the pickle only."""
     if not args.results_dir:
         return None
     out_dir = os.path.join(args.results_dir, args.dataset)
@@ -395,7 +457,7 @@ def save_stat_info(args: argparse.Namespace, identity: str,
                             if "global_acc" in h],
         "person_test_acc": [h.get("personal_acc") for h in history
                             if "personal_acc" in h],
-        # DisPFL's local-test series (empty for the ported algorithms)
+        # DisPFL's local-test series around local training
         "old_mask_test_acc": [h["old_mask_test_acc"] for h in history
                               if "old_mask_test_acc" in h],
         "new_mask_test_acc": [h["new_mask_test_acc"] for h in history
@@ -406,28 +468,27 @@ def save_stat_info(args: argparse.Namespace, identity: str,
     }
     if fault_counters is not None:
         stat_info["fault_recovery"] = dict(fault_counters)
+    json_keys = list(stat_info)
+    stat_info.update(extras or {})
     with open(path, "wb") as f:
         pickle.dump(stat_info, f)
     with open(path + ".json", "w") as f:
-        json.dump(stat_info, f, default=str, indent=1)
+        json.dump({k: stat_info[k] for k in json_keys}, f, default=str,
+                  indent=1)
     return path
 
 
-def _cost_snapshot(state):
-    """(params, mask) the FLOPs/comm counters price: the global model and
-    its mask (None for FedAvg)."""
-    return state.global_params, getattr(state, "mask", None)
-
-
 def _cost_round_record(algo, cost, samples_per_client, state):
-    """One round's cost record (shared by the unfused and fused loops): the
-    masks are fixed, so round 0's count repeats (no device-to-host pull
-    after it)."""
-    if cost.per_round:
+    """One round's cost record (shared by the unfused and fused loops): with
+    fixed masks round 0's count repeats (no device-to-host pull after it);
+    evolving masks (DisPFL, SubAvg) are priced anew each round, on the
+    representative client of :meth:`FedAlgorithm.cost_snapshot`."""
+    if cost.per_round and not algo.masks_evolve:
         return cost.record_repeat()
-    return cost.record_round(*_cost_snapshot(state),
-                             n_clients=algo.clients_per_round,
-                             samples_per_client=samples_per_client)
+    return cost.record_round(
+        *algo.cost_snapshot(state),
+        n_clients=algo.cost_trained_clients_per_round(),
+        samples_per_client=samples_per_client)
 
 
 def _run_fused_rounds(algo, algo_name, state, total, block, ev_every, cost,
@@ -453,9 +514,10 @@ def _run_fused_rounds(algo, algo_name, state, total, block, ev_every, cost,
 def run_experiment(args: argparse.Namespace,
                    algo_name: Optional[str] = None) -> Dict[str, Any]:
     from .. import resolve_device
+    from ..convert import to_reference_layout
     from ..robust import recovery
     from ..robust.recovery import RoundWatchdog
-    from ..utils.flops import CostTracker, inference_flops
+    from ..utils.flops import CostTracker, avg_inference_flops
     from ..utils.records import DeferredRecords, RunCounters, to_float
 
     algo_name = algo_name or getattr(args, "algo", "fedavg")
@@ -475,6 +537,9 @@ def run_experiment(args: argparse.Namespace,
         seed_everything(args.seed)
 
         algo, data = build_algorithm(args, algo_name)
+        fuse = max(1, getattr(args, "fuse_rounds", 1) or 1)
+        if fuse > 1:
+            refuse_fused(algo, algo_name, fuse)
         state = algo.init_state()
 
         # per-round cost accounting (stat_info's sum_training_flops /
@@ -496,7 +561,6 @@ def run_experiment(args: argparse.Namespace,
             counters.update(rec)
             logger.info("%s round %s: %s", algo_name, rec["round"], rec)
 
-        fuse = max(1, getattr(args, "fuse_rounds", 1) or 1)
         watchdog = None
         if getattr(args, "watchdog", 0):
             # the host-side divergence watchdog with rollback-retry
@@ -584,23 +648,33 @@ def run_experiment(args: argparse.Namespace,
             # only a finalize that trained (FedAvg's fine-tune) counts
             # toward the FLOPs/comm counters
             if record.get("finetune"):
-                cost.record_round(*_cost_snapshot(state),
+                cost.record_round(*algo.cost_snapshot(state),
                                   n_clients=algo.num_clients,
                                   samples_per_client=samples_per_client)
             final_eval = {k: v for k, v in fin_rec.items()
                           if k not in ("round", "finetune")}
         if final_eval is None:  # the last round was not an eval round
             final_eval = algo.evaluate(state)
+        extras = {}
+        if getattr(args, "save_masks", False) and hasattr(state, "masks"):
+            # the final masks, as booleans in the reference's layout
+            extras["final_masks"] = {
+                k: to_reference_layout(k, m, lead=1).cpu().numpy() != 0
+                for k, m in state.masks.items()}
+        if getattr(args, "record_mask_diff", False) and \
+                hasattr(algo, "mask_distance_matrix"):
+            extras["mask_distance_matrix"] = algo.mask_distance_matrix(
+                state)
         avg_inf = 0.0
         if args.results_dir:
-            params, mask = _cost_snapshot(state)
-            avg_inf = inference_flops(algo.model, params,
-                                      algo.init_sample_shape, mask)
+            avg_inf = avg_inference_flops(
+                algo.model, state, algo.init_sample_shape, algo.num_clients,
+                algo.cost_snapshot)
         fault_totals = counters.summary()
         if watchdog is not None:
             fault_totals.update(watchdog.totals())
         stat_path = save_stat_info(
-            args, identity, history, final_eval, cost=cost,
+            args, identity, history, final_eval, extras, cost=cost,
             avg_inference_flops=avg_inf, fault_counters=fault_totals)
         return {
             "identity": identity,

@@ -68,6 +68,10 @@ MAX_LEAVES = 32
 
 #: launches of each kernel since the last :func:`reset_launches`
 LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
+#: launches of a kernel's branch since the last :func:`reset_launches`:
+#: the masked SGD kernel's ``mask_grads`` branch (DisPFL's and SubAvg's
+#: steps), also counted in ``LAUNCHES["masked_sgd"]``
+BRANCH_LAUNCHES: Dict[str, int] = {"masked_sgd_mask_grads": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 #: nvcc's stderr (ptxas register/spill report) per kernel, from the last build
@@ -75,16 +79,33 @@ BUILD_LOG: Dict[str, str] = {}
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, BRANCH_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
+
+
+def _counter(name: str) -> Dict[str, int]:
+    return LAUNCHES if name in LAUNCHES else BRANCH_LAUNCHES
+
+
+def snapshot_launches() -> Dict[str, int]:
+    """Every count of :data:`LAUNCHES` and :data:`BRANCH_LAUNCHES`."""
+    return {**LAUNCHES, **BRANCH_LAUNCHES}
+
+
+def restore_launches(snapshot: Dict[str, int]) -> None:
+    """Set the counts back to a :func:`snapshot_launches`."""
+    for name, n in snapshot.items():
+        _counter(name)[name] = n
 
 
 def add_launches(counts: Dict[str, int]) -> None:
-    """Add ``counts`` to :data:`LAUNCHES`: the launches a CUDA graph
-    replays, which pass through no wrapper (the capture counted them, then
-    took them back: a capture queues no work)."""
+    """Add ``counts`` (keys of :func:`snapshot_launches`) to the counters:
+    the launches a CUDA graph replays, which pass through no wrapper (the
+    capture counted them, then took them back: a capture queues no
+    work)."""
     for name, n in counts.items():
-        LAUNCHES[name] += n
+        _counter(name)[name] += n
 
 
 # -- build ------------------------------------------------------------------
@@ -298,6 +319,8 @@ def fused_masked_sgd_step(params: List[torch.Tensor],
                 int(mask_grads), _stream(dev))
         _check("masked_sgd", rc)
         LAUNCHES["masked_sgd"] += 1
+        if mask_grads:
+            BRANCH_LAUNCHES["masked_sgd_mask_grads"] += 1
 
 
 # -- threshold ----------------------------------------------------------------

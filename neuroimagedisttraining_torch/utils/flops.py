@@ -10,10 +10,7 @@ the model's ``state_dict`` naming; a layer is keyed by its module name (the
 parameter name without ``.kernel``).
 
 The reference's ``xla_cost_analysis`` / ``inference_flops_xla`` read XLA's
-cost model and have no counterpart here (ROADMAP item 14). Its
-``avg_inference_flops`` averages over per-client masks, which no ported
-algorithm has: with one global mask (or none) it is
-:func:`inference_flops` of the global model, which the runner calls.
+cost model and have no counterpart here (ROADMAP item 14).
 """
 from __future__ import annotations
 
@@ -126,6 +123,35 @@ def training_flops(model, params: Tree, sample_shape, mask=None,
                    n_samples: int = 1) -> float:
     return TRAIN_TO_INFER_RATIO * n_samples * inference_flops(
         model, params, sample_shape, mask)
+
+
+def avg_inference_flops(model, state, sample_shape: Tuple[int, ...],
+                        num_clients: int, cost_snapshot_fn) -> float:
+    """The cohort-mean per-sample inference FLOPs of the final model(s)
+    (the original's ``record_avg_inference_flops``): with one global mask
+    (or none), :func:`inference_flops` of the representative model; with
+    per-client masks (DisPFL, SubAvg) the mask-aware count averaged over
+    every client, each under its own mask, on its personal model (DisPFL)
+    or the global one (SubAvg), the dense per-layer FLOPs computed once."""
+    masks = getattr(state, "masks", None)
+    if masks is None:
+        params, mask = cost_snapshot_fn(state)
+        if params is None:
+            return 0.0
+        return inference_flops(model, params, sample_shape, mask=mask)
+    stacked = getattr(state, "personal_params", None)
+    glob = getattr(state, "global_params", None)
+
+    def params_of(c):
+        return glob if stacked is None else {k: v[c] for k, v in
+                                             stacked.items()}
+
+    dense = per_layer_flops(model, params_of(0), sample_shape)
+    total = 0.0
+    for c in range(num_clients):
+        total += _scaled_flops(dense, nonzero_fraction(
+            params_of(c), {k: v[c] for k, v in masks.items()}))
+    return total / max(1, num_clients)
 
 
 def count_params(params: Tree) -> int:

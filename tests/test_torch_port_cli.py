@@ -150,9 +150,7 @@ def test_flag_table_matches_reference():
 
 #: (extra argv, flag the refusal names): every unported feature, set
 REFUSED = [
-    (["--algo", a], "--algo") for a in
-    ("dispfl", "subavg", "dpsgd", "ditto", "fedfomo", "local",
-     "turboaggregate")
+    (["--algo", a], "--algo") for a in ("fedfomo", "turboaggregate")
 ] + [
     (["--checkpoint_dir", "ck"], "--checkpoint_dir"),
     (["--resume"], "--resume"),

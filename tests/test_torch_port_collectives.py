@@ -301,11 +301,13 @@ def test_wire_argument_checks():
     "parallel/__init__.py", "parallel/collectives.py",
     "algorithms/fedavg.py", "algorithms/base.py", "ops/kernels.py",
     "robust/__init__.py", "robust/faults.py", "robust/guard.py",
-    "robust/aggregation.py", "robust/recovery.py"])
+    "robust/aggregation.py", "robust/recovery.py", "parallel/topology.py",
+    "algorithms/dispfl.py", "algorithms/subavg.py", "algorithms/ditto.py",
+    "algorithms/local_only.py", "algorithms/dpsgd.py"])
 def test_port_modules_import_no_jax(module):
-    """The aggregation slice's and the robustness tier's modules import
-    torch, numpy and the standard library only (the package-wide walk is
-    in test_torch_port_round.py)."""
+    """The aggregation slice's, the robustness tier's and the baselines'
+    modules import torch, numpy and the standard library only (the
+    package-wide walk is in test_torch_port_round.py)."""
     import ast
     import pathlib
 

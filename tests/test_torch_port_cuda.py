@@ -51,7 +51,8 @@ def test_cuda_kernels_match_plain():
 
 
 def _card():
-    if not torch.cuda.is_available():
+    if not torch.cuda.is_available() or \
+            torch.cuda.get_device_capability(0) != (9, 0):
         pytest.skip("needs an NVIDIA GPU with sm_90a (H100)")
     return torch.device("cuda")
 
@@ -722,3 +723,83 @@ def test_cuda_capture_error_raises():
     with pytest.raises(ValueError, match="the probe cannot be captured"):
         _Graph(body, dev, "the probe")
     assert float((x + 1).sum()) == 8.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["DisPFL", "SubAvg"])
+def test_cuda_personal_round_matches_cpu(name):
+    """A DisPFL round (fire and regrow on the screening gradient) and a
+    SubAvg round (both legs, the prune, the gates) on the CPU and on the
+    card from the same parameters, masks and draws, cuDNN's TF32 off: the
+    card launches the masked SGD kernel's ``mask_grads`` branch once a
+    step; the masks agree but for decisions within round-off of a
+    threshold (at most 1e-3 of them); losses within 1e-5 and the kernel
+    leaves within 1e-5 norm-wise where the masks agree."""
+    from neuroimagedisttraining_torch import algorithms
+    from neuroimagedisttraining_torch.core.state import HyperParams
+    from neuroimagedisttraining_torch.core.trainer import epoch_permutations
+    from neuroimagedisttraining_torch.data import make_synthetic_federated
+    from neuroimagedisttraining_torch.models import create_model, init_params
+
+    dev = _card()
+    clients, steps, bs = 4, 2, 4
+    data = make_synthetic_federated(seed=5, n_clients=clients,
+                                    samples_per_client=8, test_per_client=4,
+                                    sample_shape=(8, 8, 8, 1))
+    hp = HyperParams(lr=0.05, momentum=0.9, local_epochs=2,
+                     steps_per_epoch=steps, batch_size=bs)
+    g = torch.Generator().manual_seed(0)
+    params = init_params(create_model("small3dcnn", num_classes=1), g)
+    n_rows = data.x_train.shape[1]
+    seams = dict(
+        perms=[epoch_permutations(g, int(n), 2, steps * bs, n_rows=n_rows)
+               for n in data.n_train],
+        perms_2=[epoch_permutations(g, int(n), 1, steps * bs, n_rows=n_rows)
+                 for n in data.n_train],
+        screen_idx=[torch.randint(0, int(n), (bs,), generator=g)
+                    for n in data.n_train])
+    kw = (dict(dense_ratio=0.5, total_rounds=4) if name == "DisPFL"
+          else dict(acc_thresh=0.0))
+    out, masks = {}, None
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False  # f32 convs, as on the CPU
+    try:
+        for device in ("cpu", dev):
+            algo = getattr(algorithms, name)(
+                create_model("small3dcnn", num_classes=1), data, hp,
+                loss_type="bce", device=device, **kw)
+            init = dict(params=params)
+            if name == "DisPFL":
+                init["masks"] = masks
+            state = algo.init_state(**init)
+            if masks is None and name == "DisPFL":
+                masks = {k: v.cpu() for k, v in state.masks.items()}
+            kernels.reset_launches()
+            state, met = algo.run_round(
+                state, 0, **{k: v for k, v in seams.items()
+                             if k != "perms_2" or name == "SubAvg"})
+            launches = dict(kernels.LAUNCHES)
+            launches.update(kernels.BRANCH_LAUNCHES)
+            field = ("personal_params" if name == "DisPFL"
+                     else "global_params")
+            out[device] = ({k: v.cpu() for k, v in
+                            getattr(state, field).items()},
+                           {k: v.cpu() for k, v in state.masks.items()},
+                           float(met["train_loss"]), launches)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    (pc_, mc, lc, _), (pg, mg, lg, lau) = out["cpu"], out[dev]
+    step_count = clients * 2 * steps  # every client, two epochs
+    assert lau["masked_sgd"] == step_count, lau
+    assert lau["masked_sgd_mask_grads"] == step_count, lau
+    assert abs(lg - lc) <= 1e-5 * abs(lc)
+    same = {k: mg[k] == mc[k] for k in mc}
+    agree = sum(int(v.sum()) for v in same.values()) / sum(
+        v.numel() for v in same.values())
+    assert agree >= 1 - 1e-3, agree
+    for k, c in pc_.items():
+        if not k.endswith(".kernel"):
+            continue
+        w = same[k] if name == "DisPFL" else same[k].all(dim=0)
+        err = float(((pg[k] - c) * w).norm() / (c * w).norm())
+        assert err < 1e-5, (name, k, err)

@@ -292,7 +292,12 @@ def test_port_imports_no_jax():
                 "utils/__init__", "utils/records", "utils/flops",
                 "data/abcd", "data/partition", "robust/__init__",
                 "robust/faults", "robust/guard", "robust/aggregation",
-                "robust/recovery"):
+                "robust/recovery", "parallel/topology", "algorithms/dispfl",
+                "algorithms/subavg", "algorithms/ditto",
+                "algorithms/local_only", "algorithms/dpsgd",
+                "experiments/main_dispfl", "experiments/main_subavg",
+                "experiments/main_ditto", "experiments/main_local",
+                "experiments/main_dpsgd"):
         assert f"neuroimagedisttraining_torch/{mod}.py" in names, mod
     banned = ("jax", "flax", "neuroimagedisttraining_tpu")
     for f in files:
