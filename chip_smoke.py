@@ -59,12 +59,16 @@ Phases, each printing one JSON line:
    bit.
 6. fused   — the fused round loop (``run_rounds_fused``: each round one
    replay of a captured CUDA graph) on the same configuration: SalientGrads
-   and FedAvg on every wire of the wires phase, 3 rounds with the eval
-   after every round, each gated bitwise against 3 eager rounds from the
-   same state (or within the spread of two eager runs, printed, if that is
-   not zero); every wire must capture, or the phase fails.
-   Launches per replay, peak memory of both spellings and, on the dense
-   wires, their rounds/s in interleaved pairs (see ``fused_path``).
+   and FedAvg on every wire of the wires phase, then the five
+   personalized and decentralized baselines at the personal phase's
+   configurations (DisPFL ERK at ``frac`` 0.5, with ``active`` 0.5,
+   static; SubAvg over two epochs; Ditto, Local, DPSGD at ``frac`` 0.5),
+   3 rounds with the eval after every round, each gated bitwise against
+   3 eager rounds from the same state (or within the spread of two eager
+   runs, printed, if that is not zero); every configuration must capture,
+   or the phase fails. Launches per replay, the first block's seconds,
+   peak memory of both spellings and, on the dense wires, DisPFL static
+   and Ditto, their rounds/s in interleaved pairs (see ``fused_path``).
 7. evalcache — the eval protocol on the same configuration: SalientGrads
    and FedAvg with ``eval_cache=True``, 3 rounds with the eval after each,
    eager and fused, against the same rounds with the cache off from one
@@ -111,17 +115,28 @@ Phases, each printing one JSON line:
    exactly on the DisPFL and SubAvg paths, every path's stem launches; the
    steady round seconds and peak memory; then a narrow run of each
    algorithm on the card against the CPU (see ``personal_path``).
-12. cli     — the command-line entry point in-process on the card
+12. fomo    — FedFomo (its validation rows the last 10% of each shard)
+   and TurboAggregate at full width on the main configuration, 2 eager
+   rounds each, timed (TurboAggregate's host secure sum apart), and an
+   eval; finite losses, FedFomo's ``p_choose`` moved only at the pairs its
+   neighbor choice visited, each TurboAggregate global model within half
+   a quantum per client of the plain f64 weighted mean of its locals, the
+   launches, the peak memory, and a narrow run of each against the CPU
+   (see ``fomo_path``).
+13. cli     — the command-line entry point in-process on the card
    (``experiments.runner.main``): SalientGrads and FedAvg, ``--dataset
    synthetic --model small3dcnn --comm_round 2`` (no stem stage on this
    model), and SalientGrads with ``--fuse_rounds 2``, whose history must
    equal the unfused run's; each with its counters zeroed just before and
-   read just after; then the training options, the robustness flags and
-   each of the five personalized and decentralized algorithms; the cohort
-   and the parameters on CUDA, the losses finite, ``stat_info`` (pickle and ``.json``) written under a temporary
+   read just after; then the training options, the robustness flags,
+   each of the five personalized and decentralized algorithms, ``dispfl
+   --static``, ``--fuse_rounds 2`` for ditto, local, dpsgd and ``dispfl
+   --static`` (each history equal to its unfused run's), FedFomo and
+   TurboAggregate; the cohort and the parameters on CUDA, the losses
+   finite, ``stat_info`` (pickle and ``.json``) written under a temporary
    ``--results_dir``. The ABCD cohort-file step is not here: the loaders
    need ``h5py``, which the card's machine does not have.
-13. bench  — ``bench_torch.main()``, the port's bench of the headline
+14. bench  — ``bench_torch.main()``, the port's bench of the headline
    workload (SNIP; the Python loop: 1 + 10 rounds without eval, 1 + 8 with
    the eval every round, each from a clone of one state; the fused
    spelling: blocks of 10 and of 8 rounds with the eval, each after its
@@ -1341,41 +1356,54 @@ def wires_path(dev):
 
 def _eager_rounds(algo, state, rounds):
     """``rounds`` rounds of ``algo`` from ``state`` through ``run_round``,
-    the full eval after each: (state, losses, eval rows, launches of the
-    rounds, launches of the evals), the counters zeroed just before."""
+    the full eval after each: (state, round metric rows, eval rows,
+    launches of the rounds, launches of the evals), the counters zeroed
+    just before."""
     import torch
 
     from neuroimagedisttraining_torch.ops import kernels
 
     torch.cuda.synchronize()
     kernels.reset_launches()
-    losses, evals = [], []
-    ev_launches = {k: 0 for k in kernels.LAUNCHES}
+    mets, evals = [], []
+    ev_launches = {k: 0 for k in kernels.snapshot_launches()}
     for r in range(rounds):
         state, met = algo.run_round(state, r)
-        losses.append(met["train_loss"])
-        before = dict(kernels.LAUNCHES)
+        mets.append(met)
+        before = kernels.snapshot_launches()
         ev = algo.evaluate(state)
+        after = kernels.snapshot_launches()
         for k in ev_launches:
-            ev_launches[k] += kernels.LAUNCHES[k] - before[k]
+            ev_launches[k] += after[k] - before[k]
         evals.append({k: v for k, v in ev.items()
                       if not k.startswith("acc_per")})
     torch.cuda.synchronize()
-    round_launches = {k: kernels.LAUNCHES[k] - ev_launches[k]
-                      for k in ev_launches}
-    return (state, [float(v) for v in losses],
+    total = kernels.snapshot_launches()
+    round_launches = {k: total[k] - ev_launches[k] for k in ev_launches}
+    return (state, [{k: float(v) for k, v in m.items()} for m in mets],
             [{k: float(v) for k, v in ev.items()} for ev in evals],
             round_launches, ev_launches)
 
 
-def _spread(a_state, a_losses, a_evals, b_state, b_losses, b_evals):
-    """The largest absolute difference between two runs: losses, eval rows,
-    global and personal parameters."""
-    diffs = [abs(x - y) for x, y in zip(a_losses, b_losses)]
+def _tensor_trees(state):
+    """The state's fields that hold a tree of tensors (parameters, masks,
+    residuals), by name."""
+    return {f.name: getattr(state, f.name)
+            for f in dataclasses.fields(state)
+            if isinstance(getattr(state, f.name), dict)}
+
+
+def _spread(a_state, a_mets, a_evals, b_state, b_mets, b_evals):
+    """The largest absolute difference between two runs: round metrics,
+    eval rows and every tree of tensors of the states (parameters, masks,
+    residuals)."""
+    diffs = [abs(x[k] - y[k]) for x, y in zip(a_mets, b_mets) for k in x]
     diffs += [abs(x[k] - y[k]) for x, y in zip(a_evals, b_evals) for k in x]
-    for name in ("global_params", "personal_params"):
-        a, b = getattr(a_state, name), getattr(b_state, name)
-        diffs += [float((a[k] - b[k]).abs().max()) for k in a]
+    b_trees = _tensor_trees(b_state)
+    for name, a in _tensor_trees(a_state).items():
+        b = b_trees[name]
+        diffs += [float((a[k].float() - b[k].float()).abs().max())
+                  for k in a]
     return max(diffs)
 
 
@@ -1409,73 +1437,117 @@ def _rates_in_pairs(algo, state, rounds):
     return out
 
 
+#: the fused phase's baselines: (path, class, options) at the personal
+#: phase's configurations, SubAvg over two epochs (its second leg runs);
+#: the paths whose eager and fused rates are also taken in interleaved
+#: pairs
+FUSED_BASELINES = (
+    ("dispfl", "DisPFL", dict(frac=0.5, neighbor_mode="random")),
+    ("dispfl_active", "DisPFL", dict(frac=0.5, active=0.5)),
+    ("dispfl_static", "DisPFL", dict(frac=0.5, static_masks=True)),
+    ("subavg", "SubAvg", dict(epochs=2)),
+    ("ditto", "Ditto", dict()),
+    ("local", "LocalOnly", dict()),
+    ("dpsgd", "DPSGD", dict(frac=0.5)),
+)
+FUSED_PAIRS = ("dispfl_static", "ditto")
+
+
+def _personal_algo(cls_name, opts, model, data, hp):
+    """A baseline of the personal and fused phases on the main
+    configuration: bf16 compute, ``dense_ratio`` 0.5 for the masked ones,
+    DisPFL's schedule over 10 rounds; ``epochs`` sets the local epochs."""
+    from neuroimagedisttraining_torch import algorithms
+
+    kw = dict(loss_type="bce", seed=0, compute_dtype="bfloat16")
+    kw.update({k: v for k, v in opts.items() if k != "epochs"})
+    if cls_name in ("DisPFL", "SubAvg"):
+        kw["dense_ratio"] = 0.5
+    if cls_name == "DisPFL":
+        kw["total_rounds"] = 10
+    if "epochs" in opts:
+        hp = dataclasses.replace(hp, local_epochs=opts["epochs"])
+    return getattr(algorithms, cls_name)(model, data, hp, **kw)
+
+
 def fused_path(dev):
     """The fused round loop (``FedAlgorithm.run_rounds_fused``) on the main
     configuration at full width: SalientGrads (SNIP once) and FedAvg, each
-    on every wire of the wires phase, FUSED_ROUNDS rounds with the eval
-    after every round, from the same state as FUSED_ROUNDS eager rounds
-    (``run_round`` + ``evaluate``; SalientGrads' state a ``clone_state``
-    copy of one post-SNIP state, FedAvg's a fresh ``init_state``). Each
-    round is one replay of a captured CUDA graph, each eval one replay of
-    the eval's graph.
+    on every wire of the wires phase, then the five personalized and
+    decentralized baselines (FUSED_BASELINES), FUSED_ROUNDS rounds with the
+    eval after every round, from the same state as FUSED_ROUNDS eager
+    rounds (``run_round`` + ``evaluate``; SalientGrads' state a
+    ``clone_state`` copy of one post-SNIP state, the others' a fresh
+    ``init_state``). Each round is one replay of a captured CUDA graph,
+    each eval one replay of the eval's graph.
 
-    Gates: train losses, eval rows, final global and personal parameters
-    bitwise equal to eager's, or, if two eager runs of the dense wire
-    differ (cuDNN's own spread), within that spread, printed; the graphs'
-    launches per replay equal eager's per round and per eval, and the
-    run's launches are (FUSED_WARMUPS + FUSED_ROUNDS) rounds and evals.
-    Every wire must capture: a capture error (``ValueError``) or any other
-    error fails the phase. On the dense wires, the eager and fused rates
-    in interleaved pairs, and the peak memory of both. Returns the
-    launches per path."""
+    Gates: round metrics (DisPFL's mask change and local-test series too),
+    eval rows and every tree of tensors of the final state (masks
+    included) bitwise equal to eager's, or, if not, within the spread of
+    two eager runs of the same configuration (cuDNN's own), printed; the
+    graphs' launches per replay equal eager's per round and per eval (the
+    masked SGD kernel's ``mask_grads`` branch counted apart), and the run's
+    launches are (FUSED_WARMUPS + FUSED_ROUNDS) rounds and evals. Every
+    configuration must capture: a capture error (``ValueError``) or any
+    other error fails the phase. Recorded: the first block's seconds (the
+    baselines' second block's too, its graphs captured), the peak memory
+    of both spellings and, on the dense wires and FUSED_PAIRS, the eager
+    and fused rates in interleaved pairs. Returns the launches per path
+    (the first block's; the second block and the pairs launch outside
+    them)."""
     import gc
 
     import torch
 
     from neuroimagedisttraining_torch.algorithms import FedAvg, SalientGrads
     from neuroimagedisttraining_torch.algorithms.base import FUSED_WARMUPS
-    from neuroimagedisttraining_torch.core.state import (
-        HyperParams,
-        zeros_like_tree,
-    )
-    from neuroimagedisttraining_torch.data import device_synthetic_federated
+    from neuroimagedisttraining_torch.core.state import zeros_like_tree
     from neuroimagedisttraining_torch.models import create_model
     from neuroimagedisttraining_torch.ops import kernels
     from neuroimagedisttraining_torch.ops.s2d import phased_sample_shape
 
-    data = device_synthetic_federated(
-        N_CLIENTS, SAMPLES, phased_sample_shape(VOLUME),
-        torch.Generator(device=dev).manual_seed(0), test_per_client=TEST)
-    hp = HyperParams(lr=1e-3, lr_decay=0.998, momentum=0.9,
-                     weight_decay=5e-4, grad_clip=10.0, local_epochs=1,
-                     steps_per_epoch=STEPS, batch_size=BATCH)
+    data, hp = _main_config(dev, phased_sample_shape(VOLUME))
     model = create_model("3dcnn_s2d", num_classes=1,
                          sample_shape=phased_sample_shape(VOLUME))
     kw = dict(loss_type="bce", frac=1.0, seed=0, compute_dtype="bfloat16",
               agg_topk_density=TOPK_DENSITY)
     sg_kw = dict(dense_ratio=0.5, itersnip_iterations=1, **kw)
     sg0 = SalientGrads(model, data, hp, **sg_kw).init_state()
-    configs = [("salientgrads", w) for w in WIRES] + \
-        [("fedavg", w) for w in FEDAVG_WIRES]
-    configs.sort(key=lambda c: c[1] != "dense")  # both dense wires first
-    out, spread = {}, None
-    n = FUSED_ROUNDS
-    for name, impl in configs:
+
+    def central(name, impl):
         if name == "salientgrads":
             algo = SalientGrads(model, data, hp, agg_impl=impl, **sg_kw)
-            state = dataclasses.replace(
+            return algo, dataclasses.replace(
                 algo.clone_state(sg0),
                 agg_residual=(zeros_like_tree(sg0.personal_params)
                               if impl == "topk" else None))
-        else:
-            algo = FedAvg(model, data, hp, agg_impl=impl, **kw)
-            state = algo.init_state()
+        algo = FedAvg(model, data, hp, agg_impl=impl, **kw)
+        return algo, algo.init_state()
+
+    def baseline(cls_name, opts):
+        algo = _personal_algo(cls_name, opts, model, data, hp)
+        return algo, algo.init_state()
+
+    wires = [("salientgrads", w) for w in WIRES] + \
+        [("fedavg", w) for w in FEDAVG_WIRES]
+    wires.sort(key=lambda c: c[1] != "dense")  # both dense wires first
+    configs = [(f"{name}/{impl}", {"algo": name, "agg_impl": impl},
+                lambda n=name, i=impl: central(n, i), impl == "dense")
+               for name, impl in wires]
+    configs += [(path, {"algo": path, "options": opts},
+                 lambda c=cls_name, o=opts: baseline(c, o),
+                 path in FUSED_PAIRS)
+                for path, cls_name, opts in FUSED_BASELINES]
+    out, spread = {}, None
+    n = FUSED_ROUNDS
+    for path, label, make, pairs in configs:
+        algo, state = make()
         torch.cuda.reset_peak_memory_stats(dev)
         ea = _eager_rounds(algo, algo.clone_state(state), n)
         peak_eager = torch.cuda.max_memory_allocated(dev)
-        res = {"phase": "fused", "algo": name, "agg_impl": impl, "rounds": n,
-               "eval_every": 1, "train_loss": ea[1]}
-        if impl == "dense":
+        res = {"phase": "fused", **label, "rounds": n, "eval_every": 1,
+               "train_loss": [m["train_loss"] for m in ea[1]]}
+        if label.get("agg_impl") == "dense":
             eb = _eager_rounds(algo, algo.clone_state(state), n)
             s = _spread(*ea[:3], *eb[:3])
             res["eager_vs_eager_spread"] = s
@@ -1489,7 +1561,7 @@ def fused_path(dev):
         host = ys.materialize()
         torch.cuda.synchronize()
         res["first_block_s"] = time.perf_counter() - t0
-        launches = dict(kernels.LAUNCHES)
+        launches = kernels.snapshot_launches()
         res["peak_mem_bytes_eager"] = peak_eager
         res["peak_mem_bytes_fused"] = torch.cuda.max_memory_allocated(dev)
         fz = algo._fused
@@ -1497,37 +1569,52 @@ def fused_path(dev):
         res["launches"] = launches
         res["launches_per_replay"] = graph.launches
         res["eval_launches_per_replay"] = fz.eval.launches
+        names = list(algo._round_metric_names)
         diffs = _spread(ea[0], ea[1], ea[2], sf,
-                        [float(v) for v in host["train_loss"]],
+                        [{k: float(host[k][i]) for k in names}
+                         for i in range(n)],
                         [{k: float(v[i]) for k, v in host["eval"].items()}
                          for i in range(n)])
         res["fused_vs_eager_max_abs"] = diffs
+        trees = _tensor_trees(sf)
         res["bitwise"] = diffs == 0.0 and all(
-            torch.equal(getattr(ea[0], f)[k], getattr(sf, f)[k])
-            for f in ("global_params", "personal_params")
-            for k in getattr(ea[0], f))
-        if impl == "dense":
+            torch.equal(t[k], trees[f][k])
+            for f, t in _tensor_trees(ea[0]).items() for k in t)
+        if not res["bitwise"] and "agg_impl" not in label:
+            # this configuration's own eager-against-eager spread
+            eb = _eager_rounds(algo, algo.clone_state(state), n)
+            res["eager_vs_eager_spread"] = _spread(*ea[:3], *eb[:3])
+        if "options" in label:
+            # a second block, captured already: the steady fused rate
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            algo.run_rounds_fused(algo.clone_state(state), 0, n,
+                                  eval_every=1)[1].materialize()
+            torch.cuda.synchronize()
+            res["second_block_s"] = time.perf_counter() - t0
+        if pairs:
             torch.cuda.reset_peak_memory_stats(dev)
             res["rounds_per_sec_pairs"] = _rates_in_pairs(algo, state, n)
         emit(res)
-        if not (res["bitwise"] or diffs <= spread):
+        bound = res.get("eager_vs_eager_spread", spread)
+        if not (res["bitwise"] or diffs <= bound):
             raise AssertionError(
-                f"fused {name} {impl}: differs from eager by {diffs} "
-                f"(eager vs eager: {spread})")
+                f"fused {path}: differs from eager by {diffs} (eager vs "
+                f"eager: {bound})")
         # the first eager round of the new algorithm ran the dropout
         # probe's forward (FedAlgorithm._dropout_calls, once per algorithm)
         eager_rounds = {**ea[3], "stem_fwd": ea[3]["stem_fwd"] - 1}
         per_round = {k: v // n for k, v in eager_rounds.items() if v}
         per_eval = {k: v // n for k, v in ea[4].items() if v}
         want = {k: (per_round.get(k, 0) + per_eval.get(k, 0))
-                * (FUSED_WARMUPS + n) for k in kernels.LAUNCHES}
+                * (FUSED_WARMUPS + n) for k in launches}
         if graph.launches != per_round or fz.eval.launches != per_eval \
                 or launches != want:
             raise AssertionError(
-                f"fused {name} {impl}: launches {launches} (per replay "
+                f"fused {path}: launches {launches} (per replay "
                 f"{graph.launches}, eval {fz.eval.launches}), want {want} "
                 f"(per round {per_round}, per eval {per_eval})")
-        out[f"fused/{name}/{impl}"] = launches
+        out[f"fused/{path}"] = {k: launches[k] for k in kernels.LAUNCHES}
         del algo, graph, fz
         ea = eb = sf = ys = host = None  # free the states before the next
         gc.collect()
@@ -1654,7 +1741,8 @@ def evalcache_path(dev):
         fz = on._fused
         (graph,) = fz.rounds.values()
         diffs = _spread(ea[0], ea[1], ea[2], sf,
-                        [float(v) for v in host["train_loss"]],
+                        [{"train_loss": float(v)}
+                         for v in host["train_loss"]],
                         [{k: float(v[i]) for k, v in host["eval"].items()}
                          for i in range(n)])
         bitwise = diffs == 0.0 and _trees_equal(ea[0], sf, fields)
@@ -1665,7 +1753,8 @@ def evalcache_path(dev):
         peak_fused_off = torch.cuda.max_memory_allocated(dev)
         rates = _rates_in_pairs(on, s0, n)
         res = {"phase": "evalcache", "algo": name, "rounds": n,
-               "eval_every": 1, "init_s": init_s, "train_loss": ea[1],
+               "eval_every": 1, "init_s": init_s,
+               "train_loss": [m["train_loss"] for m in ea[1]],
                "eval_cache_on": ea[2], "eval_cache_off": eb[2],
                "fused_vs_eager_max_abs": diffs, "bitwise": bitwise,
                "first_block_s": first_block_s, "launches": launches,
@@ -1705,7 +1794,7 @@ def evalcache_path(dev):
                 f"round {per_round}, per eval {per_eval}, fused {want}")
         out[f"evalcache/{name}"] = launches
         out[f"evalcache/{name}/eager"] = {
-            k: ea[3][k] + ea[4][k] for k in ea[3]}
+            k: ea[3][k] + ea[4][k] for k in kernels.LAUNCHES}
         if name == "salientgrads":
             sg_state = dataclasses.replace(s0, eval_cache=None)
         del on, off, graph, fz
@@ -1723,14 +1812,15 @@ def evalcache_path(dev):
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
     diffs = _spread(ea[0], ea[1], ea[2], sf,
-                    [float(v) for v in host["train_loss"]],
+                    [{"train_loss": float(v)} for v in host["train_loss"]],
                     [{k: float(v[i]) for k, v in host["eval"].items()}
                      for i in range(m)])
     bitwise = diffs == 0.0 and _trees_equal(ea[0], sf, fields[:2])
     per_eval = {"stem_fwd": 2 * EVAL_CLIENTS * _eval_chunks()}
     emit({"phase": "evalcache", "algo": "salientgrads",
           "eval_clients": EVAL_CLIENTS, "subset": algo._eval_rows,
-          "rounds": m, "train_loss": ea[1], "eval": ea[2],
+          "rounds": m, "train_loss": [r["train_loss"] for r in ea[1]],
+          "eval": ea[2],
           "fused_vs_eager_max_abs": diffs, "bitwise": bitwise,
           "eval_launches_per_replay": algo._fused.eval.launches,
           "launches": launches})
@@ -2335,9 +2425,9 @@ def _narrow_personal_parity(dev, cls_name, opts, seed):
     ss = phased_sample_shape((69, 69, 69))
     mk = dict(num_classes=1, widths=(8, 16, 16, 16, 16), dropout_rate=0.0,
               sample_shape=ss)
-    data = make_synthetic_federated(seed=seed, n_clients=3,
-                                    samples_per_client=6, test_per_client=5,
-                                    sample_shape=ss)
+    data = make_synthetic_federated(
+        seed=seed, n_clients=3, samples_per_client=6, test_per_client=5,
+        val_per_client=3 if cls_name == "FedFomo" else 0, sample_shape=ss)
     hp = HyperParams(lr=0.01, momentum=0.9, weight_decay=5e-4,
                      grad_clip=10.0, local_epochs=2, steps_per_epoch=2,
                      batch_size=4)
@@ -2372,10 +2462,11 @@ def _narrow_personal_parity(dev, cls_name, opts, seed):
             masks = {k: v.cpu() for k, v in state.masks.items()}
         losses = []
         for r in range(2):
+            draws = {"perms": True,
+                     "perms_2": algo._second_leg_hp() is not None,
+                     "screen_idx": algo._draws_screen}
             state, met = algo.run_round(
-                state, r, **{k: v for k, v in seams[r].items()
-                             if k != "perms_2" or
-                             algo._second_leg_hp() is not None})
+                state, r, **{k: v for k, v in seams[r].items() if draws[k]})
             losses.append(float(met["train_loss"]))
         runs[label] = (losses, {f: {k: v.cpu() for k, v in
                                     getattr(state, f).items()}
@@ -2471,7 +2562,6 @@ def personal_path(dev):
     per path."""
     import torch
 
-    from neuroimagedisttraining_torch import algorithms
     from neuroimagedisttraining_torch.models import create_model
     from neuroimagedisttraining_torch.ops import kernels
     from neuroimagedisttraining_torch.ops.s2d import phased_sample_shape
@@ -2487,14 +2577,7 @@ def personal_path(dev):
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip()
     for path, cls_name, opts in PERSONAL_CONFIGS:
-        cls = getattr(algorithms, cls_name)
-        kw = dict(loss_type="bce", seed=0, compute_dtype="bfloat16")
-        kw.update(opts)
-        if cls_name in ("DisPFL", "SubAvg"):
-            kw["dense_ratio"] = 0.5
-        if cls_name == "DisPFL":
-            kw["total_rounds"] = 10
-        algo = cls(model, data, hp, **kw)
+        algo = _personal_algo(cls_name, opts, model, data, hp)
         trained, evolved = [], []
         if cls_name == "DisPFL" and not algo.static_masks:
             screen, evolve = algo._screen_gradients, algo._evolve_masks
@@ -2619,6 +2702,164 @@ def personal_path(dev):
     return out
 
 
+#: the fomo phase: eager rounds of FedFomo and TurboAggregate (an eval
+#: after the last), FedFomo's validation split (the CLI's --val_fraction
+#: default, carved from each client's training rows)
+FOMO_ROUNDS, FOMO_VAL_FRACTION = 2, 0.1
+
+
+def fomo_path(dev):
+    """FedFomo and TurboAggregate at full width on the main configuration
+    (AlexNet3DS2D, 8 clients x 40 phased volumes, bf16, 5 steps of batch 8,
+    dropout 0.5; FedFomo's last FOMO_VAL_FRACTION of each shard its
+    validation rows): FOMO_ROUNDS eager rounds each, timed, then an eval;
+    the counters zeroed just before and read just after. TurboAggregate's
+    host secure sum is timed apart (CUDA synchronized around it).
+
+    Gates: finite losses and eval; FedFomo's ``p_choose`` moved only at the
+    (client, neighbor) pairs its host neighbor choice visited; each
+    TurboAggregate global model within ``S * 0.5 / quant_scale`` per entry
+    of the plain float64 weighted mean of the same locals (plus the f32
+    cast's half-ulp: each client's quantization rounds by at most half a
+    quantum); the launches (FedFomo: every step, its ``C + C * (K + 1)``
+    validation forwards a round, the eval; TurboAggregate: every step and
+    the eval; no weighted sum, the sum is the host's); a narrow run of
+    each on the card against the CPU (:func:`_narrow_personal_parity`).
+    Returns the launches per path."""
+    import gc
+
+    import torch
+
+    from neuroimagedisttraining_torch.algorithms import (
+        FedFomo,
+        TurboAggregate,
+    )
+    from neuroimagedisttraining_torch.models import create_model
+    from neuroimagedisttraining_torch.ops import kernels
+    from neuroimagedisttraining_torch.ops.s2d import phased_sample_shape
+
+    gc.collect()  # the earlier phases' algorithms and cohorts
+    torch.cuda.empty_cache()
+    shape = phased_sample_shape(VOLUME)
+    data, hp = _main_config(dev, shape)
+    model = create_model("3dcnn_s2d", num_classes=1, sample_shape=shape)
+    kw = dict(loss_type="bce", seed=0, compute_dtype="bfloat16")
+    nv = max(1, int(FOMO_VAL_FRACTION * SAMPLES))
+    keep = SAMPLES - nv
+    # views of the one cohort: a client's rows stay contiguous
+    fomo_data = dataclasses.replace(
+        data, x_train=data.x_train[:, :keep], y_train=data.y_train[:, :keep],
+        n_train=torch.full((N_CLIENTS,), keep, dtype=torch.int32),
+        x_val=data.x_train[:, keep:], y_val=data.y_train[:, keep:],
+        n_val=torch.full((N_CLIENTS,), nv, dtype=torch.int32))
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip()
+    chunks = _eval_chunks()
+    out = {}
+    for path in ("fedfomo", "turboaggregate"):
+        if path == "fedfomo":
+            algo = FedFomo(model, fomo_data, hp, **kw)
+        else:
+            algo = TurboAggregate(model, data, hp, **kw)
+        sums, secure_s = [], []
+        if path == "turboaggregate":
+            secure = algo._secure_weighted_sum
+
+            def timed_sum(stacked, weights, _fn=secure):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                new = _fn(stacked, weights)
+                torch.cuda.synchronize()
+                secure_s.append(time.perf_counter() - t0)
+                sums.append((stacked, weights, new))
+                return new
+
+            algo._secure_weighted_sum = timed_sum
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launches()
+        state = algo.init_state()
+        losses, round_s, stray, visited_n = [], [], 0, 0
+        for r in range(FOMO_ROUNDS):
+            t0 = time.perf_counter()
+            new, met = algo.run_round(state, r)
+            losses.append(float(met["train_loss"]))
+            torch.cuda.synchronize()
+            round_s.append(time.perf_counter() - t0)
+            if path == "fedfomo":
+                before = state.p_choose.cpu().numpy()
+                nei = algo._choose_neighbors(r, before)
+                visited = torch.zeros((N_CLIENTS, N_CLIENTS),
+                                      dtype=torch.bool)
+                visited[torch.arange(N_CLIENTS)[:, None],
+                        torch.as_tensor(nei, dtype=torch.int64)] = True
+                moved = (new.p_choose != state.p_choose).cpu()
+                stray += int((moved & ~visited).sum())
+                visited_n += int(visited.sum())
+            state = new
+        ev = {k: float(v) for k, v in algo.evaluate(state).items()
+              if not k.startswith("acc_per")}
+        torch.cuda.synchronize()
+        launches = kernels.snapshot_launches()
+        peak = torch.cuda.max_memory_allocated(dev)
+        excess = 0.0
+        for stacked, weights, new in sums:
+            w = torch.as_tensor(weights, dtype=torch.float64, device=dev)
+            bound = len(weights) * 0.5 / algo.quant_scale
+            for k, v in new.items():
+                mean = torch.tensordot(w, stacked[k].double(), dims=1)
+                err = (v.double() - mean).abs() - mean.abs() * 2.0 ** -24
+                excess = max(excess, float(err.max()) - bound)
+        steps = FOMO_ROUNDS * N_CLIENTS * STEPS
+        evals = N_CLIENTS * chunks
+        if path == "fedfomo":
+            k_nei = algo._n_nei
+            val_fwd = FOMO_ROUNDS * (N_CLIENTS + N_CLIENTS * (k_nei + 1)) \
+                * -(-nv // min(32, nv))
+        else:
+            val_fwd = 0
+        want = {"masked_sgd": steps, "stem_fwd": steps + val_fwd + evals + 1,
+                "stem_bwd": steps, "weighted_sum": 0, "threshold": 0,
+                "score_mask": 0, "mask_apply": 0, "quantize_reduce": 0,
+                "masked_sgd_mask_grads": 0}
+        res = {"phase": "fomo", "algo": path, "card": card,
+               "rounds": FOMO_ROUNDS, "train_loss": losses,
+               "round_s": round_s, "eval": ev, "peak_mem_bytes": peak,
+               "launches": launches}
+        if path == "fedfomo":
+            res.update(neighbors=algo._n_nei, val_rows=nv,
+                       p_choose_visited=visited_n, p_choose_stray=stray)
+        else:
+            res.update(secure_sum_s=secure_s,
+                       train_s=[a - b for a, b in zip(round_s, secure_s)],
+                       n_groups=algo.n_groups,
+                       secure_sum_excess_over_bound=excess)
+        res["narrow_cpu_vs_card"] = parity = _narrow_personal_parity(
+            dev, "FedFomo" if path == "fedfomo" else "TurboAggregate", {},
+            NARROW_SEEDS.get(path, 5))
+        emit(res)
+        vals = losses + list(ev.values())
+        if not all(math.isfinite(v) for v in vals):
+            raise AssertionError(f"fomo {path}: non-finite {res}")
+        if stray or excess > 0:
+            raise AssertionError(f"fomo {path}: p_choose moved off its "
+                                 f"visits {stray}, secure sum past its "
+                                 f"bound by {excess}")
+        if any(launches[k] != v for k, v in want.items()):
+            raise AssertionError(f"fomo {path}: launches {launches}, "
+                                 f"want {want}")
+        if not parity["ok"]:
+            raise AssertionError(f"fomo {path}: the card's narrow run "
+                                 f"disagrees with the CPU's: {parity}")
+        out[f"fomo/{path}"] = {k: launches[k] for k in kernels.LAUNCHES}
+        del algo, state, sums, new
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def _cli_argv(algo: str, tmp: str):
     return ["--algo", algo, "--dataset", "synthetic", "--model", "small3dcnn",
             "--comm_round", "2", "--results_dir", f"{tmp}/results",
@@ -2655,7 +2896,15 @@ CLI_RUNS = (
     # aggregates, the others have no central aggregate
     ("dispfl", "dispfl", [], 0), ("subavg", "subavg", [], 0),
     ("ditto", "ditto", [], 2), ("local", "local", [], 0),
-    ("dpsgd", "dpsgd", [], 0),
+    ("dpsgd", "dpsgd", [], 0), ("dispfl_static", "dispfl", ["--static"], 0),
+    # their fused blocks (each history held to its unfused run's)
+    ("ditto_fused", "ditto", ["--fuse_rounds", "2"], 2),
+    ("local_fused", "local", ["--fuse_rounds", "2"], 0),
+    ("dpsgd_fused", "dpsgd", ["--fuse_rounds", "2"], 0),
+    ("dispfl_static_fused", "dispfl", ["--static", "--fuse_rounds", "2"], 0),
+    # the last two algorithms, eager only
+    ("fedfomo", "fedfomo", [], 0), ("turboaggregate", "turboaggregate", [],
+                                     0),
 )
 
 
@@ -2665,8 +2914,10 @@ def cli_path(dev):
     block of both rounds), whose history must equal the unfused run's; then
     the training options (replacement batching, remat, both stratified SNIP
     modes), the robustness flags (faults, the guard, every ``--robust_agg``,
-    both defenses, the watchdog) and the five personalized and
-    decentralized baselines. Returns the launches per path."""
+    both defenses, the watchdog), the five personalized and decentralized
+    baselines, ``--fuse_rounds 2`` for ditto, local, dpsgd and ``dispfl
+    --static`` (each history equal to its unfused run's), and FedFomo and
+    TurboAggregate. Returns the launches per path."""
     import os
     import tempfile
 
@@ -2722,8 +2973,8 @@ def cli_path(dev):
                 raise AssertionError(f"cli {path}: non-finite {vals}")
             want = (("masked_sgd", "threshold", "score_mask")
                     if algo == "salientgrads" else ("masked_sgd",))
-            if "--fuse_rounds" in extra:
-                aggs += FUSED_WARMUPS
+            if "--fuse_rounds" in extra:  # the round graph's warm-ups too
+                aggs += aggs // 2 * FUSED_WARMUPS
             remask = algo == "salientgrads" and (
                 "--defense_type" in extra or "topk" in extra)
             if not all(launches[k] > 0 for k in want) or \
@@ -2736,10 +2987,13 @@ def cli_path(dev):
                 raise AssertionError(f"cli {path}: no guard counters")
             histories[path] = [h for h in res["history"] if h["round"] >= 0]
             out[f"cli/{path}"] = launches
-        if histories["salientgrads_fused"] != histories["salientgrads"]:
-            raise AssertionError(
-                f"cli: --fuse_rounds 2 history {histories['salientgrads_fused']}"
-                f" differs from --fuse_rounds 1's {histories['salientgrads']}")
+        for path in histories:
+            if path.endswith("_fused") and \
+                    histories[path] != histories[path[:-len("_fused")]]:
+                raise AssertionError(
+                    f"cli {path}: --fuse_rounds 2 history {histories[path]}"
+                    f" differs from --fuse_rounds 1's "
+                    f"{histories[path[:-len('_fused')]]}")
     finally:
         runner.build_algorithm = build_algorithm
     return out
@@ -2857,6 +3111,7 @@ def main() -> int:
     paths.update(robust_path(dev))
     paths.update(train_opts_path(dev))
     paths.update(personal_path(dev))
+    paths.update(fomo_path(dev))
     paths.update(cli_path(dev))
     paths.update(bench_path(dev))
 

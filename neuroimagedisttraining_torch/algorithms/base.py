@@ -270,6 +270,19 @@ def _copy_into(dst, src) -> None:
         dst.copy_(src)
 
 
+def _copy_masks(buf: Sequence[Optional[torch.Tensor]], keep) -> None:
+    """One forward's keep masks by slot copied into ``buf``'s (``keep``
+    None: a step the client does not run, whose buffers stay)."""
+    for b, k in zip(buf, keep or ()):
+        if b is not None:
+            b.copy_(k)
+
+
+#: the :class:`RoundInputs` fields the host computes from the round index
+#: alone (:meth:`FedAlgorithm._host_inputs`)
+_HOST_FIELDS = ("adjacency", "active", "anneal_rate")
+
+
 def _buffer_fields(state: Any) -> List[str]:
     """The fields of ``state`` that hold a tensor or a tree of tensors."""
     return [f.name for f in dataclasses.fields(state)
@@ -321,35 +334,65 @@ class _FusedRounds:
       the learning rate, the epoch permutations (or replacement batches),
       the dropout keep masks of every client and step, the int8 wire's
       uniforms, the fault draws, the colluders' direction and the weak-DP
-      noise, rewritten on the card before each round (:meth:`write`);
+      noise; a second leg's permutations and keep masks, DisPFL's
+      screening rows and keep masks and its regrow scores; the round's
+      pure-host inputs (the neighbor ``adjacency``, DisPFL's ``active``
+      flags and ``anneal_rate``), each allocated only where the algorithm
+      draws it and rewritten on the card before each round
+      (:meth:`write`);
     * a round graph per client-draw key, the selected clients' sample
       counts, which fix the steps each runs and the aggregate's weights
       (one key at full participation or with equal shards), at most
-      FUSED_MAX_GRAPHS of them, and one eval graph."""
+      FUSED_MAX_GRAPHS of them, and one eval graph.
 
-    def __init__(self, algo: "FedAlgorithm", state: Any):
+    ``n_sel`` is the number of clients a round draws (the whole cohort
+    for the algorithms that train every client)."""
+
+    def __init__(self, algo: "FedAlgorithm", state: Any, n_sel: int):
         dev, hp = algo.device, algo.hp
-        s = algo.clients_per_round
+        s = n_sel
+        params = algo._template(state)
         self.fields = _buffer_fields(state)
         self.state = dataclasses.replace(state, **{
             f: _clone(getattr(state, f)) for f in self.fields})
         self.sel = torch.zeros(s, dtype=torch.int64, device=dev)
         self.lr = torch.zeros((), dtype=torch.float32, device=dev)
-        self.perms = torch.arange(
-            hp.steps_per_epoch * hp.batch_size, device=dev).repeat(
-                s, hp.local_epochs, 1)
-        drop_calls = algo._dropout_calls(state.global_params)
-        self.dropout = None
-        if drop_calls:
-            self.dropout = [[algo._keep_masks(
-                drop_calls, lambda shape, _: torch.ones(
-                    shape, dtype=torch.bool, device=dev))
-                for _ in range(hp.local_steps)] for _ in range(s)]
+        drop_calls = algo._dropout_calls(params)
+
+        def keep_masks():
+            return algo._keep_masks(drop_calls, lambda shape, _: torch.ones(
+                shape, dtype=torch.bool, device=dev))
+
+        def leg(leg_hp):
+            perms = torch.arange(
+                leg_hp.steps_per_epoch * leg_hp.batch_size, device=dev
+            ).repeat(s, leg_hp.local_epochs, 1)
+            dropout = None
+            if drop_calls:
+                dropout = [[keep_masks() for _ in range(leg_hp.local_steps)]
+                           for _ in range(s)]
+            return perms, dropout
+
+        self.perms, self.dropout = leg(hp)
+        hp_2 = algo._second_leg_hp()
+        self.perms_2 = self.dropout_2 = None
+        if hp_2 is not None:
+            self.perms_2, self.dropout_2 = leg(hp_2)
+        self.screen_idx = self.screen_dropout = self.regrow_u = None
+        if algo._draws_screen:
+            self.screen_idx = torch.zeros((s, hp.batch_size),
+                                          dtype=torch.int64, device=dev)
+            if drop_calls:
+                self.screen_dropout = [keep_masks() for _ in range(s)]
+        if algo._draws_regrow:
+            flags = kernel_flags(params)
+            self.regrow_u = {k: torch.zeros((s,) + tuple(v.shape),
+                                            device=dev)
+                             for k, v in params.items() if flags[k]}
         self.uniforms = None
         if algo._needs_uniforms():
             self.uniforms = torch.full(
-                algo._uniforms_shape(state.global_params), 0.5, device=dev)
-        params = state.global_params
+                algo._uniforms_shape(params), 0.5, device=dev)
         self.faults = self.collude = self.dp_noise = None
         if algo.fault_fn is not None:
             self.faults = torch.zeros((s, len(DRAW_COLUMNS)), device=dev)
@@ -360,6 +403,10 @@ class _FusedRounds:
             self.dp_noise = {k: torch.zeros((s,) + tuple(v.shape),
                                             dtype=v.dtype, device=dev)
                              for k, v in params.items()}
+        #: the round's pure-host inputs by RoundInputs field, allocated at
+        #: the first write (the fields :meth:`FedAlgorithm._host_inputs`
+        #: returns)
+        self.host: Dict[str, torch.Tensor] = {}
         self.rounds: Dict[tuple, _Graph] = {}  # least recently used first
         self.evicted = 0
         self.eval: Optional[_Graph] = None
@@ -380,19 +427,33 @@ class _FusedRounds:
         the stream (a step a client does not run keeps its old masks)."""
         self.sel.copy_(inp.sel)
         self.lr.copy_(inp.lr)
-        self.perms.copy_(inp.perms)
-        if self.dropout is not None:
-            for bufs, steps in zip(self.dropout, inp.dropout):
-                for buf, keep in zip(bufs, steps):
-                    for b, k in zip(buf, keep or ()):
-                        if b is not None:
-                            b.copy_(k)
-        for buf, src in ((self.uniforms, inp.uniforms),
+        for bufs, legs in ((self.dropout, inp.dropout),
+                           (self.dropout_2, inp.dropout_2)):
+            if bufs is None:
+                continue
+            for buf_steps, steps in zip(bufs, legs):
+                for buf, keep in zip(buf_steps, steps):
+                    _copy_masks(buf, keep)
+        if self.screen_dropout is not None:
+            for buf, keep in zip(self.screen_dropout, inp.screen_dropout):
+                _copy_masks(buf, keep)
+        for buf, src in ((self.perms, inp.perms),
+                         (self.perms_2, inp.perms_2),
+                         (self.screen_idx, inp.screen_idx),
+                         (self.regrow_u, inp.regrow_u),
+                         (self.uniforms, inp.uniforms),
                          (self.faults, inp.faults),
                          (self.collude, inp.collude),
                          (self.dp_noise, inp.dp_noise)):
             if buf is not None:
                 _copy_into(buf, src)
+        for f in _HOST_FIELDS:
+            src = getattr(inp, f)
+            if src is None:
+                continue
+            if f not in self.host:
+                self.host[f] = torch.empty_like(src)
+            self.host[f].copy_(src)
 
     def round_graph(self, algo: "FedAlgorithm", key: tuple) -> _Graph:
         graph = self.rounds.pop(key, None)
@@ -410,7 +471,11 @@ class _FusedRounds:
                                    device=algo.device),
                 lr=self.lr, perms=self.perms, dropout=self.dropout,
                 uniforms=self.uniforms, faults=self.faults,
-                collude=self.collude, dp_noise=self.dp_noise)
+                collude=self.collude, dp_noise=self.dp_noise,
+                perms_2=self.perms_2, dropout_2=self.dropout_2,
+                screen_idx=self.screen_idx,
+                screen_dropout=self.screen_dropout, regrow_u=self.regrow_u,
+                **self.host)
 
             def body(warm: bool):
                 new, metrics = algo._round_body(self.state, inp)
@@ -493,13 +558,11 @@ class FedAlgorithm(abc.ABC):
     name = "base"
     #: the algorithm carries the error-feedback residual of agg_impl="topk"
     topk_supported = False
-    #: the algorithm's only per-round host work is the seeded client draw
-    #: and the generator's draws, so its rounds can run as fused blocks
-    #: (:meth:`run_rounds_fused`)
+    #: the algorithm's only per-round host work is the seeded client draw,
+    #: the generator's draws and inputs that are a pure function of the
+    #: round index (:meth:`_host_inputs`), so its rounds can run as fused
+    #: blocks (:meth:`run_rounds_fused`)
     supports_fused = False
-    #: why an algorithm without ``supports_fused`` has no fused rounds
-    fused_refusal = ("fused rounds need every per-round host input to be a "
-                     "pure function of round_idx")
     #: the round metrics :meth:`_round_body` returns
     _round_metric_names = ("train_loss",)
     #: the guarded round reports the guard's quarantine counters (Ditto's
@@ -672,6 +735,21 @@ class FedAlgorithm(abc.ABC):
         regrow scores (:class:`RoundInputs`). Returns ``(state,
         metrics)``: ``train_loss``, under the guard ``clients_dropped`` and
         ``clients_quarantined``, and each algorithm's own."""
+        inp, g = self._eager_inputs(state, round_idx, dict(
+            perms=perms, dropout=dropout, agg_uniforms=agg_uniforms,
+            batch_idx=batch_idx, faults=faults, collude=collude,
+            dp_noise=dp_noise, perms_2=perms_2, dropout_2=dropout_2,
+            screen_idx=screen_idx, screen_dropout=screen_dropout,
+            regrow_u=regrow_u))
+        new_state, metrics = self._round_body(state, inp)
+        return dataclasses.replace(new_state, generator=g), metrics
+
+    def _eager_inputs(self, state: Any, round_idx: int,
+                      seams: Dict[str, Any]):
+        """An eager round's inputs, ``(RoundInputs, generator)``: the
+        round's client draw, its rate and the draws of a copy of the
+        state's generator (which the new state carries), ``seams``
+        replacing the draws they name."""
         self._prepare_round(state)
         sel = self._selected_client_indexes(round_idx)
         g = clone_generator(state.generator)
@@ -679,13 +757,8 @@ class FedAlgorithm(abc.ABC):
             self._template(state), sel,
             _to_device(sel.astype(np.int64), self.device),
             _to_device(round_lr(self.hp, round_idx), self.device), g,
-            dict(perms=perms, dropout=dropout, agg_uniforms=agg_uniforms,
-                 batch_idx=batch_idx, faults=faults, collude=collude,
-                 dp_noise=dp_noise, perms_2=perms_2, dropout_2=dropout_2,
-                 screen_idx=screen_idx, screen_dropout=screen_dropout,
-                 regrow_u=regrow_u), round_idx=round_idx)
-        new_state, metrics = self._round_body(state, inp)
-        return dataclasses.replace(new_state, generator=g), metrics
+            seams, round_idx=round_idx)
+        return inp, g
 
     @staticmethod
     def _template(state: Any) -> Tree:
@@ -1411,17 +1484,18 @@ class FedAlgorithm(abc.ABC):
             screen_dropout=screen_dropout, regrow_u=regrow_u, **host)
 
     # -- fused multi-round execution -------------------------------------------
-    def _get_fused_fn(self, state: Any) -> _FusedRounds:
-        """The fused loop's buffers and graphs, built at the first block
-        (states of one algorithm share their shapes) and anew for a state
-        whose tensor fields are not the buffers' (one whose ``eval_cache``
-        was dropped, as FedAvg's finalize does, or is live again)."""
+    def _get_fused_fn(self, state: Any, n_sel: int) -> _FusedRounds:
+        """The fused loop's buffers and graphs for rounds that draw
+        ``n_sel`` clients, built at the first block (states of one
+        algorithm share their shapes) and anew for a state whose tensor
+        fields are not the buffers' (one whose ``eval_cache`` was dropped,
+        as FedAvg's finalize does, or is live again)."""
         if self._fused is not None and \
                 self._fused.fields != _buffer_fields(state):
             self._fused.release()
             self._fused = None
         if self._fused is None:
-            self._fused = _FusedRounds(self, state)
+            self._fused = _FusedRounds(self, state, n_sel)
         return self._fused
 
     def run_rounds_fused(self, state: Any, start_round: int, n_rounds: int,
@@ -1440,7 +1514,9 @@ class FedAlgorithm(abc.ABC):
         for bit.
         ``seams``, one dict per round of ``run_round``'s seams (``perms``,
         ``batch_idx``, ``dropout``, ``agg_uniforms``, ``faults``,
-        ``collude``, ``dp_noise``), replace the draws they name.
+        ``collude``, ``dp_noise``, ``perms_2``, ``dropout_2``,
+        ``screen_idx``, ``screen_dropout``, ``regrow_u``), replace the
+        draws they name.
 
         Returns ``(state, ys)``, ``ys`` a :class:`FusedMetrics` whose
         ``train_loss`` is ``[n_rounds]`` and whose ``eval`` (with
@@ -1448,18 +1524,25 @@ class FedAlgorithm(abc.ABC):
         The input state is left as it was, generator included; the returned
         state is a copy, never the graph's buffers. A round the card cannot
         capture raises ``ValueError``: there is no eager fallback."""
-        if not self.supports_fused:
-            raise ValueError(f"{self.name}: {self.fused_refusal}; run it "
-                             "with fuse_rounds=1")
+        if not self.supports_fused:  # the reference's words
+            raise ValueError(
+                f"{self.name}: fused rounds need every per-round host "
+                "input to be a pure function of round_idx; this "
+                "algorithm's host work is data-DEPENDENT (FedFomo biases "
+                "its neighbor draw by accumulated weights read back from "
+                "device, fedfomo_api.py:130-144; TurboAggregate's "
+                "share/reconstruct protocol is host-interactive) — run it "
+                "with fuse_rounds=1")
         if seams is not None and len(seams) != n_rounds:
             raise ValueError(f"seams: {len(seams)} rounds for a block of "
                              f"{n_rounds}")
         self._prepare_round(state)
-        fused = self._get_fused_fn(state)
-        fused.load(state)
-        g = clone_generator(state.generator)
         rounds = range(start_round, start_round + n_rounds)
         sels = [self._selected_client_indexes(r) for r in rounds]
+        fused = self._get_fused_fn(state, len(sels[0]))
+        fused.load(state)
+        g = clone_generator(state.generator)
+        template = self._template(state)
         sel_dev = _to_device(np.stack(sels).astype(np.int64), self.device)
         lrs = _to_device(torch.stack([round_lr(self.hp, r) for r in rounds]),
                          self.device)
@@ -1468,7 +1551,7 @@ class FedAlgorithm(abc.ABC):
                            device=self.device)
         ev_rows = None
         for k, r in enumerate(rounds):
-            inp = self._round_inputs(state.global_params, sels[k],
+            inp = self._round_inputs(template, sels[k],
                                      sel_dev[k], lrs[k], g,
                                      None if seams is None else seams[k],
                                      round_idx=r)
@@ -1616,11 +1699,8 @@ class FedAlgorithm(abc.ABC):
 
 class PersonalAlgorithm(FedAlgorithm):
     """What the algorithms without a central aggregate share (Local, DPSGD,
-    DisPFL, SubAvg): a refusal of the central aggregate's options, and the
-    fused loop refused until its port (ROADMAP item 6)."""
-
-    fused_refusal = ("its fused round loop is not ported to PyTorch yet "
-                     "(ROADMAP item 6)")
+    DisPFL, SubAvg, FedFomo): a refusal of the central aggregate's
+    options."""
 
     def __init__(self, *args, **kwargs):
         for opt in ("fault_spec", "robust_agg", "guard"):

@@ -64,6 +64,7 @@ DIFF_SPA_RATIOS = (0.2, 0.4, 0.6, 0.8, 1.0)
 
 class DisPFL(PersonalAlgorithm):
     name = "dispfl"
+    supports_fused = True
 
     def __init__(self, *args, dense_ratio: float = 0.5,
                  anneal_factor: float = 0.5, neighbor_mode: str = "random",

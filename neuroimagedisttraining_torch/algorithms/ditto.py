@@ -41,8 +41,7 @@ class DittoState:
 
 class Ditto(FedAlgorithm):
     name = "ditto"
-    fused_refusal = ("its fused round loop is not ported to PyTorch yet "
-                     "(ROADMAP item 6)")
+    supports_fused = True
     _round_metric_names = ("train_loss", "personal_train_loss")
     # the guard protects the global leg's aggregate without reporting
     # its counters, as in the reference

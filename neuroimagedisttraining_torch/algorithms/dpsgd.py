@@ -34,6 +34,7 @@ class DPSGDState:
 
 class DPSGD(PersonalAlgorithm):
     name = "dpsgd"
+    supports_fused = True
 
     def __init__(self, *args, neighbor_mode: str = "random", **kwargs):
         self.neighbor_mode = neighbor_mode

@@ -28,6 +28,7 @@ class LocalOnlyState:
 
 class LocalOnly(PersonalAlgorithm):
     name = "local"
+    supports_fused = True
 
     def _build(self) -> None:
         self.client_update = make_client_update(

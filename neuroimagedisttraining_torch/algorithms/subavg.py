@@ -48,6 +48,7 @@ class SubAvgState:
 
 class SubAvg(PersonalAlgorithm):
     name = "subavg"
+    supports_fused = True
     masks_evolve = True
 
     def __init__(self, *args, each_prune_ratio: float = 0.2,
@@ -110,12 +111,13 @@ class SubAvg(PersonalAlgorithm):
             loss = (loss + loss2) / 2
         m2 = magnitude_prune_mask(mask, p2, self.each_prune_ratio)
         # the accept gates, the accuracy on the client's own train shard
-        correct, _, total = self.eval_client(
+        correct, _, _ = self.eval_client(
             {k: v * m2[k] for k, v in p2.items()},
             d.x_train.index_select(0, client)[0],
             d.y_train.index_select(0, client)[0], n)
+        # the shard's row count is the host's n (a fill, no device read)
         acc = correct.to(torch.float32) / torch.full(
-            (), float(max(int(total), 1)), device=correct.device)
+            (), float(max(n, 1)), device=correct.device)
         accept = ((mask_distance(m1, m2) > self.dist_thresh)
                   & (mask_density_f32(p2) > self.dense_ratio)
                   & (acc > self.acc_thresh))

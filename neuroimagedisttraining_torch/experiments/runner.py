@@ -39,10 +39,9 @@ from .logging_utils import (
 
 logger = logging.getLogger(__name__)
 
-#: the algorithms the port runs; the JAX package's other two (fedfomo,
-#: turboaggregate) are ROADMAP item 10
+#: the algorithms the port runs: every one of the JAX package's
 PORTED_ALGOS = ("fedavg", "salientgrads", "dispfl", "subavg", "ditto",
-                "local", "dpsgd")
+                "local", "dpsgd", "fedfomo", "turboaggregate")
 
 # phased-stem twins of the reference models, with each stem's
 # (kernel, pad) decomposition spec (ops/s2d.py)
@@ -137,7 +136,8 @@ def refuse_invalid(args: argparse.Namespace, algo_name: str) -> None:
     """The JAX CLI's own refusals of flag combinations that the port has
     the features for, with its messages, in its order (the faults, the
     guard, the robust statistic, the eval cache, the aggregation wire, the
-    defense, the watchdog in fused blocks)."""
+    defense, the watchdog in fused blocks, fused blocks of an algorithm
+    with data-dependent host work)."""
     if (getattr(args, "fault_spec", "") or getattr(args, "guard", 0)) \
             and algo_name not in _CENTRAL:
         raise SystemExit(
@@ -200,6 +200,16 @@ def refuse_invalid(args: argparse.Namespace, algo_name: str) -> None:
             "--watchdog rolls rounds back and retries them — "
             "per-round host control that --fuse_rounds removes; "
             "use --fuse_rounds 1 (or --watchdog 0)")
+    if max(1, getattr(args, "fuse_rounds", 1) or 1) > 1:
+        from ..algorithms import ALGORITHMS
+
+        if not ALGORITHMS[algo_name].supports_fused:
+            raise SystemExit(
+                f"--fuse_rounds: {algo_name} has data-dependent "
+                "per-round host work (FedFomo's accumulated-weight-"
+                "biased neighbor draw / TurboAggregate's interactive "
+                "share protocol); supported: fedavg, salientgrads, "
+                "ditto, local, dpsgd, dispfl(--static)")
 
 
 def refuse_unported(args: argparse.Namespace, algo_name: str) -> None:
@@ -212,9 +222,8 @@ def refuse_unported(args: argparse.Namespace, algo_name: str) -> None:
 
     refuse_invalid(args, algo_name)
     if algo_name not in PORTED_ALGOS:
-        raise SystemExit(
-            f"--algo {algo_name}: not ported to PyTorch yet (ROADMAP item "
-            f"10); the port runs {', '.join(PORTED_ALGOS)}")
+        raise SystemExit(f"--algo {algo_name}: the port runs "
+                         f"{', '.join(PORTED_ALGOS)}")
 
     for attr, item in _UNPORTED.items():
         if not hasattr(args, attr):
@@ -235,18 +244,16 @@ def refuse_unported(args: argparse.Namespace, algo_name: str) -> None:
             f"the port has {', '.join(MODEL_NAMES)}")
 
 
-def refuse_fused(algo, algo_name: str, fuse: int) -> None:
-    """``--fuse_rounds`` > 1 refused for the built algorithm: the JAX CLI's
-    refusal of evolving masks (their cost is priced each round), then the
-    port's for an algorithm whose fused loop it has not got."""
+def refuse_fused(algo, algo_name: str) -> None:
+    """``--fuse_rounds`` > 1 refused for the built algorithm, as the JAX
+    CLI refuses it: evolving masks (dynamic DisPFL, SubAvg), whose cost is
+    priced each round. (An algorithm without a fused loop is refused before
+    any work, :func:`refuse_invalid`.)"""
     if algo.masks_evolve:
         raise SystemExit(
             f"--fuse_rounds: {algo_name}'s per-round cost "
             "accounting snapshots evolving masks; use "
             "--fuse_rounds 1")
-    if not algo.supports_fused:
-        raise SystemExit(f"--fuse_rounds {fuse}: {algo_name}: "
-                         f"{algo.fused_refusal}; use --fuse_rounds 1")
 
 
 def _log_inert(args: argparse.Namespace) -> None:
@@ -432,6 +439,8 @@ def build_algorithm(args: argparse.Namespace, algo_name: str):
             personal_hp = dataclasses.replace(hp,
                                               local_epochs=args.local_epochs)
         extra = dict(lamda=args.lamda, personal_hp=personal_hp)
+    elif algo_name == "turboaggregate":
+        extra = dict(n_groups=args.n_groups)
     algo = ALGORITHMS[algo_name](model, data, hp, **common, **extra)
     return algo, algo.data
 
@@ -539,7 +548,7 @@ def run_experiment(args: argparse.Namespace,
         algo, data = build_algorithm(args, algo_name)
         fuse = max(1, getattr(args, "fuse_rounds", 1) or 1)
         if fuse > 1:
-            refuse_fused(algo, algo_name, fuse)
+            refuse_fused(algo, algo_name)
         state = algo.init_state()
 
         # per-round cost accounting (stat_info's sum_training_flops /

@@ -148,9 +148,13 @@ def test_flag_table_matches_reference():
     assert tconfig.ALGO_NAMES == jconfig.ALGO_NAMES
 
 
-#: (extra argv, flag the refusal names): every unported feature, set
+#: (extra argv, flag the refusal names): every unported feature, set; and
+#: the two algorithms without a fused loop in fused blocks, which the JAX
+#: CLI refuses too (the cases keep the names they had when the port
+#: refused the algorithms themselves)
+_NO_FUSED = ("fedfomo", "turboaggregate")
 REFUSED = [
-    (["--algo", a], "--algo") for a in ("fedfomo", "turboaggregate")
+    (["--algo", a, "--fuse_rounds", "2"], "--fuse_rounds") for a in _NO_FUSED
 ] + [
     (["--checkpoint_dir", "ck"], "--checkpoint_dir"),
     (["--resume"], "--resume"),
@@ -176,20 +180,30 @@ REFUSED = [
 ]
 
 
-@pytest.mark.parametrize("extra,flag", REFUSED,
-                         ids=[" ".join(e) for e, _ in REFUSED])
+@pytest.mark.parametrize(
+    "extra,flag", REFUSED,
+    ids=[" ".join(e[:2] if e[0] == "--algo" else e) for e, _ in REFUSED])
 def test_unported_flags_refused_before_any_work(tmp_path, extra, flag):
+    """Refused before any work: an unported feature naming its ROADMAP
+    item; fused blocks of fedfomo or turboaggregate with the JAX CLI's
+    message, word for word."""
     argv = (["--algo", "salientgrads", "--dataset", "synthetic", "--model",
-             "small3dcnn", "--device", "cpu", "--results_dir",
-             str(tmp_path / "res"), "--log_dir", str(tmp_path / "log")]
-            + extra)
+             "small3dcnn", "--results_dir", str(tmp_path / "res"),
+             "--log_dir", str(tmp_path / "log")] + extra)
     with pytest.raises(SystemExit) as e:
-        trunner.main(argv)
-    assert str(e.value.code).startswith(flag + ":") or \
-        str(e.value.code).startswith(flag + " "), e.value.code
-    assert "ROADMAP item" in str(e.value.code)
+        trunner.main(argv + ["--device", "cpu"])
+    msg = str(e.value.code)
+    assert msg.startswith(flag + ":") or msg.startswith(flag + " "), msg
     assert not (tmp_path / "res").exists() and \
         not (tmp_path / "log").exists()
+    if extra[0] == "--algo":
+        jargv = [str(tmp_path / "j") if a.startswith(str(tmp_path)) else a
+                 for a in argv]
+        with pytest.raises(SystemExit) as je:
+            jrunner.main(jargv)
+        assert str(je.value.code) == msg
+    else:
+        assert "ROADMAP item" in msg
 
 
 #: (extra argv, the exception, what its message says): the JAX CLI's own

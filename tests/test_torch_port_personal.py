@@ -31,7 +31,9 @@ package's, on the CPU: Local, DPSGD, SubAvg and Ditto (DisPFL has
   ROADMAP "Near-ties"); seeds 3, 5 and 8 have none.
 * The CLI: the five algorithms' namespaces and identities equal the JAX
   CLI's, its refusals for them word for word, and each runs end to end
-  (synthetic, small3dcnn, 2 rounds) on the CPU with ``stat_info`` written.
+  (synthetic, small3dcnn, 2 rounds) on the CPU with ``stat_info`` written;
+  ``--fuse_rounds 2`` for ditto, local, dpsgd and ``dispfl --static``
+  gives the unfused records.
 """
 import dataclasses
 import math
@@ -517,10 +519,15 @@ def test_personal_algorithms_refuse_central_options(cohort):
         with pytest.raises(ValueError, match="no central aggregate"):
             cls(c["tm"], c["td"], pc.hp(HyperParams, c["spe"]),
                 device="cpu", fault_spec="drop=0.2")
+    # the fused loop runs them: the unfused history but round_time_s
     algo = talgos.LocalOnly(c["tm"], c["td"], pc.hp(HyperParams, c["spe"]),
-                            device="cpu")
-    with pytest.raises(ValueError, match="ROADMAP item 6"):
-        algo.run(2, fuse_rounds=2)
+                            device="cpu", frac=0.67)
+    s0 = algo.init_state()
+    _, hist_u = algo.run(2, state=algo.clone_state(s0))
+    _, hist_f = algo.run(2, state=s0, fuse_rounds=2)
+    assert [{k: v for k, v in h.items() if k != "round_time_s"}
+            for h in hist_f] == [{k: v for k, v in h.items()
+                                  if k != "round_time_s"} for h in hist_u]
 
 
 # -- the CLI --------------------------------------------------------------------
@@ -557,7 +564,8 @@ def test_cli_namespaces_and_identities_match_reference(algo, argv):
 
 
 #: (argv, what the refusal says): the JAX CLI's refusals for these
-#: algorithms, and the port's own for the fused loop it has not got
+#: algorithms: fused blocks of evolving masks (dynamic DisPFL, SubAvg) and of
+#: the two algorithms without a fused loop among them
 CLI_REFUSALS = [
     (["--algo", "dispfl", "--agg_impl", "int8"], "--agg_impl int8 routes"),
     (["--algo", "ditto", "--agg_impl", "topk"], "--agg_impl topk carries"),
@@ -573,6 +581,14 @@ CLI_REFUSALS = [
      "--fuse_rounds: subavg's per-round cost accounting"),
     (["--algo", "dispfl", "--fuse_rounds", "2"],
      "--fuse_rounds: dispfl's per-round cost accounting"),
+    (["--algo", "dispfl", "--active", "0.5", "--dis_gradient_check",
+      "--fuse_rounds", "3"], "--fuse_rounds: dispfl's per-round cost"),
+    (["--algo", "subavg", "--epochs", "2", "--fuse_rounds", "4"],
+     "--fuse_rounds: subavg's per-round cost accounting"),
+    (["--algo", "fedfomo", "--fuse_rounds", "2"],
+     "--fuse_rounds: fedfomo has data-dependent per-round host work"),
+    (["--algo", "turboaggregate", "--fuse_rounds", "2"],
+     "--fuse_rounds: turboaggregate has data-dependent per-round host work"),
 ]
 
 
@@ -595,14 +611,34 @@ def test_cli_refusals_match_reference(tmp_path, argv, says):
 
 @pytest.mark.parametrize("algo", ["ditto", "local", "dpsgd", "dispfl"])
 def test_cli_fused_loop_refused_by_item(tmp_path, algo):
+    """``--fuse_rounds 2`` for ditto, local, dpsgd and ``dispfl --static``
+    (the baselines the JAX CLI fuses) through ``runner.main``: three rounds
+    in blocks of 2 and 1, the eval after each, every record the unfused
+    run's but ``round_time_s`` (DisPFL's local-test series and mask change
+    included), the cost counters and the final eval too."""
     extra = ["--static"] if algo == "dispfl" else []
-    with pytest.raises(SystemExit) as e:
-        trunner.main(["--algo", algo, "--fuse_rounds", "2", "--device",
-                      "cpu", "--results_dir", str(tmp_path / "res")]
-                     + SMALL + extra)
-    msg = str(e.value.code)
-    assert msg.startswith("--fuse_rounds 2:") and "ROADMAP item 6" in msg
-    assert not (tmp_path / "res").exists()
+
+    def run(tag, *fuse):
+        return trunner.main(["--algo", algo, "--comm_round", "3", "--frac",
+                             "0.5", "--device", "cpu", "--results_dir",
+                             str(tmp_path / tag), "--log_dir", ""]
+                            + SMALL + extra + list(fuse))
+
+    unfused, fused = run("u"), run("f", "--fuse_rounds", "2")
+
+    def records(res):
+        return [{k: v for k, v in h.items() if k != "round_time_s"}
+                for h in res["history"]]
+
+    assert records(fused) == records(unfused)
+    assert len([h for h in fused["history"] if h["round"] >= 0]) == 3
+    if algo == "dispfl":
+        assert all("old_mask_test_acc" in h and "mask_change" in h
+                   for h in fused["history"] if h["round"] >= 0)
+    assert {k: float(v) for k, v in fused["final_eval"].items()
+            if np.ndim(v) == 0} == {k: float(v) for k, v in
+                                    unfused["final_eval"].items()
+                                    if np.ndim(v) == 0}
 
 
 CLI_RUNS = [(a, ["--save_masks", "--record_mask_diff"] if a == "dispfl"
