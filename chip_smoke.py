@@ -123,7 +123,19 @@ Phases, each printing one JSON line:
    a quantum per client of the plain f64 weighted mean of its locals, the
    launches, the peak memory, and a narrow run of each against the CPU
    (see ``fomo_path``).
-13. cli     — the command-line entry point in-process on the card
+13. state   — the state tier at full width on the main configuration over a
+   population of 32 clients at ``frac`` 0.25 (8 a round; 5.6 GB of bf16
+   volumes kept on the host): 3 eager rounds streamed from a disk client
+   store with 8 hot clients, bitwise the resident run (global parameters,
+   metrics, every client's row, the eval), the streamed fused spelling
+   (blocks of 2 and 1) bitwise as well; a checkpoint after round 2 with
+   its store sidecar, resumed by a fresh algorithm and store into round 3,
+   bitwise the resident round 3; the watchdog's rollback from that
+   checkpoint bitwise; the streamed run's own peak device memory within 5%
+   of a resident 8-client run's at full participation, its round within
+   2x of the resident round; save and restore seconds, the checkpoint's
+   bytes, the store's gather ms (see ``state_path``).
+14. cli     — the command-line entry point in-process on the card
    (``experiments.runner.main``): SalientGrads and FedAvg, ``--dataset
    synthetic --model small3dcnn --comm_round 2`` (no stem stage on this
    model), and SalientGrads with ``--fuse_rounds 2``, whose history must
@@ -134,9 +146,13 @@ Phases, each printing one JSON line:
    --static`` (each history equal to its unfused run's), FedFomo and
    TurboAggregate; the cohort and the parameters on CUDA, the losses
    finite, ``stat_info`` (pickle and ``.json``) written under a temporary
-   ``--results_dir``. The ABCD cohort-file step is not here: the loaders
-   need ``h5py``, which the card's machine does not have.
-14. bench  — ``bench_torch.main()``, the port's bench of the headline
+   ``--results_dir``; then ``--checkpoint_dir`` with a run cut after round
+   2 and ``--resume``'d to round 4, a ``--fuse_rounds 2`` lineage (saved
+   at block boundaries) resumed unfused, and ``--client_store disk`` over
+   16 clients at ``frac`` 0.25, each held to its uninterrupted twin. The
+   ABCD cohort-file step is not here: the loaders need ``h5py``, which the
+   card's machine does not have.
+15. bench  — ``bench_torch.main()``, the port's bench of the headline
    workload (SNIP; the Python loop: 1 + 10 rounds without eval, 1 + 8 with
    the eval every round, each from a clone of one state; the fused
    spelling: blocks of 10 and of 8 rounds with the eval, each after its
@@ -161,6 +177,7 @@ without CUDA it exits 2 before printing a result.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import statistics
@@ -2860,6 +2877,309 @@ def fomo_path(dev):
     return out
 
 
+#: the state phase: the population, its sampled fraction (S = 8 a round),
+#: the disk store's hot rows, the rounds, and the bounds of the two pins
+#: (the streamed run's own peak against the resident 8-client run's, its
+#: round seconds against the resident round's)
+STATE_CLIENTS, STATE_FRAC, STATE_HOT, STATE_ROUNDS = 32, 0.25, 8, 3
+STATE_PEAK_BOUND, STATE_ROUND_BOUND = 1.05, 2.0
+
+
+def _cpu_tree(t):
+    return {k: v.detach().cpu().clone() for k, v in t.items()}
+
+
+def _equal_trees(a, b) -> bool:
+    import torch
+
+    return sorted(a) == sorted(b) and all(
+        torch.equal(a[k].cpu(), b[k].cpu()) for k in a)
+
+
+def _state_launches(launches, want):
+    """The streamed eager rounds' kernel launches against their count."""
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"state launch counts {launches}, expected "
+                             f"{want}")
+
+
+def state_path(dev):
+    """The state tier at full width on the main configuration (AlexNet3DS2D
+    on phased 121x145x121 bf16 volumes, 40 a client, batch 8, 5 steps,
+    dropout 0.5, SNIP 0.5) over a population of STATE_CLIENTS clients at
+    ``frac`` STATE_FRAC (8 a round), the cohort made on the card and kept
+    on the host for the streamed runs:
+
+    1. STATE_ROUNDS eager rounds streamed from a disk client store with
+       STATE_HOT hot clients (timed, the store's gather ms, the run's own
+       peak device memory; the kernel launches counted exactly), a
+       checkpoint after round 2 with its store sidecar (seconds, bytes);
+       then the resident 8-client run at full participation (the same S = 8
+       round: its peak), then the resident population run: global
+       parameters, metrics, every client's row (``gather_all``) and the
+       eval bitwise the streamed run's; the streamed fused spelling (a
+       block of 2, then 1) bitwise as well.
+    2. A fresh algorithm and store resume the checkpoint (seconds) and run
+       round 3: bitwise the resident round 3.
+    3. ``RoundWatchdog(ckpt_mgr=, template_fn=, store=).rollback(None)``
+       returns the round-2 state and rows bitwise.
+    4. The streamed run's own peak within STATE_PEAK_BOUND of the resident
+       8-client run's; its round within STATE_ROUND_BOUND of the resident
+       round.
+
+    Returns the launches of the phase."""
+    import gc
+    import os
+    import tempfile
+
+    import torch
+
+    from neuroimagedisttraining_torch.algorithms import SalientGrads
+    from neuroimagedisttraining_torch.models import create_model
+    from neuroimagedisttraining_torch.ops import kernels
+    from neuroimagedisttraining_torch.ops.s2d import phased_sample_shape
+    from neuroimagedisttraining_torch.robust.recovery import RoundWatchdog
+    from neuroimagedisttraining_torch.utils.checkpoint import (
+        CheckpointManager,
+    )
+
+    gc.collect()  # the earlier phases' algorithms and cohorts
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    shape = phased_sample_shape(VOLUME)
+    _, hp = _main_config(dev, shape)
+    from neuroimagedisttraining_torch.data import device_synthetic_federated
+
+    cohort = device_synthetic_federated(
+        STATE_CLIENTS, SAMPLES, shape,
+        torch.Generator(device=dev).manual_seed(0), test_per_client=TEST)
+    host = cohort.to("cpu")
+    del cohort
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = create_model("3dcnn_s2d", num_classes=1, sample_shape=shape)
+    kw = dict(loss_type="bce", seed=0, compute_dtype="bfloat16",
+              dense_ratio=0.5, itersnip_iterations=1)
+    tmp = tempfile.TemporaryDirectory()
+    stores = iter(range(100))
+    kernels.reset_launches()
+
+    def streamed(frac=STATE_FRAC):
+        return SalientGrads(model, host, hp, frac=frac,
+                            client_store="disk", store_hot_clients=STATE_HOT,
+                            store_dir=os.path.join(tmp.name,
+                                                   f"store{next(stores)}"),
+                            **kw)
+
+    def timed_rounds(algo, state, rounds, on_round=None):
+        mets, secs = [], []
+        for r in rounds:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, met = algo.run_round(state, r)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            mets.append({k: float(v) for k, v in met.items()})
+            if on_round is not None:
+                on_round(r, state)
+        return state, mets, secs
+
+    def own_peak(run):
+        """``run()``'s own peak device memory: the peak over what was live
+        before it (the earlier phases' leftovers)."""
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        out = run()
+        torch.cuda.synchronize()
+        return out, torch.cuda.max_memory_allocated(dev) - base
+
+    # 1. streamed, with the checkpoint after round 2
+    mgr = CheckpointManager(os.path.join(tmp.name, "ck"), "lineage")
+    saved = {}
+
+    def checkpoint(r, state):
+        if r != 1:
+            return
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ok = mgr.save(2, state, store=algo_s._store)
+        saved["save_s"] = time.perf_counter() - t0
+        d = os.path.join(mgr.directory, "2")
+        saved["bytes"] = (sum(os.path.getsize(os.path.join(d, f))
+                              for f in os.listdir(d))
+                          + os.path.getsize(mgr._store_path(2)))
+        saved["state"] = algo_s.clone_state(state)
+        g0 = algo_s._store.gather_ms  # not a round's gather
+        saved["rows"] = _cpu_tree(algo_s._store.gather_all(
+            "personal_params"))
+        saved["gather_ms"] = algo_s._store.gather_ms - g0
+        if not ok:
+            raise AssertionError("state: the checkpoint save failed")
+
+    staging = []
+
+    def timed_gather(ids, _fn=None):
+        """The round's rows and data moved to the card, timed to the end
+        of the copies."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = _fn(ids)
+        torch.cuda.synchronize()
+        staging.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def run_streamed():
+        s = algo_s.init_state()
+        algo_s._store_gather_rows = functools.partial(
+            timed_gather, _fn=algo_s._store_gather_rows)
+        before = dict(kernels.LAUNCHES)
+        g0 = algo_s._store.gather_ms
+        out = timed_rounds(algo_s, s, range(STATE_ROUNDS), checkpoint)
+        launches = {k: kernels.LAUNCHES[k] - n for k, n in before.items()}
+        return (out, launches,
+                algo_s._store.gather_ms - g0 - saved["gather_ms"])
+
+    algo_s = streamed()
+    ((s_state, s_mets, s_secs), s_launch, gather_ms), s_peak = own_peak(
+        run_streamed)
+    steps = STATE_ROUNDS * N_CLIENTS * STEPS
+    # every step one forward and one backward, the first round the dropout
+    # probe's forward too; one aggregate a round
+    _state_launches(s_launch, {"masked_sgd": steps, "stem_bwd": steps,
+                               "stem_fwd": steps + 1, "weighted_sum":
+                               STATE_ROUNDS})
+    s_eval = {k: float(v) for k, v in algo_s.evaluate(s_state).items()
+              if not k.startswith("acc_per")}
+    algo_s.store_flush()
+    s_rows = _cpu_tree(algo_s._store.gather_all("personal_params"))
+    s_global = _cpu_tree(s_state.global_params)
+    store_stats = algo_s._store.stats()
+    del algo_s, s_state
+
+    # the resident 8-client run at full participation: the same round
+    def run_resident8():
+        data8 = dataclasses.replace(
+            host, x_train=host.x_train[:N_CLIENTS],
+            y_train=host.y_train[:N_CLIENTS],
+            n_train=host.n_train[:N_CLIENTS], x_test=host.x_test[:N_CLIENTS],
+            y_test=host.y_test[:N_CLIENTS], n_test=host.n_test[:N_CLIENTS])
+        algo8 = SalientGrads(model, data8, hp, frac=1.0, **kw)
+        timed_rounds(algo8, algo8.init_state(), range(STATE_ROUNDS))
+
+    _, r8_peak = own_peak(run_resident8)
+
+    # the resident population: the bitwise twin, its round seconds
+    algo_r = SalientGrads(model, host, hp, frac=STATE_FRAC, **kw)
+    r_state, r_mets, r_secs = timed_rounds(
+        algo_r, algo_r.init_state(), range(STATE_ROUNDS))
+    r_eval = {k: float(v) for k, v in algo_r.evaluate(r_state).items()
+              if not k.startswith("acc_per")}
+    r_global = _cpu_tree(r_state.global_params)
+    r_rows = _cpu_tree(r_state.personal_params)
+    del algo_r, r_state
+    gc.collect()
+    torch.cuda.empty_cache()
+    checks = {
+        "streamed_metrics": s_mets == r_mets,
+        "streamed_global": _equal_trees(s_global, r_global),
+        "streamed_rows": _equal_trees(s_rows, r_rows),
+        "streamed_eval": s_eval == r_eval,
+    }
+
+    # the streamed fused spelling: a block of 2, then 1
+    algo_f = streamed()
+    f_state = algo_f.init_state()
+    t0 = time.perf_counter()
+    f_state, ys = algo_f.run_rounds_fused(f_state, 0, 2)
+    f_mets = [ys[k] for k in ys.materialize()]
+    first_block_s = time.perf_counter() - t0
+    f_state, ys2 = algo_f.run_rounds_fused(f_state, 2, 1)
+    algo_f.store_flush()
+    checks["fused_metrics"] = all(
+        list(f_mets[i]) + list(ys2[k]) == [m[k] for m in r_mets]
+        for i, k in enumerate(ys.materialize()))
+    checks["fused_global"] = _equal_trees(
+        _cpu_tree(f_state.global_params), r_global)
+    checks["fused_rows"] = _equal_trees(
+        _cpu_tree(algo_f._store.gather_all("personal_params")), r_rows)
+    del algo_f, f_state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 2. resume from the checkpoint, round 3
+    algo_c = streamed()
+    template = algo_c.init_state()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    c_state, step = mgr.restore_latest(template, store=algo_c._store)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    c_state, c_mets, _ = timed_rounds(algo_c, c_state, [2])
+    algo_c.store_flush()
+    checks["resume_step"] = step == 2
+    checks["resume_metrics"] = c_mets == r_mets[2:]
+    checks["resume_global"] = _equal_trees(
+        _cpu_tree(c_state.global_params), r_global)
+    checks["resume_rows"] = _equal_trees(
+        _cpu_tree(algo_c._store.gather_all("personal_params")), r_rows)
+
+    # 3. the watchdog's rollback from the checkpoint
+    wd = RoundWatchdog(ckpt_mgr=mgr, template_fn=algo_c.init_state,
+                       store=algo_c._store)
+    back = wd.rollback(None)
+    want = saved["state"]
+    checks["rollback_global"] = _equal_trees(back.global_params,
+                                             want.global_params)
+    checks["rollback_generator"] = torch.equal(
+        back.generator.get_state(), want.generator.get_state())
+    checks["rollback_rows"] = _equal_trees(
+        _cpu_tree(algo_c._store.gather_all("personal_params")),
+        saved["rows"])
+    del algo_c, c_state, back, want, saved["state"]
+    tmp.cleanup()
+
+    # 4. the pins (the first round of each run builds what later ones
+    # reuse: the steady rounds are the later ones)
+    s_round = statistics.median(s_secs[1:])
+    r_round = statistics.median(r_secs[1:])
+    checks["peak_within_bound"] = s_peak <= STATE_PEAK_BOUND * r8_peak
+    checks["round_within_bound"] = s_round <= STATE_ROUND_BOUND * r_round
+    launches = dict(kernels.LAUNCHES)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip()
+    rows = STATE_ROUNDS * N_CLIENTS
+    emit({"phase": "state", "card": card, "clients": STATE_CLIENTS,
+          "frac": STATE_FRAC, "hot_clients": STATE_HOT,
+          "host_cohort_bytes": host.x_train.numel() * 2
+          + host.x_test.numel() * 2,
+          "streamed_round_s": s_secs, "resident_round_s": r_secs,
+          "streamed_over_resident": s_round / r_round,
+          "store_gather_ms_per_round": gather_ms / STATE_ROUNDS,
+          "gather_ms_rows_and_data": staging,
+          "store_stats": store_stats,
+          "streamed_peak_bytes": s_peak, "resident8_peak_bytes": r8_peak,
+          "peak_ratio": s_peak / r8_peak,
+          "checkpoint_save_s": saved["save_s"],
+          "checkpoint_restore_s": restore_s,
+          "checkpoint_bytes": saved["bytes"],
+          "fused_first_block_s": first_block_s, "rows_streamed": rows,
+          "metrics": s_mets, "eval": s_eval, "checks": checks,
+          "seconds": time.perf_counter() - t_phase, "launches": launches})
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"state: failed {failed}")
+    for k in ("masked_sgd", "threshold", "score_mask", "weighted_sum",
+              "stem_fwd", "stem_bwd"):
+        if not launches[k]:
+            raise AssertionError(f"state: {k} never launched: {launches}")
+    return {"state": launches}
+
+
 def _cli_argv(algo: str, tmp: str):
     return ["--algo", algo, "--dataset", "synthetic", "--model", "small3dcnn",
             "--comm_round", "2", "--results_dir", f"{tmp}/results",
@@ -2994,8 +3314,106 @@ def cli_path(dev):
                     f"cli {path}: --fuse_rounds 2 history {histories[path]}"
                     f" differs from --fuse_rounds 1's "
                     f"{histories[path[:-len('_fused')]]}")
+        out.update(_cli_state_runs(runner, built))
     finally:
         runner.build_algorithm = build_algorithm
+    return out
+
+
+#: the cli phase's state-tier runs: (path name, twin, flags of its first
+#: run, flags of the resumed run or None): each history held to its
+#: uninterrupted twin's (the twins: 4 rounds; 16 clients at frac 0.25)
+_CKPT = ["--checkpoint_dir", "{tmp}/{path}/ck"]
+CLI_STATE_RUNS = (
+    ("salientgrads_checkpoint_resume", "uninterrupted",
+     _CKPT + ["--comm_round", "2"],
+     _CKPT + ["--comm_round", "4", "--resume"]),
+    ("salientgrads_fused_checkpoint_resumed_unfused", "uninterrupted",
+     _CKPT + ["--comm_round", "2", "--fuse_rounds", "2"],
+     _CKPT + ["--comm_round", "4", "--resume"]),
+    ("salientgrads_client_store_disk", "population",
+     ["--client_store", "disk", "--client_num_in_total", "16", "--frac",
+      "0.25", "--store_hot_clients", "4"], None),
+)
+CLI_TWINS = {"uninterrupted": ["--comm_round", "4"],
+             "population": ["--client_num_in_total", "16", "--frac", "0.25"]}
+
+
+def _cli_state_runs(runner, built):
+    """``--checkpoint_dir`` then ``--resume``, eager and from a fused
+    lineage (saved at block boundaries) resumed unfused, and ``--client_store
+    disk`` over 16 clients: each run's records (the round times aside)
+    equal to its uninterrupted twin's and its final parameters within
+    1e-6 of their scale of the twin's, the parameters on the card (the
+    streamed run's cohort on the host). cuDNN runs deterministic algorithms
+    here: its default weight gradients of this model sum in another order
+    from run to run (two runs of a twin differed by 2.5e-12 on the H100);
+    the difference and that spread are printed. Returns the launches per
+    run."""
+    import tempfile
+
+    import torch
+
+    from neuroimagedisttraining_torch.algorithms.base import FedAlgorithm
+    from neuroimagedisttraining_torch.ops import kernels
+
+    def hist(res):
+        return [{k: v for k, v in h.items() if k != "round_time_s"}
+                for h in res["history"]]
+
+    def run(tmp, flags, tag, path=""):
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        res = runner.main(_cli_argv("salientgrads", f"{tmp}/{tag}") + [
+            f.format(tmp=tmp, path=path) for f in flags])
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0, dict(kernels.LAUNCHES)
+
+    def spread(a, b):
+        return max(float((a[k] - b[k]).abs().max()) for k in a)
+
+    out = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    with tempfile.TemporaryDirectory() as tmp:
+        twins = {k: run(tmp, v, k)[0] for k, v in CLI_TWINS.items()}
+        floor = {k: spread(run(tmp, v, k + "_again")[0]["state"].global_params,
+                           twins[k]["state"].global_params)
+                 for k, v in CLI_TWINS.items()}
+        for path, twin, first, resumed in CLI_STATE_RUNS:
+            res, seconds, launches = run(tmp, first, path, path)
+            got = hist(res)
+            if resumed is not None:
+                res, s2, l2 = run(tmp, resumed, path + "_resumed", path)
+                got = [h for h in got if h["round"] >= 0] + hist(res)
+                seconds += s2
+                launches = {k: launches[k] + l2[k] for k in launches}
+            want = hist(twins[twin])
+            store = "--client_store" in first
+            on_card = all(p.is_cuda for p in FedAlgorithm._template(
+                res["state"]).values()) and (
+                built["data"].x_train.is_cuda != store)
+            ref = twins[twin]["state"].global_params
+            diff = spread(res["state"].global_params, ref)
+            scale = max(float(v.abs().max()) for v in ref.values())
+            same = got == want and diff <= 1e-6 * scale
+            emit({"phase": "cli", "algo": "salientgrads", "run": path,
+                  "flags": first, "resumed_flags": resumed,
+                  "seconds": seconds, "twin": twin,
+                  "records_equal": got == want, "param_diff": diff,
+                  "twin_spread": floor[twin], "on_cuda": on_card,
+                  "launches": launches})
+            if not (same and on_card):
+                raise AssertionError(
+                    f"cli {path}: history {got} against its twin's {want}"
+                    f" (equal parameters and records {same}, on the card "
+                    f"{on_card})")
+            if not all(launches[k] > 0 for k in ("masked_sgd", "threshold",
+                                                  "score_mask",
+                                                  "weighted_sum")):
+                raise AssertionError(f"cli {path}: launches {launches}")
+            out[f"cli/{path}"] = launches
+    torch.backends.cudnn.deterministic = deterministic
     return out
 
 
@@ -3112,6 +3530,7 @@ def main() -> int:
     paths.update(train_opts_path(dev))
     paths.update(personal_path(dev))
     paths.update(fomo_path(dev))
+    paths.update(state_path(dev))
     paths.update(cli_path(dev))
     paths.update(bench_path(dev))
 

@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..core.client_store import STORE_MODES, ClientStore
 from ..core.state import (
     HyperParams,
     Tree,
@@ -142,9 +143,13 @@ class RoundInputs:
     _round_body`), per selected client in draw order, made by
     :meth:`FedAlgorithm._round_inputs`.
 
-    ``n_valid`` (host ints) fixes the steps each client runs and its loss
-    weights. The rest is on the device: ``sel`` the client ids (int64),
-    ``n_sel`` their sample counts (f32), ``lr`` the round's rate (0-d f32),
+    ``n_valid`` (host ints) fixes the steps each client runs (through
+    ``core.trainer.active_steps`` alone: the fused loop keys a round graph
+    by those, :meth:`FedAlgorithm._step_key`). The rest is on the device:
+    ``sel`` the rows of the clients in the arrays the body reads (int64;
+    the client ids when the rows are resident), ``n_sel`` their sample
+    counts (f32: the aggregate's weights and the loss masks read them),
+    ``lr`` the round's rate (0-d f32),
     ``perms`` the epoch permutations ``[S, epochs, steps_per_epoch *
     batch]`` (under replacement batching, the with-replacement batch
     indices in the same layout), ``dropout`` per client and local step the
@@ -165,7 +170,16 @@ class RoundInputs:
     round, a pure function of its index (:meth:`FedAlgorithm.
     _host_inputs`): ``adjacency`` the ``[C, C]`` float32 neighbor matrix
     (DisPFL, DPSGD), ``active`` DisPFL's ``[C]`` participation flags and
-    ``anneal_rate`` its 0-d float32 fire rate."""
+    ``anneal_rate`` its 0-d float32 fire rate.
+
+    With a client store (``client_store`` "host" or "disk") the per-client
+    rows and the cohort's data are a slab: ``slab`` holds the data rows
+    (``x_train``/``y_train``, with the eval cache ``x_test``/``y_test``)
+    and ``sel`` the clients' positions in it and in the state's row slabs,
+    while ``pop`` holds their population ids, which the ``[C]`` arrays
+    that stay resident (the eval cache, the test counts) are indexed by.
+    Resident, ``pop`` is ``sel`` and ``slab`` None (the body reads
+    ``algo.data``)."""
 
     n_valid: List[int]
     sel: torch.Tensor
@@ -185,6 +199,8 @@ class RoundInputs:
     adjacency: Optional[torch.Tensor] = None
     active: Optional[torch.Tensor] = None
     anneal_rate: Optional[torch.Tensor] = None
+    pop: Optional[torch.Tensor] = None
+    slab: Optional[FederatedData] = None
 
 
 #: runs of a body on a side stream before its capture: they set up cuDNN,
@@ -317,8 +333,8 @@ def _to_device(x, device: torch.device) -> torch.Tensor:
     return t.pin_memory().to(device, non_blocking=True)
 
 
-#: round graphs a fused loop keeps, one per client-draw key: past this,
-#: the least recently replayed one is released (its memory pool with it)
+#: round graphs a fused loop keeps, one per step-count key: past this, the
+#: least recently replayed one is released (its memory pool with it)
 FUSED_MAX_GRAPHS = 4
 
 
@@ -340,22 +356,55 @@ class _FusedRounds:
       flags and ``anneal_rate``), each allocated only where the algorithm
       draws it and rewritten on the card before each round
       (:meth:`write`);
-    * a round graph per client-draw key, the selected clients' sample
-      counts, which fix the steps each runs and the aggregate's weights
-      (one key at full participation or with equal shards), at most
-      FUSED_MAX_GRAPHS of them, and one eval graph.
+    * a round graph per step-count key (per selected client the batches a
+      local epoch runs, :meth:`FedAlgorithm._step_key`: one key at full
+      participation, with equal shards, or with unequal ones whose step
+      counts agree), at most FUSED_MAX_GRAPHS of them, and one eval graph.
+      The sample counts themselves, which set the aggregate's weights and
+      the loss masks, are a buffer (``n_sel``) like the client ids.
 
     ``n_sel`` is the number of clients a round draws (the whole cohort
-    for the algorithms that train every client)."""
+    for the algorithms that train every client). ``width`` > 0 is the
+    client-store mode (:meth:`FedAlgorithm._run_rounds_fused_store`): the
+    state's store fields (the personal stack, the top-k residual) and the
+    cohort's data (``slab``) are buffers of ``width`` rows, a block's union
+    of clients in the first rows and the rest unread, so one graph serves
+    every block whatever its union's size; ``pop`` holds the round's
+    population ids."""
 
-    def __init__(self, algo: "FedAlgorithm", state: Any, n_sel: int):
+    def __init__(self, algo: "FedAlgorithm", state: Any, n_sel: int,
+                 width: int = 0):
         dev, hp = algo.device, algo.hp
         s = n_sel
         params = algo._template(state)
+        self.width = width
+        self.store_fields: List[str] = []
+        if width:
+            self.store_fields = list(algo._store.field_names())
+            state = dataclasses.replace(state, **{
+                f: {k: torch.zeros((width,) + tuple(v.shape), dtype=v.dtype,
+                                   device=dev) for k, v in params.items()}
+                for f in self.store_fields})
         self.fields = _buffer_fields(state)
         self.state = dataclasses.replace(state, **{
             f: _clone(getattr(state, f)) for f in self.fields})
         self.sel = torch.zeros(s, dtype=torch.int64, device=dev)
+        self.n_sel = torch.zeros(s, dtype=torch.float32, device=dev)
+        self.pop, self.slab = self.sel, None
+        if width:
+            self.pop = torch.zeros(s, dtype=torch.int64, device=dev)
+            d = algo.data
+
+            def rows(t):
+                return torch.empty((width,) + tuple(t.shape[1:]),
+                                   dtype=t.dtype, device=dev)
+
+            test = algo.eval_cache
+            self.slab = dataclasses.replace(
+                d, x_train=rows(d.x_train), y_train=rows(d.y_train),
+                x_test=rows(d.x_test) if test else None,
+                y_test=rows(d.y_test) if test else None, x_val=None,
+                y_val=None, n_val=None)
         self.lr = torch.zeros((), dtype=torch.float32, device=dev)
         drop_calls = algo._dropout_calls(params)
 
@@ -412,20 +461,38 @@ class _FusedRounds:
         self.eval: Optional[_Graph] = None
         self.eval_names: List[str] = []
 
-    def load(self, state: Any) -> None:
+    def load(self, state: Any, rows: Optional[Dict[str, Tree]] = None
+             ) -> None:
+        """``state`` copied into the buffers; in store mode ``rows`` (by
+        store field, the union's rows) into the first rows of theirs."""
         for f in self.fields:
-            _copy_into(getattr(self.state, f), getattr(state, f))
+            if f in self.store_fields:
+                for k, t in rows[f].items():
+                    getattr(self.state, f)[k][:t.shape[0]].copy_(t)
+            else:
+                _copy_into(getattr(self.state, f), getattr(state, f))
 
-    def export(self, template: Any, generator: torch.Generator) -> Any:
+    def export(self, template: Any, generator: torch.Generator,
+               n_rows: int = 0) -> Any:
         """The state in the buffers, cloned out (``template``'s other
-        fields, the given generator)."""
-        return dataclasses.replace(template, generator=generator, **{
-            f: _clone(getattr(self.state, f)) for f in self.fields})
+        fields, the given generator); a store field as its first
+        ``n_rows`` rows."""
+        def out(f):
+            v = getattr(self.state, f)
+            if f in self.store_fields:
+                return {k: t[:n_rows].clone() for k, t in v.items()}
+            return _clone(v)
+
+        return dataclasses.replace(template, generator=generator,
+                                   **{f: out(f) for f in self.fields})
 
     def write(self, inp: RoundInputs) -> None:
         """A round's inputs copied into the buffers the graphs read, on
         the stream (a step a client does not run keeps its old masks)."""
         self.sel.copy_(inp.sel)
+        self.n_sel.copy_(inp.n_sel)
+        if self.pop is not self.sel:
+            self.pop.copy_(inp.pop)
         self.lr.copy_(inp.lr)
         for bufs, legs in ((self.dropout, inp.dropout),
                            (self.dropout_2, inp.dropout_2)):
@@ -462,14 +529,15 @@ class _FusedRounds:
                 self.rounds.pop(next(iter(self.rounds))).release()
                 if not self.evicted:
                     logger.warning(
-                        "%s: more than %d client-draw keys; a new one is "
+                        "%s: more than %d step-count keys; a new one is "
                         "captured anew", algo.name, FUSED_MAX_GRAPHS)
                 self.evicted += 1
+            # counts with the key's active steps (the body reads the counts
+            # themselves from the n_sel buffer)
             inp = RoundInputs(
-                n_valid=list(key), sel=self.sel,
-                n_sel=torch.tensor(key, dtype=torch.float32,
-                                   device=algo.device),
-                lr=self.lr, perms=self.perms, dropout=self.dropout,
+                n_valid=[b * algo.hp.batch_size for b in key], sel=self.sel,
+                n_sel=self.n_sel, lr=self.lr, pop=self.pop, slab=self.slab,
+                perms=self.perms, dropout=self.dropout,
                 uniforms=self.uniforms, faults=self.faults,
                 collude=self.collude, dp_noise=self.dp_noise,
                 perms_2=self.perms_2, dropout_2=self.dropout_2,
@@ -553,7 +621,18 @@ class FedAlgorithm(abc.ABC):
     An algorithm that sets ``eval_cache`` (before this constructor) keeps
     the personal eval's per-client terms in its state and refreshes the
     trained clients' rows in each round body, so its eval
-    (:meth:`evaluate`) runs no personal forward."""
+    (:meth:`evaluate`) runs no personal forward.
+
+    ``client_store`` "host" or "disk" (the algorithms with
+    ``store_supported``, at ``frac`` < 1) keeps the per-client rows (the
+    personal stack, the top-k residual) in a
+    :class:`~..core.client_store.ClientStore` (``store_hot_clients`` rows
+    in host memory over memory-mapped files under ``store_dir`` on
+    "disk") and the data on the host: between rounds the state holds None
+    for those fields, and each round gathers the sampled clients' rows and
+    data onto the card, runs the same round body on that slab and stages
+    the trained rows back. A streamed run is bitwise the resident one, and
+    its device memory does not grow with the population."""
 
     name = "base"
     #: the algorithm carries the error-feedback residual of agg_impl="topk"
@@ -568,6 +647,10 @@ class FedAlgorithm(abc.ABC):
     #: the guarded round reports the guard's quarantine counters (Ditto's
     #: global leg is guarded without them, as in the reference)
     guard_metrics_supported = True
+    #: the round streams its per-client rows from a client store
+    #: (``client_store`` "host" / "disk"): the central-aggregate algorithms
+    #: whose rows are indexed by the sampled cohort alone
+    store_supported = False
 
     def __init__(self, model: torch.nn.Module, data: FederatedData,
                  hp: HyperParams, loss_type: str = "bce", frac: float = 1.0,
@@ -580,7 +663,9 @@ class FedAlgorithm(abc.ABC):
                  remat_local: bool = False, fault_spec: str = "",
                  guard: Optional[bool] = None, robust_agg: str = "none",
                  robust_trim: float = 0.2, robust_krum_f: int = 0,
-                 robust_norm_bound: float = 5.0, device=None):
+                 robust_norm_bound: float = 5.0,
+                 client_store: str = "device", store_hot_clients: int = 64,
+                 store_dir: Optional[str] = None, device=None):
         if agg_impl not in collectives.AGG_IMPLS:
             raise ValueError(
                 f"agg_impl {agg_impl!r} not in {collectives.AGG_IMPLS}")
@@ -651,7 +736,6 @@ class FedAlgorithm(abc.ABC):
         self._retry_nonce = 0
         self.device = resolve_device(device)
         self.model = model.to(self.device)
-        self.data = data.to(self.device)
         self.hp = hp
         self.loss_type = loss_type
         self.seed = seed
@@ -699,6 +783,21 @@ class FedAlgorithm(abc.ABC):
                     f"{self.name}: eval_cache indexes the full [C] "
                     "cohort; the sampled-eval subset (eval_clients) "
                     "composes poorly with it — use one or the other")
+        self.client_store = client_store
+        #: the client store (None: every row resident on the device), the
+        #: store-backed personal eval's [C] terms and the clients whose rows
+        #: changed since (:meth:`_personal_eval_store`)
+        self._store: Optional[ClientStore] = None
+        self._store_eval_cache: Optional[tuple] = None
+        self._store_eval_dirty: List[np.ndarray] = []
+        if client_store != "device":
+            self._check_store(client_store)
+            self._store = ClientStore(
+                self.num_clients, mode=client_store,
+                hot_clients=store_hot_clients, root=store_dir)
+        # store mode keeps the data on the host: each round moves its
+        # cohort's rows to the card (_store_gather_rows)
+        self.data = data.to(self.device if self._store is None else "cpu")
         #: the dropout layers a training forward meets (_dropout_calls)
         self._drop_calls: Optional[List[tuple]] = None
         #: the fused round loop's buffers and graphs (run_rounds_fused)
@@ -708,6 +807,38 @@ class FedAlgorithm(abc.ABC):
         self._draws_screen = self._draws_regrow = False
         self._ones: Optional[Tree] = None
         self._build()
+
+    def _check_store(self, client_store: str) -> None:
+        """The reference's refusals of a client store the algorithm or its
+        options cannot stream."""
+        if client_store not in ("device",) + STORE_MODES:
+            raise ValueError(
+                f"client_store {client_store!r} not in "
+                f"{('device',) + STORE_MODES}")
+        if not self.store_supported:
+            raise ValueError(
+                f"{self.name}: client_store={client_store!r} needs "
+                "the store-backed round entry (fedavg/salientgrads/"
+                "ditto — the central-aggregate algorithms whose "
+                "per-client rows stream by cohort)")
+        if self.clients_per_round >= self.num_clients:
+            raise ValueError(
+                f"{self.name}: client_store streams the SAMPLED "
+                "cohort; full participation keeps every row on "
+                "device each round, so there is nothing to stream "
+                "— use client_store='device' (or frac < 1)")
+        if self._eval_idx is not None:
+            raise ValueError(
+                f"{self.name}: eval_clients indexes the resident "
+                "[C] personal stack; with client_store the stack "
+                "is not resident — use one or the other")
+        if not getattr(self, "track_personal", True) \
+                and self.agg_impl != "topk":
+            raise ValueError(
+                f"{self.name}: client_store={client_store!r} with "
+                "track_personal=False and no topk residual has no "
+                "per-client rows to stream — drop --client_store "
+                "(the run is already O(S) in device memory)")
 
     @abc.abstractmethod
     def _build(self) -> None:
@@ -734,14 +865,18 @@ class FedAlgorithm(abc.ABC):
         ``screen_dropout`` DisPFL's screening batch and ``regrow_u`` its
         regrow scores (:class:`RoundInputs`). Returns ``(state,
         metrics)``: ``train_loss``, under the guard ``clients_dropped`` and
-        ``clients_quarantined``, and each algorithm's own."""
+        ``clients_quarantined``, and each algorithm's own. With a client
+        store the round streams its cohort (:meth:`_store_round`)."""
         inp, g = self._eager_inputs(state, round_idx, dict(
             perms=perms, dropout=dropout, agg_uniforms=agg_uniforms,
             batch_idx=batch_idx, faults=faults, collude=collude,
             dp_noise=dp_noise, perms_2=perms_2, dropout_2=dropout_2,
             screen_idx=screen_idx, screen_dropout=screen_dropout,
             regrow_u=regrow_u))
-        new_state, metrics = self._round_body(state, inp)
+        if self._store is not None:
+            new_state, metrics = self._store_round(state, round_idx, inp)
+        else:
+            new_state, metrics = self._round_body(state, inp)
         return dataclasses.replace(new_state, generator=g), metrics
 
     def _eager_inputs(self, state: Any, round_idx: int,
@@ -800,7 +935,7 @@ class FedAlgorithm(abc.ABC):
             state.personal_params, locals_, inp.sel, fstats)
         cache = state.eval_cache
         if self.eval_cache:
-            cache = self._update_eval_cache(cache, personal, inp.sel)
+            cache = self._update_eval_cache(cache, personal, inp)
         new_state = dataclasses.replace(state, global_params=new_global,
                                         personal_params=personal,
                                         agg_residual=residual,
@@ -1071,14 +1206,14 @@ class FedAlgorithm(abc.ABC):
         """Every client of ``inp`` trains a copy of the global model on its
         own rows (client ``i`` on flipped labels where ``flips[i]``, the
         ``labelflip`` fault); returns (stacked local models, mean loss)."""
-        d = self.data
+        d = self._round_data(inp)
         locals_, losses = [], []
         for i, n in enumerate(inp.n_valid):
             params, _, loss = self.client_update(
                 clone_tree(global_params), mask, d.x_train, d.y_train, n,
                 inp.sel[i:i + 1], inp.perms[i], inp.lr,
                 None if inp.dropout is None else inp.dropout[i],
-                None if flips is None else flips[i])
+                None if flips is None else flips[i], n_rows=inp.n_sel[i])
             locals_.append(params)
             losses.append(loss)
         return _stack(locals_), torch.stack(losses).mean()
@@ -1095,7 +1230,7 @@ class FedAlgorithm(abc.ABC):
         whole-cohort (or sampled-rows) local training of the personalized
         and decentralized algorithms. Returns (stacked params, stacked
         momenta, ``[S]`` losses)."""
-        d = self.data
+        d = self._round_data(inp)
         perms, dropout = ((inp.perms, inp.dropout) if leg == 1
                           else (inp.perms_2, inp.dropout_2))
         out, moms, losses = [], [], []
@@ -1105,7 +1240,7 @@ class FedAlgorithm(abc.ABC):
                 masks if shared_mask else _row(masks, i), d.x_train,
                 d.y_train, n, inp.sel[i:i + 1], perms[i], inp.lr,
                 None if dropout is None else dropout[i],
-                prox_target=prox_target)
+                prox_target=prox_target, n_rows=inp.n_sel[i])
             out.append(p)
             moms.append(m)
             losses.append(loss)
@@ -1192,12 +1327,26 @@ class FedAlgorithm(abc.ABC):
             new_global = agg_fn(defended, weights)
         return new_global, stacked, mean_loss, fstats, residual
 
+    def _round_data(self, inp: RoundInputs) -> FederatedData:
+        """The arrays a round body reads its clients' rows from through
+        ``inp.sel``: the store's cohort slab, else the data."""
+        return self.data if inp.slab is None else inp.slab
+
+    def _shard(self, c: int, test: bool = False):
+        """Client ``c``'s train (or test) rows and labels on the device
+        (moved there from the host in store mode)."""
+        d = self.data
+        x, y = (d.x_test[c], d.y_test[c]) if test else (d.x_train[c],
+                                                         d.y_train[c])
+        if self._store is not None:
+            x, y = _to_device(x, self.device), _to_device(y, self.device)
+        return x, y
+
     def _eval_terms(self, rows, params_of):
         """``eval_client`` of ``params_of(c)`` on client ``c``'s test shard
         for each client id ``c`` of ``rows``: (correct, loss_sum), each
         stacked over ``rows``."""
-        d = self.data
-        terms = [self.eval_client(params_of(c), d.x_test[c], d.y_test[c],
+        terms = [self.eval_client(params_of(c), *self._shard(c, test=True),
                                   self._n_test[c]) for c in rows]
         return (torch.stack([t[0] for t in terms]),
                 torch.stack([t[1] for t in terms]))
@@ -1228,22 +1377,31 @@ class FedAlgorithm(abc.ABC):
     # pass. The cache is cloned, loaded and exported with the rest of the
     # state, so it rides a fused block.
 
-    def _seed_eval_cache(self, personal: Optional[Tree]) -> Optional[dict]:
+    def _seed_eval_cache(self, personal: Optional[Tree],
+                         params: Optional[Tree] = None) -> Optional[dict]:
         """The initial cache: one full personal eval of the fresh stack
-        (None without ``eval_cache`` or a personal stack)."""
-        if not self.eval_cache or personal is None:
+        (None without ``eval_cache`` or a personal stack); in store mode of
+        ``params``, which every row of the fresh stack equals."""
+        if not self.eval_cache or (personal is None and params is None):
             return None
-        ev = self._eval_personal(personal)
+        if personal is None:
+            correct, loss_sum = self._eval_terms(self._eval_rows,
+                                                 lambda c: params)
+            ev = _personal_metrics(correct, loss_sum, self._n_test_eval)
+        else:
+            ev = self._eval_personal(personal)
         return {"correct": ev["correct"], "loss_sum": ev["loss_sum"],
                 "total": ev["total"].clone()}
 
     def _update_eval_cache(self, cache: Optional[dict], personal: Tree,
-                           sel: torch.Tensor) -> Optional[dict]:
+                           inp: RoundInputs) -> Optional[dict]:
         """The round body's refresh: the selected clients' new personal
         rows evaluated, their terms written into the cache, out of place.
         Full participation evaluates every row in place of a gather of the
         stack; otherwise the rows, test shards and counts are gathered
-        through the device client ids ``sel``, so a graph can hold it."""
+        through the device client ids, so a graph can hold it: the rows and
+        test shards at ``inp.sel`` (a store's slab positions), the ``[C]``
+        cache and test counts at ``inp.pop`` (the population ids)."""
         if cache is None:
             return None
         if self.clients_per_round == self.num_clients:
@@ -1252,17 +1410,18 @@ class FedAlgorithm(abc.ABC):
                 lambda c: {k: v[c] for k, v in personal.items()})
             return {"correct": correct, "loss_sum": loss_sum,
                     "total": cache["total"]}
-        d = self.data
+        d = self._round_data(inp)
+        sel, pop = inp.sel, inp.pop
         sub = tree_index(personal, sel)
         xs, ys = d.x_test.index_select(0, sel), d.y_test.index_select(0, sel)
-        ns = self._n_test_dev.index_select(0, sel)
+        ns = self._n_test_dev.index_select(0, pop)
         terms = [self.eval_client({k: v[i] for k, v in sub.items()}, xs[i],
                                   ys[i], ns[i]) for i in range(len(ns))]
         return {"correct": cache["correct"].index_copy(
-                    0, sel, torch.stack([t[0] for t in terms])),
+                    0, pop, torch.stack([t[0] for t in terms])),
                 "loss_sum": cache["loss_sum"].index_copy(
-                    0, sel, torch.stack([t[1] for t in terms])),
-                "total": cache["total"].index_copy(0, sel, ns)}
+                    0, pop, torch.stack([t[1] for t in terms])),
+                "total": cache["total"].index_copy(0, pop, ns)}
 
     def _eval_personal_state(self, state: Any) -> Dict[str, torch.Tensor]:
         """The personal half of the eval: the re-reduce of
@@ -1273,6 +1432,8 @@ class FedAlgorithm(abc.ABC):
         if self.eval_cache and cache is not None:
             return _personal_metrics(cache["correct"], cache["loss_sum"],
                                      cache["total"])
+        if state.personal_params is None and self._store_has_personal():
+            return self._personal_eval_store()
         return self._eval_personal(state.personal_params)
 
     @abc.abstractmethod
@@ -1289,10 +1450,11 @@ class FedAlgorithm(abc.ABC):
         algorithm."""
         if self._drop_calls is None:
             probe = DropoutProbe()
+            x0 = self.data.x_train[0]
             rows = torch.zeros(self.hp.batch_size, dtype=torch.int64,
-                               device=self.device)
+                               device=x0.device)
             with torch.no_grad():
-                self.apply_fn(params, self.data.x_train[0][rows], train=True,
+                self.apply_fn(params, x0[rows].to(self.device), train=True,
                               rng=probe)
             self._drop_calls = probe.calls
         return self._drop_calls
@@ -1384,7 +1546,8 @@ class FedAlgorithm(abc.ABC):
                       g: torch.Generator,
                       seams: Optional[Dict[str, Any]] = None,
                       aggregate: bool = True,
-                      round_idx: Optional[int] = None) -> RoundInputs:
+                      round_idx: Optional[int] = None,
+                      pop_dev: Optional[torch.Tensor] = None) -> RoundInputs:
         """A round's inputs (:class:`RoundInputs`), fresh on the device: the
         clients ``sel`` (``sel_dev`` on the device), the rate ``lr``, then
         the draws of ``g`` in the order the round consumes them: per client
@@ -1401,7 +1564,9 @@ class FedAlgorithm(abc.ABC):
         ``perms``, ``batch_idx``, ``dropout``, ``agg_uniforms``,
         ``faults``, ``collude``, ``dp_noise``, ``perms_2``, ``dropout_2``,
         ``screen_idx``, ``screen_dropout``, ``regrow_u``) replace the draws
-        they name. Both round loops draw through here."""
+        they name. ``pop_dev`` (store mode, where ``sel_dev`` holds slab
+        positions) the population ids on the device. Both round loops draw
+        through here."""
         seams = seams or {}
         hp, dev = self.hp, self.device
         n_valid = [self._n_train[int(c)] for c in sel]
@@ -1481,22 +1646,244 @@ class FedAlgorithm(abc.ABC):
             perms=perms, dropout=dropout, uniforms=uniforms,
             faults=faults, collude=collude, dp_noise=dp_noise,
             perms_2=perms_2, dropout_2=dropout_2, screen_idx=screen_idx,
-            screen_dropout=screen_dropout, regrow_u=regrow_u, **host)
+            screen_dropout=screen_dropout, regrow_u=regrow_u,
+            pop=sel_dev if pop_dev is None else pop_dev, **host)
+
+    # -- the population client store (client_store "host" / "disk") -----------
+    # The store-mode round is the resident round body on a slab: the sampled
+    # clients' rows of the store fields (the personal stack, the top-k
+    # residual) and their data rows gathered onto the card, ``inp.sel`` their
+    # positions in the slab and ``inp.pop`` their population ids (which the
+    # [C] arrays that stay resident, the eval cache and the test counts, are
+    # indexed by). Every gather of the body then reads rows equal to the
+    # resident ones, and the per-row math and the reductions run at the same
+    # widths, so a streamed run is bitwise the resident one. A quarantined
+    # client keeps its previous row in the body (merge_updates,
+    # merge_residual) and is staged back unchanged. The fault draws are made
+    # on the host from the population ids (_round_inputs), as resident.
+
+    def _stage_rows(self, host: torch.Tensor, ids: Sequence[int],
+                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Rows ``ids`` of the host array ``host`` on the device (into
+        ``out`` when given): gathered into a pinned buffer, then copied
+        without a wait on the card."""
+        pin = self.device.type == "cuda"
+        idx = torch.as_tensor(np.asarray(ids, dtype=np.int64))
+        buf = torch.empty((len(idx),) + tuple(host.shape[1:]),
+                          dtype=host.dtype, pin_memory=pin)
+        torch.index_select(host, 0, idx, out=buf)
+        if out is None:
+            return buf.to(self.device, non_blocking=pin)
+        return out.copy_(buf, non_blocking=pin)
+
+    def _store_register_fields(self, params: Tree) -> None:
+        """``init_state``'s hook in store mode: the streamed fields
+        registered with their default rows (the personal rows the initial
+        parameters, as the resident broadcast holds them; the top-k
+        residual's zeros), which store nothing until a client trains.
+        Registering again resets the store (a fresh ``init_state``)."""
+        store = self._store
+        if getattr(self, "track_personal", True):
+            store.register("personal_params", params)
+        if self.agg_impl == "topk":
+            store.register("agg_residual",
+                           {k: torch.zeros_like(v) for k, v in params.items()})
+        self._store_eval_cache = None
+        self._store_eval_dirty = []
+
+    def _store_gather_rows(self, ids: Sequence[int]):
+        """A round's rows on the card: the store fields' rows of ``ids``
+        (``state`` replacements; the gather commits staged rows first, so
+        chained rounds read the newest adopted ones, and is timed in
+        ``store_gather_ms``) and the clients' data rows from the host data
+        (a :class:`FederatedData` slab, the test rows too with the eval
+        cache)."""
+        kw = {name: self._store.gather(name, ids, self.device)
+              for name in self._store.field_names()}
+        return kw, self._data_slab(ids, test=self.eval_cache)
+
+    def _data_slab(self, ids: Sequence[int], test: bool = False
+                   ) -> FederatedData:
+        """The clients ``ids``' train rows (and test rows with ``test``)
+        moved from the host data to the card, as a :class:`FederatedData`
+        a round body reads through slab positions."""
+        d = self.data
+        return dataclasses.replace(
+            d, x_train=self._stage_rows(d.x_train, ids),
+            y_train=self._stage_rows(d.y_train, ids),
+            x_test=self._stage_rows(d.x_test, ids) if test else None,
+            y_test=self._stage_rows(d.y_test, ids) if test else None,
+            x_val=None, y_val=None, n_val=None)
+
+    def _store_adopt_round(self, new_state: Any, ids: Sequence[int]) -> Any:
+        """After a round or block: its trained row slabs staged in the
+        store (still on the card: the copy to the host waits for the next
+        gather or flush, and a watchdog's :meth:`store_discard` drops them
+        first) and dropped from the state."""
+        kw = {}
+        for name in self._store.field_names():
+            self._store.stage(name, ids, getattr(new_state, name))
+            kw[name] = None
+        if self._store.has_field("personal_params"):
+            self._store_eval_dirty.append(np.asarray(ids))
+        return dataclasses.replace(new_state, **kw)
+
+    def _store_prefetch_next(self, next_ids, cur_ids) -> None:
+        """Warm the next cohort's host rows while the card runs this one;
+        the rows this cohort dirtied are left out (their newest values are
+        the staged slabs the next gather commits)."""
+        cur = set(int(i) for i in np.asarray(cur_ids))
+        ids = [int(i) for i in np.asarray(next_ids) if int(i) not in cur]
+        for name in self._store.field_names():
+            self._store.prefetch(name, ids)
+
+    def _store_round(self, state: Any, round_idx: int, inp: RoundInputs):
+        """One streamed round (``run_round`` in store mode): the cohort's
+        rows gathered onto the card, the round body on that slab, the
+        trained rows staged back, the next cohort prefetched."""
+        sel = self._selected_client_indexes(round_idx)
+        kw, slab = self._store_gather_rows(sel)
+        inp = dataclasses.replace(
+            inp, sel=torch.arange(len(sel), device=self.device), slab=slab)
+        new_state, metrics = self._round_body(
+            dataclasses.replace(state, **kw), inp)
+        new_state = self._store_adopt_round(new_state, sel)
+        self._store_prefetch_next(
+            sample_client_indexes(round_idx + 1, self.num_clients,
+                                  self.clients_per_round), sel)
+        return new_state, metrics
+
+    def _run_rounds_fused_store(self, state: Any, start_round: int,
+                                n_rounds: int, eval_every: int, seams):
+        """A fused block over the store: one gather of the block's union of
+        clients into the first rows of slab buffers of ``min(K * S, C)``
+        rows (so one graph serves every block), round ``i`` addressing the
+        slab at ``searchsorted(union, sels[i])`` (rows chain within the
+        block through the slab as they do through the resident stack), one
+        staging of the union's rows at the end. The in-graph eval cadence
+        needs the whole cohort resident and is refused."""
+        if eval_every:
+            raise ValueError(
+                f"{self.name}: the fused in-graph eval cadence "
+                "(frequency_of_the_test with fuse_rounds>1) evaluates "
+                "the full [C] cohort inside the block; with "
+                "--client_store the cohort is not resident — evaluate "
+                "between blocks (eval_every=0) or run fuse_rounds=1")
+        self._prepare_round(state)
+        rounds = range(start_round, start_round + n_rounds)
+        sels = [self._selected_client_indexes(r) for r in rounds]
+        union = np.unique(np.concatenate(sels))
+        fused = self._get_fused_fn(
+            state, len(sels[0]),
+            min(n_rounds * len(sels[0]), self.num_clients))
+        u = len(union)
+        rows = {name: self._store.gather(name, union, self.device)
+                for name in self._store.field_names()}
+        d, slab = self.data, fused.slab
+        for f in ("x_train", "y_train", "x_test", "y_test"):
+            if getattr(slab, f) is not None:
+                self._stage_rows(getattr(d, f), union, getattr(slab, f)[:u])
+        fused.load(state, rows)
+        del rows
+        views = np.stack([np.searchsorted(union, s) for s in sels])
+        new_state, ys = self._fused_rounds(
+            fused, state, rounds, sels,
+            _to_device(views.astype(np.int64), self.device),
+            _to_device(np.stack(sels).astype(np.int64), self.device), 0,
+            seams, n_rows=u)
+        new_state = self._store_adopt_round(new_state, union)
+        nxt = np.unique(np.concatenate([
+            sample_client_indexes(r, self.num_clients,
+                                  self.clients_per_round)
+            for r in range(start_round + n_rounds,
+                           start_round + 2 * n_rounds)]))
+        self._store_prefetch_next(nxt, union)
+        return new_state, ys
+
+    def _store_has_personal(self) -> bool:
+        """The personal stack lives in the client store (the state holds
+        None between rounds)."""
+        return self._store is not None and \
+            self._store.has_field("personal_params")
+
+    def store_discard(self) -> None:
+        """The watchdog's RETRY and SKIP (the runner calls it on a
+        rollback): the rolled-back attempt's staged rows dropped before
+        anything commits them, and the store eval's terms invalidated (a
+        full pass at the next eval is always right)."""
+        if self._store is None:
+            return
+        self._store.discard()
+        self._store_eval_cache = None
+        self._store_eval_dirty = []
+
+    def store_flush(self) -> None:
+        """Staged rows committed to storage."""
+        if self._store is not None:
+            self._store.commit()
+
+    def _personal_eval_store(self) -> Dict[str, torch.Tensor]:
+        """The personal eval over the store's stack: a full pass over
+        ``gather_all`` (each client's row moved to the card in turn) when
+        there are no terms yet or every client changed (the first eval,
+        after a resume or a rollback), else the kept ``[C]`` terms with the
+        rows the rounds since changed evaluated anew. Each client's terms
+        come from the same ``eval_client`` call on the same row as the
+        resident full pass's, so the result is bitwise that pass."""
+        dev, c = self.device, self.num_clients
+        dirty = (np.unique(np.concatenate(self._store_eval_dirty))
+                 if self._store_eval_dirty else np.zeros((0,), np.int64))
+        full = self._store_eval_cache is None or dirty.size >= c
+        rows = np.arange(c) if full else dirty
+        if rows.size:
+            sub = self._store.gather("personal_params", rows)
+            pos = {int(r): i for i, r in enumerate(rows)}
+            c_s, l_s = self._eval_terms(
+                rows, lambda r: {k: _to_device(v[pos[int(r)]], dev)
+                                 for k, v in sub.items()})
+        if full:
+            correct, loss_sum = c_s, l_s
+        else:
+            correct, loss_sum = self._store_eval_cache
+            if rows.size:
+                idx = _to_device(rows.astype(np.int64), dev)
+                correct = correct.index_copy(0, idx, c_s)
+                loss_sum = loss_sum.index_copy(0, idx, l_s)
+        self._store_eval_cache = (correct, loss_sum)
+        self._store_eval_dirty = []
+        return _personal_metrics(correct, loss_sum, self._n_test_eval)
 
     # -- fused multi-round execution -------------------------------------------
-    def _get_fused_fn(self, state: Any, n_sel: int) -> _FusedRounds:
+    def _get_fused_fn(self, state: Any, n_sel: int,
+                      width: int = 0) -> _FusedRounds:
         """The fused loop's buffers and graphs for rounds that draw
-        ``n_sel`` clients, built at the first block (states of one
-        algorithm share their shapes) and anew for a state whose tensor
-        fields are not the buffers' (one whose ``eval_cache`` was dropped,
-        as FedAvg's finalize does, or is live again)."""
-        if self._fused is not None and \
-                self._fused.fields != _buffer_fields(state):
-            self._fused.release()
+        ``n_sel`` clients (in store mode on slabs of at least ``width``
+        rows), built at the first block (states of one algorithm share
+        their shapes) and anew for a state whose tensor fields are not the
+        buffers' (one whose ``eval_cache`` was dropped, as FedAvg's
+        finalize does, or is live again) or a wider block."""
+        store = set(self._store.field_names()) if width else set()
+        fields = [f.name for f in dataclasses.fields(state)
+                  if f.name in store or _is_buffer(getattr(state, f.name))]
+        fz = self._fused
+        if fz is not None and (fz.fields != fields or fz.width < width
+                               or bool(fz.width) != bool(width)):
+            fz.release()
             self._fused = None
         if self._fused is None:
-            self._fused = _FusedRounds(self, state, n_sel)
+            self._fused = _FusedRounds(self, state, n_sel, width)
         return self._fused
+
+    def _step_key(self, n_valid: Sequence[int]) -> tuple:
+        """A round graph's key: per client the batches a local epoch runs
+        (``core.trainer.active_steps``; the steps a second leg runs follow,
+        its batch layout is the same), not the sample counts, which the
+        graph reads from a buffer. With full batches one key."""
+        hp = self.hp
+        if self._full_batches():
+            return (hp.steps_per_epoch,) * len(n_valid)
+        return tuple(min(hp.steps_per_epoch, -(-int(n) // hp.batch_size))
+                     for n in n_valid)
 
     def run_rounds_fused(self, state: Any, start_round: int, n_rounds: int,
                          eval_every: int = 0,
@@ -1512,6 +1899,8 @@ class FedAlgorithm(abc.ABC):
         state's generator by :meth:`_round_inputs`, as :meth:`run_round`
         draws them, so a block equals ``n_rounds`` ``run_round`` calls bit
         for bit.
+        With a client store the block streams its clients' union
+        (:meth:`_run_rounds_fused_store`).
         ``seams``, one dict per round of ``run_round``'s seams (``perms``,
         ``batch_idx``, ``dropout``, ``agg_uniforms``, ``faults``,
         ``collude``, ``dp_noise``, ``perms_2``, ``dropout_2``,
@@ -1536,14 +1925,28 @@ class FedAlgorithm(abc.ABC):
         if seams is not None and len(seams) != n_rounds:
             raise ValueError(f"seams: {len(seams)} rounds for a block of "
                              f"{n_rounds}")
+        if self._store is not None:
+            return self._run_rounds_fused_store(state, start_round,
+                                                n_rounds, eval_every, seams)
         self._prepare_round(state)
         rounds = range(start_round, start_round + n_rounds)
         sels = [self._selected_client_indexes(r) for r in rounds]
         fused = self._get_fused_fn(state, len(sels[0]))
         fused.load(state)
+        sel_dev = _to_device(np.stack(sels).astype(np.int64), self.device)
+        return self._fused_rounds(fused, state, rounds, sels, sel_dev, None,
+                                  eval_every, seams)
+
+    def _fused_rounds(self, fused: _FusedRounds, state: Any, rounds,
+                      sels: List[np.ndarray], sel_dev: torch.Tensor,
+                      pop_dev: Optional[torch.Tensor], eval_every: int,
+                      seams, n_rows: int = 0):
+        """The replays of a block whose state is in ``fused``'s buffers:
+        per round its inputs drawn, written and its graph replayed (the
+        eval's after an eval round). Returns ``(state, ys)``."""
+        n_rounds = len(rounds)
         g = clone_generator(state.generator)
         template = self._template(state)
-        sel_dev = _to_device(np.stack(sels).astype(np.int64), self.device)
         lrs = _to_device(torch.stack([round_lr(self.hp, r) for r in rounds]),
                          self.device)
         names = list(self._round_metric_names)
@@ -1551,12 +1954,13 @@ class FedAlgorithm(abc.ABC):
                            device=self.device)
         ev_rows = None
         for k, r in enumerate(rounds):
-            inp = self._round_inputs(template, sels[k],
-                                     sel_dev[k], lrs[k], g,
-                                     None if seams is None else seams[k],
-                                     round_idx=r)
+            inp = self._round_inputs(
+                template, sels[k], sel_dev[k], lrs[k], g,
+                None if seams is None else seams[k], round_idx=r,
+                pop_dev=None if pop_dev is None else pop_dev[k])
             fused.write(inp)
-            rows[:, k].copy_(fused.round_graph(self, tuple(inp.n_valid))())
+            rows[:, k].copy_(
+                fused.round_graph(self, self._step_key(inp.n_valid))())
             if eval_every and (r + 1) % eval_every == 0:
                 ev = fused.eval_graph(self)()
                 if ev_rows is None:
@@ -1565,18 +1969,20 @@ class FedAlgorithm(abc.ABC):
                                           device=self.device)
                 ev_rows[:, k].copy_(ev)
         packed = rows if ev_rows is None else torch.cat([rows, ev_rows])
-        return (fused.export(state, g),
+        return (fused.export(state, g, n_rows),
                 FusedMetrics(names, fused.eval_names if ev_rows is not None
                              else [], packed))
 
     def _fused_block_loop(self, state: Any, start_round: int, total: int,
                           block: int, eval_every: int, on_record,
-                          timed: bool = False):
+                          timed: bool = False, on_block=None):
         """The shared fused-block loop (``run(fuse_rounds=K)`` and the
         CLI's ``--fuse_rounds``): dispatch block b+1, then materialize and
         emit block b's per-round records, so the card's queue never drains.
         ``on_record(round_idx, rec, state_out)`` receives each round's
-        record in order with the emitting block's output state.
+        record in order with the emitting block's output state;
+        ``on_block(end_round, state_out)`` fires once per flushed block,
+        after its records (the runner's block-boundary checkpoint).
 
         ``timed=True`` stamps ``round_time_s`` as the block's flush-to-flush
         wall time split evenly: the per-run sum is the wall time, a round's
@@ -1602,6 +2008,8 @@ class FedAlgorithm(abc.ABC):
                 if timed:
                     rec["round_time_s"] = wall / k
                 on_record(r0 + i, rec, state_out)
+            if on_block is not None:
+                on_block(r0 + k, state_out)
 
         try:
             for r0 in range(start_round, total, block):

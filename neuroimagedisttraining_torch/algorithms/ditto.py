@@ -32,8 +32,9 @@ from .base import FedAlgorithm, RoundInputs
 @dataclasses.dataclass
 class DittoState:
     global_params: Tree
-    #: [C, ...] per leaf: each client's personal model
-    personal_params: Tree
+    #: [C, ...] per leaf: each client's personal model (None with a client
+    #: store, which holds the rows)
+    personal_params: Optional[Tree]
     #: the round loop's draws (both legs' epoch permutations and dropout
     #: masks, the int8 wire's uniforms)
     generator: torch.Generator
@@ -42,6 +43,7 @@ class DittoState:
 class Ditto(FedAlgorithm):
     name = "ditto"
     supports_fused = True
+    store_supported = True
     _round_metric_names = ("train_loss", "personal_train_loss")
     # the guard protects the global leg's aggregate without reporting
     # its counters, as in the reference
@@ -74,9 +76,15 @@ class Ditto(FedAlgorithm):
                    params: Optional[Tree] = None) -> DittoState:
         """Fresh parameters (or the given ``params``) as the global model
         and every client's personal one. ``generator`` defaults to one
-        seeded by the run seed and drives init and every later round."""
+        seeded by the run seed and drives init and every later round. With a
+        client store the personal rows are the store's (registered here,
+        the field None in the state)."""
         g = generator if generator is not None else self.generator()
         params = self._fresh_params(g, params)
+        if self._store is not None:
+            self._store_register_fields(params)
+            return DittoState(global_params=params, personal_params=None,
+                              generator=g)
         return DittoState(
             global_params=params,
             personal_params=broadcast_tree(params, self.num_clients),
@@ -101,7 +109,7 @@ class Ditto(FedAlgorithm):
 
     def evaluate(self, state: DittoState) -> Dict[str, Any]:
         ev_g = self._eval_global(state.global_params)
-        ev_p = self._eval_personal(state.personal_params)
+        ev_p = self._eval_personal_state(state)
         return {"global_acc": ev_g["acc"], "global_loss": ev_g["loss"],
                 "personal_acc": ev_p["acc"], "personal_loss": ev_p["loss"],
                 "acc_per_client": ev_p["acc_per_client"]}

@@ -36,7 +36,7 @@ class FedAvgState:
     global_params: Tree
     #: [C, ...] per leaf: each client's last locally trained weights,
     #: initialized to copies of the initial global model; None when
-    #: ``track_personal`` is off
+    #: ``track_personal`` is off or a client store holds the rows
     personal_params: Optional[Tree]
     #: the round loop's draws (epoch permutations, dropout masks, the int8
     #: wire's uniforms)
@@ -52,6 +52,7 @@ class FedAvg(FedAlgorithm):
     name = "fedavg"
     topk_supported = True
     supports_fused = True
+    store_supported = True
 
     def __init__(self, *args, defense=None, track_personal: bool = True,
                  eval_cache: bool = False, **kwargs):
@@ -75,9 +76,16 @@ class FedAvg(FedAlgorithm):
         """Fresh parameters (or the given ``params``), personal copies,
         under "topk" a zero residual and, with ``eval_cache``, the cache
         seeded by one full personal eval. ``generator`` defaults to one
-        seeded by the run seed and drives init and every later round."""
+        seeded by the run seed and drives init and every later round. With a
+        client store the per-client rows are the store's (registered here,
+        the fields None in the state)."""
         g = generator if generator is not None else self.generator()
         params = self._fresh_params(g, params)
+        if self._store is not None:
+            self._store_register_fields(params)
+            return FedAvgState(
+                global_params=params, personal_params=None, generator=g,
+                eval_cache=self._seed_eval_cache(None, params))
         personal = (broadcast_tree(params, self.num_clients)
                     if self.track_personal else None)
         residual = None
@@ -101,17 +109,39 @@ class FedAvg(FedAlgorithm):
         Like a round, it leaves its input state as it was. Without personal
         tracking there is nothing to produce. The fine-tune retrains every
         personal row, so it drops the eval cache: the final eval is a full
-        pass."""
+        pass. With a client store the clients fine-tune in cohorts of
+        ``clients_per_round``, each one's data on the card in turn (the
+        same draws in the same order), and their rows go to the store."""
         if not self.track_personal:
             return state, None
         g = clone_generator(state.generator)
-        sel = np.arange(self.num_clients)
-        inp = self._round_inputs(
-            state.global_params, sel, _to_device(sel, self.device),
-            _to_device(round_lr(self.hp, -1), self.device), g,
-            dict(perms=perms, dropout=dropout), aggregate=False)
-        personal, _ = self._train_clients(
-            state.global_params, self._ones_mask(state.global_params), inp)
+        lr = _to_device(round_lr(self.hp, -1), self.device)
+        ones = self._ones_mask(state.global_params)
+        c = self.num_clients
+        step = c if self._store is None else self.clients_per_round
+        rows = []
+        for lo in range(0, c, step):
+            sel = np.arange(lo, min(lo + step, c))
+            inp = self._round_inputs(
+                state.global_params, sel, _to_device(sel, self.device), lr,
+                g, dict(perms=None if perms is None else perms[lo:lo + step],
+                        dropout=None if dropout is None
+                        else dropout[lo:lo + step]), aggregate=False)
+            if self._store is None:
+                rows.append(self._train_clients(state.global_params, ones,
+                                                inp)[0])
+                continue
+            inp = dataclasses.replace(
+                inp, sel=torch.arange(len(sel), device=self.device),
+                slab=self._data_slab(sel))
+            self._store.stage("personal_params", sel, self._train_clients(
+                state.global_params, ones, inp)[0])
+        if self._store is None:
+            personal = rows[0]
+        else:  # every row retrained: the store eval starts over
+            self._store.commit()
+            self._store_eval_cache, self._store_eval_dirty = None, []
+            personal = None
         state = dataclasses.replace(state, personal_params=personal,
                                     generator=g, eval_cache=None)
         ev = self.evaluate(state)
@@ -123,7 +153,7 @@ class FedAvg(FedAlgorithm):
         ev = self._eval_global(state.global_params)
         out = {"global_acc": ev["acc"], "global_loss": ev["loss"],
                "acc_per_client": ev["acc_per_client"]}
-        if state.personal_params is not None:
+        if state.personal_params is not None or self._store_has_personal():
             evp = self._eval_personal_state(state)
             out.update(personal_acc=evp["acc"], personal_loss=evp["loss"])
         return out

@@ -49,7 +49,7 @@ class SalientGradsState:
     mask: Tree
     #: [C, ...] per leaf: each client's last locally trained (masked)
     #: weights, initialized to dense copies of the initial global model;
-    #: None when ``track_personal`` is off
+    #: None when ``track_personal`` is off or a client store holds the rows
     personal_params: Optional[Tree]
     #: the round loop's draws (epoch permutations, dropout masks, the int8
     #: wire's uniforms)
@@ -70,6 +70,7 @@ class SalientGrads(FedAlgorithm):
     name = "salientgrads"
     topk_supported = True
     supports_fused = True
+    store_supported = True
 
     def __init__(self, *args, dense_ratio: float = 0.5,
                  itersnip_iterations: int = 1, defense=None,
@@ -123,19 +124,19 @@ class SalientGrads(FedAlgorithm):
         uniform draws; with ``stratified_sampling`` the 25 fold train sides
         ("exact") or 25 class-balanced draws ("balanced"). ``snip_idx``
         (per client, ``[n_iters, batch]``) replaces the drawn batches."""
-        d = self.data
         n_iters = (STRATIFIED_SPLITS if self.stratified_sampling
                    else self.itersnip_iterations)
         total = None
         for c in range(self.num_clients):
+            x, y = self._shard(c)
             if self._fold_sched is not None:
                 idx, w = self._fold_sched
-                s = self.snip_fold_scores(params, d.x_train[c], d.y_train[c],
-                                          idx[c], w[c], rng=generator)
+                s = self.snip_fold_scores(params, x, y, idx[c], w[c],
+                                          rng=generator)
             else:
                 s = self.snip_scores(
-                    params, d.x_train[c], d.y_train[c], self._n_train[c],
-                    n_iters, idx=None if snip_idx is None else snip_idx[c],
+                    params, x, y, self._n_train[c], n_iters,
+                    idx=None if snip_idx is None else snip_idx[c],
                     rng=generator)
             total = s if total is None else {k: total[k] + s[k] for k in s}
         mean = {k: v / self.num_clients for k, v in total.items()}
@@ -148,13 +149,20 @@ class SalientGrads(FedAlgorithm):
         ones without ``snip_mask``), dense personal copies (none without
         ``track_personal``) and, with ``eval_cache``, the cache seeded by
         one full personal eval. ``generator`` defaults to one seeded by the
-        run seed and drives init, SNIP and every later round."""
+        run seed and drives init, SNIP and every later round. With a client
+        store the per-client rows are the store's (registered here, the
+        fields None in the state)."""
         g = generator if generator is not None else self.generator()
         params = self._fresh_params(g, params)
         if self.snip_mask:
             mask = self.global_mask(params, g, snip_idx)
         else:
             mask = {k: torch.ones_like(v) for k, v in params.items()}
+        if self._store is not None:
+            self._store_register_fields(params)
+            return SalientGradsState(
+                global_params=params, mask=mask, personal_params=None,
+                generator=g, eval_cache=self._seed_eval_cache(None, params))
         personal = (broadcast_tree(params, self.num_clients)
                     if self.track_personal else None)
         residual = None
@@ -208,7 +216,7 @@ class SalientGrads(FedAlgorithm):
             "mask_density": mask_density_tensor(state.mask),
             "acc_per_client": ev["acc_per_client"],
         }
-        if state.personal_params is not None:
+        if state.personal_params is not None or self._store_has_personal():
             evp = self._eval_personal_state(state)
             out.update(personal_acc=evp["acc"], personal_loss=evp["loss"])
         return out

@@ -96,28 +96,27 @@ class SubAvg(PersonalAlgorithm):
         accept gates. Returns (its model, its new mask, its mean loss)."""
         d = self.data
         n, client = inp.n_valid[i], inp.sel[i:i + 1]
+        count = inp.n_sel[i]  # the sample count, on the device
         drop = None if inp.dropout is None else inp.dropout[i]
         start = {k: v * mask[k] for k, v in global_params.items()}
         p1, mom1, loss = self._update_first(
             start, mask, d.x_train, d.y_train, n, client, inp.perms[i],
-            inp.lr, drop)
+            inp.lr, drop, n_rows=count)
         m1 = magnitude_prune_mask(mask, p1, self.each_prune_ratio)
         p2 = p1
         if self._update_rest is not None:
             drop = None if inp.dropout_2 is None else inp.dropout_2[i]
             p2, _, loss2 = self._update_rest(
                 p1, mask, d.x_train, d.y_train, n, client, inp.perms_2[i],
-                inp.lr, drop, momentum=mom1)
+                inp.lr, drop, momentum=mom1, n_rows=count)
             loss = (loss + loss2) / 2
         m2 = magnitude_prune_mask(mask, p2, self.each_prune_ratio)
         # the accept gates, the accuracy on the client's own train shard
         correct, _, _ = self.eval_client(
             {k: v * m2[k] for k, v in p2.items()},
             d.x_train.index_select(0, client)[0],
-            d.y_train.index_select(0, client)[0], n)
-        # the shard's row count is the host's n (a fill, no device read)
-        acc = correct.to(torch.float32) / torch.full(
-            (), float(max(n, 1)), device=correct.device)
+            d.y_train.index_select(0, client)[0], count)
+        acc = correct.to(torch.float32) / torch.clamp(count, min=1.0)
         accept = ((mask_distance(m1, m2) > self.dist_thresh)
                   & (mask_density_f32(p2) > self.dense_ratio)
                   & (acc > self.acc_thresh))

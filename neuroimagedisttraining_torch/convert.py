@@ -20,45 +20,98 @@ the reference's layout (:func:`to_reference_layout`). The int8 wire's
 bucket scales and the top-k leaf groups depend on which values share a
 bucket, so this makes the port's ``[C, N]`` matrix the reference's, element
 for element.
+
+:func:`jax_state_to_torch` turns a whole reference algorithm state, given as
+numpy arrays (a restored orbax checkpoint's), into this package's state.
 """
 from __future__ import annotations
 
-from typing import Dict, Iterable, List, Mapping
+import dataclasses
+from typing import Any, Dict, Iterable, List, Mapping, Optional
 
 import numpy as np
 import torch
 
 
-def _leaf(module: str, name: str, value) -> np.ndarray:
+def _leaf(module: str, name: str, value, lead: int = 0) -> np.ndarray:
     a = np.asarray(value, dtype=np.float32)
     if name == "kernel":
-        if a.ndim == 5:  # DHWIO (convs and the phased stem) -> OIDHW
-            return a.transpose(4, 3, 0, 1, 2)
-        if a.ndim == 2:  # dense (in, out) -> (out, in)
-            return a.T
+        keep = tuple(range(lead))
+        nd = a.ndim - lead
+        if nd == 5:  # DHWIO (convs and the phased stem) -> OIDHW
+            return a.transpose(keep + tuple(lead + i
+                                            for i in (4, 3, 0, 1, 2)))
+        if nd == 2:  # dense (in, out) -> (out, in)
+            return a.transpose(keep + (lead + 1, lead))
         raise ValueError(f"{module}.kernel: unexpected shape {a.shape}")
     return a
 
 
-def _walk(prefix: str, node: Mapping, out: Dict[str, torch.Tensor]) -> None:
+def _walk(prefix: str, node: Mapping, out: Dict[str, torch.Tensor],
+          lead: int = 0) -> None:
     if set(node) == {"Conv_0"}:  # Conv3d wraps one flax Conv
         node = node["Conv_0"]
     for name, value in node.items():
         if isinstance(value, Mapping):  # a submodule's scope
-            _walk(f"{prefix}{name}.", value, out)
+            _walk(f"{prefix}{name}.", value, out, lead)
         else:
             out[prefix + name] = torch.from_numpy(
-                np.array(_leaf(prefix[:-1], name, value), order="C"))
+                np.array(_leaf(prefix[:-1], name, value, lead), order="C"))
 
 
-def jax_params_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
+def jax_params_to_torch(params: Mapping,
+                        lead: int = 0) -> Dict[str, torch.Tensor]:
     """A reference param tree (the AlexNet3D family, SmallCNN3D,
     SmallCNN3DS2D) as this package's ``state_dict``; nested flax scopes
     (``_Features_0/Conv3d_i/Conv_0``) become dotted names
-    (``_Features_0.Conv3d_i.kernel``)."""
+    (``_Features_0.Conv3d_i.kernel``). The first ``lead`` axes of every
+    leaf (a client axis) stay in front."""
     out: Dict[str, torch.Tensor] = {}
-    _walk("", params, out)
+    _walk("", params, out, lead)
     return out
+
+
+#: the state fields that stack one tree per client
+_STACKED = ("personal_params", "agg_residual", "masks")
+
+
+def jax_state_to_torch(template: Any, fields: Mapping[str, Any],
+                       generator: Optional[torch.Generator] = None) -> Any:
+    """A reference algorithm state as this package's, shaped like
+    ``template`` (the port's ``init_state`` of the same configuration: its
+    field set, dtypes and device). ``fields`` maps the reference state's
+    field names to their numpy values: the parameter trees
+    (``global_params``, ``mask``) and the per-client stacks
+    (``personal_params``, ``agg_residual``, ``masks``) as nested flax
+    trees, ``eval_cache`` as its dict of ``[C]`` arrays. The reference's
+    PRNG key has no torch counterpart: the state carries ``generator``
+    (the template's by default). A field the template holds as None must
+    be absent or None in ``fields``, and the reverse."""
+    out: Dict[str, Any] = {}
+    for f in dataclasses.fields(template):
+        like = getattr(template, f.name)
+        if f.name == "generator":
+            out[f.name] = like if generator is None else generator
+            continue
+        v = fields.get(f.name)
+        if (like is None) != (v is None):
+            raise ValueError(
+                f"{f.name}: the reference state has "
+                f"{'None' if v is None else 'a value'}, the template "
+                f"{'None' if like is None else 'a value'}")
+        if like is None:
+            out[f.name] = None
+        elif f.name == "eval_cache":
+            out[f.name] = {k: torch.as_tensor(np.asarray(v[k])).to(
+                like[k].device, like[k].dtype) for k in like}
+        else:
+            tree = jax_params_to_torch(v, lead=int(f.name in _STACKED))
+            if sorted(tree) != sorted(like):
+                raise ValueError(f"{f.name}: the reference tree's leaves "
+                                 "differ from the template's")
+            out[f.name] = {k: tree[k].to(like[k].device, like[k].dtype)
+                           for k in like}
+    return dataclasses.replace(template, **out)
 
 
 def reference_leaf_order(keys: Iterable[str]) -> List[str]:

@@ -102,8 +102,8 @@ def make_client_update(apply_fn, loss_type: str, hp: HyperParams,
                        mask_grads: bool = False,
                        prox_lambda: float = 0.0) -> Callable:
     """Build ``client_update(params, mask, x, y, n_valid, client, perms, lr,
-    dropout=None, flip=None, momentum=None, prox_target=None) -> (params,
-    momentum, mean_loss)``.
+    dropout=None, flip=None, momentum=None, prox_target=None, n_rows=None)
+    -> (params, momentum, mean_loss)``.
 
     ``params`` is updated in place (pass a copy); the optimizer step is
     clip-by-global-norm, then the masked SGD kernel
@@ -140,9 +140,14 @@ def make_client_update(apply_fn, loss_type: str, hp: HyperParams,
     replacement batching, :func:`replacement_batches`), ``lr`` the round's
     rate as a 0-d float32 tensor (on the card, the masked SGD kernel reads
     it there) and ``dropout`` a per-step sequence of dropout keep-mask
-    sequences (None for a model without dropout). A client update reads
-    nothing the host decides per round but ``n_valid``: the round body of
-    ``algorithms/base.py``, which a CUDA graph can hold."""
+    sequences (None for a model without dropout). ``n_valid`` (a host int)
+    fixes the steps the client runs (:func:`active_steps`); ``n_rows``, a
+    0-d tensor on the device holding the same count, is what the loss
+    weights of a partial batch read where it is given (the round body's
+    buffer, so a CUDA graph of the body serves every count with the same
+    steps). A client update reads nothing else the host decides per round:
+    the round body of ``algorithms/base.py``, which a CUDA graph can
+    hold."""
     per_example = PER_EXAMPLE_LOSSES[loss_type]
     spe, bs = hp.steps_per_epoch, hp.batch_size
     full_batches = full_batches or hp.batching == "replacement"
@@ -159,8 +164,10 @@ def make_client_update(apply_fn, loss_type: str, hp: HyperParams,
                       lr: torch.Tensor, dropout: Optional[Sequence] = None,
                       flip: Optional[torch.Tensor] = None,
                       momentum: Optional[Tree] = None,
-                      prox_target: Optional[Tree] = None):
+                      prox_target: Optional[Tree] = None,
+                      n_rows: Optional[torch.Tensor] = None):
         n_valid = int(n_valid)
+        count = n_valid if n_rows is None else n_rows
         n_rows = x.shape[1]
         names = list(params)
         leaves = [params[k].detach().requires_grad_(True) for k in names]
@@ -184,7 +191,7 @@ def make_client_update(apply_fn, loss_type: str, hp: HyperParams,
             drop = None if dropout is None else dropout[s]
             w = None if full_batches else (
                 (pos * bs + torch.arange(bs, device=x.device))
-                < n_valid).float()
+                < count).float()
             if remat:
                 loss = checkpoint(batch_loss, names, leaves, xb, yb, w, drop,
                                   use_reentrant=False,

@@ -7,8 +7,14 @@ per-run log ``<log_dir>/<identity>.log`` and the ``stat_info`` pickle (plus
 its ``.json``) at ``<results_dir>/<dataset>/<identity>``, with the same
 top-level keys. It runs on ``--device`` (CUDA by default, with no fallback).
 
-A flag of a feature the port has not got (another algorithm, checkpoints,
-telemetry, the mesh, ...) ends the run
+With ``--checkpoint_dir`` every round (every block under ``--fuse_rounds``)
+is saved in the port's torch format (``utils/checkpoint.py``) under the
+JAX CLI's checkpoint identity, and ``--resume`` continues the newest step;
+``--client_store host|disk`` streams the per-client rows
+(``core/client_store.py``).
+
+A flag of a feature the port has not got (the wire, telemetry, the mesh,
+...) ends the run
 before any work with ``SystemExit`` naming the flag and the ROADMAP item
 that ports it (:func:`refuse_unported`). A knob that leaves the JAX
 package's results bit-identical (``--client_chunk``, ``--donate_state``,
@@ -53,9 +59,8 @@ S2D_SPECS = {"3dcnn_s2d": (5, 0), "3dresnet_s2d": (3, 3),
 #: flag attribute -> ROADMAP item of the feature it drives, refused at any
 #: value but its default
 _UNPORTED = {
-    # 12: the wire and the state tier
-    "checkpoint_dir": 12, "resume": 12, "client_store": 12,
-    "store_hot_clients": 12, "fed_role": 12, "fed_mode": 12,
+    # 12: the wire
+    "fed_role": 12, "fed_mode": 12,
     "fed_backend": 12, "fed_sites": 12, "fed_site_rank": 12,
     "fed_endpoints": 12, "fed_buffer_k": 12, "fed_staleness_bound": 12,
     "fed_timeout_s": 12, "fed_retries": 12, "fed_backoff_s": 12,
@@ -134,10 +139,47 @@ def _default(attr: str):
 
 def refuse_invalid(args: argparse.Namespace, algo_name: str) -> None:
     """The JAX CLI's own refusals of flag combinations that the port has
-    the features for, with its messages, in its order (the faults, the
-    guard, the robust statistic, the eval cache, the aggregation wire, the
-    defense, the watchdog in fused blocks, fused blocks of an algorithm
-    with data-dependent host work)."""
+    the features for, with its messages, in its order (the client store,
+    the faults, the guard, the robust statistic, the eval cache, the
+    aggregation wire, the defense, the watchdog in fused blocks, fused
+    blocks of an algorithm with data-dependent host work)."""
+    store_mode = getattr(args, "client_store", "device")
+    if store_mode != "device":
+        if algo_name not in _CENTRAL:
+            raise SystemExit(
+                f"--client_store {store_mode} streams the per-client "
+                "state rows (personal stack / topk residual) through "
+                "the central round entry; only fedavg/salientgrads/"
+                f"ditto thread the streamed slab ({algo_name} does not)")
+        if args.frac >= 1.0:
+            raise SystemExit(
+                f"--client_store {store_mode} exists to keep only the "
+                "SAMPLED cohort device-resident; full participation "
+                "(--frac 1.0) touches every row every round — run "
+                "device-resident instead")
+        if getattr(args, "eval_clients", 0):
+            raise SystemExit(
+                f"--client_store {store_mode} routes personal eval "
+                "through the store-backed cache; the sampled-eval "
+                "subset (--eval_clients) composes poorly with it — "
+                "use one or the other")
+        if not getattr(args, "track_personal", 1) and \
+                getattr(args, "agg_impl", "dense") != "topk":
+            raise SystemExit(
+                f"--client_store {store_mode} with --track_personal 0 "
+                "has no per-client rows to store: the personal stack "
+                "is untracked and no topk error-feedback residual "
+                "exists (--agg_impl is not 'topk'). Drop "
+                "--client_store (nothing scales with C) or track "
+                "something per-client")
+        if max(1, getattr(args, "fuse_rounds", 1) or 1) > 1 and \
+                getattr(args, "frequency_of_the_test", 0):
+            raise SystemExit(
+                f"--client_store {store_mode} with --fuse_rounds K "
+                "runs block-union slabs; the fused IN-GRAPH eval "
+                "(--frequency_of_the_test > 0) needs the full resident "
+                "[C] personal stack — pass --frequency_of_the_test 0 "
+                "(eval at the end) or --fuse_rounds 1")
     if (getattr(args, "fault_spec", "") or getattr(args, "guard", 0)) \
             and algo_name not in _CENTRAL:
         raise SystemExit(
@@ -254,6 +296,93 @@ def refuse_fused(algo, algo_name: str) -> None:
             f"--fuse_rounds: {algo_name}'s per-round cost "
             "accounting snapshots evolving masks; use "
             "--fuse_rounds 1")
+
+
+def _dataset_augmentable(dataset: str) -> bool:
+    """Whether this dataset's loader declares the reference's RandomCrop and
+    flip train transform (the lineage guard needs it before the data
+    loads)."""
+    from ..data import dataset_is_augmentable
+
+    return dataset_is_augmentable(dataset)
+
+
+def _check_augment_consistency(args, algo) -> None:
+    """After the build: the lineage guard's guess of the augmentation
+    against what the built algorithm has, so checkpoint metadata never
+    contradicts the guard (the port builds no augmentation: the
+    augmentable datasets are refused)."""
+    expected = bool(getattr(args, "augment", 1)) \
+        and _dataset_augmentable(args.dataset)
+    actual = getattr(algo, "augment_fn", None) is not None
+    if expected != actual and args.checkpoint_dir:
+        raise SystemExit(
+            f"augmentability mapping drift: the lineage guard assumed "
+            f"augment={int(expected)} for dataset {args.dataset!r} but the "
+            f"built algorithm has augment={int(actual)} — update "
+            "data.AUGMENTABLE_DATASETS to match the loader")
+
+
+def _resolve_lineage_semantics(args, meta: dict, last: int,
+                               directory: str,
+                               algo_name: str = "") -> None:
+    """This run's training semantics (the batching mode, the
+    augmentation, SalientGrads' personal stack) reconciled with an
+    existing checkpoint lineage before the algorithm is built, as the JAX
+    CLI does: on a resume a defaulted knob takes the lineage's value (with
+    a warning); an explicit mismatch, or a fresh run that would overwrite
+    the lineage round by round, is refused. A sidecar value of None is a
+    lineage older than the knob's entry, which pins its semantics."""
+    def _adopt_or_refuse(knob, lineage_val, here_val, explicit,
+                         provenance, fix):
+        if lineage_val == here_val:
+            return
+        if args.resume and not explicit:
+            logger.warning(
+                "lineage has %s=%s (%s); continuing with those semantics "
+                "instead of the current default", knob, lineage_val,
+                provenance)
+            setattr(args, knob, lineage_val)
+            return
+        action = ("resuming it" if args.resume
+                  else "a fresh run overwriting it round by round")
+        raise SystemExit(
+            f"checkpoint dir {directory} holds a {knob}={lineage_val} "
+            f"lineage up to round {last}; {action} with {knob}={here_val} "
+            f"would mix training semantics. {fix}")
+
+    lineage_b = meta.get("batching") or "replacement"  # None = pre-round-3
+    _adopt_or_refuse(
+        "batching", lineage_b, getattr(args, "batching", "epoch"),
+        getattr(args, "batching_explicit", True),
+        "recorded" if meta.get("batching") else
+        "pre-round-3 sidecar-less, the only semantics it can have",
+        f"Pass --batching {lineage_b} to continue it, or start a fresh "
+        "lineage (--tag or a different --checkpoint_dir).")
+
+    pa = meta.get("augment")
+    lineage_a = int(bool(pa))  # None = pre-round-4 lineage: un-augmented
+    here_a = int(bool(getattr(args, "augment", 1))
+                 and _dataset_augmentable(args.dataset))
+    _adopt_or_refuse(
+        "augment", lineage_a, here_a,
+        getattr(args, "augment_explicit", True),
+        "recorded" if pa is not None else
+        "pre-round-4 sidecar-less, the only semantics it can have",
+        f"Pass --augment {lineage_a} to continue it, or start a fresh "
+        "lineage (--tag or a different --checkpoint_dir).")
+
+    if algo_name == "salientgrads":
+        tp = meta.get("track_personal")
+        _adopt_or_refuse(
+            "track_personal", int(bool(tp)),  # None = pre-r5: no stack
+            int(bool(getattr(args, "track_personal", 1))),
+            getattr(args, "track_personal_explicit", True),
+            "recorded" if tp is not None else
+            "pre-round-5 sidecar-less: its states have no personal stack",
+            "Resume WITHOUT --track_personal to continue it under the "
+            "lineage's own protocol, or start a fresh lineage (--tag or "
+            "a different --checkpoint_dir) for the other mode.")
 
 
 def _log_inert(args: argparse.Namespace) -> None:
@@ -385,6 +514,10 @@ def build_algorithm(args: argparse.Namespace, algo_name: str):
         robust_krum_f=getattr(args, "robust_krum_f", 0),
         # norm_krum's clip bound is --norm_bound
         robust_norm_bound=getattr(args, "norm_bound", 5.0),
+        # the population client store: bitwise the resident run, so it
+        # never enters the run identity
+        client_store=getattr(args, "client_store", "device"),
+        store_hot_clients=getattr(args, "store_hot_clients", 64),
         device=getattr(args, "device", "cuda"),
     )
     defense = None
@@ -487,6 +620,22 @@ def save_stat_info(args: argparse.Namespace, identity: str,
     return path
 
 
+def _ckpt_metadata(args, algo, cost):
+    """The checkpoint's metadata sidecar, shared by the per-round and the
+    block-boundary saves (a key the lineage reconciliation or the cost
+    restore reads must be in both, or fused and unfused lineages could
+    not resume each other)."""
+    return {"cost": cost.snapshot_totals(),
+            "batching": getattr(args, "batching", "epoch"),
+            "augment": getattr(algo, "augment_fn", None) is not None,
+            "track_personal": bool(getattr(args, "track_personal", 1)),
+            # diagnostic only: the wire, the cache and the residency that
+            # wrote the lineage's states
+            "agg_impl": algo.agg_impl,
+            "eval_cache": bool(getattr(algo, "eval_cache", False)),
+            "client_store": getattr(algo, "client_store", "device")}
+
+
 def _cost_round_record(algo, cost, samples_per_client, state):
     """One round's cost record (shared by the unfused and fused loops): with
     fixed masks round 0's count repeats (no device-to-host pull after it);
@@ -500,14 +649,19 @@ def _cost_round_record(algo, cost, samples_per_client, state):
         samples_per_client=samples_per_client)
 
 
-def _run_fused_rounds(algo, algo_name, state, total, block, ev_every, cost,
-                      samples_per_client, history, counters):
+def _run_fused_rounds(algo, algo_name, state, start_round, total, block,
+                      ev_every, cost, samples_per_client, history, counters,
+                      ckpt_mgr=None, args=None):
     """The runner's fused round loop (``--fuse_rounds K``): the shared block
     loop (``FedAlgorithm._fused_block_loop``) plus the cost accounting.
     The masks are static, so one snapshot, from the first block's output
     state, prices every round: its nonzero pattern is the unfused loop's
     after round 0 (a zero-init bias is nonzero after any trained round;
-    masked weights are exact zeros either way)."""
+    masked weights are exact zeros either way).
+
+    Checkpoints are saved at block boundaries: the same (round, state)
+    pairs the unfused loop saves, so fused and unfused lineages resume each
+    other, a resume starting at the last saved boundary."""
     def on_record(r, rec, state_out):
         crec = _cost_round_record(algo, cost, samples_per_client, state_out)
         rec["sum_training_flops"] = crec["sum_training_flops"]
@@ -516,8 +670,16 @@ def _run_fused_rounds(algo, algo_name, state, total, block, ev_every, cost,
         history.append(rec)
         logger.info("%s round %d: %s", algo_name, r, rec)
 
-    return algo._fused_block_loop(state, 0, total, block, ev_every,
-                                  on_record)
+    def on_block(end_round, state_out):
+        if ckpt_mgr is not None:
+            # a store-backed lineage's staged rows ride the same boundary
+            # as its store_<step>.npz sidecar
+            ckpt_mgr.save(end_round, state_out,
+                          metadata=_ckpt_metadata(args, algo, cost),
+                          store=algo._store)
+
+    return algo._fused_block_loop(state, start_round, total, block, ev_every,
+                                  on_record, on_block=on_block)
 
 
 def run_experiment(args: argparse.Namespace,
@@ -526,6 +688,7 @@ def run_experiment(args: argparse.Namespace,
     from ..convert import to_reference_layout
     from ..robust import recovery
     from ..robust.recovery import RoundWatchdog
+    from ..utils.checkpoint import CheckpointManager
     from ..utils.flops import CostTracker, avg_inference_flops
     from ..utils.records import DeferredRecords, RunCounters, to_float
 
@@ -536,7 +699,19 @@ def run_experiment(args: argparse.Namespace,
     except RuntimeError as e:
         raise SystemExit(f"--device {args.device}: {e}")
     log_handler = None
+    ckpt_mgr = None
     try:
+        # the lineage's semantics first: a knob a defaulted resume adopts
+        # enters the run identity below
+        if args.checkpoint_dir:
+            ckpt_mgr = CheckpointManager(
+                args.checkpoint_dir,
+                run_identity(args, algo_name, for_checkpoint=True))
+            last = ckpt_mgr.latest_step()
+            if last is not None:
+                _resolve_lineage_semantics(
+                    args, ckpt_mgr.load_metadata(last) or {}, last,
+                    ckpt_mgr.directory, algo_name)
         identity = run_identity(args, algo_name)
         configure_console()
         log_handler = add_run_file_logger(
@@ -546,10 +721,41 @@ def run_experiment(args: argparse.Namespace,
         seed_everything(args.seed)
 
         algo, data = build_algorithm(args, algo_name)
+        _check_augment_consistency(args, algo)
         fuse = max(1, getattr(args, "fuse_rounds", 1) or 1)
         if fuse > 1:
             refuse_fused(algo, algo_name)
-        state = algo.init_state()
+        state = None
+        start_round = 0
+        if ckpt_mgr is not None and args.resume:
+            hints = []
+            if getattr(args, "agg_impl", "dense") == "topk":
+                hints.append(
+                    "(agg_impl='topk' states carry the error-feedback "
+                    "residual stack; topk lineages live under their own "
+                    "'aggtopk' checkpoint identity and are not "
+                    "interchangeable with other impls')")
+            if getattr(args, "eval_cache", 0):
+                hints.append(
+                    "(--eval_cache states carry the per-client eval "
+                    "cache; evcache lineages live under their own "
+                    "checkpoint identity and are not interchangeable "
+                    "with cache-less ones)")
+            if algo._store is not None:
+                hints.append(
+                    "(--client_store lineages keep the per-client rows "
+                    "in a store_<step>.npz sidecar next to each step; "
+                    "a step without a loadable sidecar is skipped)")
+            # init_state registers the store's fields, whose rows the
+            # step's snapshot then replaces
+            restored = ckpt_mgr.restore_latest(
+                algo.init_state(), schema_hint=" ".join(hints),
+                store=algo._store)
+            if restored is not None:
+                state, start_round = restored
+                logger.info("resumed from round %d", start_round)
+        if state is None:
+            state = algo.init_state()
 
         # per-round cost accounting (stat_info's sum_training_flops /
         # sum_comm_params): with epoch batching each client consumes its
@@ -561,6 +767,18 @@ def run_experiment(args: argparse.Namespace,
         if algo.hp.batching == "epoch":
             samples_per_client = algo.hp.local_epochs * int(
                 np.mean(np.asarray(data.n_train)))
+        if start_round > 0:
+            # the totals the lineage saved (exact for evolving masks too),
+            # else an estimate of the earlier rounds from the restored state
+            meta = ckpt_mgr.load_metadata(start_round) or {}
+            cost_meta = meta.get("cost") or {}
+            if "sum_training_flops" in cost_meta:
+                cost.restore_totals(cost_meta)
+            else:
+                cost.record_round(
+                    *algo.cost_snapshot(state),
+                    n_clients=algo.cost_trained_clients_per_round(),
+                    samples_per_client=samples_per_client)
 
         history = []
         final_eval = None
@@ -587,21 +805,24 @@ def run_experiment(args: argparse.Namespace,
                 max_retries=retries,
                 backoff_s=getattr(args, "retry_backoff_s", 0.0),
                 loss_threshold=getattr(args, "watchdog_loss", 0.0),
-                norm_threshold=getattr(args, "watchdog_norm", 0.0))
+                norm_threshold=getattr(args, "watchdog_norm", 0.0),
+                ckpt_mgr=ckpt_mgr, template_fn=algo.init_state,
+                store=algo._store)
         if fuse > 1:
             # K-round fused blocks (FedAlgorithm.run_rounds_fused): on the
             # card one graph replay per round, one metric fetch per block;
             # the final eval is taken once below
             state = _run_fused_rounds(
-                algo, algo_name, state, args.comm_round, fuse,
+                algo, algo_name, state, start_round,
+                max(start_round, args.comm_round), fuse,
                 args.frequency_of_the_test or 0, cost, samples_per_client,
-                history, counters)
+                history, counters, ckpt_mgr=ckpt_mgr, args=args)
         else:
             # round r's record is converted and logged after round r+1 is
             # queued (utils/records.py)
             deferred = DeferredRecords(log=_emit)
             try:
-                r = 0
+                r = start_round
                 while r < args.comm_round:
                     if watchdog is not None:
                         # a retry re-samples the cohort (nonce 0 = the
@@ -618,9 +839,13 @@ def run_experiment(args: argparse.Namespace,
                             # the discarded attempt's faults happened:
                             # count them (its record is never emitted)
                             counters.update(record)
+                            # its staged store rows go with it
+                            algo.store_discard()
+                            state = watchdog.rollback(state)
                             continue
                         if verdict == recovery.SKIP:
                             new_state = state  # carry the last-good state
+                            algo.store_discard()
                             record["round_skipped"] = 1.0
                         record.update(watchdog.round_counters())
                     state = new_state
@@ -637,6 +862,11 @@ def run_experiment(args: argparse.Namespace,
                             if not k.startswith("acc_per")})
                     history.append(record)
                     deferred.push(record)
+                    if ckpt_mgr is not None:
+                        ckpt_mgr.save(
+                            r + 1, state,
+                            metadata=_ckpt_metadata(args, algo, cost),
+                            store=algo._store)
                     r += 1
                 if watchdog is not None:
                     algo.set_retry_nonce(0)
@@ -646,6 +876,8 @@ def run_experiment(args: argparse.Namespace,
             deferred.flush()
 
         fin_rec = None
+        # checkpoints hold pre-finalize states, so a resumed run with no
+        # rounds left runs the final pass again from the same state
         if getattr(args, "final_finetune", 1):
             state, fin_rec = algo.finalize(state)
         if fin_rec is not None:
@@ -682,6 +914,9 @@ def run_experiment(args: argparse.Namespace,
         fault_totals = counters.summary()
         if watchdog is not None:
             fault_totals.update(watchdog.totals())
+        if ckpt_mgr is not None:
+            fault_totals["checkpoint_save_failures"] = float(
+                ckpt_mgr.save_failures)
         stat_path = save_stat_info(
             args, identity, history, final_eval, extras, cost=cost,
             avg_inference_flops=avg_inf, fault_counters=fault_totals)
@@ -693,6 +928,8 @@ def run_experiment(args: argparse.Namespace,
             "state": state,
         }
     finally:
+        if ckpt_mgr is not None:
+            ckpt_mgr.close()
         remove_run_file_logger(log_handler)
 
 

@@ -20,11 +20,11 @@ Verdicts are pure functions of the round's metrics, and the retry cohorts of
 r-1's aggregate, so the loss checks flag a poisoned aggregate one round
 late; ``norm_threshold`` judges the candidate aggregate itself.
 
-The reference can also restore the newest checkpoint when no in-memory
-last-good state exists (and reload the client store's rows with it); the
-port has no checkpoints yet (ROADMAP item 12), so the constructor refuses
-``ckpt_mgr`` and ``store``, and the rollback is the round loop's: it keeps
-the state it had.
+When no in-memory last-good state exists (a rollback after the process
+lost it), :meth:`RoundWatchdog.rollback` restores the newest checkpoint
+(``ckpt_mgr``, shaped by ``template_fn()``), and with it the client store's
+rows (``store``): the lineage holds only states the watchdog approved, so
+the newest checkpoint is the last good state.
 """
 from __future__ import annotations
 
@@ -59,18 +59,22 @@ class RoundWatchdog:
 
     ``loss_threshold`` / ``norm_threshold`` of 0 disable the magnitude
     checks; a non-finite train loss (or update norm, with the norm check
-    on) always trips. ``sleep`` is injectable for tests."""
+    on) always trips. ``ckpt_mgr`` (a ``utils.checkpoint.
+    CheckpointManager``), ``template_fn`` (a fresh ``algo.init_state``) and
+    ``store`` (the algorithm's client store) back :meth:`rollback` when no
+    in-memory state is left. ``sleep`` is injectable for tests."""
 
     def __init__(self, max_retries: int = 2, backoff_s: float = 0.0,
                  loss_threshold: float = 0.0, norm_threshold: float = 0.0,
-                 ckpt_mgr=None, store=None,
+                 ckpt_mgr=None,
+                 template_fn: Optional[Callable[[], Any]] = None,
+                 store=None,
                  sleep: Callable[[float], None] = time.sleep):
-        if ckpt_mgr is not None or store is not None:
-            raise ValueError(
-                "RoundWatchdog: the checkpoint-restore rollback and the "
-                "client store's rows are not ported to PyTorch yet (ROADMAP "
-                "item 12); the watchdog rolls back to the in-memory "
-                "last-good state")
+        self.ckpt_mgr = ckpt_mgr
+        self.template_fn = template_fn
+        # a store-backed lineage: the checkpoint rollback reloads the
+        # per-client rows with the state
+        self.store = store
         self.max_retries = max(0, int(max_retries))
         self.backoff_s = float(backoff_s)
         self.loss_threshold = float(loss_threshold)
@@ -136,6 +140,26 @@ class RoundWatchdog:
             "carrying the last-good state (round skipped)",
             round_idx, self.max_retries)
         return SKIP
+
+    def rollback(self, prev_state: Any) -> Any:
+        """The state to retry from: the pre-round (last-good) state the
+        round loop still holds, or, given None, the newest checkpoint (with
+        the store's rows), which holds the last state the watchdog
+        approved."""
+        if prev_state is not None:
+            return prev_state
+        if self.ckpt_mgr is None or self.template_fn is None:
+            raise RuntimeError(
+                "watchdog rollback: no in-memory last-good state and no "
+                "checkpoint manager to restore from")
+        restored = self.ckpt_mgr.restore_latest(self.template_fn(),
+                                                store=self.store)
+        if restored is None:
+            raise RuntimeError(
+                "watchdog rollback: checkpoint directory is empty")
+        state, step = restored
+        logger.warning("watchdog: rolled back to checkpoint step %d", step)
+        return state
 
     def round_counters(self) -> Dict[str, float]:
         """Per-round record fields (floats)."""

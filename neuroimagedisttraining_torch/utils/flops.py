@@ -202,6 +202,29 @@ class CostTracker:
         self.per_round.append(rec)
         return rec
 
+    def snapshot_totals(self) -> Dict[str, float]:
+        """The totals as the checkpoint's metadata sidecar holds them."""
+        last = self.per_round[-1] if self.per_round else None
+        return {
+            "sum_training_flops": self.sum_training_flops,
+            "sum_comm_params": self.sum_comm_params,
+            "last_training_flops": last["training_flops"] if last else 0.0,
+            "last_comm_params": last["comm_params"] if last else 0,
+        }
+
+    def restore_totals(self, meta: Dict[str, float]) -> None:
+        """The counters seeded from a checkpoint's sidecar: exact for the
+        evolving-mask algorithms too, whose earlier rounds had other
+        densities than the restored state's."""
+        self.sum_training_flops = float(meta["sum_training_flops"])
+        self.sum_comm_params = int(meta["sum_comm_params"])
+        self.per_round = [{
+            "training_flops": float(meta["last_training_flops"]),
+            "comm_params": int(meta["last_comm_params"]),
+            "sum_training_flops": self.sum_training_flops,
+            "sum_comm_params": self.sum_comm_params,
+        }]
+
     def record_repeat(self) -> Dict[str, float]:
         """Accumulate another round identical to the last recorded one (no
         device-to-host pull when the masks are static)."""

@@ -156,8 +156,6 @@ _NO_FUSED = ("fedfomo", "turboaggregate")
 REFUSED = [
     (["--algo", a, "--fuse_rounds", "2"], "--fuse_rounds") for a in _NO_FUSED
 ] + [
-    (["--checkpoint_dir", "ck"], "--checkpoint_dir"),
-    (["--resume"], "--resume"),
     (["--obs", "1"], "--obs"),
     (["--obs_numerics", "1"], "--obs_numerics"),
     (["--obs_comm", "1"], "--obs_comm"),
@@ -167,7 +165,6 @@ REFUSED = [
     (["--mesh_devices", "2"], "--mesh_devices"),
     (["--mesh_space", "2"], "--mesh_space"),
     (["--multihost"], "--multihost"),
-    (["--client_store", "host", "--frac", "0.5"], "--client_store"),
     (["--serve_role", "worker"], "--serve_role"),
     (["--fed_role", "aggregator", "--fed_sites", "2"], "--fed_role"),
     (["--fed_role", "aggregator", "--fed_sites", "2", "--fed_site_faults",

@@ -545,7 +545,8 @@ def test_cuda_masked_sgd_lr_by_pointer_matches_by_value():
                                       momentum=MOM, wd=WD)
 
 
-def _narrow_algo(dev, name, impl, frac=1.0, **extra):
+def _narrow_algo(dev, name, impl, frac=1.0, batch_size=4, steps=2,
+                 **extra):
     from neuroimagedisttraining_torch.algorithms import FedAvg, SalientGrads
     from neuroimagedisttraining_torch.core.state import HyperParams
     from neuroimagedisttraining_torch.data import make_synthetic_federated
@@ -557,7 +558,8 @@ def _narrow_algo(dev, name, impl, frac=1.0, **extra):
     data = make_synthetic_federated(seed=9, n_clients=4, samples_per_client=8,
                                     test_per_client=5, sample_shape=ss)
     hp = HyperParams(lr=0.01, lr_decay=0.9, momentum=0.9, weight_decay=5e-4,
-                     local_epochs=1, steps_per_epoch=2, batch_size=4)
+                     local_epochs=1, steps_per_epoch=steps,
+                     batch_size=batch_size)
     model = create_model("3dcnn_s2d", num_classes=1,
                          widths=(16, 16, 16, 16, 16), dropout_rate=0.5,
                          sample_shape=ss)
@@ -668,7 +670,8 @@ def test_cuda_eval_protocol_fused_matches_eager(name, frac, extra):
 
 @pytest.mark.cuda
 def test_cuda_round_graphs_bounded_at_sampled_uneven_cohort():
-    """Two of four uneven shards a round meet more client-draw keys than
+    """Two of four uneven shards a round, at batch 1 (so each shard's step
+    count is its row count), meet more step-count keys than
     the loop keeps round graphs: it never holds more than
     FUSED_MAX_GRAPHS, an evicted graph's memory pool goes back to the card
     (after the run, the reserved memory exceeds what the full cache took by
@@ -677,10 +680,12 @@ def test_cuda_round_graphs_bounded_at_sampled_uneven_cohort():
     dev = _card()
     from neuroimagedisttraining_torch.algorithms.base import FUSED_MAX_GRAPHS
 
-    algo = _narrow_algo(dev, "salientgrads", "dense", frac=0.5)
+    algo = _narrow_algo(dev, "salientgrads", "dense", frac=0.5,
+                        batch_size=1, steps=12)
     rounds = 16
-    keys = [tuple(algo._n_train[int(c)] for c in
-                  algo._selected_client_indexes(r)) for r in range(rounds)]
+    keys = [algo._step_key([algo._n_train[int(c)] for c in
+                            algo._selected_client_indexes(r)])
+            for r in range(rounds)]
     assert len(set(keys)) >= FUSED_MAX_GRAPHS + 2, keys
     s0 = algo.init_state()
     su, losses = algo.clone_state(s0), []

@@ -176,7 +176,7 @@ def test_returned_state_not_overwritten_by_next_block(cohort):
 
 
 def test_round_graphs_bounded_by_lru(cohort, monkeypatch):
-    """A sampled draw of uneven shards meets more client-draw keys than the
+    """A sampled draw of uneven shards meets more step-count keys than the
     loop keeps graphs: the least recently used one is released, the cache
     never holds more than FUSED_MAX_GRAPHS, and a key met again after its
     eviction is built anew and still equals run_round bit for bit."""
@@ -184,8 +184,9 @@ def test_round_graphs_bounded_by_lru(cohort, monkeypatch):
 
     monkeypatch.setattr(base, "FUSED_MAX_GRAPHS", 2)
     algo = _algo(cohort, "salientgrads", frac=2 / 3)
-    keys = {tuple(algo._n_train[int(c)] for c in
-                  algo._selected_client_indexes(r)) for r in range(6)}
+    keys = {algo._step_key([algo._n_train[int(c)] for c in
+                            algo._selected_client_indexes(r)])
+            for r in range(6)}
     assert len(keys) > 2, keys
     s0 = algo.init_state()
     su, losses, _ = _eager(algo, algo.clone_state(s0), 6, eval_every=0)
@@ -195,6 +196,57 @@ def test_round_graphs_bounded_by_lru(cohort, monkeypatch):
         got += list(ys["train_loss"])
         assert len(algo._fused.rounds) <= 2
     assert algo._fused.evicted >= len(keys) - 2
+    np.testing.assert_array_equal(got, losses)
+    _assert_states_equal(su, sf)
+
+
+def _counts(algo, r):
+    return tuple(algo._n_train[int(c)] for c in
+                 algo._selected_client_indexes(r))
+
+
+def test_equal_step_counts_replay_one_graph(cohort):
+    """Two draws whose clients' sample counts differ but whose step counts
+    agree (shards of 6 and 7 rows at batch 4 both run 2 batches an epoch)
+    share one round graph: the counts reach the body through the n_sel
+    buffer (the aggregate's weights, the loss masks), and the blocks are
+    bitwise the eager rounds."""
+    algo = _algo(cohort, "salientgrads", frac=2 / 3)
+    rounds = [r for r in range(40)
+              if algo._step_key(_counts(algo, r)) == (2, 2)]
+    r1 = rounds[0]
+    r2 = next(r for r in rounds if _counts(algo, r) != _counts(algo, r1))
+    assert algo._step_key(_counts(algo, r1)) == \
+        algo._step_key(_counts(algo, r2))
+    s0 = algo.init_state()
+    su, sf, losses, got = algo.clone_state(s0), s0, [], []
+    for r in (r1, r2):
+        su, met = algo.run_round(su, r)
+        losses.append(float(met["train_loss"]))
+        sf, ys = algo.run_rounds_fused(sf, r, 1)
+        got += list(ys["train_loss"])
+    assert list(algo._fused.rounds) == [(2, 2)]
+    assert algo._fused.evicted == 0
+    np.testing.assert_array_equal(got, losses)
+    _assert_states_equal(su, sf)
+
+
+def test_uneven_shards_key_by_step_counts(cohort):
+    """At ``frac`` 0.5 on uneven shards, eight one-round blocks create no
+    more round graphs than the distinct step-count tuples their draws
+    meet, fewer than the distinct sample-count tuples, and equal the eager
+    rounds bit for bit."""
+    algo = _algo(cohort, "fedavg", frac=0.5)
+    counts = {_counts(algo, r) for r in range(8)}
+    steps = {algo._step_key(c) for c in counts}
+    assert len(steps) < len(counts), (steps, counts)
+    s0 = algo.init_state()
+    su, losses, _ = _eager(algo, algo.clone_state(s0), 8, eval_every=0)
+    sf, got = s0, []
+    for r in range(8):
+        sf, ys = algo.run_rounds_fused(sf, r, 1)
+        got += list(ys["train_loss"])
+    assert set(algo._fused.rounds) == steps
     np.testing.assert_array_equal(got, losses)
     _assert_states_equal(su, sf)
 

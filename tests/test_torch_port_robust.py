@@ -637,7 +637,9 @@ class _S:
 
 def test_watchdog_verdicts_match_reference():
     """A scripted run through both watchdogs: the same verdict for every
-    attempt, the same per-round and total counters, the same backoff."""
+    attempt, the same per-round and total counters, the same backoff; and
+    the same rollback: the state in hand, else the reference's error when
+    there is no checkpoint to restore from."""
     script = [  # (round, train_loss, update scale)
         (0, 0.5, 1.0), (1, float("nan"), 1.0), (1, 9.0, 1.0),
         (1, 0.4, 1.0), (2, 0.3, 50.0), (2, float("inf"), 1.0),
@@ -660,8 +662,13 @@ def test_watchdog_verdicts_match_reference():
     assert tw.totals() == jw.totals() == {"rounds_retried": 4.0,
                                           "rounds_skipped": 1.0}
     assert sleeps["t"] == sleeps["j"]
-    with pytest.raises(ValueError, match="ROADMAP item 12"):
-        trecovery.RoundWatchdog(ckpt_mgr=object())
+    prev = _S(w=torch.ones(2))
+    assert tw.rollback(prev) is prev
+    with pytest.raises(RuntimeError) as te:
+        tw.rollback(None)
+    with pytest.raises(RuntimeError) as je:
+        jw.rollback(None)
+    assert str(te.value) == str(je.value)
     assert trecovery.tree_finite({"a": torch.ones(2), "n": torch.ones(1,
                                   dtype=torch.int64)})
     assert not trecovery.tree_finite(

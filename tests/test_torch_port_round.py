@@ -297,9 +297,10 @@ def test_port_imports_no_jax():
                 "algorithms/local_only", "algorithms/dpsgd",
                 "experiments/main_dispfl", "experiments/main_subavg",
                 "experiments/main_ditto", "experiments/main_local",
-                "experiments/main_dpsgd"):
+                "experiments/main_dpsgd", "utils/checkpoint",
+                "core/client_store"):
         assert f"neuroimagedisttraining_torch/{mod}.py" in names, mod
-    banned = ("jax", "flax", "neuroimagedisttraining_tpu")
+    banned = ("jax", "flax", "orbax", "neuroimagedisttraining_tpu")
     for f in files:
         for mod in _imports(f):
             assert mod.split(".")[0] not in banned, (f, mod)
