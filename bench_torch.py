@@ -53,6 +53,16 @@ runs ``bench.py``'s tracked Byzantine configuration instead (its
 (:func:`byzantine`). Its line has ``bench.py``'s metric name,
 ``byzantine_robust_fedavg_rounds_per_sec_64clients``, and ``vs_baseline``
 0 (the reference publishes no number for it).
+
+    BENCH_CONFIG=resnet3d [BENCH_DENSE=1] | uneven | clients32 python3 bench_torch.py
+
+run ``bench.py``'s other tracked configurations of the same workload, each
+through :func:`main` with the default's ``extra`` keys (:func:`bench_config`
+names them): ``resnet3d`` the 3D-ResNet twin ``3dresnet_s2d`` on volumes
+phased for its k3/p3 stem (``3dresnet`` on the raw volumes with
+``BENCH_DENSE=1``), ``uneven`` shards of ``[20, 40]`` samples drawn as
+``bench.py`` draws them (the masked epoch path), ``clients32`` 32 clients
+with test shards of 4. Any other ``BENCH_CONFIG`` is refused.
 """
 from __future__ import annotations
 
@@ -73,6 +83,8 @@ TARGET_ROUNDS_PER_SEC = 10.0
 FUSED_WARM_CALLS = 2
 MODEL_KEY = "3dcnn_s2d"
 METRIC = f"salientgrads_rounds_per_sec_abcd_alexnet3d_{N_CLIENTS}clients"
+#: the BENCH_CONFIG values :func:`main` runs ("" is the default workload)
+MAIN_CONFIGS = ("", "resnet3d", "uneven", "clients32")
 #: bench.py's tracked Byzantine configuration
 BYZANTINE_CLIENTS = 64
 BYZANTINE_VOLUME = (61, 73, 61)
@@ -129,6 +141,39 @@ def timed_rounds_fused(algo, state, n_rounds: int = 10,
     return n_rounds / (time.perf_counter() - t0)
 
 
+def bench_config(name: str = "", dense: bool = False) -> dict:
+    """The workload of ``BENCH_CONFIG=name`` at ``bench.py``'s constants
+    and under its metric name: ``model_key``, ``n_clients``, ``uneven``,
+    ``test_per_client`` (None: ``max(4, n // 4)``) and ``metric``.
+    ``dense`` is ``BENCH_DENSE``: the reference-layout ``3dresnet``."""
+    if name not in MAIN_CONFIGS:
+        raise ValueError(f"unknown BENCH_CONFIG {name!r}")
+    model_key, n_clients, uneven, test = MODEL_KEY, N_CLIENTS, False, None
+    if name == "resnet3d":
+        model_key = "3dresnet" if dense else "3dresnet_s2d"
+    elif name == "uneven":
+        uneven = True
+    elif name == "clients32":
+        n_clients, test = 32, 4
+    metric = (f"salientgrads_rounds_per_sec_abcd_alexnet3d_{n_clients}clients"
+              if model_key == MODEL_KEY else
+              f"salientgrads_rounds_per_sec_abcd_{model_key}_{n_clients}"
+              "clients") + ("_uneven" if uneven else "")
+    return dict(model_key=model_key, n_clients=n_clients, uneven=uneven,
+                test_per_client=test, metric=metric)
+
+
+def sample_shape_of(model_key: str) -> tuple:
+    """The stored per-sample shape of ``VOLUME`` for ``model_key``: phased
+    for its stem (the CLI's ``S2D_SPECS``), else ``VOLUME + (1,)``."""
+    from neuroimagedisttraining_torch.experiments.runner import S2D_SPECS
+    from neuroimagedisttraining_torch.ops.s2d import phased_sample_shape
+
+    spec = S2D_SPECS.get(model_key)
+    return (phased_sample_shape(VOLUME, *spec) if spec is not None
+            else VOLUME + (1,))
+
+
 def card_name_and_power_limit() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -136,11 +181,14 @@ def card_name_and_power_limit() -> str:
         check=True, timeout=60).stdout.strip()
 
 
-def main(emit: bool = True) -> Optional[dict]:
-    """Measure and (with ``emit``) print the one JSON line; returns the
-    record, or None without CUDA."""
+def main(emit: bool = True, config: str = "",
+         dense: bool = False) -> Optional[dict]:
+    """Measure the workload of ``BENCH_CONFIG=config``
+    (:func:`bench_config`) and (with ``emit``) print the one JSON line;
+    returns the record, or None without CUDA."""
     import torch
 
+    cfg = bench_config(config, dense)
     if not torch.cuda.is_available():
         print("bench_torch: CUDA is not available", file=sys.stderr)
         return None
@@ -149,16 +197,18 @@ def main(emit: bool = True) -> Optional[dict]:
     from neuroimagedisttraining_torch.data import device_synthetic_federated
     from neuroimagedisttraining_torch.models import create_model
     from neuroimagedisttraining_torch.ops import kernels
-    from neuroimagedisttraining_torch.ops.s2d import phased_sample_shape
 
     dev = torch.device("cuda")
     kernels.build()
     torch.cuda.reset_peak_memory_stats(dev)
-    sample_shape = phased_sample_shape(VOLUME)
+    n_clients = cfg["n_clients"]
+    sample_shape = sample_shape_of(cfg["model_key"])
     data = device_synthetic_federated(
-        N_CLIENTS, SAMPLES_PER_CLIENT, sample_shape,
-        torch.Generator(device=dev).manual_seed(0))
-    model = create_model(MODEL_KEY, num_classes=1, sample_shape=sample_shape)
+        n_clients, SAMPLES_PER_CLIENT, sample_shape,
+        torch.Generator(device=dev).manual_seed(0),
+        test_per_client=cfg["test_per_client"], uneven=cfg["uneven"])
+    model = create_model(cfg["model_key"], num_classes=1,
+                         sample_shape=sample_shape)
     hp = HyperParams(lr=1e-3, lr_decay=0.998, momentum=0.9,
                      weight_decay=5e-4, grad_clip=10.0, local_epochs=1,
                      steps_per_epoch=STEPS, batch_size=BATCH)
@@ -191,8 +241,9 @@ def main(emit: bool = True) -> Optional[dict]:
             "fused": timed_rounds_fused(a, s, n_rounds=8, eval_every=1)}
         del a, s
     n_cards = 1  # the whole cohort trains on one card
+    counts = [int(n) for n in data.n_train]
     result = {
-        "metric": METRIC,
+        "metric": cfg["metric"],
         "value": round(rps, 4),
         "unit": "rounds/sec",
         "vs_baseline": round(rps / TARGET_ROUNDS_PER_SEC, 4),
@@ -209,17 +260,19 @@ def main(emit: bool = True) -> Optional[dict]:
                for cell, rates in cells.items()
                for spelling, r in rates.items()},
             "client_rounds_per_sec_per_chip": round(
-                rps * N_CLIENTS / n_cards, 2),
+                rps * n_clients / n_cards, 2),
             "client_samples_per_sec": round(
-                rps * N_CLIENTS * STEPS * BATCH, 2),
+                rps * n_clients * STEPS * BATCH, 2),
             "snip_init_s": snip_s,
             "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
             "device": card_name_and_power_limit(),
             "n_devices": n_cards,
             "volume": list(VOLUME),
             "sample_shape": list(sample_shape),
-            "clients": N_CLIENTS,
-            "samples_per_client": SAMPLES_PER_CLIENT,
+            "clients": n_clients,
+            # per client where the shards are uneven
+            "samples_per_client": (counts if cfg["uneven"]
+                                   else SAMPLES_PER_CLIENT),
             "local_steps": STEPS,
             "batch_size": BATCH,
             "compute_dtype": "bfloat16",
@@ -290,7 +343,10 @@ def byzantine(emit: bool = True) -> Optional[dict]:
 
 if __name__ == "__main__":
     config = os.environ.get("BENCH_CONFIG", "")
-    if config not in ("", "byzantine"):
+    if config not in MAIN_CONFIGS + ("byzantine",):
         sys.exit(f"unknown BENCH_CONFIG {config!r}")
-    run = byzantine if config == "byzantine" else main
-    sys.exit(0 if run() is not None else 2)
+    if config == "byzantine":
+        rec = byzantine()
+    else:
+        rec = main(config=config, dense=bool(os.environ.get("BENCH_DENSE")))
+    sys.exit(0 if rec is not None else 2)

@@ -135,7 +135,24 @@ Phases, each printing one JSON line:
    of a resident 8-client run's at full participation, its round within
    2x of the resident round; save and restore seconds, the checkpoint's
    bytes, the store's gather ms (see ``state_path``).
-14. cli     — the command-line entry point in-process on the card
+14. resnet3d — the 3D-ResNet twin at full width: SalientGrads on
+   ``3dresnet_s2d``, 8 clients x 40 volumes of 121x145x121 phased for its
+   k3/p3 stem, bf16, cuDNN deterministic: SNIP, 2 eager rounds with the
+   eval, the same rounds fused, bitwise; masked SGD and the weighted sum
+   launched twice a call at its 49 leaves, the score mask once, no stem
+   kernel (its stem is plain torch); round seconds and peak memory; then
+   ``3dresnet`` on 2 raw volumes against the twin on their phased form,
+   from converted weights, within 2e-4 (see ``resnet3d_path``).
+15. uneven  — the main configuration with shards of 20-40 samples drawn
+   as ``bench.py`` draws them: SNIP, 2 eager rounds and the same rounds
+   fused, bitwise, one graph key of step counts; every kernel's launches,
+   the stem's included, follow the 31 steps a round (see
+   ``uneven_path``).
+16. determinism — the main configuration's fused rate with cuDNN's
+   deterministic mode (the CLI's) against its default, in three
+   interleaved pairs of 10-round blocks, and the stem's weight gradient
+   alone in each mode (see ``determinism_path``).
+17. cli     — the command-line entry point in-process on the card
    (``experiments.runner.main``): SalientGrads and FedAvg, ``--dataset
    synthetic --model small3dcnn --comm_round 2`` (no stem stage on this
    model), and SalientGrads with ``--fuse_rounds 2``, whose history must
@@ -149,10 +166,11 @@ Phases, each printing one JSON line:
    ``--results_dir``; then ``--checkpoint_dir`` with a run cut after round
    2 and ``--resume``'d to round 4, a ``--fuse_rounds 2`` lineage (saved
    at block boundaries) resumed unfused, and ``--client_store disk`` over
-   16 clients at ``frac`` 0.25, each held to its uninterrupted twin. The
-   ABCD cohort-file step is not here: the loaders need ``h5py``, which the
-   card's machine does not have.
-15. bench  — ``bench_torch.main()``, the port's bench of the headline
+   16 clients at ``frac`` 0.25, each bitwise its uninterrupted twin (the
+   CLI's seeding puts cuDNN in its deterministic mode; the script restores
+   the two flags after the phase). The ABCD cohort-file step is not here:
+   the loaders need ``h5py``, which the card's machine does not have.
+18. bench  — ``bench_torch.main()``, the port's bench of the headline
    workload (SNIP; the Python loop: 1 + 10 rounds without eval, 1 + 8 with
    the eval every round, each from a clone of one state; the fused
    spelling: blocks of 10 and of 8 rounds with the eval, each after its
@@ -1641,10 +1659,10 @@ def fused_path(dev):
     return out
 
 
-def _main_config(dev, sample_shape):
-    """The main configuration's cohort (8 clients x 40 volumes, 10 test
-    rows each, bf16, made on the card) at ``sample_shape``, and its
-    hyperparameters."""
+def _main_config(dev, sample_shape, uneven=False):
+    """The main configuration's cohort (8 clients x 40 volumes, or with
+    ``uneven`` ``bench.py``'s counts in [20, 40], 10 test rows each, bf16,
+    made on the card) at ``sample_shape``, and its hyperparameters."""
     import torch
 
     from neuroimagedisttraining_torch.core.state import HyperParams
@@ -1652,7 +1670,8 @@ def _main_config(dev, sample_shape):
 
     data = device_synthetic_federated(
         N_CLIENTS, SAMPLES, sample_shape,
-        torch.Generator(device=dev).manual_seed(0), test_per_client=TEST)
+        torch.Generator(device=dev).manual_seed(0), test_per_client=TEST,
+        uneven=uneven)
     hp = HyperParams(lr=1e-3, lr_decay=0.998, momentum=0.9,
                      weight_decay=5e-4, grad_clip=10.0, local_epochs=1,
                      steps_per_epoch=STEPS, batch_size=BATCH)
@@ -3180,6 +3199,351 @@ def state_path(dev):
     return {"state": launches}
 
 
+#: the resnet3d phase: rounds eager and in the fused block (the eval after
+#: each), the forward check's batch and bound (``tests/test_s2d.py``'s)
+RESNET_ROUNDS, RESNET_CHECK_BATCH, RESNET_CHECK_TOL = 2, 2, 2e-4
+#: the uneven phase's rounds, eager and fused
+UNEVEN_ROUNDS = 2
+#: the determinism phase: pairs (deterministic and default cuDNN), the
+#: rounds of each timed fused block
+DETERMINISM_PAIRS, DETERMINISM_ROUNDS = 3, 10
+
+
+class _CudnnFlags:
+    """Sets ``torch.backends.cudnn.deterministic`` and ``benchmark`` on
+    entry (None leaves a flag as it is) and puts both back on exit."""
+
+    def __init__(self, deterministic=None, benchmark=None):
+        self.want = (deterministic, benchmark)
+
+    def __enter__(self):
+        import torch
+
+        c = torch.backends.cudnn
+        self.saved = (c.deterministic, c.benchmark)
+        for name, v in zip(("deterministic", "benchmark"), self.want):
+            if v is not None:
+                setattr(c, name, v)
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        c = torch.backends.cudnn
+        c.deterministic, c.benchmark = self.saved
+        return False
+
+
+def _fused_against_eager(phase, algo, state, rounds):
+    """``rounds`` eager rounds (``run_round`` + ``evaluate``, each round and
+    eval timed) and the same rounds as one fused block from the same state:
+    the record (per-round seconds, losses, the first block's seconds, the
+    fused block's largest difference and bitwise flag, the launches of both
+    and of the graph's replay) and the launches of both spellings summed.
+    Raises unless the block is bitwise the eager rounds."""
+    import torch
+
+    from neuroimagedisttraining_torch.algorithms.base import FUSED_WARMUPS
+    from neuroimagedisttraining_torch.ops import kernels
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    s, mets, evals, round_s = algo.clone_state(state), [], [], []
+    for r in range(rounds):
+        t0 = time.perf_counter()
+        s, met = algo.run_round(s, r)
+        mets.append({k: float(v) for k, v in met.items()})
+        torch.cuda.synchronize()
+        round_s.append(time.perf_counter() - t0)
+        evals.append({k: float(v) for k, v in algo.evaluate(s).items()
+                      if not k.startswith("acc_per")})
+    torch.cuda.synchronize()
+    eager = kernels.snapshot_launches()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    sf, ys = algo.run_rounds_fused(algo.clone_state(state), 0, rounds,
+                                   eval_every=1)
+    host = ys.materialize()
+    torch.cuda.synchronize()
+    first_block_s = time.perf_counter() - t0
+    fused = kernels.snapshot_launches()
+    names = list(algo._round_metric_names)
+    diff = _spread(s, mets, evals, sf,
+                   [{k: float(host[k][i]) for k in names}
+                    for i in range(rounds)],
+                   [{k: float(v[i]) for k, v in host["eval"].items()}
+                    for i in range(rounds)])
+    trees = _tensor_trees(sf)
+    bitwise = diff == 0.0 and all(
+        torch.equal(t[k], trees[f][k])
+        for f, t in _tensor_trees(s).items() for k in t)
+    (graph,) = algo._fused.rounds.values()
+    rec = {"rounds": rounds, "round_s": round_s,
+           "train_loss": [m["train_loss"] for m in mets],
+           "final_eval": evals[-1], "first_block_s": first_block_s,
+           "fused_vs_eager_max_abs": diff, "fused_bitwise": bitwise,
+           "launches_eager": eager, "launches_fused": fused,
+           "launches_per_replay": graph.launches,
+           "fused_warmups": FUSED_WARMUPS}
+    if not bitwise:
+        emit({"phase": phase, **rec})
+        raise AssertionError(f"{phase}: the fused block differs from the "
+                             f"eager rounds by {diff}")
+    losses = rec["train_loss"] + list(evals[-1].values())
+    if not all(math.isfinite(v) for v in losses):
+        emit({"phase": phase, **rec})
+        raise AssertionError(f"{phase}: non-finite {losses}")
+    return rec, {k: eager[k] + fused[k] for k in kernels.LAUNCHES}
+
+
+def resnet3d_path(dev):
+    """The 3D-ResNet twin at full width through the library entry points:
+    SalientGrads on ``3dresnet_s2d``, 8 clients x 40 volumes of 121x145x121
+    phased for its k3/p3 stem (``(64, 76, 8, 64)``, bf16), batch 8, 5
+    steps, SNIP 0.5, the dense aggregate; cuDNN in the CLI's deterministic
+    mode. SNIP, RESNET_ROUNDS eager rounds with the eval, the same rounds
+    as one fused block, bitwise. Its 49 leaves take two launches of masked
+    SGD per step and of the weighted sum per aggregate (32 leaves a
+    launch); its 17 kernel leaves one launch of the score mask; its stem is
+    plain torch, so no stem kernel runs. Then ``3dresnet`` on
+    RESNET_CHECK_BATCH raw volumes against the twin on their phased form,
+    from converted weights, within RESNET_CHECK_TOL. Returns the launches
+    of the path (SNIP, the eager rounds, the fused block)."""
+    import gc
+
+    import torch
+
+    from neuroimagedisttraining_torch.algorithms import SalientGrads
+    from neuroimagedisttraining_torch.algorithms.base import FUSED_WARMUPS
+    from neuroimagedisttraining_torch.models import (
+        convert_resnet3d_params,
+        create_model,
+        init_params,
+        make_apply_fn,
+    )
+    from neuroimagedisttraining_torch.ops import kernels
+    from neuroimagedisttraining_torch.ops.s2d import (
+        phase_decompose,
+        phased_sample_shape,
+    )
+
+    shape = phased_sample_shape(VOLUME, kernel=3, pad=3)
+    with _CudnnFlags(deterministic=True, benchmark=False):
+        t0 = time.perf_counter()
+        data, hp = _main_config(dev, shape)
+        torch.cuda.synchronize()
+        data_s = time.perf_counter() - t0
+        model = create_model("3dresnet_s2d", num_classes=1,
+                             sample_shape=shape)
+        torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launches()
+        algo = SalientGrads(model, data, hp, loss_type="bce", frac=1.0,
+                            seed=0, dense_ratio=0.5, itersnip_iterations=1,
+                            compute_dtype="bfloat16")
+        t0 = time.perf_counter()
+        state = algo.init_state()
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        snip = dict(kernels.LAUNCHES)
+        rec, launches = _fused_against_eager("resnet3d", algo, state,
+                                             RESNET_ROUNDS)
+        peak = torch.cuda.max_memory_allocated(dev)
+        leaves = len(state.global_params)
+        kernel_leaves = sum(k.endswith(".kernel")
+                            for k in state.global_params)
+        n_params = sum(v.numel() for v in state.global_params.values())
+        density = float(algo.evaluate(state)["mask_density"])
+        del algo, state
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the dense model on raw volumes against the twin on their phased
+        # form, from converted weights (float32, TF32 off)
+        dense = create_model("3dresnet", num_classes=1,
+                             sample_shape=VOLUME + (1,)).to(dev)
+        params = init_params(dense, torch.Generator(device=dev).manual_seed(3))
+        twin = create_model("3dresnet_s2d", num_classes=1,
+                            sample_shape=shape).to(dev)
+        x = torch.randn((RESNET_CHECK_BATCH,) + VOLUME, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(4))
+        with torch.no_grad():
+            want = make_apply_fn(dense)(params, x[..., None], train=False)
+            got = make_apply_fn(twin)(convert_resnet3d_params(params),
+                                      phase_decompose(x, kernel=3, pad=3),
+                                      train=False)
+        check = {name: float(((g - w).abs() - RESNET_CHECK_TOL * (
+                     1 + w.abs())).max())
+                 for name, g, w in zip(("logits", "features"), got, want)}
+    for k in kernels.LAUNCHES:
+        launches[k] += snip[k]
+    res = {"phase": "resnet3d", "model": "3dresnet_s2d", "clients": N_CLIENTS,
+           "samples_per_client": SAMPLES, "sample_shape": list(shape),
+           "batch": BATCH, "steps": STEPS, "compute_dtype": "bfloat16",
+           "cudnn_deterministic": True, "leaves": leaves,
+           "kernel_leaves": kernel_leaves, "params": n_params,
+           "mask_density": density, "data_s": data_s, "init_snip_s": init_s,
+           **rec, "launches_snip": snip, "launches": launches,
+           "peak_mem_bytes": peak,
+           "dense_vs_twin_excess": check, "dense_vs_twin_tol":
+               RESNET_CHECK_TOL}
+    emit(res)
+    if abs(density - 0.5) > 1e-3:
+        raise AssertionError(f"resnet3d: mask density {density}")
+    if any(v > 0 for v in check.values()):
+        raise AssertionError(f"resnet3d: the twin differs from the dense "
+                             f"model beyond {RESNET_CHECK_TOL}: {check}")
+    # masked SGD and the weighted sum launch once per MAX_LEAVES leaves
+    per_table = -(-leaves // kernels.MAX_LEAVES)
+    # the eager rounds and the fused block's replays (its warm-ups too)
+    runs = 2 * RESNET_ROUNDS + FUSED_WARMUPS
+    want = {**{k: 0 for k in kernels.LAUNCHES},
+            "threshold": 1, "score_mask": -(-kernel_leaves //
+                                            kernels.MAX_LEAVES),
+            "masked_sgd": per_table * N_CLIENTS * STEPS * runs,
+            "weighted_sum": per_table * runs}
+    if (leaves, per_table) != (49, 2) or launches != want:
+        raise AssertionError(f"resnet3d: {leaves} leaves, launches "
+                             f"{launches}, want {want}")
+    return {"resnet3d": launches}
+
+
+def uneven_path(dev):
+    """The main configuration with uneven shards: per-client sample counts
+    in [20, 40] drawn as ``bench.py`` draws them, so each client runs its
+    own ``ceil(n / 8)`` of the 5 steps (the masked epoch path) and the
+    round graph's key is those step counts. SNIP, UNEVEN_ROUNDS eager
+    rounds with the eval and the same rounds as one fused block, bitwise.
+    Every kernel's launches follow the step counts. Returns the launches of
+    the path."""
+    import torch
+
+    from neuroimagedisttraining_torch.algorithms import SalientGrads
+    from neuroimagedisttraining_torch.algorithms.base import FUSED_WARMUPS
+    from neuroimagedisttraining_torch.core.trainer import active_steps
+    from neuroimagedisttraining_torch.models import create_model
+    from neuroimagedisttraining_torch.ops import kernels
+    from neuroimagedisttraining_torch.ops.s2d import phased_sample_shape
+
+    shape = phased_sample_shape(VOLUME)
+    data, hp = _main_config(dev, shape, uneven=True)
+    model = create_model("3dcnn_s2d", num_classes=1, sample_shape=shape)
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launches()
+    algo = SalientGrads(model, data, hp, loss_type="bce", frac=1.0, seed=0,
+                        dense_ratio=0.5, itersnip_iterations=1,
+                        compute_dtype="bfloat16")
+    state = algo.init_state()
+    torch.cuda.synchronize()
+    snip = dict(kernels.LAUNCHES)
+    rec, launches = _fused_against_eager("uneven", algo, state,
+                                         UNEVEN_ROUNDS)
+    counts = [int(n) for n in data.n_train]
+    key = algo._step_key(counts)
+    for k in kernels.LAUNCHES:
+        launches[k] += snip[k]
+    res = {"phase": "uneven", "model": "3dcnn_s2d", "counts": counts,
+           "step_key": list(key), "graphs": len(algo._fused.rounds), **rec,
+           "launches_snip": snip, "launches": launches,
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(dev)}
+    emit(res)
+    steps = sum(len(active_steps(hp, n)) for n in counts)
+    replays = FUSED_WARMUPS + UNEVEN_ROUNDS
+    runs = UNEVEN_ROUNDS + replays  # eager rounds and graph replays
+    evals = runs * 2 * N_CLIENTS * _eval_chunks()
+    # SNIP: one batch per client; the dropout probe's forward, once
+    want = {**{k: 0 for k in kernels.LAUNCHES},
+            "masked_sgd": runs * steps, "threshold": 1, "score_mask": 1,
+            "weighted_sum": runs,
+            "stem_fwd": runs * steps + N_CLIENTS + evals + 1,
+            "stem_bwd": runs * steps + N_CLIENTS}
+    if steps >= N_CLIENTS * STEPS or len(set(key)) < 2 or launches != want:
+        raise AssertionError(f"uneven: {steps} steps a round (key {key}), "
+                             f"launches {launches}, want {want}")
+    return {"uneven": launches}
+
+
+def determinism_path(dev):
+    """What cuDNN's deterministic mode (the CLI's, ``runner.seed_everything``)
+    costs the main configuration: SalientGrads on AlexNet3DS2D, one SNIP
+    state, two algorithms whose round graphs were captured one with
+    ``cudnn.deterministic`` on and one with it off (``benchmark`` off both
+    times); DETERMINISM_PAIRS pairs of fused blocks of DETERMINISM_ROUNDS
+    rounds (no eval), interleaved (on, off, off, on, ...); then the stem's
+    weight gradient alone (the conv's ``wgrad``, cuDNN) at the step's shape
+    in each mode. Prints both rates and both device times; gates nothing
+    but finite rates."""
+    import torch
+
+    from neuroimagedisttraining_torch.algorithms import SalientGrads
+    from neuroimagedisttraining_torch.models import create_model
+    from neuroimagedisttraining_torch.models.layers import phased_input
+    from neuroimagedisttraining_torch.ops.s2d import phased_sample_shape
+
+    shape = phased_sample_shape(VOLUME)
+    data, hp = _main_config(dev, shape)
+    model = create_model("3dcnn_s2d", num_classes=1, sample_shape=shape)
+    kw = dict(loss_type="bce", frac=1.0, seed=0, dense_ratio=0.5,
+              itersnip_iterations=1, compute_dtype="bfloat16")
+    algos, state = {}, None
+    n = DETERMINISM_ROUNDS
+    for mode in ("deterministic", "default"):
+        with _CudnnFlags(deterministic=mode == "deterministic",
+                         benchmark=False):
+            algos[mode] = SalientGrads(model, data, hp, **kw)
+            if state is None:
+                state = algos[mode].init_state()
+            # captures the round graph under this mode (a one-round block
+            # has the same key as the timed ones)
+            algos[mode].run_rounds_fused(algos[mode].clone_state(state), n,
+                                         1)[1].materialize()
+
+    def block(mode):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        algos[mode].run_rounds_fused(state, n, n)[1].materialize()
+        torch.cuda.synchronize()
+        return n / (time.perf_counter() - t0)
+
+    rates = {"deterministic": [], "default": []}
+    order = []
+    for i in range(DETERMINISM_PAIRS):
+        pair = (("deterministic", "default") if i % 2 == 0
+                else ("default", "deterministic"))
+        for mode in pair:
+            rates[mode].append(block(mode))
+            order.append(mode)
+    # the stem's weight gradient at the step's shape, as StemStage.backward
+    # calls it: channels-last input and output gradient
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = data.x_train[0, :BATCH]
+    xin = phased_input(x).contiguous(memory_format=torch.channels_last_3d)
+    w = torch.randn((64, 8, 3, 3, 3), device=dev, generator=g,
+                    dtype=torch.bfloat16)
+    dz = torch.randn((BATCH, 64) + tuple(s - 2 for s in xin.shape[2:]),
+                     device=dev, generator=g, dtype=torch.bfloat16
+                     ).contiguous(memory_format=torch.channels_last_3d)
+    wgrad = {}
+    for mode in ("deterministic", "default", "deterministic", "default"):
+        with _CudnnFlags(deterministic=mode == "deterministic",
+                         benchmark=False):
+            wgrad.setdefault(mode, []).append(device_ms(
+                lambda: torch.nn.grad.conv3d_weight(xin, w.shape, dz)))
+    med = {m: statistics.median(r) for m, r in rates.items()}
+    res = {"phase": "determinism", "rounds_per_block": n, "order": order,
+           "rounds_per_sec": rates, "median_rounds_per_sec": med,
+           "deterministic_over_default": med["deterministic"]
+           / med["default"],
+           "stem_wgrad_device_ms": wgrad,
+           "stem_wgrad_shape": {"x": list(xin.shape), "dz": list(dz.shape)},
+           "steps_per_round": N_CLIENTS * STEPS}
+    emit(res)
+    if not all(math.isfinite(v) and v > 0 for r in rates.values()
+               for v in r):
+        raise AssertionError(f"determinism: {rates}")
+    del algos
+    return {}
+
+
 def _cli_argv(algo: str, tmp: str):
     return ["--algo", algo, "--dataset", "synthetic", "--model", "small3dcnn",
             "--comm_round", "2", "--results_dir", f"{tmp}/results",
@@ -3342,14 +3706,12 @@ CLI_TWINS = {"uninterrupted": ["--comm_round", "4"],
 def _cli_state_runs(runner, built):
     """``--checkpoint_dir`` then ``--resume``, eager and from a fused
     lineage (saved at block boundaries) resumed unfused, and ``--client_store
-    disk`` over 16 clients: each run's records (the round times aside)
-    equal to its uninterrupted twin's and its final parameters within
-    1e-6 of their scale of the twin's, the parameters on the card (the
-    streamed run's cohort on the host). cuDNN runs deterministic algorithms
-    here: its default weight gradients of this model sum in another order
-    from run to run (two runs of a twin differed by 2.5e-12 on the H100);
-    the difference and that spread are printed. Returns the launches per
-    run."""
+    disk`` over 16 clients: each run's records (the round times aside) and
+    final parameters bitwise its uninterrupted twin's, the parameters on the
+    card (the streamed run's cohort on the host). The CLI's seeding puts
+    cuDNN in its deterministic mode (``runner.seed_everything``), so two
+    runs of a twin are bitwise too: their spread is printed and must be 0.
+    Returns the launches per run."""
     import tempfile
 
     import torch
@@ -3373,8 +3735,6 @@ def _cli_state_runs(runner, built):
         return max(float((a[k] - b[k]).abs().max()) for k in a)
 
     out = {}
-    deterministic = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
     with tempfile.TemporaryDirectory() as tmp:
         twins = {k: run(tmp, v, k)[0] for k, v in CLI_TWINS.items()}
         floor = {k: spread(run(tmp, v, k + "_again")[0]["state"].global_params,
@@ -3393,10 +3753,9 @@ def _cli_state_runs(runner, built):
             on_card = all(p.is_cuda for p in FedAlgorithm._template(
                 res["state"]).values()) and (
                 built["data"].x_train.is_cuda != store)
-            ref = twins[twin]["state"].global_params
-            diff = spread(res["state"].global_params, ref)
-            scale = max(float(v.abs().max()) for v in ref.values())
-            same = got == want and diff <= 1e-6 * scale
+            diff = spread(res["state"].global_params,
+                          twins[twin]["state"].global_params)
+            same = got == want and diff == 0.0 and floor[twin] == 0.0
             emit({"phase": "cli", "algo": "salientgrads", "run": path,
                   "flags": first, "resumed_flags": resumed,
                   "seconds": seconds, "twin": twin,
@@ -3406,14 +3765,13 @@ def _cli_state_runs(runner, built):
             if not (same and on_card):
                 raise AssertionError(
                     f"cli {path}: history {got} against its twin's {want}"
-                    f" (equal parameters and records {same}, on the card "
-                    f"{on_card})")
+                    f" (parameters {diff} apart, twins {floor[twin]} apart;"
+                    f" on the card {on_card})")
             if not all(launches[k] > 0 for k in ("masked_sgd", "threshold",
                                                   "score_mask",
                                                   "weighted_sum")):
                 raise AssertionError(f"cli {path}: launches {launches}")
             out[f"cli/{path}"] = launches
-    torch.backends.cudnn.deterministic = deterministic
     return out
 
 
@@ -3531,7 +3889,13 @@ def main() -> int:
     paths.update(personal_path(dev))
     paths.update(fomo_path(dev))
     paths.update(state_path(dev))
-    paths.update(cli_path(dev))
+    paths.update(resnet3d_path(dev))
+    paths.update(uneven_path(dev))
+    paths.update(determinism_path(dev))
+    # the CLI's seeding sets cuDNN's flags for the process: the bench
+    # phase after it measures with the flags the script had before
+    with _CudnnFlags():
+        paths.update(cli_path(dev))
     paths.update(bench_path(dev))
 
     line = []

@@ -1754,7 +1754,8 @@ class FedAlgorithm(abc.ABC):
         return new_state, metrics
 
     def _run_rounds_fused_store(self, state: Any, start_round: int,
-                                n_rounds: int, eval_every: int, seams):
+                                n_rounds: int, eval_every: int, seams,
+                                on_first_round=None):
         """A fused block over the store: one gather of the block's union of
         clients into the first rows of slab buffers of ``min(K * S, C)``
         rows (so one graph serves every block), round ``i`` addressing the
@@ -1790,7 +1791,7 @@ class FedAlgorithm(abc.ABC):
             fused, state, rounds, sels,
             _to_device(views.astype(np.int64), self.device),
             _to_device(np.stack(sels).astype(np.int64), self.device), 0,
-            seams, n_rows=u)
+            seams, n_rows=u, on_first_round=on_first_round)
         new_state = self._store_adopt_round(new_state, union)
         nxt = np.unique(np.concatenate([
             sample_client_indexes(r, self.num_clients,
@@ -1887,7 +1888,8 @@ class FedAlgorithm(abc.ABC):
 
     def run_rounds_fused(self, state: Any, start_round: int, n_rounds: int,
                          eval_every: int = 0,
-                         seams: Optional[Sequence[Dict[str, Any]]] = None):
+                         seams: Optional[Sequence[Dict[str, Any]]] = None,
+                         on_first_round=None):
         """Run rounds ``start_round .. start_round + n_rounds - 1`` as one
         block: on the card each round is one replay of a captured CUDA graph
         of :meth:`_round_body` (captured at the first block of its client-
@@ -1898,7 +1900,9 @@ class FedAlgorithm(abc.ABC):
         graph reads (:meth:`_FusedRounds.write`), drawn from a copy of the
         state's generator by :meth:`_round_inputs`, as :meth:`run_round`
         draws them, so a block equals ``n_rounds`` ``run_round`` calls bit
-        for bit.
+        for bit. ``on_first_round(state)``, if given, receives a copy of the
+        state after the block's first round (the runner prices the run's
+        cost from it, as the eager loop prices its first round's state).
         With a client store the block streams its clients' union
         (:meth:`_run_rounds_fused_store`).
         ``seams``, one dict per round of ``run_round``'s seams (``perms``,
@@ -1927,7 +1931,8 @@ class FedAlgorithm(abc.ABC):
                              f"{n_rounds}")
         if self._store is not None:
             return self._run_rounds_fused_store(state, start_round,
-                                                n_rounds, eval_every, seams)
+                                                n_rounds, eval_every, seams,
+                                                on_first_round)
         self._prepare_round(state)
         rounds = range(start_round, start_round + n_rounds)
         sels = [self._selected_client_indexes(r) for r in rounds]
@@ -1935,15 +1940,17 @@ class FedAlgorithm(abc.ABC):
         fused.load(state)
         sel_dev = _to_device(np.stack(sels).astype(np.int64), self.device)
         return self._fused_rounds(fused, state, rounds, sels, sel_dev, None,
-                                  eval_every, seams)
+                                  eval_every, seams,
+                                  on_first_round=on_first_round)
 
     def _fused_rounds(self, fused: _FusedRounds, state: Any, rounds,
                       sels: List[np.ndarray], sel_dev: torch.Tensor,
                       pop_dev: Optional[torch.Tensor], eval_every: int,
-                      seams, n_rows: int = 0):
+                      seams, n_rows: int = 0, on_first_round=None):
         """The replays of a block whose state is in ``fused``'s buffers:
         per round its inputs drawn, written and its graph replayed (the
-        eval's after an eval round). Returns ``(state, ys)``."""
+        eval's after an eval round); ``on_first_round`` gets a copy of the
+        state after the first. Returns ``(state, ys)``."""
         n_rounds = len(rounds)
         g = clone_generator(state.generator)
         template = self._template(state)
@@ -1961,6 +1968,9 @@ class FedAlgorithm(abc.ABC):
             fused.write(inp)
             rows[:, k].copy_(
                 fused.round_graph(self, self._step_key(inp.n_valid))())
+            if k == 0 and on_first_round is not None:
+                on_first_round(fused.export(state, clone_generator(g),
+                                            n_rows))
             if eval_every and (r + 1) % eval_every == 0:
                 ev = fused.eval_graph(self)()
                 if ev_rows is None:
@@ -1975,14 +1985,17 @@ class FedAlgorithm(abc.ABC):
 
     def _fused_block_loop(self, state: Any, start_round: int, total: int,
                           block: int, eval_every: int, on_record,
-                          timed: bool = False, on_block=None):
+                          timed: bool = False, on_block=None,
+                          on_first_round=None):
         """The shared fused-block loop (``run(fuse_rounds=K)`` and the
         CLI's ``--fuse_rounds``): dispatch block b+1, then materialize and
         emit block b's per-round records, so the card's queue never drains.
         ``on_record(round_idx, rec, state_out)`` receives each round's
         record in order with the emitting block's output state;
         ``on_block(end_round, state_out)`` fires once per flushed block,
-        after its records (the runner's block-boundary checkpoint).
+        after its records (the runner's block-boundary checkpoint);
+        ``on_first_round(state)`` once, with the state after the loop's
+        first round (:meth:`run_rounds_fused`).
 
         ``timed=True`` stamps ``round_time_s`` as the block's flush-to-flush
         wall time split evenly: the per-run sum is the wall time, a round's
@@ -2014,8 +2027,10 @@ class FedAlgorithm(abc.ABC):
         try:
             for r0 in range(start_round, total, block):
                 k = min(block, total - r0)
-                state, ys = self.run_rounds_fused(state, r0, k,
-                                                  eval_every=eval_every)
+                state, ys = self.run_rounds_fused(
+                    state, r0, k, eval_every=eval_every,
+                    on_first_round=(on_first_round if r0 == start_round
+                                    else None))
                 if pending is not None:
                     # cleared before the flush: if it raises mid-way, the
                     # finally must not emit its records again

@@ -71,12 +71,16 @@ def make_synthetic_federated(
 def device_synthetic_federated(
     n_clients: int, n: int, sample_shape: Tuple[int, ...],
     generator: torch.Generator, *, test_per_client: Optional[int] = None,
-    dtype: torch.dtype = torch.bfloat16,
+    dtype: torch.dtype = torch.bfloat16, uneven: bool = False,
 ) -> FederatedData:
     """A full-width cohort made on ``generator``'s device: standard-normal
     volumes (stored in ``dtype``, the compute type), Bernoulli(0.5) labels,
     and a ±0.75 mean shift by label. ``test_per_client`` defaults to
-    ``max(4, n // 4)``; every client holds ``n`` training samples."""
+    ``max(4, n // 4)``. Every client stores ``n`` training rows and holds
+    ``n`` samples, or with ``uneven`` a count in ``[n // 2, n]`` drawn as
+    ``bench.py`` draws it (``np.random.RandomState(0).randint(n // 2, n + 1,
+    n_clients)``): the rows past a client's count are stored but never
+    read, and the training runs the masked epoch path."""
     dev = generator.device
     m = test_per_client or max(4, n // 4)
 
@@ -91,8 +95,12 @@ def device_synthetic_federated(
 
     x, y = planted(n)
     xt, yt = planted(m)
+    if uneven:
+        counts = torch.from_numpy(np.random.RandomState(0).randint(
+            n // 2, n + 1, n_clients).astype(np.int32))
+    else:
+        counts = torch.full((n_clients,), n, dtype=torch.int32)
     return FederatedData(
-        x_train=x, y_train=y,
-        n_train=torch.full((n_clients,), n, dtype=torch.int32),
+        x_train=x, y_train=y, n_train=counts,
         x_test=xt, y_test=yt,
         n_test=torch.full((n_clients,), m, dtype=torch.int32), class_num=2)

@@ -92,8 +92,7 @@ _UNPORTED = {
 #: behavior)
 _ALLOWED = {"mesh_devices": (0, 1), "mesh_space": (0, 1)}
 #: the algorithms with a central aggregate the guard, the faults and the
-#: robust statistics act on (the JAX CLI's list; the port has the first
-#: two)
+#: robust statistics act on (the JAX CLI's list; the port runs all three)
 _CENTRAL = ("fedavg", "salientgrads", "ditto")
 #: knobs that leave the JAX package's results bit-identical, and why the
 #: port has nothing for them to change
@@ -107,15 +106,23 @@ _INERT = {
     "type": "it is dead code in the original too",
 }
 #: the models whose first dense layer is sized by the per-sample shape
-_SIZED_MODELS = ("3dcnn", "3dcnn_deeper", "3dcnn_regression", "3dcnn_s2d")
+_SIZED_MODELS = ("3dcnn", "3dcnn_deeper", "3dcnn_regression", "3dcnn_s2d",
+                 "3dresnet", "3dresnet_s2d")
 
 
 def seed_everything(seed: int) -> None:
-    """Python, numpy and torch seeding (the algorithm draws from its own
-    generator, seeded by ``--seed`` as well)."""
+    """Python, numpy and torch seeding, and cuDNN's deterministic
+    algorithms with its autotuner off, as the original does
+    (``main_sailentgrads.py:263-267``): with its default algorithms cuDNN's
+    weight gradients sum in another order from run to run, so two runs of
+    one command line would differ in the last bits. The cuDNN flags are
+    process-wide. The algorithm draws from its own generator, seeded by
+    ``--seed`` as well."""
     random.seed(seed)
     np.random.seed(seed)
     torch.manual_seed(seed)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
 
 
 def _is_abcd_h5(dataset: str) -> bool:
@@ -654,16 +661,20 @@ def _run_fused_rounds(algo, algo_name, state, start_round, total, block,
                       ckpt_mgr=None, args=None):
     """The runner's fused round loop (``--fuse_rounds K``): the shared block
     loop (``FedAlgorithm._fused_block_loop``) plus the cost accounting.
-    The masks are static, so one snapshot, from the first block's output
-    state, prices every round: its nonzero pattern is the unfused loop's
-    after round 0 (a zero-init bias is nonzero after any trained round;
-    masked weights are exact zeros either way).
+    The masks are static, so one snapshot prices every round: that of the
+    state after the run's first round, as in the unfused loop. (A later
+    state can differ in its nonzero pattern: a conv bias ahead of a
+    GroupNorm has a gradient of pure round-off, which can be exactly zero
+    in the first round and not in the second.)
 
     Checkpoints are saved at block boundaries: the same (round, state)
     pairs the unfused loop saves, so fused and unfused lineages resume each
     other, a resume starting at the last saved boundary."""
+    first = {}
+
     def on_record(r, rec, state_out):
-        crec = _cost_round_record(algo, cost, samples_per_client, state_out)
+        crec = _cost_round_record(algo, cost, samples_per_client,
+                                  first.pop("state", state_out))
         rec["sum_training_flops"] = crec["sum_training_flops"]
         rec["sum_comm_params"] = crec["sum_comm_params"]
         counters.update(rec)
@@ -678,8 +689,14 @@ def _run_fused_rounds(algo, algo_name, state, start_round, total, block,
                           metadata=_ckpt_metadata(args, algo, cost),
                           store=algo._store)
 
-    return algo._fused_block_loop(state, start_round, total, block, ev_every,
-                                  on_record, on_block=on_block)
+    def on_first_round(state_out):
+        first["state"] = state_out
+
+    return algo._fused_block_loop(
+        state, start_round, total, block, ev_every, on_record,
+        on_block=on_block,
+        # a resumed run's counters continue from the lineage's totals
+        on_first_round=None if cost.per_round else on_first_round)
 
 
 def run_experiment(args: argparse.Namespace,

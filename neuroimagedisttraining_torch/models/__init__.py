@@ -18,6 +18,7 @@ from .alexnet3d import (
     SmallCNN3D,
     SmallCNN3DS2D,
 )
+from .resnet3d import ResNet3DL3, ResNet3DL3S2D, convert_resnet3d_params
 
 ApplyFn = Callable[..., Any]
 
@@ -33,6 +34,9 @@ _REGISTRY = {
     "3dcnn_regression": _regression,
     # AlexNet3D over phase-decomposed input (ops/s2d.py)
     "3dcnn_s2d": AlexNet3DS2D,
+    # the 3-stage 3D ResNet and its twin over phase-decomposed input
+    "3dresnet": ResNet3DL3,
+    "3dresnet_s2d": ResNet3DL3S2D,
     # CI-scale models
     "small3dcnn": SmallCNN3D,
     "small3dcnn_s2d": SmallCNN3DS2D,
@@ -99,6 +103,6 @@ def make_apply_fn(model: torch.nn.Module,
 
 
 __all__ = ["AlexNet3D", "AlexNet3DDeeper", "AlexNet3DRegression",
-           "AlexNet3DS2D", "MODEL_NAMES", "SmallCNN3D", "SmallCNN3DS2D",
-           "create_model",
-           "init_params", "make_apply_fn"]
+           "AlexNet3DS2D", "MODEL_NAMES", "ResNet3DL3", "ResNet3DL3S2D",
+           "SmallCNN3D", "SmallCNN3DS2D", "convert_resnet3d_params",
+           "create_model", "init_params", "make_apply_fn"]

@@ -62,6 +62,39 @@ def _broadcast_stats(mu, ez2, channels: int, eps: float):
             sig.repeat_interleave(per, dim=1).reshape(shape))
 
 
+def phased_stem_stage(x, w, bias, scale, bias_gn, groups: int, eps: float,
+                      pool: Tuple[int, int, int], pool_first: bool):
+    """The phased stem stage in plain torch (the counterpart of the JAX
+    package's ``models/alexnet3d.py::phased_stem_stage``): the masked phased
+    conv ``w`` (and ``bias``, or None) over the phased volume ``x``,
+    GroupNorm with the affine pair ``scale``/``bias_gn``, relu and
+    ``max_pool3d(*pool)``; returns NCDHW.
+
+    ``pool_first`` hoists the pool before the normalize affine: max-pool
+    commutes with a monotone per-channel affine and relu, and a channel
+    with a negative scale needs the window minimum, so ``sign(scale)`` is
+    folded into the kernel and bias and ONE pool of the signed conv output
+    ``zs`` serves every channel (its -inf padding never wins). The
+    statistics are the float32 ones of ``zs * sign``, taken before the
+    pool. ``pool_first=False`` is the textbook order with the same
+    parameters. The ResNet stem runs both branches; the AlexNet stem only
+    the textbook one, its pool-first branch being :class:`StemStage`."""
+    gamma = scale.float().reshape(1, -1, 1, 1, 1)
+    beta = bias_gn.float().reshape(1, -1, 1, 1, 1)
+    if not pool_first:
+        z = F.conv3d(phased_input(x), w, bias)
+        mu, sig = _group_stats(z.float(), groups, eps)
+        y = torch.relu((z.float() - mu) / sig * gamma + beta).to(z.dtype)
+        return max_pool3d(y, *pool)
+    sign = torch.where(scale >= 0, 1.0, -1.0).to(w.dtype)
+    zs = F.conv3d(phased_input(x), w * sign.reshape(-1, 1, 1, 1, 1),
+                  None if bias is None else bias * sign)
+    sf = sign.float().reshape(1, -1, 1, 1, 1)
+    mu, sig = _group_stats(zs.float() * sf, groups, eps)
+    sel = max_pool3d(zs, *pool).float() * sf
+    return torch.relu((sel - mu) / sig * gamma + beta).to(zs.dtype)
+
+
 class StemStage(torch.autograd.Function):
     """The pool-first stem stage's full-resolution part as one autograd node:
     ``(x, ws, bs) -> (pooled, s1, s2)``.
@@ -123,7 +156,7 @@ class S2DStemStage(PhasedStemKernel):
     full-resolution part (conv, bias, pool, sums) as :class:`StemStage`, on
     the stem kernels on the card; only ``(B, F, D/3, H/3, W/3)`` and
     ``(B, F)`` tensors are left for plain torch. ``pool_first=False`` is the
-    textbook order with the same parameters (``F.conv3d``).
+    textbook order with the same parameters (:func:`phased_stem_stage`).
 
     Parameters: ``kernel`` (masked phased conv), ``bias``, and the GroupNorm
     pair ``scale``/``bias_gn``. Input phased, output NCDHW."""
@@ -148,13 +181,12 @@ class S2DStemStage(PhasedStemKernel):
 
     def forward(self, x):
         w = self.masked()
+        if not self.pool_first:
+            return phased_stem_stage(x, w, self.bias, self.scale,
+                                     self.bias_gn, self.groups, self.eps,
+                                     (3, 3, 0), pool_first=False)
         gamma = self.scale.float().reshape(1, -1, 1, 1, 1)
         beta = self.bias_gn.float().reshape(1, -1, 1, 1, 1)
-        if not self.pool_first:
-            z = F.conv3d(phased_input(x), w, self.bias)
-            mu, sig = _group_stats(z.float(), self.groups, self.eps)
-            y = torch.relu((z.float() - mu) / sig * gamma + beta).to(z.dtype)
-            return max_pool3d(y, 3, 3)
         sign = torch.where(self.scale >= 0, 1.0, -1.0).to(w.dtype)
         pooled, s1, s2 = StemStage.apply(
             x, w * sign.reshape(-1, 1, 1, 1, 1), self.bias * sign)

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.autograd.function import once_differentiable
 
 Ints3 = Union[int, Tuple[int, int, int]]
 
@@ -118,9 +119,71 @@ def group_norm(channels: int, max_groups: int = 32) -> GroupNorm:
     return GroupNorm(num_groups(channels, max_groups), channels)
 
 
+class _OverlappingMaxPool3d(torch.autograd.Function):
+    """``F.max_pool3d`` over overlapping windows with a backward that sums
+    each input's window gradients in a fixed order. The backward of
+    ``F.max_pool3d`` on the card adds every window's gradient into its
+    argmax with an atomic add, so where one voxel wins several windows the
+    sum's order, and its last bits, change from run to run. Here the
+    windows are split into classes by their index modulo ``ceil(k / s)``
+    per axis: within a class no two windows overlap, so each class is one
+    scatter-add that meets every input at most once, and the classes are
+    added one after another in a float32 (float64 for a float64 input)
+    accumulator. The forward is ``F.max_pool3d``'s, its indices the first
+    maximum of each window."""
+
+    @staticmethod
+    def forward(ctx, x, kernel, strides, padding):
+        out, idx = F.max_pool3d(x, kernel, strides, padding,
+                                return_indices=True)
+        ctx.save_for_backward(idx)
+        ctx.in_shape = x.shape
+        ctx.classes = tuple(-(-k // s) for k, s in zip(kernel, strides))
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        b, c = g.shape[:2]
+        acc = torch.zeros(
+            (b, c, int(np.prod(ctx.in_shape[2:]))), device=g.device,
+            dtype=torch.promote_types(g.dtype, torch.float32))
+        cd, ch, cw = ctx.classes
+        for pd in range(cd):
+            for ph in range(ch):
+                for pw in range(cw):
+                    sl = (slice(None), slice(None), slice(pd, None, cd),
+                          slice(ph, None, ch), slice(pw, None, cw))
+                    acc.scatter_add_(2, idx[sl].reshape(b, c, -1),
+                                     g[sl].reshape(b, c, -1).to(acc.dtype))
+        return acc.reshape(ctx.in_shape).to(g.dtype), None, None, None
+
+
 def max_pool3d(x, kernel: Ints3, strides: Ints3, padding: Ints3 = 0):
-    """MaxPool3d, floor mode, on NCDHW."""
-    return F.max_pool3d(x, _triple(kernel), _triple(strides), _triple(padding))
+    """MaxPool3d, floor mode, on NCDHW. Overlapping windows (a stride below
+    the kernel, the ResNet stem's 3/s2/p1) take
+    :class:`_OverlappingMaxPool3d`, whose backward is the same every run;
+    the others ``F.max_pool3d`` as it is (each input meets at most one
+    window there)."""
+    k, s, p = _triple(kernel), _triple(strides), _triple(padding)
+    if all(si >= ki for ki, si in zip(k, s)):
+        return F.max_pool3d(x, k, s, p)
+    return _OverlappingMaxPool3d.apply(x, k, s, p)
+
+
+def avg_pool3d(x, kernel: Ints3, strides: Optional[Ints3] = None,
+               padding: Ints3 = 0):
+    """AvgPool3d, floor mode, on NCDHW; ``strides`` defaults to ``kernel``
+    and the padding counts in every window's mean, as flax's
+    ``nn.avg_pool`` counts it (``count_include_pad=True``). A bf16 or fp16
+    input is averaged in float32 and rounded once, as the card's kernel
+    does it (the CPU has no reduced-precision kernel)."""
+    k = _triple(kernel)
+    xf = x.float() if x.dtype in (torch.bfloat16, torch.float16) else x
+    return F.avg_pool3d(xf, k, _triple(strides if strides is not None else k),
+                        _triple(padding), ceil_mode=False,
+                        count_include_pad=True).to(x.dtype)
 
 
 def flatten(x):

@@ -1,6 +1,6 @@
 """Fault injection, the in-round guard, robust aggregation and the
-divergence watchdog (counterpart of ``neuroimagedisttraining_tpu/robust``,
-less the checkpoint-restore rollback of ROADMAP item 12)."""
+divergence watchdog with its checkpoint rollback (counterpart of
+``neuroimagedisttraining_tpu/robust``)."""
 from .aggregation import (
     ROBUST_AGGS,
     RobustAggregator,

@@ -2,12 +2,14 @@
 """Where one training round's device time goes, for the PyTorch/CUDA port.
 
     python3 scripts/torch_round_profile.py [--rounds-warm 1] [--fused]
-        [--model 3dcnn_s2d|3dcnn]
+        [--model 3dcnn_s2d|3dcnn|3dresnet_s2d]
 
 Builds the main-path workload (SalientGrads, AlexNet3DS2D, 8 clients x 40
 phased 121x145x121 volumes, batch 8, 5 steps, bf16, dropout 0.5; with
 ``--model 3dcnn`` the dense-stem AlexNet3D on the same volumes stored
-``(121, 145, 121, 1)``, its stem conv on cuDNN), runs the
+``(121, 145, 121, 1)``, its stem conv on cuDNN; with ``--model
+3dresnet_s2d`` the 3D-ResNet twin on the volumes phased for its k3/p3 stem,
+``(64, 76, 8, 64)``, its stem plain torch), runs the
 SNIP init and warm rounds unprofiled, then traces one round with
 ``torch.profiler`` (CPU + CUDA). Prints one JSON line: the round's wall
 time, the summed device time and the device's busy share, device time by
@@ -15,7 +17,8 @@ kernel class (the stem kernels apart), the top kernels by self device time,
 the top aten ops (device time including children) with their input shapes,
 every aten op on a tensor of the stem's full-resolution shape (such as a
 sum over the stem backward's ``dzs``; the dense stem's conv output
-``(8, 64, 59, 71, 59)``), and the card's name and power
+``(8, 64, 59, 71, 59)``; the ResNet stem's ``(8, 64, 63, 75, 63)``), and
+the card's name and power
 limit. With ``--fused`` it also traces the same round as one block of
 ``run_rounds_fused`` (the host's draws, one replay of the captured round
 graph, the block's one metric fetch), after a block that captured it, and
@@ -117,7 +120,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rounds-warm", type=int, default=1)
     ap.add_argument("--fused", action="store_true")
-    ap.add_argument("--model", choices=("3dcnn_s2d", "3dcnn"),
+    ap.add_argument("--model", choices=("3dcnn_s2d", "3dcnn",
+                                        "3dresnet_s2d"),
                     default="3dcnn_s2d")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -126,8 +130,9 @@ def main() -> int:
     dev = torch.device("cuda")
     kernels.build()
     vol = (121, 145, 121)
-    ss = phased_sample_shape(vol) if args.model == "3dcnn_s2d" else \
-        vol + (1,)
+    ss = {"3dcnn_s2d": phased_sample_shape(vol),
+          "3dresnet_s2d": phased_sample_shape(vol, 3, 3)}.get(
+              args.model, vol + (1,))
     data = device_synthetic_federated(
         8, 40, ss, torch.Generator(device=dev).manual_seed(0),
         test_per_client=10)
@@ -142,9 +147,10 @@ def main() -> int:
         state, met = algo.run_round(state, r)
         float(met["train_loss"])
     r = args.rounds_warm
-    zs_shape = str([8, ss[0] - 2, ss[1] - 2, ss[3] - 2, 64]
-                   if args.model == "3dcnn_s2d" else
-                   [8, 64] + [(s - 5) // 2 + 1 for s in vol])
+    zs_shape = str({
+        "3dcnn_s2d": [8, ss[0] - 2, ss[1] - 2, ss[3] - 2, 64],
+        "3dresnet_s2d": [8, 64, ss[0] - 1, ss[1] - 1, ss[3] - 1]}.get(
+            args.model, [8, 64] + [(s - 5) // 2 + 1 for s in vol]))
 
     def eager():
         float(algo.run_round(state, r)[1]["train_loss"])

@@ -166,6 +166,19 @@ FIELDS = ("x_train", "y_train", "n_train", "x_test", "y_test", "n_test",
           "x_val", "y_val", "n_val")
 
 
+def write_cohort_file(path, volume, n, seed=0, sites=2):
+    """An ABCD cohort file at ``path``: ``n`` uniform random volumes of
+    ``volume``, random labels, ``sites`` sites of equal size; written by
+    the port's writer (bitwise the reference's)."""
+    from neuroimagedisttraining_torch.data import write_abcd_h5
+
+    rng = np.random.RandomState(seed)
+    write_abcd_h5(path, rng.rand(n, *volume).astype(np.float32),
+                  rng.randint(0, 2, n), np.repeat(np.arange(sites),
+                                                  n // sites))
+    return path
+
+
 def assert_data_equal(t, j):
     """Every array of two FederatedData bit for bit, ``class_num`` and the
     dtypes included (a missing validation split on both sides is equal)."""

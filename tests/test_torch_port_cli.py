@@ -25,6 +25,7 @@
   top-level keys, and history records with its keys at its cadence.
 """
 import argparse
+import json
 import os
 import pickle
 import subprocess
@@ -172,8 +173,6 @@ REFUSED = [
     (["--profile_dir", "prof"], "--profile_dir"),
     (["--dataset", "cifar10"], "--dataset"),
     (["--model", "resnet18"], "--model"),
-    (["--model", "3dresnet", "--layout", "s2d", "--dataset", "abcd"],
-     "--model"),
 ]
 
 
@@ -203,10 +202,23 @@ def test_unported_flags_refused_before_any_work(tmp_path, extra, flag):
         assert "ROADMAP item" in msg
 
 
+@pytest.mark.parametrize("layout", ["s2d", "channels"])
+def test_resnet3d_is_not_refused(layout):
+    """The 3D-ResNet and its phased twin are ported: their ABCD command
+    line passes every refusal (the 2D models stay refused, above)."""
+    for p in (["salientgrads"], ["fedavg"]):
+        args = tconfig.parse_args(
+            ["--dataset", "abcd", "--layout", layout, "--model", "3dresnet",
+             "--device", "cpu"], p[0])
+        trunner.refuse_unported(args, p[0])
+        assert trunner._model_key(args) == (
+            "3dresnet_s2d" if layout == "s2d" else "3dresnet")
+
+
 #: (extra argv, the exception, what its message says): the JAX CLI's own
-#: refusals of the flags this port has, and the dense-stem AlexNet on the
-#: synthetic 8^3 volume (the JAX initializer fails there with a
-#: ZeroDivisionError; the port names the volume)
+#: refusals of the flags this port has, and the dense-stem AlexNet and the
+#: 3D-ResNet on the synthetic 8^3 volume (the JAX initializer fails there
+#: with a ZeroDivisionError; the port names the volume)
 REFERENCE_REFUSALS = [
     (["--algo", "dispfl", "--eval_cache", "1"], SystemExit,
      "--eval_cache caches the per-client personal-eval terms in algorithm "
@@ -218,6 +230,8 @@ REFERENCE_REFUSALS = [
      "--eval_cache indexes the full cohort"),
     (["--model", "3dcnn_deeper"], ValueError,
      "AlexNet3DDeeper: the volume 8x8x8 is too small"),
+    (["--model", "3dresnet"], ValueError,
+     "ResNet3DL3: the volume 8x8x8 is too small"),
 ]
 
 
@@ -333,6 +347,87 @@ def test_cli_without_cuda_exits_naming_cuda(tmp_path):
                            capture_output=True, text=True, timeout=300)
     assert bench.returncode == 2 and bench.stdout == "", bench
     assert "CUDA" in bench.stderr
+
+
+def test_seed_everything_sets_cudnn_deterministic():
+    """The CLI's seeding puts cuDNN in its deterministic mode with the
+    autotuner off, as the original's does (``main_sailentgrads.py:263-267``):
+    without it two runs of one command line differ in the last bits on the
+    card."""
+    c = torch.backends.cudnn
+    saved = (c.deterministic, c.benchmark)
+    try:
+        c.deterministic, c.benchmark = False, True
+        trunner.seed_everything(3)
+        assert (c.deterministic, c.benchmark) == (True, False)
+        assert torch.initial_seed() == 3
+    finally:
+        c.deterministic, c.benchmark = saved
+
+
+#: BENCH_CONFIG -> (BENCH_DENSE, bench.py's metric name)
+BENCH_METRICS = {
+    "": (False, "salientgrads_rounds_per_sec_abcd_alexnet3d_8clients"),
+    "resnet3d": (False,
+                 "salientgrads_rounds_per_sec_abcd_3dresnet_s2d_8clients"),
+    "resnet3d_dense": (True,
+                       "salientgrads_rounds_per_sec_abcd_3dresnet_8clients"),
+    "uneven": (False,
+               "salientgrads_rounds_per_sec_abcd_alexnet3d_8clients_uneven"),
+    "clients32": (False,
+                  "salientgrads_rounds_per_sec_abcd_alexnet3d_32clients"),
+}
+
+
+@pytest.fixture(scope="module")
+def bench_configs():
+    """Every ``BENCH_CONFIG`` of ``bench_torch.py`` through its
+    ``bench_config`` and ``main(emit=False)`` in one fresh interpreter,
+    with the modules it imported; without CUDA ``main`` returns None."""
+    code = (
+        "import sys, json\n"
+        "import bench_torch as b\n"
+        "out = {}\n"
+        f"for key, (dense, _) in {BENCH_METRICS!r}.items():\n"
+        "    name = key.replace('_dense', '')\n"
+        "    out[key] = {**b.bench_config(name, dense),\n"
+        "                'rec': b.main(emit=False, config=name, dense=dense)}\n"
+        "out['jax'] = sorted(m for m in sys.modules if m == 'jax' or\n"
+        "                    m.startswith('neuroimagedisttraining_tpu'))\n"
+        "print(json.dumps(out))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    return json.loads(out.stdout.strip().splitlines()[-1]), out.stderr
+
+
+@pytest.mark.parametrize("config", sorted(BENCH_METRICS))
+def test_bench_torch_configs_without_cuda(bench_configs, config):
+    """Each ``BENCH_CONFIG`` of ``bench_torch.py`` under ``bench.py``'s
+    metric name and constants; without CUDA ``main`` returns None and the
+    script has imported nothing of JAX."""
+    got, stderr = bench_configs
+    assert got["jax"] == []
+    cfg = got[config]
+    assert cfg["metric"] == BENCH_METRICS[config][1]
+    if not torch.cuda.is_available():
+        assert cfg["rec"] is None and "CUDA is not available" in stderr
+    want = {"": ("3dcnn_s2d", 8, False, None),
+            "resnet3d": ("3dresnet_s2d", 8, False, None),
+            "resnet3d_dense": ("3dresnet", 8, False, None),
+            "uneven": ("3dcnn_s2d", 8, True, None),
+            "clients32": ("3dcnn_s2d", 32, False, 4)}[config]
+    assert (cfg["model_key"], cfg["n_clients"], cfg["uneven"],
+            cfg["test_per_client"]) == want
+
+
+def test_bench_torch_refuses_an_unknown_config():
+    env = dict(os.environ, BENCH_CONFIG="resnet")
+    out = subprocess.run([sys.executable, "bench_torch.py"], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300,
+                         env=env)
+    assert out.returncode not in (0, 2) and out.stdout == ""
+    assert "unknown BENCH_CONFIG 'resnet'" in out.stderr
 
 
 # -- the algorithm the CLI builds --------------------------------------------

@@ -155,6 +155,18 @@ def _models(key):
     elif key == "small3dcnn_s2d":
         ss = phased_sample_shape((12, 10, 14), 3, 1)
         jm, tm = jcreate(key, num_classes=1), create_model(key)
+    elif key.startswith("3dresnet"):
+        # full width at the smallest volume the ResNet's pools survive;
+        # random values of the reference's shapes (no initializer compile)
+        ss = ((29, 33, 29, 1) if key == "3dresnet"
+              else phased_sample_shape((29, 33, 29), 3, 3))
+        jm, tm = jcreate(key, num_classes=1), create_model(
+            key, sample_shape=ss)
+        rs = np.random.RandomState(0)
+        jp = jax.tree_util.tree_map(
+            lambda a: rs.randn(*a.shape).astype(np.float32),
+            jax.eval_shape(lambda: jinit(jm, jax.random.PRNGKey(0), ss)))
+        return jm, tm, jp, jax_params_to_torch(jp), ss
     else:
         ss = (9, 10, 11, 1)
         jm, tm = jcreate(key, num_classes=1), create_model(key)
@@ -182,7 +194,8 @@ def _sparsify(jp, seed):
     return params, mask
 
 
-@pytest.mark.parametrize("key", ["small3dcnn", "small3dcnn_s2d", "3dcnn_s2d"])
+@pytest.mark.parametrize("key", ["small3dcnn", "small3dcnn_s2d", "3dcnn_s2d",
+                                 "3dresnet", "3dresnet_s2d"])
 def test_flops_and_comm_counters_match_reference(key):
     jm, tm, jp, tp, ss = _models(key)
     jdense = jflops.per_layer_flops(jm, jp, ss)
@@ -217,3 +230,32 @@ def test_flops_and_comm_counters_match_reference(key):
     assert tt.sum_training_flops == jt.sum_training_flops
     assert tt.sum_comm_params == jt.sum_comm_params
     assert tt.per_round == jt.per_round
+
+
+# -- the bench's device cohort -------------------------------------------------
+
+@pytest.mark.parametrize("n_clients,n", [(8, 40), (32, 40), (3, 7)])
+def test_device_synthetic_uneven_counts_match_bench(n_clients, n):
+    """``uneven=True`` draws the per-client sample counts bitwise as
+    ``bench.py``'s ``_device_synth_data(uneven=True)`` does; every client
+    still stores ``n`` training rows (the rows past its count are never
+    read). Without it every count is ``n``."""
+    import bench
+
+    shape = (4, 3, 2)
+    want = np.asarray(bench._device_synth_data(
+        n_clients, n, shape, jax.random.PRNGKey(0), uneven=True,
+        model_key="small3dcnn").n_train)
+    g = torch.Generator().manual_seed(0)
+    t = tdata.device_synthetic_federated(n_clients, n, shape + (1,), g,
+                                         uneven=True)
+    assert t.n_train.dtype == torch.int32
+    np.testing.assert_array_equal(t.n_train.numpy(), want)
+    assert int(t.n_train.min()) >= n // 2 and int(t.n_train.max()) <= n
+    assert tuple(t.x_train.shape[:2]) == (n_clients, n)
+    even = tdata.device_synthetic_federated(n_clients, n, shape + (1,),
+                                            torch.Generator().manual_seed(0))
+    assert even.n_train.tolist() == [n] * n_clients
+    # the same volumes and labels: only the counts differ
+    assert torch.equal(even.x_train, t.x_train)
+
