@@ -62,7 +62,21 @@ names them): ``resnet3d`` the 3D-ResNet twin ``3dresnet_s2d`` on volumes
 phased for its k3/p3 stem (``3dresnet`` on the raw volumes with
 ``BENCH_DENSE=1``), ``uneven`` shards of ``[20, 40]`` samples drawn as
 ``bench.py`` draws them (the masked epoch path), ``clients32`` 32 clients
-with test shards of 4. Any other ``BENCH_CONFIG`` is refused.
+with test shards of 4.
+
+    BENCH_CONFIG=agg python3 bench_torch.py
+
+runs ``bench.py``'s aggregation term (:func:`agg`): one weighted mean per
+``agg_impl`` (``parallel.collectives.agg_microbench``) over the AlexNet3D
+tree of ``3dcnn_s2d`` (2,576,065 values) stacked over 32 clients, the
+locals honoring a 0.5-density mask, on the one card (no mesh, as
+``bench.py`` passes none on one device), each timed with CUDA events over 8
+aggregations after a warm-up, the weights rolled each time. Its line has
+``bench.py``'s metric, ``weighted_sum_aggregation_ms_alexnet3d_32clients``;
+``value`` is the dense impl's ms (``bench.py`` takes it from its GSPMD probe
+in ``__graft_entry__``, which has no counterpart here) and ``extra`` holds
+``agg_ms_<impl>`` for every impl and the workload's descriptors. Any other
+``BENCH_CONFIG`` is refused.
 """
 from __future__ import annotations
 
@@ -89,6 +103,8 @@ MAIN_CONFIGS = ("", "resnet3d", "uneven", "clients32")
 BYZANTINE_CLIENTS = 64
 BYZANTINE_VOLUME = (61, 73, 61)
 BYZANTINE_METRIC = "byzantine_robust_fedavg_rounds_per_sec_64clients"
+AGG_CLIENTS = 32
+AGG_METRIC = "weighted_sum_aggregation_ms_alexnet3d_32clients"
 
 
 def _acc(ev):
@@ -267,6 +283,8 @@ def main(emit: bool = True, config: str = "",
             "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
             "device": card_name_and_power_limit(),
             "n_devices": n_cards,
+            # one process on one card: no client mesh
+            "client_mesh_devices": 1,
             "volume": list(VOLUME),
             "sample_shape": list(sample_shape),
             "clients": n_clients,
@@ -341,12 +359,44 @@ def byzantine(emit: bool = True) -> Optional[dict]:
     return result
 
 
+def agg(emit: bool = True, iters: int = 8) -> Optional[dict]:
+    """``bench.py``'s ``agg`` configuration (see the module docstring).
+    Returns the record (printed with ``emit``), or None without CUDA."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("bench_torch: CUDA is not available", file=sys.stderr)
+        return None
+    from neuroimagedisttraining_torch.ops import kernels
+    from neuroimagedisttraining_torch.parallel.collectives import (
+        agg_microbench,
+    )
+
+    kernels.build()
+    d = agg_microbench(None, n_clients=AGG_CLIENTS, iters=iters,
+                       model_key=MODEL_KEY,
+                       sample_shape=sample_shape_of(MODEL_KEY),
+                       device="cuda")
+    result = {
+        "metric": AGG_METRIC,
+        "value": d["agg_ms_dense"],
+        "unit": "ms/aggregation",
+        "vs_baseline": 0.0,  # a term measurement, not a rate
+        "extra": {**d, "device": card_name_and_power_limit()},
+    }
+    if emit:
+        print(json.dumps(result), flush=True)
+    return result
+
+
 if __name__ == "__main__":
     config = os.environ.get("BENCH_CONFIG", "")
-    if config not in MAIN_CONFIGS + ("byzantine",):
+    if config not in MAIN_CONFIGS + ("byzantine", "agg"):
         sys.exit(f"unknown BENCH_CONFIG {config!r}")
     if config == "byzantine":
         rec = byzantine()
+    elif config == "agg":
+        rec = agg()
     else:
         rec = main(config=config, dense=bool(os.environ.get("BENCH_DENSE")))
     sys.exit(0 if rec is not None else 2)

@@ -152,7 +152,17 @@ Phases, each printing one JSON line:
    deterministic mode (the CLI's) against its default, in three
    interleaved pairs of 10-round blocks, and the stem's weight gradient
    alone in each mode (see ``determinism_path``).
-17. cli     — the command-line entry point in-process on the card
+17. mesh    — the client mesh (``parallel/mesh.py``): two gloo ranks
+   sharing the card, each holding four clients of the main configuration
+   at full width (SNIP, then 2 rounds on dense, bucketed, bf16, int8 and
+   hier), every round replayed by a single process from the mesh's state:
+   the mask, each client's trained model, the losses, the evals and their
+   per-client sums bitwise, the global model within ``MESH_GLOBAL_BOUND``;
+   the ranks' launches counted; then a one-rank NCCL group through the
+   wire reduces on full-width payloads (each equal to the rank's own
+   payload) and ``runner.main --mesh_devices 2`` fitted to the one card
+   (see ``mesh_path``).
+18. cli     — the command-line entry point in-process on the card
    (``experiments.runner.main``): SalientGrads and FedAvg, ``--dataset
    synthetic --model small3dcnn --comm_round 2`` (no stem stage on this
    model), and SalientGrads with ``--fuse_rounds 2``, whose history must
@@ -170,7 +180,7 @@ Phases, each printing one JSON line:
    CLI's seeding puts cuDNN in its deterministic mode; the script restores
    the two flags after the phase). The ABCD cohort-file step is not here:
    the loaders need ``h5py``, which the card's machine does not have.
-18. bench  — ``bench_torch.main()``, the port's bench of the headline
+19. bench  — ``bench_torch.main()``, the port's bench of the headline
    workload (SNIP; the Python loop: 1 + 10 rounds without eval, 1 + 8 with
    the eval every round, each from a clone of one state; the fused
    spelling: blocks of 10 and of 8 rounds with the eval, each after its
@@ -195,6 +205,7 @@ without CUDA it exits 2 before printing a result.
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import functools
 import json
 import math
@@ -927,7 +938,7 @@ def _wire_images(algo, args, out, bucket):
         comp = tc.plan_dead_select(comp, algo._agg_sparse_plan)
         img = tc.stacked_to_mat({k: comp[k] - out[1][k] for k in comp})
         return img, img != 0, w
-    stacked, w, u = args
+    stacked, w, u = args[:3]
     mat = tc.stacked_to_mat(stacked)
     if impl == "dense":
         return mat, torch.zeros(0), w
@@ -1192,8 +1203,8 @@ class AggProbe:
                 return out
             return call
 
-        def aggregate(stacked, weights, uniforms=None):
-            out = timed(agg)(stacked, weights, uniforms)
+        def aggregate(stacked, weights, uniforms=None, mesh_rows=None):
+            out = timed(agg)(stacked, weights, uniforms, mesh_rows)
             if twin:
                 dense = weighted_tree_sum(stacked, weights)
                 self.twin_equal &= all(torch.equal(out[k], dense[k])
@@ -3544,6 +3555,336 @@ def determinism_path(dev):
     return {}
 
 
+#: the mesh phase: the wires its two gloo ranks run (SNIP once, then
+#: MESH_ROUNDS rounds each), the global model's bound against the
+#: single-process round on each (of the tree's largest value; bf16 and int8
+#: quantize each rank's partial on the mesh, each client's row off it), the
+#: reps timing the one-rank NCCL collectives
+MESH_WIRES = ("dense", "bucketed", "bf16", "int8", "hier")
+MESH_ROUNDS, MESH_RANKS = 2, 2
+MESH_GLOBAL_BOUND = {"dense": 1e-6, "bucketed": 1e-6, "hier": 1e-6,
+                     "bf16": 1e-2, "int8": 5e-2}
+NCCL_REPS = 20
+#: a collective that waits longer than this fails the phase (a rank that
+#: died leaves the others waiting)
+MESH_TIMEOUT_S = 300
+
+
+def _tree_digest(tree) -> str:
+    """sha256 of a tree's bytes, leaf by leaf in key order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in sorted(tree):
+        h.update(k.encode())
+        h.update(tree[k].detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _mesh_algo(data, hp, shape, impl):
+    from neuroimagedisttraining_torch.algorithms import SalientGrads
+    from neuroimagedisttraining_torch.models import create_model
+
+    model = create_model("3dcnn_s2d", num_classes=1, sample_shape=shape)
+    return SalientGrads(model, data, hp, loss_type="bce", frac=1.0, seed=0,
+                        dense_ratio=0.5, itersnip_iterations=1,
+                        compute_dtype="bfloat16", agg_impl=impl)
+
+
+def _mesh_rank(rank, directory, dev):
+    """One of the mesh phase's gloo ranks on the card (spawned by
+    ``mesh_path``): the main configuration sharded over the mesh, SNIP,
+    then MESH_ROUNDS rounds per wire from the SNIP state, each timed, each
+    trained client's model digested, the eval after each round and its
+    per-client sums. Leaves its record in ``directory``."""
+    import os
+
+    import torch
+
+    from neuroimagedisttraining_torch.ops import kernels
+    from neuroimagedisttraining_torch.ops.s2d import phased_sample_shape
+    from neuroimagedisttraining_torch.parallel.mesh import (
+        make_mesh,
+        shard_federated,
+    )
+
+    if dev.type == "cuda":
+        dev = torch.device("cuda", dev.index or 0)
+        torch.cuda.set_device(dev)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    mesh = make_mesh(MESH_RANKS, backend="gloo", rank=rank, device=dev,
+                     init_method="file://" + os.path.join(directory, "rdv"),
+                     timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    try:
+        shape = phased_sample_shape(VOLUME)
+        data, hp = _main_config(dev, shape)
+        data = shard_federated(data, mesh)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launches()
+        base = _mesh_algo(data, hp, shape, "dense")
+        t0 = time.perf_counter()
+        state0 = base.init_state()
+        torch.cuda.synchronize()
+        rec = {"rank": rank, "block": [base._lo, base._hi],
+               "snip_s": time.perf_counter() - t0,
+               "mask": _tree_digest(state0.mask), "wires": {}}
+        for impl in MESH_WIRES:
+            algo = _mesh_algo(data, hp, shape, impl)
+            state = algo.clone_state(state0)
+            rounds = []
+            for r in range(MESH_ROUNDS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, met = algo.run_round(state, r)
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                ev = algo.evaluate(state)
+                correct, loss_sum = algo._eval_terms(
+                    range(algo.num_clients), lambda c: state.global_params)
+                rounds.append({
+                    "seconds": seconds,
+                    "train_loss": float(met["train_loss"]),
+                    "clients": {base._lo + i: _tree_digest(
+                        {k: v[i] for k, v in state.personal_params.items()})
+                        for i in range(algo.num_local_clients)},
+                    "global_digest": _tree_digest(state.global_params),
+                    "global": ({k: v.cpu() for k, v in
+                                state.global_params.items()}
+                               if rank == 0 else None),
+                    "eval": {k: v.cpu() for k, v in ev.items()},
+                    "terms": (correct.cpu(), loss_sum.cpu())})
+            rec["wires"][impl] = rounds
+        torch.cuda.synchronize()
+        rec["launches"] = dict(kernels.LAUNCHES)
+        rec["peak_mem_bytes"] = torch.cuda.max_memory_allocated(dev)
+        torch.save(rec, os.path.join(directory, f"rank{rank}.pt"))
+    finally:
+        mesh.destroy()
+
+
+def _mesh_nccl(dev):
+    """Part (b) of the mesh phase: a one-rank NCCL group, the wire reduces
+    of ``parallel/collectives.py`` called directly on full-width payloads
+    (the AlexNet's leaves in its leaf groups) on every wire, through the
+    single-stage and the hierarchical spelling (one slice of one rank).
+    This skips the D <= 1 gate that keeps the aggregate off a one-rank mesh
+    on purpose: it is the collectives' own path that is under test. Each
+    result equals the rank's own payload: bitwise on f32, its bf16 rounding
+    on bf16, its int8 quantize and dequantize on int8."""
+    import os
+    import tempfile
+
+    import torch
+
+    from neuroimagedisttraining_torch.convert import reference_leaf_order
+    from neuroimagedisttraining_torch.models import create_model
+    from neuroimagedisttraining_torch.ops.s2d import phased_sample_shape
+    from neuroimagedisttraining_torch.parallel import collectives as tc
+    from neuroimagedisttraining_torch.parallel.mesh import make_mesh
+
+    model = create_model("3dcnn_s2d", num_classes=1,
+                         sample_shape=phased_sample_shape(VOLUME))
+    params = dict(model.named_parameters())
+    sizes = [params[k].numel() for k in reference_leaf_order(params)]
+    groups = tc._leaf_groups(sizes, tc.DEFAULT_BUCKET_SIZE)
+    g = torch.Generator(device=dev).manual_seed(17)
+    payload = [torch.randn(n, generator=g, device=dev) * 0.01 for n in sizes]
+
+    def uniforms(wid, i, shape):
+        ug = torch.Generator(device=dev).manual_seed(1000 * wid + i)
+        return torch.rand(shape, generator=ug, device=dev)
+
+    def want(wire):
+        if wire == "f32":
+            return payload
+        if wire == "bf16":
+            return [v.to(torch.bfloat16).to(torch.float32) for v in payload]
+        out = []
+        for i, v in enumerate(payload):
+            q, s = tc._int8_leaf_payload(v, uniforms(
+                0, i, tc.bucket_shape(v.numel())), tc.DEFAULT_BUCKET_SIZE)
+            out.append((q.to(torch.float32) * s).reshape(-1)[:v.numel()])
+        return out
+
+    rec = {"phase": "mesh_nccl", "leaves": len(sizes),
+           "values": sum(sizes), "groups": len(groups)}
+    with tempfile.TemporaryDirectory() as d:
+        mesh = make_mesh(1, backend="nccl", rank=0, device=dev,
+                         init_method="file://" + os.path.join(d, "rdv"),
+                         timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+        try:
+            rec["backend"] = mesh.backend
+            for spelling in ("wire", "hier"):
+                for wire in ("f32", "bf16", "int8"):
+                    def run():
+                        if spelling == "wire":
+                            return tc._wire_reduce_groups(
+                                payload, groups, mesh=mesh, wire=wire,
+                                uniforms=uniforms)
+                        return tc._hier_reduce_groups(
+                            payload, groups, mesh=mesh, wire=wire,
+                            uniforms=uniforms, n_devices=1, inner=1)
+
+                    got = run()
+                    torch.cuda.synchronize()
+                    for i, (a, b) in enumerate(zip(got, want(wire))):
+                        if not torch.equal(a, b):
+                            raise AssertionError(
+                                f"mesh_nccl {spelling} {wire}: leaf {i} is "
+                                "not the rank's own payload")
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    for _ in range(NCCL_REPS):
+                        run()
+                    end.record()
+                    torch.cuda.synchronize()
+                    rec[f"{spelling}_{wire}_ms"] = \
+                        start.elapsed_time(end) / NCCL_REPS
+        finally:
+            mesh.destroy()
+    emit(rec)
+
+
+def mesh_path(dev):
+    """The client mesh (``parallel/mesh.py``) on the card, in three parts:
+
+    (a) two gloo ranks sharing the one card (NCCL refuses two ranks on one
+        GPU), each holding four clients of the main configuration at full
+        width: SalientGrads on ``3dcnn_s2d``, SNIP, then MESH_ROUNDS rounds
+        on each of MESH_WIRES from the SNIP state. A single process replays
+        every round in the same call from the mesh's state before it (the
+        generator in step), cuDNN deterministic on both sides: the mask,
+        every client's trained model, the train losses, the evals and
+        their per-client sums bitwise; the global model within
+        MESH_GLOBAL_BOUND. Each rank's round seconds and peak memory are
+        printed; the ranks' launches are the path's.
+    (b) a one-rank NCCL group (``_mesh_nccl``).
+    (c) ``runner.main --mesh_devices 2`` on the card: fitted to the one
+        card, as the JAX CLI fits to the devices there are, and saying so.
+
+    Returns the launches of the path."""
+    import dataclasses
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from neuroimagedisttraining_torch.convert import reference_leaf_order
+    from neuroimagedisttraining_torch.experiments import runner
+    from neuroimagedisttraining_torch.ops import kernels
+    from neuroimagedisttraining_torch.ops.s2d import phased_sample_shape
+    from neuroimagedisttraining_torch.parallel import collectives as tc
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        mp.spawn(_mesh_rank, args=(d, dev), nprocs=MESH_RANKS, join=True)
+        ranks = [torch.load(f"{d}/rank{r}.pt", weights_only=False)
+                 for r in range(MESH_RANKS)]
+    mesh_s = time.perf_counter() - t0
+
+    shape = phased_sample_shape(VOLUME)
+    data, hp = _main_config(dev, shape)
+    failures = []
+    with _CudnnFlags(deterministic=True, benchmark=False):
+        base = _mesh_algo(data, hp, shape, "dense")
+        state0 = base.init_state()
+        if any(r["mask"] != _tree_digest(state0.mask) for r in ranks):
+            failures.append("mask")
+        spread = {}
+        for impl in MESH_WIRES:
+            algo = _mesh_algo(data, hp, shape, impl)
+            state = algo.clone_state(state0)
+            for r in range(MESH_ROUNDS):
+                mine = [rk["wires"][impl][r] for rk in ranks]
+                if r:  # the mesh's global model before the round
+                    state = dataclasses.replace(state, global_params={
+                        k: v.to(dev) for k, v in
+                        ranks[0]["wires"][impl][r - 1]["global"].items()})
+                state, met = algo.run_round(state, r)
+                for m in mine:
+                    for c, dig in m["clients"].items():
+                        if dig != _tree_digest({k: v[c] for k, v in
+                                                state.personal_params
+                                                .items()}):
+                            failures.append(f"{impl} r{r} client {c}")
+                    if m["train_loss"] != float(met["train_loss"]):
+                        failures.append(f"{impl} r{r} train_loss")
+                    if m["global_digest"] != mine[0]["global_digest"]:
+                        failures.append(f"{impl} r{r} ranks' globals")
+                glob = mine[0]["global"]
+                scale = max(float(v.abs().max()) for v in glob.values())
+                err = max(float((glob[k] - state.global_params[k].cpu())
+                                .abs().max()) for k in glob) / scale
+                spread[f"{impl}_r{r}"] = err
+                if err > MESH_GLOBAL_BOUND[impl]:
+                    failures.append(f"{impl} r{r} global {err}")
+                mesh_state = dataclasses.replace(state, global_params={
+                    k: v.to(dev) for k, v in glob.items()})
+                ev = algo.evaluate(mesh_state)
+                correct, loss_sum = algo._eval_terms(
+                    range(algo.num_clients),
+                    lambda c: mesh_state.global_params)
+                for m in mine:
+                    if any(not torch.equal(m["eval"][k], v.cpu())
+                           for k, v in ev.items()):
+                        failures.append(f"{impl} r{r} eval")
+                    if not (torch.equal(m["terms"][0], correct.cpu()) and
+                            torch.equal(m["terms"][1], loss_sum.cpu())):
+                        failures.append(f"{impl} r{r} eval sums")
+    params = dict(base.model.named_parameters())
+    groups = len(tc._leaf_groups(
+        [params[k].numel() for k in reference_leaf_order(params)],
+        tc.DEFAULT_BUCKET_SIZE))
+    launches = {k: sum(r["launches"][k] for r in ranks)
+                for k in kernels.LAUNCHES}
+    per = N_CLIENTS // MESH_RANKS
+    runs = len(MESH_WIRES) * MESH_ROUNDS
+    steps = runs * per * STEPS
+    evals = runs * per * (2 + 1) * _eval_chunks()  # evaluate, the sums
+    # per rank: SNIP of its clients, its steps, its evals and each
+    # algorithm's dropout probe (the SNIP one's and one per wire); the
+    # reduce one weighted sum a leaf group
+    probes = 1 + len(MESH_WIRES)
+    want = {**{k: 0 for k in kernels.LAUNCHES},
+            "masked_sgd": MESH_RANKS * steps,
+            "threshold": MESH_RANKS, "score_mask": MESH_RANKS,
+            "weighted_sum": MESH_RANKS * runs * groups,
+            "stem_fwd": MESH_RANKS * (steps + per + evals + probes),
+            "stem_bwd": MESH_RANKS * (steps + per)}
+    if launches != want:
+        failures.append(f"launches {launches}, want {want}")
+    emit({"phase": "mesh", "ranks": MESH_RANKS, "backend": "gloo",
+          "wires": list(MESH_WIRES), "rounds": MESH_ROUNDS,
+          "blocks": [r["block"] for r in ranks], "mesh_s": mesh_s,
+          "snip_s": [r["snip_s"] for r in ranks],
+          "round_s": {r["rank"]: {impl: [x["seconds"]
+                                         for x in r["wires"][impl]]
+                                  for impl in MESH_WIRES} for r in ranks},
+          "peak_mem_bytes": [r["peak_mem_bytes"] for r in ranks],
+          "global_rel_err": spread, "leaf_groups": groups,
+          "launches": launches})
+    if failures:
+        raise AssertionError(f"mesh: {failures}")
+
+    _mesh_nccl(dev)
+
+    with _CudnnFlags(), tempfile.TemporaryDirectory() as tmp:
+        res = runner.main(_cli_argv("salientgrads", tmp)
+                          + ["--mesh_devices", "2"])
+    fitted = res["client_mesh_devices"]
+    emit({"phase": "mesh_cli", "mesh_devices": 2,
+          "cards": torch.cuda.device_count(), "client_mesh_devices": fitted,
+          "note": f"--mesh_devices 2 fitted to {fitted} device(s)"})
+    if fitted != min(2, torch.cuda.device_count()):
+        raise AssertionError(f"mesh_cli: fitted to {fitted} devices")
+    return {"mesh": launches}
+
+
 def _cli_argv(algo: str, tmp: str):
     return ["--algo", algo, "--dataset", "synthetic", "--model", "small3dcnn",
             "--comm_round", "2", "--results_dir", f"{tmp}/results",
@@ -3892,6 +4233,7 @@ def main() -> int:
     paths.update(resnet3d_path(dev))
     paths.update(uneven_path(dev))
     paths.update(determinism_path(dev))
+    paths.update(mesh_path(dev))
     # the CLI's seeding sets cuDNN's flags for the process: the bench
     # phase after it measures with the flags the script had before
     with _CudnnFlags():

@@ -10,6 +10,16 @@ of the local models, routed by ``agg_impl`` through the aggregation wires
 decentralized algorithms train each client's own row of a stacked model
 (:meth:`FedAlgorithm._train_stacked`).
 
+On a client mesh (``data`` sharded by ``parallel.mesh.shard_federated``:
+one process a device, each holding its block of the cohort; SalientGrads
+and FedAvg) every rank makes the round's host draws for all selected
+clients, exactly as off the mesh, and trains the selected clients it holds;
+the aggregate is the on-mesh reduce of ``collectives``, over the rows of
+the selection's rank blocks (with partial participation the trained models
+are gathered first, in selection order), and the eval's per-client sums
+are gathered in client order. Each client's trained model and eval sums are
+the off-mesh run's bit for bit; only the cross-rank sums reassociate.
+
 A round is split in two: what the host decides (the seeded client draw, the
 decayed learning rate, the random draws of the generator) and a body that
 reads only tensors (:meth:`FedAlgorithm._round_body`). The fused round loop
@@ -32,7 +42,7 @@ import abc
 import dataclasses
 import logging
 import time
-from typing import Any, Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -60,6 +70,7 @@ from ..models.layers import DropoutProbe
 from ..ops import kernels
 from ..ops.sparsity import kernel_flags
 from ..parallel import collectives
+from ..parallel.mesh import gather_rows, mesh_of
 from ..robust import guard as _guard
 from ..robust.aggregation import ROBUST_AGGS, robust_combine_mat
 from ..robust.faults import (
@@ -179,7 +190,10 @@ class RoundInputs:
     while ``pop`` holds their population ids, which the ``[C]`` arrays
     that stay resident (the eval cache, the test counts) are indexed by.
     Resident, ``pop`` is ``sel`` and ``slab`` None (the body reads
-    ``algo.data``)."""
+    ``algo.data``).
+
+    On a client mesh ``mesh_rows`` says which of the selected clients this
+    rank trains (:class:`MeshRows`); None off the mesh."""
 
     n_valid: List[int]
     sel: torch.Tensor
@@ -201,6 +215,41 @@ class RoundInputs:
     anneal_rate: Optional[torch.Tensor] = None
     pop: Optional[torch.Tensor] = None
     slab: Optional[FederatedData] = None
+    mesh_rows: Optional["MeshRows"] = None
+
+
+class MeshRows(NamedTuple):
+    """A round's selected clients as the ranks of a client mesh hold them.
+    ``own``: the positions in the draw of the clients this rank holds (and
+    trains); ``rows``: their rows in the rank's data and per-client stacks
+    (int64, on the device); ``counts``: how many each rank holds;
+    ``order``: per position in the draw, ``(rank, index among that rank's
+    own)``, the gather's order; ``uniforms``: the on-mesh int8 wire's draw
+    ``(rank or slice, payload leaf, shape) -> [nb, b]`` (None where the
+    round does not aggregate)."""
+
+    own: List[int]
+    rows: torch.Tensor
+    counts: List[int]
+    order: List[tuple]
+    uniforms: Optional[Callable] = None
+
+
+def mesh_wire_uniforms(seed: int, round_idx: int, device: torch.device
+                       ) -> Callable:
+    """The on-mesh int8 wire's uniforms of round ``round_idx``: for rank (or
+    slice) ``wid`` and payload leaf ``i``, ``[nb, b]`` standard uniforms from
+    a generator seeded by ``(seed, round, wid, i)`` alone, so every rank of a
+    slice draws the same and no draw touches the round's generator."""
+    def draw(wid: int, i: int, shape) -> torch.Tensor:
+        key = np.random.SeedSequence(
+            [int(seed) % 2 ** 32, int(round_idx) % 2 ** 32, int(wid),
+             int(i)]).generate_state(2, np.uint32)
+        g = torch.Generator(device=device).manual_seed(
+            int(key[0]) << 32 | int(key[1]))
+        return torch.rand(tuple(shape), generator=g, device=device)
+
+    return draw
 
 
 #: runs of a body on a side stream before its capture: they set up cuDNN,
@@ -632,7 +681,13 @@ class FedAlgorithm(abc.ABC):
     for those fields, and each round gathers the sampled clients' rows and
     data onto the card, runs the same round body on that slab and stages
     the trained rows back. A streamed run is bitwise the resident one, and
-    its device memory does not grow with the population."""
+    its device memory does not grow with the population.
+
+    ``data`` sharded over a client mesh (``parallel.mesh.shard_federated``;
+    the algorithms with ``mesh_supported``) runs the round on the mesh
+    (module docstring); the device defaults to the mesh's. The fused loop,
+    the client store, the eval cache and subset, the robustness tier and
+    stratified SNIP are not ported to the mesh and are refused there."""
 
     name = "base"
     #: the algorithm carries the error-feedback residual of agg_impl="topk"
@@ -651,6 +706,8 @@ class FedAlgorithm(abc.ABC):
     #: (``client_store`` "host" / "disk"): the central-aggregate algorithms
     #: whose rows are indexed by the sampled cohort alone
     store_supported = False
+    #: the round runs on a client mesh (SalientGrads, FedAvg)
+    mesh_supported = False
 
     def __init__(self, model: torch.nn.Module, data: FederatedData,
                  hp: HyperParams, loss_type: str = "bce", frac: float = 1.0,
@@ -734,7 +791,15 @@ class FedAlgorithm(abc.ABC):
         self.robust_norm_bound = float(robust_norm_bound)
         #: the watchdog's cohort re-draw (set_retry_nonce)
         self._retry_nonce = 0
-        self.device = resolve_device(device)
+        #: the client mesh the data is sharded over (None off the mesh) and
+        #: this rank's block of the cohort, ``[lo, hi)`` (all of it off the
+        #: mesh)
+        self.mesh = mesh_of(data)
+        self._lo, self._hi = (0, data.num_clients) if self.mesh is None \
+            else self.mesh.block(data.num_clients)
+        self.device = (self.mesh.device
+                       if self.mesh is not None and device is None
+                       else resolve_device(device))
         self.model = model.to(self.device)
         self.hp = hp
         self.loss_type = loss_type
@@ -798,6 +863,8 @@ class FedAlgorithm(abc.ABC):
         # store mode keeps the data on the host: each round moves its
         # cohort's rows to the card (_store_gather_rows)
         self.data = data.to(self.device if self._store is None else "cpu")
+        if self.mesh is not None:
+            self._check_mesh()
         #: the dropout layers a training forward meets (_dropout_calls)
         self._drop_calls: Optional[List[tuple]] = None
         #: the fused round loop's buffers and graphs (run_rounds_fused)
@@ -839,6 +906,35 @@ class FedAlgorithm(abc.ABC):
                 "track_personal=False and no topk residual has no "
                 "per-client rows to stream — drop --client_store "
                 "(the run is already O(S) in device memory)")
+
+    def _check_mesh(self) -> None:
+        """Refuse on a client mesh what its round does not run."""
+        what = []
+        if not self.mesh_supported:
+            what.append(f"the {self.name} round")
+        if self._store is not None:
+            what.append("a client store")
+        if self.eval_cache:
+            what.append("the eval cache")
+        if self._eval_idx is not None:
+            what.append("the eval subset (eval_clients)")
+        if self.fault_fn is not None or self.labelflip_fn is not None \
+                or self.guard_enabled:
+            what.append("faults and the guard")
+        if self.robust_agg != "none" or self.defense is not None:
+            what.append("the robust aggregate and the defenses")
+        if getattr(self, "stratified_sampling", False):
+            what.append("stratified SNIP")
+        if what:
+            raise ValueError(
+                f"{self.name}: {', '.join(what)} on a client mesh is not "
+                "ported (the mesh runs the SalientGrads and FedAvg rounds)")
+
+    @property
+    def num_local_clients(self) -> int:
+        """The clients whose rows this rank holds (all of them off the
+        mesh)."""
+        return self._hi - self._lo
 
     @abc.abstractmethod
     def _build(self) -> None:
@@ -932,7 +1028,7 @@ class FedAlgorithm(abc.ABC):
                 residual=state.agg_residual)
         new_global = self._post_aggregate(new_global, state)
         personal = self._guarded_personal_update(
-            state.personal_params, locals_, inp.sel, fstats)
+            state.personal_params, locals_, self._own(inp)[1], fstats)
         cache = state.eval_cache
         if self.eval_cache:
             cache = self._update_eval_cache(cache, personal, inp)
@@ -1068,16 +1164,89 @@ class FedAlgorithm(abc.ABC):
                 "fixed-mask algorithms (SalientGrads) support it")
         return self._agg_sparse_plan
 
+    def _own(self, inp: RoundInputs):
+        """``(positions in the draw, rows)`` of the selected clients this
+        rank trains: all of them, at ``inp.sel``, off the mesh."""
+        if inp.mesh_rows is None:
+            return range(len(inp.n_valid)), inp.sel
+        return inp.mesh_rows.own, inp.mesh_rows.rows
+
+    def _mesh_rows(self, sel: np.ndarray, aggregate: bool,
+                   round_idx: Optional[int]) -> MeshRows:
+        """The selected clients ``sel`` (population ids, in draw order) as
+        the mesh's ranks hold them (:class:`MeshRows`)."""
+        per = self.num_local_clients
+        rank_of = [int(c) // per for c in sel]
+        own = [i for i, d in enumerate(rank_of) if d == self.mesh.rank]
+        counts = [0] * self.mesh.size
+        order = []
+        for d in rank_of:
+            order.append((d, counts[d]))
+            counts[d] += 1
+        rows = _to_device(np.asarray([int(sel[i]) - self._lo for i in own],
+                                     np.int64), self.device)
+        uniforms = (mesh_wire_uniforms(self.seed, round_idx, self.device)
+                    if aggregate else None)
+        return MeshRows(own, rows, counts, order, uniforms)
+
+    def _gather_selected(self, tree: Tree, mr: MeshRows) -> Tree:
+        """The selected clients' rows of ``tree`` (each rank holding its
+        own, ``[len(mr.own), ...]``) on every rank, in draw order: one
+        ``all_gather`` of the rows flattened into one matrix."""
+        keys = list(tree)
+        n = len(mr.own)
+        sizes = [int(np.prod(tree[k].shape[1:], dtype=np.int64))
+                 for k in keys]
+        mat = torch.cat([tree[k].reshape(n, size).to(torch.float32)
+                         for k, size in zip(keys, sizes)], dim=1)
+        full = gather_rows(self.mesh, mat, mr.counts, mr.order)
+        out, off = {}, 0
+        for k, size in zip(keys, sizes):
+            shape = tree[k].shape[1:]
+            out[k] = full[:, off:off + size].reshape((-1,) + tuple(shape)) \
+                .to(tree[k].dtype)
+            off += size
+        return out
+
+    def _reduce_rows(self, stacked: Tree, weights: torch.Tensor,
+                     uniforms, mr: Optional[MeshRows]):
+        """What the aggregate reduces, ``(rows, mesh, uniforms)``: off the
+        mesh ``stacked`` itself. On the mesh, at full participation the
+        rank's own rows, which are its block of the selection; otherwise
+        the trained rows gathered in draw order, then the rank's block of
+        them where the selection divides over the mesh, else all of them,
+        reduced off the mesh on every rank (``uniforms`` then the drawn
+        ``[S, nb, b]``, as in the single-process run)."""
+        if mr is None:
+            return stacked, None, uniforms
+        if self.clients_per_round == self.num_clients:
+            return stacked, self.mesh, mr.uniforms
+        rows = self._gather_selected(stacked, mr)
+        s = int(weights.shape[0])
+        if collectives._mesh_axis_rows(self.mesh, "clients", s):
+            lo, hi = self.mesh.block(s)
+            return ({k: v[lo:hi] for k, v in rows.items()}, self.mesh,
+                    mr.uniforms)
+        return rows, None, uniforms
+
     def _aggregate(self, stacked: Tree, weights: torch.Tensor,
-                   uniforms: Optional[torch.Tensor] = None) -> Tree:
+                   uniforms: Optional[torch.Tensor] = None,
+                   mesh_rows: Optional[MeshRows] = None) -> Tree:
         """The central weighted mean over the stacked client axis, routed by
         ``agg_impl``. ``uniforms`` is the int8 wire's ``[C, nb, b]``
         stochastic-rounding draw. "topk" here is the wire alone, selection
         and reduce of whatever ``stacked`` holds; the round body's
-        :meth:`_topk_aggregate` owns the residual around it."""
+        :meth:`_topk_aggregate` owns the residual around it. On a client
+        mesh (``mesh_rows``) ``stacked`` holds the rank's trained rows and
+        the reduce is the on-mesh one (:meth:`_reduce_rows`); "dense" there
+        is the f32 wire."""
+        stacked, mesh, uniforms = self._reduce_rows(stacked, weights,
+                                                    uniforms, mesh_rows)
         impl = self.agg_impl
-        kw = dict(bucket_size=self.agg_bucket_size)
+        kw = dict(bucket_size=self.agg_bucket_size, mesh=mesh)
         if impl == "dense":
+            if mesh is not None:
+                return collectives.weighted_mean(stacked, weights, **kw)
             return kernels.fused_weighted_sum(stacked, weights)
         if impl == "topk":
             return collectives.topk_weighted_mean(
@@ -1137,7 +1306,8 @@ class FedAlgorithm(abc.ABC):
     def _topk_aggregate(self, locals_: Tree, global_params: Tree,
                         residual: Tree, idx: torch.Tensor,
                         weights: torch.Tensor,
-                        ok: Optional[torch.Tensor] = None):
+                        ok: Optional[torch.Tensor] = None,
+                        mesh_rows: Optional[MeshRows] = None):
         """The ``agg_impl='topk'`` round aggregate with error feedback (Deep
         Gradient Compression on the federated round):
 
@@ -1157,7 +1327,10 @@ class FedAlgorithm(abc.ABC):
         Always the select spelling, so a clean round is bitwise the
         unguarded one.
 
-        ``idx`` holds the selected clients' ids (int64, on the device).
+        ``idx`` holds the selected clients' ids (int64, on the device). On
+        a client mesh (``mesh_rows``) ``locals_``, ``idx`` and the residual
+        are the rank's own rows: each rank selects its clients' coordinates
+        and only the sparsified rows reach the on-mesh reduce.
         Returns ``(new_global, new_residual)``."""
         if residual is None:
             raise ValueError(
@@ -1186,6 +1359,15 @@ class FedAlgorithm(abc.ABC):
                     trim_frac=self.robust_trim, krum_f=self.robust_krum_f,
                     norm_bound=self.robust_norm_bound),
                 collectives.flat_spec(sp, stacked=True))
+        elif mesh_rows is not None:
+            sp = (collectives.topk_sparsify(comp_in, self.agg_topk_density,
+                                            **kw)
+                  if len(mesh_rows.own) else comp_in)
+            rows, mesh, _ = self._reduce_rows(sp, w, None, mesh_rows)
+            mkw = dict(mesh=mesh, bucket_size=self.agg_bucket_size)
+            update = (collectives.sparse_weighted_mean(rows, w, plan, **mkw)
+                      if plan is not None
+                      else collectives.weighted_mean(rows, w, **mkw))
         else:
             update, sp = collectives.topk_weighted_mean(
                 comp_in, w, self.agg_topk_density, **kw)
@@ -1207,16 +1389,28 @@ class FedAlgorithm(abc.ABC):
         own rows (client ``i`` on flipped labels where ``flips[i]``, the
         ``labelflip`` fault); returns (stacked local models, mean loss)."""
         d = self._round_data(inp)
+        own, rows = self._own(inp)
         locals_, losses = [], []
-        for i, n in enumerate(inp.n_valid):
+        for j, i in enumerate(own):
             params, _, loss = self.client_update(
-                clone_tree(global_params), mask, d.x_train, d.y_train, n,
-                inp.sel[i:i + 1], inp.perms[i], inp.lr,
+                clone_tree(global_params), mask, d.x_train, d.y_train,
+                inp.n_valid[i], rows[j:j + 1], inp.perms[i], inp.lr,
                 None if inp.dropout is None else inp.dropout[i],
                 None if flips is None else flips[i], n_rows=inp.n_sel[i])
             locals_.append(params)
             losses.append(loss)
-        return _stack(locals_), torch.stack(losses).mean()
+        if inp.mesh_rows is None:
+            return _stack(locals_), torch.stack(losses).mean()
+        # the losses of every selected client, in draw order, then the
+        # single-process mean
+        lo = torch.stack(losses) if losses else torch.zeros(
+            0, device=self.device)
+        all_losses = gather_rows(self.mesh, lo, inp.mesh_rows.counts,
+                                 inp.mesh_rows.order)
+        stacked = (_stack(locals_) if locals_ else
+                   {k: v.new_empty((0,) + tuple(v.shape))
+                    for k, v in global_params.items()})
+        return stacked, all_losses.mean()
 
     def _train_stacked(self, client_update, params: Tree, masks: Tree,
                        inp: RoundInputs, *, leg: int = 1,
@@ -1316,10 +1510,11 @@ class FedAlgorithm(abc.ABC):
                                               inp.uniforms)
         else:
             def agg_fn(st, wv):
-                return self._aggregate(st, wv, inp.uniforms)
+                return self._aggregate(st, wv, inp.uniforms, inp.mesh_rows)
         if self.agg_impl == "topk":
             new_global, residual = self._topk_aggregate(
-                defended, global_params, residual, inp.sel, weights, ok)
+                defended, global_params, residual, self._own(inp)[1],
+                weights, ok, inp.mesh_rows)
         elif self.guard_enabled:
             new_global = _guard.guarded_aggregate(defended, weights, ok,
                                                   agg_fn, global_params)
@@ -1336,6 +1531,7 @@ class FedAlgorithm(abc.ABC):
         """Client ``c``'s train (or test) rows and labels on the device
         (moved there from the host in store mode)."""
         d = self.data
+        c = c - self._lo
         x, y = (d.x_test[c], d.y_test[c]) if test else (d.x_train[c],
                                                          d.y_train[c])
         if self._store is not None:
@@ -1345,11 +1541,22 @@ class FedAlgorithm(abc.ABC):
     def _eval_terms(self, rows, params_of):
         """``eval_client`` of ``params_of(c)`` on client ``c``'s test shard
         for each client id ``c`` of ``rows``: (correct, loss_sum), each
-        stacked over ``rows``."""
+        stacked over ``rows``. On a client mesh (``rows`` the whole cohort)
+        each rank evaluates its clients and the sums are gathered in client
+        order."""
+        rows = list(rows)
+        if self.mesh is not None and rows != list(range(self.num_clients)):
+            raise ValueError("on a client mesh the eval runs over the whole "
+                             "cohort")
         terms = [self.eval_client(params_of(c), *self._shard(c, test=True),
-                                  self._n_test[c]) for c in rows]
-        return (torch.stack([t[0] for t in terms]),
-                torch.stack([t[1] for t in terms]))
+                                  self._n_test[c]) for c in rows
+                 if self._lo <= c < self._hi]
+        correct, loss_sum = (torch.stack([t[0] for t in terms]),
+                             torch.stack([t[1] for t in terms]))
+        if self.mesh is not None:
+            correct, loss_sum = (self.mesh.all_gather(t).reshape(-1)
+                                 for t in (correct, loss_sum))
+        return correct, loss_sum
 
     def _eval_global(self, params: Tree) -> Dict[str, torch.Tensor]:
         """The global model on every evaluated client's test shard (all,
@@ -1363,8 +1570,10 @@ class FedAlgorithm(abc.ABC):
 
     def _eval_personal(self, personal: Tree) -> Dict[str, torch.Tensor]:
         """Each evaluated client's personal model on its own test shard."""
+        lo = self._lo
         correct, loss_sum = self._eval_terms(
-            self._eval_rows, lambda c: {k: v[c] for k, v in personal.items()})
+            self._eval_rows,
+            lambda c: {k: v[c - lo] for k, v in personal.items()})
         return _personal_metrics(correct, loss_sum, self._n_test_eval)
 
     # -- the incremental personal eval, in the state (eval_cache) -------------
@@ -1640,6 +1849,8 @@ class FedAlgorithm(abc.ABC):
                            for k, v in collude.items()}
         host = {k: _to_device(v, dev)
                 for k, v in self._host_inputs(round_idx).items()}
+        if self.mesh is not None:
+            host["mesh_rows"] = self._mesh_rows(sel, aggregate, round_idx)
         return RoundInputs(
             n_valid=n_valid, sel=sel_dev,
             n_sel=_to_device(np.asarray(n_valid, np.float32), dev), lr=lr,
@@ -1926,6 +2137,11 @@ class FedAlgorithm(abc.ABC):
                 "device, fedfomo_api.py:130-144; TurboAggregate's "
                 "share/reconstruct protocol is host-interactive) — run it "
                 "with fuse_rounds=1")
+        if self.mesh is not None:
+            raise ValueError(
+                f"{self.name}: fused rounds on a client mesh (a CUDA graph "
+                "holding the mesh's collectives) are not ported; run the "
+                "rounds one at a time")
         if seams is not None and len(seams) != n_rounds:
             raise ValueError(f"seams: {len(seams)} rounds for a block of "
                              f"{n_rounds}")

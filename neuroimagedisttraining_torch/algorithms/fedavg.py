@@ -53,6 +53,7 @@ class FedAvg(FedAlgorithm):
     topk_supported = True
     supports_fused = True
     store_supported = True
+    mesh_supported = True
 
     def __init__(self, *args, defense=None, track_personal: bool = True,
                  eval_cache: bool = False, **kwargs):
@@ -86,12 +87,12 @@ class FedAvg(FedAlgorithm):
             return FedAvgState(
                 global_params=params, personal_params=None, generator=g,
                 eval_cache=self._seed_eval_cache(None, params))
-        personal = (broadcast_tree(params, self.num_clients)
+        personal = (broadcast_tree(params, self.num_local_clients)
                     if self.track_personal else None)
         residual = None
         if self.agg_impl == "topk":
             residual = zeros_like_tree(
-                broadcast_tree(params, self.num_clients))
+                broadcast_tree(params, self.num_local_clients))
         return FedAvgState(global_params=params, personal_params=personal,
                            generator=g, agg_residual=residual,
                            eval_cache=self._seed_eval_cache(personal))

@@ -30,7 +30,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from ..core.state import Tree, broadcast_tree, zeros_like_tree
+from ..core.state import Tree, broadcast_tree, row_sum, zeros_like_tree
 from ..core.trainer import make_client_update
 from ..ops import kernels
 from ..ops.sparsity import (
@@ -71,6 +71,7 @@ class SalientGrads(FedAlgorithm):
     topk_supported = True
     supports_fused = True
     store_supported = True
+    mesh_supported = True
 
     def __init__(self, *args, dense_ratio: float = 0.5,
                  itersnip_iterations: int = 1, defense=None,
@@ -123,9 +124,19 @@ class SalientGrads(FedAlgorithm):
         top-k. The scoring batches per client: ``itersnip_iterations``
         uniform draws; with ``stratified_sampling`` the 25 fold train sides
         ("exact") or 25 class-balanced draws ("balanced"). ``snip_idx``
-        (per client, ``[n_iters, batch]``) replaces the drawn batches."""
+        (per client, ``[n_iters, batch]``) replaces the drawn batches.
+
+        On a client mesh each rank scores its own clients and makes the
+        other clients' draws without scoring them (the generator stays the
+        single-process run's); the scores are gathered and summed in client
+        order, so the mean and the mask are the single-process ones bit for
+        bit. The threshold and the score mask then run on every rank."""
         n_iters = (STRATIFIED_SPLITS if self.stratified_sampling
                    else self.itersnip_iterations)
+        if self.mesh is not None:
+            return mask_from_scores(
+                self._mesh_mean_scores(params, generator, snip_idx, n_iters),
+                self.dense_ratio)
         total = None
         for c in range(self.num_clients):
             x, y = self._shard(c)
@@ -141,6 +152,37 @@ class SalientGrads(FedAlgorithm):
             total = s if total is None else {k: total[k] + s[k] for k in s}
         mean = {k: v / self.num_clients for k, v in total.items()}
         return mask_from_scores(mean, self.dense_ratio)
+
+    def _mesh_mean_scores(self, params: Tree, generator, snip_idx,
+                          n_iters: int) -> Tree:
+        """The SNIP mean on a client mesh (:meth:`global_mask`)."""
+        drop_calls = self._dropout_calls(params)
+        mine = []
+        for c in range(self.num_clients):
+            if self._lo <= c < self._hi:
+                x, y = self._shard(c)
+                mine.append(self.snip_scores(
+                    params, x, y, self._n_train[c], n_iters,
+                    idx=None if snip_idx is None else snip_idx[c],
+                    rng=generator))
+            elif snip_idx is None:
+                # client c's batch rows and dropout masks, as snip_scores
+                # draws them
+                for _ in range(n_iters):
+                    torch.randint(0, max(self._n_train[c], 1),
+                                  (self.hp.batch_size,), generator=generator,
+                                  device=generator.device)
+                    for _, shape, _ in drop_calls:
+                        torch.rand(shape, generator=generator,
+                                   device=self.device)
+        keys = list(params)
+        sizes = [params[k].numel() for k in keys]
+        local = torch.stack([torch.cat([s[k].reshape(-1) for k in keys])
+                             for s in mine])
+        total = row_sum(self.mesh.all_gather(local).reshape(
+            self.num_clients, -1))
+        return {k: v.reshape(params[k].shape) / self.num_clients
+                for k, v in zip(keys, torch.split(total, sizes))}
 
     def init_state(self, generator: Optional[torch.Generator] = None,
                    params: Optional[Tree] = None,
@@ -163,12 +205,12 @@ class SalientGrads(FedAlgorithm):
             return SalientGradsState(
                 global_params=params, mask=mask, personal_params=None,
                 generator=g, eval_cache=self._seed_eval_cache(None, params))
-        personal = (broadcast_tree(params, self.num_clients)
+        personal = (broadcast_tree(params, self.num_local_clients)
                     if self.track_personal else None)
         residual = None
         if self.agg_impl == "topk":
             residual = zeros_like_tree(
-                broadcast_tree(params, self.num_clients))
+                broadcast_tree(params, self.num_local_clients))
         return SalientGradsState(
             global_params=params, mask=mask, personal_params=personal,
             generator=g, agg_residual=residual,

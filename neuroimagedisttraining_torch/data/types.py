@@ -4,7 +4,7 @@ common length, with valid-count vectors."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Optional
 
 import numpy as np
 import torch
@@ -21,6 +21,10 @@ class FederatedData:
     from train when a loader is given ``val_fraction`` (the JAX CLI's
     unified ``--algo`` parser always passes fedfomo's 0.1). No ported
     algorithm reads it, so it stays on the CPU.
+
+    On a client mesh (``parallel.mesh.shard_federated``) the arrays hold
+    this rank's block of clients and ``mesh`` the rank's ``ClientMesh``;
+    the counts stay whole, for every client of the cohort.
     """
 
     x_train: torch.Tensor
@@ -33,10 +37,12 @@ class FederatedData:
     x_val: Optional[torch.Tensor] = None
     y_val: Optional[torch.Tensor] = None
     n_val: Optional[torch.Tensor] = None
+    mesh: Optional[Any] = None
 
     @property
     def num_clients(self) -> int:
-        return self.x_train.shape[0]
+        """The cohort's client count (on a mesh, not the rank's block)."""
+        return int(self.n_train.shape[0])
 
     @property
     def sample_shape(self):

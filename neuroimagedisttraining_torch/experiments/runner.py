@@ -7,14 +7,19 @@ per-run log ``<log_dir>/<identity>.log`` and the ``stat_info`` pickle (plus
 its ``.json``) at ``<results_dir>/<dataset>/<identity>``, with the same
 top-level keys. It runs on ``--device`` (CUDA by default, with no fallback).
 
+``--mesh_devices N`` shards the clients over a mesh of ``N`` ranks, one
+process a device (:func:`run_experiment`): fitted to the devices there are
+and to the cohort, as the JAX CLI fits it; rank 0 writes the log and the
+results.
+
 With ``--checkpoint_dir`` every round (every block under ``--fuse_rounds``)
 is saved in the port's torch format (``utils/checkpoint.py``) under the
 JAX CLI's checkpoint identity, and ``--resume`` continues the newest step;
 ``--client_store host|disk`` streams the per-client rows
 (``core/client_store.py``).
 
-A flag of a feature the port has not got (the wire, telemetry, the mesh,
-...) ends the run
+A flag of a feature the port has not got (the wire, telemetry, the spatial
+axis, ...) ends the run
 before any work with ``SystemExit`` naming the flag and the ROADMAP item
 that ports it (:func:`refuse_unported`). A knob that leaves the JAX
 package's results bit-identical (``--client_chunk``, ``--donate_state``,
@@ -31,6 +36,7 @@ import logging
 import os
 import pickle
 import random
+import tempfile
 from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
@@ -83,14 +89,12 @@ _UNPORTED = {
     "multihost": 15, "coordinator_address": 15, "num_processes": 15,
     "process_id": 15, "multihost_timeout_s": 15, "multihost_retries": 15,
     "mesh_space": 15,
-    # the rest: the values other than the default that the port runs are
-    # in _ALLOWED
-    "mesh_devices": 7,
 }
 #: attribute -> the values of it the port runs, where that is not just the
-#: parser's default (1 device and 1 depth shard are the default's
-#: behavior)
-_ALLOWED = {"mesh_devices": (0, 1), "mesh_space": (0, 1)}
+#: parser's default (1 depth shard is the default's behavior)
+_ALLOWED = {"mesh_space": (0, 1)}
+#: the algorithms whose round runs on a client mesh
+_MESH_ALGOS = ("salientgrads", "fedavg")
 #: the algorithms with a central aggregate the guard, the faults and the
 #: robust statistics act on (the JAX CLI's list; the port runs all three)
 _CENTRAL = ("fedavg", "salientgrads", "ditto")
@@ -99,7 +103,9 @@ _CENTRAL = ("fedavg", "salientgrads", "ditto")
 _INERT = {
     "client_chunk": "clients train one after another",
     "donate_state": "a round never writes into its input state",
-    "agg_overlap": "the aggregate is one kernel launch, not a collective",
+    "agg_overlap": "each leaf group's collective is issued right after its "
+                   "own contraction, on the mesh as off it, and the results "
+                   "are bit-identical either way",
     "agg_kernels": "the aggregation always runs the CUDA kernels",
     "fused_kernels": "the optimizer update always runs the CUDA kernel",
     "gpu": "--device names the card",
@@ -123,6 +129,65 @@ def seed_everything(seed: int) -> None:
     torch.manual_seed(seed)
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
+
+
+def _mesh_devices_asked(args: argparse.Namespace) -> int:
+    """The ranks the flags ask the client mesh for, before it is fitted to
+    the cohort: ``--mesh_devices`` (0: every device) capped at the devices
+    there are, which on the card are its GPUs and on ``--device cpu`` the
+    gloo processes asked for (0 there means 1)."""
+    asked = int(getattr(args, "mesh_devices", 0) or 0)
+    if getattr(args, "device", "cuda") == "cpu":
+        return max(asked, 1)
+    avail = torch.cuda.device_count()
+    return min(asked or avail, avail)
+
+
+def _mesh_rest(args: argparse.Namespace, algo_name: str):
+    """What the flags ask for that the client mesh does not run (ROADMAP
+    item 7, the rest), or an empty list."""
+    what = []
+    if algo_name not in _MESH_ALGOS:
+        what.append(f"--algo {algo_name}")
+    for attr, flag in (("fuse_rounds", "--fuse_rounds"),
+                       ("checkpoint_dir", "--checkpoint_dir"),
+                       ("resume", "--resume"),
+                       ("fault_spec", "--fault_spec"), ("guard", "--guard"),
+                       ("defense_type", "--defense_type"),
+                       ("robust_agg", "--robust_agg"),
+                       ("watchdog", "--watchdog"),
+                       ("eval_cache", "--eval_cache"),
+                       ("eval_clients", "--eval_clients"),
+                       ("stratified_sampling", "--stratified_sampling")):
+        v = getattr(args, attr, None)
+        if v in (None, 0, "", False) or v == _default(attr) or (
+                attr == "fuse_rounds" and int(v) <= 1):
+            continue
+        what.append(flag)
+    if getattr(args, "client_store", "device") != "device":
+        what.append("--client_store")
+    return what
+
+
+def client_mesh_size(args: argparse.Namespace, algo_name: str) -> int:
+    """The ranks of the run's client mesh, sized as the JAX CLI's
+    ``maybe_shard`` sizes it: the largest count up to the devices asked for
+    (:func:`_mesh_devices_asked`) that divides ``--client_num_in_total``; 1
+    is no mesh. An explicit ``--mesh_devices`` above 1 with a flag the mesh
+    does not run is refused (ROADMAP item 7, the rest); with the default 0
+    such a run keeps one device."""
+    from ..parallel.mesh import fit_client_devices
+
+    asked = _mesh_devices_asked(args)
+    rest = _mesh_rest(args, algo_name)
+    if asked > 1 and rest:
+        if getattr(args, "mesh_devices", 0):
+            raise SystemExit(
+                f"--mesh_devices {args.mesh_devices}: {', '.join(rest)} on "
+                "a client mesh is not ported to PyTorch yet (ROADMAP item 7 "
+                "(the rest)); drop the flag, or run on one device")
+        return 1
+    return fit_client_devices(args.client_num_in_total, asked)
 
 
 def _is_abcd_h5(dataset: str) -> bool:
@@ -291,6 +356,7 @@ def refuse_unported(args: argparse.Namespace, algo_name: str) -> None:
         raise SystemExit(
             f"--model {key}: not ported to PyTorch yet (ROADMAP item 11); "
             f"the port has {', '.join(MODEL_NAMES)}")
+    client_mesh_size(args, algo_name)
 
 
 def refuse_fused(algo, algo_name: str) -> None:
@@ -435,10 +501,12 @@ def infer_loss_type(args: argparse.Namespace, class_num: int) -> str:
     return "ce"
 
 
-def build_algorithm(args: argparse.Namespace, algo_name: str):
+def build_algorithm(args: argparse.Namespace, algo_name: str, mesh=None):
     """The algorithm the flags describe, on ``--device``; returns
     ``(algo, data)``, the data as the algorithm holds it (on the device,
-    moved there once after the ``--data_dtype`` cast)."""
+    moved there once after the ``--data_dtype`` cast). On a client ``mesh``
+    every rank builds the whole cohort and keeps its block
+    (``parallel.mesh.shard_federated``)."""
     from ..algorithms import ALGORITHMS
     from ..core.state import HyperParams
     from ..models import create_model
@@ -475,6 +543,15 @@ def build_algorithm(args: argparse.Namespace, algo_name: str):
         data = dataclasses.replace(
             data, x_train=data.x_train.to(dt), x_test=data.x_test.to(dt),
             x_val=None if data.x_val is None else data.x_val.to(dt))
+    if mesh is not None:
+        from ..parallel.mesh import shard_federated
+
+        if data.num_clients % mesh.size:
+            raise SystemExit(
+                f"--mesh_devices: the cohort has {data.num_clients} clients, "
+                f"which do not divide over the {mesh.size}-rank mesh sized "
+                f"by --client_num_in_total {args.client_num_in_total}")
+        data = shard_federated(data, mesh)
     loss_type = infer_loss_type(args, data.class_num)
     num_outputs = 1 if loss_type == "bce" else data.class_num
     # --layout flat stores the cohort channel-less; the apply injects it
@@ -525,7 +602,8 @@ def build_algorithm(args: argparse.Namespace, algo_name: str):
         # never enters the run identity
         client_store=getattr(args, "client_store", "device"),
         store_hot_clients=getattr(args, "store_hot_clients", 64),
-        device=getattr(args, "device", "cuda"),
+        device=(mesh.device if mesh is not None
+                else getattr(args, "device", "cuda")),
     )
     defense = None
     if getattr(args, "defense_type", "none") != "none":
@@ -699,8 +777,61 @@ def _run_fused_rounds(algo, algo_name, state, start_round, total, block,
         on_first_round=None if cost.per_round else on_first_round)
 
 
+def _mesh_rank(rank: int, args: argparse.Namespace, algo_name: str,
+               n: int, directory: str, threads: int) -> None:
+    """One rank of a client-mesh run (:func:`run_experiment`): joins the
+    group over a ``file://`` rendezvous in ``directory``, runs, and on rank
+    0 leaves the result there; the group is torn down whatever happens. A
+    CPU rank computes on ``threads`` threads (its share of the parent's)."""
+    from ..parallel.mesh import make_mesh
+
+    device = "cpu"
+    if getattr(args, "device", "cuda") != "cpu":
+        torch.cuda.set_device(rank)
+        device = f"cuda:{rank}"
+    else:
+        torch.set_num_threads(threads)
+    mesh = make_mesh(n, init_method="file://" + os.path.join(
+        directory, "rendezvous"), rank=rank, device=device)
+    try:
+        out = run_experiment(args, algo_name, mesh=mesh)
+        if rank == 0:
+            out["state"] = None  # each rank holds its block of the state
+            with open(os.path.join(directory, "result.pkl"), "wb") as f:
+                pickle.dump(out, f)
+    finally:
+        mesh.destroy()
+
+
+def _run_on_mesh(args: argparse.Namespace, algo_name: str,
+                 n: int) -> Dict[str, Any]:
+    """Spawn the ``n`` ranks of a client-mesh run (``spawn``, never
+    ``fork``) and return rank 0's result, whose ``state`` is None: the
+    per-client rows live in the ranks. On the card the kernels are built
+    here first, so the ranks only load them. A rank that raises fails the
+    run."""
+    import torch.multiprocessing as mp
+
+    if getattr(args, "device", "cuda") != "cpu":
+        from ..ops import kernels
+
+        kernels.build()
+    with tempfile.TemporaryDirectory() as d:
+        mp.spawn(_mesh_rank, args=(args, algo_name, n, d,
+                                   max(1, torch.get_num_threads() // n)),
+                 nprocs=n, join=True)
+        with open(os.path.join(d, "result.pkl"), "rb") as f:
+            return pickle.load(f)
+
+
 def run_experiment(args: argparse.Namespace,
-                   algo_name: Optional[str] = None) -> Dict[str, Any]:
+                   algo_name: Optional[str] = None,
+                   mesh=None) -> Dict[str, Any]:
+    """The run the flags describe; returns its identity, history, final
+    eval, ``stat_info`` path, final state and ``client_mesh_devices``. With
+    a client mesh of more than one rank (:func:`client_mesh_size`) the run
+    is spawned, one process a rank (``mesh`` is the rank's mesh inside
+    one)."""
     from .. import resolve_device
     from ..convert import to_reference_layout
     from ..robust import recovery
@@ -715,6 +846,14 @@ def run_experiment(args: argparse.Namespace,
         resolve_device(getattr(args, "device", "cuda"))
     except RuntimeError as e:
         raise SystemExit(f"--device {args.device}: {e}")
+    n_mesh = mesh.size if mesh is not None else client_mesh_size(
+        args, algo_name)
+    if mesh is None and n_mesh > 1:
+        out = _run_on_mesh(args, algo_name, n_mesh)
+        out["client_mesh_devices"] = n_mesh
+        return out
+    # on a mesh, rank 0 alone writes the log and the results
+    lead = mesh is None or mesh.rank == 0
     log_handler = None
     ckpt_mgr = None
     try:
@@ -730,14 +869,21 @@ def run_experiment(args: argparse.Namespace,
                     args, ckpt_mgr.load_metadata(last) or {}, last,
                     ckpt_mgr.directory, algo_name)
         identity = run_identity(args, algo_name)
-        configure_console()
-        log_handler = add_run_file_logger(
-            args.log_dir, getattr(args, "logfile", "") or identity)
+        if lead:
+            configure_console()
+            log_handler = add_run_file_logger(
+                args.log_dir, getattr(args, "logfile", "") or identity)
         logger.info("run identity: %s", identity)
         _log_inert(args)
+        if mesh is not None:
+            logger.info("sharding clients over mesh %s", mesh.shape)
+        elif int(getattr(args, "mesh_devices", 0) or 0) > 1:
+            logger.info(
+                "--mesh_devices %d fitted to %d device(s) for %d clients: no "
+                "mesh", args.mesh_devices, n_mesh, args.client_num_in_total)
         seed_everything(args.seed)
 
-        algo, data = build_algorithm(args, algo_name)
+        algo, data = build_algorithm(args, algo_name, mesh=mesh)
         _check_augment_consistency(args, algo)
         fuse = max(1, getattr(args, "fuse_rounds", 1) or 1)
         if fuse > 1:
@@ -924,7 +1070,7 @@ def run_experiment(args: argparse.Namespace,
             extras["mask_distance_matrix"] = algo.mask_distance_matrix(
                 state)
         avg_inf = 0.0
-        if args.results_dir:
+        if args.results_dir and lead:
             avg_inf = avg_inference_flops(
                 algo.model, state, algo.init_sample_shape, algo.num_clients,
                 algo.cost_snapshot)
@@ -936,13 +1082,15 @@ def run_experiment(args: argparse.Namespace,
                 ckpt_mgr.save_failures)
         stat_path = save_stat_info(
             args, identity, history, final_eval, extras, cost=cost,
-            avg_inference_flops=avg_inf, fault_counters=fault_totals)
+            avg_inference_flops=avg_inf,
+            fault_counters=fault_totals) if lead else None
         return {
             "identity": identity,
             "history": history,
             "final_eval": final_eval,
             "stat_path": stat_path,
             "state": state,
+            "client_mesh_devices": n_mesh,
         }
     finally:
         if ckpt_mgr is not None:

@@ -163,7 +163,8 @@ REFUSED = [
     (["--trace_dir", "tr"], "--trace_dir"),
     (["--slo_spec", "p99:round_time_s<2"], "--slo_spec"),
     (["--flight_recorder", "guard"], "--flight_recorder"),
-    (["--mesh_devices", "2"], "--mesh_devices"),
+    # the client mesh runs (test_cli_mesh_*); fused blocks on it do not
+    (["--mesh_devices", "2", "--fuse_rounds", "2"], "--mesh_devices"),
     (["--mesh_space", "2"], "--mesh_space"),
     (["--multihost"], "--multihost"),
     (["--serve_role", "worker"], "--serve_role"),
@@ -773,3 +774,105 @@ def test_cli_runs_the_lifted_flags_on_cpu(tmp_path, extra, shows):
     if shows == "watchdog":
         assert all("rounds_retried" in h for h in rounds)
         assert {"rounds_retried", "rounds_skipped"} <= set(fault)
+
+
+# -- the client mesh (--mesh_devices) ----------------------------------------
+
+#: what the client mesh does not run: each refused on an explicit
+#: --mesh_devices above 1, naming ROADMAP item 7 (the rest)
+MESH_REST = [
+    (["--algo", "dispfl"], "--algo dispfl"),
+    (["--algo", "ditto"], "--algo ditto"),
+    (["--fuse_rounds", "2"], "--fuse_rounds"),
+    (["--checkpoint_dir", "{tmp}/ck"], "--checkpoint_dir"),
+    (["--checkpoint_dir", "{tmp}/ck", "--resume"], "--resume"),
+    (["--client_store", "host", "--frac", "0.5"], "--client_store"),
+    (["--fault_spec", "nan=0.125"], "--fault_spec"),
+    (["--guard", "1"], "--guard"),
+    (["--defense_type", "weak_dp"], "--defense_type"),
+    (["--robust_agg", "median"], "--robust_agg"),
+    (["--watchdog", "1"], "--watchdog"),
+    (["--eval_cache", "1"], "--eval_cache"),
+    (["--eval_clients", "4"], "--eval_clients"),
+    (["--stratified_sampling", "1"], "--stratified_sampling"),
+]
+
+
+@pytest.mark.parametrize("extra,names", MESH_REST,
+                         ids=[n for _, n in MESH_REST])
+def test_cli_mesh_refuses_the_rest(tmp_path, extra, names):
+    argv = (["--algo", "salientgrads"] + SMALL + [
+        "--results_dir", str(tmp_path / "res"), "--log_dir",
+        str(tmp_path / "log"), "--device", "cpu"]
+        + [a.format(tmp=tmp_path) for a in extra])
+    with pytest.raises(SystemExit) as e:
+        trunner.main(argv + ["--mesh_devices", "2"])
+    msg = str(e.value.code)
+    assert msg.startswith("--mesh_devices 2: ") and names in msg, msg
+    assert "ROADMAP item 7 (the rest)" in msg
+    assert not (tmp_path / "res").exists() and \
+        not (tmp_path / "log").exists()
+    # the default (every device) keeps such a run on one device
+    args = tconfig.parse_args(argv)
+    assert trunner.client_mesh_size(args, args.algo) == 1
+
+
+def test_cli_mesh_size_is_the_reference_fit():
+    """``--mesh_devices`` fitted as the JAX CLI's ``maybe_shard`` fits it:
+    on the CPU the ranks asked for, down to a divisor of the cohort."""
+    for asked, clients, want in ((0, 8, 1), (1, 8, 1), (2, 8, 2), (3, 8, 2),
+                                 (4, 6, 3), (8, 8, 8), (5, 7, 1)):
+        args = tconfig.parse_args(SMALL + [
+            "--algo", "fedavg", "--mesh_devices", str(asked),
+            "--client_num_in_total", str(clients), "--device", "cpu"])
+        assert trunner.client_mesh_size(args, "fedavg") == want, \
+            (asked, clients)
+
+
+@pytest.mark.parametrize("algo", ["salientgrads", "fedavg"])
+def test_cli_mesh_runs_match_reference_cli(tmp_path, algo):
+    """``--mesh_devices 2 --device cpu``: two gloo ranks. Against the JAX
+    CLI's ``--mesh_devices 2`` the identity, the stat_info keys and the
+    record keys round by round (FedAvg's cost counters exactly), as the
+    single-device CLI tests hold them; the history within rtol 1e-5 of the
+    port's single-device run (the mask and round 0's models are bitwise,
+    only the aggregate's cross-rank sum reassociates); SalientGrads run
+    twice with bitwise-equal histories."""
+    argv = SMALL + ["--comm_round", "2", "--epochs", "1", "--log_dir", ""]
+    mesh = ["--mesh_devices", "2", "--device", "cpu"]
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # the ranks take the parent's share
+    try:
+        t = trunner.main(argv + mesh + ["--results_dir",
+                                        str(tmp_path / "t")], algo)
+        one = trunner.main(argv + ["--device", "cpu", "--results_dir", ""],
+                           algo)
+        twin = (trunner.main(argv + mesh + ["--results_dir", ""], algo)
+                if algo == "salientgrads" else None)
+    finally:
+        torch.set_num_threads(threads)
+    j = jrunner.main(argv + ["--mesh_devices", "2", "--results_dir",
+                             str(tmp_path / "j")], algo)
+    assert t["client_mesh_devices"] == 2 and t["state"] is None
+    assert one["client_mesh_devices"] == 1
+    assert t["identity"] == j["identity"] == one["identity"]
+    assert os.path.relpath(t["stat_path"], tmp_path / "t") == \
+        os.path.relpath(j["stat_path"], tmp_path / "j")
+    assert [sorted(h) for h in t["history"]] == \
+        [sorted(h) for h in j["history"]]
+    with open(t["stat_path"], "rb") as f:
+        ts = pickle.load(f)
+    with open(j["stat_path"], "rb") as f:
+        js = pickle.load(f)
+    assert sorted(ts) == sorted(js)
+    if algo == "fedavg":
+        for k in ("sum_comm_params", "sum_training_flops",
+                  "avg_inference_flops"):
+            assert ts[k] == js[k], k
+    for h, h1 in zip(t["history"], one["history"]):
+        assert sorted(h) == sorted(h1)
+        for k, v in h.items():
+            np.testing.assert_allclose(v, h1[k], rtol=1e-5, err_msg=k)
+    assert t["history"][0]["train_loss"] == one["history"][0]["train_loss"]
+    if twin is not None:
+        assert twin["history"] == t["history"]
