@@ -158,10 +158,16 @@ Phases, each printing one JSON line:
    hier), every round replayed by a single process from the mesh's state:
    the mask, each client's trained model, the losses, the evals and their
    per-client sums bitwise, the global model within ``MESH_GLOBAL_BOUND``;
-   the ranks' launches counted; then a one-rank NCCL group through the
+   the ranks' launches counted, and each rank's fused block refused (a
+   gloo group cannot be captured); then a one-rank NCCL group through the
    wire reduces on full-width payloads (each equal to the rank's own
-   payload) and ``runner.main --mesh_devices 2`` fitted to the one card
-   (see ``mesh_path``).
+   payload), each reduce also captured in a CUDA graph and replayed on new
+   payloads and uniforms, bitwise the eager reduce; then a one-rank NCCL
+   mesh of the main configuration whose fused block (3 rounds, the eval
+   every round) is bitwise its eager rounds and the single-process block,
+   with no collective called from Python while it replays; and
+   ``runner.main --mesh_devices 2`` fitted to the one card (see
+   ``mesh_path``).
 18. cli     — the command-line entry point in-process on the card
    (``experiments.runner.main``): SalientGrads and FedAvg, ``--dataset
    synthetic --model small3dcnn --comm_round 2`` (no stem stage on this
@@ -3658,6 +3664,14 @@ def _mesh_rank(rank, directory, dev):
                     "eval": {k: v.cpu() for k, v in ev.items()},
                     "terms": (correct.cpu(), loss_sum.cpu())})
             rec["wires"][impl] = rounds
+        # part (c): a gloo group's collectives run on the host, so a CUDA
+        # graph cannot hold them: the fused block is refused, with no
+        # eager fallback
+        try:
+            algo.run_rounds_fused(algo.clone_state(state0), 0, MESH_ROUNDS)
+            rec["fused_refused"] = None
+        except ValueError as e:
+            rec["fused_refused"] = str(e)
         torch.cuda.synchronize()
         rec["launches"] = dict(kernels.LAUNCHES)
         rec["peak_mem_bytes"] = torch.cuda.max_memory_allocated(dev)
@@ -3674,12 +3688,25 @@ def _mesh_nccl(dev):
     This skips the D <= 1 gate that keeps the aggregate off a one-rank mesh
     on purpose: it is the collectives' own path that is under test. Each
     result equals the rank's own payload: bitwise on f32, its bf16 rounding
-    on bf16, its int8 quantize and dequantize on int8."""
+    on bf16, its int8 quantize and dequantize on int8. Then each reduce is
+    captured in a CUDA graph (``base._Graph``: the warm-ups, then the
+    capture, as a fused round takes them) over payload buffers and the int8
+    wire's uniform buffers (``MeshUniformBuffers``), and replayed twice,
+    each time after new payloads and a new round's uniforms were written
+    into the buffers: each replay is bitwise the eager reduce of the same
+    values (on int8, the eager reduce on the other round's uniforms is
+    not). Eager and captured reduces are timed (CUDA events,
+    NCCL_REPS)."""
     import os
     import tempfile
 
     import torch
 
+    from neuroimagedisttraining_torch.algorithms.base import (
+        MeshUniformBuffers,
+        _Graph,
+        mesh_wire_uniforms,
+    )
     from neuroimagedisttraining_torch.convert import reference_leaf_order
     from neuroimagedisttraining_torch.models import create_model
     from neuroimagedisttraining_torch.ops.s2d import phased_sample_shape
@@ -3692,7 +3719,12 @@ def _mesh_nccl(dev):
     sizes = [params[k].numel() for k in reference_leaf_order(params)]
     groups = tc._leaf_groups(sizes, tc.DEFAULT_BUCKET_SIZE)
     g = torch.Generator(device=dev).manual_seed(17)
-    payload = [torch.randn(n, generator=g, device=dev) * 0.01 for n in sizes]
+
+    def fresh():
+        return [torch.randn(n, generator=g, device=dev) * 0.01
+                for n in sizes]
+
+    payload = fresh()
 
     def uniforms(wid, i, shape):
         ug = torch.Generator(device=dev).manual_seed(1000 * wid + i)
@@ -3710,6 +3742,19 @@ def _mesh_nccl(dev):
             out.append((q.to(torch.float32) * s).reshape(-1)[:v.numel()])
         return out
 
+    def timed(fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(NCCL_REPS):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / NCCL_REPS
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
     rec = {"phase": "mesh_nccl", "leaves": len(sizes),
            "values": sum(sizes), "groups": len(groups)}
     with tempfile.TemporaryDirectory() as d:
@@ -3720,54 +3765,214 @@ def _mesh_nccl(dev):
             rec["backend"] = mesh.backend
             for spelling in ("wire", "hier"):
                 for wire in ("f32", "bf16", "int8"):
-                    def run():
+                    def run(vals, u):
                         if spelling == "wire":
                             return tc._wire_reduce_groups(
-                                payload, groups, mesh=mesh, wire=wire,
-                                uniforms=uniforms)
+                                vals, groups, mesh=mesh, wire=wire,
+                                uniforms=u)
                         return tc._hier_reduce_groups(
-                            payload, groups, mesh=mesh, wire=wire,
-                            uniforms=uniforms, n_devices=1, inner=1)
+                            vals, groups, mesh=mesh, wire=wire,
+                            uniforms=u, n_devices=1, inner=1)
 
-                    got = run()
+                    got = run(payload, uniforms)
                     torch.cuda.synchronize()
                     for i, (a, b) in enumerate(zip(got, want(wire))):
                         if not torch.equal(a, b):
                             raise AssertionError(
                                 f"mesh_nccl {spelling} {wire}: leaf {i} is "
                                 "not the rank's own payload")
-                    start = torch.cuda.Event(enable_timing=True)
-                    end = torch.cuda.Event(enable_timing=True)
-                    start.record()
-                    for _ in range(NCCL_REPS):
-                        run()
-                    end.record()
-                    torch.cuda.synchronize()
-                    rec[f"{spelling}_{wire}_ms"] = \
-                        start.elapsed_time(end) / NCCL_REPS
+                    rec[f"{spelling}_{wire}_ms"] = timed(
+                        lambda: run(payload, uniforms))
+                    # the captured reduce over buffers
+                    bufs = [v.clone() for v in payload]
+                    ub = MeshUniformBuffers()
+                    ub.set_round(mesh_wire_uniforms(17, 0, dev))
+                    graph = _Graph(lambda warm: run(bufs, ub), dev,
+                                   f"mesh_nccl {spelling} {wire}")
+                    for r in (1, 2):
+                        for b, v in zip(bufs, fresh()):
+                            b.copy_(v)
+                        draw = mesh_wire_uniforms(17, r, dev)
+                        ub.set_round(draw)
+                        out = graph()
+                        vals = [b.clone() for b in bufs]
+                        if not same(out, run(vals, draw)):
+                            raise AssertionError(
+                                f"mesh_nccl {spelling} {wire}: replay {r} "
+                                "is not the eager reduce of its buffers")
+                        if wire == "int8" and same(out, run(
+                                vals, mesh_wire_uniforms(17, 3 - r, dev))):
+                            raise AssertionError(
+                                f"mesh_nccl {spelling} int8: replay {r} "
+                                "does not depend on its round's uniforms")
+                    rec[f"{spelling}_{wire}_graph_ms"] = timed(graph)
+                    graph.release()
         finally:
             mesh.destroy()
     emit(rec)
 
 
+#: the rounds of part (a) of the mesh phase: a one-rank NCCL mesh's fused
+#: block with the eval every round against the same rounds run eagerly
+MESH_FUSED_ROUNDS = 3
+
+
+def _mesh_nccl_fused(dev):
+    """Part (a) of the mesh phase: a one-rank NCCL client mesh of the main
+    configuration at full width (SalientGrads, SNIP, dense wire, the eval
+    after every round). A fused block of MESH_FUSED_ROUNDS rounds is
+    bitwise the same rounds run eagerly on the mesh (``_fused_against_
+    eager``), its replays' launches counted; the same block of the
+    single-process algorithm on the same state is bitwise it too (one rank
+    holds every client, the gathers move nothing). Then the block once
+    more with the mesh's collectives counted where Python calls them: none
+    is called while the block replays, so the round's loss ``all_gather``
+    and the eval's ``all_gather`` run inside the graphs. Rounds/s of the
+    eager and fused mesh spellings and of the single-process fused block
+    in interleaved pairs. Returns the path's launches: the mesh
+    algorithm's alone (the single-process algorithm's are reported apart,
+    ``launches_single_process``)."""
+    import os
+    import tempfile
+
+    import torch
+
+    from neuroimagedisttraining_torch.ops import kernels
+    from neuroimagedisttraining_torch.ops.s2d import phased_sample_shape
+    from neuroimagedisttraining_torch.parallel.mesh import (
+        make_mesh,
+        shard_federated,
+    )
+
+    shape = phased_sample_shape(VOLUME)
+    data, hp = _main_config(dev, shape)
+    with tempfile.TemporaryDirectory() as d, \
+            _CudnnFlags(deterministic=True, benchmark=False):
+        mesh = make_mesh(1, backend="nccl", rank=0, device=dev,
+                         init_method="file://" + os.path.join(d, "rdv"),
+                         timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+        try:
+            algo = _mesh_algo(shard_federated(data, mesh), hp, shape,
+                              "dense")
+            one = _mesh_algo(data, hp, shape, "dense")
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            state = algo.init_state()
+            torch.cuda.synchronize()
+            snip = kernels.snapshot_launches()
+            rec, launches = _fused_against_eager(
+                "mesh_nccl_fused", algo, state, MESH_FUSED_ROUNDS)
+            for k in launches:
+                launches[k] += snip[k]
+            kernels.reset_launches()
+            s_mesh, _ = algo.run_rounds_fused(state, 0, MESH_FUSED_ROUNDS,
+                                              eval_every=1)
+            torch.cuda.synchronize()
+            blocks = kernels.snapshot_launches()
+            # the single-process algorithm's launches are not the mesh's:
+            # counted apart
+            kernels.reset_launches()
+            s_one, _ = one.run_rounds_fused(state, 0, MESH_FUSED_ROUNDS,
+                                            eval_every=1)
+            torch.cuda.synchronize()
+            single = kernels.snapshot_launches()
+            calls = {"all_gather": 0, "all_reduce": 0}
+
+            def counted(name, fn):
+                def call(*args, **kwargs):
+                    calls[name] += 1
+                    return fn(*args, **kwargs)
+                return call
+
+            for name in calls:
+                setattr(mesh, name, counted(name, getattr(mesh, name)))
+            kernels.reset_launches()
+            algo.run_rounds_fused(state, 0, MESH_FUSED_ROUNDS,
+                                  eval_every=1)[1].materialize()
+            torch.cuda.synchronize()
+            replayed = dict(kernels.LAUNCHES)
+            block_calls = dict(calls)
+            for name in calls:
+                delattr(mesh, name)
+            kernels.reset_launches()
+            mesh_rates = _rates_in_pairs(algo, state, MESH_FUSED_ROUNDS)
+            torch.cuda.synchronize()
+            timing = kernels.snapshot_launches()
+            kernels.reset_launches()
+            one_rates = _rates_in_pairs(one, state, MESH_FUSED_ROUNDS)
+            torch.cuda.synchronize()
+            for k, n in kernels.snapshot_launches().items():
+                single[k] += n
+            for k in launches:
+                launches[k] += blocks[k] + replayed[k] + timing[k]
+            keys = list(algo._fused.rounds)
+            # NCCL keeps a communicator while a graph holding its
+            # collectives lives
+            algo.release_graphs()
+        finally:
+            mesh.destroy()
+    one_bitwise = all(torch.equal(a[k], b[k])
+                      for f, a in _tensor_trees(s_mesh).items()
+                      for b in (_tensor_trees(s_one)[f],) for k in a)
+    per = {"masked_sgd": N_CLIENTS * STEPS, "weighted_sum": 1,
+           "stem_fwd": N_CLIENTS * STEPS, "stem_bwd": N_CLIENTS * STEPS}
+    evals = MESH_FUSED_ROUNDS * 2 * N_CLIENTS * _eval_chunks()
+    want = {**{k: 0 for k in kernels.LAUNCHES},
+            **{k: MESH_FUSED_ROUNDS * n for k, n in per.items()}}
+    want["stem_fwd"] += evals
+    out = {"phase": "mesh_nccl_fused", "backend": "nccl", **rec,
+           "graphs": len(keys),
+           "single_process_bitwise": one_bitwise,
+           "collective_calls_in_block": block_calls,
+           "launches_block": replayed,
+           "rounds_per_sec_mesh_eager": mesh_rates["eager"],
+           "rounds_per_sec_mesh_fused": mesh_rates["fused"],
+           "rounds_per_sec_single_fused": one_rates["fused"],
+           "launches_single_process": single,
+           "launches": launches}
+    emit(out)
+    failures = []
+    if not one_bitwise:
+        failures.append("the single-process block differs")
+    if any(block_calls.values()):
+        failures.append(f"collectives called from Python during the "
+                        f"replays: {block_calls}")
+    if {k: rec["launches_per_replay"].get(k, 0) for k in per} != per:
+        failures.append(f"per replay {rec['launches_per_replay']}, "
+                        f"want {per}")
+    if replayed != want:
+        failures.append(f"block launches {replayed}, want {want}")
+    if failures:
+        raise AssertionError(f"mesh_nccl_fused: {failures}")
+    return launches
+
+
 def mesh_path(dev):
-    """The client mesh (``parallel/mesh.py``) on the card, in three parts:
+    """The client mesh (``parallel/mesh.py``) on the card:
 
-    (a) two gloo ranks sharing the one card (NCCL refuses two ranks on one
-        GPU), each holding four clients of the main configuration at full
-        width: SalientGrads on ``3dcnn_s2d``, SNIP, then MESH_ROUNDS rounds
-        on each of MESH_WIRES from the SNIP state. A single process replays
-        every round in the same call from the mesh's state before it (the
-        generator in step), cuDNN deterministic on both sides: the mask,
-        every client's trained model, the train losses, the evals and
-        their per-client sums bitwise; the global model within
-        MESH_GLOBAL_BOUND. Each rank's round seconds and peak memory are
-        printed; the ranks' launches are the path's.
-    (b) a one-rank NCCL group (``_mesh_nccl``).
-    (c) ``runner.main --mesh_devices 2`` on the card: fitted to the one
-        card, as the JAX CLI fits to the devices there are, and saying so.
+    * two gloo ranks sharing the one card (NCCL refuses two ranks on one
+      GPU), each holding four clients of the main configuration at full
+      width: SalientGrads on ``3dcnn_s2d``, SNIP, then MESH_ROUNDS rounds
+      on each of MESH_WIRES from the SNIP state. A single process replays
+      every round in the same call from the mesh's state before it (the
+      generator in step), cuDNN deterministic on both sides: the mask,
+      every client's trained model, the train losses, the evals and their
+      per-client sums bitwise; the global model within MESH_GLOBAL_BOUND.
+      Each rank's round seconds and peak memory are printed; the ranks'
+      launches are the path's. Then (c) each gloo rank asks for a fused
+      block, which must be refused with the ``ValueError`` that names
+      NCCL (a gloo group's collectives cannot be captured).
+    * (b) a one-rank NCCL group through the wire reduces, eager and
+      captured in a CUDA graph (``_mesh_nccl``).
+    * (a) a one-rank NCCL mesh's fused block, bitwise its eager rounds,
+      its collectives inside the graphs (``_mesh_nccl_fused``, the path
+      ``mesh/nccl_fused``).
+    * ``runner.main --mesh_devices 2`` on the card: fitted to the one card,
+      as the JAX CLI fits to the devices there are, and saying so.
 
-    Returns the launches of the path."""
+    Part (d), ``bench_torch.main`` on one card with today's keys and
+    ``client_mesh_devices`` 1, is checked in ``bench_path``. Returns the
+    launches of the paths."""
     import dataclasses
     import tempfile
 
@@ -3842,6 +4047,9 @@ def mesh_path(dev):
         tc.DEFAULT_BUCKET_SIZE))
     launches = {k: sum(r["launches"][k] for r in ranks)
                 for k in kernels.LAUNCHES}
+    refused = [r["fused_refused"] for r in ranks]
+    if not all(m and "NCCL" in m for m in refused):
+        failures.append(f"gloo fused block not refused: {refused}")
     per = N_CLIENTS // MESH_RANKS
     runs = len(MESH_WIRES) * MESH_ROUNDS
     steps = runs * per * STEPS
@@ -3867,11 +4075,12 @@ def mesh_path(dev):
                                   for impl in MESH_WIRES} for r in ranks},
           "peak_mem_bytes": [r["peak_mem_bytes"] for r in ranks],
           "global_rel_err": spread, "leaf_groups": groups,
-          "launches": launches})
+          "fused_refused": refused[0], "launches": launches})
     if failures:
         raise AssertionError(f"mesh: {failures}")
 
     _mesh_nccl(dev)
+    fused_launches = _mesh_nccl_fused(dev)
 
     with _CudnnFlags(), tempfile.TemporaryDirectory() as tmp:
         res = runner.main(_cli_argv("salientgrads", tmp)
@@ -3882,7 +4091,7 @@ def mesh_path(dev):
           "note": f"--mesh_devices 2 fitted to {fitted} device(s)"})
     if fitted != min(2, torch.cuda.device_count()):
         raise AssertionError(f"mesh_cli: fitted to {fitted} devices")
-    return {"mesh": launches}
+    return {"mesh": launches, "mesh/nccl_fused": fused_launches}
 
 
 def _cli_argv(algo: str, tmp: str):
@@ -4116,6 +4325,25 @@ def _cli_state_runs(runner, built):
     return out
 
 
+#: the keys of ``bench_torch.main``'s ``extra`` on one card
+BENCH_EXTRA_KEYS = (
+    "rounds_per_sec_eval_every_1", "rounds_per_sec_python_loop",
+    "rounds_per_sec_fused", "rounds_per_sec_eval_every_1_python_loop",
+    "rounds_per_sec_eval_every_1_fused",
+    "rounds_per_sec_eval_every_1_eval_cache",
+    "rounds_per_sec_eval_every_1_global_only",
+    "rounds_per_sec_eval_every_1_eval_cache_python_loop",
+    "rounds_per_sec_eval_every_1_eval_cache_fused",
+    "rounds_per_sec_eval_every_1_global_only_python_loop",
+    "rounds_per_sec_eval_every_1_global_only_fused",
+    "client_rounds_per_sec_per_chip", "client_samples_per_sec",
+    "snip_init_s", "peak_mem_bytes", "device", "n_devices",
+    "client_mesh_devices", "volume", "sample_shape", "clients",
+    "samples_per_client", "local_steps", "batch_size", "compute_dtype",
+    "timed_rounds", "timed_rounds_eval_every_1", "fused_warm_calls",
+    "torch", "cuda")
+
+
 def bench_path(dev):
     """``bench_torch.main()`` with its counters zeroed just before and read
     just after. Returns the launches per path."""
@@ -4140,6 +4368,12 @@ def bench_path(dev):
             rec["value"] != max(extra["rounds_per_sec_python_loop"],
                                 extra["rounds_per_sec_fused"]):
         raise AssertionError(f"bench: {rec}")
+    # part (d) of the mesh phase: on one card the line keeps its keys, no
+    # mesh
+    if sorted(rec) != ["extra", "metric", "unit", "value", "vs_baseline"] \
+            or sorted(extra) != sorted(BENCH_EXTRA_KEYS) \
+            or (extra["n_devices"], extra["client_mesh_devices"]) != (1, 1):
+        raise AssertionError(f"bench keys: {sorted(rec)} {sorted(extra)}")
     # the Python loop: a warm round and the timed rounds, twice, the eval
     # (global and personal, every client) after the warm round and after
     # every timed round of the second run; the fused spelling: the round

@@ -17,8 +17,11 @@ clients, exactly as off the mesh, and trains the selected clients it holds;
 the aggregate is the on-mesh reduce of ``collectives``, over the rows of
 the selection's rank blocks (with partial participation the trained models
 are gathered first, in selection order), and the eval's per-client sums
-are gathered in client order. Each client's trained model and eval sums are
-the off-mesh run's bit for bit; only the cross-rank sums reassociate.
+are gathered in client order (the ``eval_clients`` subset's in its order).
+The in-state eval cache refreshes each rank's trained rows and gathers their
+terms into the replicated ``[C]`` cache. Each client's trained model and
+eval sums are the off-mesh run's bit for bit; only the cross-rank sums
+reassociate.
 
 A round is split in two: what the host decides (the seeded client draw, the
 decayed learning rate, the random draws of the generator) and a body that
@@ -26,7 +29,10 @@ reads only tensors (:meth:`FedAlgorithm._round_body`). The fused round loop
 (:meth:`FedAlgorithm.run_rounds_fused`, the reference's K-round ``lax.scan``)
 keeps the body's inputs and the state in buffers that stay put and, on the
 card, replays the body from a captured CUDA graph, one replay per round: no
-Python between the kernels of a round.
+Python between the kernels of a round. On a client mesh over NCCL the graph
+holds the round's collectives too (the loss gather, the reduce of each leaf
+group, the gather of the trained rows), as the reference's one program
+holds its ``psum``; over gloo on the CPU the body runs as it is.
 
 The robustness tier rides the same body: the ``fault_spec`` injector after
 local training (its draws keyed by run seed, round and population client id,
@@ -70,7 +76,7 @@ from ..models.layers import DropoutProbe
 from ..ops import kernels
 from ..ops.sparsity import kernel_flags
 from ..parallel import collectives
-from ..parallel.mesh import gather_rows, mesh_of
+from ..parallel.mesh import gather_index, gather_rows, mesh_of
 from ..robust import guard as _guard
 from ..robust.aggregation import ROBUST_AGGS, robust_combine_mat
 from ..robust.faults import (
@@ -224,14 +230,17 @@ class MeshRows(NamedTuple):
     trains); ``rows``: their rows in the rank's data and per-client stacks
     (int64, on the device); ``counts``: how many each rank holds;
     ``order``: per position in the draw, ``(rank, index among that rank's
-    own)``, the gather's order; ``uniforms``: the on-mesh int8 wire's draw
-    ``(rank or slice, payload leaf, shape) -> [nb, b]`` (None where the
-    round does not aggregate)."""
+    own)``, the gather's order; ``gather_idx``: the gather's row index on
+    the device (:func:`~..parallel.mesh.gather_index`), made with the rest
+    on the host side of the round; ``uniforms``: the on-mesh int8 wire's
+    draw ``(rank or slice, payload leaf, shape) -> [nb, b]`` (None where
+    the round does not aggregate)."""
 
     own: List[int]
     rows: torch.Tensor
     counts: List[int]
     order: List[tuple]
+    gather_idx: torch.Tensor
     uniforms: Optional[Callable] = None
 
 
@@ -250,6 +259,33 @@ def mesh_wire_uniforms(seed: int, round_idx: int, device: torch.device
         return torch.rand(tuple(shape), generator=g, device=device)
 
     return draw
+
+
+class MeshUniformBuffers:
+    """The on-mesh int8 wire's uniforms as a fused block's round graph reads
+    them: one buffer per ``(rank or slice, payload leaf, shape)`` the reduce
+    asks for, rewritten before each round with that round's draw
+    (:meth:`set_round`, from :func:`mesh_wire_uniforms`), so a replay reads
+    the values the eager round draws. A key is first met in a warm-up run,
+    outside the capture, which allocates its buffer."""
+
+    def __init__(self):
+        self.bufs: Dict[tuple, torch.Tensor] = {}
+        self._draw: Optional[Callable] = None
+
+    def set_round(self, draw: Callable) -> None:
+        """Every buffer overwritten with ``draw``'s values (on the stream,
+        before the round's replay)."""
+        self._draw = draw
+        for (wid, i, shape), buf in self.bufs.items():
+            buf.copy_(draw(wid, i, shape))
+
+    def __call__(self, wid: int, i: int, shape) -> torch.Tensor:
+        key = (int(wid), int(i), tuple(int(n) for n in shape))
+        buf = self.bufs.get(key)
+        if buf is None:
+            buf = self.bufs[key] = self._draw(*key)
+        return buf
 
 
 #: runs of a body on a side stream before its capture: they set up cuDNN,
@@ -411,6 +447,14 @@ class _FusedRounds:
       counts agree), at most FUSED_MAX_GRAPHS of them, and one eval graph.
       The sample counts themselves, which set the aggregate's weights and
       the loss masks, are a buffer (``n_sel``) like the client ids.
+    * on a client mesh, a round graph's key also holds how the ranks hold
+      the draw (:class:`MeshRows`' ``counts`` and ``order``: the same every
+      round at full participation, a new key for each new spread at partial
+      participation); each key keeps its own buffer of the rank's rows and
+      its gather index, and the int8 wire's uniforms are buffers
+      (:class:`MeshUniformBuffers`) rewritten before each round. Every rank
+      computes the same keys from the same host draws, so every rank warms
+      up, captures and evicts in the same rounds.
 
     ``n_sel`` is the number of clients a round draws (the whole cohort
     for the algorithms that train every client). ``width`` > 0 is the
@@ -506,6 +550,10 @@ class _FusedRounds:
         #: returns)
         self.host: Dict[str, torch.Tensor] = {}
         self.rounds: Dict[tuple, _Graph] = {}  # least recently used first
+        #: per round-graph key on a client mesh, the rows the graph reads
+        self.mesh_rows: Dict[tuple, MeshRows] = {}
+        self.mesh_uniforms = (MeshUniformBuffers() if algo.mesh is not None
+                              else None)
         self.evicted = 0
         self.eval: Optional[_Graph] = None
         self.eval_names: List[str] = []
@@ -570,21 +618,46 @@ class _FusedRounds:
             if f not in self.host:
                 self.host[f] = torch.empty_like(src)
             self.host[f].copy_(src)
+        mr = inp.mesh_rows
+        if mr is not None and mr.uniforms is not None:
+            self.mesh_uniforms.set_round(mr.uniforms)
 
-    def round_graph(self, algo: "FedAlgorithm", key: tuple) -> _Graph:
+    def _graph_mesh_rows(self, key: tuple, mr: Optional[MeshRows]
+                         ) -> Optional[MeshRows]:
+        """The :class:`MeshRows` the graph of ``key`` reads: its own
+        buffers, the round's rows copied into them."""
+        if mr is None:
+            return None
+        mine = self.mesh_rows.get(key)
+        if mine is None:
+            mine = self.mesh_rows[key] = MeshRows(
+                list(mr.own), mr.rows.clone(), list(mr.counts),
+                list(mr.order), mr.gather_idx.clone(),
+                self.mesh_uniforms if mr.uniforms is not None else None)
+        mine.rows.copy_(mr.rows)
+        return mine
+
+    def round_graph(self, algo: "FedAlgorithm", inp: RoundInputs) -> _Graph:
+        """The round graph of ``inp``'s key (:meth:`FedAlgorithm.
+        _graph_key`), captured at the key's first use."""
+        key = algo._graph_key(inp)
+        steps = algo._step_key(inp.n_valid)
         graph = self.rounds.pop(key, None)
+        mr = self._graph_mesh_rows(key, inp.mesh_rows)
         if graph is None:
             if len(self.rounds) >= FUSED_MAX_GRAPHS:
-                self.rounds.pop(next(iter(self.rounds))).release()
+                old = next(iter(self.rounds))
+                self.rounds.pop(old).release()
+                self.mesh_rows.pop(old, None)
                 if not self.evicted:
                     logger.warning(
-                        "%s: more than %d step-count keys; a new one is "
+                        "%s: more than %d round-graph keys; a new one is "
                         "captured anew", algo.name, FUSED_MAX_GRAPHS)
                 self.evicted += 1
             # counts with the key's active steps (the body reads the counts
             # themselves from the n_sel buffer)
             inp = RoundInputs(
-                n_valid=[b * algo.hp.batch_size for b in key], sel=self.sel,
+                n_valid=[b * algo.hp.batch_size for b in steps], sel=self.sel,
                 n_sel=self.n_sel, lr=self.lr, pop=self.pop, slab=self.slab,
                 perms=self.perms, dropout=self.dropout,
                 uniforms=self.uniforms, faults=self.faults,
@@ -592,7 +665,7 @@ class _FusedRounds:
                 perms_2=self.perms_2, dropout_2=self.dropout_2,
                 screen_idx=self.screen_idx,
                 screen_dropout=self.screen_dropout, regrow_u=self.regrow_u,
-                **self.host)
+                mesh_rows=mr, **self.host)
 
             def body(warm: bool):
                 new, metrics = algo._round_body(self.state, inp)
@@ -626,7 +699,7 @@ class _FusedRounds:
             graph.release()
         if self.eval is not None:
             self.eval.release()
-        self.rounds, self.eval = {}, None
+        self.rounds, self.mesh_rows, self.eval = {}, {}, None
 
 
 class FedAlgorithm(abc.ABC):
@@ -685,9 +758,11 @@ class FedAlgorithm(abc.ABC):
 
     ``data`` sharded over a client mesh (``parallel.mesh.shard_federated``;
     the algorithms with ``mesh_supported``) runs the round on the mesh
-    (module docstring); the device defaults to the mesh's. The fused loop,
-    the client store, the eval cache and subset, the robustness tier and
-    stratified SNIP are not ported to the mesh and are refused there."""
+    (module docstring); the device defaults to the mesh's. Its fused blocks
+    capture the round's collectives on NCCL (:meth:`run_rounds_fused`);
+    the eval cache and subset and stratified SNIP run on it as well. The
+    client store and the robustness tier are not ported to the mesh and are
+    refused there."""
 
     name = "base"
     #: the algorithm carries the error-feedback residual of agg_impl="topk"
@@ -797,6 +872,9 @@ class FedAlgorithm(abc.ABC):
         self.mesh = mesh_of(data)
         self._lo, self._hi = (0, data.num_clients) if self.mesh is None \
             else self.mesh.block(data.num_clients)
+        #: the mesh's gathers of per-client eval terms, by client list
+        #: (:meth:`_mesh_gather_plan`)
+        self._gather_plans: Dict[tuple, tuple] = {}
         self.device = (self.mesh.device
                        if self.mesh is not None and device is None
                        else resolve_device(device))
@@ -865,8 +943,9 @@ class FedAlgorithm(abc.ABC):
         self.data = data.to(self.device if self._store is None else "cpu")
         if self.mesh is not None:
             self._check_mesh()
-        #: the dropout layers a training forward meets (_dropout_calls)
-        self._drop_calls: Optional[List[tuple]] = None
+        #: the dropout layers a training forward meets, by batch rows
+        #: (_dropout_calls)
+        self._drop_calls: Dict[int, List[tuple]] = {}
         #: the fused round loop's buffers and graphs (run_rounds_fused)
         self._fused: Optional[_FusedRounds] = None
         #: the round draws DisPFL's mask evolution needs: the screening
@@ -914,17 +993,11 @@ class FedAlgorithm(abc.ABC):
             what.append(f"the {self.name} round")
         if self._store is not None:
             what.append("a client store")
-        if self.eval_cache:
-            what.append("the eval cache")
-        if self._eval_idx is not None:
-            what.append("the eval subset (eval_clients)")
         if self.fault_fn is not None or self.labelflip_fn is not None \
                 or self.guard_enabled:
             what.append("faults and the guard")
         if self.robust_agg != "none" or self.defense is not None:
             what.append("the robust aggregate and the defenses")
-        if getattr(self, "stratified_sampling", False):
-            what.append("stratified SNIP")
         if what:
             raise ValueError(
                 f"{self.name}: {', '.join(what)} on a client mesh is not "
@@ -1171,23 +1244,45 @@ class FedAlgorithm(abc.ABC):
             return range(len(inp.n_valid)), inp.sel
         return inp.mesh_rows.own, inp.mesh_rows.rows
 
+    def _mesh_spread(self, ids: Sequence[int]):
+        """``(counts, order)`` of the clients ``ids`` (population ids, in
+        their order) as the mesh's ranks hold them: per rank how many, per
+        client ``(rank, index among that rank's)``."""
+        per = self.num_local_clients
+        counts = [0] * self.mesh.size
+        order = []
+        for c in ids:
+            d = int(c) // per
+            order.append((d, counts[d]))
+            counts[d] += 1
+        return counts, order
+
     def _mesh_rows(self, sel: np.ndarray, aggregate: bool,
                    round_idx: Optional[int]) -> MeshRows:
         """The selected clients ``sel`` (population ids, in draw order) as
         the mesh's ranks hold them (:class:`MeshRows`)."""
-        per = self.num_local_clients
-        rank_of = [int(c) // per for c in sel]
-        own = [i for i, d in enumerate(rank_of) if d == self.mesh.rank]
-        counts = [0] * self.mesh.size
-        order = []
-        for d in rank_of:
-            order.append((d, counts[d]))
-            counts[d] += 1
+        counts, order = self._mesh_spread(sel)
+        own = [i for i, (d, _) in enumerate(order) if d == self.mesh.rank]
         rows = _to_device(np.asarray([int(sel[i]) - self._lo for i in own],
                                      np.int64), self.device)
         uniforms = (mesh_wire_uniforms(self.seed, round_idx, self.device)
                     if aggregate else None)
-        return MeshRows(own, rows, counts, order, uniforms)
+        return MeshRows(own, rows, counts, order,
+                        _to_device(gather_index(counts, order), self.device),
+                        uniforms)
+
+    def _mesh_gather_plan(self, rows: Sequence[int]):
+        """``(counts, index)`` of the gather of the per-client values
+        of the clients ``rows`` (population ids, each rank evaluating the
+        ones it holds) into the order of ``rows``, made once per distinct
+        ``rows`` (the eval's, the cohort's), so a graph's body reads an
+        index that stays put."""
+        key = tuple(int(c) for c in rows)
+        if key not in self._gather_plans:
+            counts, order = self._mesh_spread(key)
+            self._gather_plans[key] = (counts, _to_device(
+                gather_index(counts, order), self.device))
+        return self._gather_plans[key]
 
     def _gather_selected(self, tree: Tree, mr: MeshRows) -> Tree:
         """The selected clients' rows of ``tree`` (each rank holding its
@@ -1199,7 +1294,7 @@ class FedAlgorithm(abc.ABC):
                  for k in keys]
         mat = torch.cat([tree[k].reshape(n, size).to(torch.float32)
                          for k, size in zip(keys, sizes)], dim=1)
-        full = gather_rows(self.mesh, mat, mr.counts, mr.order)
+        full = gather_rows(self.mesh, mat, mr.counts, mr.gather_idx)
         out, off = {}, 0
         for k, size in zip(keys, sizes):
             shape = tree[k].shape[1:]
@@ -1406,7 +1501,7 @@ class FedAlgorithm(abc.ABC):
         lo = torch.stack(losses) if losses else torch.zeros(
             0, device=self.device)
         all_losses = gather_rows(self.mesh, lo, inp.mesh_rows.counts,
-                                 inp.mesh_rows.order)
+                                 inp.mesh_rows.gather_idx)
         stacked = (_stack(locals_) if locals_ else
                    {k: v.new_empty((0,) + tuple(v.shape))
                     for k, v in global_params.items()})
@@ -1541,22 +1636,28 @@ class FedAlgorithm(abc.ABC):
     def _eval_terms(self, rows, params_of):
         """``eval_client`` of ``params_of(c)`` on client ``c``'s test shard
         for each client id ``c`` of ``rows``: (correct, loss_sum), each
-        stacked over ``rows``. On a client mesh (``rows`` the whole cohort)
-        each rank evaluates its clients and the sums are gathered in client
-        order."""
+        stacked over ``rows``. On a client mesh each rank evaluates the
+        clients of ``rows`` it holds and the sums are gathered into the order
+        of ``rows`` (:meth:`_mesh_gather_plan`)."""
         rows = list(rows)
-        if self.mesh is not None and rows != list(range(self.num_clients)):
-            raise ValueError("on a client mesh the eval runs over the whole "
-                             "cohort")
         terms = [self.eval_client(params_of(c), *self._shard(c, test=True),
                                   self._n_test[c]) for c in rows
                  if self._lo <= c < self._hi]
-        correct, loss_sum = (torch.stack([t[0] for t in terms]),
-                             torch.stack([t[1] for t in terms]))
+        correct, loss_sum = self._stack_terms(terms)
         if self.mesh is not None:
-            correct, loss_sum = (self.mesh.all_gather(t).reshape(-1)
+            counts, idx = self._mesh_gather_plan(rows)
+            correct, loss_sum = (gather_rows(self.mesh, t, counts, idx)
                                  for t in (correct, loss_sum))
         return correct, loss_sum
+
+    def _stack_terms(self, terms):
+        """``eval_client`` results stacked: (correct int64, loss_sum f32),
+        empty where a mesh rank holds none of the clients."""
+        if not terms:
+            return (torch.zeros(0, dtype=torch.int64, device=self.device),
+                    torch.zeros(0, dtype=torch.float32, device=self.device))
+        return (torch.stack([t[0] for t in terms]),
+                torch.stack([t[1] for t in terms]))
 
     def _eval_global(self, params: Tree) -> Dict[str, torch.Tensor]:
         """The global model on every evaluated client's test shard (all,
@@ -1610,26 +1711,37 @@ class FedAlgorithm(abc.ABC):
         stack; otherwise the rows, test shards and counts are gathered
         through the device client ids, so a graph can hold it: the rows and
         test shards at ``inp.sel`` (a store's slab positions), the ``[C]``
-        cache and test counts at ``inp.pop`` (the population ids)."""
+        cache and test counts at ``inp.pop`` (the population ids).
+
+        On a client mesh each rank evaluates the trained rows it holds
+        (``inp.mesh_rows``), the terms are gathered into draw order and
+        written into the replicated cache at the population ids, so every
+        rank holds the same cache."""
         if cache is None:
             return None
+        lo = self._lo
         if self.clients_per_round == self.num_clients:
             correct, loss_sum = self._eval_terms(
                 range(self.num_clients),
-                lambda c: {k: v[c] for k, v in personal.items()})
+                lambda c: {k: v[c - lo] for k, v in personal.items()})
             return {"correct": correct, "loss_sum": loss_sum,
                     "total": cache["total"]}
         d = self._round_data(inp)
-        sel, pop = inp.sel, inp.pop
-        sub = tree_index(personal, sel)
-        xs, ys = d.x_test.index_select(0, sel), d.y_test.index_select(0, sel)
+        pos, rows = self._own(inp)
+        pop = inp.pop
+        sub = tree_index(personal, rows)
+        xs, ys = d.x_test.index_select(0, rows), d.y_test.index_select(0, rows)
         ns = self._n_test_dev.index_select(0, pop)
-        terms = [self.eval_client({k: v[i] for k, v in sub.items()}, xs[i],
-                                  ys[i], ns[i]) for i in range(len(ns))]
-        return {"correct": cache["correct"].index_copy(
-                    0, pop, torch.stack([t[0] for t in terms])),
-                "loss_sum": cache["loss_sum"].index_copy(
-                    0, pop, torch.stack([t[1] for t in terms])),
+        correct, loss_sum = self._stack_terms([
+            self.eval_client({k: v[j] for k, v in sub.items()}, xs[j], ys[j],
+                             ns[i]) for j, i in enumerate(pos)])
+        mr = inp.mesh_rows
+        if mr is not None:
+            correct, loss_sum = (
+                gather_rows(self.mesh, t, mr.counts, mr.gather_idx)
+                for t in (correct, loss_sum))
+        return {"correct": cache["correct"].index_copy(0, pop, correct),
+                "loss_sum": cache["loss_sum"].index_copy(0, pop, loss_sum),
                 "total": cache["total"].index_copy(0, pop, ns)}
 
     def _eval_personal_state(self, state: Any) -> Dict[str, torch.Tensor]:
@@ -1652,21 +1764,23 @@ class FedAlgorithm(abc.ABC):
         on the card: the fused loop replays it from a CUDA graph)."""
 
     # -- the round's host inputs ---------------------------------------------
-    def _dropout_calls(self, params: Tree) -> List[tuple]:
-        """The dropout layers a training forward meets, ``(slot, shape,
-        keep_prob)`` in call order, from one forward of a batch of client
-        0's first row (a :class:`~..models.layers.DropoutProbe`), once per
-        algorithm."""
-        if self._drop_calls is None:
+    def _dropout_calls(self, params: Tree,
+                       batch: Optional[int] = None) -> List[tuple]:
+        """The dropout layers a training forward of ``batch`` rows (the
+        batch size by default) meets, ``(slot, shape, keep_prob)`` in call
+        order, from one forward of that many copies of client 0's first row
+        (a :class:`~..models.layers.DropoutProbe`), once per algorithm and
+        batch."""
+        batch = self.hp.batch_size if batch is None else int(batch)
+        if batch not in self._drop_calls:
             probe = DropoutProbe()
             x0 = self.data.x_train[0]
-            rows = torch.zeros(self.hp.batch_size, dtype=torch.int64,
-                               device=x0.device)
+            rows = torch.zeros(batch, dtype=torch.int64, device=x0.device)
             with torch.no_grad():
                 self.apply_fn(params, x0[rows].to(self.device), train=True,
                               rng=probe)
-            self._drop_calls = probe.calls
-        return self._drop_calls
+            self._drop_calls[batch] = probe.calls
+        return self._drop_calls[batch]
 
     @staticmethod
     def _keep_masks(drop_calls, make) -> List[Optional[torch.Tensor]]:
@@ -2086,6 +2200,26 @@ class FedAlgorithm(abc.ABC):
             self._fused = _FusedRounds(self, state, n_sel, width)
         return self._fused
 
+    def release_graphs(self) -> None:
+        """Drop the fused loop's graphs and buffers (the next block builds
+        them anew). On a client mesh over NCCL call it before the mesh is
+        torn down: NCCL does not destroy a communicator while a graph that
+        holds its collectives lives (``ClientMesh.destroy`` hangs)."""
+        if self._fused is not None:
+            self._fused.release()
+            self._fused = None
+
+    def _graph_key(self, inp: RoundInputs) -> tuple:
+        """A round graph's key: the step-count key (:meth:`_step_key`), on a
+        client mesh followed by how the ranks hold the draw (``counts`` and
+        ``order``), which fixes the rows each rank trains and the gathers'
+        shapes."""
+        key = self._step_key(inp.n_valid)
+        mr = inp.mesh_rows
+        if mr is None:
+            return key
+        return key + ((tuple(mr.counts), tuple(mr.order)),)
+
     def _step_key(self, n_valid: Sequence[int]) -> tuple:
         """A round graph's key: per client the batches a local epoch runs
         (``core.trainer.active_steps``; the steps a second leg runs follow,
@@ -2115,7 +2249,11 @@ class FedAlgorithm(abc.ABC):
         state after the block's first round (the runner prices the run's
         cost from it, as the eager loop prices its first round's state).
         With a client store the block streams its clients' union
-        (:meth:`_run_rounds_fused_store`).
+        (:meth:`_run_rounds_fused_store`). On a client mesh every rank calls
+        it with the same arguments: over NCCL the round graph holds the
+        round's collectives (a rank captures, replays and evicts in the
+        rounds every other rank does); a gloo group on the card, whose
+        collectives run on the host, is refused with ``ValueError``.
         ``seams``, one dict per round of ``run_round``'s seams (``perms``,
         ``batch_idx``, ``dropout``, ``agg_uniforms``, ``faults``,
         ``collude``, ``dp_noise``, ``perms_2``, ``dropout_2``,
@@ -2137,11 +2275,14 @@ class FedAlgorithm(abc.ABC):
                 "device, fedfomo_api.py:130-144; TurboAggregate's "
                 "share/reconstruct protocol is host-interactive) — run it "
                 "with fuse_rounds=1")
-        if self.mesh is not None:
+        if self.mesh is not None and self.device.type == "cuda" \
+                and self.mesh.backend != "nccl":
             raise ValueError(
-                f"{self.name}: fused rounds on a client mesh (a CUDA graph "
-                "holding the mesh's collectives) are not ported; run the "
-                "rounds one at a time")
+                f"{self.name}: fused rounds on a client mesh capture the "
+                "round's collectives in a CUDA graph, which needs the NCCL "
+                f"backend; the {self.mesh.backend} group's collectives run "
+                "on the host and cannot be captured — make the mesh with "
+                "backend='nccl' or run the rounds one at a time")
         if seams is not None and len(seams) != n_rounds:
             raise ValueError(f"seams: {len(seams)} rounds for a block of "
                              f"{n_rounds}")
@@ -2182,8 +2323,7 @@ class FedAlgorithm(abc.ABC):
                 None if seams is None else seams[k], round_idx=r,
                 pop_dev=None if pop_dev is None else pop_dev[k])
             fused.write(inp)
-            rows[:, k].copy_(
-                fused.round_graph(self, self._step_key(inp.n_valid))())
+            rows[:, k].copy_(fused.round_graph(self, inp)())
             if k == 0 and on_first_round is not None:
                 on_first_round(fused.export(state, clone_generator(g),
                                             n_rows))

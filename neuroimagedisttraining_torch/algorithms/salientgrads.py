@@ -34,6 +34,7 @@ from ..core.state import Tree, broadcast_tree, row_sum, zeros_like_tree
 from ..core.trainer import make_client_update
 from ..ops import kernels
 from ..ops.sparsity import (
+    balanced_probs,
     make_snip_fold_score_fn,
     make_snip_score_fn,
     mask_density_tensor,
@@ -108,8 +109,12 @@ class SalientGrads(FedAlgorithm):
         self._fold_sched = None
         if self.snip_mask and self.stratified_sampling and \
                 self.stratified_mode == "exact":
+            # every client's labels, on a mesh too (the rank's host copy):
+            # the schedule is the single-process one
+            d = self.data
+            labels = d.y_train if d.y_train_host is None else d.y_train_host
             self._fold_sched = stacked_fold_schedules(
-                self.data.y_train.cpu().numpy(), self._n_train,
+                labels.cpu().numpy(), self._n_train,
                 n_splits=STRATIFIED_SPLITS)
             self.snip_fold_scores = make_snip_fold_score_fn(
                 self.apply_fn, self.loss_type)
@@ -139,42 +144,72 @@ class SalientGrads(FedAlgorithm):
                 self.dense_ratio)
         total = None
         for c in range(self.num_clients):
-            x, y = self._shard(c)
-            if self._fold_sched is not None:
-                idx, w = self._fold_sched
-                s = self.snip_fold_scores(params, x, y, idx[c], w[c],
-                                          rng=generator)
-            else:
-                s = self.snip_scores(
-                    params, x, y, self._n_train[c], n_iters,
-                    idx=None if snip_idx is None else snip_idx[c],
-                    rng=generator)
+            s = self._client_scores(c, params, generator, snip_idx, n_iters)
             total = s if total is None else {k: total[k] + s[k] for k in s}
         mean = {k: v / self.num_clients for k, v in total.items()}
         return mask_from_scores(mean, self.dense_ratio)
 
+    def _client_scores(self, c: int, params: Tree, generator, snip_idx,
+                       n_iters: int) -> Tree:
+        """Client ``c``'s SNIP scores on its own shard: the exact
+        stratified folds' train sides, else ``n_iters`` batches
+        (``snip_idx[c]`` where given, else drawn: uniform, or class-balanced
+        with ``stratified_sampling``)."""
+        x, y = self._shard(c)
+        if self._fold_sched is not None:
+            idx, w = self._fold_sched
+            return self.snip_fold_scores(params, x, y, idx[c], w[c],
+                                         rng=generator)
+        return self.snip_scores(
+            params, x, y, self._n_train[c], n_iters,
+            idx=None if snip_idx is None else snip_idx[c], rng=generator)
+
+    def _skip_client_draws(self, c: int, params: Tree, generator, snip_idx,
+                           n_iters: int) -> None:
+        """The draws :meth:`_client_scores` of client ``c`` takes from
+        ``generator``, made and dropped (a mesh rank that does not hold
+        ``c``): per fold its dropout masks, at the schedule's batch of rows
+        ("exact"); else per batch its rows (uniform, or from the
+        class-balanced weights of ``c``'s labels, which the rank keeps on
+        the host) unless ``snip_idx`` gives them, then its dropout
+        masks."""
+        dev = self.device
+
+        def dropout(calls):
+            for _, shape, _ in calls:
+                torch.rand(shape, generator=generator, device=dev)
+
+        if self._fold_sched is not None:
+            calls = self._dropout_calls(params, self._fold_sched[0].shape[2])
+            for _ in range(STRATIFIED_SPLITS):
+                dropout(calls)
+            return
+        calls = self._dropout_calls(params)
+        n = self._n_train[c]
+        p = None
+        if snip_idx is None and self.stratified_sampling:
+            p = balanced_probs(self.data.y_train_host[c].to(dev), n,
+                               self.data.class_num).to(generator.device)
+        for _ in range(n_iters):
+            if p is not None:
+                torch.multinomial(p, self.hp.batch_size, replacement=True,
+                                  generator=generator)
+            elif snip_idx is None:
+                torch.randint(0, max(n, 1), (self.hp.batch_size,),
+                              generator=generator, device=generator.device)
+            dropout(calls)
+
     def _mesh_mean_scores(self, params: Tree, generator, snip_idx,
                           n_iters: int) -> Tree:
         """The SNIP mean on a client mesh (:meth:`global_mask`)."""
-        drop_calls = self._dropout_calls(params)
         mine = []
         for c in range(self.num_clients):
             if self._lo <= c < self._hi:
-                x, y = self._shard(c)
-                mine.append(self.snip_scores(
-                    params, x, y, self._n_train[c], n_iters,
-                    idx=None if snip_idx is None else snip_idx[c],
-                    rng=generator))
-            elif snip_idx is None:
-                # client c's batch rows and dropout masks, as snip_scores
-                # draws them
-                for _ in range(n_iters):
-                    torch.randint(0, max(self._n_train[c], 1),
-                                  (self.hp.batch_size,), generator=generator,
-                                  device=generator.device)
-                    for _, shape, _ in drop_calls:
-                        torch.rand(shape, generator=generator,
-                                   device=self.device)
+                mine.append(self._client_scores(c, params, generator,
+                                                snip_idx, n_iters))
+            else:
+                self._skip_client_draws(c, params, generator, snip_idx,
+                                        n_iters)
         keys = list(params)
         sizes = [params[k].numel() for k in keys]
         local = torch.stack([torch.cat([s[k].reshape(-1) for k in keys])

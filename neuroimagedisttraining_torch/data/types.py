@@ -24,7 +24,9 @@ class FederatedData:
 
     On a client mesh (``parallel.mesh.shard_federated``) the arrays hold
     this rank's block of clients and ``mesh`` the rank's ``ClientMesh``;
-    the counts stay whole, for every client of the cohort.
+    the counts stay whole, for every client of the cohort, and
+    ``y_train_host`` holds every client's train labels on the host
+    (stratified SNIP reads them all); None off the mesh.
     """
 
     x_train: torch.Tensor
@@ -38,6 +40,7 @@ class FederatedData:
     y_val: Optional[torch.Tensor] = None
     n_val: Optional[torch.Tensor] = None
     mesh: Optional[Any] = None
+    y_train_host: Optional[torch.Tensor] = None
 
     @property
     def num_clients(self) -> int:

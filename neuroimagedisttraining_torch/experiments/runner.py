@@ -10,7 +10,11 @@ top-level keys. It runs on ``--device`` (CUDA by default, with no fallback).
 ``--mesh_devices N`` shards the clients over a mesh of ``N`` ranks, one
 process a device (:func:`run_experiment`): fitted to the devices there are
 and to the cohort, as the JAX CLI fits it; rank 0 writes the log and the
-results.
+results. SalientGrads and FedAvg run there, with ``--fuse_rounds`` (on the
+cards each round one CUDA graph holding its NCCL collectives),
+``--eval_cache``, ``--eval_clients`` and ``--stratified_sampling``; the
+checkpoints, the client store, the robust tier and the other algorithms
+are refused on a mesh (:func:`client_mesh_size`).
 
 With ``--checkpoint_dir`` every round (every block under ``--fuse_rounds``)
 is saved in the port's torch format (``utils/checkpoint.py``) under the
@@ -149,19 +153,14 @@ def _mesh_rest(args: argparse.Namespace, algo_name: str):
     what = []
     if algo_name not in _MESH_ALGOS:
         what.append(f"--algo {algo_name}")
-    for attr, flag in (("fuse_rounds", "--fuse_rounds"),
-                       ("checkpoint_dir", "--checkpoint_dir"),
+    for attr, flag in (("checkpoint_dir", "--checkpoint_dir"),
                        ("resume", "--resume"),
                        ("fault_spec", "--fault_spec"), ("guard", "--guard"),
                        ("defense_type", "--defense_type"),
                        ("robust_agg", "--robust_agg"),
-                       ("watchdog", "--watchdog"),
-                       ("eval_cache", "--eval_cache"),
-                       ("eval_clients", "--eval_clients"),
-                       ("stratified_sampling", "--stratified_sampling")):
+                       ("watchdog", "--watchdog")):
         v = getattr(args, attr, None)
-        if v in (None, 0, "", False) or v == _default(attr) or (
-                attr == "fuse_rounds" and int(v) <= 1):
+        if v in (None, 0, "", False) or v == _default(attr):
             continue
         what.append(flag)
     if getattr(args, "client_store", "device") != "device":
@@ -799,6 +798,7 @@ def _mesh_rank(rank: int, args: argparse.Namespace, algo_name: str,
             out["state"] = None  # each rank holds its block of the state
             with open(os.path.join(directory, "result.pkl"), "wb") as f:
                 pickle.dump(out, f)
+        mesh.barrier()
     finally:
         mesh.destroy()
 
@@ -831,7 +831,9 @@ def run_experiment(args: argparse.Namespace,
     eval, ``stat_info`` path, final state and ``client_mesh_devices``. With
     a client mesh of more than one rank (:func:`client_mesh_size`) the run
     is spawned, one process a rank (``mesh`` is the rank's mesh inside
-    one)."""
+    one): the eager loop or, with ``--fuse_rounds``, the fused one
+    (:func:`_run_fused_rounds`), the same on every rank; what
+    :func:`_mesh_rest` lists is refused before any work."""
     from .. import resolve_device
     from ..convert import to_reference_layout
     from ..robust import recovery
@@ -856,6 +858,7 @@ def run_experiment(args: argparse.Namespace,
     lead = mesh is None or mesh.rank == 0
     log_handler = None
     ckpt_mgr = None
+    algo = None
     try:
         # the lineage's semantics first: a knob a defaulted resume adopts
         # enters the run identity below
@@ -1093,6 +1096,10 @@ def run_experiment(args: argparse.Namespace,
             "client_mesh_devices": n_mesh,
         }
     finally:
+        if mesh is not None and algo is not None:
+            # before the mesh is torn down (ClientMesh.destroy), also when
+            # the run raised: a traceback keeps the algorithm reachable
+            algo.release_graphs()
         if ckpt_mgr is not None:
             ckpt_mgr.close()
         remove_run_file_logger(log_handler)

@@ -15,6 +15,7 @@ substrate (``parallel/multihost.py``) are not.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import os
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -82,6 +83,11 @@ class ClientMesh:
             out = torch.stack(parts)
         return out.view(x.dtype) if wire is not x else out
 
+    def barrier(self) -> None:
+        """Return once every rank has reached this call (an ``all_reduce``
+        of one value, on either backend)."""
+        self.all_reduce(torch.zeros(1, device=self.device))
+
     def hier_groups(self, inner: int) -> Tuple[Any, Any]:
         """This rank's (intra-slice, inter-slice) groups of the hierarchical
         reduce with ``inner`` ranks a slice (``collectives.
@@ -101,10 +107,21 @@ class ClientMesh:
         return self._hier[inner]
 
     def destroy(self) -> None:
-        """Tear down the process group (every rank, at the end of a run)."""
+        """Tear down the process group (every rank, at the end of a run; a
+        run that ended well calls :meth:`barrier` first, so no rank closes
+        its connections while another still uses them). NCCL does not
+        destroy a communicator while a CUDA graph that holds its collectives
+        lives: the algorithms still in use release theirs first
+        (``FedAlgorithm.release_graphs``), and the unreachable ones are
+        collected here. The group is freed here, not when the interpreter
+        exits."""
         self._hier.clear()
+        gc.collect()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
         if dist.is_initialized():
             dist.destroy_process_group()
+        self.group = None
 
 
 def make_mesh(n_client_devices: int, *, backend: Optional[str] = None,
@@ -176,7 +193,9 @@ def shard_federated(data, mesh: ClientMesh):
     """``data`` (a ``FederatedData``) as this rank holds it: the train,
     test and validation arrays cut to its block of clients and moved to the
     mesh's device, the per-client counts whole (every rank's host loop
-    reads every client's count), and the mesh recorded (:func:`mesh_of`)."""
+    reads every client's count), every client's train labels on the host
+    (``y_train_host``: ``[C, n]`` integers, no volume of another rank's
+    block), and the mesh recorded (:func:`mesh_of`)."""
     def cut(x, to_device=True):
         if x is None:
             return None
@@ -189,6 +208,9 @@ def shard_federated(data, mesh: ClientMesh):
         x_test=cut(data.x_test), y_test=cut(data.y_test),
         # the validation split stays on the CPU, as unsharded
         x_val=cut(data.x_val, False), y_val=cut(data.y_val, False),
+        # every client's train labels, on the host: the exact stratified
+        # SNIP schedule and the balanced draws read all of them
+        y_train_host=data.y_train.cpu().clone(),
         mesh=mesh)
 
 
@@ -204,24 +226,33 @@ def replicate(tree: Dict[str, torch.Tensor], mesh: ClientMesh
     return out
 
 
+def gather_index(counts: Sequence[int],
+                 order: Sequence[Tuple[int, int]]) -> torch.Tensor:
+    """The row index (int64, on the CPU) :func:`gather_rows` reads the
+    gathered ``[size * max(counts), ...]`` rows at."""
+    width = max(counts)
+    return torch.tensor([d * width + r for d, r in order], dtype=torch.int64)
+
+
 def gather_rows(mesh: ClientMesh, rows: torch.Tensor, counts: Sequence[int],
-                order: Sequence[Tuple[int, int]]) -> torch.Tensor:
+                idx: torch.Tensor) -> torch.Tensor:
     """Rows held by different ranks, in one ``all_gather``: rank ``d``
     holds ``counts[d]`` rows (``rows`` here, ``[counts[rank], ...]``),
-    padded to the largest count for the gather; ``order`` lists
-    ``(rank, row)`` of each output row."""
+    padded to the largest count for the gather; ``idx`` is
+    :func:`gather_index` of the counts and the output's ``(rank, row)``
+    order, on the rows' device (made on the host side of the round, so a
+    body a CUDA graph captures reads it)."""
     width = max(counts)
     pad = torch.zeros((width,) + tuple(rows.shape[1:]), dtype=rows.dtype,
                       device=rows.device)
     if rows.shape[0]:
         pad[:rows.shape[0]] = rows
     full = mesh.all_gather(pad)
-    idx = torch.tensor([d * width + r for d, r in order], dtype=torch.int64,
-                       device=full.device)
     return full.reshape((-1,) + tuple(rows.shape[1:])).index_select(0, idx)
 
 
 __all__: List[str] = [
-    "AXIS", "ClientMesh", "fit_client_devices", "gather_rows", "make_mesh",
+    "AXIS", "ClientMesh", "fit_client_devices", "gather_index",
+    "gather_rows", "make_mesh",
     "mesh_of", "replicate", "shard_federated", "shard_over_clients",
 ]

@@ -1,0 +1,334 @@
+#!/usr/bin/env python3
+"""Fused round blocks on a client mesh of several processes, for the
+PyTorch/CUDA port: each block bitwise the same rounds run eagerly, and the
+rates of both spellings.
+
+    python3 scripts/torch_mesh_fused_check.py [--ranks 4] [--rounds 3]
+        [--device cuda|cpu] [--out PATH]
+
+Spawns ``--ranks`` processes joined over a ``file://`` rendezvous: on
+``cuda`` one a card over NCCL (the main configuration of ``chip_smoke.py``
+at full width: SalientGrads on ``3dcnn_s2d``, 8 clients x 40 phased
+121x145x121 bf16 volumes made on each card from seed 0, each rank keeping
+its block, batch 8, 5 steps, bf16 compute, cuDNN deterministic); on
+``cpu`` gloo ranks at a narrow width (``small3dcnn`` on 8x8x8 volumes),
+which is how the script is checked without cards. SNIP once, then for each
+case of :data:`CASES` (wire, participation), from the SNIP state:
+
+* ``--rounds`` eager rounds (``run_round``, the eval after each) and a
+  fused block of the same rounds with the eval every round
+  (``run_rounds_fused``): state, train losses and evals bitwise on every
+  rank;
+* the block again with the mesh's collectives counted where Python calls
+  them (zero when no round captures a new graph: every collective then
+  runs inside a graph's replay);
+* rounds/s of each spelling, the slowest rank's (a barrier, then the
+  synchronised host clock, then an ``all_reduce(MAX)``), in the order
+  eager, fused, fused, eager, each pair on ``--rounds`` rounds that no
+  block ran before (at partial participation new draws, so the fused
+  block pays the graph captures a run pays; ``captures_in_timed_blocks``
+  counts them).
+
+Rank 0 prints one JSON line per case and a last line with the cards' name
+and power limit (``nvidia-smi``), and writes them all to ``--out``. Exits
+1 when a block is not bitwise its eager rounds. Every rank notes each step
+on its standard error; a collective waits at most ``COLLECTIVE_TIMEOUT_S``
+(NCCL's watchdog), and a rank still running after ``STALL_S`` prints every
+thread's stack and exits (a collective replayed from a graph is not
+watched). It imports nothing of JAX.
+"""
+from __future__ import annotations
+
+import argparse
+import datetime
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+import traceback
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+#: (agg_impl, frac): the wires whose reduce runs on the mesh, at full and
+#: at partial participation (where the trained rows are gathered first)
+CASES = (("dense", 1.0), ("int8", 1.0), ("hier", 1.0), ("dense", 0.5),
+         ("int8", 0.5))
+N_CLIENTS, SAMPLES, TEST, BATCH, STEPS = 8, 40, 10, 8, 5
+VOLUME = (121, 145, 121)
+COLLECTIVE_TIMEOUT_S = 120
+STALL_S = 240
+
+
+def _note(rank: int, what: str) -> None:
+    print(f"[rank {rank} {time.strftime('%H:%M:%S')}] {what}",
+          file=sys.stderr, flush=True)
+
+
+def _sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _clock(dev, mesh, t0=None):
+    """The host clock at a barrier (``t0`` None), else the slowest rank's
+    seconds since ``t0``."""
+    import torch
+    import torch.distributed as dist
+
+    _sync(dev)
+    if t0 is None:
+        mesh.barrier()
+        _sync(dev)
+        return time.perf_counter()
+    t = torch.tensor([time.perf_counter() - t0], dtype=torch.float64,
+                     device=dev)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=mesh.group)
+    return float(t)
+
+
+def _cohort(dev, mesh):
+    """The cohort, its model and hyperparameters: full width on the card,
+    narrow on the CPU; this rank's block of it."""
+    import torch
+
+    from neuroimagedisttraining_torch.core.state import HyperParams
+    from neuroimagedisttraining_torch.data import device_synthetic_federated
+    from neuroimagedisttraining_torch.models import create_model
+    from neuroimagedisttraining_torch.ops.s2d import phased_sample_shape
+    from neuroimagedisttraining_torch.parallel.mesh import shard_federated
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    if dev.type == "cuda":
+        shape = phased_sample_shape(VOLUME)
+        data = device_synthetic_federated(N_CLIENTS, SAMPLES, shape, g,
+                                          test_per_client=TEST)
+        hp = HyperParams(lr=1e-3, lr_decay=0.998, momentum=0.9,
+                         weight_decay=5e-4, grad_clip=10.0, local_epochs=1,
+                         steps_per_epoch=STEPS, batch_size=BATCH)
+
+        def model():
+            return create_model("3dcnn_s2d", num_classes=1,
+                                sample_shape=shape)
+    else:
+        data = device_synthetic_federated(N_CLIENTS, 8, (8, 8, 8, 1), g,
+                                          test_per_client=4)
+        hp = HyperParams(lr=1e-3, lr_decay=0.998, momentum=0.9,
+                         weight_decay=5e-4, grad_clip=10.0, local_epochs=1,
+                         steps_per_epoch=2, batch_size=4)
+
+        def model():
+            return create_model("small3dcnn", num_classes=1,
+                                dropout_rate=0.5)
+    return shard_federated(data, mesh), model, hp
+
+
+def _trees(state):
+    import dataclasses
+
+    return {f.name: getattr(state, f.name) for f in dataclasses.fields(state)
+            if isinstance(getattr(state, f.name), dict)}
+
+
+def _bitwise(a_state, a_mets, a_evals, b_state, ys):
+    import torch
+
+    host = ys.materialize()
+    if any(float(host["train_loss"][i]) != float(m["train_loss"])
+           for i, m in enumerate(a_mets)):
+        return False
+    if any(float(host["eval"][k][i]) != float(ev[k])
+           for i, ev in enumerate(a_evals) for k in host["eval"]):
+        return False
+    b = _trees(b_state)
+    return all(torch.equal(t[k], b[f][k]) for f, t in _trees(a_state).items()
+               for k in t)
+
+
+def _case(algo, state, rounds, dev, mesh, note):
+    """One case on this rank: the eager rounds and the fused block, the
+    block counted, the rates in pairs."""
+    s, mets, evals = algo.clone_state(state), [], []
+    for r in range(rounds):
+        s, met = algo.run_round(s, r)
+        mets.append(met)
+        evals.append({k: v for k, v in algo.evaluate(s).items()
+                      if not k.startswith("acc_per")})
+        _sync(dev)
+        note(f"eager round {r}")
+    sf, ys = algo.run_rounds_fused(state, 0, rounds, eval_every=1)
+    bitwise = _bitwise(s, mets, evals, sf, ys)
+    note(f"fused block, bitwise {bitwise}")
+    calls = {"all_gather": 0, "all_reduce": 0}
+
+    def counted(name, fn):
+        def call(*args, **kwargs):
+            calls[name] += 1
+            return fn(*args, **kwargs)
+        return call
+
+    for name in calls:
+        setattr(mesh, name, counted(name, getattr(mesh, name)))
+    captured = algo._fused.evicted + len(algo._fused.rounds)
+    algo.run_rounds_fused(state, 0, rounds, eval_every=1)[1].materialize()
+    captures = algo._fused.evicted + len(algo._fused.rounds) - captured
+    for name in calls:
+        delattr(mesh, name)
+
+    def eager(start):
+        t0, st = _clock(dev, mesh), state
+        for r in range(start, start + rounds):
+            st, _ = algo.run_round(st, r)
+            algo.evaluate(st)
+        return rounds / _clock(dev, mesh, t0)
+
+    def fused(start):
+        t0 = _clock(dev, mesh)
+        algo.run_rounds_fused(state, start, rounds, eval_every=1)[1] \
+            .materialize()
+        return rounds / _clock(dev, mesh, t0)
+
+    # each pair on rounds no block has run yet: at partial participation
+    # their draws are new, so a fused block pays the captures a run pays
+    rates = {"eager": [], "fused": []}
+    timed_captures = 0
+    for i, kind in enumerate(("eager", "fused", "fused", "eager")):
+        start = rounds * (1 + i // 2)
+        before = algo._fused.evicted + len(algo._fused.rounds)
+        rates[kind].append(eager(start) if kind == "eager" else fused(start))
+        timed_captures += algo._fused.evicted + len(algo._fused.rounds) \
+            - before
+    note("rates")
+    return {"bitwise": bitwise, "collective_calls_in_block": calls,
+            "captures_in_block": captures,
+            "captures_in_timed_blocks": timed_captures,
+            "graphs": len(algo._fused.rounds),
+            "rounds_per_sec_eager": rates["eager"],
+            "rounds_per_sec_fused": rates["fused"]}
+
+
+def _rank(rank, world, directory, device, rounds):
+    import faulthandler
+
+    import torch
+    import torch.distributed as dist
+
+    faulthandler.dump_traceback_later(STALL_S, exit=True)
+
+    def note(what):
+        _note(rank, what)
+
+    from neuroimagedisttraining_torch.algorithms import SalientGrads
+    from neuroimagedisttraining_torch.parallel.mesh import make_mesh
+
+    if device == "cuda":
+        dev = torch.device("cuda", rank)
+        torch.cuda.set_device(dev)
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    else:
+        dev = torch.device("cpu")
+        torch.set_num_threads(1)
+    mesh = make_mesh(world, rank=rank, device=dev,
+                     init_method="file://" + os.path.join(directory, "rdv"),
+                     timeout=datetime.timedelta(
+                         seconds=COLLECTIVE_TIMEOUT_S))
+    try:
+        note(f"mesh of {world} ({mesh.backend})")
+        data, model, hp = _cohort(dev, mesh)
+        note("cohort")
+
+        def algo(impl, frac):
+            return SalientGrads(model(), data, hp, loss_type="bce",
+                                frac=frac, seed=0, dense_ratio=0.5,
+                                itersnip_iterations=1,
+                                compute_dtype="bfloat16", agg_impl=impl,
+                                device=dev)
+
+        t0 = _clock(dev, mesh)
+        state0 = algo("dense", 1.0).init_state()
+        snip_s = _clock(dev, mesh, t0)
+        note(f"SNIP {snip_s:.3f} s")
+        out = []
+        for impl, frac in CASES:
+            a = algo(impl, frac)
+            rec = _case(a, a.clone_state(state0), rounds, dev, mesh,
+                        lambda w: note(f"{impl} {frac}: {w}"))
+            # NCCL keeps a communicator while a graph holding its
+            # collectives lives: drop them before the mesh goes
+            a.release_graphs()
+            flags = torch.tensor([int(rec["bitwise"])], device=dev)
+            dist.all_reduce(flags, op=dist.ReduceOp.MIN, group=mesh.group)
+            rec.update(agg_impl=impl, frac=frac, ranks=world,
+                       backend=mesh.backend, rounds=rounds, snip_s=snip_s,
+                       bitwise_every_rank=bool(flags.item()),
+                       block=[a._lo, a._hi])
+            out.append(rec)
+        if dev.type == "cuda":
+            peak = torch.tensor([torch.cuda.max_memory_allocated(dev)],
+                                device=dev)
+            dist.all_reduce(peak, op=dist.ReduceOp.MAX, group=mesh.group)
+            for rec in out:
+                rec["peak_mem_bytes_max_rank"] = int(peak.item())
+        if rank == 0:
+            with open(os.path.join(directory, "out.json"), "w") as f:
+                json.dump(out, f)
+        mesh.barrier()
+        note("done")
+    except Exception:
+        # the other ranks may wait in a collective: leave at once, without
+        # tearing the group down (the parent then stops them)
+        traceback.print_exc()
+        sys.stderr.flush()
+        os._exit(1)
+    mesh.destroy()
+    note("mesh torn down")
+
+
+def main() -> int:
+    import torch
+    import torch.multiprocessing as mp
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--ranks", type=int, default=4)
+    ap.add_argument("--rounds", type=int, default=3)
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    ap.add_argument("--out", default="")
+    args = ap.parse_args()
+    if args.device == "cuda":
+        if torch.cuda.device_count() < args.ranks:
+            print(f"torch_mesh_fused_check: {args.ranks} ranks need as many "
+                  f"cards, {torch.cuda.device_count()} present",
+                  file=sys.stderr)
+            return 2
+        from neuroimagedisttraining_torch.ops import kernels
+
+        kernels.build()
+    with tempfile.TemporaryDirectory() as d:
+        mp.spawn(_rank, args=(args.ranks, d, args.device, args.rounds),
+                 nprocs=args.ranks, join=True)
+        with open(os.path.join(d, "out.json")) as f:
+            out = json.load(f)
+    card = ("cpu" if args.device == "cpu" else subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip())
+    for rec in out:
+        print(json.dumps(rec), flush=True)
+    print(json.dumps({"device": card}), flush=True)
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)),
+                    exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump({"cases": out, "device": card}, f, indent=1)
+    return 0 if all(r["bitwise_every_rank"] for r in out) else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

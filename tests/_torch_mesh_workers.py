@@ -8,6 +8,7 @@ by name): no JAX in the ranks."""
 import os
 import pickle
 import tempfile
+import time
 import traceback
 
 import numpy as np
@@ -15,14 +16,25 @@ import torch
 import torch.multiprocessing as mp
 
 
-def run_ranks(world, cases, timeout_dir=None):
+def run_ranks(world, cases, timeout_dir=None, timeout=None):
     """Run ``cases`` (a list of ``(name, kwargs)``) on a ``world``-rank gloo
     group of CPU processes. Returns ``results[case][rank]``; a rank that
-    raised re-raises here with its traceback."""
+    raised re-raises here with its traceback. With ``timeout`` (seconds)
+    the ranks are killed and ``TimeoutError`` raised when they have not
+    all finished by then, and a collective waits at most that long."""
     with tempfile.TemporaryDirectory(dir=timeout_dir) as d:
         with open(os.path.join(d, "cases.pkl"), "wb") as f:
             pickle.dump(cases, f)
-        mp.spawn(_rank_main, args=(world, d), nprocs=world, join=True)
+        ctx = mp.start_processes(_rank_main, args=(world, d, timeout),
+                                 nprocs=world, join=False,
+                                 start_method="spawn")
+        deadline = None if timeout is None else time.monotonic() + timeout
+        while not ctx.join(timeout=None if deadline is None else 1.0):
+            if deadline is not None and time.monotonic() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                raise TimeoutError(f"the {world} ranks did not finish "
+                                   f"{len(cases)} cases in {timeout} s")
         out = []
         for i in range(len(cases)):
             row = []
@@ -42,12 +54,16 @@ class _Failure:
         self.tb = tb
 
 
-def _rank_main(rank, world, d):
+def _rank_main(rank, world, d, timeout=None):
+    import datetime
+
     from neuroimagedisttraining_torch.parallel.mesh import make_mesh
 
     torch.set_num_threads(1)
     mesh = make_mesh(world, backend="gloo", rank=rank, device="cpu",
-                     init_method="file://" + os.path.join(d, "rendezvous"))
+                     init_method="file://" + os.path.join(d, "rendezvous"),
+                     timeout=None if timeout is None
+                     else datetime.timedelta(seconds=timeout))
     try:
         with open(os.path.join(d, "cases.pkl"), "rb") as f:
             cases = pickle.load(f)
@@ -61,6 +77,7 @@ def _rank_main(rank, world, d):
             if isinstance(got, _Failure):
                 # the other ranks may wait in a collective of this case
                 os._exit(1)
+        mesh.barrier()
     finally:
         mesh.destroy()
 
@@ -160,10 +177,13 @@ def round_case(mesh, algo, data_seed, frac, agg_impl, rounds=2,
 
 def build_round_algo(algo, data_seed, frac, agg_impl, n_clients=8,
                      sample_shape=(8, 8, 8, 1), bucket_size=0, hier_inner=0,
-                     hier_wire="bf16", dropout=0.0, mesh=None):
+                     hier_wire="bf16", dropout=0.0, mesh=None, samples=8,
+                     **opts):
     """The round tests' algorithm: ``n_clients`` synthetic clients of data
-    seed ``data_seed`` (8 train rows, 4 test), batch 4, ``small3dcnn`` at
-    ``dropout``, sharded over ``mesh`` when given."""
+    seed ``data_seed`` (``samples`` train rows, 4 test), batch 4,
+    ``small3dcnn`` at ``dropout``, sharded over ``mesh`` when given;
+    ``opts`` go to the algorithm (``eval_cache``, ``eval_clients``,
+    ``stratified_sampling``, ...)."""
     from neuroimagedisttraining_torch.algorithms import FedAvg, SalientGrads
     from neuroimagedisttraining_torch.core.state import HyperParams
     from neuroimagedisttraining_torch.data import make_synthetic_federated
@@ -171,7 +191,8 @@ def build_round_algo(algo, data_seed, frac, agg_impl, n_clients=8,
     from neuroimagedisttraining_torch.parallel.mesh import shard_federated
 
     data = make_synthetic_federated(seed=data_seed, n_clients=n_clients,
-                                    samples_per_client=8, test_per_client=4,
+                                    samples_per_client=samples,
+                                    test_per_client=4,
                                     sample_shape=tuple(sample_shape))
     if mesh is not None:
         data = shard_federated(data, mesh)
@@ -183,7 +204,7 @@ def build_round_algo(algo, data_seed, frac, agg_impl, n_clients=8,
     model = create_model("small3dcnn", num_classes=1, dropout_rate=dropout)
     kw = dict(loss_type="bce", frac=frac, seed=0, agg_impl=agg_impl,
               agg_bucket_size=bucket_size, agg_hier_inner=hier_inner,
-              agg_hier_wire=hier_wire, device="cpu")
+              agg_hier_wire=hier_wire, device="cpu", **opts)
     if algo == "salientgrads":
         return SalientGrads(model, data, hp, dense_ratio=0.5, **kw)
     return FedAvg(model, data, hp, **kw)
@@ -196,7 +217,8 @@ def _np_tree(t):
 def _state_np(state):
     return dict(global_params=_np_tree(state.global_params),
                 personal=_np_tree(state.personal_params),
-                residual=_np_tree(state.agg_residual))
+                residual=_np_tree(state.agg_residual),
+                eval_cache=_np_tree(state.eval_cache))
 
 
 def drive_round(a, rounds, perms=None, snip_idx=None, params=None,
@@ -263,7 +285,9 @@ def replay_off_mesh(a, ranks, rounds, perms=None, snip_idx=None,
             state,
             global_params=tensors(ranks[0]["states"][key]["global_params"]),
             personal_params=tensors(_whole(ranks, key, "personal")),
-            agg_residual=tensors(_whole(ranks, key, "residual")))
+            agg_residual=tensors(_whole(ranks, key, "residual")),
+            # the eval cache is replicated: every rank holds all of it
+            eval_cache=tensors(ranks[0]["states"][key]["eval_cache"]))
 
     kw = {}
     if snip_idx is not None:
@@ -296,3 +320,107 @@ def eval_terms_case(mesh, algo, data_seed, n_clients=8):
     correct, loss_sum = a._eval_terms(
         range(a.num_clients), lambda c: state.global_params)
     return correct.numpy(), loss_sum.numpy()
+
+
+# -- fused blocks on the mesh -------------------------------------------------
+
+def _evals_np(ev):
+    return {k: np.asarray(v) for k, v in ev.items()
+            if not k.startswith("acc_per")}
+
+
+def fused_case(mesh, algo, data_seed, frac, agg_impl, rounds=2, perms=None,
+               params=None, mask=None, **build):
+    """One fused block of ``rounds`` rounds with the eval every round on
+    the mesh (``run_rounds_fused``) and the same rounds run eagerly on it
+    from the same state, each round's eval after it. ``perms`` (per round,
+    per selected client), ``params`` and ``mask`` are the seams. Returns
+    both, with the fused block's state after its first round and the
+    mask."""
+    import dataclasses
+
+    a = build_round_algo(algo, data_seed, frac, agg_impl, mesh=mesh, **build)
+    if params is not None:
+        params = {k: torch.from_numpy(np.asarray(v))
+                  for k, v in params.items()}
+    state = a.init_state(params=params)
+    if mask is not None:
+        state = dataclasses.replace(state, mask={
+            k: torch.from_numpy(np.asarray(v)) for k, v in mask.items()})
+    eager, mets, evals = a.clone_state(state), [], []
+    for r in range(rounds):
+        eager, met = a.run_round(eager, r, perms=None if perms is None
+                                 else perms[r])
+        mets.append({k: np.asarray(v) for k, v in met.items()})
+        evals.append(_evals_np(a.evaluate(eager)))
+    first = {}
+    seams = None if perms is None else [{"perms": p} for p in perms]
+    fused, ys = a.run_rounds_fused(
+        state, 0, rounds, eval_every=1, seams=seams,
+        on_first_round=lambda s: first.update(state=_state_np(s)))
+    ys = ys.materialize()
+    return dict(mask=_np_tree(getattr(state, "mask", None)),
+                eager=_state_np(eager), mets=mets, evals=evals,
+                fused=_state_np(fused), first=first["state"],
+                ys={k: np.asarray(v) for k, v in ys.items() if k != "eval"},
+                ys_eval={k: np.asarray(v) for k, v in ys["eval"].items()},
+                graphs=len(a._fused.rounds), lo=a._lo, hi=a._hi)
+
+
+def stratified_case(mesh, mode, data_seed=1, n_clients=2, dropout=0.0,
+                    snip_idx=None, params=None):
+    """The SNIP mask of stratified SNIP (``mode`` "exact" or "balanced")
+    on the mesh: ``n_clients`` clients of 50 train rows, batch 8, the port's
+    own draws or the ``snip_idx`` seam, from ``params`` where given."""
+    a = build_stratified_algo(mode, data_seed, n_clients, dropout, mesh)
+    kw = {}
+    if params is not None:
+        kw["params"] = {k: torch.from_numpy(np.asarray(v))
+                        for k, v in params.items()}
+    if snip_idx is not None:
+        kw["snip_idx"] = snip_idx
+    return _np_tree(a.init_state(**kw).mask)
+
+
+def build_stratified_algo(mode, data_seed=1, n_clients=2, dropout=0.0,
+                          mesh=None):
+    """SalientGrads with stratified SNIP as the reference's stratified
+    tests build it: ``n_clients`` even shards of 50 rows (8x8x8), batch 8,
+    ``small3dcnn`` at ``dropout``, sharded over ``mesh`` when given."""
+    import warnings
+
+    from neuroimagedisttraining_torch.algorithms import SalientGrads
+    from neuroimagedisttraining_torch.core.state import HyperParams
+    from neuroimagedisttraining_torch.data import make_synthetic_federated
+    from neuroimagedisttraining_torch.models import create_model
+    from neuroimagedisttraining_torch.parallel.mesh import shard_federated
+
+    data = make_synthetic_federated(
+        seed=data_seed, n_clients=n_clients, samples_per_client=50,
+        test_per_client=4, sample_shape=(8, 8, 8, 1), uneven=False)
+    if mesh is not None:
+        data = shard_federated(data, mesh)
+    torch.manual_seed(0)
+    model = create_model("small3dcnn", num_classes=1, dropout_rate=dropout)
+    hp = HyperParams(lr=0.01, local_epochs=1, steps_per_epoch=7,
+                     batch_size=8)
+    with warnings.catch_warnings():
+        # a fold with fewer members of a class than splits warns
+        warnings.simplefilter("ignore")
+        return SalientGrads(model, data, hp, loss_type="bce", frac=1.0,
+                            seed=0, dense_ratio=0.5, device="cpu",
+                            stratified_sampling=True, stratified_mode=mode)
+
+
+def gloo_on_card_case(mesh):
+    """The fused block of a gloo mesh whose algorithm stands on the card
+    (its device set to CUDA after it was built on the CPU): the refusal's
+    message, or None where nothing was refused."""
+    a = build_round_algo("fedavg", 9, 1.0, "dense", mesh=mesh)
+    state = a.init_state()
+    a.device = torch.device("cuda")
+    try:
+        a.run_rounds_fused(state, 0, 2)
+    except ValueError as e:
+        return str(e)
+    return None

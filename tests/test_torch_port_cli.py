@@ -163,8 +163,10 @@ REFUSED = [
     (["--trace_dir", "tr"], "--trace_dir"),
     (["--slo_spec", "p99:round_time_s<2"], "--slo_spec"),
     (["--flight_recorder", "guard"], "--flight_recorder"),
-    # the client mesh runs (test_cli_mesh_*); fused blocks on it do not
-    (["--mesh_devices", "2", "--fuse_rounds", "2"], "--mesh_devices"),
+    # the client mesh runs (test_cli_mesh_*), fused blocks on it too; with
+    # the state tier they are refused (the case keeps its name)
+    (["--mesh_devices", "2", "--fuse_rounds", "2", "--checkpoint_dir",
+      "ck"], "--mesh_devices"),
     (["--mesh_space", "2"], "--mesh_space"),
     (["--multihost"], "--multihost"),
     (["--serve_role", "worker"], "--serve_role"),
@@ -177,9 +179,14 @@ REFUSED = [
 ]
 
 
-@pytest.mark.parametrize(
-    "extra,flag", REFUSED,
-    ids=[" ".join(e[:2] if e[0] == "--algo" else e) for e, _ in REFUSED])
+def _refused_id(extra):
+    if extra[0] == "--algo":
+        return " ".join(extra[:2])
+    return " ".join(extra[:4] if extra[0] == "--mesh_devices" else extra)
+
+
+@pytest.mark.parametrize("extra,flag", REFUSED,
+                         ids=[_refused_id(e) for e, _ in REFUSED])
 def test_unported_flags_refused_before_any_work(tmp_path, extra, flag):
     """Refused before any work: an unported feature naming its ROADMAP
     item; fused blocks of fedfomo or turboaggregate with the JAX CLI's
@@ -779,28 +786,35 @@ def test_cli_runs_the_lifted_flags_on_cpu(tmp_path, extra, shows):
 # -- the client mesh (--mesh_devices) ----------------------------------------
 
 #: what the client mesh does not run: each refused on an explicit
-#: --mesh_devices above 1, naming ROADMAP item 7 (the rest)
+#: --mesh_devices above 1, naming ROADMAP item 7 (the rest); (extra argv,
+#: what the refusal names, a flag the mesh runs that the refusal must not
+#: name). The flags the mesh has run since fused blocks came to it keep
+#: their cases, each beside a flag it still refuses.
 MESH_REST = [
-    (["--algo", "dispfl"], "--algo dispfl"),
-    (["--algo", "ditto"], "--algo ditto"),
-    (["--fuse_rounds", "2"], "--fuse_rounds"),
-    (["--checkpoint_dir", "{tmp}/ck"], "--checkpoint_dir"),
-    (["--checkpoint_dir", "{tmp}/ck", "--resume"], "--resume"),
-    (["--client_store", "host", "--frac", "0.5"], "--client_store"),
-    (["--fault_spec", "nan=0.125"], "--fault_spec"),
-    (["--guard", "1"], "--guard"),
-    (["--defense_type", "weak_dp"], "--defense_type"),
-    (["--robust_agg", "median"], "--robust_agg"),
-    (["--watchdog", "1"], "--watchdog"),
-    (["--eval_cache", "1"], "--eval_cache"),
-    (["--eval_clients", "4"], "--eval_clients"),
-    (["--stratified_sampling", "1"], "--stratified_sampling"),
+    (["--algo", "dispfl"], "--algo dispfl", None),
+    (["--algo", "ditto"], "--algo ditto", None),
+    (["--fuse_rounds", "2", "--checkpoint_dir", "{tmp}/ck"],
+     "--checkpoint_dir", "--fuse_rounds"),
+    (["--checkpoint_dir", "{tmp}/ck"], "--checkpoint_dir", None),
+    (["--checkpoint_dir", "{tmp}/ck", "--resume"], "--resume", None),
+    (["--client_store", "host", "--frac", "0.5"], "--client_store", None),
+    (["--fault_spec", "nan=0.125"], "--fault_spec", None),
+    (["--guard", "1"], "--guard", None),
+    (["--defense_type", "weak_dp"], "--defense_type", None),
+    (["--robust_agg", "median"], "--robust_agg", None),
+    (["--watchdog", "1"], "--watchdog", None),
+    (["--eval_cache", "1", "--robust_agg", "median"], "--robust_agg",
+     "--eval_cache"),
+    (["--eval_clients", "4", "--fault_spec", "nan=0.125"], "--fault_spec",
+     "--eval_clients"),
+    (["--stratified_sampling", "1", "--algo", "ditto"], "--algo ditto",
+     "--stratified_sampling"),
 ]
 
 
-@pytest.mark.parametrize("extra,names", MESH_REST,
-                         ids=[n for _, n in MESH_REST])
-def test_cli_mesh_refuses_the_rest(tmp_path, extra, names):
+@pytest.mark.parametrize("extra,names,runs", MESH_REST,
+                         ids=[r or n for _, n, r in MESH_REST])
+def test_cli_mesh_refuses_the_rest(tmp_path, extra, names, runs):
     argv = (["--algo", "salientgrads"] + SMALL + [
         "--results_dir", str(tmp_path / "res"), "--log_dir",
         str(tmp_path / "log"), "--device", "cpu"]
@@ -809,6 +823,7 @@ def test_cli_mesh_refuses_the_rest(tmp_path, extra, names):
         trunner.main(argv + ["--mesh_devices", "2"])
     msg = str(e.value.code)
     assert msg.startswith("--mesh_devices 2: ") and names in msg, msg
+    assert runs is None or runs not in msg, msg
     assert "ROADMAP item 7 (the rest)" in msg
     assert not (tmp_path / "res").exists() and \
         not (tmp_path / "log").exists()
@@ -876,3 +891,51 @@ def test_cli_mesh_runs_match_reference_cli(tmp_path, algo):
     assert t["history"][0]["train_loss"] == one["history"][0]["train_loss"]
     if twin is not None:
         assert twin["history"] == t["history"]
+
+
+#: (algorithm, the flags the mesh runs, ``--fuse_rounds`` last): each on
+#: ``--mesh_devices 2``, its eager twin on the mesh, and the single-device
+#: run
+MESH_FLAGS = [
+    ("salientgrads", ["--fuse_rounds", "2"]),
+    ("fedavg", ["--eval_cache", "1", "--fuse_rounds", "2"]),
+    ("salientgrads", ["--stratified_sampling", "1", "--stratified_mode",
+                      "balanced", "--fuse_rounds", "2"]),
+]
+
+
+@pytest.mark.parametrize("algo,flags", MESH_FLAGS,
+                         ids=[" ".join(f[:2]) for _, f in MESH_FLAGS])
+def test_cli_mesh_runs_fused_blocks_and_eval_options(tmp_path, algo, flags):
+    """``--device cpu --mesh_devices 2`` with ``--fuse_rounds 2``, with
+    ``--eval_cache`` and with stratified SNIP: every record bitwise the
+    same run's with the rounds one at a time on the mesh, and within rtol
+    1e-5 of the single-device run's (round 0's train loss bitwise: the mask
+    and the first round's models are, only the aggregate's cross-rank sum
+    reassociates)."""
+    argv = SMALL + ["--comm_round", "2", "--epochs", "1", "--log_dir", "",
+                    "--frequency_of_the_test", "1"]
+    mesh = ["--mesh_devices", "2", "--device", "cpu"]
+    eager = flags[:flags.index("--fuse_rounds")]  # the rounds one by one
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # the ranks take the parent's share
+    try:
+        fused = trunner.main(argv + flags + mesh + [
+            "--results_dir", str(tmp_path / "t")], algo)
+        twin = trunner.main(argv + eager + mesh + ["--results_dir", ""],
+                            algo)
+        one = trunner.main(argv + flags + ["--device", "cpu",
+                                           "--results_dir", ""], algo)
+    finally:
+        torch.set_num_threads(threads)
+    assert fused["client_mesh_devices"] == 2 and fused["state"] is None
+    assert os.path.exists(fused["stat_path"])
+    assert fused["history"] == twin["history"]
+    assert fused["final_eval"] == twin["final_eval"]
+    assert len(fused["history"]) == len(one["history"]) == 3
+    for h, h1 in zip(fused["history"], one["history"]):
+        assert sorted(h) == sorted(h1)
+        for k, v in h.items():
+            np.testing.assert_allclose(v, h1[k], rtol=1e-5, err_msg=k)
+    assert fused["history"][0]["train_loss"] == \
+        one["history"][0]["train_loss"]

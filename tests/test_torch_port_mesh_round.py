@@ -241,9 +241,10 @@ def test_mesh_eval_terms_are_the_single_process_terms(mesh_runs):
         np.testing.assert_array_equal(l_got, loss_sum.numpy())
 
 
-def test_mesh_refusals_in_the_library():
+def test_mesh_refusals_in_the_library(monkeypatch):
     """What the mesh round does not run is refused when the algorithm is
-    built, and the fused loop when it is called."""
+    built, and the fused loop of a gloo group on the card when it is called
+    (the device and the backend stand in for a card here)."""
     from neuroimagedisttraining_torch.algorithms import Ditto, FedAvg
     from neuroimagedisttraining_torch.core.state import HyperParams
     from neuroimagedisttraining_torch.data import make_synthetic_federated
@@ -261,8 +262,6 @@ def test_mesh_refusals_in_the_library():
     kw = dict(loss_type="bce", device="cpu")
     for cls, extra, says in (
             (Ditto, {}, "the ditto round"),
-            (FedAvg, dict(eval_cache=True), "the eval cache"),
-            (FedAvg, dict(eval_clients=2), "eval subset"),
             (FedAvg, dict(fault_spec="nan=0.5"), "faults"),
             (FedAvg, dict(robust_agg="median"), "robust"),
             (FedAvg, dict(client_store="host", frac=0.5), "client store")):
@@ -271,6 +270,11 @@ def test_mesh_refusals_in_the_library():
         assert says in str(e.value)
     a = FedAvg(model, data, hp, **kw)
     assert a.num_local_clients == 2 and a.num_clients == 4
-    with pytest.raises(ValueError, match="client mesh"):
-        a.run_rounds_fused(a.init_state(), 0, 2)
-    assert dataclasses.is_dataclass(a.init_state())
+    state = a.init_state()
+    monkeypatch.setattr(tmesh.ClientMesh, "backend",
+                        property(lambda self: "gloo"))
+    monkeypatch.setattr(a, "device", torch.device("cuda"))
+    with pytest.raises(ValueError, match="client mesh") as e:
+        a.run_rounds_fused(state, 0, 2)
+    assert "NCCL" in str(e.value)
+    assert dataclasses.is_dataclass(state)
