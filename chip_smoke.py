@@ -166,8 +166,15 @@ Phases, each printing one JSON line:
    mesh of the main configuration whose fused block (3 rounds, the eval
    every round) is bitwise its eager rounds and the single-process block,
    with no collective called from Python while it replays; and
-   ``runner.main --mesh_devices 2`` fitted to the one card (see
-   ``mesh_path``).
+   ``runner.main --mesh_devices 2`` fitted to the one card. The robust and
+   the state tiers on the mesh (path ``mesh/robust``): (e) the gloo ranks
+   run three robust cases (faults, the guard, a defense, ``robust_agg``),
+   each round replayed by a single process (rows, counters and evals
+   bitwise, the global model bitwise under ``robust_agg``); (f) a one-rank
+   NCCL mesh's fused block of each, bitwise its eager rounds and the
+   single-process block, no Python collective in a replay; (g) the ranks'
+   checkpoint resumed by a fresh spawn (bitwise the uninterrupted round)
+   and by one process (see ``mesh_path``).
 18. cli     — the command-line entry point in-process on the card
    (``experiments.runner.main``): SalientGrads and FedAvg, ``--dataset
    synthetic --model small3dcnn --comm_round 2`` (no stem stage on this
@@ -3574,6 +3581,22 @@ NCCL_REPS = 20
 #: a collective that waits longer than this fails the phase (a rank that
 #: died leaves the others waiting)
 MESH_TIMEOUT_S = 300
+#: parts (e)-(g) of the mesh phase, the robust and the state tiers on the
+#: mesh: the robust cases of tests/test_torch_port_mesh_robust.py at full
+#: width (name, algorithm, agg_impl, robust_agg, defense, fault spec, run
+#: seed), the eager rounds of (e), and the case (g) checkpoints after its
+#: first round
+MESH_ROBUST_CASES = (
+    ("salientgrads_krum_weak_dp", "salientgrads", "dense", "krum", "weak_dp",
+     "drop=0.3,nan=0.3,scale=0.3:10x,labelflip=0.3", 11),
+    ("fedavg_int8_median_clip", "fedavg", "int8", "median",
+     "norm_diff_clipping",
+     "straggle=0.4,signflip=0.3,collude=0.4:5x,labelflip=0.4,nan=0.2", 0),
+    ("salientgrads_topk_nan", "salientgrads", "topk", "none", None,
+     "nan=0.34", 0),
+)
+MESH_ROBUST_ROUNDS = 2
+MESH_CKPT_CASE = "salientgrads_topk_nan"
 
 
 def _tree_digest(tree) -> str:
@@ -3597,12 +3620,82 @@ def _mesh_algo(data, hp, shape, impl):
                         compute_dtype="bfloat16", agg_impl=impl)
 
 
-def _mesh_rank(rank, directory, dev):
-    """One of the mesh phase's gloo ranks on the card (spawned by
-    ``mesh_path``): the main configuration sharded over the mesh, SNIP,
-    then MESH_ROUNDS rounds per wire from the SNIP state, each timed, each
-    trained client's model digested, the eval after each round and its
-    per-client sums. Leaves its record in ``directory``."""
+def _mesh_robust_algo(data, hp, shape, case):
+    """The algorithm of a MESH_ROBUST_CASES entry on the main
+    configuration (``data`` sharded or not): the guard on with the faults,
+    the defense at bound 5 and stddev 0.025."""
+    from neuroimagedisttraining_torch.algorithms import FedAvg, SalientGrads
+    from neuroimagedisttraining_torch.models import create_model
+    from neuroimagedisttraining_torch.robust import RobustAggregator
+
+    _, algo_name, impl, robust, defense, spec, seed = case
+    model = create_model("3dcnn_s2d", num_classes=1, sample_shape=shape)
+    kw = dict(loss_type="bce", frac=1.0, seed=seed, compute_dtype="bfloat16",
+              agg_impl=impl, agg_topk_density=TOPK_DENSITY,
+              robust_agg=robust, fault_spec=spec,
+              defense=(RobustAggregator(defense, 5.0, 0.025) if defense
+                       else None))
+    if algo_name == "salientgrads":
+        return SalientGrads(model, data, hp, dense_ratio=0.5,
+                            itersnip_iterations=1, **kw)
+    return FedAvg(model, data, hp, **kw)
+
+
+def _mesh_robust_state(algo, case, snip_state):
+    """A robust case's initial state: the SNIP state (its residual zeroed
+    under top-k) for SalientGrads, FedAvg's own init."""
+    import dataclasses
+
+    from neuroimagedisttraining_torch.core.state import zeros_like_tree
+
+    if case[1] != "salientgrads":
+        return algo.init_state()
+    return dataclasses.replace(
+        algo.clone_state(snip_state),
+        agg_residual=(zeros_like_tree(snip_state.personal_params)
+                      if case[2] == "topk" else None))
+
+
+def _row_digests(algo, state):
+    """Per client this rank holds (population id), the digest of its
+    personal row and of its top-k residual row."""
+    out = {}
+    for i in range(algo.num_local_clients):
+        out[algo._lo + i] = tuple(
+            _tree_digest({k: v[i] for k, v in tree.items()})
+            for tree in (state.personal_params, state.agg_residual)
+            if tree is not None)
+    return out
+
+
+def _mesh_robust_rounds(algo, state, rounds, rank, on_round=None):
+    """Eager rounds of a robust case: per round the metrics, the row
+    digests, the global model's digest (and on rank 0 the model), the eval
+    after it. ``on_round(r, state)`` after each."""
+    import torch
+
+    out = []
+    for r in range(rounds):
+        state, met = algo.run_round(state, r)
+        ev = algo.evaluate(state)
+        torch.cuda.synchronize()
+        out.append({
+            "metrics": {k: float(v) for k, v in met.items()},
+            "rows": _row_digests(algo, state),
+            "global_digest": _tree_digest(state.global_params),
+            "global": ({k: v.cpu() for k, v in state.global_params.items()}
+                       if rank == 0 else None),
+            "eval": {k: v.cpu() for k, v in ev.items()}})
+        if on_round is not None:
+            on_round(r, state)
+    return out, state
+
+
+def _mesh_resume_rank(rank, directory, dev, ck_dir):
+    """Part (g)'s fresh spawn: the ranks restore the checkpoint the mesh
+    phase's ranks wrote into ``ck_dir`` after round 0 of MESH_CKPT_CASE and
+    run round 1; each leaves its record (the round's digests, the
+    launches) in ``directory``."""
     import os
 
     import torch
@@ -3613,6 +3706,63 @@ def _mesh_rank(rank, directory, dev):
         make_mesh,
         shard_federated,
     )
+    from neuroimagedisttraining_torch.utils.checkpoint import \
+        CheckpointManager
+
+    dev = torch.device("cuda", dev.index or 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    mesh = make_mesh(MESH_RANKS, backend="gloo", rank=rank, device=dev,
+                     init_method="file://" + os.path.join(directory, "rdv2"),
+                     timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    try:
+        shape = phased_sample_shape(VOLUME)
+        data, hp = _main_config(dev, shape)
+        case = dict((c[0], c) for c in MESH_ROBUST_CASES)[MESH_CKPT_CASE]
+        algo = _mesh_robust_algo(shard_federated(data, mesh), hp, shape,
+                                 case)
+        kernels.reset_launches()
+        mgr = CheckpointManager(ck_dir, layout=algo)
+        t0 = time.perf_counter()
+        state, step = mgr.restore_latest(algo.init_state())
+        torch.cuda.synchronize()
+        rec = {"rank": rank, "step": step,
+               "restore_s": time.perf_counter() - t0}
+        state, met = algo.run_round(state, step)
+        torch.cuda.synchronize()
+        rec.update(metrics={k: float(v) for k, v in met.items()},
+                   rows=_row_digests(algo, state),
+                   global_digest=_tree_digest(state.global_params),
+                   launches=dict(kernels.LAUNCHES))
+        torch.save(rec, os.path.join(directory, f"resume{rank}.pt"))
+    finally:
+        mesh.destroy()
+
+
+def _mesh_rank(rank, directory, dev, ck_dir):
+    """One of the mesh phase's gloo ranks on the card (spawned by
+    ``mesh_path``): the main configuration sharded over the mesh, SNIP,
+    then MESH_ROUNDS rounds per wire from the SNIP state, each timed, each
+    trained client's model digested, the eval after each round and its
+    per-client sums. Then parts (e) and (g): each of MESH_ROBUST_CASES for
+    MESH_ROBUST_ROUNDS eager rounds, MESH_CKPT_CASE checkpointed after its
+    first round (every rank saving, rank 0 writing), their launches apart.
+    Leaves its record in ``directory``."""
+    import os
+
+    import torch
+
+    from neuroimagedisttraining_torch.ops import kernels
+    from neuroimagedisttraining_torch.ops.s2d import phased_sample_shape
+    from neuroimagedisttraining_torch.parallel.mesh import (
+        make_mesh,
+        shard_federated,
+    )
+    from neuroimagedisttraining_torch.utils.checkpoint import \
+        CheckpointManager
 
     if dev.type == "cuda":
         dev = torch.device("cuda", dev.index or 0)
@@ -3675,6 +3825,32 @@ def _mesh_rank(rank, directory, dev):
         torch.cuda.synchronize()
         rec["launches"] = dict(kernels.LAUNCHES)
         rec["peak_mem_bytes"] = torch.cuda.max_memory_allocated(dev)
+        # parts (e) and (g): the robust cases, (g)'s checkpoint
+        kernels.reset_launches()
+        ck = CheckpointManager(ck_dir)
+        rec["robust"] = {}
+        for case in MESH_ROBUST_CASES:
+            algo = _mesh_robust_algo(data, hp, shape, case)
+            state = _mesh_robust_state(algo, case, state0)
+            save = None
+            if case[0] == MESH_CKPT_CASE:
+                ck.layout = algo
+
+                def save(r, s):
+                    if r == 0:
+                        t0 = time.perf_counter()
+                        ck.save(1, s)
+                        rec["ckpt_save_s"] = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rounds, _ = _mesh_robust_rounds(algo, state, MESH_ROBUST_ROUNDS,
+                                            rank, save)
+            rec["robust"][case[0]] = {
+                "rounds": rounds, "seconds": time.perf_counter() - t0}
+            del algo, state
+        rec["ckpt_save_failures"] = ck.save_failures
+        torch.cuda.synchronize()
+        rec["launches_robust"] = dict(kernels.LAUNCHES)
         torch.save(rec, os.path.join(directory, f"rank{rank}.pt"))
     finally:
         mesh.destroy()
@@ -3947,6 +4123,243 @@ def _mesh_nccl_fused(dev):
     return launches
 
 
+def _mesh_robust_checks(dev, ranks, ck_dir, data, hp, shape, state0):
+    """Parts (e) and (g) of the mesh phase on this process's side. (e):
+    each robust case's rounds of the two gloo ranks replayed here in one
+    process, each round from the mesh's global model before it: the
+    metrics (train loss and the guard's counters), every client's personal
+    and top-k residual rows, the evals bitwise; the global model the same
+    on both ranks, bitwise the replay's under ``robust_agg`` (every rank
+    computes the statistic of the same gathered rows), else within
+    MESH_GLOBAL_BOUND. (g): a fresh spawn of two gloo ranks restores the
+    checkpoint the ranks wrote after round 0 of MESH_CKPT_CASE and runs
+    round 1, bitwise the uninterrupted ranks' round 1; one process
+    restores the same step and runs round 1: the rows and metrics bitwise,
+    the global model within MESH_GLOBAL_BOUND. Returns the launches of the
+    fresh spawn's ranks."""
+    import dataclasses
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from neuroimagedisttraining_torch.ops import kernels
+    from neuroimagedisttraining_torch.utils.checkpoint import \
+        CheckpointManager
+
+    def rel_err(glob, params):
+        scale = max(float(v.abs().max()) for v in glob.values())
+        return max(float((glob[k] - params[k].cpu()).abs().max())
+                   for k in glob) / scale
+
+    failures, spread = [], {}
+    cases = {c[0]: c for c in MESH_ROBUST_CASES}
+    for name, case in cases.items():
+        algo = _mesh_robust_algo(data, hp, shape, case)
+        state = _mesh_robust_state(algo, case, state0)
+        bound = 0.0 if case[3] != "none" else MESH_GLOBAL_BOUND["dense"]
+        for r in range(MESH_ROBUST_ROUNDS):
+            mine = [rk["robust"][name]["rounds"][r] for rk in ranks]
+            if r:  # the mesh's global model before the round
+                state = dataclasses.replace(state, global_params={
+                    k: v.to(dev) for k, v in ranks[0]["robust"][name]
+                    ["rounds"][r - 1]["global"].items()})
+            state, met = algo.run_round(state, r)
+            met = {k: float(v) for k, v in met.items()}
+            rows = _row_digests(algo, state)
+            glob = mine[0]["global"]
+            spread[f"{name}_r{r}"] = err = rel_err(glob, state.global_params)
+            if err > bound:
+                failures.append(f"(e) {name} r{r} global {err}")
+            ev = algo.evaluate(dataclasses.replace(state, global_params={
+                k: v.to(dev) for k, v in glob.items()}))
+            for m in mine:
+                if m["metrics"] != met:
+                    failures.append(f"(e) {name} r{r} metrics {m['metrics']}"
+                                    f" vs {met}")
+                if any(dig != rows[c] for c, dig in m["rows"].items()):
+                    failures.append(f"(e) {name} r{r} client rows")
+                if m["global_digest"] != mine[0]["global_digest"]:
+                    failures.append(f"(e) {name} r{r} ranks' globals")
+                if any(not torch.equal(m["eval"][k], v.cpu())
+                       for k, v in ev.items()):
+                    failures.append(f"(e) {name} r{r} eval")
+        del algo, state
+    # (g): a fresh spawn and one process resume the ranks' step
+    case = cases[MESH_CKPT_CASE]
+    want = [rk["robust"][MESH_CKPT_CASE]["rounds"][1] for rk in ranks]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        mp.spawn(_mesh_resume_rank, args=(d, dev, ck_dir),
+                 nprocs=MESH_RANKS, join=True)
+        resumed = [torch.load(f"{d}/resume{r}.pt", weights_only=False)
+                   for r in range(MESH_RANKS)]
+    resume_spawn_s = time.perf_counter() - t0
+    for res, w in zip(resumed, want):
+        if res["step"] != 1 or res["metrics"] != w["metrics"] or \
+                res["rows"] != w["rows"] or \
+                res["global_digest"] != w["global_digest"]:
+            failures.append(f"(g) rank {res['rank']}: the resumed round is "
+                            "not the uninterrupted one")
+    algo = _mesh_robust_algo(data, hp, shape, case)
+    t0 = time.perf_counter()
+    st, step = CheckpointManager(ck_dir).restore_latest(algo.init_state())
+    torch.cuda.synchronize()
+    one_restore_s = time.perf_counter() - t0
+    st, met = algo.run_round(st, step)
+    rows = _row_digests(algo, st)
+    one_err = rel_err(ranks[0]["robust"][MESH_CKPT_CASE]["rounds"][1]
+                      ["global"], st.global_params)
+    if step != 1 or {k: float(v) for k, v in met.items()} != \
+            want[0]["metrics"] or any(
+                dig != rows[c] for w in want for c, dig in w["rows"].items()):
+        failures.append("(g) one process: the resumed round's rows or "
+                        "metrics differ from the mesh's")
+    if one_err > MESH_GLOBAL_BOUND["dense"]:
+        failures.append(f"(g) one process: global {one_err}")
+    launches = {k: sum(r["launches"][k] for r in resumed)
+                for k in kernels.LAUNCHES}
+    emit({"phase": "mesh_robust", "ranks": MESH_RANKS, "backend": "gloo",
+          "cases": [c[0] for c in MESH_ROBUST_CASES],
+          "rounds": MESH_ROBUST_ROUNDS,
+          "round_s": {r["rank"]: {n: r["robust"][n]["seconds"]
+                                  / MESH_ROBUST_ROUNDS for n in cases}
+                      for r in ranks},
+          "metrics": {n: [x["metrics"] for x in
+                          ranks[0]["robust"][n]["rounds"]] for n in cases},
+          "global_rel_err": spread,
+          "ckpt_case": MESH_CKPT_CASE,
+          "ckpt_save_s": [r["ckpt_save_s"] for r in ranks],
+          "ckpt_save_failures": [r["ckpt_save_failures"] for r in ranks],
+          "ckpt_restore_s_mesh": [r["restore_s"] for r in resumed],
+          "ckpt_restore_s_one_process": one_restore_s,
+          "resume_spawn_s": resume_spawn_s,
+          "resumed_bitwise": not any(f.startswith("(g) rank")
+                                     for f in failures),
+          "one_process_global_rel_err": one_err,
+          "launches_resumed": launches})
+    if failures:
+        raise AssertionError(f"mesh_robust: {failures}")
+    return launches
+
+
+def _mesh_nccl_robust(dev):
+    """Part (f) of the mesh phase: a one-rank NCCL client mesh of the main
+    configuration at full width, each of MESH_ROBUST_CASES: a fused block
+    of MESH_FUSED_ROUNDS rounds (the eval every round) bitwise the same
+    rounds run eagerly on the mesh (``_fused_against_eager``) and the
+    single-process algorithm's block from the same state; then the block
+    once more with the mesh's collectives counted where Python calls them:
+    none while it replays, so the flag gather, the gathered deltas (or the
+    loss and the reduce) run inside the graph; that block and the
+    single-process block's replays are timed. Returns the mesh
+    algorithms' launches (SNIP, eager, warm-ups and replays)."""
+    import gc
+    import os
+    import tempfile
+
+    import torch
+
+    from neuroimagedisttraining_torch.ops import kernels
+    from neuroimagedisttraining_torch.ops.s2d import phased_sample_shape
+    from neuroimagedisttraining_torch.parallel.mesh import (
+        make_mesh,
+        shard_federated,
+    )
+
+    shape = phased_sample_shape(VOLUME)
+    data, hp = _main_config(dev, shape)
+    launches = {k: 0 for k in kernels.LAUNCHES}
+    failures = []
+    with tempfile.TemporaryDirectory() as d, \
+            _CudnnFlags(deterministic=True, benchmark=False):
+        mesh = make_mesh(1, backend="nccl", rank=0, device=dev,
+                         init_method="file://" + os.path.join(d, "rdv"),
+                         timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+        try:
+            snip = None
+            for case in MESH_ROBUST_CASES:
+                algo = _mesh_robust_algo(shard_federated(data, mesh), hp,
+                                         shape, case)
+                one = _mesh_robust_algo(data, hp, shape, case)
+                torch.cuda.synchronize()
+                kernels.reset_launches()
+                if snip is None and case[1] == "salientgrads":
+                    snip = algo.init_state()
+                state = _mesh_robust_state(algo, case, snip)
+                torch.cuda.synchronize()
+                init = kernels.snapshot_launches()
+                rec, both = _fused_against_eager(
+                    "mesh_nccl_robust", algo, state, MESH_FUSED_ROUNDS)
+                s_one, _ = one.run_rounds_fused(state, 0, MESH_FUSED_ROUNDS,
+                                                eval_every=1)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()  # its replays, to time
+                one.run_rounds_fused(state, 0, MESH_FUSED_ROUNDS,
+                                     eval_every=1)[1].materialize()
+                torch.cuda.synchronize()
+                one_s = time.perf_counter() - t0
+                calls = {"all_gather": 0, "all_reduce": 0}
+
+                def counted(name, fn):
+                    def call(*args, **kwargs):
+                        calls[name] += 1
+                        return fn(*args, **kwargs)
+                    return call
+
+                for name in calls:
+                    setattr(mesh, name, counted(name, getattr(mesh, name)))
+                kernels.reset_launches()
+                t0 = time.perf_counter()
+                s_mesh, ys = algo.run_rounds_fused(
+                    state, 0, MESH_FUSED_ROUNDS, eval_every=1)
+                ys.materialize()
+                torch.cuda.synchronize()
+                replay_s = time.perf_counter() - t0
+                replayed = kernels.snapshot_launches()
+                for name in calls:
+                    delattr(mesh, name)
+                one_bitwise = all(
+                    torch.equal(a[k], b[k])
+                    for f, a in _tensor_trees(s_mesh).items()
+                    for b in (_tensor_trees(s_one)[f],) for k in a)
+                for k in launches:
+                    launches[k] += init[k] + both[k] + replayed[k]
+                remask = case[1] == "salientgrads" and (
+                    case[4] is not None or case[2] == "topk")
+                per = rec["launches_per_replay"]
+                emit({"phase": "mesh_nccl_robust", "case": case[0],
+                      "backend": "nccl", **rec,
+                      "single_process_bitwise": one_bitwise,
+                      "collective_calls_in_block": dict(calls),
+                      "block_s": replay_s,
+                      "rounds_per_sec_fused": MESH_FUSED_ROUNDS / replay_s,
+                      "rounds_per_sec_single_fused":
+                      MESH_FUSED_ROUNDS / one_s,
+                      "launches_block": replayed})
+                if not one_bitwise:
+                    failures.append(f"{case[0]}: the single-process block "
+                                    "differs")
+                if any(calls.values()):
+                    failures.append(f"{case[0]}: collectives called from "
+                                    f"Python during the replays: {calls}")
+                if per.get("mask_apply", 0) != (1 if remask else 0) or \
+                        per.get("masked_sgd", 0) != N_CLIENTS * STEPS:
+                    failures.append(f"{case[0]}: per replay {per}")
+                # NCCL keeps a communicator while a graph holding its
+                # collectives lives
+                algo.release_graphs()
+                one.release_graphs()
+                del algo, one, state, s_one, s_mesh, ys
+                gc.collect()
+                torch.cuda.empty_cache()
+        finally:
+            mesh.destroy()
+    if failures:
+        raise AssertionError(f"mesh_nccl_robust: {failures}")
+    return launches
+
+
 def mesh_path(dev):
     """The client mesh (``parallel/mesh.py``) on the card:
 
@@ -3969,6 +4382,11 @@ def mesh_path(dev):
       ``mesh/nccl_fused``).
     * ``runner.main --mesh_devices 2`` on the card: fitted to the one card,
       as the JAX CLI fits to the devices there are, and saying so.
+    * (e)-(g), the robust and the state tiers on the mesh, the path
+      ``mesh/robust``: the gloo ranks' robust cases and their checkpoint
+      (``_mesh_rank``, ``_mesh_robust_checks``, ``_mesh_resume_rank``) and
+      the one-rank NCCL mesh's robust fused blocks (``_mesh_nccl_robust``);
+      ``mask_apply`` must launch on it.
 
     Part (d), ``bench_torch.main`` on one card with today's keys and
     ``client_mesh_devices`` 1, is checked in ``bench_path``. Returns the
@@ -3986,8 +4404,11 @@ def mesh_path(dev):
     from neuroimagedisttraining_torch.parallel import collectives as tc
 
     t0 = time.perf_counter()
+    # part (g)'s checkpoint lineage, written by the ranks, read after them
+    ck_tmp = tempfile.TemporaryDirectory()
     with tempfile.TemporaryDirectory() as d:
-        mp.spawn(_mesh_rank, args=(d, dev), nprocs=MESH_RANKS, join=True)
+        mp.spawn(_mesh_rank, args=(d, dev, ck_tmp.name), nprocs=MESH_RANKS,
+                 join=True)
         ranks = [torch.load(f"{d}/rank{r}.pt", weights_only=False)
                  for r in range(MESH_RANKS)]
     mesh_s = time.perf_counter() - t0
@@ -4079,6 +4500,23 @@ def mesh_path(dev):
     if failures:
         raise AssertionError(f"mesh: {failures}")
 
+    # parts (e) and (g), then (f): the robust and the state tiers
+    robust = {k: sum(r["launches_robust"][k] for r in ranks)
+              for k in kernels.LAUNCHES}
+    try:
+        with _CudnnFlags(deterministic=True, benchmark=False):
+            resumed = _mesh_robust_checks(dev, ranks, ck_tmp.name, data, hp,
+                                          shape, state0)
+    finally:
+        ck_tmp.cleanup()
+    del base, state0, data
+    nccl_robust = _mesh_nccl_robust(dev)
+    for k in robust:
+        robust[k] += resumed[k] + nccl_robust[k]
+    if robust["mask_apply"] <= 0:
+        raise AssertionError(f"mesh/robust: mask_apply launched "
+                             f"{robust['mask_apply']} times")
+
     _mesh_nccl(dev)
     fused_launches = _mesh_nccl_fused(dev)
 
@@ -4091,7 +4529,8 @@ def mesh_path(dev):
           "note": f"--mesh_devices 2 fitted to {fitted} device(s)"})
     if fitted != min(2, torch.cuda.device_count()):
         raise AssertionError(f"mesh_cli: fitted to {fitted} devices")
-    return {"mesh": launches, "mesh/nccl_fused": fused_launches}
+    return {"mesh": launches, "mesh/nccl_fused": fused_launches,
+            "mesh/robust": robust}
 
 
 def _cli_argv(algo: str, tmp: str):

@@ -21,7 +21,15 @@ are gathered in client order (the ``eval_clients`` subset's in its order).
 The in-state eval cache refreshes each rank's trained rows and gathers their
 terms into the replicated ``[C]`` cache. Each client's trained model and
 eval sums are the off-mesh run's bit for bit; only the cross-rank sums
-reassociate.
+reassociate. The robustness tier runs there too: each rank injects the
+faults into, and defends, its own rows (reading its rows of the round's
+``[S, ...]`` draws), the guard's survivor flags are gathered in draw order
+so every rank renormalizes the ``[S]`` weights alike, and a ``robust_agg``
+statistic reads every client's wire-decoded delta, gathered in draw order,
+so the robust global model is the off-mesh one bit for bit. A checkpoint
+holds the state in the single-process layout (:meth:`FedAlgorithm.
+state_to_global`, :meth:`FedAlgorithm.state_to_local`), so a step resumes
+at any mesh width. The client store is not ported to the mesh.
 
 A round is split in two: what the host decides (the seeded client draw, the
 decayed learning rate, the random draws of the generator) and a body that
@@ -76,7 +84,13 @@ from ..models.layers import DropoutProbe
 from ..ops import kernels
 from ..ops.sparsity import kernel_flags
 from ..parallel import collectives
-from ..parallel.mesh import gather_index, gather_rows, mesh_of
+from ..parallel.mesh import (
+    gather_blocks,
+    gather_flags,
+    gather_index,
+    gather_rows,
+    mesh_of,
+)
 from ..robust import guard as _guard
 from ..robust.aggregation import ROBUST_AGGS, robust_combine_mat
 from ..robust.faults import (
@@ -232,7 +246,9 @@ class MeshRows(NamedTuple):
     ``order``: per position in the draw, ``(rank, index among that rank's
     own)``, the gather's order; ``gather_idx``: the gather's row index on
     the device (:func:`~..parallel.mesh.gather_index`), made with the rest
-    on the host side of the round; ``uniforms``: the on-mesh int8 wire's
+    on the host side of the round; ``own_idx``: ``own`` on the device (the
+    rank's rows of the round's ``[S, ...]`` draws are read through it);
+    ``uniforms``: the on-mesh int8 wire's
     draw ``(rank or slice, payload leaf, shape) -> [nb, b]`` (None where
     the round does not aggregate)."""
 
@@ -241,6 +257,7 @@ class MeshRows(NamedTuple):
     counts: List[int]
     order: List[tuple]
     gather_idx: torch.Tensor
+    own_idx: torch.Tensor
     uniforms: Optional[Callable] = None
 
 
@@ -632,7 +649,7 @@ class _FusedRounds:
         if mine is None:
             mine = self.mesh_rows[key] = MeshRows(
                 list(mr.own), mr.rows.clone(), list(mr.counts),
-                list(mr.order), mr.gather_idx.clone(),
+                list(mr.order), mr.gather_idx.clone(), mr.own_idx.clone(),
                 self.mesh_uniforms if mr.uniforms is not None else None)
         mine.rows.copy_(mr.rows)
         return mine
@@ -760,9 +777,9 @@ class FedAlgorithm(abc.ABC):
     the algorithms with ``mesh_supported``) runs the round on the mesh
     (module docstring); the device defaults to the mesh's. Its fused blocks
     capture the round's collectives on NCCL (:meth:`run_rounds_fused`);
-    the eval cache and subset and stratified SNIP run on it as well. The
-    client store and the robustness tier are not ported to the mesh and are
-    refused there."""
+    the eval cache and subset, stratified SNIP, the robustness tier and the
+    checkpoints (:meth:`state_to_global`) run on it as well. The client
+    store is not ported to the mesh and is refused there."""
 
     name = "base"
     #: the algorithm carries the error-feedback residual of agg_impl="topk"
@@ -783,6 +800,10 @@ class FedAlgorithm(abc.ABC):
     store_supported = False
     #: the round runs on a client mesh (SalientGrads, FedAvg)
     mesh_supported = False
+    #: the state's per-client row fields, ``[C, ...]`` per leaf in client
+    #: order, of which a client mesh's rank holds its block
+    #: (:meth:`state_to_global`)
+    row_fields = ("personal_params", "agg_residual")
 
     def __init__(self, model: torch.nn.Module, data: FederatedData,
                  hp: HyperParams, loss_type: str = "bce", frac: float = 1.0,
@@ -987,17 +1008,15 @@ class FedAlgorithm(abc.ABC):
                 "(the run is already O(S) in device memory)")
 
     def _check_mesh(self) -> None:
-        """Refuse on a client mesh what its round does not run."""
+        """Refuse on a client mesh what its round does not run: the rounds
+        of the algorithms without ``mesh_supported`` and a client store
+        (the faults, the guard, the defenses and ``robust_agg`` run
+        there)."""
         what = []
         if not self.mesh_supported:
             what.append(f"the {self.name} round")
         if self._store is not None:
             what.append("a client store")
-        if self.fault_fn is not None or self.labelflip_fn is not None \
-                or self.guard_enabled:
-            what.append("faults and the guard")
-        if self.robust_agg != "none" or self.defense is not None:
-            what.append("the robust aggregate and the defenses")
         if what:
             raise ValueError(
                 f"{self.name}: {', '.join(what)} on a client mesh is not "
@@ -1120,18 +1139,65 @@ class FedAlgorithm(abc.ABC):
                                  fstats: Optional[Dict[str, Any]]):
         """The selected clients' trained models scattered into the [C, ...]
         personal stack; under the guard a quarantined or dropped client
-        keeps its previous row (``guard.merge_updates``)."""
+        keeps its previous row (``guard.merge_updates``; on a client mesh
+        ``locals_`` and ``sel`` are the rank's own rows, flagged by
+        ``fstats["rows_ok"]``)."""
         if personal is None:
             return None
         upd = locals_
         if fstats is not None:
-            upd = _guard.merge_updates(fstats["ok"], locals_, personal, sel)
+            upd = _guard.merge_updates(fstats["rows_ok"], locals_, personal,
+                                       sel)
         return tree_scatter_update(personal, sel, upd)
 
     def finalize(self, state: Any):
         """Optional end-of-training pass; returns ``(state, record or
         None)``, the record appended to the history with ``round = -1``."""
         return state, None
+
+    # -- the single-process layout of a state (checkpoints) -------------------
+    def _row_fields_of(self, state: Any) -> List[str]:
+        return [f for f in self.row_fields
+                if getattr(state, f, None) is not None]
+
+    def state_to_global(self, state: Any) -> Any:
+        """``state`` in the single-process layout, which a checkpoint
+        holds: on a client mesh each row field (:attr:`row_fields`)
+        gathered whole, ``[C, ...]`` in client order, on every rank (each
+        takes part: ``parallel.mesh.gather_blocks``); the replicated fields
+        as they are. Off the mesh the state itself."""
+        if self.mesh is None:
+            return state
+        return dataclasses.replace(state, **{
+            f: gather_blocks(self.mesh, getattr(state, f))
+            for f in self._row_fields_of(state)})
+
+    def state_to_local(self, state: Any) -> Any:
+        """A state in the single-process layout (a restored checkpoint, of
+        any mesh width) as this rank holds it: each row field cut to the
+        rank's block ``[lo:hi]``, fresh on the algorithm's device. Off the
+        mesh the state itself."""
+        if self.mesh is None:
+            return state
+        lo, hi = self._lo, self._hi
+        return dataclasses.replace(state, **{
+            f: {k: v[lo:hi].to(self.device).clone()
+                for k, v in getattr(state, f).items()}
+            for f in self._row_fields_of(state)})
+
+    def checkpoint_template(self, state: Any) -> Any:
+        """What a checkpoint is restored against (its fields, shapes and
+        dtypes, and the devices they load onto): ``state`` (an
+        ``init_state``), on a client mesh with each row field's leaves
+        empty host tensors of the whole ``[C, ...]`` shape, which
+        :meth:`state_to_local` then cuts. Off the mesh the state itself."""
+        if self.mesh is None:
+            return state
+        c = self.num_clients
+        return dataclasses.replace(state, **{
+            f: {k: torch.empty((c,) + tuple(v.shape[1:]), dtype=v.dtype)
+                for k, v in getattr(state, f).items()}
+            for f in self._row_fields_of(state)})
 
     def generator(self, seed: Optional[int] = None) -> torch.Generator:
         """A generator on this algorithm's device, seeded by ``seed`` (the
@@ -1244,6 +1310,19 @@ class FedAlgorithm(abc.ABC):
             return range(len(inp.n_valid)), inp.sel
         return inp.mesh_rows.own, inp.mesh_rows.rows
 
+    @staticmethod
+    def _own_draws(x, inp: RoundInputs):
+        """The rows of a round's ``[S, ...]`` draw (a tensor or a tree of
+        them: the fault draws, the weak-DP noise, the int8 uniforms) at the
+        positions of the clients this rank trains, through the prebuilt
+        ``MeshRows.own_idx``; all of it off the mesh."""
+        mr = inp.mesh_rows
+        if x is None or mr is None:
+            return x
+        if isinstance(x, dict):
+            return {k: v.index_select(0, mr.own_idx) for k, v in x.items()}
+        return x.index_select(0, mr.own_idx)
+
     def _mesh_spread(self, ids: Sequence[int]):
         """``(counts, order)`` of the clients ``ids`` (population ids, in
         their order) as the mesh's ranks hold them: per rank how many, per
@@ -1269,6 +1348,7 @@ class FedAlgorithm(abc.ABC):
                     if aggregate else None)
         return MeshRows(own, rows, counts, order,
                         _to_device(gather_index(counts, order), self.device),
+                        _to_device(np.asarray(own, np.int64), self.device),
                         uniforms)
 
     def _mesh_gather_plan(self, rows: Sequence[int]):
@@ -1379,20 +1459,31 @@ class FedAlgorithm(abc.ABC):
 
     def _robust_aggregate(self, stacked: Tree, weights: torch.Tensor,
                           global_params: Tree,
-                          uniforms: Optional[torch.Tensor] = None) -> Tree:
+                          uniforms: Optional[torch.Tensor] = None,
+                          mesh_rows: Optional[MeshRows] = None) -> Tree:
         """The ``robust_agg`` aggregate: the robust statistic of the
         clients' deltas (local - global) in the reference's flat layout,
         each delta row first through the wire's encode and decode
         (``collectives.wire_roundtrip_mat``; int8 on the round's
         ``uniforms``, the reducing wire's draw), then ``global + combined``.
         The same (stacked, weights) signature as :meth:`_aggregate`, so the
-        guard's quarantine threads it unchanged."""
+        guard's quarantine threads it unchanged. On a client mesh
+        (``mesh_rows``) ``stacked`` holds the rank's own rows: each rank
+        decodes its rows (on its rows of the ``[S, nb, b]`` uniforms), the
+        decoded rows are gathered into ``[S, N]`` in draw order (one
+        ``all_gather``), and every rank computes the statistic of the same
+        matrix: the single-process aggregate bit for bit."""
         spec = collectives.flat_spec(stacked, stacked=True)
         gvec = collectives.tree_to_vec(global_params).to(torch.float32)
         deltas = collectives.stacked_to_mat(stacked) - gvec[None]
+        if mesh_rows is not None and uniforms is not None:
+            uniforms = uniforms.index_select(0, mesh_rows.own_idx)
         deltas = collectives.wire_roundtrip_mat(
             deltas, self._robust_wire(), bucket_size=self.agg_bucket_size,
             uniforms=uniforms)
+        if mesh_rows is not None:
+            deltas = gather_rows(self.mesh, deltas, mesh_rows.counts,
+                                 mesh_rows.gather_idx)
         combined = robust_combine_mat(
             deltas, weights, self.robust_agg, trim_frac=self.robust_trim,
             krum_f=self.robust_krum_f, norm_bound=self.robust_norm_bound)
@@ -1402,7 +1493,8 @@ class FedAlgorithm(abc.ABC):
                         residual: Tree, idx: torch.Tensor,
                         weights: torch.Tensor,
                         ok: Optional[torch.Tensor] = None,
-                        mesh_rows: Optional[MeshRows] = None):
+                        mesh_rows: Optional[MeshRows] = None,
+                        rows_ok: Optional[torch.Tensor] = None):
         """The ``agg_impl='topk'`` round aggregate with error feedback (Deep
         Gradient Compression on the federated round):
 
@@ -1415,17 +1507,20 @@ class FedAlgorithm(abc.ABC):
         3. the unsent remainder becomes the client's new residual row;
         4. ``new_global = global + aggregate``.
 
-        Under the guard (``ok``, the survivor flags): the quarantined rows
-        are select-zeroed before the selection and the weights renormalized
-        (``guard.quarantine``), no survivor carries the previous global,
-        and a quarantined client's residual row keeps its previous value.
-        Always the select spelling, so a clean round is bitwise the
-        unguarded one.
+        Under the guard (``ok``, the ``[S]`` survivor flags; ``rows_ok``
+        those of the rows ``locals_`` holds, ``ok`` by default): the
+        quarantined rows are select-zeroed before the selection and the
+        weights renormalized (``guard.quarantine``), no survivor carries
+        the previous global, and a quarantined client's residual row keeps
+        its previous value. Always the select spelling, so a clean round is
+        bitwise the unguarded one.
 
         ``idx`` holds the selected clients' ids (int64, on the device). On
         a client mesh (``mesh_rows``) ``locals_``, ``idx`` and the residual
         are the rank's own rows: each rank selects its clients' coordinates
-        and only the sparsified rows reach the on-mesh reduce.
+        and only the sparsified rows reach the on-mesh reduce; under
+        ``robust_agg`` the sparsified rows are gathered into ``[S, N]`` in
+        draw order and every rank computes the statistic of them.
         Returns ``(new_global, new_residual)``."""
         if residual is None:
             raise ValueError(
@@ -1441,16 +1536,23 @@ class FedAlgorithm(abc.ABC):
             # residual either (round 0's dense init would sit there forever)
             comp = collectives.plan_dead_select(comp, plan)
         comp_in, w, survivors = comp, weights, None
+        rows_ok = ok if rows_ok is None else rows_ok
         if ok is not None:
-            comp_in, w, survivors = _guard.quarantine(comp, weights, ok)
+            comp_in, w, survivors = _guard.quarantine(comp, weights, ok,
+                                                      rows_ok)
         kw = dict(plan=plan, bucket_size=self.agg_bucket_size,
                   sample=self.agg_topk_sample)
         if self.robust_agg != "none":
-            sp = collectives.topk_sparsify(comp_in, self.agg_topk_density,
-                                           **kw)
+            sp = (collectives.topk_sparsify(comp_in, self.agg_topk_density,
+                                            **kw)
+                  if mesh_rows is None or len(mesh_rows.own) else comp_in)
+            mat = collectives.stacked_to_mat(sp)
+            if mesh_rows is not None:
+                mat = gather_rows(self.mesh, mat, mesh_rows.counts,
+                                  mesh_rows.gather_idx)
             update = collectives.vec_to_tree(
                 robust_combine_mat(
-                    collectives.stacked_to_mat(sp), w, self.robust_agg,
+                    mat, w, self.robust_agg,
                     trim_frac=self.robust_trim, krum_f=self.robust_krum_f,
                     norm_bound=self.robust_norm_bound),
                 collectives.flat_spec(sp, stacked=True))
@@ -1472,7 +1574,7 @@ class FedAlgorithm(abc.ABC):
         if ok is not None:
             new_global = _guard.carry_if_empty(new_global, global_params,
                                                survivors)
-            new_rows = _guard.merge_residual(ok, new_rows, res_sel)
+            new_rows = _guard.merge_residual(rows_ok, new_rows, res_sel)
         new_residual = new_rows if full else tree_scatter_update(
             residual, idx, new_rows)
         return new_global, new_residual
@@ -1567,52 +1669,66 @@ class FedAlgorithm(abc.ABC):
            quarantined under the guard (:mod:`robust.guard`).
 
         The stats are None without the guard, else ``ok`` ([S] survivor
-        flags) and the f32 ``clients_dropped`` / ``clients_quarantined``.
-        ``inp`` (:class:`RoundInputs`) holds the clients, the rate and the
-        draws. ``residual`` is the ``[C, ...]`` error-feedback stack
-        (``agg_impl='topk'`` only; returned unchanged otherwise)."""
+        flags), ``rows_ok`` (those of the rows this rank trains: all of
+        them off the mesh) and the f32 ``clients_dropped`` /
+        ``clients_quarantined``. ``inp`` (:class:`RoundInputs`) holds the
+        clients, the rate and the draws. ``residual`` is the ``[C, ...]``
+        error-feedback stack (``agg_impl='topk'`` only; returned unchanged
+        otherwise).
+
+        On a client mesh every step up to the screen acts on the rank's own
+        rows (with its rows of the fault draws and the weak-DP noise); the
+        screen's flags are gathered in draw order, so ``ok`` and the
+        counters cover all ``S`` clients on every rank."""
         flips = None
         if self.labelflip_fn is not None:
+            # [S]: _train_clients reads it at the draw positions it trains
             flips = labelflip_flags(self.fault_spec, inp.faults)
         stacked, mean_loss = self._train_clients(global_params, mask, inp,
                                                  flips)
         dropped = None
         if self.fault_fn is not None:
-            stacked, dropped = self.fault_fn(stacked, global_params,
-                                             inp.faults, inp.collude)
+            stacked, dropped = self.fault_fn(
+                stacked, global_params, self._own_draws(inp.faults, inp),
+                inp.collude)
         defended = stacked
         if self.defense is not None:
-            defended = self.defense.apply(stacked, global_params,
-                                          inp.dp_noise)
+            defended = self.defense.apply(
+                stacked, global_params, self._own_draws(inp.dp_noise, inp))
         weights = inp.n_sel / torch.clamp(inp.n_sel.sum(), min=1.0)
-        fstats = ok = None
+        fstats = ok = rows_ok = None
         if self.guard_enabled:
             finite = _guard.finite_screen(defended)
-            if dropped is not None:
-                ok = finite & ~dropped
-                n_dropped = dropped.to(torch.float32).sum()
-                # quarantined: screened out among the clients that reported
-                n_quar = (~finite & ~dropped).to(torch.float32).sum()
-            else:
-                ok = finite
-                n_dropped = torch.zeros((), device=finite.device)
-                n_quar = (~finite).to(torch.float32).sum()
-            fstats = {"ok": ok, "clients_dropped": n_dropped,
-                      "clients_quarantined": n_quar}
+            if dropped is None:
+                dropped = torch.zeros_like(finite)
+            rows_ok = finite & ~dropped
+            flags = torch.stack([finite, dropped], dim=1)
+            mr = inp.mesh_rows
+            if mr is not None:
+                flags = gather_flags(self.mesh, flags, mr.counts,
+                                     mr.gather_idx)
+            finite_all, dropped_all = flags[:, 0], flags[:, 1]
+            ok = finite_all & ~dropped_all
+            # quarantined: screened out among the clients that reported
+            fstats = {"ok": ok, "rows_ok": rows_ok,
+                      "clients_dropped": dropped_all.to(torch.float32).sum(),
+                      "clients_quarantined": (~finite_all & ~dropped_all)
+                      .to(torch.float32).sum()}
         if self.robust_agg != "none" and self.agg_impl != "topk":
             def agg_fn(st, wv):
                 return self._robust_aggregate(st, wv, global_params,
-                                              inp.uniforms)
+                                              inp.uniforms, inp.mesh_rows)
         else:
             def agg_fn(st, wv):
                 return self._aggregate(st, wv, inp.uniforms, inp.mesh_rows)
         if self.agg_impl == "topk":
             new_global, residual = self._topk_aggregate(
                 defended, global_params, residual, self._own(inp)[1],
-                weights, ok, inp.mesh_rows)
+                weights, ok, inp.mesh_rows, rows_ok)
         elif self.guard_enabled:
             new_global = _guard.guarded_aggregate(defended, weights, ok,
-                                                  agg_fn, global_params)
+                                                  agg_fn, global_params,
+                                                  rows_ok)
         else:
             new_global = agg_fn(defended, weights)
         return new_global, stacked, mean_loss, fstats, residual

@@ -12,9 +12,12 @@ process a device (:func:`run_experiment`): fitted to the devices there are
 and to the cohort, as the JAX CLI fits it; rank 0 writes the log and the
 results. SalientGrads and FedAvg run there, with ``--fuse_rounds`` (on the
 cards each round one CUDA graph holding its NCCL collectives),
-``--eval_cache``, ``--eval_clients`` and ``--stratified_sampling``; the
-checkpoints, the client store, the robust tier and the other algorithms
-are refused on a mesh (:func:`client_mesh_size`).
+``--eval_cache``, ``--eval_clients``, ``--stratified_sampling``, the robust
+tier (``--fault_spec``, ``--guard``, ``--defense_type``, ``--robust_agg``)
+and the state tier (``--checkpoint_dir``, ``--resume``, ``--watchdog``: a
+step holds the single-process layout, rank 0 writes it, every rank restores
+it, so a lineage resumes at any mesh width); the client store and the other
+algorithms are refused on a mesh (:func:`client_mesh_size`).
 
 With ``--checkpoint_dir`` every round (every block under ``--fuse_rounds``)
 is saved in the port's torch format (``utils/checkpoint.py``) under the
@@ -149,20 +152,11 @@ def _mesh_devices_asked(args: argparse.Namespace) -> int:
 
 def _mesh_rest(args: argparse.Namespace, algo_name: str):
     """What the flags ask for that the client mesh does not run (ROADMAP
-    item 7, the rest), or an empty list."""
+    item 7, the rest: the algorithms but SalientGrads and FedAvg, and the
+    client store), or an empty list."""
     what = []
     if algo_name not in _MESH_ALGOS:
         what.append(f"--algo {algo_name}")
-    for attr, flag in (("checkpoint_dir", "--checkpoint_dir"),
-                       ("resume", "--resume"),
-                       ("fault_spec", "--fault_spec"), ("guard", "--guard"),
-                       ("defense_type", "--defense_type"),
-                       ("robust_agg", "--robust_agg"),
-                       ("watchdog", "--watchdog")):
-        v = getattr(args, attr, None)
-        if v in (None, 0, "", False) or v == _default(attr):
-            continue
-        what.append(flag)
     if getattr(args, "client_store", "device") != "device":
         what.append("--client_store")
     return what
@@ -832,8 +826,10 @@ def run_experiment(args: argparse.Namespace,
     a client mesh of more than one rank (:func:`client_mesh_size`) the run
     is spawned, one process a rank (``mesh`` is the rank's mesh inside
     one): the eager loop or, with ``--fuse_rounds``, the fused one
-    (:func:`_run_fused_rounds`), the same on every rank; what
-    :func:`_mesh_rest` lists is refused before any work."""
+    (:func:`_run_fused_rounds`), the same on every rank, with the
+    checkpoints (every rank saves and restores together, rank 0 writes) and
+    the watchdog (rank 0's verdict on every rank); what :func:`_mesh_rest`
+    lists is refused before any work."""
     from .. import resolve_device
     from ..convert import to_reference_layout
     from ..robust import recovery
@@ -887,6 +883,10 @@ def run_experiment(args: argparse.Namespace,
         seed_everything(args.seed)
 
         algo, data = build_algorithm(args, algo_name, mesh=mesh)
+        if ckpt_mgr is not None and mesh is not None:
+            # the steps hold the single-process layout: the rows gathered
+            # to rank 0 on a save, each rank's block kept on a restore
+            ckpt_mgr.layout = algo
         _check_augment_consistency(args, algo)
         fuse = max(1, getattr(args, "fuse_rounds", 1) or 1)
         if fuse > 1:
@@ -973,7 +973,7 @@ def run_experiment(args: argparse.Namespace,
                 loss_threshold=getattr(args, "watchdog_loss", 0.0),
                 norm_threshold=getattr(args, "watchdog_norm", 0.0),
                 ckpt_mgr=ckpt_mgr, template_fn=algo.init_state,
-                store=algo._store)
+                store=algo._store, mesh=mesh)
         if fuse > 1:
             # K-round fused blocks (FedAlgorithm.run_rounds_fused): on the
             # card one graph replay per round, one metric fetch per block;

@@ -146,8 +146,8 @@ def stacked_to_mat(stacked: Tree) -> torch.Tensor:
     names = reference_leaf_order(stacked)
     c = stacked[names[0]].shape[0]
     return torch.cat([to_reference_layout(k, stacked[k], lead=1)
-                      .reshape(c, -1).to(torch.float32) for k in names],
-                     dim=1)
+                      .reshape(c, _numel(stacked[k].shape[1:]))
+                      .to(torch.float32) for k in names], dim=1)
 
 
 # ---------------------------------------------------------------------------

@@ -251,8 +251,37 @@ def gather_rows(mesh: ClientMesh, rows: torch.Tensor, counts: Sequence[int],
     return full.reshape((-1,) + tuple(rows.shape[1:])).index_select(0, idx)
 
 
+def gather_flags(mesh: ClientMesh, flags: torch.Tensor, counts: Sequence[int],
+                 idx: torch.Tensor) -> torch.Tensor:
+    """Per-client bool flags (``[counts[rank], ...]`` on each rank) of
+    every rank's clients in the order of ``idx`` (:func:`gather_rows`, the
+    flags travelling as ``uint8``): e.g. a round's survivor flags in draw
+    order from the ranks' own rows, through the round's prebuilt index, so
+    a CUDA graph holds the gather."""
+    return gather_rows(mesh, flags.to(torch.uint8), counts, idx).bool()
+
+
+def gather_blocks(mesh: ClientMesh, tree: Dict[str, torch.Tensor]
+                  ) -> Dict[str, torch.Tensor]:
+    """A tree whose leaves each rank holds a block of (the equal blocks of
+    a client axis, :meth:`ClientMesh.block`) whole on every rank, the
+    blocks in rank order: one ``all_gather`` a leaf, each leaf's dtype
+    kept. Every rank takes part."""
+    return {k: mesh.all_gather(v).reshape((-1,) + tuple(v.shape[1:]))
+            for k, v in tree.items()}
+
+
+def broadcast_value(mesh: ClientMesh, value: float) -> float:
+    """Rank 0's host number on every rank (one ``broadcast``): a decision
+    every rank must take alike, such as the watchdog's verdict."""
+    t = torch.tensor([float(value)], dtype=torch.float64, device=mesh.device)
+    dist.broadcast(t, src=0, group=mesh.group)
+    return float(t.item())
+
+
 __all__: List[str] = [
-    "AXIS", "ClientMesh", "fit_client_devices", "gather_index",
-    "gather_rows", "make_mesh",
+    "AXIS", "ClientMesh", "broadcast_value", "fit_client_devices",
+    "gather_blocks", "gather_flags", "gather_index", "gather_rows",
+    "make_mesh",
     "mesh_of", "replicate", "shard_federated", "shard_over_clients",
 ]

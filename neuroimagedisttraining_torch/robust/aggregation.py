@@ -136,11 +136,17 @@ def robust_combine_mat(mat: torch.Tensor, weights: torch.Tensor, kind: str,
 
 def _client_norms(diff: Tree) -> torch.Tensor:
     """[S] L2 norm of each client's whole delta tree, the per-leaf squared
-    sums added in the reference's leaf order."""
+    sums added in the reference's leaf order. Each client's sum is a
+    reduction of its own row alone: on the card a reduction over the rows
+    of an ``[S, n]`` matrix splits each row's sum by ``S``, and a client's
+    norm must not depend on how many rows the tree holds (a mesh rank's
+    block or the whole draw)."""
     total = None
     for k in reference_leaf_order(diff):
         d = diff[k]
-        sq = torch.sum((d * d).reshape(d.shape[0], -1), dim=1)
+        sq = d * d
+        rows = [torch.sum(sq[i]) for i in range(d.shape[0])]
+        sq = torch.stack(rows) if rows else sq.new_zeros((0,))
         total = sq if total is None else total + sq
     return torch.sqrt(total)
 

@@ -25,6 +25,13 @@ lost it), :meth:`RoundWatchdog.rollback` restores the newest checkpoint
 (``ckpt_mgr``, shaped by ``template_fn()``), and with it the client store's
 rows (``store``): the lineage holds only states the watchdog approved, so
 the newest checkpoint is the last good state.
+
+On a client mesh (``mesh``) every rank runs the loop and the watchdog: the
+verdict is rank 0's health check, broadcast, so no rank retries, skips or
+rolls back alone, and a checkpoint rollback goes through the manager's
+mesh restore, so every rank restores the same step, each its block of the
+rows. A retry's cohort is the same on every rank, since every rank makes
+every draw.
 """
 from __future__ import annotations
 
@@ -62,14 +69,17 @@ class RoundWatchdog:
     on) always trips. ``ckpt_mgr`` (a ``utils.checkpoint.
     CheckpointManager``), ``template_fn`` (a fresh ``algo.init_state``) and
     ``store`` (the algorithm's client store) back :meth:`rollback` when no
-    in-memory state is left. ``sleep`` is injectable for tests."""
+    in-memory state is left. ``mesh``: the client mesh whose ranks each
+    run this watchdog (every rank then takes rank 0's verdict). ``sleep``
+    is injectable for tests."""
 
     def __init__(self, max_retries: int = 2, backoff_s: float = 0.0,
                  loss_threshold: float = 0.0, norm_threshold: float = 0.0,
                  ckpt_mgr=None,
                  template_fn: Optional[Callable[[], Any]] = None,
                  store=None,
-                 sleep: Callable[[float], None] = time.sleep):
+                 sleep: Callable[[float], None] = time.sleep, mesh=None):
+        self.mesh = mesh
         self.ckpt_mgr = ckpt_mgr
         self.template_fn = template_fn
         # a store-backed lineage: the checkpoint rollback reloads the
@@ -119,9 +129,15 @@ class RoundWatchdog:
     def judge(self, round_idx: int, record: Dict[str, Any], new_state: Any,
               prev_state: Any) -> str:
         """OK (adopt), RETRY (roll back, re-sample, re-run) or SKIP
-        (retries exhausted: carry the last-good state)."""
+        (retries exhausted: carry the last-good state). On a client mesh
+        every rank returns rank 0's verdict."""
         self.retries_at(round_idx)
-        if self.healthy(record, new_state, prev_state):
+        healthy = self.healthy(record, new_state, prev_state)
+        if self.mesh is not None:
+            from ..parallel.mesh import broadcast_value
+
+            healthy = bool(broadcast_value(self.mesh, float(healthy)))
+        if healthy:
             return OK
         if self._retries < self.max_retries:
             self._retries += 1

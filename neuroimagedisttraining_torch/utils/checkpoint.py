@@ -17,6 +17,17 @@ lineage's semantics) and, for a store-backed lineage, ``store_<step>.npz``
 (the client store's rows); both are pruned with their step. A step is
 loaded with ``torch.load(weights_only=True)`` onto the device of the
 caller's template state.
+
+On a client mesh (the manager's ``layout``, an algorithm whose data is
+sharded) a step is the file a single-process run writes: its per-client row
+fields hold all ``C`` rows in client order. Every rank takes part in a save
+(the rows gathered whole, ``FedAlgorithm.state_to_global``), rank 0 alone
+writes the step and its sidecars, and every rank then waits at a barrier,
+also when the write failed, so no rank reads a step that is not in place
+and none is left waiting. Every rank restores the same step (rank 0's,
+checked), reads it whole and keeps its block of the row fields
+(``FedAlgorithm.state_to_local``). So a step resumes at any mesh width,
+one process included, as the reference's orbax steps of global arrays do.
 """
 from __future__ import annotations
 
@@ -96,18 +107,31 @@ def _unlink(path: str) -> None:
 
 class CheckpointManager:
     """Checkpoints of one lineage at ``<root>/<identity>/<step>``, the
-    ``max_to_keep`` newest kept, a save every ``save_every`` steps."""
+    ``max_to_keep`` newest kept, a save every ``save_every`` steps.
+
+    ``layout`` (settable later, once the algorithm is built): the algorithm
+    whose states are saved, when its data is sharded over a client mesh
+    (its ``mesh``, ``state_to_global``, ``state_to_local`` and
+    ``checkpoint_template``); every rank then calls :meth:`save` and
+    :meth:`restore_latest` together (module docstring)."""
 
     def __init__(self, root: str, identity: str = "run",
-                 max_to_keep: int = 3, save_every: int = 1):
+                 max_to_keep: int = 3, save_every: int = 1,
+                 layout: Optional[Any] = None):
         path = os.path.abspath(os.path.join(root, identity))
         os.makedirs(path, exist_ok=True)
         self.directory = path
         self.max_to_keep = max(1, int(max_to_keep))
         self.save_every = max(1, save_every)
+        self.layout = layout
         #: best-effort save failures so far (``checkpoint_save_failures``):
         #: a disk hiccup must not end the run this manager protects
         self.save_failures = 0
+
+    @property
+    def mesh(self):
+        """The client mesh of the ``layout``'s data, None off the mesh."""
+        return getattr(self.layout, "mesh", None)
 
     # -- steps --------------------------------------------------------------
     def all_steps(self) -> List[int]:
@@ -140,27 +164,45 @@ class CheckpointManager:
         (the cost totals, the lineage's semantics). ``store``: the
         :class:`~..core.client_store.ClientStore` whose rows a store-backed
         state lacks, saved as ``store_<step>.npz`` (staged rows committed
-        first)."""
+        first). On a client mesh every rank calls it: the state's rows are
+        gathered whole, rank 0 writes (and counts a failure), and every
+        rank returns after the barrier that follows, whatever rank 0's
+        write did; the return value is this rank's part."""
         if not force and round_idx % self.save_every:
             return False
+        mesh = self.mesh
         try:
-            self._save_state(round_idx, state)
-            if metadata is not None:
-                self._publish(os.path.join(self.directory,
-                                           f"meta_{round_idx}.json"),
-                              json.dumps(metadata).encode())
-            if store is not None:
-                store.snapshot_save(self._store_path(round_idx))
-            self._prune()
-        except Exception:
-            self.save_failures += 1
-            logger.warning(
-                "checkpoint save at step %d failed "
-                "(checkpoint_save_failures=%d); training continues on the "
-                "previously retained steps", round_idx, self.save_failures,
-                exc_info=True)
-            return False
+            try:
+                if self.layout is not None:
+                    state = self.layout.state_to_global(state)
+                if mesh is None or mesh.rank == 0:
+                    self._write(round_idx, state, metadata, store)
+            except Exception:
+                self.save_failures += 1
+                logger.warning(
+                    "checkpoint save at step %d failed "
+                    "(checkpoint_save_failures=%d); training continues on "
+                    "the previously retained steps", round_idx,
+                    self.save_failures, exc_info=True)
+                return False
+            finally:
+                state = None  # the gathered rows, before the barrier
+        finally:
+            if mesh is not None:
+                mesh.barrier()
         return True
+
+    def _write(self, round_idx: int, state: Any, metadata: Optional[dict],
+               store: Optional[Any]) -> None:
+        """Step ``round_idx``, its sidecars, then the pruning."""
+        self._save_state(round_idx, state)
+        if metadata is not None:
+            self._publish(os.path.join(self.directory,
+                                       f"meta_{round_idx}.json"),
+                          json.dumps(metadata).encode())
+        if store is not None:
+            store.snapshot_save(self._store_path(round_idx))
+        self._prune()
 
     @staticmethod
     def _publish(path: str, payload: bytes) -> None:
@@ -253,10 +295,26 @@ class CheckpointManager:
         the JAX package is refused by name, never skipped. ``store``: a
         store-backed lineage's :class:`~..core.client_store.ClientStore`,
         whose rows are replaced by the step's snapshot. The restored state
-        is freshly allocated: the caller owns it."""
+        is freshly allocated: the caller owns it.
+
+        On a client mesh every rank calls it: each reads the step in the
+        single-process layout (``layout.checkpoint_template``) and keeps its
+        block of the row fields (``layout.state_to_local``); a rank that
+        would restore another step than rank 0 raises."""
         steps = sorted(self.all_steps(), reverse=True)
+        mesh = self.mesh
+        if mesh is not None:
+            from ..parallel.mesh import broadcast_value
+
+            if broadcast_value(mesh, -1 if not steps else steps[0]) != (
+                    -1 if not steps else steps[0]):
+                raise RuntimeError(
+                    f"checkpoint lineage {self.directory}: rank {mesh.rank} "
+                    "sees other steps than rank 0")
         if not steps:
             return None
+        if self.layout is not None:
+            template = self.layout.checkpoint_template(template)
         last_err: Optional[Exception] = None
         for step in steps:
             try:
@@ -269,6 +327,12 @@ class CheckpointManager:
             except Exception as e:
                 last_err = e
             else:
+                if mesh is not None and broadcast_value(mesh, step) != step:
+                    raise RuntimeError(
+                        f"checkpoint lineage {self.directory}: rank "
+                        f"{mesh.rank} restored step {step}, rank 0 another")
+                if self.layout is not None:
+                    state = self.layout.state_to_local(state)
                 logger.info("restored checkpoint step %d from %s", step,
                             self.directory)
                 return state, step

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Fused round blocks on a client mesh of several processes, for the
 PyTorch/CUDA port: each block bitwise the same rounds run eagerly, and the
-rates of both spellings.
+rates of both spellings; the robust tier's blocks likewise, and a
+checkpoint resumed on the mesh bitwise its uninterrupted run.
 
     python3 scripts/torch_mesh_fused_check.py [--ranks 4] [--rounds 3]
-        [--device cuda|cpu] [--out PATH]
+        [--device cuda|cpu] [--cases all|plain|robust] [--out PATH]
 
 Spawns ``--ranks`` processes joined over a ``file://`` rendezvous: on
 ``cuda`` one a card over NCCL (the main configuration of ``chip_smoke.py``
@@ -28,6 +29,15 @@ case of :data:`CASES` (wire, participation), from the SNIP state:
   block ran before (at partial participation new draws, so the fused
   block pays the graph captures a run pays; ``captures_in_timed_blocks``
   counts them).
+
+``--cases robust`` (or ``all``) runs the same for each case of
+:data:`ROBUST_CASES` (faults, the guard, a defense, ``robust_agg``, from
+``tests/test_torch_port_mesh_robust.py``; SalientGrads from the SNIP
+state, FedAvg from its own init), then the checkpoint check: the top-k
+case's ``--rounds`` eager rounds with a checkpoint after round 0 (every
+rank saving, rank 0 writing the single-process layout), and a fresh
+algorithm restoring it and running the rest, bitwise the uninterrupted
+rounds on every rank.
 
 Rank 0 prints one JSON line per case and a last line with the cards' name
 and power limit (``nvidia-smi``), and writes them all to ``--out``. Exits
@@ -56,6 +66,18 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 #: at partial participation (where the trained rows are gathered first)
 CASES = (("dense", 1.0), ("int8", 1.0), ("hier", 1.0), ("dense", 0.5),
          ("int8", 0.5))
+#: (name, algorithm, agg_impl, robust_agg, defense, fault spec, run seed)
+ROBUST_CASES = (
+    ("salientgrads_krum_weak_dp", "salientgrads", "dense", "krum", "weak_dp",
+     "drop=0.3,nan=0.3,scale=0.3:10x,labelflip=0.3", 11),
+    ("fedavg_int8_median_clip", "fedavg", "int8", "median",
+     "norm_diff_clipping",
+     "straggle=0.4,signflip=0.3,collude=0.4:5x,labelflip=0.4,nan=0.2", 0),
+    ("salientgrads_topk_nan", "salientgrads", "topk", "none", None,
+     "nan=0.34", 0),
+)
+#: the robust case the checkpoint check resumes
+CKPT_CASE = "salientgrads_topk_nan"
 N_CLIENTS, SAMPLES, TEST, BATCH, STEPS = 8, 40, 10, 8, 5
 VOLUME = (121, 145, 121)
 COLLECTIVE_TIMEOUT_S = 120
@@ -211,7 +233,74 @@ def _case(algo, state, rounds, dev, mesh, note):
             "rounds_per_sec_fused": rates["fused"]}
 
 
-def _rank(rank, world, directory, device, rounds):
+def _robust_algo(case, data, model, hp, dev):
+    """The algorithm of a :data:`ROBUST_CASES` entry."""
+    from neuroimagedisttraining_torch.algorithms import FedAvg, SalientGrads
+    from neuroimagedisttraining_torch.robust import RobustAggregator
+
+    _, name, impl, robust, defense, spec, seed = case
+    kw = dict(loss_type="bce", frac=1.0, seed=seed, compute_dtype="bfloat16",
+              agg_impl=impl, robust_agg=robust, fault_spec=spec,
+              defense=(RobustAggregator(defense, 5.0, 0.025) if defense
+                       else None), device=dev)
+    if name == "salientgrads":
+        return SalientGrads(model(), data, hp, dense_ratio=0.5,
+                            itersnip_iterations=1, **kw)
+    return FedAvg(model(), data, hp, **kw)
+
+
+def _robust_state(algo, case, state0):
+    import dataclasses
+
+    from neuroimagedisttraining_torch.core.state import zeros_like_tree
+
+    if case[1] != "salientgrads":
+        return algo.init_state()
+    return dataclasses.replace(
+        algo.clone_state(state0),
+        agg_residual=(zeros_like_tree(state0.personal_params)
+                      if case[2] == "topk" else None))
+
+
+def _ckpt_check(case, data, model, hp, dev, state0, rounds, directory,
+                note):
+    """The checkpoint check (module docstring): whether the resumed rounds
+    are bitwise the uninterrupted ones on this rank, and the save's and
+    the restore's seconds."""
+    import torch
+
+    from neuroimagedisttraining_torch.utils.checkpoint import \
+        CheckpointManager
+
+    a = _robust_algo(case, data, model, hp, dev)
+    mgr = CheckpointManager(os.path.join(directory, "ck"), layout=a)
+    s = _robust_state(a, case, state0)
+    save_s = None
+    for r in range(rounds):
+        s, _ = a.run_round(s, r)
+        if r == 0:
+            t0 = time.perf_counter()
+            mgr.save(1, s)
+            save_s = time.perf_counter() - t0
+    note("checkpoint: uninterrupted rounds")
+    b = _robust_algo(case, data, model, hp, dev)
+    mgr_b = CheckpointManager(os.path.join(directory, "ck"), layout=b)
+    t0 = time.perf_counter()
+    r_state, step = mgr_b.restore_latest(b.init_state())
+    _sync(dev)
+    restore_s = time.perf_counter() - t0
+    for r in range(step, rounds):
+        r_state, _ = b.run_round(r_state, r)
+    note("checkpoint: resumed rounds")
+    a_trees, b_trees = _trees(s), _trees(r_state)
+    same = step == 1 and all(torch.equal(t[k], b_trees[f][k])
+                             for f, t in a_trees.items() for k in t)
+    return {"case": case[0], "checkpoint_resumed_bitwise": same,
+            "save_s": save_s, "restore_s": restore_s,
+            "save_failures": mgr.save_failures}
+
+
+def _rank(rank, world, directory, device, rounds, which="all"):
     import faulthandler
 
     import torch
@@ -256,19 +345,38 @@ def _rank(rank, world, directory, device, rounds):
         snip_s = _clock(dev, mesh, t0)
         note(f"SNIP {snip_s:.3f} s")
         out = []
-        for impl, frac in CASES:
-            a = algo(impl, frac)
-            rec = _case(a, a.clone_state(state0), rounds, dev, mesh,
+        todo = [] if which == "robust" else [
+            ((impl, frac), algo(impl, frac), None) for impl, frac in CASES]
+        if which != "plain":
+            todo += [((c[0], 1.0), _robust_algo(c, data, model, hp, dev), c)
+                     for c in ROBUST_CASES]
+        for (impl, frac), a, case in todo:
+            start = (a.clone_state(state0) if case is None
+                     else _robust_state(a, case, state0))
+            rec = _case(a, start, rounds, dev, mesh,
                         lambda w: note(f"{impl} {frac}: {w}"))
             # NCCL keeps a communicator while a graph holding its
             # collectives lives: drop them before the mesh goes
             a.release_graphs()
             flags = torch.tensor([int(rec["bitwise"])], device=dev)
             dist.all_reduce(flags, op=dist.ReduceOp.MIN, group=mesh.group)
-            rec.update(agg_impl=impl, frac=frac, ranks=world,
+            rec.update(agg_impl=impl if case is None else case[2],
+                       case=None if case is None else case[0],
+                       frac=frac, ranks=world,
                        backend=mesh.backend, rounds=rounds, snip_s=snip_s,
                        bitwise_every_rank=bool(flags.item()),
                        block=[a._lo, a._hi])
+            out.append(rec)
+        if which != "plain":
+            rec = _ckpt_check(
+                dict((c[0], c) for c in ROBUST_CASES)[CKPT_CASE], data,
+                model, hp, dev, state0, rounds, directory,
+                lambda w: note(w))
+            flags = torch.tensor([int(rec["checkpoint_resumed_bitwise"])],
+                                 device=dev)
+            dist.all_reduce(flags, op=dist.ReduceOp.MIN, group=mesh.group)
+            rec.update(ranks=world, backend=mesh.backend, rounds=rounds,
+                       bitwise_every_rank=bool(flags.item()))
             out.append(rec)
         if dev.type == "cuda":
             peak = torch.tensor([torch.cuda.max_memory_allocated(dev)],
@@ -299,6 +407,8 @@ def main() -> int:
     ap.add_argument("--ranks", type=int, default=4)
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    ap.add_argument("--cases", choices=("all", "plain", "robust"),
+                    default="all")
     ap.add_argument("--out", default="")
     args = ap.parse_args()
     if args.device == "cuda":
@@ -311,7 +421,8 @@ def main() -> int:
 
         kernels.build()
     with tempfile.TemporaryDirectory() as d:
-        mp.spawn(_rank, args=(args.ranks, d, args.device, args.rounds),
+        mp.spawn(_rank, args=(args.ranks, d, args.device, args.rounds,
+                              args.cases),
                  nprocs=args.ranks, join=True)
         with open(os.path.join(d, "out.json")) as f:
             out = json.load(f)

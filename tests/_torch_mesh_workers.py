@@ -178,12 +178,15 @@ def round_case(mesh, algo, data_seed, frac, agg_impl, rounds=2,
 def build_round_algo(algo, data_seed, frac, agg_impl, n_clients=8,
                      sample_shape=(8, 8, 8, 1), bucket_size=0, hier_inner=0,
                      hier_wire="bf16", dropout=0.0, mesh=None, samples=8,
-                     **opts):
+                     seed=0, defense=None, **opts):
     """The round tests' algorithm: ``n_clients`` synthetic clients of data
     seed ``data_seed`` (``samples`` train rows, 4 test), batch 4,
-    ``small3dcnn`` at ``dropout``, sharded over ``mesh`` when given;
-    ``opts`` go to the algorithm (``eval_cache``, ``eval_clients``,
-    ``stratified_sampling``, ...)."""
+    ``small3dcnn`` at ``dropout``, run seed ``seed``, sharded over ``mesh``
+    when given; ``defense`` names a ``RobustAggregator`` (bound 5, stddev
+    0.025); ``opts`` go to the algorithm (``eval_cache``,
+    ``eval_clients``, ``stratified_sampling``, ``fault_spec``, ...)."""
+    from neuroimagedisttraining_torch.robust import RobustAggregator
+
     from neuroimagedisttraining_torch.algorithms import FedAvg, SalientGrads
     from neuroimagedisttraining_torch.core.state import HyperParams
     from neuroimagedisttraining_torch.data import make_synthetic_federated
@@ -202,9 +205,11 @@ def build_round_algo(algo, data_seed, frac, agg_impl, n_clients=8,
                      steps_per_epoch=spe, batch_size=4)
     torch.manual_seed(0)
     model = create_model("small3dcnn", num_classes=1, dropout_rate=dropout)
-    kw = dict(loss_type="bce", frac=frac, seed=0, agg_impl=agg_impl,
+    kw = dict(loss_type="bce", frac=frac, seed=seed, agg_impl=agg_impl,
               agg_bucket_size=bucket_size, agg_hier_inner=hier_inner,
               agg_hier_wire=hier_wire, device="cpu", **opts)
+    if defense:
+        kw["defense"] = RobustAggregator(defense, 5.0, 0.025)
     if algo == "salientgrads":
         return SalientGrads(model, data, hp, dense_ratio=0.5, **kw)
     return FedAvg(model, data, hp, **kw)
@@ -424,3 +429,265 @@ def gloo_on_card_case(mesh):
     except ValueError as e:
         return str(e)
     return None
+
+
+# -- the robust tier on the mesh ----------------------------------------------
+
+def robust_algo(case, mesh=None):
+    """The algorithm of a robust case (a dict: ``algo``, ``impl``,
+    ``data_seed``, ``frac``, ``seed``, ``spec``, ``robust``, ``defense``,
+    and optionally ``guard``, ``opts`` (more options of the algorithm)
+    and ``init``, the initial parameters and mask; see
+    ``tests/test_torch_port_mesh_robust.py``), on the mesh when given."""
+    kw = dict(seed=case["seed"], fault_spec=case["spec"],
+              robust_agg=case["robust"], defense=case["defense"],
+              mesh=mesh, **case.get("opts", {}))
+    if "guard" in case:
+        kw["guard"] = case["guard"]
+    return build_round_algo(case["algo"], case["data_seed"], case["frac"],
+                            case["impl"], **kw)
+
+
+def _seam_round(seams, r):
+    return {} if seams is None else dict(seams[r])
+
+
+def robust_case(mesh, case, rounds=2, seams=None, fused=True):
+    """A robust case on the mesh: ``rounds`` eager rounds from the initial
+    state (the state before each and after the last, the metrics, the eval
+    after each), and with ``fused`` the same rounds as one fused block from
+    the same state; with ``case["finalize"]`` FedAvg's fine-tune of the
+    eager end state. ``seams`` (per round, a dict of ``run_round``'s
+    seams) replace the port's draws."""
+    a = robust_algo(case, mesh)
+    state = _robust_init(a, case)
+    e, states, mets, evals = a.clone_state(state), [], [], []
+    for r in range(rounds):
+        states.append(_state_np(e))
+        e, met = a.run_round(e, r, **_seam_round(seams, r))
+        mets.append({k: np.asarray(v) for k, v in met.items()})
+        evals.append(_evals_np(a.evaluate(e)))
+    states.append(_state_np(e))
+    out = dict(states=states, mets=mets, evals=evals,
+               mask=_np_tree(getattr(state, "mask", None)), lo=a._lo,
+               hi=a._hi)
+    if fused:
+        f, ys = a.run_rounds_fused(
+            state, 0, rounds,
+            seams=None if seams is None else [dict(x) for x in seams])
+        out["fused"] = _state_np(f)
+        out["ys"] = {k: np.asarray(v) for k, v in ys.materialize().items()}
+    if case.get("finalize"):
+        fin, rec = a.finalize(e)
+        out["final"] = {k: np.asarray(v) for k, v in rec.items()
+                        if k not in ("round", "finetune")}
+        out["final_personal"] = _np_tree(fin.personal_params)
+    return out
+
+
+def _robust_init(a, case):
+    """``a``'s initial state, from ``case["init"]`` (numpy ``params`` and
+    ``mask``) where the case gives one."""
+    import dataclasses
+
+    init = case.get("init")
+    if init is None:
+        return a.init_state()
+    state = a.init_state(params=_tensors(init["params"]))
+    if init["mask"] is not None:
+        state = dataclasses.replace(state, mask=_tensors(init["mask"]))
+    return state
+
+
+def replay_robust(case, ranks, rounds=2, seams=None):
+    """The mesh run ``ranks`` (every rank's :func:`robust_case`) replayed
+    off the mesh, each round from the mesh's state before it: per round
+    the trained state, the metrics and the eval of the mesh's state after
+    it; with ``case["finalize"]`` the fine-tune of the mesh's end state."""
+    a = robust_algo(case)
+    state = a.init_state()
+    out = dict(mask=_np_tree(getattr(state, "mask", None)), states=[],
+               mets=[], evals=[])
+    for r in range(rounds):
+        state, met = a.run_round(_at(state, ranks, r), r,
+                                 **_seam_round(seams, r))
+        out["states"].append(_state_np(state))
+        out["mets"].append({k: np.asarray(v) for k, v in met.items()})
+        out["evals"].append(_evals_np(a.evaluate(_at(state, ranks,
+                                                     r + 1))))
+    if case.get("finalize"):
+        fin, rec = a.finalize(_at(state, ranks, rounds))
+        out["final"] = {k: np.asarray(v) for k, v in rec.items()
+                        if k not in ("round", "finetune")}
+        out["final_personal"] = _np_tree(fin.personal_params)
+    return out
+
+
+def _tensors(t):
+    return None if t is None else {k: torch.from_numpy(np.asarray(v))
+                                   for k, v in t.items()}
+
+
+def _at(state, ranks, key):
+    """``state`` with the mesh's state ``key`` (the ranks' blocks of the
+    row fields joined)."""
+    import dataclasses
+
+    return dataclasses.replace(
+        state,
+        global_params=_tensors(ranks[0]["states"][key]["global_params"]),
+        personal_params=_tensors(_whole(ranks, key, "personal")),
+        agg_residual=_tensors(_whole(ranks, key, "residual")),
+        eval_cache=_tensors(ranks[0]["states"][key]["eval_cache"]))
+
+
+def clean_guard_case(mesh, case):
+    """One round of ``case`` with the guard on and no fault, and one with
+    the guard off, from the same state, on the mesh."""
+    out = {}
+    for guard in (True, False):
+        a = robust_algo(dict(case, spec="", guard=guard), mesh)
+        state, met = a.run_round(a.init_state(), 0)
+        out[guard] = dict(state=_state_np(state),
+                          mets={k: np.asarray(v) for k, v in met.items()})
+    return out
+
+
+# -- checkpoints on the mesh -----------------------------------------------------
+
+def _ckpt(directory, algo=None):
+    from neuroimagedisttraining_torch.utils.checkpoint import \
+        CheckpointManager
+
+    return CheckpointManager(directory, "run", max_to_keep=8, layout=algo)
+
+
+def ckpt_run_case(mesh, case, directory, rounds=4, save_after=2,
+                  loop="eager"):
+    """``rounds`` rounds of ``case`` (under ``loop`` "fused" in blocks of
+    ``save_after`` rounds) with a checkpoint after round ``save_after``
+    into ``directory``, and the same run resumed: a fresh algorithm
+    restores that step and runs the rest. Returns the uninterrupted run's
+    state at the step and at the end, and the resumed run's restored and
+    end states (this rank's rows)."""
+    a = robust_algo(case, mesh)
+    mgr = _ckpt(directory, a)
+    state = a.init_state()
+    saved = None
+    step = range(rounds) if loop == "eager" else range(0, rounds,
+                                                        save_after)
+    for r in step:
+        if loop == "eager":
+            state, _ = a.run_round(state, r)
+            done = r + 1
+        else:
+            state, _ = a.run_rounds_fused(state, r, save_after)
+            done = r + save_after
+        if done == save_after:
+            mgr.save(done, state)
+            saved = _state_np(state)
+    a.release_graphs()
+    out = dict(saved=saved, end=_state_np(state), lo=a._lo, hi=a._hi)
+    b = robust_algo(case, mesh)
+    out["resumed"] = _resume(b, _ckpt(directory, b), save_after, rounds,
+                             loop)
+    return out
+
+
+def _resume(a, mgr, step, rounds, loop="eager"):
+    """Restore the lineage's newest step, ``step``, with ``a`` and run
+    the rounds after it; returns the restored and the end state (numpy,
+    this rank's rows)."""
+    state, got = mgr.restore_latest(a.init_state())
+    assert got == step, (got, step)
+    restored = _state_np(state)
+    if loop == "eager":
+        for r in range(step, rounds):
+            state, _ = a.run_round(state, r)
+    else:
+        state, _ = a.run_rounds_fused(state, step, rounds - step)
+        a.release_graphs()
+    return dict(restored=restored, end=_state_np(state), lo=a._lo,
+                hi=a._hi)
+
+
+def ckpt_resume_case(mesh, case, directory, step, rounds):
+    """Resume ``directory``'s step ``step`` (written at any mesh width) on
+    this mesh and run the rounds after it."""
+    a = robust_algo(case, mesh)
+    return _resume(a, _ckpt(directory, a), step, rounds)
+
+
+def watchdog_case(mesh, case, directory, rounds=3, max_retries=2,
+                  flip_rank=1):
+    """The runner's round loop under the watchdog on the mesh, every
+    adopted round saved, and every rollback through the checkpoint
+    (``rollback(None)``: the in-memory state treated as lost). On rank
+    ``flip_rank`` the local health check is inverted, so any verdict that
+    is not rank 0's would show. Returns per attempt ``(round, verdict,
+    restored state equals the last saved one)``, the counters and the end
+    state."""
+    import dataclasses
+
+    from neuroimagedisttraining_torch.robust import recovery
+
+    a = robust_algo(case, mesh)
+    mgr = _ckpt(directory, a)
+    retries = 0 if a.clients_per_round == a.num_clients else max_retries
+    wd = recovery.RoundWatchdog(max_retries=retries, norm_threshold=1e6,
+                                ckpt_mgr=mgr, template_fn=a.init_state,
+                                mesh=mesh)
+    if mesh.rank == flip_rank:
+        healthy = wd.healthy
+        wd.healthy = lambda *args: not healthy(*args)
+    state = a.init_state()
+    mgr.save(0, state)
+    log, r = [], 0
+    while r < rounds:
+        a.set_retry_nonce(wd.retries_at(r))
+        new, met = a.run_round(state, r)
+        verdict = wd.judge(r, {"train_loss": met["train_loss"]}, new, state)
+        if verdict == recovery.OK:
+            state = new
+            mgr.save(r + 1, state)
+            log.append((r, verdict, None))
+            r += 1
+            continue
+        restored = wd.rollback(None)
+        same = all(
+            torch.equal(x[k], y[k])
+            for f in ("global_params", "personal_params", "agg_residual")
+            for x, y in [(getattr(restored, f), getattr(state, f))]
+            if x is not None for k in x) and torch.equal(
+                restored.generator.get_state(), state.generator.get_state())
+        log.append((r, verdict, same))
+        state = dataclasses.replace(restored)
+        if verdict == recovery.SKIP:
+            mgr.save(r + 1, state)
+            r += 1
+    a.set_retry_nonce(0)
+    return dict(log=log, totals=wd.totals(), end=_state_np(state))
+
+
+def save_failure_case(mesh, case, directory, rounds=2):
+    """A save that raises on rank 0 (its first write): every rank goes on,
+    rank 0 counts the failure, the next save lands. Returns also how often
+    each rank wrote (rank 0 alone writes)."""
+    a = robust_algo(case, mesh)
+    mgr = _ckpt(directory, a)
+    write, calls = mgr._write, []
+
+    def failing(*args, **kw):
+        calls.append(1)
+        if mesh.rank == 0 and len(calls) == 1:
+            raise OSError("disk full")
+        return write(*args, **kw)
+
+    mgr._write = failing
+    state = a.init_state()
+    done = []
+    for r in range(rounds):
+        state, _ = a.run_round(state, r)
+        done.append(mgr.save(r + 1, state))
+    return dict(failures=mgr.save_failures, done=done,
+                steps=mgr.all_steps(), writes=len(calls))

@@ -163,10 +163,11 @@ REFUSED = [
     (["--trace_dir", "tr"], "--trace_dir"),
     (["--slo_spec", "p99:round_time_s<2"], "--slo_spec"),
     (["--flight_recorder", "guard"], "--flight_recorder"),
-    # the client mesh runs (test_cli_mesh_*), fused blocks on it too; with
-    # the state tier they are refused (the case keeps its name)
-    (["--mesh_devices", "2", "--fuse_rounds", "2", "--checkpoint_dir",
-      "ck"], "--mesh_devices"),
+    # the client mesh runs (test_cli_mesh_*), fused blocks and the state
+    # tier on it too; with another algorithm than SalientGrads and FedAvg
+    # they are refused (the case keeps its name)
+    (["--mesh_devices", "2", "--fuse_rounds", "2", "--algo", "ditto"],
+     "--mesh_devices"),
     (["--mesh_space", "2"], "--mesh_space"),
     (["--multihost"], "--multihost"),
     (["--serve_role", "worker"], "--serve_role"),
@@ -788,25 +789,31 @@ def test_cli_runs_the_lifted_flags_on_cpu(tmp_path, extra, shows):
 #: what the client mesh does not run: each refused on an explicit
 #: --mesh_devices above 1, naming ROADMAP item 7 (the rest); (extra argv,
 #: what the refusal names, a flag the mesh runs that the refusal must not
-#: name). The flags the mesh has run since fused blocks came to it keep
-#: their cases, each beside a flag it still refuses.
+#: name). The flags the mesh has run since fused blocks, and then the
+#: robust and the state tiers, came to it keep their cases, each beside a
+#: flag it still refuses (another algorithm, the client store).
+_STORE = ["--client_store", "host", "--frac", "0.5"]
 MESH_REST = [
     (["--algo", "dispfl"], "--algo dispfl", None),
     (["--algo", "ditto"], "--algo ditto", None),
-    (["--fuse_rounds", "2", "--checkpoint_dir", "{tmp}/ck"],
-     "--checkpoint_dir", "--fuse_rounds"),
-    (["--checkpoint_dir", "{tmp}/ck"], "--checkpoint_dir", None),
-    (["--checkpoint_dir", "{tmp}/ck", "--resume"], "--resume", None),
-    (["--client_store", "host", "--frac", "0.5"], "--client_store", None),
-    (["--fault_spec", "nan=0.125"], "--fault_spec", None),
-    (["--guard", "1"], "--guard", None),
-    (["--defense_type", "weak_dp"], "--defense_type", None),
-    (["--robust_agg", "median"], "--robust_agg", None),
-    (["--watchdog", "1"], "--watchdog", None),
-    (["--eval_cache", "1", "--robust_agg", "median"], "--robust_agg",
-     "--eval_cache"),
-    (["--eval_clients", "4", "--fault_spec", "nan=0.125"], "--fault_spec",
-     "--eval_clients"),
+    (["--fuse_rounds", "2", "--checkpoint_dir", "{tmp}/ck", "--algo",
+      "ditto"], "--algo ditto", "--fuse_rounds"),
+    (["--checkpoint_dir", "{tmp}/ck"] + _STORE, "--client_store",
+     "--checkpoint_dir"),
+    (["--checkpoint_dir", "{tmp}/ck", "--resume", "--algo", "ditto"],
+     "--algo ditto", "--resume"),
+    (_STORE, "--client_store", None),
+    (["--fault_spec", "nan=0.125", "--algo", "ditto"], "--algo ditto",
+     "--fault_spec"),
+    (["--guard", "1"] + _STORE, "--client_store", "--guard"),
+    (["--defense_type", "weak_dp"] + _STORE, "--client_store",
+     "--defense_type"),
+    (["--robust_agg", "median", "--algo", "ditto"], "--algo ditto",
+     "--robust_agg"),
+    (["--watchdog", "1"] + _STORE, "--client_store", "--watchdog"),
+    (["--eval_cache", "1"] + _STORE, "--client_store", "--eval_cache"),
+    (["--eval_clients", "4", "--fault_spec", "nan=0.125", "--algo",
+      "ditto"], "--algo ditto", "--eval_clients"),
     (["--stratified_sampling", "1", "--algo", "ditto"], "--algo ditto",
      "--stratified_sampling"),
 ]
@@ -939,3 +946,69 @@ def test_cli_mesh_runs_fused_blocks_and_eval_options(tmp_path, algo, flags):
             np.testing.assert_allclose(v, h1[k], rtol=1e-5, err_msg=k)
     assert fused["history"][0]["train_loss"] == \
         one["history"][0]["train_loss"]
+
+
+#: the robust and the state tiers on ``--mesh_devices 2``: faults, the
+#: guard, the weak-DP defense, the median, the watchdog and the checkpoints
+MESH_ROBUST = ["--fault_spec", "drop=0.125,nan=0.125,scale=0.125:100x",
+               "--guard", "1", "--defense_type", "weak_dp", "--robust_agg",
+               "median", "--watchdog", "1"]
+
+
+def test_cli_mesh_runs_the_robust_and_state_tiers(tmp_path):
+    """``--device cpu --mesh_devices 2`` with the robust flags and
+    ``--checkpoint_dir``: end to end, the guard's counters and the
+    watchdog's in the records equal to the single-device run's and the
+    history within rtol 1e-5 of it (round 0 bitwise); rank 0 alone writes
+    (one log, one stat_info, the steps and their metadata, no partial
+    file). Then ``--resume`` to a third round on the mesh: its record
+    bitwise the uninterrupted three-round mesh run's."""
+    argv = SMALL + ["--comm_round", "2", "--epochs", "1",
+                    "--frequency_of_the_test", "1"] + MESH_ROBUST
+    mesh = ["--mesh_devices", "2", "--device", "cpu"]
+    ck = ["--checkpoint_dir", str(tmp_path / "ck")]
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # the ranks take the parent's share
+    try:
+        t = trunner.main(argv + mesh + ck + [
+            "--results_dir", str(tmp_path / "t"), "--log_dir",
+            str(tmp_path / "log")], "salientgrads")
+        one = trunner.main(argv + ["--device", "cpu", "--results_dir", "",
+                                   "--log_dir", ""], "salientgrads")
+        three = ["--comm_round", "3"]
+        resumed = trunner.main(argv + three + mesh + ck + [
+            "--resume", "--results_dir", "", "--log_dir", ""],
+            "salientgrads")
+        twin = trunner.main(argv + three + mesh + [
+            "--checkpoint_dir", str(tmp_path / "twin"), "--results_dir", "",
+            "--log_dir", ""], "salientgrads")
+    finally:
+        torch.set_num_threads(threads)
+    assert t["client_mesh_devices"] == 2 and t["state"] is None
+    rounds = [h for h in t["history"] if h["round"] >= 0]
+    assert [h["round"] for h in rounds] == [0, 1]
+    for h, h1 in zip(t["history"], one["history"]):
+        assert sorted(h) == sorted(h1)
+        for k in ("clients_dropped", "clients_quarantined",
+                  "rounds_retried"):
+            if k in h1:
+                assert h[k] == h1[k], k
+        for k, v in h.items():
+            np.testing.assert_allclose(v, h1[k], rtol=1e-5, err_msg=k)
+    assert rounds[0]["train_loss"] == one["history"][0]["train_loss"]
+    assert all({"clients_dropped", "clients_quarantined",
+                "rounds_retried"} <= set(h) for h in rounds)
+    assert len(os.listdir(tmp_path / "log")) == 1
+    with open(t["stat_path"], "rb") as f:
+        fault = pickle.load(f)["fault_recovery"]
+    assert fault["checkpoint_save_failures"] == 0.0
+    assert {"rounds_retried", "rounds_skipped"} <= set(fault)
+    lineage = [p for p in (tmp_path / "ck").iterdir()]
+    assert len(lineage) == 1
+    # the two rounds' steps and the resumed run's third
+    assert sorted(os.listdir(lineage[0])) == [
+        "1", "2", "3", "meta_1.json", "meta_2.json", "meta_3.json"]
+    assert all(os.listdir(lineage[0] / s) == ["state.pt"] for s in "123")
+    assert [h["round"] for h in resumed["history"]] == [2, -1]
+    assert resumed["history"][0] == twin["history"][2]
+    assert resumed["final_eval"] == twin["final_eval"]

@@ -243,8 +243,10 @@ def test_mesh_eval_terms_are_the_single_process_terms(mesh_runs):
 
 def test_mesh_refusals_in_the_library(monkeypatch):
     """What the mesh round does not run is refused when the algorithm is
-    built, and the fused loop of a gloo group on the card when it is called
-    (the device and the backend stand in for a card here)."""
+    built (another algorithm's round, a client store; the faults, the
+    guard, the defenses and ``robust_agg`` build there), and the fused
+    loop of a gloo group on the card when it is called (the device and the
+    backend stand in for a card here)."""
     from neuroimagedisttraining_torch.algorithms import Ditto, FedAvg
     from neuroimagedisttraining_torch.core.state import HyperParams
     from neuroimagedisttraining_torch.data import make_synthetic_federated
@@ -262,12 +264,13 @@ def test_mesh_refusals_in_the_library(monkeypatch):
     kw = dict(loss_type="bce", device="cpu")
     for cls, extra, says in (
             (Ditto, {}, "the ditto round"),
-            (FedAvg, dict(fault_spec="nan=0.5"), "faults"),
-            (FedAvg, dict(robust_agg="median"), "robust"),
             (FedAvg, dict(client_store="host", frac=0.5), "client store")):
         with pytest.raises(ValueError, match="client mesh") as e:
             cls(model, data, hp, **kw, **extra)
         assert says in str(e.value)
+    for extra in (dict(fault_spec="nan=0.5"), dict(robust_agg="median"),
+                  dict(guard=True)):
+        assert FedAvg(model, data, hp, **kw, **extra).mesh is not None
     a = FedAvg(model, data, hp, **kw)
     assert a.num_local_clients == 2 and a.num_clients == 4
     state = a.init_state()
