@@ -174,7 +174,18 @@ Phases, each printing one JSON line:
    NCCL mesh's fused block of each, bitwise its eager rounds and the
    single-process block, no Python collective in a replay; (g) the ranks'
    checkpoint resumed by a fresh spawn (bitwise the uninterrupted round)
-   and by one process (see ``mesh_path``).
+   and by one process. The seven other algorithms on the mesh (path
+   ``mesh/baselines``): (h) Local, Ditto, SubAvg, DPSGD, DisPFL, FedFomo
+   and TurboAggregate, 2 eager rounds each on the gloo ranks, each round
+   replayed by a single process (every client row, mask, ``p_choose``
+   row, metric and eval bitwise; the global model bitwise where every rank
+   reduces the gathered rows, within 1e-6 for Ditto's split sum), each
+   rank's round seconds and TurboAggregate's secure sum timed; (i) a
+   one-rank NCCL mesh's fused block of Local, Ditto, DPSGD and static
+   DisPFL, bitwise its eager rounds and the single-process block, no
+   Python collective in a replay, both rates; (j) DisPFL's checkpoint,
+   saved by the ranks, resumed bitwise by the fresh spawn of (g) (see
+   ``mesh_path``).
 18. cli     — the command-line entry point in-process on the card
    (``experiments.runner.main``): SalientGrads and FedAvg, ``--dataset
    synthetic --model small3dcnn --comm_round 2`` (no stem stage on this
@@ -2768,6 +2779,21 @@ def personal_path(dev):
 FOMO_ROUNDS, FOMO_VAL_FRACTION = 2, 0.1
 
 
+def _fomo_data(data):
+    """The main configuration's cohort with FedFomo's validation split: the
+    last FOMO_VAL_FRACTION of each client's rows (views of the one cohort:
+    a client's rows stay contiguous), and the validation rows a client."""
+    import torch
+
+    nv = max(1, int(FOMO_VAL_FRACTION * SAMPLES))
+    keep = SAMPLES - nv
+    return dataclasses.replace(
+        data, x_train=data.x_train[:, :keep], y_train=data.y_train[:, :keep],
+        n_train=torch.full((N_CLIENTS,), keep, dtype=torch.int32),
+        x_val=data.x_train[:, keep:], y_val=data.y_train[:, keep:],
+        n_val=torch.full((N_CLIENTS,), nv, dtype=torch.int32)), nv
+
+
 def fomo_path(dev):
     """FedFomo and TurboAggregate at full width on the main configuration
     (AlexNet3DS2D, 8 clients x 40 phased volumes, bf16, 5 steps of batch 8,
@@ -2804,14 +2830,7 @@ def fomo_path(dev):
     data, hp = _main_config(dev, shape)
     model = create_model("3dcnn_s2d", num_classes=1, sample_shape=shape)
     kw = dict(loss_type="bce", seed=0, compute_dtype="bfloat16")
-    nv = max(1, int(FOMO_VAL_FRACTION * SAMPLES))
-    keep = SAMPLES - nv
-    # views of the one cohort: a client's rows stay contiguous
-    fomo_data = dataclasses.replace(
-        data, x_train=data.x_train[:, :keep], y_train=data.y_train[:, :keep],
-        n_train=torch.full((N_CLIENTS,), keep, dtype=torch.int32),
-        x_val=data.x_train[:, keep:], y_val=data.y_train[:, keep:],
-        n_val=torch.full((N_CLIENTS,), nv, dtype=torch.int32))
+    fomo_data, nv = _fomo_data(data)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -3597,6 +3616,35 @@ MESH_ROBUST_CASES = (
 )
 MESH_ROBUST_ROUNDS = 2
 MESH_CKPT_CASE = "salientgrads_topk_nan"
+#: parts (h)-(j) of the mesh phase, the seven algorithms besides
+#: SalientGrads and FedAvg on the mesh: (name, class, options) at the
+#: personal and fomo phases' configurations (Local and SubAvg at ``frac``
+#: 0.5, so a rank trains a part of the draw; TurboAggregate at full
+#: participation, its secure sum timed apart as in the fomo phase),
+#: MESH_BASELINE_ROUNDS eager rounds each on the two gloo ranks; (j)
+#: checkpoints MESH_BASELINE_CKPT after its first round
+MESH_BASELINES = (
+    ("local", "LocalOnly", dict(frac=0.5)),
+    ("ditto", "Ditto", dict()),
+    ("subavg", "SubAvg", dict(epochs=2, frac=0.5)),
+    ("dpsgd", "DPSGD", dict(frac=0.5)),
+    ("dispfl", "DisPFL", dict(frac=0.5, neighbor_mode="random")),
+    ("fedfomo", "FedFomo", dict()),
+    ("turboaggregate", "TurboAggregate", dict()),
+)
+MESH_BASELINE_ROUNDS = 2
+MESH_BASELINE_CKPT = "dispfl"
+#: part (i): the baselines the CLI fuses, on a one-rank NCCL mesh
+MESH_BASELINES_FUSED = (
+    ("local", "LocalOnly", dict(frac=0.5)),
+    ("ditto", "Ditto", dict()),
+    ("dpsgd", "DPSGD", dict(frac=0.5)),
+    ("dispfl_static", "DisPFL", dict(frac=0.5, static_masks=True)),
+)
+#: the kernels of the baselines' mesh path (and the masked SGD kernel's
+#: ``mask_grads`` branch, on DisPFL and SubAvg)
+MESH_BASELINE_KERNELS = ("masked_sgd", "stem_fwd", "stem_bwd",
+                         "weighted_sum", "masked_sgd_mask_grads")
 
 
 def _tree_digest(tree) -> str:
@@ -3657,14 +3705,20 @@ def _mesh_robust_state(algo, case, snip_state):
 
 
 def _row_digests(algo, state):
-    """Per client this rank holds (population id), the digest of its
-    personal row and of its top-k residual row."""
+    """Per client this rank holds (population id), the digest of its row of
+    each of the state's per-client row fields (``algo.row_fields``: the
+    personal model and the top-k residual; the baselines' masks and
+    FedFomo's ``p_choose``)."""
     out = {}
     for i in range(algo.num_local_clients):
-        out[algo._lo + i] = tuple(
-            _tree_digest({k: v[i] for k, v in tree.items()})
-            for tree in (state.personal_params, state.agg_residual)
-            if tree is not None)
+        rows = []
+        for f in algo.row_fields:
+            v = getattr(state, f, None)
+            if v is not None:
+                rows.append(_tree_digest(
+                    {k: t[i] for k, t in v.items()} if isinstance(v, dict)
+                    else {"": v[i]}))
+        out[algo._lo + i] = tuple(rows)
     return out
 
 
@@ -3691,11 +3745,12 @@ def _mesh_robust_rounds(algo, state, rounds, rank, on_round=None):
     return out, state
 
 
-def _mesh_resume_rank(rank, directory, dev, ck_dir):
-    """Part (g)'s fresh spawn: the ranks restore the checkpoint the mesh
-    phase's ranks wrote into ``ck_dir`` after round 0 of MESH_CKPT_CASE and
-    run round 1; each leaves its record (the round's digests, the
-    launches) in ``directory``."""
+def _mesh_resume_rank(rank, directory, dev, ck_dir, ck_dir_j):
+    """Part (g)'s and (j)'s fresh spawn: the ranks restore the checkpoint
+    the mesh phase's ranks wrote into ``ck_dir`` after round 0 of
+    MESH_CKPT_CASE and run round 1, then the same for MESH_BASELINE_CKPT's
+    checkpoint in ``ck_dir_j``; each leaves its record (the rounds'
+    digests, the launches of each) in ``directory``."""
     import os
 
     import torch
@@ -3722,8 +3777,8 @@ def _mesh_resume_rank(rank, directory, dev, ck_dir):
         shape = phased_sample_shape(VOLUME)
         data, hp = _main_config(dev, shape)
         case = dict((c[0], c) for c in MESH_ROBUST_CASES)[MESH_CKPT_CASE]
-        algo = _mesh_robust_algo(shard_federated(data, mesh), hp, shape,
-                                 case)
+        data = shard_federated(data, mesh)
+        algo = _mesh_robust_algo(data, hp, shape, case)
         kernels.reset_launches()
         mgr = CheckpointManager(ck_dir, layout=algo)
         t0 = time.perf_counter()
@@ -3737,20 +3792,37 @@ def _mesh_resume_rank(rank, directory, dev, ck_dir):
                    rows=_row_digests(algo, state),
                    global_digest=_tree_digest(state.global_params),
                    launches=dict(kernels.LAUNCHES))
+        del algo, state
+        # part (j): the baseline's checkpoint
+        algo = _mesh_baseline_algo(MESH_BASELINE_CKPT, data, hp, shape)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        state, step = CheckpointManager(
+            ck_dir_j, layout=algo).restore_latest(algo.init_state())
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        state, met = algo.run_round(state, step)
+        torch.cuda.synchronize()
+        rec["baseline"] = {"step": step, "restore_s": restore_s,
+                           "metrics": {k: float(v) for k, v in met.items()},
+                           "rows": _row_digests(algo, state),
+                           "launches": kernels.snapshot_launches()}
         torch.save(rec, os.path.join(directory, f"resume{rank}.pt"))
     finally:
         mesh.destroy()
 
 
-def _mesh_rank(rank, directory, dev, ck_dir):
+def _mesh_rank(rank, directory, dev, ck_dir, ck_dir_j):
     """One of the mesh phase's gloo ranks on the card (spawned by
     ``mesh_path``): the main configuration sharded over the mesh, SNIP,
     then MESH_ROUNDS rounds per wire from the SNIP state, each timed, each
     trained client's model digested, the eval after each round and its
     per-client sums. Then parts (e) and (g): each of MESH_ROBUST_CASES for
-    MESH_ROBUST_ROUNDS eager rounds, MESH_CKPT_CASE checkpointed after its
-    first round (every rank saving, rank 0 writing), their launches apart.
-    Leaves its record in ``directory``."""
+    MESH_ROBUST_ROUNDS eager rounds, MESH_CKPT_CASE checkpointed into
+    ``ck_dir`` after its first round (every rank saving, rank 0 writing),
+    their launches apart. Then parts (h) and (j): the seven other
+    algorithms (:func:`_mesh_baseline_rounds`), MESH_BASELINE_CKPT
+    checkpointed into ``ck_dir_j``. Leaves its record in ``directory``."""
     import os
 
     import torch
@@ -3851,9 +3923,327 @@ def _mesh_rank(rank, directory, dev, ck_dir):
         rec["ckpt_save_failures"] = ck.save_failures
         torch.cuda.synchronize()
         rec["launches_robust"] = dict(kernels.LAUNCHES)
+        # parts (h) and (j): the seven other algorithms
+        rec["baselines"] = _mesh_baseline_rounds(data, hp, shape, rank,
+                                                 ck_dir_j)
         torch.save(rec, os.path.join(directory, f"rank{rank}.pt"))
     finally:
         mesh.destroy()
+
+
+def _mesh_baseline_algo(name, data, hp, shape):
+    """A MESH_BASELINES (or MESH_BASELINES_FUSED) entry on the main
+    configuration, ``data`` sharded or not (FedFomo on its validation
+    split, :func:`_fomo_data`)."""
+    from neuroimagedisttraining_torch.models import create_model
+
+    _, cls_name, opts = {c[0]: c for c in
+                         MESH_BASELINES + MESH_BASELINES_FUSED}[name]
+    model = create_model("3dcnn_s2d", num_classes=1, sample_shape=shape)
+    if cls_name == "FedFomo":
+        data = _fomo_data(data)[0]
+    return _personal_algo(cls_name, opts, model, data, hp)
+
+
+def _time_secure_sum(algo):
+    """TurboAggregate's host secure sum timed apart (the card synchronized
+    around it, as in the fomo phase): the list its seconds are appended to,
+    empty for the other algorithms."""
+    import torch
+
+    secure_s = []
+    fn = getattr(algo, "_secure_weighted_sum", None)
+    if fn is not None:
+        def timed(stacked, weights):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            new = fn(stacked, weights)
+            torch.cuda.synchronize()
+            secure_s.append(time.perf_counter() - t0)
+            return new
+
+        algo._secure_weighted_sum = timed
+    return secure_s
+
+
+def _mesh_baseline_rounds(data, hp, shape, rank, ck_dir):
+    """Parts (h) and (j) on a gloo rank: each of MESH_BASELINES for
+    MESH_BASELINE_ROUNDS eager rounds from its own init, per round the
+    seconds, the metrics, the row digests (:func:`_row_digests`), the
+    global model's digest and on rank 0 the model, the eval;
+    TurboAggregate's secure sum timed apart; MESH_BASELINE_CKPT
+    checkpointed into ``ck_dir`` after its first round (every rank saving,
+    rank 0 writing). Each algorithm's launches apart."""
+    import gc
+
+    import torch
+
+    from neuroimagedisttraining_torch.ops import kernels
+    from neuroimagedisttraining_torch.utils.checkpoint import \
+        CheckpointManager
+
+    out = {}
+    for name, _, _ in MESH_BASELINES:
+        algo = _mesh_baseline_algo(name, data, hp, shape)
+        secure_s = _time_secure_sum(algo)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        state = algo.init_state()
+        rounds, save_s = [], None
+        for r in range(MESH_BASELINE_ROUNDS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, met = algo.run_round(state, r)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            ev = algo.evaluate(state)
+            glob = getattr(state, "global_params", None)
+            rounds.append({
+                "seconds": seconds,
+                "metrics": {k: float(v) for k, v in met.items()},
+                "rows": _row_digests(algo, state),
+                "global_digest": None if glob is None else _tree_digest(glob),
+                "global": ({k: v.cpu() for k, v in glob.items()}
+                           if rank == 0 and glob is not None else None),
+                "eval": {k: v.cpu() for k, v in ev.items()}})
+            if name == MESH_BASELINE_CKPT and r == 0:
+                t0 = time.perf_counter()
+                CheckpointManager(ck_dir, layout=algo).save(1, state)
+                save_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        out[name] = {"rounds": rounds, "secure_sum_s": secure_s,
+                     "ckpt_save_s": save_s,
+                     "launches": kernels.snapshot_launches()}
+        del algo, state
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_baseline_checks(dev, ranks, resumed, data, hp, shape):
+    """Parts (h) and (j) on this process's side. (h): each of
+    MESH_BASELINES' rounds of the two gloo ranks replayed here in one
+    process, each round from the mesh's global model before it where the
+    algorithm has one (its per-client rows are the single process's bit
+    for bit already): the metrics, every client's rows (the personal
+    models, the masks, ``p_choose``) and the evals bitwise; the global
+    model the same on both ranks, bitwise the replay's where every rank
+    reduces the gathered rows (SubAvg, TurboAggregate), within
+    MESH_GLOBAL_BOUND["dense"] where the sum is split by rank (Ditto's
+    weighted mean). (j): the fresh spawn's round after the restored
+    MESH_BASELINE_CKPT step (``resumed``, each rank's) bitwise the
+    uninterrupted ranks' round. One line per algorithm, with its launches
+    summed over the ranks. Returns the path's launches (the ranks' and the
+    resumed spawn's)."""
+    import gc
+
+    import torch
+
+    from neuroimagedisttraining_torch.ops import kernels
+
+    failures = []
+    launches = {k: 0 for k in kernels.snapshot_launches()}
+    for name, _, _ in MESH_BASELINES:
+        algo = _mesh_baseline_algo(name, data, hp, shape)
+        state = algo.init_state()
+        spread = []
+        bound = MESH_GLOBAL_BOUND["dense"] if name == "ditto" else 0.0
+        for r in range(MESH_BASELINE_ROUNDS):
+            mine = [rk["baselines"][name]["rounds"][r] for rk in ranks]
+            has_global = getattr(state, "global_params", None) is not None
+            if r and has_global:  # the mesh's global model before the round
+                state = dataclasses.replace(state, global_params={
+                    k: v.to(dev) for k, v in ranks[0]["baselines"][name]
+                    ["rounds"][r - 1]["global"].items()})
+            state, met = algo.run_round(state, r)
+            met = {k: float(v) for k, v in met.items()}
+            rows = _row_digests(algo, state)
+            ev_state = state
+            if has_global:
+                glob = mine[0]["global"]
+                scale = max(float(v.abs().max()) for v in glob.values())
+                err = max(float((glob[k] - state.global_params[k].cpu())
+                                .abs().max()) for k in glob) / scale
+                spread.append(err)
+                if err > bound:
+                    failures.append(f"(h) {name} r{r} global {err}")
+                ev_state = dataclasses.replace(state, global_params={
+                    k: v.to(dev) for k, v in glob.items()})
+            ev = algo.evaluate(ev_state)
+            for m in mine:
+                if m["metrics"] != met:
+                    failures.append(f"(h) {name} r{r} metrics "
+                                    f"{m['metrics']} vs {met}")
+                if any(dig != rows[c] for c, dig in m["rows"].items()):
+                    failures.append(f"(h) {name} r{r} client rows")
+                if m["global_digest"] != mine[0]["global_digest"]:
+                    failures.append(f"(h) {name} r{r} ranks' globals")
+                if any(not torch.equal(m["eval"][k], v.cpu())
+                       for k, v in ev.items()):
+                    failures.append(f"(h) {name} r{r} eval")
+        path = {k: sum(rk["baselines"][name]["launches"][k] for rk in ranks)
+                for k in launches}
+        for k in launches:
+            launches[k] += path[k]
+        emit({"phase": "mesh_baselines", "algo": name, "ranks": MESH_RANKS,
+              "backend": "gloo", "rounds": MESH_BASELINE_ROUNDS,
+              "round_s": {rk["rank"]: [x["seconds"] for x in
+                                       rk["baselines"][name]["rounds"]]
+                          for rk in ranks},
+              "secure_sum_s": {rk["rank"]: rk["baselines"][name]
+                               ["secure_sum_s"] for rk in ranks},
+              "metrics": [x["metrics"] for x in
+                          ranks[0]["baselines"][name]["rounds"]],
+              "global_rel_err": spread,
+              "launches": {k: path[k] for k in MESH_BASELINE_KERNELS}})
+        del algo, state, ev_state
+        gc.collect()
+        torch.cuda.empty_cache()
+    # (j): the fresh spawn resumed the baseline's step
+    want = [rk["baselines"][MESH_BASELINE_CKPT]["rounds"][1] for rk in ranks]
+    ok = True
+    for res, w in zip(resumed, want):
+        got = res["baseline"]
+        if got["step"] != 1 or got["metrics"] != w["metrics"] or \
+                got["rows"] != w["rows"]:
+            ok = False
+            failures.append(f"(j) rank {res['rank']}: the resumed round is "
+                            "not the uninterrupted one")
+        for k in launches:
+            launches[k] += got["launches"][k]
+    emit({"phase": "mesh_baselines_ckpt", "algo": MESH_BASELINE_CKPT,
+          "ranks": MESH_RANKS,
+          "ckpt_save_s": [rk["baselines"][MESH_BASELINE_CKPT]["ckpt_save_s"]
+                          for rk in ranks],
+          "ckpt_restore_s": [r["baseline"]["restore_s"] for r in resumed],
+          "resumed_bitwise": ok,
+          "launches": {k: sum(r["baseline"]["launches"][k] for r in resumed)
+                       for k in MESH_BASELINE_KERNELS}})
+    if failures:
+        raise AssertionError(f"mesh_baselines: {failures}")
+    return launches
+
+
+def _mesh_nccl_baselines(dev):
+    """Part (i) of the mesh phase: a one-rank NCCL client mesh of the main
+    configuration at full width, each of MESH_BASELINES_FUSED: a fused
+    block of MESH_FUSED_ROUNDS rounds (the eval every round) bitwise the
+    same rounds run eagerly on the mesh (``_fused_against_eager``) and the
+    single-process algorithm's block from the same state; then the block
+    once more with the mesh's collectives counted where Python calls them
+    (none while it replays: the gathers of the gossip, of the losses and
+    of the eval, and Ditto's reduce, run inside the graph); that block and
+    the single-process block's replays are timed, and a replay's masked
+    SGD launches are every trained client's steps. Returns the mesh
+    algorithms' launches (init, eager, warm-ups and replays)."""
+    import gc
+    import os
+    import tempfile
+
+    import torch
+
+    from neuroimagedisttraining_torch.ops import kernels
+    from neuroimagedisttraining_torch.ops.s2d import phased_sample_shape
+    from neuroimagedisttraining_torch.parallel.mesh import (
+        make_mesh,
+        shard_federated,
+    )
+
+    shape = phased_sample_shape(VOLUME)
+    data, hp = _main_config(dev, shape)
+    launches = {k: 0 for k in kernels.snapshot_launches()}
+    failures = []
+    with tempfile.TemporaryDirectory() as d, \
+            _CudnnFlags(deterministic=True, benchmark=False):
+        mesh = make_mesh(1, backend="nccl", rank=0, device=dev,
+                         init_method="file://" + os.path.join(d, "rdv"),
+                         timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+        try:
+            for name, _, _ in MESH_BASELINES_FUSED:
+                algo = _mesh_baseline_algo(name, shard_federated(data, mesh),
+                                           hp, shape)
+                one = _mesh_baseline_algo(name, data, hp, shape)
+                torch.cuda.synchronize()
+                kernels.reset_launches()
+                state = algo.init_state()
+                torch.cuda.synchronize()
+                init = kernels.snapshot_launches()
+                rec, _ = _fused_against_eager(
+                    "mesh_nccl_baselines", algo, state, MESH_FUSED_ROUNDS)
+                s_one, _ = one.run_rounds_fused(state, 0, MESH_FUSED_ROUNDS,
+                                                eval_every=1)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()  # its replays, to time
+                one.run_rounds_fused(state, 0, MESH_FUSED_ROUNDS,
+                                     eval_every=1)[1].materialize()
+                torch.cuda.synchronize()
+                one_s = time.perf_counter() - t0
+                calls = {"all_gather": 0, "all_reduce": 0}
+
+                def counted(what, fn):
+                    def call(*args, **kwargs):
+                        calls[what] += 1
+                        return fn(*args, **kwargs)
+                    return call
+
+                for what in calls:
+                    setattr(mesh, what, counted(what, getattr(mesh, what)))
+                kernels.reset_launches()
+                t0 = time.perf_counter()
+                s_mesh, ys = algo.run_rounds_fused(
+                    state, 0, MESH_FUSED_ROUNDS, eval_every=1)
+                ys.materialize()
+                torch.cuda.synchronize()
+                replay_s = time.perf_counter() - t0
+                replayed = kernels.snapshot_launches()
+                for what in calls:
+                    delattr(mesh, what)
+                one_bitwise = all(
+                    torch.equal(a[k], b[k])
+                    for f, a in _tensor_trees(s_mesh).items()
+                    for b in (_tensor_trees(s_one)[f],) for k in a)
+                for k in launches:  # the branch count too
+                    launches[k] += (init[k] + rec["launches_eager"][k]
+                                    + rec["launches_fused"][k] + replayed[k])
+                per = rec["launches_per_replay"]
+                trained = (algo.clients_per_round
+                           if name in ("local", "ditto") else N_CLIENTS)
+                legs = 2 if name == "ditto" else 1
+                want = {"masked_sgd": trained * STEPS * legs,
+                        "masked_sgd_mask_grads": (
+                            trained * STEPS if name.startswith("dispfl")
+                            else 0)}
+                emit({"phase": "mesh_nccl_baselines", "algo": name,
+                      "backend": "nccl", **rec,
+                      "single_process_bitwise": one_bitwise,
+                      "collective_calls_in_block": dict(calls),
+                      "block_s": replay_s,
+                      "rounds_per_sec_fused": MESH_FUSED_ROUNDS / replay_s,
+                      "rounds_per_sec_single_fused":
+                      MESH_FUSED_ROUNDS / one_s,
+                      "launches_block": {k: replayed[k]
+                                         for k in MESH_BASELINE_KERNELS}})
+                if not one_bitwise:
+                    failures.append(f"{name}: the single-process block "
+                                    "differs")
+                if any(calls.values()):
+                    failures.append(f"{name}: collectives called from "
+                                    f"Python during the replays: {calls}")
+                if any(per.get(k, 0) != n for k, n in want.items()) or \
+                        (per.get("weighted_sum", 0) > 0) != (name == "ditto"):
+                    failures.append(f"{name}: per replay {per}, want {want}")
+                # NCCL keeps a communicator while a graph holding its
+                # collectives lives
+                algo.release_graphs()
+                one.release_graphs()
+                del algo, one, state, s_one, s_mesh, ys
+                gc.collect()
+                torch.cuda.empty_cache()
+        finally:
+            mesh.destroy()
+    if failures:
+        raise AssertionError(f"mesh_nccl_baselines: {failures}")
+    return launches
 
 
 def _mesh_nccl(dev):
@@ -4123,7 +4513,8 @@ def _mesh_nccl_fused(dev):
     return launches
 
 
-def _mesh_robust_checks(dev, ranks, ck_dir, data, hp, shape, state0):
+def _mesh_robust_checks(dev, ranks, ck_dir, ck_dir_j, data, hp, shape,
+                        state0):
     """Parts (e) and (g) of the mesh phase on this process's side. (e):
     each robust case's rounds of the two gloo ranks replayed here in one
     process, each round from the mesh's global model before it: the
@@ -4135,8 +4526,10 @@ def _mesh_robust_checks(dev, ranks, ck_dir, data, hp, shape, state0):
     checkpoint the ranks wrote after round 0 of MESH_CKPT_CASE and runs
     round 1, bitwise the uninterrupted ranks' round 1; one process
     restores the same step and runs round 1: the rows and metrics bitwise,
-    the global model within MESH_GLOBAL_BOUND. Returns the launches of the
-    fresh spawn's ranks."""
+    the global model within MESH_GLOBAL_BOUND. The spawn also resumes part
+    (j)'s checkpoint from ``ck_dir_j`` (checked by
+    :func:`_mesh_baseline_checks`). Returns the launches of (g) on the
+    fresh spawn's ranks and the spawn's records."""
     import dataclasses
     import tempfile
 
@@ -4190,7 +4583,7 @@ def _mesh_robust_checks(dev, ranks, ck_dir, data, hp, shape, state0):
     want = [rk["robust"][MESH_CKPT_CASE]["rounds"][1] for rk in ranks]
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as d:
-        mp.spawn(_mesh_resume_rank, args=(d, dev, ck_dir),
+        mp.spawn(_mesh_resume_rank, args=(d, dev, ck_dir, ck_dir_j),
                  nprocs=MESH_RANKS, join=True)
         resumed = [torch.load(f"{d}/resume{r}.pt", weights_only=False)
                    for r in range(MESH_RANKS)]
@@ -4240,7 +4633,7 @@ def _mesh_robust_checks(dev, ranks, ck_dir, data, hp, shape, state0):
           "launches_resumed": launches})
     if failures:
         raise AssertionError(f"mesh_robust: {failures}")
-    return launches
+    return launches, resumed
 
 
 def _mesh_nccl_robust(dev):
@@ -4387,6 +4780,13 @@ def mesh_path(dev):
       (``_mesh_rank``, ``_mesh_robust_checks``, ``_mesh_resume_rank``) and
       the one-rank NCCL mesh's robust fused blocks (``_mesh_nccl_robust``);
       ``mask_apply`` must launch on it.
+    * (h)-(j), the seven other algorithms on the mesh, the path
+      ``mesh/baselines``: the gloo ranks' rounds of each against a
+      single-process replay and DisPFL's checkpoint resumed by the fresh
+      spawn (``_mesh_baseline_rounds``, ``_mesh_baseline_checks``), the
+      one-rank NCCL mesh's fused blocks of the four the CLI fuses
+      (``_mesh_nccl_baselines``); each of MESH_BASELINE_KERNELS must
+      launch on it.
 
     Part (d), ``bench_torch.main`` on one card with today's keys and
     ``client_mesh_devices`` 1, is checked in ``bench_path``. Returns the
@@ -4404,11 +4804,13 @@ def mesh_path(dev):
     from neuroimagedisttraining_torch.parallel import collectives as tc
 
     t0 = time.perf_counter()
-    # part (g)'s checkpoint lineage, written by the ranks, read after them
+    # parts (g)'s and (j)'s checkpoint lineages, written by the ranks, read
+    # after them
     ck_tmp = tempfile.TemporaryDirectory()
+    ck_tmp_j = tempfile.TemporaryDirectory()
     with tempfile.TemporaryDirectory() as d:
-        mp.spawn(_mesh_rank, args=(d, dev, ck_tmp.name), nprocs=MESH_RANKS,
-                 join=True)
+        mp.spawn(_mesh_rank, args=(d, dev, ck_tmp.name, ck_tmp_j.name),
+                 nprocs=MESH_RANKS, join=True)
         ranks = [torch.load(f"{d}/rank{r}.pt", weights_only=False)
                  for r in range(MESH_RANKS)]
     mesh_s = time.perf_counter() - t0
@@ -4505,17 +4907,30 @@ def mesh_path(dev):
               for k in kernels.LAUNCHES}
     try:
         with _CudnnFlags(deterministic=True, benchmark=False):
-            resumed = _mesh_robust_checks(dev, ranks, ck_tmp.name, data, hp,
-                                          shape, state0)
+            resumed, spawn = _mesh_robust_checks(
+                dev, ranks, ck_tmp.name, ck_tmp_j.name, data, hp, shape,
+                state0)
+            del base, state0
+            # parts (h) and (j): the seven other algorithms
+            baselines = _mesh_baseline_checks(dev, ranks, spawn, data, hp,
+                                              shape)
     finally:
         ck_tmp.cleanup()
-    del base, state0, data
+        ck_tmp_j.cleanup()
+    del data
     nccl_robust = _mesh_nccl_robust(dev)
     for k in robust:
         robust[k] += resumed[k] + nccl_robust[k]
     if robust["mask_apply"] <= 0:
         raise AssertionError(f"mesh/robust: mask_apply launched "
                              f"{robust['mask_apply']} times")
+    nccl_baselines = _mesh_nccl_baselines(dev)
+    for k in baselines:
+        baselines[k] += nccl_baselines[k]
+    idle = [k for k in MESH_BASELINE_KERNELS if baselines[k] <= 0]
+    if idle:
+        raise AssertionError(f"mesh/baselines: {idle} never launched "
+                             f"({baselines})")
 
     _mesh_nccl(dev)
     fused_launches = _mesh_nccl_fused(dev)
@@ -4530,7 +4945,8 @@ def mesh_path(dev):
     if fitted != min(2, torch.cuda.device_count()):
         raise AssertionError(f"mesh_cli: fitted to {fitted} devices")
     return {"mesh": launches, "mesh/nccl_fused": fused_launches,
-            "mesh/robust": robust}
+            "mesh/robust": robust,
+            "mesh/baselines": {k: baselines[k] for k in kernels.LAUNCHES}}
 
 
 def _cli_argv(algo: str, tmp: str):

@@ -11,13 +11,21 @@ decentralized algorithms train each client's own row of a stacked model
 (:meth:`FedAlgorithm._train_stacked`).
 
 On a client mesh (``data`` sharded by ``parallel.mesh.shard_federated``:
-one process a device, each holding its block of the cohort; SalientGrads
-and FedAvg) every rank makes the round's host draws for all selected
-clients, exactly as off the mesh, and trains the selected clients it holds;
-the aggregate is the on-mesh reduce of ``collectives``, over the rows of
-the selection's rank blocks (with partial participation the trained models
-are gathered first, in selection order), and the eval's per-client sums
-are gathered in client order (the ``eval_clients`` subset's in its order).
+one process a device, each holding its block of the cohort and of every
+per-client row field of the state, :attr:`FedAlgorithm.row_fields`) every
+rank makes the round's host draws for all selected clients, exactly as off
+the mesh, and trains the selected clients it holds (:meth:`FedAlgorithm.
+_own`); the central aggregate is the on-mesh reduce of ``collectives``,
+over the rows of the selection's rank blocks (with partial participation
+the trained models are gathered first, in selection order), and the eval's
+per-client sums are gathered in client order (the ``eval_clients``
+subset's in its order). An exchange between clients gathers the rows every
+client needs, in draw order, and every rank computes on the gathered rows
+what the single process computes: DPSGD's and DisPFL's gossip contracts the
+whole ``[C, C]`` matrix against the gathered stacks and keeps the rank's
+block, SubAvg averages the gathered trained rows over the gathered masks,
+FedFomo's clients score the gathered models, TurboAggregate's secure sum
+shares the gathered rows in draw order.
 The in-state eval cache refreshes each rank's trained rows and gathers their
 terms into the replicated ``[C]`` cache. Each client's trained model and
 eval sums are the off-mesh run's bit for bit; only the cross-rank sums
@@ -29,7 +37,8 @@ statistic reads every client's wire-decoded delta, gathered in draw order,
 so the robust global model is the off-mesh one bit for bit. A checkpoint
 holds the state in the single-process layout (:meth:`FedAlgorithm.
 state_to_global`, :meth:`FedAlgorithm.state_to_local`), so a step resumes
-at any mesh width. The client store is not ported to the mesh.
+at any mesh width. The client store is not ported to the mesh (ROADMAP
+item 7).
 
 A round is split in two: what the host decides (the seeded client draw, the
 decayed learning rate, the random draws of the generator) and a body that
@@ -82,7 +91,12 @@ from ..data.types import FederatedData
 from ..models import init_params, make_apply_fn
 from ..models.layers import DropoutProbe
 from ..ops import kernels
-from ..ops.sparsity import kernel_flags
+from ..ops.sparsity import (
+    client_mask_densities,
+    fraction_f32,
+    kernel_flags,
+    mean_mask_density,
+)
 from ..parallel import collectives
 from ..parallel.mesh import (
     gather_blocks,
@@ -424,6 +438,12 @@ def _stack(rows: Sequence[Tree]) -> Tree:
 def _rows(t: torch.Tensor) -> torch.Tensor:
     """A stacked leaf as ``[C, n]``."""
     return t.reshape(t.shape[0], -1)
+
+
+def _map_field(fn: Callable, v):
+    """``fn`` of each leaf of a state field that is a tree, or of the field
+    itself where it is a tensor."""
+    return {k: fn(t) for k, t in v.items()} if isinstance(v, dict) else fn(v)
 
 
 def _to_device(x, device: torch.device) -> torch.Tensor:
@@ -774,12 +794,12 @@ class FedAlgorithm(abc.ABC):
     its device memory does not grow with the population.
 
     ``data`` sharded over a client mesh (``parallel.mesh.shard_federated``;
-    the algorithms with ``mesh_supported``) runs the round on the mesh
-    (module docstring); the device defaults to the mesh's. Its fused blocks
-    capture the round's collectives on NCCL (:meth:`run_rounds_fused`);
-    the eval cache and subset, stratified SNIP, the robustness tier and the
-    checkpoints (:meth:`state_to_global`) run on it as well. The client
-    store is not ported to the mesh and is refused there."""
+    the algorithms with ``mesh_supported``, all nine) runs the round on the
+    mesh (module docstring); the device defaults to the mesh's. Its fused
+    blocks capture the round's collectives on NCCL (:meth:`run_rounds_
+    fused`); the eval cache and subset, stratified SNIP, the robustness
+    tier and the checkpoints (:meth:`state_to_global`) run on it as well.
+    The client store is not ported to the mesh and is refused there."""
 
     name = "base"
     #: the algorithm carries the error-feedback residual of agg_impl="topk"
@@ -798,11 +818,12 @@ class FedAlgorithm(abc.ABC):
     #: (``client_store`` "host" / "disk"): the central-aggregate algorithms
     #: whose rows are indexed by the sampled cohort alone
     store_supported = False
-    #: the round runs on a client mesh (SalientGrads, FedAvg)
+    #: the round runs on a client mesh (each algorithm sets it once its
+    #: round and eval run on a rank's block of clients)
     mesh_supported = False
-    #: the state's per-client row fields, ``[C, ...]`` per leaf in client
-    #: order, of which a client mesh's rank holds its block
-    #: (:meth:`state_to_global`)
+    #: the state's per-client row fields, ``[C, ...]`` in client order (a
+    #: tree, per leaf, or a tensor), of which a client mesh's rank holds its
+    #: block (:meth:`state_to_global`)
     row_fields = ("personal_params", "agg_residual")
 
     def __init__(self, model: torch.nn.Module, data: FederatedData,
@@ -1008,19 +1029,18 @@ class FedAlgorithm(abc.ABC):
                 "(the run is already O(S) in device memory)")
 
     def _check_mesh(self) -> None:
-        """Refuse on a client mesh what its round does not run: the rounds
-        of the algorithms without ``mesh_supported`` and a client store
-        (the faults, the guard, the defenses and ``robust_agg`` run
-        there)."""
-        what = []
-        if not self.mesh_supported:
-            what.append(f"the {self.name} round")
+        """Refuse on a client mesh what its round does not run: a client
+        store (ROADMAP item 7), and the round of an algorithm without
+        ``mesh_supported``."""
         if self._store is not None:
-            what.append("a client store")
-        if what:
             raise ValueError(
-                f"{self.name}: {', '.join(what)} on a client mesh is not "
-                "ported (the mesh runs the SalientGrads and FedAvg rounds)")
+                f"{self.name}: a client store on a client mesh is not "
+                "ported (ROADMAP item 7: the client store on the mesh); "
+                "keep the rows resident (client_store='device') or run on "
+                "one device")
+        if not self.mesh_supported:
+            raise ValueError(
+                f"{self.name}: its round does not run on a client mesh")
 
     @property
     def num_local_clients(self) -> int:
@@ -1160,16 +1180,35 @@ class FedAlgorithm(abc.ABC):
         return [f for f in self.row_fields
                 if getattr(state, f, None) is not None]
 
+    def _whole(self, rows):
+        """A row field this rank holds its block of (a tree or a tensor)
+        whole, ``[C, ...]`` in client order, on every rank (each takes
+        part: ``parallel.mesh.gather_blocks``); off the mesh ``rows``
+        itself."""
+        if self.mesh is None:
+            return rows
+        if isinstance(rows, dict):
+            return gather_blocks(self.mesh, rows)
+        return gather_blocks(self.mesh, {"": rows})[""]
+
+    def _block(self, rows):
+        """This rank's block ``[lo:hi]`` of a whole ``[C, ...]`` row field
+        (a tree or a tensor; views); off the mesh ``rows`` itself."""
+        if self.mesh is None:
+            return rows
+        lo, hi = self._lo, self._hi
+        return _map_field(lambda t: t[lo:hi], rows)
+
     def state_to_global(self, state: Any) -> Any:
         """``state`` in the single-process layout, which a checkpoint
         holds: on a client mesh each row field (:attr:`row_fields`)
         gathered whole, ``[C, ...]`` in client order, on every rank (each
-        takes part: ``parallel.mesh.gather_blocks``); the replicated fields
-        as they are. Off the mesh the state itself."""
+        takes part, :meth:`_whole`); the replicated fields as they are.
+        Off the mesh the state itself."""
         if self.mesh is None:
             return state
         return dataclasses.replace(state, **{
-            f: gather_blocks(self.mesh, getattr(state, f))
+            f: self._whole(getattr(state, f))
             for f in self._row_fields_of(state)})
 
     def state_to_local(self, state: Any) -> Any:
@@ -1179,10 +1218,9 @@ class FedAlgorithm(abc.ABC):
         mesh the state itself."""
         if self.mesh is None:
             return state
-        lo, hi = self._lo, self._hi
         return dataclasses.replace(state, **{
-            f: {k: v[lo:hi].to(self.device).clone()
-                for k, v in getattr(state, f).items()}
+            f: _map_field(lambda t: t.to(self.device).clone(),
+                          self._block(getattr(state, f)))
             for f in self._row_fields_of(state)})
 
     def checkpoint_template(self, state: Any) -> Any:
@@ -1195,8 +1233,8 @@ class FedAlgorithm(abc.ABC):
             return state
         c = self.num_clients
         return dataclasses.replace(state, **{
-            f: {k: torch.empty((c,) + tuple(v.shape[1:]), dtype=v.dtype)
-                for k, v in getattr(state, f).items()}
+            f: _map_field(lambda t: torch.empty(
+                (c,) + tuple(t.shape[1:]), dtype=t.dtype), getattr(state, f))
             for f in self._row_fields_of(state)})
 
     def generator(self, seed: Optional[int] = None) -> torch.Generator:
@@ -1236,13 +1274,24 @@ class FedAlgorithm(abc.ABC):
         say so."""
         return self.clients_per_round
 
-    def cost_snapshot(self, state: Any):
+    def cost_snapshot(self, state: Any, whole: bool = False):
         """``(params, mask)`` of one representative client for the
         per-round FLOPs and communication counters: the global model and
         the global mask where the state has them; with per-client masks the
         client whose nonzero count is closest to the cohort's mean (the
         first of a tie), its personal model where there is no global one.
-        Waits on the card (the runner calls it between rounds)."""
+        Waits on the card (the runner calls it between rounds). On a client
+        mesh the per-client masks and personal models it reads are
+        gathered whole first (every rank calls it), unless ``whole`` says
+        the state already is in the single-process layout
+        (:meth:`state_to_global`)."""
+        if self.mesh is not None and not whole:
+            read = [f for f in ("masks", "personal_params")
+                    if getattr(state, f, None) is not None
+                    and (f == "masks" or getattr(state, "global_params",
+                                                 None) is None)]
+            state = dataclasses.replace(state, **{
+                f: self._whole(getattr(state, f)) for f in read})
         params = getattr(state, "global_params", None)
         mask = getattr(state, "mask", None)
         rep = 0
@@ -1309,6 +1358,18 @@ class FedAlgorithm(abc.ABC):
         if inp.mesh_rows is None:
             return range(len(inp.n_valid)), inp.sel
         return inp.mesh_rows.own, inp.mesh_rows.rows
+
+    def _gather_own(self, values: torch.Tensor,
+                    inp: RoundInputs) -> torch.Tensor:
+        """Per-client values this rank computed for the selected clients it
+        trains (``[len(own), ...]``, :meth:`_own`) for every selected
+        client, in draw order, on every rank (one ``all_gather``); off the
+        mesh ``values`` itself. A mean over the round's clients (the train
+        loss) is then the single process's."""
+        mr = inp.mesh_rows
+        if mr is None:
+            return values
+        return gather_rows(self.mesh, values, mr.counts, mr.gather_idx)
 
     @staticmethod
     def _own_draws(x, inp: RoundInputs):
@@ -1596,53 +1657,60 @@ class FedAlgorithm(abc.ABC):
                 None if flips is None else flips[i], n_rows=inp.n_sel[i])
             locals_.append(params)
             losses.append(loss)
-        if inp.mesh_rows is None:
-            return _stack(locals_), torch.stack(losses).mean()
-        # the losses of every selected client, in draw order, then the
-        # single-process mean
-        lo = torch.stack(losses) if losses else torch.zeros(
-            0, device=self.device)
-        all_losses = gather_rows(self.mesh, lo, inp.mesh_rows.counts,
-                                 inp.mesh_rows.gather_idx)
+        # a mesh rank may hold none of the selected clients
         stacked = (_stack(locals_) if locals_ else
                    {k: v.new_empty((0,) + tuple(v.shape))
                     for k, v in global_params.items()})
-        return stacked, all_losses.mean()
+        lo = torch.stack(losses) if losses else torch.zeros(
+            0, device=self.device)
+        # the losses of every selected client, in draw order, then the
+        # single-process mean
+        return stacked, self._gather_own(lo, inp).mean()
 
     def _train_stacked(self, client_update, params: Tree, masks: Tree,
                        inp: RoundInputs, *, leg: int = 1,
                        shared_mask: bool = False,
                        prox_target: Optional[Tree] = None):
-        """Every client of ``inp`` trains its own row of the stacked
-        ``params`` on its own shard, from zero momentum, under its row of
-        the stacked ``masks`` (the one tree ``masks`` with
-        ``shared_mask``), pulled toward ``prox_target`` (one tree) where
-        that is given; ``leg`` 2 draws from the second leg's inputs. The
-        whole-cohort (or sampled-rows) local training of the personalized
-        and decentralized algorithms. Returns (stacked params, stacked
-        momenta, ``[S]`` losses)."""
+        """Every client of ``inp`` this rank trains (:meth:`_own`: all of
+        them off the mesh) trains its own row of the stacked ``params`` on
+        its own shard, from zero momentum, under its row of the stacked
+        ``masks`` (the one tree ``masks`` with ``shared_mask``), pulled
+        toward ``prox_target`` (one tree) where that is given; ``leg`` 2
+        draws from the second leg's inputs. ``params`` and ``masks`` hold
+        those clients' rows, in the order of :meth:`_own`. The whole-cohort
+        (or sampled-rows) local training of the personalized and
+        decentralized algorithms. Returns (stacked params, stacked momenta,
+        losses), each a row per client trained here (:meth:`_gather_own`
+        makes the losses every selected client's)."""
         d = self._round_data(inp)
         perms, dropout = ((inp.perms, inp.dropout) if leg == 1
                           else (inp.perms_2, inp.dropout_2))
+        own, rows = self._own(inp)
         out, moms, losses = [], [], []
-        for i, n in enumerate(inp.n_valid):
+        for j, i in enumerate(own):
             p, m, loss = client_update(
-                {k: v[i].clone() for k, v in params.items()},
-                masks if shared_mask else _row(masks, i), d.x_train,
-                d.y_train, n, inp.sel[i:i + 1], perms[i], inp.lr,
+                {k: v[j].clone() for k, v in params.items()},
+                masks if shared_mask else _row(masks, j), d.x_train,
+                d.y_train, inp.n_valid[i], rows[j:j + 1], perms[i], inp.lr,
                 None if dropout is None else dropout[i],
                 prox_target=prox_target, n_rows=inp.n_sel[i])
             out.append(p)
             moms.append(m)
             losses.append(loss)
+        if not out:  # a mesh rank that holds none of the selected clients
+            empty = {k: v[:0].clone() for k, v in params.items()}
+            return empty, clone_tree(empty), torch.zeros(0,
+                                                         device=self.device)
         return _stack(out), _stack(moms), torch.stack(losses)
 
     def _local_test(self, stacked: Tree) -> Dict[str, torch.Tensor]:
-        """Every client's row of ``stacked`` on its own test shard (the
-        whole cohort, whatever ``eval_clients`` says): DisPFL's local tests
-        around local training, the means of the per-client ratios."""
+        """Every client's row of ``stacked`` (on a client mesh the rank's
+        block) on its own test shard (the whole cohort, whatever
+        ``eval_clients`` says): DisPFL's local tests around local training,
+        the means of the per-client ratios."""
+        lo = self._lo  # a client mesh's rank holds the rows [lo, hi)
         correct, loss_sum = self._eval_terms(
-            range(self.num_clients), lambda c: _row(stacked, c))
+            range(self.num_clients), lambda c: _row(stacked, c - lo))
         totals = torch.clamp(self._n_test_dev, min=1)
         # the reference takes these means in its round program, where XLA
         # turns the division by the client count into a product by its
@@ -1792,6 +1860,16 @@ class FedAlgorithm(abc.ABC):
             self._eval_rows,
             lambda c: {k: v[c - lo] for k, v in personal.items()})
         return _personal_metrics(correct, loss_sum, self._n_test_eval)
+
+    def _mean_mask_density(self, masks: Tree) -> torch.Tensor:
+        """The cohort's mean kernel density of the per-client ``masks``
+        (``ops.sparsity.mean_mask_density``); on a client mesh each rank's
+        clients' densities gathered first, so every rank takes the single
+        process's mean."""
+        if self.mesh is None:
+            return mean_mask_density(masks)
+        dens = self.mesh.all_gather(client_mask_densities(masks))
+        return fraction_f32(dens.reshape(-1).sum(), self.num_clients)
 
     # -- the incremental personal eval, in the state (eval_cache) -------------
     # A round changes only its selected clients' personal models. With

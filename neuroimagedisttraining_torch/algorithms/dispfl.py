@@ -18,6 +18,14 @@ of ``neuroimagedisttraining_tpu/algorithms/dispfl.py``).
 * With ``record_local_tests`` every client's model is tested on its own
   test shard before and after local training ("new mask" and "old mask"
   series: means of the per-client ratios).
+
+On a client mesh each rank holds its block of the models and the masks:
+every rank gathers both stacks whole, contracts the whole ``[C, C]``
+adjacency against them (the single process's products) and keeps its
+block; it trains, screens and evolves its own clients (reading its rows of
+the round's regrow scores), and the per-client terms of the train loss,
+the mask change and the local tests are gathered, so every metric is the
+single process's.
 """
 from __future__ import annotations
 
@@ -37,7 +45,6 @@ from ..ops.sparsity import (
     fraction_f32,
     kernel_flags,
     live_counts,
-    mean_mask_density,
     param_shapes,
     random_masks_from_sparsities,
     regrow_mask,
@@ -65,6 +72,8 @@ DIFF_SPA_RATIOS = (0.2, 0.4, 0.6, 0.8, 1.0)
 class DisPFL(PersonalAlgorithm):
     name = "dispfl"
     supports_fused = True
+    mesh_supported = True
+    row_fields = ("personal_params", "masks")
 
     def __init__(self, *args, dense_ratio: float = 0.5,
                  anneal_factor: float = 0.5, neighbor_mode: str = "random",
@@ -136,9 +145,11 @@ class DisPFL(PersonalAlgorithm):
                    params: Optional[Tree] = None,
                    masks: Optional[Tree] = None) -> DisPFLState:
         """Fresh parameters (or the given ``params``), the initial masks
-        (drawn from ``generator``, or the given stacked ``masks``), and
-        each client's model masked by its own. ``generator`` defaults to
-        one seeded by the run seed and drives init and every later round."""
+        (drawn from ``generator``, or the given stacked ``masks``, ``[C,
+        ...]`` per leaf), and each client's model masked by its own.
+        ``generator`` defaults to one seeded by the run seed and drives init
+        and every later round. On a client mesh every rank draws every
+        client's mask and keeps its block."""
         g = generator if generator is not None else self.generator()
         params = self._fresh_params(g, params)
         if masks is None:
@@ -155,9 +166,9 @@ class DisPFL(PersonalAlgorithm):
                 masks = broadcast_tree(random_masks_from_sparsities(
                     params, lambda n, s: sp[n], g), self.num_clients)
         masks = {k: torch.as_tensor(v).to(self.device, torch.float32)
-                 for k, v in masks.items()}
+                 for k, v in self._block(masks).items()}
         personal = {k: v * masks[k] for k, v in
-                    broadcast_tree(params, self.num_clients).items()}
+                    broadcast_tree(params, self.num_local_clients).items()}
         return DisPFLState(personal_params=personal, masks=masks,
                            generator=g)
 
@@ -185,31 +196,37 @@ class DisPFL(PersonalAlgorithm):
                              inp: RoundInputs) -> Tree:
         """Each active client's mask-count-weighted average of its
         neighbors' models under its own mask; an inactive client's own
-        model."""
+        model (the rank's block on a client mesh, from the contractions of
+        the gathered stacks)."""
         params, masks = state.personal_params, state.masks
-        counts = mix_over_clients(inp.adjacency, masks)
-        sums = mix_over_clients(inp.adjacency, params)
+        counts = self._block(mix_over_clients(inp.adjacency,
+                                              self._whole(masks)))
+        sums = self._block(mix_over_clients(inp.adjacency,
+                                            self._whole(params)))
+        active = self._block(inp.active)
         out = {}
         for k, p in params.items():
             c = counts[k]
             inv = torch.where(c != 0, 1.0 / torch.clamp(c, min=1e-9),
                               torch.zeros_like(c))
             agg = sums[k] * inv * masks[k]
-            act = inp.active.reshape((-1,) + (1,) * (p.dim() - 1))
+            act = active.reshape((-1,) + (1,) * (p.dim() - 1))
             out[k] = torch.where(act, agg, p)
         return out
 
     def _screen_gradients(self, trained: Tree, inp: RoundInputs) -> Tree:
         """Each client's gradient of one dense batch (its screening rows
-        and dropout masks) at its trained model, stacked."""
+        and dropout masks) at its trained model, stacked (the clients this
+        rank trains, :meth:`_own`)."""
         d = self.data
+        own, sel = self._own(inp)
         rows = []
-        for i in range(len(inp.n_valid)):
+        for j, i in enumerate(own):
             names = list(trained)
-            leaves = [trained[k][i].detach().requires_grad_(True)
+            leaves = [trained[k][j].detach().requires_grad_(True)
                       for k in names]
             idx = inp.screen_idx[i]
-            client = inp.sel[i:i + 1]
+            client = sel[j:j + 1]
             xb, yb = d.x_train[client, idx], d.y_train[client, idx]
             drop = (None if inp.screen_dropout is None
                     else inp.screen_dropout[i])
@@ -222,7 +239,8 @@ class DisPFL(PersonalAlgorithm):
                       inp: RoundInputs) -> Tree:
         """Fire at the round's rate, then regrow as many weights per client
         and leaf, by screening-gradient magnitude or the uniform scores."""
-        scores = (inp.regrow_u if self.dis_gradient_check
+        scores = (self._own_draws(inp.regrow_u, inp)
+                  if self.dis_gradient_check
                   else self._screen_gradients(trained, inp))
         before = live_counts(masks, lead=1)
         fired = fire_mask(masks, trained, inp.anneal_rate, lead=1)
@@ -248,8 +266,12 @@ class DisPFL(PersonalAlgorithm):
         if not self.static_masks:
             new_masks = self._evolve_masks(masks, trained, inp)
             trained = {k: v * new_masks[k] for k, v in trained.items()}
-        metrics.update(train_loss=losses.mean(),
-                       mask_change=_hamming_fraction(masks, new_masks))
+        metrics.update(
+            train_loss=self._gather_own(losses, inp).mean(),
+            mask_change=fraction_f32(
+                self._gather_own(_changed_counts(masks, new_masks),
+                                 inp).sum(),
+                _kernel_size(masks) * self.num_clients))
         return dataclasses.replace(state, personal_params=trained,
                                    masks=new_masks), \
             {k: metrics[k] for k in self._round_metric_names}
@@ -258,29 +280,35 @@ class DisPFL(PersonalAlgorithm):
     def evaluate(self, state: DisPFLState) -> Dict[str, Any]:
         ev = self._eval_personal(state.personal_params)
         return {"personal_acc": ev["acc"], "personal_loss": ev["loss"],
-                "mean_mask_density": mean_mask_density(
-                    state.masks),
+                "mean_mask_density": self._mean_mask_density(state.masks),
                 "acc_per_client": ev["acc_per_client"]}
 
     def mask_distance_matrix(self, state: DisPFLState) -> np.ndarray:
         """The pairwise hamming fractions of the clients' masks over the
         kernel leaves, ``[C, C]`` float32 (the original's end-of-run
-        diagnostic)."""
-        flags = kernel_flags(state.masks)
+        diagnostic; on a client mesh of the masks gathered whole, on every
+        rank)."""
+        masks = self._whole(state.masks)
+        flags = kernel_flags(masks)
         live = torch.cat([(m != 0).reshape(m.shape[0], -1)
-                          for k, m in state.masks.items() if flags[k]],
-                         dim=1)
+                          for k, m in masks.items() if flags[k]], dim=1)
         n = live.shape[1]
         rows = [fraction_f32((live[i][None] != live).sum(dim=1), n)
                 for i in range(live.shape[0])]
         return torch.stack(rows).cpu().numpy()
 
 
-def _hamming_fraction(masks_a: Tree, masks_b: Tree) -> torch.Tensor:
-    """The fraction of kernel-leaf coordinates whose liveness changed, over
-    the whole cohort (non-kernel leaves never evolve)."""
+def _changed_counts(masks_a: Tree, masks_b: Tree) -> torch.Tensor:
+    """Per client (row), the kernel-leaf coordinates whose liveness changed
+    (int64; non-kernel leaves never evolve): the mask change is their sum
+    over the cohort over its kernel size."""
     flags = kernel_flags(masks_a)
-    keys = [k for k in masks_a if flags[k]]
-    changed = sum(((masks_a[k] != 0) != (masks_b[k] != 0)).sum()
-                  for k in keys)
-    return fraction_f32(changed, sum(masks_a[k].numel() for k in keys))
+    return sum(((masks_a[k] != 0) != (masks_b[k] != 0))
+               .reshape(masks_a[k].shape[0], -1).sum(dim=1)
+               for k in masks_a if flags[k])
+
+
+def _kernel_size(masks: Tree) -> int:
+    """One client's kernel-leaf coordinates."""
+    flags = kernel_flags(masks)
+    return sum(m[0].numel() for k, m in masks.items() if flags[k])

@@ -9,7 +9,10 @@ the base class's round), and (b) trains its own personal model with the
 pull ``p <- p - lr * lamda * (p - g)`` after every step toward the global
 model from before the round. The global leg takes ``hp``, the personal leg
 ``personal_hp`` (the original's ``--local_epochs``; ``hp`` by default).
-Both legs are the masked SGD kernel over an all-ones mask.
+Both legs are the masked SGD kernel over an all-ones mask. On a client mesh
+the global leg is FedAvg's mesh round (the on-mesh reduce, the robust tier
+with it) and each rank trains the personal rows of the sampled clients it
+holds.
 """
 from __future__ import annotations
 
@@ -44,6 +47,7 @@ class Ditto(FedAlgorithm):
     name = "ditto"
     supports_fused = True
     store_supported = True
+    mesh_supported = True
     _round_metric_names = ("train_loss", "personal_train_loss")
     # the guard protects the global leg's aggregate without reporting
     # its counters, as in the reference
@@ -87,7 +91,7 @@ class Ditto(FedAlgorithm):
                               generator=g)
         return DittoState(
             global_params=params,
-            personal_params=broadcast_tree(params, self.num_clients),
+            personal_params=broadcast_tree(params, self.num_local_clients),
             generator=g)
 
     def _round_mask(self, state: DittoState) -> Tree:
@@ -97,15 +101,17 @@ class Ditto(FedAlgorithm):
         ones = self._round_mask(state)
         new_global, _, mean_loss, _, _ = self._train_selected_weighted(
             state.global_params, ones, inp)
+        rows = self._own(inp)[1]
         trained, _, p_losses = self._train_stacked(
-            self.personal_update, tree_index(state.personal_params, inp.sel),
+            self.personal_update, tree_index(state.personal_params, rows),
             ones, inp, leg=2, shared_mask=True,
             prox_target=state.global_params)
         return dataclasses.replace(
             state, global_params=new_global,
             personal_params=tree_scatter_update(
-                state.personal_params, inp.sel, trained)), \
-            {"train_loss": mean_loss, "personal_train_loss": p_losses.mean()}
+                state.personal_params, rows, trained)), \
+            {"train_loss": mean_loss,
+             "personal_train_loss": self._gather_own(p_losses, inp).mean()}
 
     def evaluate(self, state: DittoState) -> Dict[str, Any]:
         ev_g = self._eval_global(state.global_params)

@@ -9,6 +9,12 @@ gossip step is one row-normalized adjacency contraction over the stacked
 personal models (:func:`core.state.mix_over_clients`). The eval reports the
 cohort's average model on every client's test shard besides the personal
 models.
+
+On a client mesh every rank gathers the whole personal stack, contracts
+the whole ``[C, C]`` matrix against it (the single process's product: a
+block of rows could take another matrix-product algorithm, and so other
+bits) and keeps its block, whose clients it trains; the eval's average is
+over the gathered stack.
 """
 from __future__ import annotations
 
@@ -35,6 +41,7 @@ class DPSGDState:
 class DPSGD(PersonalAlgorithm):
     name = "dpsgd"
     supports_fused = True
+    mesh_supported = True
 
     def __init__(self, *args, neighbor_mode: str = "random", **kwargs):
         self.neighbor_mode = neighbor_mode
@@ -56,7 +63,7 @@ class DPSGD(PersonalAlgorithm):
         g = generator if generator is not None else self.generator()
         params = self._fresh_params(g, params)
         return DPSGDState(
-            personal_params=broadcast_tree(params, self.num_clients),
+            personal_params=broadcast_tree(params, self.num_local_clients),
             generator=g)
 
     def _selected_client_indexes(self, round_idx: int) -> np.ndarray:
@@ -71,17 +78,18 @@ class DPSGD(PersonalAlgorithm):
         a = inp.adjacency
         mixed = mix_over_clients(
             a / torch.clamp(a.sum(dim=1, keepdim=True), min=1.0),
-            state.personal_params)
+            self._whole(state.personal_params))
         trained, _, losses = self._train_stacked(
-            self.client_update, mixed, self._ones_mask(self._template(state)),
-            inp, shared_mask=True)
+            self.client_update, self._block(mixed),
+            self._ones_mask(self._template(state)), inp, shared_mask=True)
         return dataclasses.replace(state, personal_params=trained), \
-            {"train_loss": losses.mean()}
+            {"train_loss": self._gather_own(losses, inp).mean()}
 
     def evaluate(self, state: DPSGDState) -> Dict[str, Any]:
         """The cohort's average model (the original's global average) and
         every personal model."""
-        avg = {k: v.mean(dim=0) for k, v in state.personal_params.items()}
+        avg = {k: v.mean(dim=0) for k, v in
+               self._whole(state.personal_params).items()}
         ev_g = self._eval_global(avg)
         ev_p = self._eval_personal(state.personal_params)
         return {"global_acc": ev_g["acc"], "global_loss": ev_g["loss"],

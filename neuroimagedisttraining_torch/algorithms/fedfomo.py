@@ -14,6 +14,12 @@ it keeps its pre-round model). The unclipped weights accumulate into
 It needs per-client validation shards (``FederatedData.x_val``). The
 neighbor choice reads ``p_choose`` back from the card each round, host
 work that depends on the state: FedFomo has no fused loop.
+
+On a client mesh each rank holds its block of the personal models and of
+``p_choose``'s rows: every rank gathers ``p_choose`` whole and makes the
+same neighbor choice, gathers the pre-round and the trained stacks whole
+(any client may be drawn), and scores and moves its own clients, on their
+own validation shards.
 """
 from __future__ import annotations
 
@@ -42,6 +48,8 @@ class FedFomoState:
 
 class FedFomo(PersonalAlgorithm):
     name = "fedfomo"
+    mesh_supported = True
+    row_fields = ("personal_params", "p_choose")
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
@@ -72,9 +80,9 @@ class FedFomo(PersonalAlgorithm):
         params = self._fresh_params(g, params)
         c = self.num_clients
         return FedFomoState(
-            personal_params=broadcast_tree(params, c),
-            p_choose=torch.ones((c, c), dtype=torch.float32,
-                                device=self.device),
+            personal_params=broadcast_tree(params, self.num_local_clients),
+            p_choose=torch.ones((self.num_local_clients, c),
+                                dtype=torch.float32, device=self.device),
             generator=g)
 
     def _selected_client_indexes(self, round_idx: int) -> np.ndarray:
@@ -108,17 +116,20 @@ class FedFomo(PersonalAlgorithm):
         client's training and its neighbors' scores. ``perms`` /
         ``dropout`` (per client) replace the drawn epoch permutations /
         dropout masks. Returns ``(state, {"train_loss"})``."""
-        nei = self._choose_neighbors(round_idx, state.p_choose.cpu().numpy())
+        nei = self._choose_neighbors(
+            round_idx, self._whole(state.p_choose).cpu().numpy())
         inp, g = self._eager_inputs(state, round_idx,
                                     dict(perms=perms, dropout=dropout))
         new_state, metrics = self._fomo_round(state, inp, nei)
         return dataclasses.replace(new_state, generator=g), metrics
 
     def _val_loss(self, params: Tree, c: int) -> torch.Tensor:
-        """``params``' mean loss on client ``c``'s validation shard."""
+        """``params``' mean loss on client ``c``'s validation shard (a
+        client this rank holds)."""
         d = self.data
-        _, loss_sum, total = self.eval_client(params, d.x_val[c], d.y_val[c],
-                                              self._n_val[c])
+        _, loss_sum, total = self.eval_client(
+            params, d.x_val[c - self._lo], d.y_val[c - self._lo],
+            self._n_val[c])
         return loss_sum / max(total, 1)
 
     def _fomo_round(self, state: FedFomoState, inp: RoundInputs,
@@ -126,15 +137,18 @@ class FedFomo(PersonalAlgorithm):
         """The round on the card for the host's neighbor ids ``nei`` ``[C,
         K + 1]``: per client, its neighbors in turn with one delta live at
         a time (the reference's scan), the positively clipped weighted
-        deltas accumulated, then normalized once."""
-        lstrd = state.personal_params  # the pre-round snapshot
+        deltas accumulated, then normalized once. On a client mesh the
+        clients this rank holds, from the gathered stacks."""
         trained, _, losses = self._train_stacked(
-            self.client_update, lstrd, self._ones_mask(self._template(state)),
-            inp, shared_mask=True)
+            self.client_update, state.personal_params,
+            self._ones_mask(self._template(state)), inp, shared_mask=True)
+        # the pre-round snapshot and the trained models of every client
+        lstrd = self._whole(state.personal_params)
+        trained = self._whole(trained)
         names = reference_leaf_order(lstrd)
-        c = self.num_clients
+        lo, hi = self._lo, self._hi
         rows, weights = [], []
-        for i in range(c):
+        for i in range(lo, hi):
             base = _row(lstrd, i)
             self_loss = self._val_loss(base, i)
             acc = {k: torch.zeros_like(v) for k, v in base.items()}
@@ -158,13 +172,14 @@ class FedFomo(PersonalAlgorithm):
             weights.append(torch.stack(ws))
         # the unclipped weights accumulate over the visited neighbors (a
         # neighbor drawn twice adds twice)
-        idx = _to_device(nei.astype(np.int64), self.device)
-        ii = torch.arange(c, device=self.device)[:, None].expand_as(idx)
+        idx = _to_device(nei[lo:hi].astype(np.int64), self.device)
+        ii = torch.arange(hi - lo, device=self.device)[:, None].expand_as(idx)
         upd = torch.zeros_like(state.p_choose).index_put(
             (ii, idx), torch.stack(weights), accumulate=True)
         return dataclasses.replace(
             state, personal_params=_stack(rows),
-            p_choose=state.p_choose + upd), {"train_loss": losses.mean()}
+            p_choose=state.p_choose + upd), \
+            {"train_loss": self._gather_own(losses, inp).mean()}
 
     def evaluate(self, state: FedFomoState) -> Dict[str, Any]:
         ev = self._eval_personal(state.personal_params)

@@ -4,7 +4,8 @@
 Each round the sampled clients continue training their own personal models
 on their own shards; nothing is aggregated. The local update is the masked
 SGD kernel over an all-ones mask, built once (the reference's fused
-spelling of plain SGD).
+spelling of plain SGD). On a client mesh each rank trains the sampled
+clients it holds; only the train loss is gathered.
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ class LocalOnlyState:
 class LocalOnly(PersonalAlgorithm):
     name = "local"
     supports_fused = True
+    mesh_supported = True
 
     def _build(self) -> None:
         self.client_update = make_client_update(
@@ -43,18 +45,18 @@ class LocalOnly(PersonalAlgorithm):
         g = generator if generator is not None else self.generator()
         params = self._fresh_params(g, params)
         return LocalOnlyState(
-            personal_params=broadcast_tree(params, self.num_clients),
+            personal_params=broadcast_tree(params, self.num_local_clients),
             generator=g)
 
     def _round_body(self, state: LocalOnlyState, inp: RoundInputs):
-        rows = tree_index(state.personal_params, inp.sel)
+        rows = self._own(inp)[1]
         trained, _, losses = self._train_stacked(
-            self.client_update, rows, self._ones_mask(self._template(state)),
-            inp, shared_mask=True)
+            self.client_update, tree_index(state.personal_params, rows),
+            self._ones_mask(self._template(state)), inp, shared_mask=True)
         return dataclasses.replace(
             state, personal_params=tree_scatter_update(
-                state.personal_params, inp.sel, trained)), \
-            {"train_loss": losses.mean()}
+                state.personal_params, rows, trained)), \
+            {"train_loss": self._gather_own(losses, inp).mean()}
 
     def evaluate(self, state: LocalOnlyState) -> Dict[str, Any]:
         ev = self._eval_personal(state.personal_params)

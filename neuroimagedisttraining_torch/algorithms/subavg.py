@@ -11,6 +11,11 @@ its own train shard passes ``acc_thresh``. The server then averages each
 coordinate over the clients whose mask (from before the round) holds it,
 and keeps its previous value where none does. The eval tests the global
 model under each client's mask on that client's test shard.
+
+On a client mesh each rank holds its block of the masks and runs the
+sampled clients it holds (both legs, the prune and the gates); the trained
+rows and the old masks of every sampled client are gathered in draw order,
+and every rank takes the same quotient the single process takes.
 """
 from __future__ import annotations
 
@@ -31,7 +36,6 @@ from ..core.trainer import make_client_update
 from ..ops.sparsity import (
     magnitude_prune_mask,
     mask_density_f32,
-    mean_mask_density,
     mask_distance,
 )
 from .base import PersonalAlgorithm, RoundInputs, _personal_metrics, _row
@@ -49,7 +53,9 @@ class SubAvgState:
 class SubAvg(PersonalAlgorithm):
     name = "subavg"
     supports_fused = True
+    mesh_supported = True
     masks_evolve = True
+    row_fields = ("masks",)
 
     def __init__(self, *args, each_prune_ratio: float = 0.2,
                  dist_thresh: float = 0.001, acc_thresh: float = 0.5,
@@ -87,15 +93,16 @@ class SubAvg(PersonalAlgorithm):
         g = generator if generator is not None else self.generator()
         params = self._fresh_params(g, params)
         masks = broadcast_tree({k: torch.ones_like(v) for k, v in
-                                params.items()}, self.num_clients)
+                                params.items()}, self.num_local_clients)
         return SubAvgState(global_params=params, masks=masks, generator=g)
 
     def _client_round(self, global_params: Tree, mask: Tree, inp: RoundInputs,
-                      i: int):
-        """Selected client ``i``: both legs, both candidate masks, the
-        accept gates. Returns (its model, its new mask, its mean loss)."""
+                      i: int, client: torch.Tensor):
+        """Selected client ``i`` (its data row ``client``, ``[1]`` on the
+        device): both legs, both candidate masks, the accept gates. Returns
+        (its model, its new mask, its mean loss)."""
         d = self.data
-        n, client = inp.n_valid[i], inp.sel[i:i + 1]
+        n = inp.n_valid[i]
         count = inp.n_sel[i]  # the sample count, on the device
         drop = None if inp.dropout is None else inp.dropout[i]
         start = {k: v * mask[k] for k, v in global_params.items()}
@@ -126,14 +133,26 @@ class SubAvg(PersonalAlgorithm):
         return new_params, new_mask, loss
 
     def _round_body(self, state: SubAvgState, inp: RoundInputs):
-        masks_sel = tree_index(state.masks, inp.sel)
-        rows = [self._client_round(state.global_params, _row(masks_sel, i),
-                                   inp, i)
-                for i in range(len(inp.n_valid))]
-        trained = {k: torch.stack([r[0][k] for r in rows])
-                   for k in state.global_params}
-        new_masks = {k: torch.stack([r[1][k] for r in rows])
-                     for k in state.masks}
+        own, rows = self._own(inp)
+        masks_sel = tree_index(state.masks, rows)
+        out = [self._client_round(state.global_params, _row(masks_sel, j),
+                                  inp, i, rows[j:j + 1])
+               for j, i in enumerate(own)]
+        if out:
+            trained = {k: torch.stack([r[0][k] for r in out])
+                       for k in state.global_params}
+            new_masks = {k: torch.stack([r[1][k] for r in out])
+                         for k in state.masks}
+            losses = torch.stack([r[2] for r in out])
+        else:  # a mesh rank that holds none of the sampled clients
+            trained = {k: masks_sel[k].clone() for k in state.global_params}
+            new_masks = {k: v.clone() for k, v in masks_sel.items()}
+            losses = torch.zeros(0, device=self.device)
+        masks = tree_scatter_update(state.masks, rows, new_masks)
+        mr = inp.mesh_rows
+        if mr is not None:  # every sampled client's rows, in draw order
+            trained = self._gather_selected(trained, mr)
+            masks_sel = self._gather_selected(masks_sel, mr)
         # the counts are the masks from before the round, as the original
         # appends each client's mask before updating it
         new_global = {}
@@ -141,19 +160,18 @@ class SubAvg(PersonalAlgorithm):
             c, s = row_sum(masks_sel[k]), row_sum(trained[k])
             new_global[k] = torch.where(c > 0, s / torch.clamp(c, min=1e-9),
                                         srv)
-        return dataclasses.replace(
-            state, global_params=new_global,
-            masks=tree_scatter_update(state.masks, inp.sel, new_masks)), \
-            {"train_loss": torch.stack([r[2] for r in rows]).mean()}
+        return dataclasses.replace(state, global_params=new_global,
+                                   masks=masks), \
+            {"train_loss": self._gather_own(losses, inp).mean()}
 
     def evaluate(self, state: SubAvgState) -> Dict[str, Any]:
         """The global model under each evaluated client's mask on that
         client's test shard."""
-        g, masks = state.global_params, state.masks
+        g, masks, lo = state.global_params, state.masks, self._lo
         correct, loss_sum = self._eval_terms(
             self._eval_rows,
-            lambda c: {k: v * masks[k][c] for k, v in g.items()})
+            lambda c: {k: v * masks[k][c - lo] for k, v in g.items()})
         ev = _personal_metrics(correct, loss_sum, self._n_test_eval)
         return {"personal_acc": ev["acc"], "personal_loss": ev["loss"],
-                "mean_mask_density": mean_mask_density(masks),
+                "mean_mask_density": self._mean_mask_density(masks),
                 "acc_per_client": ev["acc_per_client"]}

@@ -13,6 +13,11 @@ The secret-sharing transport is host numpy int64 field arithmetic
 one ``[S, N]`` matrix in the reference's flat layout, and the sum goes back
 to the card as float32. So a round waits on the card, and TurboAggregate
 has no fused loop.
+
+On a client mesh each rank trains the sampled clients it holds, the trained
+rows are gathered in draw order, and every rank runs the secure sum over
+the gathered ``[S, N]`` matrix: its shares come from one generator, client
+after client, so the sum cannot be split by rank.
 """
 from __future__ import annotations
 
@@ -38,6 +43,7 @@ class TurboAggregateState:
 
 class TurboAggregate(FedAlgorithm):
     name = "turboaggregate"
+    mesh_supported = True
 
     def __init__(self, *args, n_groups: int = 3, quant_scale: int = 2 ** 16,
                  prime: int = mpc.DEFAULT_PRIME, **kwargs):
@@ -106,6 +112,8 @@ class TurboAggregate(FedAlgorithm):
     def _round_body(self, state: TurboAggregateState, inp: RoundInputs):
         stacked, mean_loss = self._train_clients(
             state.global_params, self._ones_mask(state.global_params), inp)
+        if inp.mesh_rows is not None:  # every sampled client, in draw order
+            stacked = self._gather_selected(stacked, inp.mesh_rows)
         w = np.asarray(inp.n_valid, np.float64)
         new_global = self._secure_weighted_sum(stacked, w / w.sum())
         return dataclasses.replace(state, global_params=new_global), \

@@ -100,8 +100,6 @@ _UNPORTED = {
 #: attribute -> the values of it the port runs, where that is not just the
 #: parser's default (1 depth shard is the default's behavior)
 _ALLOWED = {"mesh_space": (0, 1)}
-#: the algorithms whose round runs on a client mesh
-_MESH_ALGOS = ("salientgrads", "fedavg")
 #: the algorithms with a central aggregate the guard, the faults and the
 #: robust statistics act on (the JAX CLI's list; the port runs all three)
 _CENTRAL = ("fedavg", "salientgrads", "ditto")
@@ -150,35 +148,24 @@ def _mesh_devices_asked(args: argparse.Namespace) -> int:
     return min(asked or avail, avail)
 
 
-def _mesh_rest(args: argparse.Namespace, algo_name: str):
-    """What the flags ask for that the client mesh does not run (ROADMAP
-    item 7, the rest: the algorithms but SalientGrads and FedAvg, and the
-    client store), or an empty list."""
-    what = []
-    if algo_name not in _MESH_ALGOS:
-        what.append(f"--algo {algo_name}")
-    if getattr(args, "client_store", "device") != "device":
-        what.append("--client_store")
-    return what
-
-
 def client_mesh_size(args: argparse.Namespace, algo_name: str) -> int:
     """The ranks of the run's client mesh, sized as the JAX CLI's
     ``maybe_shard`` sizes it: the largest count up to the devices asked for
     (:func:`_mesh_devices_asked`) that divides ``--client_num_in_total``; 1
-    is no mesh. An explicit ``--mesh_devices`` above 1 with a flag the mesh
-    does not run is refused (ROADMAP item 7, the rest); with the default 0
-    such a run keeps one device."""
+    is no mesh. Every algorithm runs there; an explicit ``--mesh_devices``
+    above 1 with ``--client_store``, which the mesh does not run, is
+    refused (ROADMAP item 7, the client store on the mesh); with the
+    default 0 such a run keeps one device."""
     from ..parallel.mesh import fit_client_devices
 
     asked = _mesh_devices_asked(args)
-    rest = _mesh_rest(args, algo_name)
-    if asked > 1 and rest:
+    if asked > 1 and getattr(args, "client_store", "device") != "device":
         if getattr(args, "mesh_devices", 0):
             raise SystemExit(
-                f"--mesh_devices {args.mesh_devices}: {', '.join(rest)} on "
-                "a client mesh is not ported to PyTorch yet (ROADMAP item 7 "
-                "(the rest)); drop the flag, or run on one device")
+                f"--mesh_devices {args.mesh_devices}: --client_store on a "
+                "client mesh is not ported to PyTorch yet (ROADMAP item 7, "
+                "the client store on the mesh); drop one of the two flags, "
+                "or run on one device")
         return 1
     return fit_client_devices(args.client_num_in_total, asked)
 
@@ -828,8 +815,8 @@ def run_experiment(args: argparse.Namespace,
     one): the eager loop or, with ``--fuse_rounds``, the fused one
     (:func:`_run_fused_rounds`), the same on every rank, with the
     checkpoints (every rank saves and restores together, rank 0 writes) and
-    the watchdog (rank 0's verdict on every rank); what :func:`_mesh_rest`
-    lists is refused before any work."""
+    the watchdog (rank 0's verdict on every rank); a client store there is
+    refused before any work (:func:`client_mesh_size`)."""
     from .. import resolve_device
     from ..convert import to_reference_layout
     from ..robust import recovery
@@ -1062,12 +1049,18 @@ def run_experiment(args: argparse.Namespace,
                           if k not in ("round", "finetune")}
         if final_eval is None:  # the last round was not an eval round
             final_eval = algo.evaluate(state)
+        save_masks = getattr(args, "save_masks", False) and \
+            hasattr(state, "masks")
+        # the end-of-run records read every client's rows: on a client mesh
+        # each rank gathers them (all take part, so all ask alike)
+        whole = (algo.state_to_global(state)
+                 if args.results_dir or save_masks else state)
         extras = {}
-        if getattr(args, "save_masks", False) and hasattr(state, "masks"):
+        if save_masks:
             # the final masks, as booleans in the reference's layout
             extras["final_masks"] = {
                 k: to_reference_layout(k, m, lead=1).cpu().numpy() != 0
-                for k, m in state.masks.items()}
+                for k, m in whole.masks.items()}
         if getattr(args, "record_mask_diff", False) and \
                 hasattr(algo, "mask_distance_matrix"):
             extras["mask_distance_matrix"] = algo.mask_distance_matrix(
@@ -1075,8 +1068,8 @@ def run_experiment(args: argparse.Namespace,
         avg_inf = 0.0
         if args.results_dir and lead:
             avg_inf = avg_inference_flops(
-                algo.model, state, algo.init_sample_shape, algo.num_clients,
-                algo.cost_snapshot)
+                algo.model, whole, algo.init_sample_shape, algo.num_clients,
+                functools.partial(algo.cost_snapshot, whole=True))
         fault_totals = counters.summary()
         if watchdog is not None:
             fault_totals.update(watchdog.totals())

@@ -591,14 +591,21 @@ def mask_density_f32(tree: Tree, lead: int = 0) -> torch.Tensor:
     return fraction_f32(nnz, sum(_rows(t, lead).shape[-1] for t in leaves))
 
 
-def mean_mask_density(masks: Tree) -> torch.Tensor:
-    """The mean over clients of the stacked masks' kernel densities, in
-    float32, as the reference's eval computes it outside its round program:
-    each client's fraction a true division, their mean (a jitted reduction)
-    the sum times the float32 reciprocal of the client count."""
+def client_mask_densities(masks: Tree) -> torch.Tensor:
+    """Each client's kernel density of the stacked masks, ``[C]`` float32,
+    a true division of its live count by its kernel size."""
     flags = kernel_flags(masks)
     leaves = [masks[k] for k in reference_leaf_order(masks) if flags[k]]
     nnz = sum(_rows(t != 0, 1).sum(-1) for t in leaves).to(torch.float32)
     tot = sum(_rows(t, 1).shape[-1] for t in leaves)
-    dens = nnz / _scalar(tot, nnz.device)
+    return nnz / _scalar(tot, nnz.device)
+
+
+def mean_mask_density(masks: Tree) -> torch.Tensor:
+    """The mean over clients of the stacked masks' kernel densities, in
+    float32, as the reference's eval computes it outside its round program:
+    each client's fraction (:func:`client_mask_densities`), their mean (a
+    jitted reduction) the sum times the float32 reciprocal of the client
+    count."""
+    dens = client_mask_densities(masks)
     return fraction_f32(dens.sum(), dens.shape[0])

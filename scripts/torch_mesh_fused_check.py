@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Fused round blocks on a client mesh of several processes, for the
 PyTorch/CUDA port: each block bitwise the same rounds run eagerly, and the
-rates of both spellings; the robust tier's blocks likewise, and a
-checkpoint resumed on the mesh bitwise its uninterrupted run.
+rates of both spellings; the robust tier's blocks and the seven other
+algorithms' likewise, and checkpoints resumed on the mesh bitwise their
+uninterrupted runs.
 
     python3 scripts/torch_mesh_fused_check.py [--ranks 4] [--rounds 3]
-        [--device cuda|cpu] [--cases all|plain|robust] [--out PATH]
+        [--device cuda|cpu] [--cases all|plain|robust|baselines]
+        [--out PATH]
 
 Spawns ``--ranks`` processes joined over a ``file://`` rendezvous: on
 ``cuda`` one a card over NCCL (the main configuration of ``chip_smoke.py``
@@ -38,6 +40,14 @@ case's ``--rounds`` eager rounds with a checkpoint after round 0 (every
 rank saving, rank 0 writing the single-process layout), and a fresh
 algorithm restoring it and running the rest, bitwise the uninterrupted
 rounds on every rank.
+
+``--cases baselines`` (or ``all``) runs each of :data:`BASELINE_CASES`
+(Local, Ditto, SubAvg, DPSGD, DisPFL, FedFomo, TurboAggregate, from their
+own init): the same for the five with a fused loop; FedFomo and
+TurboAggregate, whose host work reads the round's results, their eager
+rounds and eager rates alone (FedFomo on the last tenth of each shard as
+its validation rows). Then DisPFL's checkpoint check, as the top-k
+case's.
 
 Rank 0 prints one JSON line per case and a last line with the cards' name
 and power limit (``nvidia-smi``), and writes them all to ``--out``. Exits
@@ -78,6 +88,20 @@ ROBUST_CASES = (
 )
 #: the robust case the checkpoint check resumes
 CKPT_CASE = "salientgrads_topk_nan"
+#: (name, algorithm class, options): the seven algorithms besides
+#: SalientGrads and FedAvg at ``chip_smoke.py``'s mesh configurations
+BASELINE_CASES = (
+    ("local", "LocalOnly", dict(frac=0.5)),
+    ("ditto", "Ditto", dict()),
+    ("subavg", "SubAvg", dict(frac=0.5, dense_ratio=0.5, epochs=2)),
+    ("dpsgd", "DPSGD", dict(frac=0.5)),
+    ("dispfl", "DisPFL", dict(frac=0.5, dense_ratio=0.5, total_rounds=10)),
+    ("fedfomo", "FedFomo", dict()),
+    ("turboaggregate", "TurboAggregate", dict()),
+)
+#: the baseline the checkpoint check resumes, and FedFomo's validation
+#: share of each shard
+BASELINE_CKPT, FOMO_VAL_FRACTION = "dispfl", 0.1
 N_CLIENTS, SAMPLES, TEST, BATCH, STEPS = 8, 40, 10, 8, 5
 VOLUME = (121, 145, 121)
 COLLECTIVE_TIMEOUT_S = 120
@@ -262,19 +286,65 @@ def _robust_state(algo, case, state0):
                       if case[2] == "topk" else None))
 
 
+def _baseline_algo(case, data, model, hp, dev):
+    """The algorithm of a :data:`BASELINE_CASES` entry (bf16 compute, run
+    seed 0; FedFomo on its validation split)."""
+    import dataclasses
+
+    import torch
+
+    from neuroimagedisttraining_torch import algorithms
+
+    _, cls_name, opts = case
+    kw = {k: v for k, v in opts.items() if k != "epochs"}
+    if "epochs" in opts:
+        hp = dataclasses.replace(hp, local_epochs=opts["epochs"])
+    if cls_name == "FedFomo":
+        n = data.x_train.shape[1]
+        nv = max(1, int(FOMO_VAL_FRACTION * n))
+        c = len(data.n_train)
+        data = dataclasses.replace(
+            data, x_train=data.x_train[:, :n - nv],
+            y_train=data.y_train[:, :n - nv],
+            n_train=torch.full((c,), n - nv, dtype=torch.int32),
+            x_val=data.x_train[:, n - nv:], y_val=data.y_train[:, n - nv:],
+            n_val=torch.full((c,), nv, dtype=torch.int32))
+    return getattr(algorithms, cls_name)(
+        model(), data, hp, loss_type="bce", seed=0,
+        compute_dtype="bfloat16", device=dev, **kw)
+
+
+def _eager_case(algo, state, rounds, dev, mesh, note):
+    """An algorithm without a fused loop on this rank: its eager rounds
+    with the eval after each, timed twice (the slowest rank's rate)."""
+    rates = []
+    for _ in range(2):
+        t0, s = _clock(dev, mesh), state
+        for r in range(rounds):
+            s, _ = algo.run_round(s, r)
+            algo.evaluate(s)
+        rates.append(rounds / _clock(dev, mesh, t0))
+        note("eager rounds")
+    return {"bitwise": True, "fused": False, "rounds_per_sec_eager": rates}
+
+
 def _ckpt_check(case, data, model, hp, dev, state0, rounds, directory,
-                note):
+                note, build=None):
     """The checkpoint check (module docstring): whether the resumed rounds
     are bitwise the uninterrupted ones on this rank, and the save's and
-    the restore's seconds."""
+    the restore's seconds; a baseline's (``build`` its algorithm) from its
+    own init."""
     import torch
 
     from neuroimagedisttraining_torch.utils.checkpoint import \
         CheckpointManager
 
-    a = _robust_algo(case, data, model, hp, dev)
-    mgr = CheckpointManager(os.path.join(directory, "ck"), layout=a)
-    s = _robust_state(a, case, state0)
+    build = build or _robust_algo
+    a = build(case, data, model, hp, dev)
+    mgr = CheckpointManager(os.path.join(directory, "ck_" + case[0]),
+                            layout=a)
+    s = (a.init_state() if build is not _robust_algo
+         else _robust_state(a, case, state0))
     save_s = None
     for r in range(rounds):
         s, _ = a.run_round(s, r)
@@ -283,8 +353,9 @@ def _ckpt_check(case, data, model, hp, dev, state0, rounds, directory,
             mgr.save(1, s)
             save_s = time.perf_counter() - t0
     note("checkpoint: uninterrupted rounds")
-    b = _robust_algo(case, data, model, hp, dev)
-    mgr_b = CheckpointManager(os.path.join(directory, "ck"), layout=b)
+    b = build(case, data, model, hp, dev)
+    mgr_b = CheckpointManager(os.path.join(directory, "ck_" + case[0]),
+                              layout=b)
     t0 = time.perf_counter()
     r_state, step = mgr_b.restore_latest(b.init_state())
     _sync(dev)
@@ -340,38 +411,57 @@ def _rank(rank, world, directory, device, rounds, which="all"):
                                 compute_dtype="bfloat16", agg_impl=impl,
                                 device=dev)
 
-        t0 = _clock(dev, mesh)
-        state0 = algo("dense", 1.0).init_state()
-        snip_s = _clock(dev, mesh, t0)
-        note(f"SNIP {snip_s:.3f} s")
+        state0 = snip_s = None
+        if which != "baselines":  # the baselines start from their own init
+            t0 = _clock(dev, mesh)
+            state0 = algo("dense", 1.0).init_state()
+            snip_s = _clock(dev, mesh, t0)
+            note(f"SNIP {snip_s:.3f} s")
         out = []
-        todo = [] if which == "robust" else [
-            ((impl, frac), algo(impl, frac), None) for impl, frac in CASES]
-        if which != "plain":
-            todo += [((c[0], 1.0), _robust_algo(c, data, model, hp, dev), c)
+        todo = [] if which not in ("all", "plain") else [
+            ((impl, frac), lambda impl=impl, frac=frac: algo(impl, frac),
+             None) for impl, frac in CASES]
+        if which in ("all", "robust"):
+            todo += [((c[0], 1.0),
+                      lambda c=c: _robust_algo(c, data, model, hp, dev), c)
                      for c in ROBUST_CASES]
-        for (impl, frac), a, case in todo:
+        if which in ("all", "baselines"):
+            todo += [((c[0], c[2].get("frac", 1.0)),
+                      lambda c=c: _baseline_algo(c, data, model, hp, dev),
+                      c) for c in BASELINE_CASES]
+        for (impl, frac), make, case in todo:
+            a = make()
+            baseline = case is not None and case in BASELINE_CASES
             start = (a.clone_state(state0) if case is None
+                     else a.init_state() if baseline
                      else _robust_state(a, case, state0))
-            rec = _case(a, start, rounds, dev, mesh,
-                        lambda w: note(f"{impl} {frac}: {w}"))
+            run = (_case if not baseline or a.supports_fused
+                   else _eager_case)
+            rec = run(a, start, rounds, dev, mesh,
+                      lambda w: note(f"{impl} {frac}: {w}"))
             # NCCL keeps a communicator while a graph holding its
             # collectives lives: drop them before the mesh goes
             a.release_graphs()
             flags = torch.tensor([int(rec["bitwise"])], device=dev)
             dist.all_reduce(flags, op=dist.ReduceOp.MIN, group=mesh.group)
-            rec.update(agg_impl=impl if case is None else case[2],
+            rec.update(agg_impl=(impl if case is None else None if baseline
+                                 else case[2]),
                        case=None if case is None else case[0],
                        frac=frac, ranks=world,
                        backend=mesh.backend, rounds=rounds, snip_s=snip_s,
                        bitwise_every_rank=bool(flags.item()),
                        block=[a._lo, a._hi])
             out.append(rec)
-        if which != "plain":
-            rec = _ckpt_check(
-                dict((c[0], c) for c in ROBUST_CASES)[CKPT_CASE], data,
-                model, hp, dev, state0, rounds, directory,
-                lambda w: note(w))
+        checks = []
+        if which in ("all", "robust"):
+            checks.append((dict((c[0], c) for c in ROBUST_CASES)[CKPT_CASE],
+                           None))
+        if which in ("all", "baselines"):
+            checks.append((dict((c[0], c) for c in BASELINE_CASES)
+                           [BASELINE_CKPT], _baseline_algo))
+        for case, build in checks:
+            rec = _ckpt_check(case, data, model, hp, dev, state0, rounds,
+                              directory, lambda w: note(w), build)
             flags = torch.tensor([int(rec["checkpoint_resumed_bitwise"])],
                                  device=dev)
             dist.all_reduce(flags, op=dist.ReduceOp.MIN, group=mesh.group)
@@ -407,8 +497,8 @@ def main() -> int:
     ap.add_argument("--ranks", type=int, default=4)
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
-    ap.add_argument("--cases", choices=("all", "plain", "robust"),
-                    default="all")
+    ap.add_argument("--cases", choices=("all", "plain", "robust",
+                                        "baselines"), default="all")
     ap.add_argument("--out", default="")
     args = ap.parse_args()
     if args.device == "cuda":

@@ -691,3 +691,204 @@ def save_failure_case(mesh, case, directory, rounds=2):
         done.append(mgr.save(r + 1, state))
     return dict(failures=mgr.save_failures, done=done,
                 steps=mgr.all_steps(), writes=len(calls))
+
+
+# -- the other seven algorithms on the mesh ----------------------------------
+
+#: the personal cases' algorithm classes, by CLI name
+_PERSONAL_CLASSES = {"local": "LocalOnly", "ditto": "Ditto",
+                     "subavg": "SubAvg", "dpsgd": "DPSGD",
+                     "dispfl": "DisPFL", "fedfomo": "FedFomo",
+                     "turboaggregate": "TurboAggregate"}
+
+
+def personal_cohort(case):
+    """The cohort of a personal case (a dict: ``algo``, ``data_seed``,
+    ``frac``, and optionally ``epochs``, ``personal_epochs``, ``val``,
+    ``opts``; see ``tests/test_torch_port_mesh_personal.py``): 8 synthetic
+    clients of 8 train and 4 test rows (``val`` validation rows), 8x8x8
+    volumes, and the step count of a batch of 4."""
+    from neuroimagedisttraining_torch.data import make_synthetic_federated
+
+    data = make_synthetic_federated(
+        seed=case["data_seed"], n_clients=8, samples_per_client=8,
+        test_per_client=4, val_per_client=case.get("val", 0),
+        sample_shape=(8, 8, 8, 1))
+    return data, -(-int(np.max(np.asarray(data.n_train))) // 4)
+
+
+def build_personal_algo(case, mesh=None):
+    """The algorithm of a personal case on ``small3dcnn`` (no dropout), run
+    seed 0, its data sharded over ``mesh`` when given: the round tests'
+    hyperparameters at ``case["epochs"]`` local epochs (Ditto's personal
+    leg at ``case["personal_epochs"]``)."""
+    import dataclasses
+
+    from neuroimagedisttraining_torch import algorithms
+    from neuroimagedisttraining_torch.core.state import HyperParams
+    from neuroimagedisttraining_torch.models import create_model
+    from neuroimagedisttraining_torch.parallel.mesh import shard_federated
+
+    data, spe = personal_cohort(case)
+    if mesh is not None:
+        data = shard_federated(data, mesh)
+    hp = HyperParams(lr=0.01, lr_decay=0.998, momentum=0.9,
+                     weight_decay=5e-4, grad_clip=10.0,
+                     local_epochs=case.get("epochs", 1), steps_per_epoch=spe,
+                     batch_size=4)
+    torch.manual_seed(0)
+    model = create_model("small3dcnn", num_classes=1, dropout_rate=0.0)
+    kw = dict(case.get("opts", {}))
+    if case["algo"] == "ditto" and case.get("personal_epochs"):
+        kw["personal_hp"] = dataclasses.replace(
+            hp, local_epochs=case["personal_epochs"])
+    cls = getattr(algorithms, _PERSONAL_CLASSES[case["algo"]])
+    return cls(model, data, hp, loss_type="bce", frac=case["frac"], seed=0,
+               device="cpu", **kw)
+
+
+def _np_fields(state):
+    """Every tensor field of a state (a tree or a tensor) as numpy, by
+    field name; the generator left out."""
+    import dataclasses
+
+    out = {}
+    for f in dataclasses.fields(state):
+        v = getattr(state, f.name)
+        if isinstance(v, dict):
+            out[f.name] = _np_tree(v)
+        elif isinstance(v, torch.Tensor):
+            out[f.name] = v.detach().numpy()
+    return out
+
+
+def _personal_init(a, init):
+    """``a``'s initial state, from ``init`` (numpy ``params`` and, for
+    DisPFL, the whole ``[C, ...]`` ``masks``) where given."""
+    if init is None:
+        return a.init_state()
+    kw = dict(params=_tensors(init["params"]))
+    if init.get("masks") is not None:
+        kw["masks"] = _tensors(init["masks"])
+    return a.init_state(**kw)
+
+
+def personal_case(mesh, case, rounds=2, seams=None, init=None, fused=False,
+                  record=False):
+    """A personal case on the mesh: ``rounds`` eager rounds from the
+    initial state (``init``, or the algorithm's own): the state before each
+    and after the last, the metrics, the eval after each. ``seams`` (per
+    round, a dict of ``run_round``'s seams) replace the port's draws. With
+    ``fused`` the same rounds as one fused block from the same state (the
+    eval every round). With ``record`` (FedFomo) each round's validation
+    losses in call order and the trained rows of the rank's clients."""
+    a = build_personal_algo(case, mesh)
+    state = _personal_init(a, init)
+    vals, trained = [], []
+    if record:
+        val_loss, train_stacked = a._val_loss, a._train_stacked
+
+        def record_loss(params, i):
+            out = val_loss(params, i)
+            vals[-1].append(float(out))
+            return out
+
+        def record_trained(*args, **kw):
+            out = train_stacked(*args, **kw)
+            trained.append(_np_tree(out[0]))
+            return out
+
+        a._val_loss, a._train_stacked = record_loss, record_trained
+    e, states, mets, evals = a.clone_state(state), [], [], []
+    for r in range(rounds):
+        states.append(_np_fields(e))
+        vals.append([])
+        e, met = a.run_round(e, r, **_seam_round(seams, r))
+        mets.append({k: np.asarray(v) for k, v in met.items()})
+        evals.append(_evals_np(a.evaluate(e)))
+    states.append(_np_fields(e))
+    out = dict(states=states, mets=mets, evals=evals, lo=a._lo, hi=a._hi)
+    if record:
+        out.update(vals=vals, trained=trained)
+    if fused:
+        f, ys = a.run_rounds_fused(
+            state, 0, rounds, eval_every=1,
+            seams=None if seams is None else [dict(x) for x in seams])
+        ys = ys.materialize()
+        out["fused"] = _np_fields(f)
+        out["ys"] = {k: np.asarray(v) for k, v in ys.items() if k != "eval"}
+        out["ys_eval"] = {k: np.asarray(v) for k, v in ys["eval"].items()}
+    return out
+
+
+def _join_fields(algo, ranks, key):
+    """The mesh's state ``key`` in the single-process layout: the ranks'
+    blocks of each row field joined, the replicated fields rank 0's."""
+    out = dict(ranks[0]["states"][key])
+    for f in algo.row_fields:
+        if out.get(f) is None:
+            continue
+        blocks = [r["states"][key][f] for r in ranks]
+        out[f] = ({k: np.concatenate([b[k] for b in blocks])
+                   for k in blocks[0]} if isinstance(blocks[0], dict)
+                  else np.concatenate(blocks))
+    return out
+
+
+def _personal_at(state, fields):
+    """``state`` with every tensor field from ``fields`` (numpy)."""
+    import dataclasses
+
+    return dataclasses.replace(state, **{
+        f: (_tensors(v) if isinstance(v, dict) else torch.from_numpy(v))
+        for f, v in fields.items()})
+
+
+def replay_personal(case, ranks, rounds=2, seams=None, init=None):
+    """The mesh run ``ranks`` (every rank's :func:`personal_case`)
+    replayed off the mesh, each round from the mesh's state before it (the
+    generator in step): per round the trained state (single-process
+    layout), the metrics and the eval of the mesh's state after it."""
+    a = build_personal_algo(case)
+    state = _personal_init(a, init)
+    out = dict(states=[], mets=[], evals=[], row_fields=a.row_fields)
+    for r in range(rounds):
+        state, met = a.run_round(
+            _personal_at(state, _join_fields(a, ranks, r)), r,
+            **_seam_round(seams, r))
+        out["states"].append(_np_fields(state))
+        out["mets"].append({k: np.asarray(v) for k, v in met.items()})
+        out["evals"].append(_evals_np(a.evaluate(_personal_at(
+            state, _join_fields(a, ranks, r + 1)))))
+    return out
+
+
+def personal_ckpt_case(mesh, case, directory, rounds=4, save_after=2):
+    """``save_after`` rounds of a personal case with a checkpoint into
+    ``directory`` (every rank saving, rank 0 writing), then the rest of
+    ``rounds``: this rank's rows at the step and at the end."""
+    a = build_personal_algo(case, mesh)
+    mgr = _ckpt(directory, a)
+    state = a.init_state()
+    saved = None
+    for r in range(rounds):
+        state, _ = a.run_round(state, r)
+        if r + 1 == save_after:
+            mgr.save(save_after, state)
+            saved = _np_fields(state)
+    return dict(saved=saved, end=_np_fields(state), lo=a._lo, hi=a._hi)
+
+
+def personal_resume_case(mesh, case, directory, step, rounds=4):
+    """Resume ``directory``'s step ``step`` (written at any mesh width) on
+    this mesh (or off it, ``mesh`` None) and run the rounds after it: the
+    restored and the end state (this rank's rows)."""
+    a = build_personal_algo(case, mesh)
+    state, got = _ckpt(directory, a if mesh is not None else None) \
+        .restore_latest(a.init_state())
+    assert got == step, (got, step)
+    restored = _np_fields(state)
+    for r in range(step, rounds):
+        state, _ = a.run_round(state, r)
+    return dict(restored=restored, end=_np_fields(state), lo=a._lo,
+                hi=a._hi)

@@ -163,11 +163,11 @@ REFUSED = [
     (["--trace_dir", "tr"], "--trace_dir"),
     (["--slo_spec", "p99:round_time_s<2"], "--slo_spec"),
     (["--flight_recorder", "guard"], "--flight_recorder"),
-    # the client mesh runs (test_cli_mesh_*), fused blocks and the state
-    # tier on it too; with another algorithm than SalientGrads and FedAvg
-    # they are refused (the case keeps its name)
-    (["--mesh_devices", "2", "--fuse_rounds", "2", "--algo", "ditto"],
-     "--mesh_devices"),
+    # the client mesh runs (test_cli_mesh_*) every algorithm, fused blocks
+    # and the state tier on it too; with the client store they are refused
+    # (the case keeps its name)
+    (["--mesh_devices", "2", "--fuse_rounds", "2", "--client_store", "host",
+      "--frac", "0.5", "--frequency_of_the_test", "0"], "--mesh_devices"),
     (["--mesh_space", "2"], "--mesh_space"),
     (["--multihost"], "--multihost"),
     (["--serve_role", "worker"], "--serve_role"),
@@ -786,35 +786,34 @@ def test_cli_runs_the_lifted_flags_on_cpu(tmp_path, extra, shows):
 
 # -- the client mesh (--mesh_devices) ----------------------------------------
 
-#: what the client mesh does not run: each refused on an explicit
-#: --mesh_devices above 1, naming ROADMAP item 7 (the rest); (extra argv,
-#: what the refusal names, a flag the mesh runs that the refusal must not
-#: name). The flags the mesh has run since fused blocks, and then the
-#: robust and the state tiers, came to it keep their cases, each beside a
-#: flag it still refuses (another algorithm, the client store).
+#: what the client mesh does not run, the client store: refused on an
+#: explicit --mesh_devices above 1, naming ROADMAP item 7 and the store
+#: alone; (extra argv, what the refusal names, a flag the mesh runs that
+#: the refusal must not name). The flags and the algorithms the mesh has
+#: run since fused blocks, the robust and the state tiers, and then every
+#: algorithm came to it keep their cases, each beside the store (Ditto,
+#: the one of the seven a store serves, for the algorithms).
 _STORE = ["--client_store", "host", "--frac", "0.5"]
 MESH_REST = [
-    (["--algo", "dispfl"], "--algo dispfl", None),
-    (["--algo", "ditto"], "--algo ditto", None),
-    (["--fuse_rounds", "2", "--checkpoint_dir", "{tmp}/ck", "--algo",
-      "ditto"], "--algo ditto", "--fuse_rounds"),
+    (["--algo", "ditto"] + _STORE, "--client_store", "--algo ditto"),
+    (["--fuse_rounds", "2", "--frequency_of_the_test", "0",
+      "--checkpoint_dir", "{tmp}/ck", "--algo", "ditto"] + _STORE,
+     "--client_store", "--fuse_rounds"),
     (["--checkpoint_dir", "{tmp}/ck"] + _STORE, "--client_store",
      "--checkpoint_dir"),
-    (["--checkpoint_dir", "{tmp}/ck", "--resume", "--algo", "ditto"],
-     "--algo ditto", "--resume"),
+    (["--checkpoint_dir", "{tmp}/ck", "--resume", "--algo", "ditto"]
+     + _STORE, "--client_store", "--resume"),
     (_STORE, "--client_store", None),
-    (["--fault_spec", "nan=0.125", "--algo", "ditto"], "--algo ditto",
-     "--fault_spec"),
+    (["--fault_spec", "nan=0.125", "--algo", "ditto"] + _STORE,
+     "--client_store", "--fault_spec"),
     (["--guard", "1"] + _STORE, "--client_store", "--guard"),
     (["--defense_type", "weak_dp"] + _STORE, "--client_store",
      "--defense_type"),
-    (["--robust_agg", "median", "--algo", "ditto"], "--algo ditto",
-     "--robust_agg"),
+    (["--robust_agg", "median", "--algo", "ditto"] + _STORE,
+     "--client_store", "--robust_agg"),
     (["--watchdog", "1"] + _STORE, "--client_store", "--watchdog"),
     (["--eval_cache", "1"] + _STORE, "--client_store", "--eval_cache"),
-    (["--eval_clients", "4", "--fault_spec", "nan=0.125", "--algo",
-      "ditto"], "--algo ditto", "--eval_clients"),
-    (["--stratified_sampling", "1", "--algo", "ditto"], "--algo ditto",
+    (["--stratified_sampling", "1"] + _STORE, "--client_store",
      "--stratified_sampling"),
 ]
 
@@ -829,9 +828,11 @@ def test_cli_mesh_refuses_the_rest(tmp_path, extra, names, runs):
     with pytest.raises(SystemExit) as e:
         trunner.main(argv + ["--mesh_devices", "2"])
     msg = str(e.value.code)
-    assert msg.startswith("--mesh_devices 2: ") and names in msg, msg
+    assert msg.startswith("--mesh_devices 2: --client_store on a client "
+                          "mesh is not ported") and names in msg, msg
     assert runs is None or runs not in msg, msg
-    assert "ROADMAP item 7 (the rest)" in msg
+    assert "--algo" not in msg, msg
+    assert "ROADMAP item 7, the client store on the mesh" in msg
     assert not (tmp_path / "res").exists() and \
         not (tmp_path / "log").exists()
     # the default (every device) keeps such a run on one device
@@ -898,6 +899,74 @@ def test_cli_mesh_runs_match_reference_cli(tmp_path, algo):
     assert t["history"][0]["train_loss"] == one["history"][0]["train_loss"]
     if twin is not None:
         assert twin["history"] == t["history"]
+
+
+#: each of the seven algorithms besides SalientGrads and FedAvg on
+#: ``--mesh_devices 2``, with flags the mesh runs for it: Ditto's global leg
+#: under the faults, the guard and the median (run on the mesh, not
+#: refused: the robust tier's shared code), the eval subset and the
+#: watchdog, a fused run, DisPFL's end-of-run masks and distances and its
+#: checkpoints
+MESH_SEVEN = [
+    ("local", ["--eval_clients", "4", "--watchdog", "1"]),
+    ("ditto", ["--fault_spec", "drop=0.25,nan=0.25", "--guard", "1",
+               "--robust_agg", "median"]),
+    ("subavg", []),
+    ("dpsgd", ["--fuse_rounds", "2"]),
+    ("dispfl", ["--save_masks", "--record_mask_diff", "--checkpoint_dir",
+                "{tmp}/ck"]),
+    ("fedfomo", []),
+    ("turboaggregate", []),
+]
+
+
+@pytest.mark.parametrize("algo,flags", MESH_SEVEN,
+                         ids=[a for a, _ in MESH_SEVEN])
+def test_cli_mesh_runs_every_algorithm(tmp_path, algo, flags):
+    """``--device cpu --mesh_devices 2`` (two gloo ranks) against the
+    one-device run of the same flags, torch on one thread on both sides:
+    every record (metrics, evals, cost counters, the guard's and the
+    watchdog's counters), the final eval and ``stat_info``'s counters and
+    extras bitwise. Every exchange of these algorithms computes the single
+    process's result on gathered rows, and Ditto's global model here is the
+    median of the gathered deltas, so no sum reassociates."""
+    argv = SMALL + ["--comm_round", "2", "--frac", "0.5", "--epochs", "1",
+                    "--log_dir", "", "--frequency_of_the_test", "1"]
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # the ranks take the parent's share
+    try:
+        runs = {}
+        for side, extra in (("mesh", ["--mesh_devices", "2"]), ("one", [])):
+            runs[side] = trunner.main(
+                argv + [a.format(tmp=tmp_path / side) for a in flags]
+                + extra + ["--device", "cpu", "--results_dir",
+                           str(tmp_path / side / "res")], algo)
+    finally:
+        torch.set_num_threads(threads)
+    mesh, one = runs["mesh"], runs["one"]
+    assert mesh["client_mesh_devices"] == 2 and mesh["state"] is None
+    assert one["client_mesh_devices"] == 1
+    assert [h["round"] for h in mesh["history"]
+            if h["round"] >= 0] == [0, 1]
+    assert mesh["history"] == one["history"]
+    assert {k: float(v) for k, v in mesh["final_eval"].items()
+            if np.ndim(v) == 0} == {k: float(v) for k, v in
+                                    one["final_eval"].items()
+                                    if np.ndim(v) == 0}
+    stats = {}
+    for side, res in runs.items():
+        with open(res["stat_path"], "rb") as f:
+            stats[side] = pickle.load(f)
+    assert sorted(stats["mesh"]) == sorted(stats["one"])
+    for k in ("sum_training_flops", "sum_comm_params", "avg_inference_flops",
+              "fault_recovery"):
+        assert stats["mesh"][k] == stats["one"][k], k
+    if algo == "dispfl":
+        for k, v in stats["one"]["final_masks"].items():
+            np.testing.assert_array_equal(stats["mesh"]["final_masks"][k], v)
+        np.testing.assert_array_equal(stats["mesh"]["mask_distance_matrix"],
+                                      stats["one"]["mask_distance_matrix"])
+        assert len(os.listdir(tmp_path / "mesh" / "ck")) == 1
 
 
 #: (algorithm, the flags the mesh runs, ``--fuse_rounds`` last): each on

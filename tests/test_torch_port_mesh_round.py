@@ -243,10 +243,12 @@ def test_mesh_eval_terms_are_the_single_process_terms(mesh_runs):
 
 def test_mesh_refusals_in_the_library(monkeypatch):
     """What the mesh round does not run is refused when the algorithm is
-    built (another algorithm's round, a client store; the faults, the
-    guard, the defenses and ``robust_agg`` build there), and the fused
-    loop of a gloo group on the card when it is called (the device and the
-    backend stand in for a card here)."""
+    built (a client store, naming it alone; the round of an algorithm
+    without ``mesh_supported``; every one of the nine algorithms, and the
+    faults, the guard, the defenses and ``robust_agg``, build there), and
+    the fused loop of a gloo group on the card when it is called (the
+    device and the backend stand in for a card here)."""
+    from neuroimagedisttraining_torch import algorithms as talgos
     from neuroimagedisttraining_torch.algorithms import Ditto, FedAvg
     from neuroimagedisttraining_torch.core.state import HyperParams
     from neuroimagedisttraining_torch.data import make_synthetic_federated
@@ -255,19 +257,28 @@ def test_mesh_refusals_in_the_library(monkeypatch):
 
     data = tmesh.shard_federated(
         make_synthetic_federated(seed=1, n_clients=4, samples_per_client=4,
-                                 test_per_client=2,
+                                 test_per_client=2, val_per_client=2,
                                  sample_shape=(4, 4, 4, 1)),
         tmesh.ClientMesh(None, 0, 2, torch.device("cpu")))
     hp = HyperParams(lr=0.01, local_epochs=1, steps_per_epoch=1,
                      batch_size=2)
     model = create_model("small3dcnn", num_classes=1)
     kw = dict(loss_type="bce", device="cpu")
-    for cls, extra, says in (
-            (Ditto, {}, "the ditto round"),
-            (FedAvg, dict(client_store="host", frac=0.5), "client store")):
+    for cls in (FedAvg, Ditto):
         with pytest.raises(ValueError, match="client mesh") as e:
-            cls(model, data, hp, **kw, **extra)
-        assert says in str(e.value)
+            cls(model, data, hp, **kw, client_store="host", frac=0.5)
+        assert "client store" in str(e.value) and "item 7" in str(e.value)
+        assert "round" not in str(e.value)
+
+    class Unported(FedAvg):
+        name = "unported"
+        mesh_supported = False
+
+    with pytest.raises(ValueError, match="does not run on a client mesh"):
+        Unported(model, data, hp, **kw)
+    for name, cls in talgos.ALGORITHMS.items():
+        assert cls.mesh_supported, name
+        assert cls(model, data, hp, **kw).mesh is not None, name
     for extra in (dict(fault_spec="nan=0.5"), dict(robust_agg="median"),
                   dict(guard=True)):
         assert FedAvg(model, data, hp, **kw, **extra).mesh is not None
