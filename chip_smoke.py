@@ -184,7 +184,18 @@ Phases, each printing one JSON line:
    one-rank NCCL mesh's fused block of Local, Ditto, DPSGD and static
    DisPFL, bitwise its eager rounds and the single-process block, no
    Python collective in a replay, both rates; (j) DisPFL's checkpoint,
-   saved by the ranks, resumed bitwise by the fresh spawn of (g) (see
+   saved by the ranks, resumed bitwise by the fresh spawn of (g). The
+   client store on the mesh (path ``mesh/store``): (k1) two gloo ranks over
+   the state phase's 32-client population, each holding its block of the
+   volumes on the host and of the rows in a disk store, 2 eager streamed
+   rounds each of SalientGrads on the top-k wire, FedAvg and Ditto, each
+   round replayed by a single process (every stored row, metric and eval
+   bitwise, the global model within 1e-6), each rank's round seconds,
+   store gather ms and peak; (k2) the ranks' store-backed checkpoint
+   resumed by a fresh spawn (bitwise the uninterrupted round) and by one
+   process; (k3) a one-rank NCCL mesh's fused store block of 3 rounds,
+   bitwise its eager rounds and the single-process streamed block, no
+   Python collective in a replay, its captures and both rates (see
    ``mesh_path``).
 18. cli     — the command-line entry point in-process on the card
    (``experiments.runner.main``): SalientGrads and FedAvg, ``--dataset
@@ -1694,23 +1705,28 @@ def fused_path(dev):
     return out
 
 
+def _main_hp():
+    """The main configuration's hyperparameters."""
+    from neuroimagedisttraining_torch.core.state import HyperParams
+
+    return HyperParams(lr=1e-3, lr_decay=0.998, momentum=0.9,
+                       weight_decay=5e-4, grad_clip=10.0, local_epochs=1,
+                       steps_per_epoch=STEPS, batch_size=BATCH)
+
+
 def _main_config(dev, sample_shape, uneven=False):
     """The main configuration's cohort (8 clients x 40 volumes, or with
     ``uneven`` ``bench.py``'s counts in [20, 40], 10 test rows each, bf16,
     made on the card) at ``sample_shape``, and its hyperparameters."""
     import torch
 
-    from neuroimagedisttraining_torch.core.state import HyperParams
     from neuroimagedisttraining_torch.data import device_synthetic_federated
 
     data = device_synthetic_federated(
         N_CLIENTS, SAMPLES, sample_shape,
         torch.Generator(device=dev).manual_seed(0), test_per_client=TEST,
         uneven=uneven)
-    hp = HyperParams(lr=1e-3, lr_decay=0.998, momentum=0.9,
-                     weight_decay=5e-4, grad_clip=10.0, local_epochs=1,
-                     steps_per_epoch=STEPS, batch_size=BATCH)
-    return data, hp
+    return data, _main_hp()
 
 
 def _eval_rows_agree(what, on, off):
@@ -2951,6 +2967,26 @@ def _cpu_tree(t):
     return {k: v.detach().cpu().clone() for k, v in t.items()}
 
 
+def _state_population(dev, shape):
+    """The state phase's population: STATE_CLIENTS clients of the main
+    configuration's volumes, made on the card from seed 0 and moved to the
+    host (where a client store's run keeps it)."""
+    import gc
+
+    import torch
+
+    from neuroimagedisttraining_torch.data import device_synthetic_federated
+
+    cohort = device_synthetic_federated(
+        STATE_CLIENTS, SAMPLES, shape,
+        torch.Generator(device=dev).manual_seed(0), test_per_client=TEST)
+    host = cohort.to("cpu")
+    del cohort
+    gc.collect()
+    torch.cuda.empty_cache()
+    return host
+
+
 def _equal_trees(a, b) -> bool:
     import torch
 
@@ -3009,16 +3045,8 @@ def state_path(dev):
     torch.cuda.empty_cache()
     t_phase = time.perf_counter()
     shape = phased_sample_shape(VOLUME)
-    _, hp = _main_config(dev, shape)
-    from neuroimagedisttraining_torch.data import device_synthetic_federated
-
-    cohort = device_synthetic_federated(
-        STATE_CLIENTS, SAMPLES, shape,
-        torch.Generator(device=dev).manual_seed(0), test_per_client=TEST)
-    host = cohort.to("cpu")
-    del cohort
-    gc.collect()
-    torch.cuda.empty_cache()
+    hp = _main_hp()
+    host = _state_population(dev, shape)
     model = create_model("3dcnn_s2d", num_classes=1, sample_shape=shape)
     kw = dict(loss_type="bce", seed=0, compute_dtype="bfloat16",
               dense_ratio=0.5, itersnip_iterations=1)
@@ -4753,6 +4781,507 @@ def _mesh_nccl_robust(dev):
     return launches
 
 
+#: part (k) of the mesh phase, the client store on the mesh: the state
+#: phase's population and disk store (STATE_CLIENTS at STATE_FRAC, S = 8 a
+#: round, STATE_HOT hot rows a rank), each of MESH_STORE_CASES (name,
+#: algorithm, agg_impl) for MESH_STORE_ROUNDS eager streamed rounds on the
+#: two gloo ranks, MESH_STORE_CKPT checkpointed after its first round;
+#: (k3) its fused store block of MESH_STORE_FUSED rounds on a one-rank NCCL
+#: mesh; the kernels the path ``mesh/store`` must launch
+MESH_STORE_CASES = (("salientgrads_topk", "salientgrads", "topk"),
+                    ("fedavg", "fedavg", "dense"),
+                    ("ditto", "ditto", "dense"))
+MESH_STORE_ROUNDS, MESH_STORE_FUSED = 2, 3
+MESH_STORE_CKPT = "salientgrads_topk"
+MESH_STORE_KERNELS = ("masked_sgd", "stem_fwd", "stem_bwd", "threshold",
+                      "score_mask", "weighted_sum", "mask_apply")
+
+
+def _mesh_store_algo(name, data, hp, shape, store_dir, device=None):
+    """A MESH_STORE_CASES entry on the state phase's configuration with
+    its disk store under ``store_dir`` (``data`` sharded or not)."""
+    from neuroimagedisttraining_torch.algorithms import (
+        Ditto,
+        FedAvg,
+        SalientGrads,
+    )
+    from neuroimagedisttraining_torch.models import create_model
+
+    _, algo_name, impl = {c[0]: c for c in MESH_STORE_CASES}[name]
+    model = create_model("3dcnn_s2d", num_classes=1, sample_shape=shape)
+    kw = dict(loss_type="bce", frac=STATE_FRAC, seed=0,
+              compute_dtype="bfloat16", agg_impl=impl,
+              agg_topk_density=TOPK_DENSITY, client_store="disk",
+              store_hot_clients=STATE_HOT, store_dir=store_dir,
+              device=device)
+    if algo_name == "salientgrads":
+        return SalientGrads(model, data, hp, dense_ratio=0.5,
+                            itersnip_iterations=1, **kw)
+    if algo_name == "ditto":
+        return Ditto(model, data, hp, **kw)
+    return FedAvg(model, data, hp, **kw)
+
+
+def _store_digests(algo):
+    """Per client the algorithm's store holds (population id: a mesh
+    rank's block, every client off the mesh), the digests of its stored
+    rows field by field, read one row at a time on the host (staged rows
+    committed first)."""
+    algo.store_flush()
+    store = algo._store
+    out = {c: [] for c in range(store.lo, store.hi)}
+    for f in store.field_names():
+        for c in out:
+            row = store.gather(f, [c])
+            out[c].append(_tree_digest({k: v[0] for k, v in row.items()}))
+    return {c: tuple(v) for c, v in out.items()}
+
+
+def _mesh_store_rank(rank, directory, dev, ck_dir):
+    """Part (k1)'s gloo ranks on the card: the state phase's population,
+    each rank keeping its block on the host, each of MESH_STORE_CASES for
+    MESH_STORE_ROUNDS eager streamed rounds (each timed, its store gather
+    ms, its metrics, every stored row's digest, the global model, the eval
+    after it), MESH_STORE_CKPT checkpointed into ``ck_dir`` after its first
+    round (every rank saving, rank 0 writing; part (k2)); the launches and
+    the peak. Leaves its record in ``directory``."""
+    import os
+
+    import torch
+
+    from neuroimagedisttraining_torch.ops import kernels
+    from neuroimagedisttraining_torch.ops.s2d import phased_sample_shape
+    from neuroimagedisttraining_torch.parallel.mesh import (
+        make_mesh,
+        shard_federated,
+    )
+    from neuroimagedisttraining_torch.utils.checkpoint import \
+        CheckpointManager
+
+    dev = torch.device("cuda", dev.index or 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    mesh = make_mesh(MESH_RANKS, backend="gloo", rank=rank, device=dev,
+                     init_method="file://" + os.path.join(directory,
+                                                          "rdv_store"),
+                     timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    try:
+        shape = phased_sample_shape(VOLUME)
+        hp = _main_hp()
+        data = shard_federated(_state_population(dev, shape), mesh,
+                               host=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launches()
+        rec = {"rank": rank, "block": list(mesh.block(STATE_CLIENTS)),
+               "algos": {}}
+        for name, _, _ in MESH_STORE_CASES:
+            algo = _mesh_store_algo(name, data, hp, shape, os.path.join(
+                directory, f"store_{name}"))
+            ck = (CheckpointManager(ck_dir, layout=algo)
+                  if name == MESH_STORE_CKPT else None)
+            t0 = time.perf_counter()
+            state = algo.init_state()
+            torch.cuda.synchronize()
+            out = {"init_s": time.perf_counter() - t0, "rounds": []}
+            for r in range(MESH_STORE_ROUNDS):
+                g0 = algo._store.gather_ms
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, met = algo.run_round(state, r)
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                gather_ms = algo._store.gather_ms - g0
+                ev = algo.evaluate(state)
+                out["rounds"].append({
+                    "seconds": seconds, "store_gather_ms": gather_ms,
+                    "metrics": {k: float(v) for k, v in met.items()},
+                    "eval": {k: float(v) for k, v in ev.items()
+                             if not k.startswith("acc_per")},
+                    "rows": _store_digests(algo),
+                    "global_digest": _tree_digest(state.global_params),
+                    "global": ({k: v.cpu() for k, v in
+                                state.global_params.items()}
+                               if rank == 0 else None)})
+                if ck is not None and r == 0:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    ck.save(1, state, store=algo._store)
+                    out["ckpt_save_s"] = time.perf_counter() - t0
+                    out["ckpt_save_failures"] = ck.save_failures
+            out["stats"] = algo._store.stats()
+            rec["algos"][name] = out
+            del algo, state
+        torch.cuda.synchronize()
+        rec["launches"] = dict(kernels.LAUNCHES)
+        rec["peak_mem_bytes"] = torch.cuda.max_memory_allocated(dev)
+        torch.save(rec, os.path.join(directory, f"store_rank{rank}.pt"))
+    finally:
+        mesh.destroy()
+
+
+def _mesh_store_resume_rank(rank, directory, dev, ck_dir):
+    """Part (k2)'s fresh spawn: the ranks restore MESH_STORE_CKPT's step
+    (the state and each rank's block of the store's rows) and run the
+    round after it; each leaves its record (the restore's seconds, the
+    round's metrics, digests and launches) in ``directory``."""
+    import os
+
+    import torch
+
+    from neuroimagedisttraining_torch.ops import kernels
+    from neuroimagedisttraining_torch.ops.s2d import phased_sample_shape
+    from neuroimagedisttraining_torch.parallel.mesh import (
+        make_mesh,
+        shard_federated,
+    )
+    from neuroimagedisttraining_torch.utils.checkpoint import \
+        CheckpointManager
+
+    dev = torch.device("cuda", dev.index or 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    mesh = make_mesh(MESH_RANKS, backend="gloo", rank=rank, device=dev,
+                     init_method="file://" + os.path.join(directory,
+                                                          "rdv_store2"),
+                     timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    try:
+        shape = phased_sample_shape(VOLUME)
+        data = shard_federated(_state_population(dev, shape), mesh,
+                               host=True)
+        algo = _mesh_store_algo(MESH_STORE_CKPT, data, _main_hp(), shape,
+                                os.path.join(directory, "store_resumed"))
+        kernels.reset_launches()
+        template = algo.init_state()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, step = CheckpointManager(ck_dir, layout=algo).restore_latest(
+            template, store=algo._store)
+        torch.cuda.synchronize()
+        rec = {"rank": rank, "step": step,
+               "restore_s": time.perf_counter() - t0}
+        state, met = algo.run_round(state, step)
+        torch.cuda.synchronize()
+        rec.update(metrics={k: float(v) for k, v in met.items()},
+                   rows=_store_digests(algo),
+                   global_digest=_tree_digest(state.global_params),
+                   launches=dict(kernels.LAUNCHES))
+        torch.save(rec, os.path.join(directory, f"store_resume{rank}.pt"))
+    finally:
+        mesh.destroy()
+
+
+def _launch_delta(fn):
+    """``fn()``'s result and the kernel launches it made (the card
+    synchronised after it)."""
+    import torch
+
+    from neuroimagedisttraining_torch.ops import kernels
+
+    before = kernels.snapshot_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    after = kernels.snapshot_launches()
+    return out, {k: after[k] - n for k, n in before.items()}
+
+
+def _mesh_nccl_store(dev, host, hp, shape, directory):
+    """Part (k3): MESH_STORE_CKPT on a one-rank NCCL mesh over the state
+    phase's population (its block, the whole of it, on the host): a fused
+    store block of MESH_STORE_FUSED rounds bitwise the same rounds run
+    eagerly on the mesh (metrics, global model, every stored row) and the
+    single-process streamed block; the block once more from a fresh state
+    (its graph captured) with the mesh's collectives counted where Python
+    calls them (none: the replays hold them); the captures and evictions;
+    the mesh's and the single process's fused rounds/s in interleaved
+    pairs on rounds no block ran. Returns the record and the mesh
+    algorithms' launches."""
+    import os
+
+    import torch
+
+    from neuroimagedisttraining_torch.parallel.mesh import (
+        make_mesh,
+        shard_federated,
+    )
+
+    k = MESH_STORE_FUSED
+    launches = {}
+
+    def mesh_run(fn):
+        out, delta = _launch_delta(fn)
+        for name, n in delta.items():
+            launches[name] = launches.get(name, 0) + n
+        return out
+
+    mesh = make_mesh(1, backend="nccl", rank=0, device=dev,
+                     init_method="file://" + os.path.join(directory,
+                                                          "rdv_nccl_store"),
+                     timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    try:
+        data = shard_federated(host, mesh, host=True)
+
+        def make(tag, d, device=None):
+            return _mesh_store_algo(MESH_STORE_CKPT, d, hp, shape,
+                                    os.path.join(directory, tag), device)
+
+        def eager():
+            a = make("k3_eager", data)
+            s, mets = a.init_state(), []
+            for r in range(k):
+                s, met = a.run_round(s, r)
+                mets.append({n: float(v) for n, v in met.items()})
+            return mets, _tree_digest(s.global_params), _store_digests(a)
+
+        e_mets, e_glob, e_rows = mesh_run(eager)
+        f = make("k3_fused", data)
+        f_state = mesh_run(f.init_state)
+        t0 = time.perf_counter()
+        f_state, ys = mesh_run(lambda: f.run_rounds_fused(f_state, 0, k))
+        ys = ys.materialize()
+        first_block_s = time.perf_counter() - t0
+        captures = f._fused.evicted + len(f._fused.rounds)
+
+        def same(ys, glob, rows):
+            return (all([float(x) for x in ys[n]] == [m[n] for m in e_mets]
+                        for n in ys) and glob == e_glob and rows == e_rows)
+
+        fused_bitwise = same(ys, _tree_digest(f_state.global_params),
+                             _store_digests(f))
+        one = make("k3_one", host, dev)
+        (o_state, o_ys), single = _launch_delta(
+            lambda: one.run_rounds_fused(one.init_state(), 0, k))
+        one_bitwise = same(o_ys.materialize(),
+                           _tree_digest(o_state.global_params),
+                           _store_digests(one))
+        calls = {"all_gather": 0, "all_reduce": 0}
+
+        def counted(name, fn):
+            def call(*args, **kwargs):
+                calls[name] += 1
+                return fn(*args, **kwargs)
+            return call
+
+        s2 = mesh_run(f.init_state)  # the store starts over
+        for name in calls:
+            setattr(mesh, name, counted(name, getattr(mesh, name)))
+        s2, ys2 = mesh_run(lambda: f.run_rounds_fused(s2, 0, k))
+        block_calls = dict(calls)
+        for name in calls:
+            delattr(mesh, name)
+        again_bitwise = same(ys2.materialize(), _tree_digest(
+            s2.global_params), _store_digests(f))
+        rates = {"mesh": [], "single": []}
+        for who in ("mesh", "single", "single", "mesh"):
+            algo, st = (f, f_state) if who == "mesh" else (one, o_state)
+            t0 = time.perf_counter()
+            run = (lambda a=algo, s=st: a.run_rounds_fused(s, k, k)[1]
+                   .materialize())
+            if who == "mesh":
+                mesh_run(run)
+            else:
+                _launch_delta(run)
+            rates[who].append(k / (time.perf_counter() - t0))
+        captures_total = f._fused.evicted + len(f._fused.rounds)
+        evicted = f._fused.evicted
+        f.release_graphs()
+        one.release_graphs()
+    finally:
+        mesh.destroy()
+    rec = {"phase": "mesh_store_nccl", "backend": "nccl", "rounds": k,
+           "fused_bitwise_eager": fused_bitwise,
+           "single_process_bitwise": one_bitwise,
+           "second_block_bitwise": again_bitwise,
+           "collective_calls_in_block": block_calls,
+           "captures_first_block": captures,
+           "captures_total": captures_total, "evictions": evicted,
+           "first_block_s": first_block_s,
+           "rounds_per_sec_mesh_fused": rates["mesh"],
+           "rounds_per_sec_single_fused": rates["single"],
+           "launches_single_process": single}
+    failures = [n for n in ("fused_bitwise_eager", "single_process_bitwise",
+                            "second_block_bitwise") if not rec[n]]
+    if any(block_calls.values()):
+        failures.append(f"collectives called from Python during the "
+                        f"replays: {block_calls}")
+    return rec, launches, failures
+
+
+def _mesh_store(dev):
+    """Part (k), the client store on the mesh (the path ``mesh/store``):
+
+    * (k1) two gloo ranks sharing the card (``_mesh_store_rank``), each
+      holding its block of the state phase's population on the host and
+      its block's rows in a disk store: SalientGrads on the top-k wire
+      (both row fields stream), FedAvg dense, then Ditto, each
+      MESH_STORE_ROUNDS eager streamed rounds. A single process replays
+      them in this call from the mesh's global model before each round
+      (its store reaching the same rows): every stored row, every metric
+      and every eval bitwise, the global model within 1e-6 of its scale.
+      Each rank's round seconds, store gather ms a round and peak.
+    * (k2) MESH_STORE_CKPT's step written by the ranks after its first
+      round, resumed by a fresh two-rank spawn (the next round bitwise the
+      uninterrupted one: metrics, rows, global model) and by one process
+      (metrics and rows bitwise, the global model within 1e-6): the save's
+      and the restores' seconds, the sidecar's bytes.
+    * (k3) ``_mesh_nccl_store``.
+
+    Returns the path's launches: the ranks', the fresh spawn's and the
+    one-rank mesh's algorithms' (not the single-process replays')."""
+    import dataclasses
+    import gc
+    import os
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from neuroimagedisttraining_torch.ops import kernels
+    from neuroimagedisttraining_torch.ops.s2d import phased_sample_shape
+    from neuroimagedisttraining_torch.utils.checkpoint import \
+        CheckpointManager
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    shape = phased_sample_shape(VOLUME)
+    hp = _main_hp()
+    failures, spread = [], {}
+    with tempfile.TemporaryDirectory() as d:
+        ck = os.path.join(d, "ck")
+        t0 = time.perf_counter()
+        mp.spawn(_mesh_store_rank, args=(d, dev, ck), nprocs=MESH_RANKS,
+                 join=True)
+        ranks = [torch.load(os.path.join(d, f"store_rank{r}.pt"),
+                            weights_only=False) for r in range(MESH_RANKS)]
+        k1_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        mp.spawn(_mesh_store_resume_rank, args=(d, dev, ck),
+                 nprocs=MESH_RANKS, join=True)
+        resumed = [torch.load(os.path.join(d, f"store_resume{r}.pt"),
+                              weights_only=False)
+                   for r in range(MESH_RANKS)]
+        k2_s = time.perf_counter() - t0
+        sidecar = os.path.join(ck, "run", "store_1.npz")
+        sidecar_bytes = os.path.getsize(sidecar)
+        host = _state_population(dev, shape)
+        with _CudnnFlags(deterministic=True, benchmark=False):
+            for name, _, _ in MESH_STORE_CASES:
+                algo = _mesh_store_algo(name, host, hp, shape,
+                                        os.path.join(d, f"one_{name}"), dev)
+                state = algo.init_state()
+                for r in range(MESH_STORE_ROUNDS):
+                    mine = [rk["algos"][name]["rounds"][r] for rk in ranks]
+                    if r:  # the mesh's global model before the round
+                        state = dataclasses.replace(state, global_params={
+                            n: v.to(dev) for n, v in ranks[0]["algos"][name]
+                            ["rounds"][r - 1]["global"].items()})
+                    state, met = algo.run_round(state, r)
+                    met = {n: float(v) for n, v in met.items()}
+                    rows = _store_digests(algo)
+                    glob = mine[0]["global"]
+                    for m in mine:
+                        if m["metrics"] != met:
+                            failures.append(f"{name} r{r} metrics")
+                        if any(dig != rows[c] for c, dig in m["rows"].items()):
+                            failures.append(f"{name} r{r} rows")
+                        if m["global_digest"] != mine[0]["global_digest"]:
+                            failures.append(f"{name} r{r} ranks' globals")
+                    scale = max(float(v.abs().max()) for v in glob.values())
+                    err = max(float((glob[n] - state.global_params[n].cpu())
+                                    .abs().max()) for n in glob) / scale
+                    spread[f"{name}_r{r}"] = err
+                    if err > 1e-6:
+                        failures.append(f"{name} r{r} global {err}")
+                    ev = algo.evaluate(dataclasses.replace(
+                        state, global_params={n: v.to(dev) for n, v in
+                                              glob.items()}))
+                    ev = {n: float(v) for n, v in ev.items()
+                          if not n.startswith("acc_per")}
+                    if any(m["eval"] != ev for m in mine):
+                        failures.append(f"{name} r{r} eval")
+                del algo, state
+            # (k2): the uninterrupted round 1 against both resumes
+            want = [rk["algos"][MESH_STORE_CKPT]["rounds"][1] for rk in ranks]
+            for rk, w in zip(resumed, want):
+                if (rk["step"], rk["metrics"], rk["rows"],
+                        rk["global_digest"]) != (1, w["metrics"], w["rows"],
+                                                 w["global_digest"]):
+                    failures.append(f"resumed rank {rk['rank']}")
+            one = _mesh_store_algo(MESH_STORE_CKPT, host, hp, shape,
+                                   os.path.join(d, "one_resumed"), dev)
+            template = one.init_state()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, step = CheckpointManager(ck).restore_latest(
+                template, store=one._store)
+            torch.cuda.synchronize()
+            one_restore_s = time.perf_counter() - t0
+            state, met = one.run_round(state, step)
+            rows = _store_digests(one)
+            glob = want[0]["global"]
+            one_err = max(float((glob[n] - state.global_params[n].cpu())
+                                .abs().max()) for n in glob) / max(
+                float(v.abs().max()) for v in glob.values())
+            if (step != 1 or {n: float(v) for n, v in met.items()}
+                    != want[0]["metrics"] or one_err > 1e-6
+                    or any(dig != rows[c] for w in want
+                           for c, dig in w["rows"].items())):
+                failures.append(f"one-process resume (step {step}, global "
+                                f"{one_err})")
+            del one, state
+            k3, k3_launches, k3_failures = _mesh_nccl_store(dev, host, hp,
+                                                            shape, d)
+            failures += k3_failures
+        del host
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = {n: sum(r["launches"][n] for r in ranks)
+                + sum(r["launches"][n] for r in resumed)
+                + k3_launches.get(n, 0) for n in kernels.LAUNCHES}
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip()
+    emit({"phase": "mesh_store", "part": "k1", "card": card,
+          "ranks": MESH_RANKS, "backend": "gloo", "clients": STATE_CLIENTS,
+          "frac": STATE_FRAC, "hot_clients": STATE_HOT,
+          "rounds": MESH_STORE_ROUNDS,
+          "blocks": [r["block"] for r in ranks], "spawn_s": k1_s,
+          "init_s": {n: [r["algos"][n]["init_s"] for r in ranks]
+                     for n, _, _ in MESH_STORE_CASES},
+          "round_s": {n: [[x["seconds"] for x in r["algos"][n]["rounds"]]
+                          for r in ranks] for n, _, _ in MESH_STORE_CASES},
+          "store_gather_ms": {
+              n: [[x["store_gather_ms"] for x in r["algos"][n]["rounds"]]
+                  for r in ranks] for n, _, _ in MESH_STORE_CASES},
+          "store_stats": {n: [r["algos"][n]["stats"] for r in ranks]
+                          for n, _, _ in MESH_STORE_CASES},
+          "peak_mem_bytes": [r["peak_mem_bytes"] for r in ranks],
+          "global_rel_err": spread})
+    emit({"phase": "mesh_store", "part": "k2", "card": card,
+          "save_s": ranks[0]["algos"][MESH_STORE_CKPT]["ckpt_save_s"],
+          "save_failures": [r["algos"][MESH_STORE_CKPT]["ckpt_save_failures"]
+                            for r in ranks],
+          "sidecar_bytes": sidecar_bytes, "spawn_s": k2_s,
+          "restore_s_ranks": [r["restore_s"] for r in resumed],
+          "restore_s_one_process": one_restore_s,
+          "one_process_global_rel_err": one_err})
+    emit({**k3, "card": card})
+    emit({"phase": "mesh_store", "part": "launches", "launches": launches})
+    idle = [n for n in MESH_STORE_KERNELS if launches[n] <= 0]
+    if idle:
+        failures.append(f"never launched: {idle}")
+    if failures:
+        raise AssertionError(f"mesh/store: {failures}")
+    return launches
+
+
 def mesh_path(dev):
     """The client mesh (``parallel/mesh.py``) on the card:
 
@@ -4787,6 +5316,12 @@ def mesh_path(dev):
       one-rank NCCL mesh's fused blocks of the four the CLI fuses
       (``_mesh_nccl_baselines``); each of MESH_BASELINE_KERNELS must
       launch on it.
+    * (k), the client store on the mesh, the path ``mesh/store``
+      (``_mesh_store``): the gloo ranks' streamed rounds of SalientGrads on
+      the top-k wire, FedAvg and Ditto against a single-process replay, a
+      store-backed checkpoint resumed by a fresh spawn and by one process,
+      and a one-rank NCCL mesh's fused store block; each of
+      MESH_STORE_KERNELS must launch on it.
 
     Part (d), ``bench_torch.main`` on one card with today's keys and
     ``client_mesh_devices`` 1, is checked in ``bench_path``. Returns the
@@ -4934,6 +5469,7 @@ def mesh_path(dev):
 
     _mesh_nccl(dev)
     fused_launches = _mesh_nccl_fused(dev)
+    store = _mesh_store(dev)
 
     with _CudnnFlags(), tempfile.TemporaryDirectory() as tmp:
         res = runner.main(_cli_argv("salientgrads", tmp)
@@ -4946,7 +5482,8 @@ def mesh_path(dev):
         raise AssertionError(f"mesh_cli: fitted to {fitted} devices")
     return {"mesh": launches, "mesh/nccl_fused": fused_launches,
             "mesh/robust": robust,
-            "mesh/baselines": {k: baselines[k] for k in kernels.LAUNCHES}}
+            "mesh/baselines": {k: baselines[k] for k in kernels.LAUNCHES},
+            "mesh/store": store}
 
 
 def _cli_argv(algo: str, tmp: str):

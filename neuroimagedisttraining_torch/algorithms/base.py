@@ -37,8 +37,10 @@ statistic reads every client's wire-decoded delta, gathered in draw order,
 so the robust global model is the off-mesh one bit for bit. A checkpoint
 holds the state in the single-process layout (:meth:`FedAlgorithm.
 state_to_global`, :meth:`FedAlgorithm.state_to_local`), so a step resumes
-at any mesh width. The client store is not ported to the mesh (ROADMAP
-item 7).
+at any mesh width. With a client store each rank's store holds the rows of
+its own block of clients and its host data that block's volumes: a
+streamed mesh round is the resident mesh round on a slab of the sampled
+clients the rank holds, with the same exchanges.
 
 A round is split in two: what the host decides (the seeded client draw, the
 decayed learning rate, the random draws of the generator) and a body that
@@ -224,7 +226,8 @@ class RoundInputs:
     while ``pop`` holds their population ids, which the ``[C]`` arrays
     that stay resident (the eval cache, the test counts) are indexed by.
     Resident, ``pop`` is ``sel`` and ``slab`` None (the body reads
-    ``algo.data``).
+    ``algo.data``). On a client mesh a rank's slab holds the selected
+    clients it holds, and ``mesh_rows.rows`` their positions in it.
 
     On a client mesh ``mesh_rows`` says which of the selected clients this
     rank trains (:class:`MeshRows`); None off the mesh."""
@@ -256,9 +259,10 @@ class MeshRows(NamedTuple):
     """A round's selected clients as the ranks of a client mesh hold them.
     ``own``: the positions in the draw of the clients this rank holds (and
     trains); ``rows``: their rows in the rank's data and per-client stacks
-    (int64, on the device); ``counts``: how many each rank holds;
-    ``order``: per position in the draw, ``(rank, index among that rank's
-    own)``, the gather's order; ``gather_idx``: the gather's row index on
+    (in store mode their positions in the rank's slab; int64, on the
+    device); ``counts``: how many each rank holds; ``order``: per position
+    in the draw, ``(rank, index among that rank's own)``, the gather's
+    order; ``gather_idx``: the gather's row index on
     the device (:func:`~..parallel.mesh.gather_index`), made with the rest
     on the host side of the round; ``own_idx``: ``own`` on the device (the
     rank's rows of the round's ``[S, ...]`` draws are read through it);
@@ -798,8 +802,9 @@ class FedAlgorithm(abc.ABC):
     mesh (module docstring); the device defaults to the mesh's. Its fused
     blocks capture the round's collectives on NCCL (:meth:`run_rounds_
     fused`); the eval cache and subset, stratified SNIP, the robustness
-    tier and the checkpoints (:meth:`state_to_global`) run on it as well.
-    The client store is not ported to the mesh and is refused there."""
+    tier, the checkpoints (:meth:`state_to_global`) and the client store
+    (each rank's store holds its block's rows, :meth:`_store_own`) run on
+    it as well."""
 
     name = "base"
     #: the algorithm carries the error-feedback residual of agg_impl="topk"
@@ -979,7 +984,8 @@ class FedAlgorithm(abc.ABC):
             self._check_store(client_store)
             self._store = ClientStore(
                 self.num_clients, mode=client_store,
-                hot_clients=store_hot_clients, root=store_dir)
+                hot_clients=store_hot_clients, root=store_dir,
+                mesh=self.mesh)
         # store mode keeps the data on the host: each round moves its
         # cohort's rows to the card (_store_gather_rows)
         self.data = data.to(self.device if self._store is None else "cpu")
@@ -1029,15 +1035,8 @@ class FedAlgorithm(abc.ABC):
                 "(the run is already O(S) in device memory)")
 
     def _check_mesh(self) -> None:
-        """Refuse on a client mesh what its round does not run: a client
-        store (ROADMAP item 7), and the round of an algorithm without
+        """Refuse on a client mesh the round of an algorithm without
         ``mesh_supported``."""
-        if self._store is not None:
-            raise ValueError(
-                f"{self.name}: a client store on a client mesh is not "
-                "ported (ROADMAP item 7: the client store on the mesh); "
-                "keep the rows resident (client_store='device') or run on "
-                "one device")
         if not self.mesh_supported:
             raise ValueError(
                 f"{self.name}: its round does not run on a client mesh")
@@ -2180,6 +2179,33 @@ class FedAlgorithm(abc.ABC):
     # client keeps its previous row in the body (merge_updates,
     # merge_residual) and is staged back unchanged. The fault draws are made
     # on the host from the population ids (_round_inputs), as resident.
+    #
+    # On a client mesh the store follows the data's owner: each rank's store
+    # holds its block's rows and its host data its block's volumes, and a
+    # round's slab holds the sampled clients the rank holds (_store_own), in
+    # draw order, where the resident mesh round reads its block of the
+    # stacks: ``MeshRows.rows`` then holds slab positions (_on_slab). The
+    # exchanges are the resident mesh round's (the loss gather, the on-mesh
+    # reduce, the gather of the trained rows), so a streamed mesh round is
+    # the resident mesh round on a slab, as one process's streamed round is
+    # its resident round on a slab.
+
+    def _store_own(self, ids) -> np.ndarray:
+        """The clients of ``ids`` (population ids) whose rows this rank
+        holds, in their order (all of them off the mesh)."""
+        ids = np.asarray(ids, dtype=np.int64)
+        return ids[(ids >= self._lo) & (ids < self._hi)]
+
+    def _on_slab(self, inp: RoundInputs, slab: FederatedData,
+                 n_own: int) -> RoundInputs:
+        """``inp`` reading its clients' rows from a slab whose row ``j``
+        holds the ``j``-th selected client this rank holds (``n_own`` of
+        them; off the mesh every selected client, at ``inp.sel``)."""
+        pos = _to_device(np.arange(n_own, dtype=np.int64), self.device)
+        mr = inp.mesh_rows
+        if mr is not None:
+            mr = mr._replace(rows=pos)
+        return dataclasses.replace(inp, sel=pos, slab=slab, mesh_rows=mr)
 
     def _stage_rows(self, host: torch.Tensor, ids: Sequence[int],
                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -2212,11 +2238,11 @@ class FedAlgorithm(abc.ABC):
 
     def _store_gather_rows(self, ids: Sequence[int]):
         """A round's rows on the card: the store fields' rows of ``ids``
-        (``state`` replacements; the gather commits staged rows first, so
-        chained rounds read the newest adopted ones, and is timed in
-        ``store_gather_ms``) and the clients' data rows from the host data
-        (a :class:`FederatedData` slab, the test rows too with the eval
-        cache)."""
+        (the selected clients this rank holds; ``state`` replacements; the
+        gather commits staged rows first, so chained rounds read the newest
+        adopted ones, and is timed in ``store_gather_ms``) and the clients'
+        data rows from the host data (a :class:`FederatedData` slab, the
+        test rows too with the eval cache)."""
         kw = {name: self._store.gather(name, ids, self.device)
               for name in self._store.field_names()}
         return kw, self._data_slab(ids, test=self.eval_cache)
@@ -2224,64 +2250,72 @@ class FedAlgorithm(abc.ABC):
     def _data_slab(self, ids: Sequence[int], test: bool = False
                    ) -> FederatedData:
         """The clients ``ids``' train rows (and test rows with ``test``)
-        moved from the host data to the card, as a :class:`FederatedData`
-        a round body reads through slab positions."""
+        moved from the host data (this rank's block) to the card, as a
+        :class:`FederatedData` a round body reads through slab
+        positions."""
         d = self.data
+        rows = np.asarray(ids, dtype=np.int64) - self._lo
         return dataclasses.replace(
-            d, x_train=self._stage_rows(d.x_train, ids),
-            y_train=self._stage_rows(d.y_train, ids),
-            x_test=self._stage_rows(d.x_test, ids) if test else None,
-            y_test=self._stage_rows(d.y_test, ids) if test else None,
+            d, x_train=self._stage_rows(d.x_train, rows),
+            y_train=self._stage_rows(d.y_train, rows),
+            x_test=self._stage_rows(d.x_test, rows) if test else None,
+            y_test=self._stage_rows(d.y_test, rows) if test else None,
             x_val=None, y_val=None, n_val=None)
 
-    def _store_adopt_round(self, new_state: Any, ids: Sequence[int]) -> Any:
-        """After a round or block: its trained row slabs staged in the
-        store (still on the card: the copy to the host waits for the next
-        gather or flush, and a watchdog's :meth:`store_discard` drops them
-        first) and dropped from the state."""
+    def _store_adopt_round(self, new_state: Any, ids: Sequence[int],
+                           changed: Sequence[int]) -> Any:
+        """After a round or block: its trained row slabs (of the clients
+        ``ids`` this rank holds) staged in the store (still on the card:
+        the copy to the host waits for the next gather or flush, and a
+        watchdog's :meth:`store_discard` drops them first) and dropped from
+        the state. ``changed`` (every rank's trained clients) marks the
+        rows the store eval evaluates anew."""
         kw = {}
         for name in self._store.field_names():
             self._store.stage(name, ids, getattr(new_state, name))
             kw[name] = None
         if self._store.has_field("personal_params"):
-            self._store_eval_dirty.append(np.asarray(ids))
+            self._store_eval_dirty.append(np.asarray(changed))
         return dataclasses.replace(new_state, **kw)
 
     def _store_prefetch_next(self, next_ids, cur_ids) -> None:
-        """Warm the next cohort's host rows while the card runs this one;
-        the rows this cohort dirtied are left out (their newest values are
-        the staged slabs the next gather commits)."""
+        """Warm the next cohort's host rows (those this rank holds) while
+        the card runs this one; the rows this cohort dirtied are left out
+        (their newest values are the staged slabs the next gather
+        commits)."""
         cur = set(int(i) for i in np.asarray(cur_ids))
-        ids = [int(i) for i in np.asarray(next_ids) if int(i) not in cur]
+        ids = [int(i) for i in self._store_own(next_ids) if int(i) not in cur]
         for name in self._store.field_names():
             self._store.prefetch(name, ids)
 
     def _store_round(self, state: Any, round_idx: int, inp: RoundInputs):
-        """One streamed round (``run_round`` in store mode): the cohort's
-        rows gathered onto the card, the round body on that slab, the
-        trained rows staged back, the next cohort prefetched."""
+        """One streamed round (``run_round`` in store mode): the rows of
+        the sampled clients this rank holds gathered onto the card, the
+        round body on that slab, the trained rows staged back, the next
+        cohort prefetched."""
         sel = self._selected_client_indexes(round_idx)
-        kw, slab = self._store_gather_rows(sel)
-        inp = dataclasses.replace(
-            inp, sel=torch.arange(len(sel), device=self.device), slab=slab)
+        own = self._store_own(sel)
+        kw, slab = self._store_gather_rows(own)
+        inp = self._on_slab(inp, slab, len(own))
         new_state, metrics = self._round_body(
             dataclasses.replace(state, **kw), inp)
-        new_state = self._store_adopt_round(new_state, sel)
+        new_state = self._store_adopt_round(new_state, own, sel)
         self._store_prefetch_next(
             sample_client_indexes(round_idx + 1, self.num_clients,
-                                  self.clients_per_round), sel)
+                                  self.clients_per_round), own)
         return new_state, metrics
 
     def _run_rounds_fused_store(self, state: Any, start_round: int,
                                 n_rounds: int, eval_every: int, seams,
                                 on_first_round=None):
         """A fused block over the store: one gather of the block's union of
-        clients into the first rows of slab buffers of ``min(K * S, C)``
-        rows (so one graph serves every block), round ``i`` addressing the
-        slab at ``searchsorted(union, sels[i])`` (rows chain within the
-        block through the slab as they do through the resident stack), one
-        staging of the union's rows at the end. The in-graph eval cadence
-        needs the whole cohort resident and is refused."""
+        clients (on a client mesh the union of those this rank holds) into
+        the first rows of slab buffers of ``min(K * S, C)`` rows (``C /
+        D`` on the mesh; so one graph serves every block), round ``i``
+        addressing the slab at ``searchsorted(union, sels[i])`` (rows chain
+        within the block through the slab as they do through the resident
+        stack), one staging of the union's rows at the end. The in-graph
+        eval cadence needs the whole cohort resident and is refused."""
         if eval_every:
             raise ValueError(
                 f"{self.name}: the fused in-graph eval cadence "
@@ -2292,26 +2326,32 @@ class FedAlgorithm(abc.ABC):
         self._prepare_round(state)
         rounds = range(start_round, start_round + n_rounds)
         sels = [self._selected_client_indexes(r) for r in rounds]
-        union = np.unique(np.concatenate(sels))
+        union = np.unique(np.concatenate(
+            [self._store_own(s) for s in sels])).astype(np.int64)
         fused = self._get_fused_fn(
             state, len(sels[0]),
-            min(n_rounds * len(sels[0]), self.num_clients))
+            min(n_rounds * len(sels[0]), self.num_local_clients))
         u = len(union)
         rows = {name: self._store.gather(name, union, self.device)
                 for name in self._store.field_names()}
         d, slab = self.data, fused.slab
         for f in ("x_train", "y_train", "x_test", "y_test"):
             if getattr(slab, f) is not None:
-                self._stage_rows(getattr(d, f), union, getattr(slab, f)[:u])
+                self._stage_rows(getattr(d, f), union - self._lo,
+                                 getattr(slab, f)[:u])
         fused.load(state, rows)
         del rows
+        # per round each selected client's row in the slab (a client
+        # another rank holds is never read at its position)
         views = np.stack([np.searchsorted(union, s) for s in sels])
         new_state, ys = self._fused_rounds(
             fused, state, rounds, sels,
             _to_device(views.astype(np.int64), self.device),
             _to_device(np.stack(sels).astype(np.int64), self.device), 0,
-            seams, n_rows=u, on_first_round=on_first_round)
-        new_state = self._store_adopt_round(new_state, union)
+            seams, n_rows=u, on_first_round=on_first_round,
+            slab_pos=views)
+        new_state = self._store_adopt_round(
+            new_state, union, np.unique(np.concatenate(sels)))
         nxt = np.unique(np.concatenate([
             sample_client_indexes(r, self.num_clients,
                                   self.clients_per_round)
@@ -2343,21 +2383,26 @@ class FedAlgorithm(abc.ABC):
             self._store.commit()
 
     def _personal_eval_store(self) -> Dict[str, torch.Tensor]:
-        """The personal eval over the store's stack: a full pass over
-        ``gather_all`` (each client's row moved to the card in turn) when
+        """The personal eval over the store's stack: a full pass over every
+        stored row (each client's row moved to the card in turn) when
         there are no terms yet or every client changed (the first eval,
         after a resume or a rollback), else the kept ``[C]`` terms with the
         rows the rounds since changed evaluated anew. Each client's terms
         come from the same ``eval_client`` call on the same row as the
-        resident full pass's, so the result is bitwise that pass."""
+        resident full pass's, so the result is bitwise that pass. On a
+        client mesh each rank evaluates the rows it holds and the terms are
+        gathered into the order of the rows (:meth:`_eval_terms`; every
+        rank knows every trained client, so the ranks agree on the
+        rows)."""
         dev, c = self.device, self.num_clients
         dirty = (np.unique(np.concatenate(self._store_eval_dirty))
                  if self._store_eval_dirty else np.zeros((0,), np.int64))
         full = self._store_eval_cache is None or dirty.size >= c
         rows = np.arange(c) if full else dirty
         if rows.size:
-            sub = self._store.gather("personal_params", rows)
-            pos = {int(r): i for i, r in enumerate(rows)}
+            own = self._store_own(rows)
+            sub = self._store.gather("personal_params", own)
+            pos = {int(r): i for i, r in enumerate(own)}
             c_s, l_s = self._eval_terms(
                 rows, lambda r: {k: _to_device(v[pos[int(r)]], dev)
                                  for k, v in sub.items()})
@@ -2497,11 +2542,14 @@ class FedAlgorithm(abc.ABC):
     def _fused_rounds(self, fused: _FusedRounds, state: Any, rounds,
                       sels: List[np.ndarray], sel_dev: torch.Tensor,
                       pop_dev: Optional[torch.Tensor], eval_every: int,
-                      seams, n_rows: int = 0, on_first_round=None):
+                      seams, n_rows: int = 0, on_first_round=None,
+                      slab_pos: Optional[np.ndarray] = None):
         """The replays of a block whose state is in ``fused``'s buffers:
         per round its inputs drawn, written and its graph replayed (the
         eval's after an eval round); ``on_first_round`` gets a copy of the
-        state after the first. Returns ``(state, ys)``."""
+        state after the first. ``slab_pos`` (store mode, ``[K, S]`` on the
+        host): per round each client's row in the slab, which a client
+        mesh's rank reads its own clients at. Returns ``(state, ys)``."""
         n_rounds = len(rounds)
         g = clone_generator(state.generator)
         template = self._template(state)
@@ -2516,6 +2564,10 @@ class FedAlgorithm(abc.ABC):
                 template, sels[k], sel_dev[k], lrs[k], g,
                 None if seams is None else seams[k], round_idx=r,
                 pop_dev=None if pop_dev is None else pop_dev[k])
+            mr = inp.mesh_rows
+            if slab_pos is not None and mr is not None:
+                inp.mesh_rows = mr._replace(rows=_to_device(
+                    slab_pos[k][mr.own].astype(np.int64), self.device))
             fused.write(inp)
             rows[:, k].copy_(fused.round_graph(self, inp)())
             if k == 0 and on_first_round is not None:

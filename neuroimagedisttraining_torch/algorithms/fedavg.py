@@ -132,10 +132,10 @@ class FedAvg(FedAlgorithm):
                 rows.append(self._train_clients(state.global_params, ones,
                                                 inp)[0])
                 continue
-            inp = dataclasses.replace(
-                inp, sel=torch.arange(len(sel), device=self.device),
-                slab=self._data_slab(sel))
-            self._store.stage("personal_params", sel, self._train_clients(
+            # on a client mesh each rank fine-tunes the clients it holds
+            own = self._store_own(sel)
+            inp = self._on_slab(inp, self._data_slab(own), len(own))
+            self._store.stage("personal_params", own, self._train_clients(
                 state.global_params, ones, inp)[0])
         if self._store is None:
             personal = rows[0]

@@ -30,6 +30,15 @@ cache's and the disk's bytes, the cumulative ``store_gather_ms``).
 Trees are this package's dicts of tensors. Rows are kept as numpy arrays
 (a bfloat16 leaf as its 16-bit pattern); a gather stacks them into a pinned
 host buffer and moves it to the card with ``non_blocking=True``.
+
+On a client mesh (``mesh``: one process a device, ``parallel/mesh.py``)
+each rank's store holds the rows of its own block of clients, ``[lo, hi)``,
+the block ``shard_federated`` gives it: ids in and out are population ids,
+the rows inside are the block's (a disk store's memmaps are the block's
+size, under a directory of the rank's own). A snapshot is the single
+process's file whatever the width that writes it: every rank's written rows
+are gathered to rank 0, which writes them; a rank loading one keeps its
+block's rows.
 """
 from __future__ import annotations
 
@@ -43,7 +52,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-__all__ = ["ClientStore", "STORE_MODES"]
+__all__ = ["ClientStore", "STORE_MODES", "write_snapshot"]
 
 #: residency modes below "device" (device = no store at all)
 STORE_MODES = ("host", "disk")
@@ -140,19 +149,28 @@ class ClientStore:
     and host -> card through ``gather``."""
 
     def __init__(self, num_clients: int, mode: str = "host",
-                 hot_clients: int = 64, root: Optional[str] = None):
+                 hot_clients: int = 64, root: Optional[str] = None,
+                 mesh=None):
         if mode not in STORE_MODES:
             raise ValueError(
                 f"client store mode {mode!r} not in {STORE_MODES} "
                 "(mode 'device' means: no store)")
         if num_clients < 1:
             raise ValueError("ClientStore needs num_clients >= 1")
+        #: the population's size; this store holds the rows of the clients
+        #: ``[lo, hi)`` (all of them off a mesh)
         self.num_clients = int(num_clients)
+        self.mesh = mesh
+        self.lo, self.hi = ((0, self.num_clients) if mesh is None
+                            else mesh.block(self.num_clients))
         self.mode = mode
         self.hot_clients = int(hot_clients)
         self._root = root
         if mode == "disk" and root is None:
             self._root = tempfile.mkdtemp(prefix="client_store_")
+        elif mode == "disk" and mesh is not None:
+            # a directory of the rank's own: the block's memmaps
+            self._root = os.path.join(root, f"rank{mesh.rank}")
         self._fields: Dict[str, _Field] = {}
         #: staged (uncommitted) round outputs: (name, ids, slab), the slab's
         #: tensors possibly still on the card
@@ -171,7 +189,7 @@ class ClientStore:
         row never written reads as a byte copy of it and stores nothing.
         Registering again resets the field (a fresh ``init_state``)."""
         self._fields[name] = _Field(
-            name, template, self.num_clients, self.mode,
+            name, template, self.hi - self.lo, self.mode,
             self.hot_clients, self._root)
         self._prefetched.pop(name, None)
         self._staged = [s for s in self._staged if s[0] != name]
@@ -191,6 +209,15 @@ class ClientStore:
                 "before the first round")
         return f
 
+    def _local(self, cid) -> int:
+        """Population id ``cid``'s row in this store's block."""
+        cid = int(cid)
+        if not self.lo <= cid < self.hi:
+            raise ValueError(
+                f"client {cid} is not in this store's block "
+                f"[{self.lo}, {self.hi}) of the population")
+        return cid - self.lo
+
     # -- the staging protocol -----------------------------------------------
     def stage(self, name: str, ids: Sequence[int],
               slab: Dict[str, torch.Tensor]) -> None:
@@ -198,6 +225,8 @@ class ClientStore:
         with ``len(ids)`` rows) unread: :meth:`commit` writes them,
         :meth:`discard` (the watchdog's rollback) drops them."""
         self._field(name)  # fail fast on an unknown field
+        for cid in ids:  # ... and on another rank's client
+            self._local(cid)
         self._staged.append((name, np.asarray(ids), slab))
 
     def commit(self) -> None:
@@ -212,7 +241,8 @@ class ClientStore:
                 cid = int(cid)
                 if pre is not None:  # a staged row outdates a prefetch
                     pre.pop(cid, None)
-                field.write_row(cid, [np.array(h[pos]) for h in host])
+                field.write_row(self._local(cid),
+                                [np.array(h[pos]) for h in host])
 
     def discard(self) -> None:
         """Staged slabs dropped unread (the watchdog's RETRY and SKIP: a
@@ -224,7 +254,7 @@ class ClientStore:
         if not self._staged:
             return np.zeros((0,), np.int64)
         return np.unique(np.concatenate(
-            [ids for _, ids, _ in self._staged]))
+            [np.asarray(ids, np.int64) for _, ids, _ in self._staged]))
 
     # -- reads --------------------------------------------------------------
     def gather(self, name: str, ids: Sequence[int],
@@ -249,7 +279,7 @@ class ClientStore:
             if row is not None:
                 self.hits += 1
             else:
-                row, host_hit = field.read_row(cid)
+                row, host_hit = field.read_row(self._local(cid))
                 if host_hit:
                     self.hits += 1
                 else:
@@ -262,9 +292,9 @@ class ClientStore:
         return dict(zip(field.keys, out))
 
     def gather_all(self, name: str, device=None) -> Dict[str, torch.Tensor]:
-        """The whole ``[C, ...]`` stack (the store-backed full personal
-        eval, a test's check)."""
-        return self.gather(name, np.arange(self.num_clients), device)
+        """The whole ``[C, ...]`` stack (a test's check); on a mesh the
+        rank's block, ``[hi - lo, ...]``."""
+        return self.gather(name, np.arange(self.lo, self.hi), device)
 
     def prefetch(self, name: str, ids: Sequence[int]) -> None:
         """Warm the host row cache for ``ids`` off the gather's clock (the
@@ -280,7 +310,7 @@ class ClientStore:
             cid = int(cid)
             if cid in pre or cid in staged_ids:
                 continue
-            row, _ = field.read_row(cid)
+            row, _ = field.read_row(self._local(cid))
             pre[cid] = row
             self.prefetched_rows += 1
 
@@ -305,12 +335,16 @@ class ClientStore:
         }
 
     # -- checkpoint lineage -------------------------------------------------
-    def snapshot_save(self, path: str) -> None:
-        """One npz file: every written row of every field, and a manifest
-        (the population size, the fields' layouts). Rows never written are
-        not stored: the restoring side makes them from its own registered
-        defaults, which ``init_state`` reproduces bit for bit. Written to a
-        temporary name, then moved into place."""
+    def snapshot(self) -> Optional[Dict[str, np.ndarray]]:
+        """The arrays of a snapshot (:meth:`snapshot_save`): every written
+        row of every field, by population id, and a manifest (the
+        population size, the fields' layouts). Rows never written are not
+        stored: the restoring side makes them from its own registered
+        defaults, which ``init_state`` reproduces bit for bit. Staged rows
+        are committed first. On a mesh every rank calls it (one gather of
+        the ids and one of each leaf's rows, as bytes); rank 0 receives the
+        population's arrays, in the layout a single process writes, and the
+        other ranks None."""
         self.commit()
         arrays: Dict[str, np.ndarray] = {}
         manifest: Dict[str, Any] = {"num_clients": self.num_clients,
@@ -318,9 +352,7 @@ class ClientStore:
         for name, field in self._fields.items():
             field.flush_hot()
             ids = np.nonzero(field.materialized)[0]
-            manifest["fields"][name] = {"n_leaves": len(field.keys),
-                                        "n_rows": int(ids.size)}
-            arrays[f"{name}::ids"] = ids.astype(np.int64)
+            leaves = []
             for li, t in enumerate(field.leaf_templates):
                 if not ids.size:
                     rows = np.empty((0,) + t.shape, t.dtype)
@@ -328,19 +360,69 @@ class ClientStore:
                     rows = np.asarray(field.mmaps[li][ids])
                 else:
                     rows = np.stack([field.rows[int(i)][li] for i in ids])
+                leaves.append(rows)
+            ids = ids.astype(np.int64) + self.lo
+            if self.mesh is not None:
+                ids, leaves = self._gather_written(ids, leaves)
+                if ids is None:
+                    continue
+            manifest["fields"][name] = {"n_leaves": len(field.keys),
+                                        "n_rows": int(ids.size)}
+            arrays[f"{name}::ids"] = ids
+            for li, rows in enumerate(leaves):
                 arrays[f"{name}::leaf{li}"] = rows
+        if self.mesh is not None and self.mesh.rank != 0:
+            return None
         arrays["__manifest__"] = np.frombuffer(
             json.dumps(manifest).encode(), dtype=np.uint8)
-        tmp = path + ".tmp"
-        with open(tmp, "wb") as f:
-            np.savez(f, **arrays)
-        os.replace(tmp, path)
+        return arrays
+
+    def _gather_written(self, ids: np.ndarray, leaves: List[np.ndarray]):
+        """One field's written rows of every rank (``ids`` and ``leaves``
+        here this rank's), in rank order, which is population order: on
+        rank 0 ``(ids, leaves)``, elsewhere ``(None, None)``. Each rank's
+        rows travel padded to the largest count (``mesh.gather_rows``)."""
+        from ..parallel.mesh import gather_index, gather_rows
+
+        mesh = self.mesh
+        dev = mesh.device
+        counts = [int(n) for n in mesh.all_gather(torch.tensor(
+            [ids.size], dtype=torch.int64, device=dev)).reshape(-1)]
+        order = [(d, r) for d, n in enumerate(counts) for r in range(n)]
+        idx = gather_index(counts, order).to(dev)
+
+        def gather(a: np.ndarray) -> np.ndarray:
+            # as bytes: every dtype (a bfloat16 leaf's int16 pattern too)
+            # on every backend
+            b = np.ascontiguousarray(a).reshape(
+                a.shape[0], int(np.prod(a.shape[1:], dtype=np.int64))
+            ).view(np.uint8)
+            out = gather_rows(mesh, torch.from_numpy(b).to(dev), counts, idx)
+            return out.cpu().numpy().view(a.dtype).reshape(
+                (-1,) + a.shape[1:])
+
+        if not sum(counts):
+            return ((ids, leaves) if mesh.rank == 0 else (None, None))
+        ids_all = gather(ids)
+        leaves_all = [gather(a) for a in leaves]
+        if mesh.rank != 0:
+            return None, None
+        return ids_all, leaves_all
+
+    def snapshot_save(self, path: str) -> None:
+        """One npz file of :meth:`snapshot`'s arrays, written to a
+        temporary name, then moved into place. On a mesh every rank calls
+        it and rank 0 writes."""
+        arrays = self.snapshot()
+        if arrays is not None:
+            write_snapshot(path, arrays)
 
     def snapshot_load(self, path: str) -> None:
-        """This store's rows replaced by a snapshot's. The fields must be
-        registered already (``init_state`` ran): the snapshot carries rows,
-        not layouts, and another field set, or another population size, is
-        refused."""
+        """This store's rows replaced by a snapshot's (on a mesh, the
+        snapshot's rows of the rank's block, whatever the width that wrote
+        it). The fields must be registered already (``init_state`` ran):
+        the snapshot carries rows, not layouts, and another field set, or
+        another population size, is refused."""
         with np.load(path) as z:
             manifest = json.loads(bytes(z["__manifest__"]).decode())
             snap_fields = set(manifest["fields"])
@@ -363,8 +445,18 @@ class ClientStore:
                 field.rows = OrderedDict()
                 field.materialized[:] = False
                 ids = z[f"{name}::ids"]
+                mine = np.nonzero((ids >= self.lo) & (ids < self.hi))[0]
                 leaves = [z[f"{name}::leaf{li}"]
                           for li in range(len(field.keys))]
-                for pos, cid in enumerate(ids):
-                    field.write_row(int(cid),
+                for pos in mine:
+                    field.write_row(int(ids[pos]) - self.lo,
                                     [np.array(lf[pos]) for lf in leaves])
+
+
+def write_snapshot(path: str, arrays: Dict[str, np.ndarray]) -> None:
+    """A snapshot's arrays (:meth:`ClientStore.snapshot`) as one npz file,
+    written to a temporary name, then moved into place."""
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        np.savez(f, **arrays)
+    os.replace(tmp, path)

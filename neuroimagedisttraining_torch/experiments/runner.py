@@ -10,14 +10,15 @@ top-level keys. It runs on ``--device`` (CUDA by default, with no fallback).
 ``--mesh_devices N`` shards the clients over a mesh of ``N`` ranks, one
 process a device (:func:`run_experiment`): fitted to the devices there are
 and to the cohort, as the JAX CLI fits it; rank 0 writes the log and the
-results. SalientGrads and FedAvg run there, with ``--fuse_rounds`` (on the
+results. Every algorithm runs there, with ``--fuse_rounds`` (on the
 cards each round one CUDA graph holding its NCCL collectives),
 ``--eval_cache``, ``--eval_clients``, ``--stratified_sampling``, the robust
-tier (``--fault_spec``, ``--guard``, ``--defense_type``, ``--robust_agg``)
-and the state tier (``--checkpoint_dir``, ``--resume``, ``--watchdog``: a
-step holds the single-process layout, rank 0 writes it, every rank restores
-it, so a lineage resumes at any mesh width); the client store and the other
-algorithms are refused on a mesh (:func:`client_mesh_size`).
+tier (``--fault_spec``, ``--guard``, ``--defense_type``, ``--robust_agg``),
+the state tier (``--checkpoint_dir``, ``--resume``, ``--watchdog``: a step
+holds the single-process layout, rank 0 writes it, every rank restores it,
+so a lineage resumes at any mesh width) and the client store
+(``--client_store host|disk``: each rank's store holds its block of
+clients' rows, and its host memory its block's volumes).
 
 With ``--checkpoint_dir`` every round (every block under ``--fuse_rounds``)
 is saved in the port's torch format (``utils/checkpoint.py``) under the
@@ -44,7 +45,7 @@ import os
 import pickle
 import random
 import tempfile
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -152,22 +153,11 @@ def client_mesh_size(args: argparse.Namespace, algo_name: str) -> int:
     """The ranks of the run's client mesh, sized as the JAX CLI's
     ``maybe_shard`` sizes it: the largest count up to the devices asked for
     (:func:`_mesh_devices_asked`) that divides ``--client_num_in_total``; 1
-    is no mesh. Every algorithm runs there; an explicit ``--mesh_devices``
-    above 1 with ``--client_store``, which the mesh does not run, is
-    refused (ROADMAP item 7, the client store on the mesh); with the
-    default 0 such a run keeps one device."""
+    is no mesh. Every algorithm, and the client store, runs there."""
     from ..parallel.mesh import fit_client_devices
 
-    asked = _mesh_devices_asked(args)
-    if asked > 1 and getattr(args, "client_store", "device") != "device":
-        if getattr(args, "mesh_devices", 0):
-            raise SystemExit(
-                f"--mesh_devices {args.mesh_devices}: --client_store on a "
-                "client mesh is not ported to PyTorch yet (ROADMAP item 7, "
-                "the client store on the mesh); drop one of the two flags, "
-                "or run on one device")
-        return 1
-    return fit_client_devices(args.client_num_in_total, asked)
+    return fit_client_devices(args.client_num_in_total,
+                              _mesh_devices_asked(args))
 
 
 def _is_abcd_h5(dataset: str) -> bool:
@@ -531,7 +521,10 @@ def build_algorithm(args: argparse.Namespace, algo_name: str, mesh=None):
                 f"--mesh_devices: the cohort has {data.num_clients} clients, "
                 f"which do not divide over the {mesh.size}-rank mesh sized "
                 f"by --client_num_in_total {args.client_num_in_total}")
-        data = shard_federated(data, mesh)
+        # a client store keeps the rank's block on the host: each round
+        # moves its cohort to the card
+        data = shard_federated(data, mesh, host=getattr(
+            args, "client_store", "device") != "device")
     loss_type = infer_loss_type(args, data.class_num)
     num_outputs = 1 if loss_type == "bce" else data.class_num
     # --layout flat stores the cohort channel-less; the apply injects it
@@ -757,6 +750,20 @@ def _run_fused_rounds(algo, algo_name, state, start_round, total, block,
         on_first_round=None if cost.per_round else on_first_round)
 
 
+def store_stats_by_rank(store, mesh=None) -> List[Dict[str, float]]:
+    """The client store's gauges under the JAX store's names
+    (``mem_host_cache_bytes``, ``mem_store_*``, ``store_gather_ms``), one
+    dict a rank in rank order: on a client mesh every rank takes part (one
+    ``all_gather``), off it the one store's."""
+    stats = store.stats()
+    if mesh is None:
+        return [stats]
+    keys = sorted(stats)
+    rows = mesh.all_gather(torch.tensor(
+        [stats[k] for k in keys], dtype=torch.float64, device=mesh.device))
+    return [dict(zip(keys, (float(v) for v in r))) for r in rows.tolist()]
+
+
 def _mesh_rank(rank: int, args: argparse.Namespace, algo_name: str,
                n: int, directory: str, threads: int) -> None:
     """One rank of a client-mesh run (:func:`run_experiment`): joins the
@@ -809,14 +816,15 @@ def run_experiment(args: argparse.Namespace,
                    algo_name: Optional[str] = None,
                    mesh=None) -> Dict[str, Any]:
     """The run the flags describe; returns its identity, history, final
-    eval, ``stat_info`` path, final state and ``client_mesh_devices``. With
+    eval, ``stat_info`` path, final state, ``client_mesh_devices`` and, with
+    a client store, ``store_stats`` (:func:`store_stats_by_rank`). With
     a client mesh of more than one rank (:func:`client_mesh_size`) the run
     is spawned, one process a rank (``mesh`` is the rank's mesh inside
     one): the eager loop or, with ``--fuse_rounds``, the fused one
     (:func:`_run_fused_rounds`), the same on every rank, with the
     checkpoints (every rank saves and restores together, rank 0 writes) and
-    the watchdog (rank 0's verdict on every rank); a client store there is
-    refused before any work (:func:`client_mesh_size`)."""
+    the watchdog (rank 0's verdict on every rank) and the client store
+    (each rank's holds its block's rows)."""
     from .. import resolve_device
     from ..convert import to_reference_layout
     from ..robust import recovery
@@ -1076,6 +1084,11 @@ def run_experiment(args: argparse.Namespace,
         if ckpt_mgr is not None:
             fault_totals["checkpoint_save_failures"] = float(
                 ckpt_mgr.save_failures)
+        store_stats = None
+        if algo._store is not None:
+            # the JAX store's gauges, each rank's own (all take part)
+            store_stats = store_stats_by_rank(algo._store, mesh)
+            logger.info("client store: %s", store_stats)
         stat_path = save_stat_info(
             args, identity, history, final_eval, extras, cost=cost,
             avg_inference_flops=avg_inf,
@@ -1087,6 +1100,7 @@ def run_experiment(args: argparse.Namespace,
             "stat_path": stat_path,
             "state": state,
             "client_mesh_devices": n_mesh,
+            "store_stats": store_stats,
         }
     finally:
         if mesh is not None and algo is not None:

@@ -230,7 +230,8 @@ def wire_roundtrip_mat(mat: torch.Tensor, wire: str, *,
     n = mat.shape[1]
     q, scale = _quantize_int8(_buckets(mat, bucket_size), uniforms)
     deq = q.to(torch.float32) * scale
-    return deq.reshape(mat.shape[0], -1)[:, :n]
+    # the width spelled out: a client mesh's rank may decode zero rows
+    return deq.reshape(mat.shape[0], deq.shape[1] * deq.shape[2])[:, :n]
 
 
 # ---------------------------------------------------------------------------

@@ -130,20 +130,27 @@ def make_mesh(n_client_devices: int, *, backend: Optional[str] = None,
     """Join (or adopt) the ``n_client_devices``-rank process group and
     return this rank's :class:`ClientMesh`.
 
-    ``device`` defaults to ``cuda:<rank mod card count>`` where CUDA is
-    present, else the CPU; ``backend`` to NCCL for a CUDA device and gloo
-    for the CPU (gloo also runs CUDA tensors, staged through the host).
+    ``device`` defaults to ``cuda:<rank mod card count>``, which must be
+    present: without CUDA the call raises before it joins any group (the
+    CPU is used only when the caller passes ``device="cpu"``, as
+    :func:`~neuroimagedisttraining_torch.resolve_device` has it);
+    ``backend`` defaults to NCCL for a CUDA device and gloo for the CPU
+    (gloo also runs CUDA tensors, staged through the host).
     ``init_method`` is the rendezvous (``tcp://localhost:<port>`` or
     ``file://<path>``; the default reads ``MASTER_ADDR``/``MASTER_PORT``),
     ``rank`` this process's rank (default: ``RANK`` from the environment),
     ``timeout`` (a ``timedelta``) how long a collective may wait (default:
     the backend's). A process whose default group is already initialized
     adopts it."""
+    if device is None and not torch.cuda.is_available():
+        raise RuntimeError(
+            "make_mesh: CUDA is not available; pass device='cpu' to run "
+            "the client mesh on the CPU")
+
     def device_of(r):
         if device is not None:
             return torch.device(device)
-        return torch.device(f"cuda:{r % torch.cuda.device_count()}"
-                            if torch.cuda.is_available() else "cpu")
+        return torch.device(f"cuda:{r % torch.cuda.device_count()}")
 
     if not dist.is_initialized():
         rank = int(os.environ["RANK"]) if rank is None else rank
@@ -189,14 +196,16 @@ def shard_over_clients(tree: Dict[str, torch.Tensor], mesh: ClientMesh
     return out
 
 
-def shard_federated(data, mesh: ClientMesh):
+def shard_federated(data, mesh: ClientMesh, host: bool = False):
     """``data`` (a ``FederatedData``) as this rank holds it: the train,
     test and validation arrays cut to its block of clients and moved to the
-    mesh's device, the per-client counts whole (every rank's host loop
-    reads every client's count), every client's train labels on the host
-    (``y_train_host``: ``[C, n]`` integers, no volume of another rank's
-    block), and the mesh recorded (:func:`mesh_of`)."""
-    def cut(x, to_device=True):
+    mesh's device (with ``host``, kept on the CPU: a client store's run
+    moves each round's cohort to the card itself), the per-client counts
+    whole (every rank's host loop reads every client's count), every
+    client's train labels on the host (``y_train_host``: ``[C, n]``
+    integers, no volume of another rank's block), and the mesh recorded
+    (:func:`mesh_of`)."""
+    def cut(x, to_device=not host):
         if x is None:
             return None
         lo, hi = mesh.block(x.shape[0])

@@ -30,8 +30,10 @@ On a client mesh (``mesh``) every rank runs the loop and the watchdog: the
 verdict is rank 0's health check, broadcast, so no rank retries, skips or
 rolls back alone, and a checkpoint rollback goes through the manager's
 mesh restore, so every rank restores the same step, each its block of the
-rows. A retry's cohort is the same on every rank, since every rank makes
-every draw.
+rows (a client store's too: every rank reloads its block's rows from the
+step's sidecar, after the round loop discarded every rank's staged rows).
+A retry's cohort is the same on every rank, since every rank makes every
+draw.
 """
 from __future__ import annotations
 

@@ -28,6 +28,10 @@ and none is left waiting. Every rank restores the same step (rank 0's,
 checked), reads it whole and keeps its block of the row fields
 (``FedAlgorithm.state_to_local``). So a step resumes at any mesh width,
 one process included, as the reference's orbax steps of global arrays do.
+A store-backed lineage's ``store_<step>.npz`` is the single process's file
+too: every rank commits its staged rows and the ranks' written rows are
+gathered to rank 0, which writes them with the step
+(``ClientStore.snapshot``); a rank restoring it keeps its block's rows.
 """
 from __future__ import annotations
 
@@ -164,10 +168,11 @@ class CheckpointManager:
         (the cost totals, the lineage's semantics). ``store``: the
         :class:`~..core.client_store.ClientStore` whose rows a store-backed
         state lacks, saved as ``store_<step>.npz`` (staged rows committed
-        first). On a client mesh every rank calls it: the state's rows are
-        gathered whole, rank 0 writes (and counts a failure), and every
-        rank returns after the barrier that follows, whatever rank 0's
-        write did; the return value is this rank's part."""
+        first). On a client mesh every rank calls it: the state's rows and
+        the store's written rows are gathered to rank 0, rank 0 writes (and
+        counts a failure), and every rank returns after the barrier that
+        follows, whatever rank 0's write did; the return value is this
+        rank's part."""
         if not force and round_idx % self.save_every:
             return False
         mesh = self.mesh
@@ -175,8 +180,10 @@ class CheckpointManager:
             try:
                 if self.layout is not None:
                     state = self.layout.state_to_global(state)
+                # on a mesh a collective: every rank commits and sends
+                snap = None if store is None else store.snapshot()
                 if mesh is None or mesh.rank == 0:
-                    self._write(round_idx, state, metadata, store)
+                    self._write(round_idx, state, metadata, snap)
             except Exception:
                 self.save_failures += 1
                 logger.warning(
@@ -186,22 +193,25 @@ class CheckpointManager:
                     self.save_failures, exc_info=True)
                 return False
             finally:
-                state = None  # the gathered rows, before the barrier
+                state = snap = None  # the gathered rows, before the barrier
         finally:
             if mesh is not None:
                 mesh.barrier()
         return True
 
     def _write(self, round_idx: int, state: Any, metadata: Optional[dict],
-               store: Optional[Any]) -> None:
-        """Step ``round_idx``, its sidecars, then the pruning."""
+               snap: Optional[Dict[str, Any]]) -> None:
+        """Step ``round_idx``, its sidecars (``snap``: the client store's
+        snapshot arrays), then the pruning."""
+        from ..core.client_store import write_snapshot
+
         self._save_state(round_idx, state)
         if metadata is not None:
             self._publish(os.path.join(self.directory,
                                        f"meta_{round_idx}.json"),
                           json.dumps(metadata).encode())
-        if store is not None:
-            store.snapshot_save(self._store_path(round_idx))
+        if snap is not None:
+            write_snapshot(self._store_path(round_idx), snap)
         self._prune()
 
     @staticmethod
@@ -299,8 +309,9 @@ class CheckpointManager:
 
         On a client mesh every rank calls it: each reads the step in the
         single-process layout (``layout.checkpoint_template``) and keeps its
-        block of the row fields (``layout.state_to_local``); a rank that
-        would restore another step than rank 0 raises."""
+        block of the row fields (``layout.state_to_local``) and of the
+        store's rows; a rank that would restore another step than rank 0
+        raises."""
         steps = sorted(self.all_steps(), reverse=True)
         mesh = self.mesh
         if mesh is not None:

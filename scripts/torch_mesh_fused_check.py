@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
 """Fused round blocks on a client mesh of several processes, for the
 PyTorch/CUDA port: each block bitwise the same rounds run eagerly, and the
-rates of both spellings; the robust tier's blocks and the seven other
-algorithms' likewise, and checkpoints resumed on the mesh bitwise their
-uninterrupted runs.
+rates of both spellings; the robust tier's blocks, the seven other
+algorithms' and the client store's likewise, and checkpoints resumed on the
+mesh bitwise their uninterrupted runs.
 
     python3 scripts/torch_mesh_fused_check.py [--ranks 4] [--rounds 3]
-        [--device cuda|cpu] [--cases all|plain|robust|baselines]
+        [--device cuda|cpu] [--cases all|plain|robust|baselines|store]
         [--out PATH]
 
 Spawns ``--ranks`` processes joined over a ``file://`` rendezvous: on
@@ -48,6 +48,22 @@ TurboAggregate, whose host work reads the round's results, their eager
 rounds and eager rates alone (FedFomo on the last tenth of each shard as
 its validation rows). Then DisPFL's checkpoint check, as the top-k
 case's.
+
+``--cases store`` (or ``all``) runs each of :data:`STORE_CASES`
+(SalientGrads on the top-k wire, FedAvg, Ditto) with a disk client store
+over a population of :data:`STORE_CLIENTS` clients at ``frac``
+:data:`STORE_FRAC` (``chip_smoke.py``'s state phase: 32 clients at 0.25 on
+the cards; 8 on the CPU), each rank keeping its block of the volumes on
+the host and of the rows in its store: ``--rounds`` eager streamed rounds
+and a fused store block of the same rounds from a second algorithm (a
+store of its own), the metrics, the global model and every stored row of
+the rank's block bitwise; the block again from a fresh state with the
+collectives counted; the captures the first block made (at partial
+participation a round's spread over the ranks keys its graph); the rates
+in pairs as above (no eval: a store's fused block evaluates between
+blocks). Then the store-backed checkpoint check on SalientGrads' case: a
+step after round 0 with the store's sidecar, resumed by a fresh algorithm
+and store, bitwise the uninterrupted rounds in the state and the rows.
 
 Rank 0 prints one JSON line per case and a last line with the cards' name
 and power limit (``nvidia-smi``), and writes them all to ``--out``. Exits
@@ -102,6 +118,14 @@ BASELINE_CASES = (
 #: the baseline the checkpoint check resumes, and FedFomo's validation
 #: share of each shard
 BASELINE_CKPT, FOMO_VAL_FRACTION = "dispfl", 0.1
+#: (name, algorithm, agg_impl) with a disk client store; the population
+#: (on the cards; 8 clients on the CPU), its sampled fraction and a store's
+#: hot rows; the case the store's checkpoint check resumes
+STORE_CASES = (("store_salientgrads_topk", "salientgrads", "topk"),
+               ("store_fedavg", "fedavg", "dense"),
+               ("store_ditto", "ditto", "dense"))
+STORE_CLIENTS, STORE_FRAC, STORE_HOT = 32, 0.25, 8
+STORE_CKPT = "store_salientgrads_topk"
 N_CLIENTS, SAMPLES, TEST, BATCH, STEPS = 8, 40, 10, 8, 5
 VOLUME = (121, 145, 121)
 COLLECTIVE_TIMEOUT_S = 120
@@ -137,9 +161,10 @@ def _clock(dev, mesh, t0=None):
     return float(t)
 
 
-def _cohort(dev, mesh):
-    """The cohort, its model and hyperparameters: full width on the card,
-    narrow on the CPU; this rank's block of it."""
+def _cohort(dev, mesh, clients=N_CLIENTS, host=False):
+    """The cohort (``clients`` of them), its model and hyperparameters:
+    full width on the card, narrow on the CPU; this rank's block of it
+    (on the host with ``host``)."""
     import torch
 
     from neuroimagedisttraining_torch.core.state import HyperParams
@@ -151,7 +176,7 @@ def _cohort(dev, mesh):
     g = torch.Generator(device=dev).manual_seed(0)
     if dev.type == "cuda":
         shape = phased_sample_shape(VOLUME)
-        data = device_synthetic_federated(N_CLIENTS, SAMPLES, shape, g,
+        data = device_synthetic_federated(clients, SAMPLES, shape, g,
                                           test_per_client=TEST)
         hp = HyperParams(lr=1e-3, lr_decay=0.998, momentum=0.9,
                          weight_decay=5e-4, grad_clip=10.0, local_epochs=1,
@@ -161,7 +186,7 @@ def _cohort(dev, mesh):
             return create_model("3dcnn_s2d", num_classes=1,
                                 sample_shape=shape)
     else:
-        data = device_synthetic_federated(N_CLIENTS, 8, (8, 8, 8, 1), g,
+        data = device_synthetic_federated(clients, 8, (8, 8, 8, 1), g,
                                           test_per_client=4)
         hp = HyperParams(lr=1e-3, lr_decay=0.998, momentum=0.9,
                          weight_decay=5e-4, grad_clip=10.0, local_epochs=1,
@@ -170,7 +195,9 @@ def _cohort(dev, mesh):
         def model():
             return create_model("small3dcnn", num_classes=1,
                                 dropout_rate=0.5)
-    return shard_federated(data, mesh), model, hp
+    if host:
+        data = data.to("cpu")
+    return shard_federated(data, mesh, host=host), model, hp
 
 
 def _trees(state):
@@ -371,6 +398,146 @@ def _ckpt_check(case, data, model, hp, dev, state0, rounds, directory,
             "save_failures": mgr.save_failures}
 
 
+def _store_algo(case, data, model, hp, dev, store_dir):
+    """The algorithm of a :data:`STORE_CASES` entry with its disk store
+    under ``store_dir``."""
+    from neuroimagedisttraining_torch import algorithms
+
+    _, name, impl = case
+    cls = {"salientgrads": "SalientGrads", "fedavg": "FedAvg",
+           "ditto": "Ditto"}[name]
+    kw = dict(dense_ratio=0.5, itersnip_iterations=1) \
+        if name == "salientgrads" else {}
+    return getattr(algorithms, cls)(
+        model(), data, hp, loss_type="bce", frac=STORE_FRAC, seed=0,
+        compute_dtype="bfloat16", agg_impl=impl, client_store="disk",
+        store_hot_clients=STORE_HOT, store_dir=store_dir, device=dev, **kw)
+
+
+def _store_rows(algo):
+    """The rows this rank's store holds, by field (staged rows committed
+    first), on the host."""
+    algo.store_flush()
+    return {f: algo._store.gather_all(f) for f in algo._store.field_names()}
+
+
+def _store_same(a_state, a_rows, b_state, b_rows):
+    import torch
+
+    a, b = _trees(a_state), _trees(b_state)
+    return a.keys() == b.keys() and all(
+        torch.equal(t[k], b[f][k]) for f, t in a.items() for k in t) and \
+        a_rows.keys() == b_rows.keys() and all(
+            torch.equal(t[k], b_rows[f][k]) for f, t in a_rows.items()
+            for k in t)
+
+
+def _store_case(make, rounds, dev, mesh, note):
+    """A store case on this rank (module docstring)."""
+    a = make("eager")
+    s, mets = a.init_state(), []
+    for r in range(rounds):
+        s, met = a.run_round(s, r)
+        mets.append(met)
+        _sync(dev)
+        note(f"eager round {r}")
+    b = make("fused")
+    sf, ys = b.run_rounds_fused(b.init_state(), 0, rounds)
+    host = ys.materialize()
+    bitwise = all(float(host[k][i]) == float(m[k])
+                  for i, m in enumerate(mets) for k in host) and \
+        _store_same(s, _store_rows(a), sf, _store_rows(b))
+    captures = b._fused.evicted + len(b._fused.rounds)
+    note(f"fused block, bitwise {bitwise}, {captures} captures")
+    calls = {"all_gather": 0, "all_reduce": 0}
+
+    def counted(name, fn):
+        def call(*args, **kwargs):
+            calls[name] += 1
+            return fn(*args, **kwargs)
+        return call
+
+    s2 = b.init_state()  # the store starts over; the graphs stay
+    for name in calls:
+        setattr(mesh, name, counted(name, getattr(mesh, name)))
+    before = b._fused.evicted + len(b._fused.rounds)
+    s2, _ = b.run_rounds_fused(s2, 0, rounds)
+    again = b._fused.evicted + len(b._fused.rounds) - before
+    for name in calls:
+        delattr(mesh, name)
+    bitwise = bitwise and _store_same(s, _store_rows(a), s2, _store_rows(b))
+
+    def eager(start):
+        t0, st = _clock(dev, mesh), s
+        for r in range(start, start + rounds):
+            st, _ = a.run_round(st, r)
+        return rounds / _clock(dev, mesh, t0)
+
+    def fused(start):
+        t0 = _clock(dev, mesh)
+        b.run_rounds_fused(sf, start, rounds)[1].materialize()
+        return rounds / _clock(dev, mesh, t0)
+
+    rates = {"eager": [], "fused": []}
+    timed_captures = 0
+    for i, kind in enumerate(("eager", "fused", "fused", "eager")):
+        start = rounds * (1 + i // 2)
+        before = b._fused.evicted + len(b._fused.rounds)
+        rates[kind].append(eager(start) if kind == "eager" else fused(start))
+        timed_captures += b._fused.evicted + len(b._fused.rounds) - before
+    note("rates")
+    evictions = b._fused.evicted
+    # NCCL keeps a communicator while a graph holding its collectives
+    # lives: drop them before the mesh goes
+    b.release_graphs()
+    return {"bitwise": bitwise, "collective_calls_in_block": calls,
+            "captures_in_block": captures,
+            "captures_in_second_block": again,
+            "captures_in_timed_blocks": timed_captures,
+            "evictions": evictions, "store_stats": a._store.stats(),
+            "rounds_per_sec_eager": rates["eager"],
+            "rounds_per_sec_fused": rates["fused"]}
+
+
+def _store_ckpt_check(make, rounds, dev, directory, note):
+    """The store-backed checkpoint check (module docstring): whether the
+    resumed rounds are bitwise the uninterrupted ones in the state and
+    this rank's rows, the save's and the restore's seconds."""
+    from neuroimagedisttraining_torch.utils.checkpoint import \
+        CheckpointManager
+
+    a = make("ck_run")
+    mgr = CheckpointManager(os.path.join(directory, "ck_store"), layout=a)
+    s = a.init_state()
+    save_s = None
+    for r in range(rounds):
+        s, _ = a.run_round(s, r)
+        if r == 0:
+            t0 = time.perf_counter()
+            mgr.save(1, s, store=a._store)
+            save_s = time.perf_counter() - t0
+    note("store checkpoint: uninterrupted rounds")
+    b = make("ck_resumed")
+    template = b.init_state()
+    _sync(dev)
+    t0 = time.perf_counter()
+    r_state, step = CheckpointManager(
+        os.path.join(directory, "ck_store"), layout=b).restore_latest(
+            template, store=b._store)
+    _sync(dev)
+    restore_s = time.perf_counter() - t0
+    for r in range(step, rounds):
+        r_state, _ = b.run_round(r_state, r)
+    note("store checkpoint: resumed rounds")
+    same = step == 1 and _store_same(s, _store_rows(a), r_state,
+                                     _store_rows(b))
+    return {"case": STORE_CKPT, "checkpoint_resumed_bitwise": same,
+            "save_s": save_s, "restore_s": restore_s,
+            "sidecar_bytes": os.path.getsize(os.path.join(
+                directory, "ck_store", "run", "store_1.npz")),
+            "save_failures": mgr.save_failures}
+
+
 def _rank(rank, world, directory, device, rounds, which="all"):
     import faulthandler
 
@@ -401,8 +568,10 @@ def _rank(rank, world, directory, device, rounds, which="all"):
                          seconds=COLLECTIVE_TIMEOUT_S))
     try:
         note(f"mesh of {world} ({mesh.backend})")
-        data, model, hp = _cohort(dev, mesh)
-        note("cohort")
+        data = None
+        if which != "store":
+            data, model, hp = _cohort(dev, mesh)
+            note("cohort")
 
         def algo(impl, frac):
             return SalientGrads(model(), data, hp, loss_type="bce",
@@ -412,7 +581,7 @@ def _rank(rank, world, directory, device, rounds, which="all"):
                                 device=dev)
 
         state0 = snip_s = None
-        if which != "baselines":  # the baselines start from their own init
+        if which not in ("baselines", "store"):  # from their own init
             t0 = _clock(dev, mesh)
             state0 = algo("dense", 1.0).init_state()
             snip_s = _clock(dev, mesh, t0)
@@ -468,6 +637,38 @@ def _rank(rank, world, directory, device, rounds, which="all"):
             rec.update(ranks=world, backend=mesh.backend, rounds=rounds,
                        bitwise_every_rank=bool(flags.item()))
             out.append(rec)
+        if which in ("all", "store"):
+            data = model = None  # the population takes the host's room
+            sdata, smodel, hp = _cohort(
+                dev, mesh, STORE_CLIENTS if dev.type == "cuda" else N_CLIENTS,
+                host=True)
+            note("store population")
+            for case in STORE_CASES:
+                def make(tag, case=case):
+                    return _store_algo(case, sdata, smodel, hp, dev,
+                                       os.path.join(directory, tag, case[0]))
+                rec = _store_case(make, rounds, dev, mesh,
+                                  lambda w, c=case: note(f"{c[0]}: {w}"))
+                flags = torch.tensor([int(rec["bitwise"])], device=dev)
+                dist.all_reduce(flags, op=dist.ReduceOp.MIN,
+                                group=mesh.group)
+                rec.update(case=case[0], agg_impl=case[2], frac=STORE_FRAC,
+                           clients=len(sdata.n_train), ranks=world,
+                           backend=mesh.backend, rounds=rounds,
+                           bitwise_every_rank=bool(flags.item()),
+                           block=list(mesh.block(len(sdata.n_train))))
+                out.append(rec)
+            case = dict((c[0], c) for c in STORE_CASES)[STORE_CKPT]
+            rec = _store_ckpt_check(
+                lambda tag: _store_algo(case, sdata, smodel, hp, dev,
+                                        os.path.join(directory, tag)),
+                rounds, dev, directory, lambda w: note(w))
+            flags = torch.tensor([int(rec["checkpoint_resumed_bitwise"])],
+                                 device=dev)
+            dist.all_reduce(flags, op=dist.ReduceOp.MIN, group=mesh.group)
+            rec.update(ranks=world, backend=mesh.backend, rounds=rounds,
+                       bitwise_every_rank=bool(flags.item()))
+            out.append(rec)
         if dev.type == "cuda":
             peak = torch.tensor([torch.cuda.max_memory_allocated(dev)],
                                 device=dev)
@@ -498,7 +699,8 @@ def main() -> int:
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     ap.add_argument("--cases", choices=("all", "plain", "robust",
-                                        "baselines"), default="all")
+                                        "baselines", "store"),
+                    default="all")
     ap.add_argument("--out", default="")
     args = ap.parse_args()
     if args.device == "cuda":

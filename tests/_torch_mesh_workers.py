@@ -892,3 +892,319 @@ def personal_resume_case(mesh, case, directory, step, rounds=4):
         state, _ = a.run_round(state, r)
     return dict(restored=restored, end=_np_fields(state), lo=a._lo,
                 hi=a._hi)
+
+
+# -- the client store on the mesh ---------------------------------------------
+
+def store_algo(case, mesh=None, root=None):
+    """The algorithm of a store case (a dict: ``algo`` "salientgrads",
+    "fedavg" or "ditto", ``mode`` "host" or "disk", ``impl``, and
+    optionally ``spec`` (the fault spec; the guard follows it), ``robust``
+    (``robust_agg``), ``opts`` (more options); see ``tests/
+    test_torch_port_mesh_store.py``): 8 clients of data seed 4 at ``frac``
+    0.5 with a store of 2 hot rows (a disk store's files under ``root``),
+    the mesh's data kept on the host as the runner keeps it. With
+    ``case["model"]`` (the cross-framework case: ``model``, ``widths``,
+    ``sample_shape``, ``n_clients``, ``samples``, ``test``, ``batch``) the
+    narrow phased ``3dcnn_s2d`` on that cohort instead."""
+    import dataclasses
+
+    from neuroimagedisttraining_torch.algorithms import (
+        Ditto,
+        FedAvg,
+        SalientGrads,
+    )
+    from neuroimagedisttraining_torch.core.state import HyperParams
+    from neuroimagedisttraining_torch.data import make_synthetic_federated
+    from neuroimagedisttraining_torch.models import create_model
+    from neuroimagedisttraining_torch.parallel.mesh import shard_federated
+
+    big = case.get("model") is not None
+    shape = tuple(case.get("sample_shape", (8, 8, 8, 1)))
+    data = make_synthetic_federated(
+        seed=case.get("data_seed", 4), n_clients=case.get("n_clients", 8),
+        samples_per_client=case.get("samples", 8),
+        test_per_client=case.get("test", 4), sample_shape=shape,
+        uneven=True)
+    if mesh is not None:
+        data = shard_federated(data, mesh, host=True)
+    batch = case.get("batch", 4)
+    spe = -(-int(np.max(np.asarray(data.n_train))) // batch)
+    hp = HyperParams(lr=0.01, lr_decay=0.998, momentum=0.9,
+                     weight_decay=5e-4, grad_clip=10.0, local_epochs=1,
+                     steps_per_epoch=spe, batch_size=batch)
+    torch.manual_seed(0)
+    if big:
+        model = create_model(case["model"], num_classes=1,
+                             widths=tuple(case["widths"]), dropout_rate=0.0,
+                             sample_shape=shape)
+    else:
+        model = create_model("small3dcnn", num_classes=1, dropout_rate=0.0)
+    kw = dict(loss_type="bce", frac=case.get("frac", 0.5), seed=0,
+              agg_impl=case.get("impl", "dense"), device="cpu",
+              client_store=case["mode"], store_hot_clients=2,
+              store_dir=root, fault_spec=case.get("spec", ""),
+              robust_agg=case.get("robust", "none"), **case.get("opts", {}))
+    if case["algo"] == "salientgrads":
+        return SalientGrads(model, data, hp, dense_ratio=0.5, **kw)
+    if case["algo"] == "ditto":
+        return Ditto(model, data, hp, lamda=0.5,
+                     personal_hp=dataclasses.replace(hp, local_epochs=2),
+                     **kw)
+    return FedAvg(model, data, hp, **kw)
+
+
+def store_rows(a):
+    """The rows a store holds (this rank's block), flushed, by field
+    (numpy)."""
+    a.store_flush()
+    return {f: _np_tree(a._store.gather_all(f))
+            for f in a._store.field_names()}
+
+
+def _store_state_np(state):
+    """The replicated fields of a store-backed state (numpy): the row
+    fields are the store's."""
+    return dict(global_params=_np_tree(state.global_params),
+                mask=_np_tree(getattr(state, "mask", None)),
+                eval_cache=_np_tree(getattr(state, "eval_cache", None)))
+
+
+def _store_init(a, init):
+    """``a``'s initial state, from ``init`` (numpy ``params`` and
+    ``mask``) where given."""
+    import dataclasses
+
+    if init is None:
+        return a.init_state()
+    state = a.init_state(params=_tensors(init["params"]))
+    if init.get("mask") is not None:
+        state = dataclasses.replace(state, mask=_tensors(init["mask"]))
+    return state
+
+
+def store_case(mesh, case, root, rounds=4, block=2, seams=None, init=None,
+               fused=True, finalize=False):
+    """A store case on the mesh: ``rounds`` eager streamed rounds (the
+    state, the rank's stored rows before each and after the last, the
+    metrics, the eval after each, the store's counters), and with
+    ``fused`` the same rounds as fused blocks of ``block`` from the same
+    initial state on a second algorithm (a store of its own): its state
+    and rows after each block and its metrics. ``seams`` (per round, a
+    dict of ``run_round``'s seams) and ``init`` replace the port's draws;
+    with ``finalize`` FedAvg's fine-tune of the eager end state."""
+    a = store_algo(case, mesh, os.path.join(root, "eager"))
+    state = _store_init(a, init)
+    states, rows, mets, evals = [], [], [], []
+    for r in range(rounds):
+        states.append(_store_state_np(state))
+        rows.append(store_rows(a))
+        state, met = a.run_round(state, r, **_seam_round(seams, r))
+        mets.append({k: np.asarray(v) for k, v in met.items()})
+        evals.append(_evals_np(a.evaluate(state)))
+    states.append(_store_state_np(state))
+    rows.append(store_rows(a))
+    out = dict(states=states, rows=rows, mets=mets, evals=evals,
+               lo=a._lo, hi=a._hi, stats=a._store.stats())
+    if finalize:
+        fin, rec = a.finalize(state)
+        out["final"] = {k: np.asarray(v) for k, v in rec.items()
+                        if k not in ("round", "finetune")}
+        out["final_rows"] = store_rows(a)
+    if fused:
+        b = store_algo(case, mesh, os.path.join(root, "fused"))
+        f = _store_init(b, init)
+        out["fused"], out["fused_rows"], out["ys"] = [], [], []
+        for r0 in range(0, rounds, block):
+            f, ys = b.run_rounds_fused(
+                f, r0, block, seams=None if seams is None
+                else [dict(x) for x in seams[r0:r0 + block]])
+            out["fused"].append(_store_state_np(f))
+            out["fused_rows"].append(store_rows(b))
+            out["ys"].append({k: np.asarray(v)
+                              for k, v in ys.materialize().items()})
+        out["fused_eval"] = _evals_np(b.evaluate(f))
+        out["graphs"] = len(b._fused.rounds)
+        out["width"] = b._fused.width
+    return out
+
+
+def _whole_rows(ranks, key=None, which="rows"):
+    """The ranks' stored rows (``r[which]``, or ``r[which][key]``) joined
+    in client order, by field."""
+    def rows(r):
+        return r[which] if key is None else r[which][key]
+
+    out = {}
+    for f in rows(ranks[0]):
+        blocks = [rows(r)[f] for r in ranks]
+        out[f] = {k: np.concatenate([b[k] for b in blocks])
+                  for k in blocks[0]}
+    return out
+
+
+def load_store_rows(a, rows):
+    """``a``'s store (one process) set to ``rows`` (every client's, by
+    field) and its store eval's terms dropped (the next eval is a full
+    pass)."""
+    n = a.num_clients
+    for f, tree in rows.items():
+        a._store.stage(f, np.arange(n), _tensors(tree))
+    a._store.commit()
+    a._store_eval_cache, a._store_eval_dirty = None, []
+
+
+def replay_store(case, ranks, root, rounds=4, seams=None, init=None,
+                 finalize=False):
+    """The mesh run ``ranks`` (every rank's :func:`store_case`) replayed by
+    one process with a store: each round from the mesh's state before it
+    (its replicated fields, and every client's stored rows loaded into the
+    store; the generator in step), the rows the round leaves, its metrics
+    and the eval of the mesh's state after it; with ``finalize`` the
+    fine-tune of the mesh's end state."""
+    import dataclasses
+
+    a = store_algo(case, None, root)
+    state = _store_init(a, init)
+
+    def at(state, key):
+        load_store_rows(a, _whole_rows(ranks, key))
+        st = ranks[0]["states"][key]
+        return dataclasses.replace(state, **{
+            f: _tensors(v) for f, v in st.items() if v is not None})
+
+    out = dict(rows=[], mets=[], evals=[], states=[])
+    for r in range(rounds):
+        state, met = a.run_round(at(state, r), r, **_seam_round(seams, r))
+        out["states"].append(_store_state_np(state))
+        out["rows"].append(store_rows(a))
+        out["mets"].append({k: np.asarray(v) for k, v in met.items()})
+        out["evals"].append(_evals_np(a.evaluate(at(state, r + 1))))
+    if finalize:
+        fin, rec = a.finalize(at(state, rounds))
+        out["final"] = {k: np.asarray(v) for k, v in rec.items()
+                        if k not in ("round", "finetune")}
+        out["final_rows"] = store_rows(a)
+    return out
+
+
+def _store_resume(a, mgr, step, rounds):
+    """Restore the lineage's newest step, ``step``, into ``a`` (its store
+    included) and run the eager rounds after it: the restored and the end
+    state and rows (this rank's block) and the rounds' metrics."""
+    state, got = mgr.restore_latest(a.init_state(), store=a._store)
+    assert got == step, (got, step)
+    out = dict(restored=_store_state_np(state), restored_rows=store_rows(a),
+               mets=[], lo=a._lo, hi=a._hi)
+    for r in range(step, rounds):
+        state, met = a.run_round(state, r)
+        out["mets"].append({k: np.asarray(v) for k, v in met.items()})
+    out.update(end=_store_state_np(state), end_rows=store_rows(a))
+    return out
+
+
+def store_ckpt_case(mesh, case, root, directory, loop="eager", resume=True):
+    """A store-backed lineage in ``directory``: eager, 2 rounds with a step
+    after round 0; fused, 4 rounds in blocks of 2 with a step after the
+    first block (every rank saves, rank 0 writes the state and the store's
+    sidecar). The state and this rank's stored rows at the step and at the
+    end, the metrics of each round, and with ``resume`` the same lineage
+    resumed by a fresh algorithm (a store of its own) at the same width
+    (:func:`_store_resume`; the rounds after the step eager)."""
+    a = store_algo(case, mesh, os.path.join(root, "run"))
+    mgr = _ckpt(directory, a)
+    state = a.init_state()
+    rounds, step = (2, 1) if loop == "eager" else (4, 2)
+    out = dict(mets=[], lo=a._lo, hi=a._hi)
+    done = 0
+    while done < rounds:
+        if loop == "eager":
+            state, met = a.run_round(state, done)
+            out["mets"].append({k: np.asarray(v) for k, v in met.items()})
+            done += 1
+        else:
+            state, ys = a.run_rounds_fused(state, done, step)
+            ys = ys.materialize()
+            out["mets"] += [{k: np.asarray(v[i]) for k, v in ys.items()}
+                            for i in range(step)]
+            done += step
+        if done == step:
+            mgr.save(step, state, store=a._store)
+            out.update(saved=_store_state_np(state), saved_rows=store_rows(a))
+    a.release_graphs()
+    out.update(end=_store_state_np(state), end_rows=store_rows(a))
+    if resume:
+        b = store_algo(case, mesh, os.path.join(root, "resumed"))
+        out["resumed"] = _store_resume(b, _ckpt(directory, b), step, rounds)
+    return out
+
+
+def store_resume_case(mesh, case, root, directory, step, rounds=2):
+    """Resume ``directory``'s store-backed step ``step`` (written at any
+    width) on this mesh (or off it, ``mesh`` None) and run the rounds after
+    it (:func:`_store_resume`)."""
+    a = store_algo(case, mesh, root)
+    return _store_resume(a, _ckpt(directory, a if mesh is not None
+                                  else None), step, rounds)
+
+
+def store_watchdog_case(mesh, case, root, directory, rounds=3,
+                        max_retries=2, flip_rank=1):
+    """The runner's round loop under the watchdog with a store on the
+    mesh: every adopted round saved with the store's sidecar, and on a
+    rollback every rank discards its staged rows and restores the last
+    step through the checkpoint (``rollback(None)``), the store's block
+    reloaded from the sidecar. Rank ``flip_rank``'s local health check is
+    inverted, so a verdict that is not rank 0's would show. Returns per
+    attempt ``(round, verdict, restored state and rows equal the last
+    saved ones)``, the counters and the end state."""
+    import dataclasses
+
+    from neuroimagedisttraining_torch.robust import recovery
+
+    a = store_algo(case, mesh, root)
+    mgr = _ckpt(directory, a)
+    wd = recovery.RoundWatchdog(max_retries=max_retries, norm_threshold=1e6,
+                                ckpt_mgr=mgr, template_fn=a.init_state,
+                                store=a._store, mesh=mesh)
+    if mesh is not None and mesh.rank == flip_rank:
+        healthy = wd.healthy
+        wd.healthy = lambda *args: not healthy(*args)
+    state = a.init_state()
+    mgr.save(0, state, store=a._store)
+    saved, saved_rows = _store_state_np(state), store_rows(a)
+    log, r = [], 0
+    while r < rounds:
+        a.set_retry_nonce(wd.retries_at(r))
+        new, met = a.run_round(state, r)
+        verdict = wd.judge(r, {"train_loss": met["train_loss"]}, new, state)
+        if verdict == recovery.OK:
+            state = new
+            mgr.save(r + 1, state, store=a._store)
+            saved, saved_rows = _store_state_np(state), store_rows(a)
+            log.append((r, verdict, None))
+            r += 1
+            continue
+        a.store_discard()  # the attempt's staged rows, on every rank
+        restored = wd.rollback(None)
+        same = _eq_np(_store_state_np(restored), saved) and \
+            _eq_np(store_rows(a), saved_rows) and torch.equal(
+                restored.generator.get_state(), state.generator.get_state())
+        log.append((r, verdict, same))
+        state = dataclasses.replace(restored)
+        if verdict == recovery.SKIP:
+            mgr.save(r + 1, state, store=a._store)
+            saved, saved_rows = _store_state_np(state), store_rows(a)
+            r += 1
+    a.set_retry_nonce(0)
+    return dict(log=log, totals=wd.totals(), end=_store_state_np(state))
+
+
+def _eq_np(a, b):
+    """Bitwise equal numpy arrays, or dicts of them (nested; None alike)."""
+    if isinstance(b, dict):
+        return isinstance(a, dict) and a.keys() == b.keys() and all(
+            _eq_np(a[k], b[k]) for k in b)
+    if b is None:
+        return a is None
+    return np.array_equal(a, b)

@@ -163,11 +163,8 @@ REFUSED = [
     (["--trace_dir", "tr"], "--trace_dir"),
     (["--slo_spec", "p99:round_time_s<2"], "--slo_spec"),
     (["--flight_recorder", "guard"], "--flight_recorder"),
-    # the client mesh runs (test_cli_mesh_*) every algorithm, fused blocks
-    # and the state tier on it too; with the client store they are refused
-    # (the case keeps its name)
-    (["--mesh_devices", "2", "--fuse_rounds", "2", "--client_store", "host",
-      "--frac", "0.5", "--frequency_of_the_test", "0"], "--mesh_devices"),
+    # the client mesh runs (test_cli_mesh_*) every algorithm, fused blocks,
+    # the state tier and the client store (test_cli_mesh_runs_the_store)
     (["--mesh_space", "2"], "--mesh_space"),
     (["--multihost"], "--multihost"),
     (["--serve_role", "worker"], "--serve_role"),
@@ -183,7 +180,7 @@ REFUSED = [
 def _refused_id(extra):
     if extra[0] == "--algo":
         return " ".join(extra[:2])
-    return " ".join(extra[:4] if extra[0] == "--mesh_devices" else extra)
+    return " ".join(extra)
 
 
 @pytest.mark.parametrize("extra,flag", REFUSED,
@@ -786,15 +783,14 @@ def test_cli_runs_the_lifted_flags_on_cpu(tmp_path, extra, shows):
 
 # -- the client mesh (--mesh_devices) ----------------------------------------
 
-#: what the client mesh does not run, the client store: refused on an
-#: explicit --mesh_devices above 1, naming ROADMAP item 7 and the store
-#: alone; (extra argv, what the refusal names, a flag the mesh runs that
-#: the refusal must not name). The flags and the algorithms the mesh has
-#: run since fused blocks, the robust and the state tiers, and then every
-#: algorithm came to it keep their cases, each beside the store (Ditto,
-#: the one of the seven a store serves, for the algorithms).
+#: the client store on the client mesh: ``--mesh_devices 2`` with
+#: ``--client_store`` (host, or disk in the fused case), beside each flag
+#: the mesh runs (Ditto, the one of the seven a store serves, for the
+#: algorithms). (extra argv, the store flag, the flag it runs beside: the
+#: case's id; the cases keep the ids they had when the mesh refused the
+#: store). Each is held to the one-process run of the same flags.
 _STORE = ["--client_store", "host", "--frac", "0.5"]
-MESH_REST = [
+MESH_STORE = [
     (["--algo", "ditto"] + _STORE, "--client_store", "--algo ditto"),
     (["--fuse_rounds", "2", "--frequency_of_the_test", "0",
       "--checkpoint_dir", "{tmp}/ck", "--algo", "ditto"] + _STORE,
@@ -813,31 +809,79 @@ MESH_REST = [
      "--client_store", "--robust_agg"),
     (["--watchdog", "1"] + _STORE, "--client_store", "--watchdog"),
     (["--eval_cache", "1"] + _STORE, "--client_store", "--eval_cache"),
-    (["--stratified_sampling", "1"] + _STORE, "--client_store",
-     "--stratified_sampling"),
+    (["--stratified_sampling", "1", "--stratified_mode", "balanced"]
+     + _STORE, "--client_store", "--stratified_sampling"),
+    # a disk store in fused blocks (the case the flags' refusal list held)
+    (["--fuse_rounds", "2", "--frequency_of_the_test", "0",
+      "--client_store", "disk", "--store_hot_clients", "2", "--frac",
+      "0.5"], "--client_store", "--mesh_devices 2 --fuse_rounds 2"),
 ]
+#: the JAX store's gauge names, each rank's in the run's result
+STORE_GAUGES = ["mem_host_cache_bytes", "mem_store_disk_bytes",
+                "mem_store_hits", "mem_store_misses", "mem_store_prefetched",
+                "store_gather_ms"]
 
 
-@pytest.mark.parametrize("extra,names,runs", MESH_REST,
-                         ids=[r or n for _, n, r in MESH_REST])
-def test_cli_mesh_refuses_the_rest(tmp_path, extra, names, runs):
+@pytest.mark.parametrize("extra,names,runs", MESH_STORE,
+                         ids=[r or n for _, n, r in MESH_STORE])
+def test_cli_mesh_runs_the_store(tmp_path, extra, names, runs):
+    """``runner.main --device cpu --mesh_devices 2 --client_store ...``
+    (two gloo ranks, each rank's store over its block) against the
+    one-process run of the same flags, torch on one thread on both sides:
+    the same records round by round (the guard's and the watchdog's
+    counters equal), within rtol 1e-5 (round 0's train loss bitwise: only
+    the aggregate's cross-rank sum reassociates), the final eval too, and
+    each rank's store gauges under the JAX store's names. ``--resume``:
+    each side first runs one round into its lineage, then resumes it."""
     argv = (["--algo", "salientgrads"] + SMALL + [
-        "--results_dir", str(tmp_path / "res"), "--log_dir",
-        str(tmp_path / "log"), "--device", "cpu"]
-        + [a.format(tmp=tmp_path) for a in extra])
-    with pytest.raises(SystemExit) as e:
-        trunner.main(argv + ["--mesh_devices", "2"])
-    msg = str(e.value.code)
-    assert msg.startswith("--mesh_devices 2: --client_store on a client "
-                          "mesh is not ported") and names in msg, msg
-    assert runs is None or runs not in msg, msg
-    assert "--algo" not in msg, msg
-    assert "ROADMAP item 7, the client store on the mesh" in msg
-    assert not (tmp_path / "res").exists() and \
-        not (tmp_path / "log").exists()
-    # the default (every device) keeps such a run on one device
-    args = tconfig.parse_args(argv)
-    assert trunner.client_mesh_size(args, args.algo) == 1
+        "--epochs", "1", "--log_dir", "", "--device", "cpu"])
+    resume = "--resume" in extra
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # the ranks take the parent's share
+    try:
+        out = {}
+        for side, mesh in (("mesh", ["--mesh_devices", "2"]), ("one", [])):
+            flags = [a.format(tmp=tmp_path / side) for a in extra] + mesh
+            if resume:  # the lineage's first round
+                trunner.main(argv + [a for a in flags if a != "--resume"]
+                             + ["--comm_round", "1", "--results_dir", ""])
+            out[side] = trunner.main(argv + flags + [
+                "--comm_round", "2", "--results_dir",
+                str(tmp_path / side / "res")])
+    finally:
+        torch.set_num_threads(threads)
+    mesh, one = out["mesh"], out["one"]
+    assert mesh["client_mesh_devices"] == 2 and mesh["state"] is None
+    assert one["client_mesh_devices"] == 1
+    assert mesh["identity"] == one["identity"]
+    rounds = [h["round"] for h in mesh["history"] if h["round"] >= 0]
+    assert rounds == ([1] if resume else [0, 1])
+    assert len(mesh["history"]) == len(one["history"])
+    for h, h1 in zip(mesh["history"], one["history"]):
+        assert sorted(h) == sorted(h1)
+        for k in ("clients_dropped", "clients_quarantined",
+                  "rounds_retried", "round", "finetune"):
+            if k in h1:
+                assert h[k] == h1[k], k
+        for k, v in h.items():
+            np.testing.assert_allclose(v, h1[k], rtol=1e-5, err_msg=k)
+    assert mesh["history"][0]["train_loss"] == \
+        one["history"][0]["train_loss"]
+    for k, v in one["final_eval"].items():
+        if np.ndim(v) == 0:
+            np.testing.assert_allclose(float(mesh["final_eval"][k]),
+                                       float(v), rtol=1e-5, err_msg=k)
+    assert len(mesh["store_stats"]) == 2 and len(one["store_stats"]) == 1
+    for st in mesh["store_stats"] + one["store_stats"]:
+        assert sorted(st) == STORE_GAUGES
+        assert st["mem_store_hits"] + st["mem_store_misses"] > 0
+    if "disk" in extra:
+        assert all(st["mem_store_disk_bytes"] > 0
+                   for st in mesh["store_stats"])
+    if "{tmp}/ck" in extra:  # rank 0 wrote each step's store sidecar
+        (lineage,) = list((tmp_path / "mesh" / "ck").iterdir())
+        assert "store_2.npz" in os.listdir(lineage)
+    assert names == "--client_store"
 
 
 def test_cli_mesh_size_is_the_reference_fit():

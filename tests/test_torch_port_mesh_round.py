@@ -17,6 +17,11 @@ round tests of ``tests/test_torch_port_round.py`` use).
   tolerances of ``tests/test_torch_port_round.py`` (rtol 1e-5, atol 2e-7
   after two rounds), full participation and ``frac`` 0.5 (S = 4) and 0.375
   (S = 3, the off-mesh fallback).
+* FedAvg and Ditto with a client store (host) run their streamed rounds on
+  the mesh, each replayed by one process with a store: every stored row,
+  the metrics and the eval bitwise, the global model within 1e-6
+  (``tests/test_torch_port_mesh_store.py`` holds the store on the mesh in
+  full).
 """
 import dataclasses
 
@@ -66,6 +71,10 @@ OFF = [
 #: participation on 4 (S = 4 reduced on the mesh, S = 3 off it)
 JAX = {2: [("salientgrads", 1.0), ("fedavg", 1.0)],
        4: [("salientgrads", 0.5), ("salientgrads", 0.375)]}
+#: the algorithms run with a client store (host, ``frac`` 0.5), and by mesh
+#: width their ranks' results and the directory of their stores
+STORE = ("fedavg", "ditto")
+_STORE_RUNS = {}
 #: the global model's bound against the off-mesh replay, of the tree's
 #: largest value, for a wire that quantizes each rank's partial on the mesh
 LOW_PRECISION = {"bf16": 1e-2, "int8": 5e-2}
@@ -122,7 +131,7 @@ def one_thread():
     torch.set_num_threads(n)
 
 @pytest.fixture(scope="module", params=[2, 4], ids=lambda d: f"D{d}")
-def mesh_runs(request, eight_devices):
+def mesh_runs(request, eight_devices, tmp_path_factory):
     """Every case of a D-rank mesh in one spawn: the off-mesh set on the
     port's own draws, the JAX set on the reference's."""
     d = request.param
@@ -141,9 +150,15 @@ def mesh_runs(request, eight_devices):
             mask=None if mask is None else {
                 k: v.numpy() for k, v in jax_params_to_torch(mask).items()})))
     cases.append(("eval_terms_case", dict(algo="fedavg", data_seed=9)))
+    root = tmp_path_factory.mktemp(f"store_D{d}")
+    cases += [("store_case", dict(case=dict(algo=a, mode="host"),
+                                  root=str(root / a), rounds=ROUNDS,
+                                  fused=False)) for a in STORE]
     got = mw.run_ranks(d, cases)
-    return d, dict(zip(map(_off_id, OFF), got[:len(OFF)])), jruns, \
-        dict(zip(JAX[d], got[len(OFF):-1])), got[-1]
+    n, k = len(OFF), len(JAX[d])
+    _STORE_RUNS[d] = (dict(zip(STORE, got[n + k + 1:])), root)
+    return d, dict(zip(map(_off_id, OFF), got[:n])), jruns, \
+        dict(zip(JAX[d], got[n:n + k])), got[n + k]
 
 
 def _eq(a, b):
@@ -243,11 +258,12 @@ def test_mesh_eval_terms_are_the_single_process_terms(mesh_runs):
 
 def test_mesh_refusals_in_the_library(monkeypatch):
     """What the mesh round does not run is refused when the algorithm is
-    built (a client store, naming it alone; the round of an algorithm
-    without ``mesh_supported``; every one of the nine algorithms, and the
-    faults, the guard, the defenses and ``robust_agg``, build there), and
-    the fused loop of a gloo group on the card when it is called (the
-    device and the backend stand in for a card here)."""
+    built (the round of an algorithm without ``mesh_supported``; every one
+    of the nine algorithms, the faults, the guard, the defenses,
+    ``robust_agg`` and FedAvg's and Ditto's client store, each rank's over
+    its block, build there), and the fused loop of a gloo group on the card
+    when it is called (the device and the backend stand in for a card
+    here)."""
     from neuroimagedisttraining_torch import algorithms as talgos
     from neuroimagedisttraining_torch.algorithms import Ditto, FedAvg
     from neuroimagedisttraining_torch.core.state import HyperParams
@@ -265,10 +281,10 @@ def test_mesh_refusals_in_the_library(monkeypatch):
     model = create_model("small3dcnn", num_classes=1)
     kw = dict(loss_type="bce", device="cpu")
     for cls in (FedAvg, Ditto):
-        with pytest.raises(ValueError, match="client mesh") as e:
-            cls(model, data, hp, **kw, client_store="host", frac=0.5)
-        assert "client store" in str(e.value) and "item 7" in str(e.value)
-        assert "round" not in str(e.value)
+        a = cls(model, data, hp, **kw, client_store="host", frac=0.5)
+        assert a.mesh is not None and a._store.mesh is a.mesh
+        assert (a._store.lo, a._store.hi) == (0, 2)
+        assert a._store.num_clients == 4
 
     class Unported(FedAvg):
         name = "unported"
@@ -292,3 +308,24 @@ def test_mesh_refusals_in_the_library(monkeypatch):
         a.run_rounds_fused(state, 0, 2)
     assert "NCCL" in str(e.value)
     assert dataclasses.is_dataclass(state)
+
+
+@pytest.mark.parametrize("algo", STORE)
+def test_mesh_store_round_runs(mesh_runs, algo):
+    """FedAvg's and Ditto's streamed rounds on the mesh (a host store):
+    bitwise the single-process streamed replay in every stored row, metric
+    and eval; the global model within 1e-6 of its scale."""
+    runs, root = _STORE_RUNS[mesh_runs[0]]
+    ranks = runs[algo]
+    off = mw.replay_store(dict(algo=algo, mode="host"), ranks,
+                          str(root / f"one_{algo}"), rounds=ROUNDS)
+    for rank in ranks:
+        lo, hi = rank["lo"], rank["hi"]
+        for r in range(ROUNDS):
+            for f, tree in off["rows"][r].items():
+                assert _eq(rank["rows"][r + 1][f],
+                           {k: v[lo:hi] for k, v in tree.items()}), (f, r)
+            assert _eq(rank["mets"][r], off["mets"][r]), r
+            assert _eq(rank["evals"][r], off["evals"][r]), r
+            g = rank["states"][r + 1]["global_params"]
+            assert _rel(g, off["states"][r]["global_params"]) <= 1e-6, r
