@@ -77,6 +77,31 @@ phased for its k3/p3 stem (``3dresnet`` on the raw volumes with
 ``bench.py`` draws them (the masked epoch path), ``clients32`` 32 clients
 with test shards of 4.
 
+    BENCH_CONFIG=cifar python3 bench_torch.py
+
+runs ``bench.py``'s tracked CIFAR configuration (its
+``tracked_config("cifar")``, :func:`bench_config` ``("cifar")`` holds its
+constants): SalientGrads on ``resnet18`` (ResNet-18 with GroupNorm,
+11,173,962 parameters), 10 classes, CE; 100 clients of 500 CIFAR-shaped
+32x32x3 bf16 images (standard normal, uniform labels, made on the card)
+and 100 test images each; ``frac`` 0.1 (10 clients a round); batch 16, 5
+local epochs of 32 steps (the last batch of each epoch 4 images); lr 0.1,
+decay 0.998, momentum 0.9, weight decay 5e-4, clip 10; ``dense_ratio``
+0.3, one SNIP batch a client; bf16 compute; every training and SNIP batch
+through the crop and flip with CIFAR-10's black pad value
+(:func:`cifar`). The SNIP mask is built once; then from a clone of that
+state one warm round and 3 timed rounds of the Python loop, no eval
+(``extra.rounds_per_sec_python_loop``), and from the state itself the
+fused spelling, a block of rounds 3..5 timed after FUSED_WARM_CALLS runs
+of it (``extra.rounds_per_sec_fused``; its round graph, 1600 local steps,
+is a chain of graphs, ``core/capture.py``, whose node counts are
+``extra.round_graph_nodes``); ``value`` is the faster of the two, as in
+the main configurations. The line has ``bench.py``'s metric,
+``salientgrads_rounds_per_sec_cifar_resnet18gn_100clients_frac0.1``, and
+``vs_baseline`` 0 (no published number). On more than one card the
+cohort is sharded over ``fit_client_devices(100, cards)`` ranks, one
+process a card over NCCL, as the main configurations are.
+
     BENCH_CONFIG=agg python3 bench_torch.py
 
 runs ``bench.py``'s aggregation term (:func:`agg`): one weighted mean per
@@ -120,6 +145,9 @@ BYZANTINE_VOLUME = (61, 73, 61)
 BYZANTINE_METRIC = "byzantine_robust_fedavg_rounds_per_sec_64clients"
 AGG_CLIENTS = 32
 AGG_METRIC = "weighted_sum_aggregation_ms_alexnet3d_32clients"
+#: bench.py's tracked CIFAR configuration (bench_config("cifar"))
+CIFAR_METRIC = ("salientgrads_rounds_per_sec_cifar_resnet18gn_100clients_"
+                "frac0.1")
 
 
 def _acc(ev):
@@ -208,7 +236,21 @@ def bench_config(name: str = "", dense: bool = False) -> dict:
     shard, the step count, the batch, the timed rounds (without and with
     the eval), the fused spelling's warm calls and ``sample_shape`` (None:
     the volume as ``model_key`` stores it, :func:`sample_shape_of`).
-    ``dense`` is ``BENCH_DENSE``: the reference-layout ``3dresnet``."""
+    ``dense`` is ``BENCH_DENSE``: the reference-layout ``3dresnet``.
+    ``"cifar"`` returns the CIFAR configuration's constants instead
+    (:func:`cifar`)."""
+    if name == "cifar":
+        n_per, bs = 500, 16
+        return dict(model_key="resnet18", n_clients=100,
+                    samples_per_client=n_per, test_per_client=100,
+                    sample_shape=(32, 32, 3), num_classes=10, batch=bs,
+                    local_epochs=5, steps_per_epoch=-(-n_per // bs),
+                    lr=0.1, lr_decay=0.998, momentum=0.9,
+                    weight_decay=5e-4, grad_clip=10.0, frac=0.1,
+                    dense_ratio=0.3, itersnip_iterations=1,
+                    compute_dtype="bfloat16", loss_type="ce",
+                    timed_rounds=3, warm_calls=FUSED_WARM_CALLS,
+                    metric=CIFAR_METRIC)
     if name not in MAIN_CONFIGS:
         raise ValueError(f"unknown BENCH_CONFIG {name!r}")
     model_key, n_clients, uneven, test = MODEL_KEY, N_CLIENTS, False, None
@@ -536,6 +578,155 @@ def byzantine(emit: bool = True) -> Optional[dict]:
     return result
 
 
+def cifar_data(cfg: dict, generator):
+    """The CIFAR configuration's cohort on ``generator``'s device:
+    standard-normal bf16 images, uniform labels over the classes, the
+    first ``test_per_client`` images of each client its test shard, and
+    CIFAR-10's black pad value (the loaders' ``aug_pad_value``), so every
+    training and SNIP batch is cropped and flipped."""
+    import torch
+
+    from neuroimagedisttraining_torch.data.cifar import (
+        CIFAR10_MEAN,
+        CIFAR10_STD,
+        black_pad_value,
+    )
+    from neuroimagedisttraining_torch.data.types import FederatedData
+
+    dev = generator.device
+    c, n, m = cfg["n_clients"], cfg["samples_per_client"], cfg[
+        "test_per_client"]
+    x = torch.randn((c, n) + tuple(cfg["sample_shape"]), generator=generator,
+                    device=dev, dtype=torch.bfloat16)
+    y = torch.randint(0, cfg["num_classes"], (c, n), generator=generator,
+                      device=dev, dtype=torch.int32)
+    return FederatedData(
+        x_train=x, y_train=y, n_train=torch.full((c,), n, dtype=torch.int32),
+        x_test=x[:, :m].clone(), y_test=y[:, :m].clone(),
+        n_test=torch.full((c,), m, dtype=torch.int32),
+        class_num=cfg["num_classes"],
+        aug_pad_value=black_pad_value(CIFAR10_MEAN, CIFAR10_STD))
+
+
+def cifar_algo(cfg: dict, data, device, **kw):
+    """SalientGrads on the CIFAR configuration ``cfg``
+    (:func:`bench_config` ``("cifar")``) over ``data``."""
+    from neuroimagedisttraining_torch.algorithms import SalientGrads
+    from neuroimagedisttraining_torch.core.state import HyperParams
+    from neuroimagedisttraining_torch.models import create_model
+
+    model = create_model(cfg["model_key"], num_classes=cfg["num_classes"],
+                         sample_shape=cfg["sample_shape"])
+    hp = HyperParams(lr=cfg["lr"], lr_decay=cfg["lr_decay"],
+                     momentum=cfg["momentum"],
+                     weight_decay=cfg["weight_decay"],
+                     grad_clip=cfg["grad_clip"],
+                     local_epochs=cfg["local_epochs"],
+                     steps_per_epoch=cfg["steps_per_epoch"],
+                     batch_size=cfg["batch"])
+    return SalientGrads(model, data, hp, loss_type=cfg["loss_type"],
+                        frac=cfg["frac"], seed=0,
+                        dense_ratio=cfg["dense_ratio"],
+                        itersnip_iterations=cfg["itersnip_iterations"],
+                        compute_dtype=cfg["compute_dtype"], device=device,
+                        **kw)
+
+
+def cifar(emit: bool = True) -> Optional[dict]:
+    """``bench.py``'s CIFAR configuration (see the module docstring).
+    Returns the record (printed with ``emit``), or None without CUDA."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("bench_torch: CUDA is not available", file=sys.stderr)
+        return None
+    from neuroimagedisttraining_torch.parallel.mesh import fit_client_devices
+
+    cfg = bench_config("cifar")
+    rows = fit_client_devices(cfg["n_clients"], torch.cuda.device_count())
+    if rows > 1:
+        result = run_sharded(rank_cifar, rows, "cuda", "nccl", cfg)
+    else:
+        result = cifar_record(cfg, "cuda")
+    if emit:
+        print(json.dumps(result), flush=True)
+    return result
+
+
+def rank_cifar(rank: int, world: int, directory: str, cfg: dict,
+               device: str, backend: str) -> None:
+    """One rank of a sharded :func:`cifar` (as :func:`rank_main`)."""
+    dev, mesh = _rank_mesh(rank, world, directory, device, backend)
+    try:
+        _leave_record(rank, directory, cifar_record(cfg, dev, mesh))
+        mesh.barrier()
+    finally:
+        mesh.destroy()
+
+
+def cifar_record(cfg: dict, device, mesh=None) -> dict:
+    """The CIFAR configuration's cells on ``device`` (on a client ``mesh``
+    every rank's, each holding its block; the times the slowest rank's)."""
+    import torch
+
+    from neuroimagedisttraining_torch.ops import kernels
+    from neuroimagedisttraining_torch.parallel.mesh import shard_federated
+
+    dev = torch.device(device)
+    kernels.build()
+    torch.cuda.reset_peak_memory_stats(dev)
+    data = cifar_data(cfg, torch.Generator(device=dev).manual_seed(0))
+    if mesh is not None:
+        data = shard_federated(data, mesh)
+        torch.cuda.reset_peak_memory_stats(dev)
+    n = cfg["timed_rounds"]
+    trained = int(round(cfg["n_clients"] * cfg["frac"]))
+    algo = cifar_algo(cfg, data, dev)
+    try:
+        t0 = _start_clock(dev, mesh)
+        state = algo.init_state()  # includes the SNIP pass
+        snip_s = _stop_clock(t0, dev, mesh)
+        rps_loop = timed_rounds(algo, algo.clone_state(state), n, mesh=mesh)
+        rps_fused = timed_rounds_fused(algo, state, n, mesh=mesh,
+                                       warm_calls=cfg["warm_calls"])
+        # the round graph's chain (core/capture.py): each graph's nodes
+        graph_nodes = [g.graph.nodes for g in algo._fused.rounds.values()]
+    finally:
+        algo.release_graphs()
+    rps = max(rps_loop, rps_fused)
+    n_devices = torch.cuda.device_count()
+    per_round = trained * cfg["local_epochs"] * cfg["steps_per_epoch"]
+    return {
+        "metric": cfg["metric"],
+        "value": round(rps, 4),
+        "unit": "rounds/sec",
+        "vs_baseline": 0.0,  # no published number; a tracked configuration
+        "extra": {
+            "rounds_per_sec_python_loop": round(rps_loop, 4),
+            "rounds_per_sec_fused": round(rps_fused, 4),
+            "round_graph_nodes": graph_nodes,
+            "client_steps_per_sec": round(rps * per_round, 2),
+            "snip_init_s": snip_s,
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
+            "device": card_name_and_power_limit(),
+            "n_devices": n_devices,
+            "client_mesh_devices": 1 if mesh is None else mesh.size,
+            "clients": cfg["n_clients"],
+            "trained_per_round": int(round(cfg["n_clients"] * cfg["frac"])),
+            "samples_per_client": cfg["samples_per_client"],
+            "local_epochs": cfg["local_epochs"],
+            "steps_per_epoch": cfg["steps_per_epoch"],
+            "batch": cfg["batch"],
+            "augment": "crop_flip",
+            "compute_dtype": cfg["compute_dtype"],
+            "timed_rounds": n,
+            "fused_warm_calls": cfg["warm_calls"],
+            "torch": torch.__version__,
+            "cuda": torch.version.cuda,
+        },
+    }
+
+
 def agg(emit: bool = True, iters: int = 8) -> Optional[dict]:
     """``bench.py``'s ``agg`` configuration (see the module docstring).
     Returns the record (printed with ``emit``), or None without CUDA. With
@@ -600,10 +791,12 @@ def rank_agg(rank: int, world: int, directory: str, iters: int,
 
 if __name__ == "__main__":
     config = os.environ.get("BENCH_CONFIG", "")
-    if config not in MAIN_CONFIGS + ("byzantine", "agg"):
+    if config not in MAIN_CONFIGS + ("byzantine", "agg", "cifar"):
         sys.exit(f"unknown BENCH_CONFIG {config!r}")
     if config == "byzantine":
         rec = byzantine()
+    elif config == "cifar":
+        rec = cifar()
     elif config == "agg":
         rec = agg()
     else:

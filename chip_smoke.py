@@ -63,14 +63,14 @@ Phases, each printing one JSON line:
    personalized and decentralized baselines at the personal phase's
    configurations (DisPFL ERK at ``frac`` 0.5, with ``active`` 0.5,
    static; SubAvg over two epochs; Ditto, Local, DPSGD at ``frac`` 0.5),
-   3 rounds with the eval after every round, each gated bitwise against
-   3 eager rounds from the same state (or within the spread of two eager
+   2 rounds with the eval after every round, each gated bitwise against
+   2 eager rounds from the same state (or within the spread of two eager
    runs, printed, if that is not zero); every configuration must capture,
    or the phase fails. Launches per replay, the first block's seconds,
    peak memory of both spellings and, on the dense wires, DisPFL static
    and Ditto, their rounds/s in interleaved pairs (see ``fused_path``).
 7. evalcache — the eval protocol on the same configuration: SalientGrads
-   and FedAvg with ``eval_cache=True``, 3 rounds with the eval after each,
+   and FedAvg with ``eval_cache=True``, 2 rounds with the eval after each,
    eager and fused, against the same rounds with the cache off from one
    state (accuracies bitwise, losses within 4e-7 relative; fused bitwise
    eager, the cache included); the cached eval runs no personal forward,
@@ -163,7 +163,7 @@ Phases, each printing one JSON line:
    wire reduces on full-width payloads (each equal to the rank's own
    payload), each reduce also captured in a CUDA graph and replayed on new
    payloads and uniforms, bitwise the eager reduce; then a one-rank NCCL
-   mesh of the main configuration whose fused block (3 rounds, the eval
+   mesh of the main configuration whose fused block (2 rounds, the eval
    every round) is bitwise its eager rounds and the single-process block,
    with no collective called from Python while it replays; and
    ``runner.main --mesh_devices 2`` fitted to the one card. The robust and
@@ -197,7 +197,29 @@ Phases, each printing one JSON line:
    bitwise its eager rounds and the single-process streamed block, no
    Python collective in a replay, its captures and both rates (see
    ``mesh_path``).
-18. cli     — the command-line entry point in-process on the card
+18. cifar   — the 2D image side at full width (``bench_torch.bench_config
+   ("cifar")``: SalientGrads on ``resnet18``, ResNet-18 with GroupNorm,
+   62 leaves, 11,173,962 parameters; 100 clients of 500 32x32x3 bf16 images
+   made on the card, batch 16, ``dense_ratio`` 0.3, the crop and flip on
+   every training and SNIP batch, 10 clients a round, 100 test images a
+   client; cut here to 1 local epoch of 32 steps and an eval of 10 of the
+   clients): (a) masked SGD over the
+   62 leaves, the threshold over the 11,164,352-entry SNIP row, the score
+   mask over the 21 kernel leaves and the weighted sum over [10, leaf] x
+   62 (the configuration's 10 clients a round), each bitwise its plain
+   version, timed (median of
+   30) with its bound and share; (b) SNIP, 1 eager round with the eval and
+   the same round as a fused block, bitwise, cuDNN deterministic, the
+   launches on path ``cifar`` exact, SNIP seconds, both loops' rounds/s,
+   the round graph's chain, peak memory; (c) every 2D registry key one
+   training step against the CPU in cuDNN's deterministic mode (the
+   logits within 1e-4 norm-wise in f32 and f64; the whole gradient within
+   1e-4 in f64, and in f32 with cuDNN on and off but for five keys held at
+   limits set from their readings) and a finite bf16 step; (d)
+   ``runner.main --dataset cifar10 --model cnn_cifar10`` twice on pickled
+   CIFAR-layout batches the phase writes, 2 rounds, the twins bitwise
+   (see ``cifar_path``).
+19. cli     — the command-line entry point in-process on the card
    (``experiments.runner.main``): SalientGrads and FedAvg, ``--dataset
    synthetic --model small3dcnn --comm_round 2`` (no stem stage on this
    model), and SalientGrads with ``--fuse_rounds 2``, whose history must
@@ -215,7 +237,7 @@ Phases, each printing one JSON line:
    CLI's seeding puts cuDNN in its deterministic mode; the script restores
    the two flags after the phase). The ABCD cohort-file step is not here:
    the loaders need ``h5py``, which the card's machine does not have.
-19. bench  — ``bench_torch.main()``, the port's bench of the headline
+20. bench  — ``bench_torch.main()``, the port's bench of the headline
    workload (SNIP; the Python loop: 1 + 10 rounds without eval, 1 + 8 with
    the eval every round, each from a clone of one state; the fused
    spelling: blocks of 10 and of 8 rounds with the eval, each after its
@@ -231,9 +253,10 @@ paths runs the stem kernels (one forward, and in training one backward);
 the launch counts asserted per path include them. The dense model's stem
 is cuDNN's conv: its path launches none of them.
 
-Then a ``kernels`` JSON line (one entry per kernel; ``replaces`` names the
-Pallas call site, or the list of sites when one kernel replaces several),
-the card's name and power limit, and as the last line ``{"ok": true,
+After each phase from 3 on, a line ``{"phase": "seconds", "of": ...,
+"seconds": ...}`` with its wall time. Then a ``kernels`` JSON line (one
+entry per kernel; ``replaces`` names the Pallas call site, or the list of
+sites when one kernel replaces several), the card's name and power limit, and as the last line ``{"ok": true,
 "device": {...}}``. Any failure raises and the script exits non-zero;
 without CUDA it exits 2 before printing a result.
 """
@@ -283,11 +306,11 @@ FEDAVG_WIRES = ("dense", "int8", "topk")
 TWINS = ("dense", "bucketed", "sparse", "hier")
 WIRE_ROUNDS, TOPK_DENSITY = 2, 0.1
 #: the fused phase: rounds per wire, the eval after each
-FUSED_ROUNDS = 3
+FUSED_ROUNDS = 2
 #: the evalcache phase: rounds per algorithm (the eval after each), the
 #: sampled eval's subset size and rounds, the losses' bound against the
 #: cache-off rounds (the reference's subset-width reassociation)
-EVALCACHE_ROUNDS, EVAL_CLIENTS, EVAL_CLIENTS_ROUNDS = 3, 4, 2
+EVALCACHE_ROUNDS, EVAL_CLIENTS, EVAL_CLIENTS_ROUNDS = 2, 4, 2
 EVALCACHE_LOSS_RTOL = 4e-7
 #: the dense phase: rounds of the dense-stem AlexNet3D
 DENSE_ROUNDS = 2
@@ -3281,18 +3304,21 @@ DETERMINISM_PAIRS, DETERMINISM_ROUNDS = 3, 10
 
 
 class _CudnnFlags:
-    """Sets ``torch.backends.cudnn.deterministic`` and ``benchmark`` on
-    entry (None leaves a flag as it is) and puts both back on exit."""
+    """Sets ``torch.backends.cudnn.deterministic``, ``benchmark`` and
+    ``enabled`` on entry (None leaves a flag as it is) and puts them back
+    on exit; the TF32 flags stay as they are."""
 
-    def __init__(self, deterministic=None, benchmark=None):
-        self.want = (deterministic, benchmark)
+    _NAMES = ("deterministic", "benchmark", "enabled")
+
+    def __init__(self, deterministic=None, benchmark=None, enabled=None):
+        self.want = (deterministic, benchmark, enabled)
 
     def __enter__(self):
         import torch
 
         c = torch.backends.cudnn
-        self.saved = (c.deterministic, c.benchmark)
-        for name, v in zip(("deterministic", "benchmark"), self.want):
+        self.saved = tuple(getattr(c, name) for name in self._NAMES)
+        for name, v in zip(self._NAMES, self.want):
             if v is not None:
                 setattr(c, name, v)
         return self
@@ -3301,7 +3327,8 @@ class _CudnnFlags:
         import torch
 
         c = torch.backends.cudnn
-        c.deterministic, c.benchmark = self.saved
+        for name, v in zip(self._NAMES, self.saved):
+            setattr(c, name, v)
         return False
 
 
@@ -3355,6 +3382,7 @@ def _fused_against_eager(phase, algo, state, rounds):
            "fused_vs_eager_max_abs": diff, "fused_bitwise": bitwise,
            "launches_eager": eager, "launches_fused": fused,
            "launches_per_replay": graph.launches,
+           "round_graph_nodes": graph.graph.nodes,
            "fused_warmups": FUSED_WARMUPS}
     if not bitwise:
         emit({"phase": phase, **rec})
@@ -4408,7 +4436,7 @@ def _mesh_nccl(dev):
 
 #: the rounds of part (a) of the mesh phase: a one-rank NCCL mesh's fused
 #: block with the eval every round against the same rounds run eagerly
-MESH_FUSED_ROUNDS = 3
+MESH_FUSED_ROUNDS = 2
 
 
 def _mesh_nccl_fused(dev):
@@ -5486,6 +5514,427 @@ def mesh_path(dev):
             "mesh/store": store}
 
 
+#: the cifar phase: eager rounds (and the fused block of as many), 1 of
+#: them, like the depth of the fused, evalcache and mesh (a) parts, cut
+#: so the script keeps its time limit; (b)'s
+#: cut of the configuration's depth, its widths and cohort kept: 1 local
+#: epoch of its 5 (a round of 320 steps, not 1600: the eager rounds and
+#: the block's warm-ups run at the Python loop's speed) and an eval of a
+#: fixed subset of 10 clients (``eval_clients``; the configuration's
+#: benchmark runs no eval); the batch and
+#: tolerance of (c)'s one-step check of every 2D registry key, and (d)'s
+#: CLI cohort (images per pickled train batch file and in the test file,
+#: clients)
+CIFAR_ROUNDS = 1
+CIFAR_CUT, CIFAR_EVAL_CLIENTS = dict(local_epochs=1), 10
+CIFAR_STEP_BATCH, CIFAR_STEP_TOL = 2, 1e-4
+#: (c)'s float32 gradient limits above CIFAR_STEP_TOL, per key, each about
+#: 2.5x its reading (H100, TF32 off, cuDNN deterministic): with cuDNN on
+#: (cnn_cifar10 1.2e-4, cnn_cifar10_meta 1.2e-4 and vgg11 3.7e-2 come from
+#: cuDNN's convolution algorithms: 6.7e-7, 1.1e-6 and 1.8e-6 with cuDNN
+#: off) and with cuDNN off (cnn_cifar100 2.1e-4 and resnet_ip 4.3e-3 with
+#: cuDNN on or off; both within 5e-15 in float64)
+CIFAR_GRAD_TOL_F32 = {"cnn_cifar10": 5e-4, "cnn_cifar10_meta": 5e-4,
+                      "vgg11": 1e-1, "cnn_cifar100": 5e-4, "resnet_ip": 1e-2}
+CIFAR_GRAD_TOL_F32_CUDNN_OFF = {"cnn_cifar100": 5e-4, "resnet_ip": 1e-2}
+CIFAR_CLI_PER_BATCH, CIFAR_CLI_TEST, CIFAR_CLI_CLIENTS = 40, 60, 4
+
+
+def cifar_kernels(dev, params, cfg):
+    """(a) The four kernels of the ``cifar`` path at ResNet-18-GN's shapes,
+    each bitwise its plain version and timed (median of 30 CUDA-event
+    timings) with its bound and share: masked SGD over the 62 leaves, the
+    threshold over the 11,164,352-entry SNIP row at k = dense_ratio * n,
+    the score mask over the 21 kernel leaves, the weighted sum over a
+    [clients a round, leaf] stack of every leaf."""
+    import torch
+
+    from neuroimagedisttraining_torch.core.state import weighted_sum
+    from neuroimagedisttraining_torch.ops import kernels
+    from neuroimagedisttraining_torch.ops.sparsity import kernel_flags
+    from neuroimagedisttraining_torch.ops.topk_select import exact_threshold
+
+    g = torch.Generator(device=dev).manual_seed(22)
+    names = list(params)
+    shapes = [tuple(params[k].shape) for k in names]
+    flags = kernel_flags(params)
+    kernel_names = [k for k in names if flags[k]]
+    n_params = sum(math.prod(s) for s in shapes)
+    s_clients = int(round(cfg["n_clients"] * cfg["frac"]))
+    out = {}
+
+    lr = torch.tensor(cfg["lr"] * cfg["lr_decay"] ** 2, device=dev)
+    mom, wd = cfg["momentum"], cfg["weight_decay"]
+    ps = [params[k].detach().clone() for k in names]
+    ms = [torch.randn(s, generator=g, device=dev) for s in shapes]
+    gs = [torch.randn(s, generator=g, device=dev) for s in shapes]
+    ks = [(torch.rand(s, generator=g, device=dev) < cfg["dense_ratio"])
+          .float() if flags[k] else torch.ones(s, device=dev)
+          for k, s in zip(names, shapes)]
+    want = [kernels.masked_sgd_plain(p, m, gg, k, lr, mom, wd, False)
+            for p, m, gg, k in zip(ps, ms, gs, ks)]
+    got_p = [p.clone() for p in ps]
+    got_m = [m.clone() for m in ms]
+    kernels.fused_masked_sgd_step(got_p, got_m, gs, ks, lr, momentum=mom,
+                                  wd=wd)
+    err = _bitwise_or_raise("cifar masked_sgd", got_p + got_m,
+                            [a for a, _ in want] + [b for _, b in want])
+    b_ms, b_by = bound(24.0 * n_params, 7.0 * n_params)
+    out["masked_sgd"] = dict(
+        max_abs_err=err, ms=device_ms(lambda: kernels.fused_masked_sgd_step(
+            got_p, got_m, gs, ks, lr, momentum=mom, wd=wd)),
+        plain_ms=device_ms(lambda: [kernels.masked_sgd_plain(
+            p, m, gg, k, lr, mom, wd, False) for p, m, gg, k in zip(
+                got_p, got_m, gs, ks)]),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        shape=f"{len(names)} leaves, {n_params} f32")
+
+    scores = [torch.rand(tuple(params[k].shape), generator=g, device=dev)
+              for k in kernel_names]
+    n = sum(s.numel() for s in scores)
+    k = max(1, int(n * cfg["dense_ratio"]))
+    norm = torch.cat([s.reshape(-1) for s in scores]).sum()
+    row = (torch.cat([s.reshape(-1) for s in scores]) / norm)[None]
+    err = _bitwise_or_raise(
+        "cifar threshold", [kernels.threshold_topk(row, k).view(torch.int32)],
+        [exact_threshold(row, k).view(torch.int32)])
+    b_ms, b_by = bound(4.0 * n + 4.0, THRESHOLD_PASSES * n)
+    out["threshold"] = dict(
+        max_abs_err=err, ms=device_ms(lambda: kernels.threshold_topk(row, k)),
+        plain_ms=device_ms(lambda: exact_threshold(row, k), reps=20),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=device_ms(lambda: torch.topk(row, k).values[..., -1],
+                             reps=20),
+        shape=f"[1, {n}] f32, k={k}")
+
+    thr = exact_threshold(row, k).reshape(())
+    got = kernels.fused_score_mask(scores, norm, thr)
+    err = _bitwise_or_raise(
+        "cifar score_mask", got,
+        [kernels.score_mask_plain(s, norm, thr) for s in scores])
+    b_ms, b_by = bound(8.0 * n + 8.0, 2.0 * n)
+    out["score_mask"] = dict(
+        max_abs_err=err,
+        ms=device_ms(lambda: kernels.fused_score_mask(scores, norm, thr)),
+        plain_ms=device_ms(lambda: [kernels.score_mask_plain(s, norm, thr)
+                                    for s in scores]),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        shape=f"{len(scores)} leaves, {n} f32")
+
+    stacked = {k: params[k].detach()[None] + 0.01 * torch.randn(
+        (s_clients,) + tuple(params[k].shape), generator=g, device=dev)
+        for k in names}
+    w = torch.rand(s_clients, generator=g, device=dev)
+    w = w / w.sum()
+    got = kernels.fused_weighted_sum(stacked, w)
+    err = _bitwise_or_raise("cifar weighted_sum", [got[k] for k in names],
+                            [weighted_sum(stacked[k], w) for k in names])
+    flat = torch.cat([stacked[k].reshape(s_clients, -1) for k in names], 1)
+    b_ms, b_by = bound(4.0 * (s_clients + 1) * n_params + 4.0 * s_clients,
+                       2.0 * s_clients * n_params)
+    out["weighted_sum"] = dict(
+        max_abs_err=err,
+        ms=device_ms(lambda: kernels.fused_weighted_sum(stacked, w)),
+        plain_ms=device_ms(lambda: [weighted_sum(stacked[k], w)
+                                    for k in names]),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=device_ms(lambda: torch.tensordot(w, flat, dims=1)),
+        shape=f"[{s_clients}, leaf] x {len(names)} leaves, f32")
+    for m in out.values():
+        m["bound_share"] = m["bound_ms"] / m["ms"]
+    return out
+
+
+def _cifar_step_sample(key: str) -> tuple:
+    """The per-sample shape (c) runs ``key`` at: the MNIST family's own,
+    Tiny-ImageNet's for its ResNet, CIFAR's for the rest."""
+    if key in ("cnn", "lenet5", "cnn_dropout"):
+        return (28, 28, 1)
+    return (64, 64, 3) if key == "tiny_resnet18" else (32, 32, 3)
+
+
+def cifar_model_steps(dev):
+    """(c) Every 2D registry key at its full size: one training step (CE
+    over 10 classes, batch CIFAR_STEP_BATCH) on the card and on the CPU
+    from the same parameters and input, cuDNN in the CLI's deterministic
+    mode, TF32 off: the logits within CIFAR_STEP_TOL norm-wise in float32
+    (with cuDNN on and off) and float64; the whole gradient (every leaf,
+    concatenated) within CIFAR_STEP_TOL in float64 and in float32, with
+    cuDNN on and off (PyTorch's own convolutions on the card), but for the
+    keys whose float32 readings are held at CIFAR_GRAD_TOL_F32 and
+    CIFAR_GRAD_TOL_F32_CUDNN_OFF. Then a bf16 step on the card, finite.
+    ``original_resnet18`` runs on its running statistics
+    (``apply_with_stats``), CNNDropOut on the same keep masks on both
+    sides."""
+    import torch
+    import torch.nn.functional as F
+
+    from neuroimagedisttraining_torch.models import (
+        MODELS_2D,
+        create_model,
+        init_params,
+        make_apply_fn,
+    )
+
+    def step(model, params, x, y, dtype=None, keep=None):
+        leaves = {k: v.clone().requires_grad_(True) for k, v in
+                  params.items()}
+        if hasattr(model, "apply_with_stats"):
+            stats = {k: v.to(x.device) for k, v in
+                     model.init_batch_stats().items()}
+            cast = ({k: v.to(dtype) for k, v in leaves.items()}
+                    if dtype else leaves)
+            logits, _ = model.apply_with_stats(
+                cast, stats, x.to(dtype) if dtype else x, train=True)
+            logits = logits.to(torch.promote_types(logits.dtype,
+                                                   torch.float32))
+        else:
+            logits = make_apply_fn(model, dtype)(leaves, x, train=True,
+                                                 rng=keep)
+        loss = F.cross_entropy(logits, y)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        return logits.detach(), dict(zip(leaves, grads)), float(
+            loss.detach())
+
+    def rel(a, b):
+        return float(torch.linalg.vector_norm((a - b).double())
+                     / max(float(torch.linalg.vector_norm(b.double())),
+                           1e-30))
+
+    def flat(grads, keys):
+        return torch.cat([grads[k].cpu().reshape(-1) for k in keys])
+
+    out = {}
+    for i, key in enumerate(MODELS_2D):
+        shape = _cifar_step_sample(key)
+        g = torch.Generator().manual_seed(100 + i)
+        cpu_model = create_model(key, num_classes=10, sample_shape=shape)
+        params = init_params(cpu_model, g)
+        x = torch.randn((CIFAR_STEP_BATCH,) + shape, generator=g)
+        y = torch.randint(0, 10, (CIFAR_STEP_BATCH,), generator=g)
+        keep = None
+        if key == "cnn_dropout":
+            keep = [torch.rand((CIFAR_STEP_BATCH, 12, 12, 64), generator=g)
+                    < 0.75, torch.rand((CIFAR_STEP_BATCH, 128), generator=g)
+                    < 0.5]
+        model = create_model(key, num_classes=10, sample_shape=shape).to(dev)
+        keep_on = None if keep is None else [m.to(dev) for m in keep]
+        rec = {"params": sum(v.numel() for v in params.values()),
+               "sample_shape": list(shape)}
+        for tag, dt, cudnn in (("f32", torch.float32, True),
+                               ("f32_cudnn_off", torch.float32, False),
+                               ("f64", torch.float64, True)):
+            p_cpu = {k: v.to(dt) for k, v in params.items()}
+            want_logits, want_grads, _ = step(cpu_model, p_cpu, x.to(dt), y,
+                                              keep=keep)
+            with _CudnnFlags(deterministic=True, benchmark=False,
+                             enabled=cudnn):
+                logits, grads, loss = step(
+                    model, {k: v.to(dev) for k, v in p_cpu.items()},
+                    x.to(dt).to(dev), y.to(dev), keep=keep_on)
+                torch.cuda.synchronize()
+            keys = list(grads)
+            rec.update({
+                f"logits_rel_{tag}": rel(logits.cpu(), want_logits),
+                f"grad_rel_{tag}": rel(flat(grads, keys),
+                                       flat(want_grads, keys)),
+                f"grad_rel_worst_leaf_{tag}": max(
+                    (rel(grads[k].cpu(), want_grads[k]), k) for k in keys),
+                f"loss_{tag}": loss})
+        with _CudnnFlags(deterministic=True, benchmark=False):
+            _, bgrads, bloss = step(
+                model, {k: v.to(dev) for k, v in params.items()},
+                x.to(dev), y.to(dev), dtype=torch.bfloat16, keep=keep_on)
+        rec["bf16_loss"] = bloss
+        rec["bf16_finite"] = math.isfinite(bloss) and all(
+            bool(torch.isfinite(v).all()) for v in bgrads.values())
+        out[key] = rec
+        if not (all(rec[f"logits_rel_{t}"] <= CIFAR_STEP_TOL
+                    for t in ("f32", "f32_cudnn_off", "f64"))
+                and rec["grad_rel_f64"] <= CIFAR_STEP_TOL
+                and rec["grad_rel_f32"] <= CIFAR_GRAD_TOL_F32.get(
+                    key, CIFAR_STEP_TOL)
+                and rec["grad_rel_f32_cudnn_off"]
+                <= CIFAR_GRAD_TOL_F32_CUDNN_OFF.get(key, CIFAR_STEP_TOL)
+                and rec["bf16_finite"]):
+            emit({"phase": "cifar", "part": "c", "models": out})
+            raise AssertionError(f"cifar (c) {key}: {rec}")
+    return out
+
+
+def _write_cifar_batches(root: str, seed: int = 0) -> None:
+    """CIFAR-10's pickled batch layout under ``root/cifar-10-batches-py``:
+    five train files of CIFAR_CLI_PER_BATCH random images and a test file
+    of CIFAR_CLI_TEST, 3072 channel-planar bytes a row, labels 0..9."""
+    import os
+    import pickle
+
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    base = os.path.join(root, "cifar-10-batches-py")
+    os.makedirs(base)
+    files = [(f"data_batch_{i}", CIFAR_CLI_PER_BATCH) for i in range(1, 6)]
+    for name, n in files + [("test_batch", CIFAR_CLI_TEST)]:
+        with open(os.path.join(base, name), "wb") as f:
+            pickle.dump({"data": rng.randint(0, 256, (n, 3072), np.uint8),
+                         "labels": rng.randint(0, 10, n).tolist()}, f)
+
+
+def cifar_cli(dev):
+    """(d) ``runner.main`` twice with ``--dataset cifar10 --model
+    cnn_cifar10`` on pickled CIFAR-layout batches this part writes, 2
+    rounds of SalientGrads: the twins' histories, final evals and global
+    parameters bitwise (the CLI's seeding puts cuDNN in its deterministic
+    mode), the crop and flip wired, the parameters on the card. Returns
+    the first run's launches."""
+    import tempfile
+
+    import torch
+
+    from neuroimagedisttraining_torch.experiments import runner
+    from neuroimagedisttraining_torch.ops import kernels
+
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        _write_cifar_batches(tmp)
+        for twin in range(2):
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            res = runner.main([
+                "--algo", "salientgrads", "--dataset", "cifar10",
+                "--data_dir", tmp, "--model", "cnn_cifar10",
+                "--client_num_in_total", str(CIFAR_CLI_CLIENTS),
+                "--comm_round", "2", "--batch_size", "16",
+                "--results_dir", f"{tmp}/results{twin}",
+                "--log_dir", f"{tmp}/log{twin}"])
+            torch.cuda.synchronize()
+            runs.append((res, time.perf_counter() - t0,
+                         dict(kernels.LAUNCHES)))
+    (a, a_s, launches), (b, b_s, _) = runs
+
+    def hist(res):
+        return [{k: v for k, v in h.items() if k != "round_time_s"}
+                for h in res["history"]]
+
+    final = {k: float(v) for k, v in a["final_eval"].items()
+             if getattr(v, "ndim", 0) == 0}
+    same = hist(a) == hist(b) and all(
+        torch.equal(v, b["state"].global_params[k])
+        for k, v in a["state"].global_params.items()) and final == {
+        k: float(v) for k, v in b["final_eval"].items()
+        if getattr(v, "ndim", 0) == 0}
+    on_card = all(v.is_cuda for v in a["state"].global_params.values())
+    losses = [h["train_loss"] for h in a["history"] if h["round"] >= 0]
+    rec = {"identity": a["identity"], "seconds": [a_s, b_s],
+           "train_loss": losses, "final_eval": final, "twins_bitwise": same,
+           "on_cuda": on_card, "launches": launches}
+    if not (same and on_card and len(losses) == 2 and all(
+            math.isfinite(v) for v in losses + list(final.values()))):
+        emit({"phase": "cifar", "part": "d", **rec})
+        raise AssertionError(f"cifar (d): {rec}")
+    if not all(launches[k] > 0 for k in ("masked_sgd", "threshold",
+                                         "score_mask", "weighted_sum")):
+        raise AssertionError(f"cifar (d): launches {launches}")
+    return rec
+
+
+def cifar_path(dev):
+    """The 2D image side at full width (``bench_torch.bench_config
+    ("cifar")``: SalientGrads on ``resnet18``, 100 clients of 500 32x32x3
+    bf16 images, batch 16, epochs of 32 steps, the crop and flip on every
+    training and SNIP batch, 10 clients a round; here cut by CIFAR_CUT to 1
+    epoch, the eval to CIFAR_EVAL_CLIENTS clients): (a) its four kernels at
+    ResNet-18-GN's shapes (:func:`cifar_kernels`); (b) SNIP, CIFAR_ROUNDS
+    eager rounds with the eval and the same rounds as one fused block from
+    the same state, bitwise, cuDNN in the CLI's deterministic mode, the
+    launches counted on path ``cifar`` (the counters zeroed just before
+    the SNIP and read after the block); (c) every 2D registry key one step
+    against the CPU (:func:`cifar_model_steps`); (d) the CLI twins
+    (:func:`cifar_cli`). Returns the launches of paths ``cifar`` and
+    ``cifar/cli``."""
+    import gc
+
+    import torch
+
+    import bench_torch as b
+    from neuroimagedisttraining_torch.algorithms.base import FUSED_WARMUPS
+    from neuroimagedisttraining_torch.ops import kernels
+
+    cfg = dict(b.bench_config("cifar"), **CIFAR_CUT)
+    t_phase = time.perf_counter()
+    with _CudnnFlags(deterministic=True, benchmark=False):
+        t0 = time.perf_counter()
+        data = b.cifar_data(cfg, torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+        data_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats(dev)
+        algo = b.cifar_algo(cfg, data, dev, eval_clients=CIFAR_EVAL_CLIENTS)
+        measured = cifar_kernels(dev, algo._fresh_params(
+            torch.Generator(device=dev).manual_seed(1), None),
+            b.bench_config("cifar"))
+        emit({"phase": "cifar", "part": "a", "kernels": measured})
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        state = algo.init_state()
+        torch.cuda.synchronize()
+        snip_s = time.perf_counter() - t0
+        snip = dict(kernels.LAUNCHES)
+        rec, launches = _fused_against_eager("cifar", algo, state,
+                                             CIFAR_ROUNDS)
+        peak = torch.cuda.max_memory_allocated(dev)
+        leaves = len(state.global_params)
+        kernel_leaves = sum(k.endswith(".kernel")
+                            for k in state.global_params)
+        n_params = sum(v.numel() for v in state.global_params.values())
+        density = float(algo.evaluate(state)["mask_density"])
+        algo.release_graphs()
+        del algo, state, data
+        gc.collect()
+        torch.cuda.empty_cache()
+    for k in kernels.LAUNCHES:
+        launches[k] += snip[k]
+    eager_s = sum(rec["round_s"])
+    emit({"phase": "cifar", "part": "b", "model": cfg["model_key"],
+          "clients": cfg["n_clients"], "frac": cfg["frac"],
+          "samples_per_client": cfg["samples_per_client"],
+          "batch": cfg["batch"], "local_epochs": cfg["local_epochs"],
+          "steps_per_epoch": cfg["steps_per_epoch"],
+          "eval_clients": CIFAR_EVAL_CLIENTS,
+          "compute_dtype": cfg["compute_dtype"], "augment": "crop_flip",
+          "cudnn_deterministic": True, "leaves": leaves,
+          "kernel_leaves": kernel_leaves, "params": n_params,
+          "mask_density": density, "data_s": data_s, "snip_s": snip_s,
+          "rounds_per_s_eager": CIFAR_ROUNDS / eager_s,
+          "rounds_per_s_fused_first_block": (CIFAR_ROUNDS
+                                             / rec["first_block_s"]),
+          **rec, "launches_snip": snip, "launches": launches,
+          "peak_mem_bytes": peak})
+    if (leaves, kernel_leaves, n_params) != (62, 21, 11_173_962):
+        raise AssertionError(f"cifar: {leaves} leaves, {kernel_leaves} "
+                             f"kernels, {n_params} parameters")
+    if abs(density - cfg["dense_ratio"]) > 1e-3:
+        raise AssertionError(f"cifar: mask density {density}")
+    per_table = -(-leaves // kernels.MAX_LEAVES)
+    runs = 2 * CIFAR_ROUNDS + FUSED_WARMUPS
+    steps = (int(round(cfg["n_clients"] * cfg["frac"]))
+             * cfg["local_epochs"] * cfg["steps_per_epoch"])
+    want = {**{k: 0 for k in kernels.LAUNCHES}, "threshold": 1,
+            "score_mask": -(-kernel_leaves // kernels.MAX_LEAVES),
+            "masked_sgd": per_table * steps * runs,
+            "weighted_sum": per_table * runs}
+    if launches != want:
+        raise AssertionError(f"cifar: launches {launches}, want {want}")
+
+    models = cifar_model_steps(dev)
+    emit({"phase": "cifar", "part": "c", "models": models})
+    with _CudnnFlags():
+        cli = cifar_cli(dev)
+    emit({"phase": "cifar", "part": "d", **cli,
+          "phase_seconds": time.perf_counter() - t_phase})
+    return {"cifar": launches, "cifar/cli": cli["launches"]}, measured
+
+
 def _cli_argv(algo: str, tmp: str):
     return ["--algo", algo, "--dataset", "synthetic", "--model", "small3dcnn",
             "--comm_round", "2", "--results_dir", f"{tmp}/results",
@@ -5845,26 +6294,32 @@ def main() -> int:
     emit({"phase": "bound_share", **{
         name: m["bound_share"] for name, m in measured.items()
         if isinstance(m, dict) and "bound_share" in m}})
-    small_parity(dev)
-    paths = {"main": main_path(dev)}
-    paths.update(wires_path(dev))
-    paths.update(fused_path(dev))
-    paths.update(evalcache_path(dev))
-    paths.update(dense_path(dev))
-    paths.update(robust_path(dev))
-    paths.update(train_opts_path(dev))
-    paths.update(personal_path(dev))
-    paths.update(fomo_path(dev))
-    paths.update(state_path(dev))
-    paths.update(resnet3d_path(dev))
-    paths.update(uneven_path(dev))
-    paths.update(determinism_path(dev))
-    paths.update(mesh_path(dev))
+    phase_s = {}  # each phase's seconds, printed as it ends
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn(dev)
+        phase_s[name] = time.perf_counter() - t0
+        emit({"phase": "seconds", "of": name, "seconds": phase_s[name]})
+        return out
+
+    timed("parity", small_parity)
+    paths = {"main": timed("main", main_path)}
+    for name, fn in (("wires", wires_path), ("fused", fused_path),
+                     ("evalcache", evalcache_path), ("dense", dense_path),
+                     ("robust", robust_path), ("train_opts", train_opts_path),
+                     ("personal", personal_path), ("fomo", fomo_path),
+                     ("state", state_path), ("resnet3d", resnet3d_path),
+                     ("uneven", uneven_path),
+                     ("determinism", determinism_path), ("mesh", mesh_path)):
+        paths.update(timed(name, fn))
+    cifar_paths, at_cifar = timed("cifar", cifar_path)
+    paths.update(cifar_paths)
     # the CLI's seeding sets cuDNN's flags for the process: the bench
     # phase after it measures with the flags the script had before
     with _CudnnFlags():
-        paths.update(cli_path(dev))
-    paths.update(bench_path(dev))
+        paths.update(timed("cli", cli_path))
+    paths.update(timed("bench", bench_path))
 
     line = []
     for name in kernels.SOURCES:
@@ -5879,6 +6334,8 @@ def main() -> int:
             **{k: v for k, v in measured[name].items() if k != "shape"})
         if name == "threshold":
             entry["at_topk_group"] = measured["threshold_topk_group"]
+        if name in at_cifar:  # the cifar path's ResNet-18-GN shapes
+            entry["at_resnet18_cifar"] = at_cifar[name]
         line.append(entry)
     emit({"kernels": line})
     smi = subprocess.run(

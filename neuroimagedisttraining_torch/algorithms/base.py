@@ -73,6 +73,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..core import capture
 from ..core.client_store import STORE_MODES, ClientStore
 from ..core.state import (
     HyperParams,
@@ -89,6 +90,7 @@ from ..core.trainer import (
     replacement_batches,
     round_lr,
 )
+from ..data.cifar import DRAW_ROWS, CropFlip, crop_flip_draws
 from ..data.types import FederatedData
 from ..models import init_params, make_apply_fn
 from ..models.layers import DropoutProbe
@@ -199,21 +201,26 @@ class RoundInputs:
     ``lr`` the round's rate (0-d f32),
     ``perms`` the epoch permutations ``[S, epochs, steps_per_epoch *
     batch]`` (under replacement batching, the with-replacement batch
-    indices in the same layout), ``dropout`` per client and local step the
-    dropout keep masks by slot (None for a step the client does not run;
-    None for a model without dropout), ``uniforms`` the int8 wire's ``[S,
+    indices in the same layout), ``augment`` per client and local step the
+    crop-and-flip draws of an augmented dataset (``[S, local_steps, 3,
+    batch]``, ``data.cifar.crop_flip_draws``; a step the client does not
+    run holds zeros; None without augmentation), ``dropout`` per client
+    and local step the dropout keep masks by slot (None for a step the
+    client does not run; None for a model without dropout), ``uniforms``
+    the int8 wire's ``[S,
     nb, b]`` draw (None where no int8 wire runs), ``faults`` the fault
     injector's ``[S, 8]`` draws (``robust.faults.DRAW_COLUMNS``),
     ``collude`` the colluders' direction tree and ``dp_noise`` the weak-DP
     defense's ``[S, ...]`` standard-normal tree (each None when unused).
 
     The personalized and decentralized algorithms' inputs (None where
-    unused): ``perms_2`` / ``dropout_2`` a second training leg's draws,
-    laid out as ``perms`` / ``dropout`` (SubAvg's later epochs, Ditto's
-    personal leg); ``screen_idx`` (``[S, batch]`` row indices) and
-    ``screen_dropout`` (per client, keep masks by slot) DisPFL's screening
-    batch; ``regrow_u`` DisPFL's ``[S, ...]`` uniform regrow scores per
-    kernel leaf under ``dis_gradient_check``; and the host inputs of the
+    unused): ``perms_2`` / ``augment_2`` / ``dropout_2`` a second training
+    leg's draws, laid out as ``perms`` / ``augment`` / ``dropout`` (SubAvg's
+    later epochs, Ditto's personal leg); ``screen_idx`` (``[S, batch]`` row
+    indices), ``screen_augment`` (``[S, 3, batch]``) and ``screen_dropout``
+    (per client, keep masks by slot) DisPFL's screening batch;
+    ``regrow_u`` DisPFL's ``[S, ...]`` uniform regrow scores per kernel
+    leaf under ``dis_gradient_check``; and the host inputs of the
     round, a pure function of its index (:meth:`FedAlgorithm.
     _host_inputs`): ``adjacency`` the ``[C, C]`` float32 neighbor matrix
     (DisPFL, DPSGD), ``active`` DisPFL's ``[C]`` participation flags and
@@ -238,14 +245,17 @@ class RoundInputs:
     lr: torch.Tensor
     perms: torch.Tensor
     dropout: Optional[List[List[Optional[List[torch.Tensor]]]]] = None
+    augment: Optional[torch.Tensor] = None
     uniforms: Optional[torch.Tensor] = None
     faults: Optional[torch.Tensor] = None
     collude: Optional[Tree] = None
     dp_noise: Optional[Tree] = None
     perms_2: Optional[torch.Tensor] = None
     dropout_2: Optional[List[List[Optional[List[torch.Tensor]]]]] = None
+    augment_2: Optional[torch.Tensor] = None
     screen_idx: Optional[torch.Tensor] = None
     screen_dropout: Optional[List[Optional[List[torch.Tensor]]]] = None
+    screen_augment: Optional[torch.Tensor] = None
     regrow_u: Optional[Tree] = None
     adjacency: Optional[torch.Tensor] = None
     active: Optional[torch.Tensor] = None
@@ -336,8 +346,9 @@ _CAPTURE_STREAMS: Dict[torch.device, Any] = {}
 class _Graph:
     """``fn(warm)`` replayed from a CUDA graph on the card (after
     FUSED_WARMUPS runs of ``fn(warm=True)`` on a side stream, then the
-    capture of ``fn(warm=False)`` on the same stream), or called as is on
-    the CPU. Calling it returns ``fn``'s output; on the card that is the
+    capture of ``fn(warm=False)`` on the same stream, in segments at its
+    local steps' boundaries: ``core.capture.SegmentedGraph``), or called as
+    is on the CPU. Calling it returns ``fn``'s output; on the card that is the
     captured output, which each replay rewrites in place. ``launches``: the
     kernel launches one replay makes, added to ``kernels.LAUNCHES`` per
     replay.
@@ -359,11 +370,9 @@ class _Graph:
             for _ in range(FUSED_WARMUPS):
                 fn(warm=True)
         caller.wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
         before = kernels.snapshot_launches()
         try:
-            with torch.cuda.graph(graph, stream=side):
-                out = fn(warm=False)
+            graph = capture.SegmentedGraph(lambda: fn(warm=False), side)
         except RuntimeError as e:
             # a failed capture can leave its stream current
             torch.cuda.set_stream(caller)
@@ -375,7 +384,7 @@ class _Graph:
             after = kernels.snapshot_launches()
             captured = {k: after[k] - n for k, n in before.items()}
             kernels.restore_launches(before)
-        self.graph, self.out = graph, out
+        self.graph, self.out = graph, graph.out
         self.launches = {k: n for k, n in captured.items() if n}
 
     def __call__(self):
@@ -474,7 +483,8 @@ class _FusedRounds:
       its output state out, so no caller ever holds a buffer.
     * the host inputs of a round (:class:`RoundInputs`): the client ids,
       the learning rate, the epoch permutations (or replacement batches),
-      the dropout keep masks of every client and step, the int8 wire's
+      the crop-and-flip draws and the dropout keep masks of every client
+      and step, the int8 wire's
       uniforms, the fault draws, the colluders' direction and the weak-DP
       noise; a second leg's permutations and keep masks, DisPFL's
       screening rows and keep masks and its regrow scores; the round's
@@ -546,27 +556,38 @@ class _FusedRounds:
             return algo._keep_masks(drop_calls, lambda shape, _: torch.ones(
                 shape, dtype=torch.bool, device=dev))
 
+        augment = algo.augment_fn is not None
+
         def leg(leg_hp):
             perms = torch.arange(
                 leg_hp.steps_per_epoch * leg_hp.batch_size, device=dev
             ).repeat(s, leg_hp.local_epochs, 1)
-            dropout = None
+            dropout = aug = None
             if drop_calls:
                 dropout = [[keep_masks() for _ in range(leg_hp.local_steps)]
                            for _ in range(s)]
-            return perms, dropout
+            if augment:
+                aug = torch.zeros((s, leg_hp.local_steps, DRAW_ROWS,
+                                   leg_hp.batch_size), dtype=torch.int64,
+                                  device=dev)
+            return perms, dropout, aug
 
-        self.perms, self.dropout = leg(hp)
+        self.perms, self.dropout, self.augment = leg(hp)
         hp_2 = algo._second_leg_hp()
-        self.perms_2 = self.dropout_2 = None
+        self.perms_2 = self.dropout_2 = self.augment_2 = None
         if hp_2 is not None:
-            self.perms_2, self.dropout_2 = leg(hp_2)
+            self.perms_2, self.dropout_2, self.augment_2 = leg(hp_2)
         self.screen_idx = self.screen_dropout = self.regrow_u = None
+        self.screen_augment = None
         if algo._draws_screen:
             self.screen_idx = torch.zeros((s, hp.batch_size),
                                           dtype=torch.int64, device=dev)
             if drop_calls:
                 self.screen_dropout = [keep_masks() for _ in range(s)]
+            if augment:
+                self.screen_augment = torch.zeros(
+                    (s, DRAW_ROWS, hp.batch_size), dtype=torch.int64,
+                    device=dev)
         if algo._draws_regrow:
             flags = kernel_flags(params)
             self.regrow_u = {k: torch.zeros((s,) + tuple(v.shape),
@@ -644,6 +665,9 @@ class _FusedRounds:
                 _copy_masks(buf, keep)
         for buf, src in ((self.perms, inp.perms),
                          (self.perms_2, inp.perms_2),
+                         (self.augment, inp.augment),
+                         (self.augment_2, inp.augment_2),
+                         (self.screen_augment, inp.screen_augment),
                          (self.screen_idx, inp.screen_idx),
                          (self.regrow_u, inp.regrow_u),
                          (self.uniforms, inp.uniforms),
@@ -701,11 +725,13 @@ class _FusedRounds:
                 n_valid=[b * algo.hp.batch_size for b in steps], sel=self.sel,
                 n_sel=self.n_sel, lr=self.lr, pop=self.pop, slab=self.slab,
                 perms=self.perms, dropout=self.dropout,
-                uniforms=self.uniforms, faults=self.faults,
-                collude=self.collude, dp_noise=self.dp_noise,
-                perms_2=self.perms_2, dropout_2=self.dropout_2,
+                augment=self.augment, uniforms=self.uniforms,
+                faults=self.faults, collude=self.collude,
+                dp_noise=self.dp_noise, perms_2=self.perms_2,
+                dropout_2=self.dropout_2, augment_2=self.augment_2,
                 screen_idx=self.screen_idx,
-                screen_dropout=self.screen_dropout, regrow_u=self.regrow_u,
+                screen_dropout=self.screen_dropout,
+                screen_augment=self.screen_augment, regrow_u=self.regrow_u,
                 mesh_rows=mr, **self.host)
 
             def body(warm: bool):
@@ -781,6 +807,16 @@ class FedAlgorithm(abc.ABC):
     (the cohort of ``--layout flat`` is stored channel-less);
     ``init_sample_shape`` is the per-sample shape the model sees.
 
+    ``augment`` is the training-time augmentation every training and SNIP
+    batch goes through: "auto" (the default) or True turns on the
+    reference's RandomCrop(H, padding=4) and horizontal flip exactly when
+    the loader declared the dataset augmentable (``data.aug_pad_value``
+    set; the ring takes that value), as the original's train transform
+    always runs on CIFAR and Tiny-ImageNet; False turns it off; a callable
+    ``(batch, draws) -> batch`` is used as it is, fed ``[3, batch]``
+    draws (``data.cifar.crop_flip_draws``). Its draws come from the
+    round's generator per active step, before the step's dropout masks.
+
     An algorithm that sets ``eval_cache`` (before this constructor) keeps
     the personal eval's per-client terms in its state and refreshes the
     trained clients' rows in each round body, so its eval
@@ -844,7 +880,8 @@ class FedAlgorithm(abc.ABC):
                  robust_trim: float = 0.2, robust_krum_f: int = 0,
                  robust_norm_bound: float = 5.0,
                  client_store: str = "device", store_hot_clients: int = 64,
-                 store_dir: Optional[str] = None, device=None):
+                 store_dir: Optional[str] = None, augment="auto",
+                 device=None):
         if agg_impl not in collectives.AGG_IMPLS:
             raise ValueError(
                 f"agg_impl {agg_impl!r} not in {collectives.AGG_IMPLS}")
@@ -936,6 +973,14 @@ class FedAlgorithm(abc.ABC):
         self.apply_fn = make_apply_fn(self.model, self.compute_dtype,
                                       channel_inject=channel_inject)
         self.eval_client = make_eval_fn(self.apply_fn, loss_type, eval_batch)
+        if callable(augment):
+            self.augment_fn = augment
+        elif augment in ("auto", True, 1) and \
+                getattr(data, "aug_pad_value", None) is not None:
+            self.augment_fn = CropFlip(data.aug_pad_value, padding=4)
+            self.augment_fn.place(self.device)
+        else:
+            self.augment_fn = None
         #: the per-sample shape the model sees: the stored one, plus the
         #: channel axis the apply injects
         self.init_sample_shape = tuple(data.sample_shape) + (
@@ -1059,18 +1104,22 @@ class FedAlgorithm(abc.ABC):
                   dropout=None, agg_uniforms=None, batch_idx=None,
                   faults=None, collude=None, dp_noise=None, perms_2=None,
                   dropout_2=None, screen_idx=None, screen_dropout=None,
-                  regrow_u=None):
+                  regrow_u=None, augment=None, augment_2=None,
+                  screen_augment=None):
         """One round, a pure function of ``state``: the input state is left
         as it was (its generator too; the round draws from a copy, which the
-        new state carries). ``perms`` / ``batch_idx`` / ``dropout`` (per
-        selected client) replace the drawn epoch permutations /
-        with-replacement batch indices (``[local_steps, batch]`` each) /
-        dropout masks, ``agg_uniforms`` the int8 wire's draw, ``faults``
-        the fault draws (``[S, 8]``), ``collude`` the colluders' direction
-        and ``dp_noise`` the weak-DP noise (``[S, ...]`` per leaf);
-        ``perms_2`` / ``dropout_2`` the second leg's, ``screen_idx`` /
-        ``screen_dropout`` DisPFL's screening batch and ``regrow_u`` its
-        regrow scores (:class:`RoundInputs`). Returns ``(state,
+        new state carries). ``perms`` / ``batch_idx`` / ``dropout`` /
+        ``augment`` (per selected client) replace the drawn epoch
+        permutations / with-replacement batch indices (``[local_steps,
+        batch]`` each) / dropout masks / crop-and-flip draws
+        (``[local_steps, 3, batch]`` each), ``agg_uniforms`` the int8
+        wire's draw, ``faults`` the fault draws (``[S, 8]``), ``collude``
+        the colluders' direction and ``dp_noise`` the weak-DP noise
+        (``[S, ...]`` per leaf);
+        ``perms_2`` / ``dropout_2`` / ``augment_2`` the second leg's,
+        ``screen_idx`` / ``screen_dropout`` / ``screen_augment`` DisPFL's
+        screening batch and ``regrow_u`` its regrow scores
+        (:class:`RoundInputs`). Returns ``(state,
         metrics)``: ``train_loss``, under the guard ``clients_dropped`` and
         ``clients_quarantined``, and each algorithm's own. With a client
         store the round streams its cohort (:meth:`_store_round`)."""
@@ -1079,7 +1128,8 @@ class FedAlgorithm(abc.ABC):
             batch_idx=batch_idx, faults=faults, collude=collude,
             dp_noise=dp_noise, perms_2=perms_2, dropout_2=dropout_2,
             screen_idx=screen_idx, screen_dropout=screen_dropout,
-            regrow_u=regrow_u))
+            regrow_u=regrow_u, augment=augment, augment_2=augment_2,
+            screen_augment=screen_augment))
         if self._store is not None:
             new_state, metrics = self._store_round(state, round_idx, inp)
         else:
@@ -1653,7 +1703,8 @@ class FedAlgorithm(abc.ABC):
                 clone_tree(global_params), mask, d.x_train, d.y_train,
                 inp.n_valid[i], rows[j:j + 1], inp.perms[i], inp.lr,
                 None if inp.dropout is None else inp.dropout[i],
-                None if flips is None else flips[i], n_rows=inp.n_sel[i])
+                None if flips is None else flips[i], n_rows=inp.n_sel[i],
+                augment=None if inp.augment is None else inp.augment[i])
             locals_.append(params)
             losses.append(loss)
         # a mesh rank may hold none of the selected clients
@@ -1682,8 +1733,9 @@ class FedAlgorithm(abc.ABC):
         losses), each a row per client trained here (:meth:`_gather_own`
         makes the losses every selected client's)."""
         d = self._round_data(inp)
-        perms, dropout = ((inp.perms, inp.dropout) if leg == 1
-                          else (inp.perms_2, inp.dropout_2))
+        perms, dropout, augment = (
+            (inp.perms, inp.dropout, inp.augment) if leg == 1
+            else (inp.perms_2, inp.dropout_2, inp.augment_2))
         own, rows = self._own(inp)
         out, moms, losses = [], [], []
         for j, i in enumerate(own):
@@ -1692,7 +1744,8 @@ class FedAlgorithm(abc.ABC):
                 masks if shared_mask else _row(masks, j), d.x_train,
                 d.y_train, inp.n_valid[i], rows[j:j + 1], perms[i], inp.lr,
                 None if dropout is None else dropout[i],
-                prox_target=prox_target, n_rows=inp.n_sel[i])
+                prox_target=prox_target, n_rows=inp.n_sel[i],
+                augment=None if augment is None else augment[i])
             out.append(p)
             moms.append(m)
             losses.append(loss)
@@ -2016,17 +2069,26 @@ class FedAlgorithm(abc.ABC):
 
     def _leg_draws(self, hp: HyperParams, n_valid: List[int],
                    g: torch.Generator, drop_calls, given_perms=None,
-                   given_drop=None):
+                   given_drop=None, given_aug=None):
         """One training leg's draws for the clients of ``n_valid``, per
         client in turn: its epoch permutations (or replacement batches),
-        then each step it runs its dropout keep masks. Returns ``(perms
-        [S, epochs, steps_per_epoch * batch], dropout)``; ``given_perms``
-        / ``given_drop`` (per client) replace the draws."""
+        then each step it runs its crop-and-flip draws (with an
+        augmentation) and its dropout keep masks. Returns ``(perms [S,
+        epochs, steps_per_epoch * batch], dropout, augment [S, local_steps,
+        3, batch])``; ``given_perms`` / ``given_drop`` / ``given_aug`` (per
+        client) replace the draws."""
         dev = self.device
         n_rows = self.data.x_train.shape[1]
         full = self._full_batches()
         replace = hp.batching == "replacement"
         perms, dropout = [], ([] if drop_calls else None)
+        augment = None
+        if self.augment_fn is not None:
+            augment = torch.zeros((len(n_valid), hp.local_steps, DRAW_ROWS,
+                                   hp.batch_size), dtype=torch.int64,
+                                  device=dev)
+            if given_aug is not None:
+                augment.copy_(torch.as_tensor(np.asarray(given_aug)))
         for i, n in enumerate(n_valid):
             if given_perms is not None:
                 perms.append(torch.as_tensor(
@@ -2038,15 +2100,20 @@ class FedAlgorithm(abc.ABC):
                 perms.append(epoch_permutations(
                     g, n, hp.local_epochs,
                     hp.steps_per_epoch * hp.batch_size, n_rows=n_rows))
-            if dropout is None:
+            if dropout is None and (augment is None
+                                    or given_aug is not None):
                 continue
             steps: List[Optional[List]] = [None] * hp.local_steps
             for s in active_steps(hp, n, full):
-                steps[s] = self._step_keep_masks(
-                    drop_calls, g, None if given_drop is None
-                    else given_drop[i][s])
-            dropout.append(steps)
-        return torch.stack(perms), dropout
+                if augment is not None and given_aug is None:
+                    augment[i, s] = crop_flip_draws(g, hp.batch_size)
+                if dropout is not None:
+                    steps[s] = self._step_keep_masks(
+                        drop_calls, g, None if given_drop is None
+                        else given_drop[i][s])
+            if dropout is not None:
+                dropout.append(steps)
+        return torch.stack(perms), dropout, augment
 
     def _step_keep_masks(self, drop_calls, g: torch.Generator, given=None):
         """One training forward's dropout keep masks by slot: ``given``
@@ -2068,19 +2135,22 @@ class FedAlgorithm(abc.ABC):
         clients ``sel`` (``sel_dev`` on the device), the rate ``lr``, then
         the draws of ``g`` in the order the round consumes them: per client
         its epoch permutations (or replacement batches), then each step it
-        runs its dropout keep masks (:meth:`_leg_draws`); the same again
-        for a second leg (:meth:`_second_leg_hp`); DisPFL's screening batch
-        (per client its rows, then its keep masks) and regrow scores;
+        runs its crop-and-flip draws and its dropout keep masks
+        (:meth:`_leg_draws`); the same again for a second leg
+        (:meth:`_second_leg_hp`); DisPFL's screening batch (per client its
+        rows, its crop-and-flip draws, then its keep masks) and regrow
+        scores;
         after all of that, with ``aggregate``, the int8 wire's uniforms and
         the weak-DP noise (per client, per leaf). With ``aggregate`` and
         faults, the fault draws of round ``round_idx`` (from the run seed,
         the round and the population client ids alone:
         ``robust.faults.client_draws``). Last the host inputs of round
         ``round_idx`` (:meth:`_host_inputs`). ``seams`` (``run_round``'s
-        ``perms``, ``batch_idx``, ``dropout``, ``agg_uniforms``,
-        ``faults``, ``collude``, ``dp_noise``, ``perms_2``, ``dropout_2``,
-        ``screen_idx``, ``screen_dropout``, ``regrow_u``) replace the draws
-        they name. ``pop_dev`` (store mode, where ``sel_dev`` holds slab
+        ``perms``, ``batch_idx``, ``augment``, ``dropout``,
+        ``agg_uniforms``, ``faults``, ``collude``, ``dp_noise``,
+        ``perms_2``, ``augment_2``, ``dropout_2``, ``screen_idx``,
+        ``screen_augment``, ``screen_dropout``, ``regrow_u``) replace the
+        draws they name. ``pop_dev`` (store mode, where ``sel_dev`` holds slab
         positions) the population ids on the device. Both round loops draw
         through here."""
         seams = seams or {}
@@ -2088,32 +2158,41 @@ class FedAlgorithm(abc.ABC):
         n_valid = [self._n_train[int(c)] for c in sel]
         drop_calls = self._dropout_calls(params)
         replace = hp.batching == "replacement"
-        perms, dropout = self._leg_draws(
+        perms, dropout, augment = self._leg_draws(
             hp, n_valid, g, drop_calls,
             seams.get("batch_idx" if replace else "perms"),
-            seams.get("dropout"))
-        perms_2 = dropout_2 = None
+            seams.get("dropout"), seams.get("augment"))
+        perms_2 = dropout_2 = augment_2 = None
         hp_2 = self._second_leg_hp()
         if hp_2 is not None:
-            perms_2, dropout_2 = self._leg_draws(
+            perms_2, dropout_2, augment_2 = self._leg_draws(
                 hp_2, n_valid, g, drop_calls, seams.get("perms_2"),
-                seams.get("dropout_2"))
-        screen_idx = screen_dropout = regrow_u = None
+                seams.get("dropout_2"), seams.get("augment_2"))
+        screen_idx = screen_dropout = screen_augment = regrow_u = None
         if self._draws_screen:
             given, given_drop = seams.get("screen_idx"), seams.get(
                 "screen_dropout")
+            given_aug = seams.get("screen_augment")
             rows, screen_dropout = [], ([] if drop_calls else None)
+            augs = []
             for i, n in enumerate(n_valid):
                 rows.append(
                     torch.as_tensor(given[i], dtype=torch.int64, device=dev)
                     if given is not None else torch.randint(
                         0, max(n, 1), (hp.batch_size,), generator=g,
                         device=dev))
+                if self.augment_fn is not None:
+                    augs.append(
+                        torch.as_tensor(np.asarray(given_aug[i])).to(dev)
+                        if given_aug is not None
+                        else crop_flip_draws(g, hp.batch_size))
                 if drop_calls:
                     screen_dropout.append(self._step_keep_masks(
                         drop_calls, g,
                         None if given_drop is None else given_drop[i]))
             screen_idx = torch.stack(rows)
+            if augs:
+                screen_augment = torch.stack(augs)
         if self._draws_regrow:
             regrow_u = seams.get("regrow_u")
             flags = kernel_flags(params)
@@ -2161,10 +2240,12 @@ class FedAlgorithm(abc.ABC):
         return RoundInputs(
             n_valid=n_valid, sel=sel_dev,
             n_sel=_to_device(np.asarray(n_valid, np.float32), dev), lr=lr,
-            perms=perms, dropout=dropout, uniforms=uniforms,
-            faults=faults, collude=collude, dp_noise=dp_noise,
-            perms_2=perms_2, dropout_2=dropout_2, screen_idx=screen_idx,
-            screen_dropout=screen_dropout, regrow_u=regrow_u,
+            perms=perms, dropout=dropout, augment=augment,
+            uniforms=uniforms, faults=faults, collude=collude,
+            dp_noise=dp_noise, perms_2=perms_2, dropout_2=dropout_2,
+            augment_2=augment_2, screen_idx=screen_idx,
+            screen_dropout=screen_dropout, screen_augment=screen_augment,
+            regrow_u=regrow_u,
             pop=sel_dev if pop_dev is None else pop_dev, **host)
 
     # -- the population client store (client_store "host" / "disk") -----------
@@ -2494,10 +2575,10 @@ class FedAlgorithm(abc.ABC):
         rounds every other rank does); a gloo group on the card, whose
         collectives run on the host, is refused with ``ValueError``.
         ``seams``, one dict per round of ``run_round``'s seams (``perms``,
-        ``batch_idx``, ``dropout``, ``agg_uniforms``, ``faults``,
-        ``collude``, ``dp_noise``, ``perms_2``, ``dropout_2``,
-        ``screen_idx``, ``screen_dropout``, ``regrow_u``), replace the
-        draws they name.
+        ``batch_idx``, ``augment``, ``dropout``, ``agg_uniforms``,
+        ``faults``, ``collude``, ``dp_noise``, ``perms_2``, ``augment_2``,
+        ``dropout_2``, ``screen_idx``, ``screen_augment``,
+        ``screen_dropout``, ``regrow_u``), replace the draws they name.
 
         Returns ``(state, ys)``, ``ys`` a :class:`FusedMetrics` whose
         ``train_loss`` is ``[n_rounds]`` and whose ``eval`` (with

@@ -124,6 +124,7 @@ class DisPFL(PersonalAlgorithm):
     def _build(self) -> None:
         self.client_update = make_client_update(
             self.apply_fn, self.loss_type, self.hp,
+            augment_fn=self.augment_fn,
             full_batches=self._full_batches(), remat=self.remat_local,
             mask_grads=True)
         self._loss_fn = make_loss_fn(self.loss_type)
@@ -215,8 +216,9 @@ class DisPFL(PersonalAlgorithm):
         return out
 
     def _screen_gradients(self, trained: Tree, inp: RoundInputs) -> Tree:
-        """Each client's gradient of one dense batch (its screening rows
-        and dropout masks) at its trained model, stacked (the clients this
+        """Each client's gradient of one dense batch (its screening rows,
+        augmented as training batches are, and its dropout masks) at its
+        trained model, stacked (the clients this
         rank trains, :meth:`_own`)."""
         d = self.data
         own, sel = self._own(inp)
@@ -228,6 +230,8 @@ class DisPFL(PersonalAlgorithm):
             idx = inp.screen_idx[i]
             client = sel[j:j + 1]
             xb, yb = d.x_train[client, idx], d.y_train[client, idx]
+            if self.augment_fn is not None:
+                xb = self.augment_fn(xb, inp.screen_augment[i])
             drop = (None if inp.screen_dropout is None
                     else inp.screen_dropout[i])
             loss = self._loss_fn(self.apply_fn(

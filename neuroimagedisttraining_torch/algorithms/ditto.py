@@ -66,10 +66,12 @@ class Ditto(FedAlgorithm):
     def _build(self) -> None:
         self.client_update = make_client_update(
             self.apply_fn, self.loss_type, self.hp,
+            augment_fn=self.augment_fn,
             full_batches=self._full_batches(), remat=self.remat_local,
             label_flip=self.labelflip_fn)
         self.personal_update = make_client_update(
             self.apply_fn, self.loss_type, self._second_leg_hp(),
+            augment_fn=self.augment_fn,
             full_batches=self._full_batches(), remat=self.remat_local,
             prox_lambda=self.lamda)
 

@@ -69,6 +69,7 @@ class FedAvg(FedAlgorithm):
     def _build(self) -> None:
         self.client_update = make_client_update(
             self.apply_fn, self.loss_type, self.hp,
+            augment_fn=self.augment_fn,
             full_batches=self._full_batches(), remat=self.remat_local,
             label_flip=self.labelflip_fn)
 

@@ -68,6 +68,7 @@ class FedFomo(PersonalAlgorithm):
     def _build(self) -> None:
         self.client_update = make_client_update(
             self.apply_fn, self.loss_type, self.hp,
+            augment_fn=self.augment_fn,
             full_batches=self._full_batches(), remat=self.remat_local)
         self._n_nei = min(self.clients_per_round, self.num_clients - 1)
 

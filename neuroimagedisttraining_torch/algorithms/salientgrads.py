@@ -32,6 +32,7 @@ import torch
 
 from ..core.state import Tree, broadcast_tree, row_sum, zeros_like_tree
 from ..core.trainer import make_client_update
+from ..data.cifar import crop_flip_draws
 from ..ops import kernels
 from ..ops.sparsity import (
     balanced_probs,
@@ -102,6 +103,7 @@ class SalientGrads(FedAlgorithm):
     def _build(self) -> None:
         self.client_update = make_client_update(
             self.apply_fn, self.loss_type, self.hp,
+            augment_fn=self.augment_fn,
             full_batches=self._full_batches(), remat=self.remat_local,
             label_flip=self.labelflip_fn)
         #: the exact stratified schedule, ``[C, 25, L]`` row indices and
@@ -117,19 +119,21 @@ class SalientGrads(FedAlgorithm):
                 labels.cpu().numpy(), self._n_train,
                 n_splits=STRATIFIED_SPLITS)
             self.snip_fold_scores = make_snip_fold_score_fn(
-                self.apply_fn, self.loss_type)
+                self.apply_fn, self.loss_type, augment_fn=self.augment_fn)
         self.snip_scores = make_snip_score_fn(
             self.apply_fn, self.loss_type, self.hp.batch_size,
             stratified=self.stratified_sampling,
-            num_classes=self.data.class_num)
+            num_classes=self.data.class_num, augment_fn=self.augment_fn)
 
     def global_mask(self, params: Tree, generator=None,
-                    snip_idx=None) -> Tree:
+                    snip_idx=None, snip_augment=None) -> Tree:
         """Every client scores its own shard; mean over clients; global
         top-k. The scoring batches per client: ``itersnip_iterations``
         uniform draws; with ``stratified_sampling`` the 25 fold train sides
         ("exact") or 25 class-balanced draws ("balanced"). ``snip_idx``
-        (per client, ``[n_iters, batch]``) replaces the drawn batches.
+        (per client, ``[n_iters, batch]``) replaces the drawn batches and
+        ``snip_augment`` (per client, ``[n_iters, 3, batch]``) their
+        crop-and-flip draws on an augmented dataset.
 
         On a client mesh each rank scores its own clients and makes the
         other clients' draws without scoring them (the generator stays the
@@ -140,48 +144,60 @@ class SalientGrads(FedAlgorithm):
                    else self.itersnip_iterations)
         if self.mesh is not None:
             return mask_from_scores(
-                self._mesh_mean_scores(params, generator, snip_idx, n_iters),
+                self._mesh_mean_scores(params, generator, snip_idx, n_iters,
+                                       snip_augment),
                 self.dense_ratio)
         total = None
         for c in range(self.num_clients):
-            s = self._client_scores(c, params, generator, snip_idx, n_iters)
+            s = self._client_scores(c, params, generator, snip_idx, n_iters,
+                                    snip_augment)
             total = s if total is None else {k: total[k] + s[k] for k in s}
         mean = {k: v / self.num_clients for k, v in total.items()}
         return mask_from_scores(mean, self.dense_ratio)
 
     def _client_scores(self, c: int, params: Tree, generator, snip_idx,
-                       n_iters: int) -> Tree:
+                       n_iters: int, snip_augment=None) -> Tree:
         """Client ``c``'s SNIP scores on its own shard: the exact
         stratified folds' train sides, else ``n_iters`` batches
         (``snip_idx[c]`` where given, else drawn: uniform, or class-balanced
-        with ``stratified_sampling``)."""
+        with ``stratified_sampling``); on an augmented dataset each batch
+        augmented (``snip_augment[c]`` where given, else drawn)."""
         x, y = self._shard(c)
+        aug = None if snip_augment is None else snip_augment[c]
         if self._fold_sched is not None:
             idx, w = self._fold_sched
             return self.snip_fold_scores(params, x, y, idx[c], w[c],
-                                         rng=generator)
+                                         rng=generator, augment=aug)
         return self.snip_scores(
             params, x, y, self._n_train[c], n_iters,
-            idx=None if snip_idx is None else snip_idx[c], rng=generator)
+            idx=None if snip_idx is None else snip_idx[c], rng=generator,
+            augment=aug)
 
     def _skip_client_draws(self, c: int, params: Tree, generator, snip_idx,
-                           n_iters: int) -> None:
+                           n_iters: int, snip_augment=None) -> None:
         """The draws :meth:`_client_scores` of client ``c`` takes from
         ``generator``, made and dropped (a mesh rank that does not hold
-        ``c``): per fold its dropout masks, at the schedule's batch of rows
-        ("exact"); else per batch its rows (uniform, or from the
-        class-balanced weights of ``c``'s labels, which the rank keeps on
-        the host) unless ``snip_idx`` gives them, then its dropout
-        masks."""
+        ``c``): per fold its crop-and-flip draws (on an augmented dataset)
+        and its dropout masks, at the schedule's batch of rows ("exact");
+        else per batch its rows (uniform, or from the class-balanced
+        weights of ``c``'s labels, which the rank keeps on the host) unless
+        ``snip_idx`` gives them, its crop-and-flip draws unless
+        ``snip_augment`` gives them, then its dropout masks."""
         dev = self.device
 
         def dropout(calls):
             for _, shape, _ in calls:
                 torch.rand(shape, generator=generator, device=dev)
 
+        def augment(rows):
+            if self.augment_fn is not None and snip_augment is None:
+                crop_flip_draws(generator, rows)
+
         if self._fold_sched is not None:
-            calls = self._dropout_calls(params, self._fold_sched[0].shape[2])
+            rows = self._fold_sched[0].shape[2]
+            calls = self._dropout_calls(params, rows)
             for _ in range(STRATIFIED_SPLITS):
+                augment(rows)
                 dropout(calls)
             return
         calls = self._dropout_calls(params)
@@ -197,19 +213,21 @@ class SalientGrads(FedAlgorithm):
             elif snip_idx is None:
                 torch.randint(0, max(n, 1), (self.hp.batch_size,),
                               generator=generator, device=generator.device)
+            augment(self.hp.batch_size)
             dropout(calls)
 
     def _mesh_mean_scores(self, params: Tree, generator, snip_idx,
-                          n_iters: int) -> Tree:
+                          n_iters: int, snip_augment=None) -> Tree:
         """The SNIP mean on a client mesh (:meth:`global_mask`)."""
         mine = []
         for c in range(self.num_clients):
             if self._lo <= c < self._hi:
                 mine.append(self._client_scores(c, params, generator,
-                                                snip_idx, n_iters))
+                                                snip_idx, n_iters,
+                                                snip_augment))
             else:
                 self._skip_client_draws(c, params, generator, snip_idx,
-                                        n_iters)
+                                        n_iters, snip_augment)
         keys = list(params)
         sizes = [params[k].numel() for k in keys]
         local = torch.stack([torch.cat([s[k].reshape(-1) for k in keys])
@@ -220,8 +238,8 @@ class SalientGrads(FedAlgorithm):
                 for k, v in zip(keys, torch.split(total, sizes))}
 
     def init_state(self, generator: Optional[torch.Generator] = None,
-                   params: Optional[Tree] = None,
-                   snip_idx=None) -> SalientGradsState:
+                   params: Optional[Tree] = None, snip_idx=None,
+                   snip_augment=None) -> SalientGradsState:
         """Fresh parameters (or the given ``params``), the SNIP mask (all
         ones without ``snip_mask``), dense personal copies (none without
         ``track_personal``) and, with ``eval_cache``, the cache seeded by
@@ -232,7 +250,7 @@ class SalientGrads(FedAlgorithm):
         g = generator if generator is not None else self.generator()
         params = self._fresh_params(g, params)
         if self.snip_mask:
-            mask = self.global_mask(params, g, snip_idx)
+            mask = self.global_mask(params, g, snip_idx, snip_augment)
         else:
             mask = {k: torch.ones_like(v) for k, v in params.items()}
         if self._store is not None:

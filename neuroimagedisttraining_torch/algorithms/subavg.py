@@ -73,7 +73,7 @@ class SubAvg(PersonalAlgorithm):
             self._hp_rest = dataclasses.replace(
                 hp, local_epochs=hp.local_epochs - 1)
         kw = dict(full_batches=self._full_batches(), remat=self.remat_local,
-                  mask_grads=True)
+                  mask_grads=True, augment_fn=self.augment_fn)
         self._update_first = make_client_update(
             self.apply_fn, self.loss_type,
             dataclasses.replace(hp, local_epochs=1), **kw)
@@ -108,14 +108,16 @@ class SubAvg(PersonalAlgorithm):
         start = {k: v * mask[k] for k, v in global_params.items()}
         p1, mom1, loss = self._update_first(
             start, mask, d.x_train, d.y_train, n, client, inp.perms[i],
-            inp.lr, drop, n_rows=count)
+            inp.lr, drop, n_rows=count,
+            augment=None if inp.augment is None else inp.augment[i])
         m1 = magnitude_prune_mask(mask, p1, self.each_prune_ratio)
         p2 = p1
         if self._update_rest is not None:
             drop = None if inp.dropout_2 is None else inp.dropout_2[i]
             p2, _, loss2 = self._update_rest(
                 p1, mask, d.x_train, d.y_train, n, client, inp.perms_2[i],
-                inp.lr, drop, momentum=mom1, n_rows=count)
+                inp.lr, drop, momentum=mom1, n_rows=count,
+                augment=None if inp.augment_2 is None else inp.augment_2[i])
             loss = (loss + loss2) / 2
         m2 = magnitude_prune_mask(mask, p2, self.each_prune_ratio)
         # the accept gates, the accuracy on the client's own train shard

@@ -5,13 +5,23 @@ result maps this package's parameter names to float32 CPU tensors:
 
 * conv kernels DHWIO -> OIDHW (``Conv3d_i/Conv_0/kernel`` ->
   ``Conv3d_i.kernel``; nested scopes keep their names,
-  ``_Features_0/Conv3d_i/Conv_0/kernel`` -> ``_Features_0.Conv3d_i.kernel``);
+  ``_Features_0/Conv3d_i/Conv_0/kernel`` -> ``_Features_0.Conv3d_i.kernel``)
+  and 2D conv kernels HWIO -> OIHW (``BasicBlock2D_0/Conv_1/kernel`` ->
+  ``BasicBlock2D_0.Conv_1.kernel``);
+* ResNet-IP's dual leaves ``kernel_g`` / ``kernel_v`` as kernels of their
+  rank (they are still no SNIP kernel: only a leaf named ``kernel`` is);
 * the phased stem kernel ``(r, r, r, 8, F)`` -> ``(F, 8, r, r, r)``; its
   slot mask is applied at use, as in the reference;
 * dense kernels ``(in, out)`` -> ``(out, in)``; the flatten is channels-last
   on both sides, so no row permutation;
 * GroupNorm ``scale``/``bias`` and the stem stage's ``scale``/``bias_gn``
-  unchanged.
+  unchanged; a ``batch_stats`` tree (``OriginalResNet18``'s running
+  ``mean``/``var``) converts the same way, to
+  ``OriginalResNet18.apply_with_stats``' statistics.
+
+The module names are flax's auto-names, so a scope's leaves sort as the
+reference's ``tree_leaves`` sorts them, as strings (``Conv_10`` before
+``Conv_2``).
 
 The aggregation wires flatten a tree the reference's way (``tree_to_vec``
 in ``parallel/collectives.py``): leaves in ``jax.tree_util.tree_leaves``
@@ -33,17 +43,23 @@ import numpy as np
 import torch
 
 
+#: the leaf names that hold a conv or dense kernel (the layouts differ)
+_KERNEL_LEAVES = ("kernel", "kernel_g", "kernel_v")
+#: reference layout -> this package's, by the kernel's rank
+_TO_TORCH = {5: (4, 3, 0, 1, 2), 4: (3, 2, 0, 1), 2: (1, 0)}
+#: this package's layout -> the reference's
+_TO_REFERENCE = {5: (2, 3, 4, 1, 0), 4: (2, 3, 1, 0), 2: (1, 0)}
+
+
 def _leaf(module: str, name: str, value, lead: int = 0) -> np.ndarray:
     a = np.asarray(value, dtype=np.float32)
-    if name == "kernel":
-        keep = tuple(range(lead))
+    if name in _KERNEL_LEAVES:
         nd = a.ndim - lead
-        if nd == 5:  # DHWIO (convs and the phased stem) -> OIDHW
-            return a.transpose(keep + tuple(lead + i
-                                            for i in (4, 3, 0, 1, 2)))
-        if nd == 2:  # dense (in, out) -> (out, in)
-            return a.transpose(keep + (lead + 1, lead))
-        raise ValueError(f"{module}.kernel: unexpected shape {a.shape}")
+        if nd not in _TO_TORCH:
+            raise ValueError(f"{module}.{name}: unexpected shape {a.shape}")
+        # DHWIO -> OIDHW, HWIO -> OIHW, dense (in, out) -> (out, in)
+        return a.transpose(tuple(range(lead)) + tuple(
+            lead + i for i in _TO_TORCH[nd]))
     return a
 
 
@@ -121,31 +137,26 @@ def reference_leaf_order(keys: Iterable[str]) -> List[str]:
     return sorted(keys, key=lambda k: k.split("."))
 
 
-def _is_kernel(name: str) -> bool:
-    return name.rsplit(".", 1)[-1] == "kernel"
+def _permuted(name: str, t: torch.Tensor, lead: int, perms) -> torch.Tensor:
+    nd = t.dim() - lead
+    if name.rsplit(".", 1)[-1] in _KERNEL_LEAVES and nd in perms:
+        return t.permute(tuple(range(lead)) + tuple(lead + i
+                                                    for i in perms[nd]))
+    return t
 
 
 def to_reference_layout(name: str, t: torch.Tensor,
                         lead: int = 0) -> torch.Tensor:
     """Leaf ``name`` in the reference's layout, as a permuted view: conv and
-    stem kernels OIDHW -> DHWIO, dense kernels ``(out, in)`` -> ``(in, out)``,
-    every other leaf unchanged. The first ``lead`` axes (a client axis) stay
-    in front. The inverse of :func:`jax_params_to_torch`'s per-leaf
-    transpose."""
-    nd = t.dim() - lead
-    if _is_kernel(name) and nd in (2, 5):
-        keep = tuple(range(lead))
-        perm = (2, 3, 4, 1, 0) if nd == 5 else (1, 0)
-        return t.permute(keep + tuple(lead + i for i in perm))
-    return t
+    stem kernels OIDHW -> DHWIO, 2D conv kernels OIHW -> HWIO, dense kernels
+    ``(out, in)`` -> ``(in, out)`` (ResNet-IP's ``kernel_g`` / ``kernel_v``
+    as well), every other leaf unchanged. The first ``lead`` axes (a client
+    axis) stay in front. The inverse of :func:`jax_params_to_torch`'s
+    per-leaf transpose."""
+    return _permuted(name, t, lead, _TO_REFERENCE)
 
 
 def from_reference_layout(name: str, t: torch.Tensor,
                           lead: int = 0) -> torch.Tensor:
     """The inverse of :func:`to_reference_layout`, as a permuted view."""
-    nd = t.dim() - lead
-    if _is_kernel(name) and nd in (2, 5):
-        keep = tuple(range(lead))
-        perm = (4, 3, 0, 1, 2) if nd == 5 else (1, 0)
-        return t.permute(keep + tuple(lead + i for i in perm))
-    return t
+    return _permuted(name, t, lead, _TO_TORCH)

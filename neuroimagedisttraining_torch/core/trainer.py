@@ -13,9 +13,10 @@ replacement from the client's valid rows instead (the reference's other
 mode): every step runs, each loss the plain mean of its full batch.
 
 The random draws enter as arguments — the epoch permutations (or the
-with-replacement batch indices) and the dropout masks, drawn by the round
-from its ``torch.Generator`` (``algorithms/base.py``), so a test can feed
-the reference's draws.
+with-replacement batch indices), the crop-and-flip draws of an augmented
+dataset and the dropout masks, drawn by the round from its
+``torch.Generator`` (``algorithms/base.py``), so a test can feed the
+reference's draws.
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..ops import kernels
+from . import capture
 from .losses import PER_EXAMPLE_LOSSES, predictions
 from .optim import clip_by_global_norm, fma
 from .state import HyperParams, Tree
@@ -100,10 +102,11 @@ def make_client_update(apply_fn, loss_type: str, hp: HyperParams,
                        full_batches: bool = False, remat: bool = False,
                        label_flip: Optional[Callable] = None,
                        mask_grads: bool = False,
-                       prox_lambda: float = 0.0) -> Callable:
+                       prox_lambda: float = 0.0,
+                       augment_fn: Optional[Callable] = None) -> Callable:
     """Build ``client_update(params, mask, x, y, n_valid, client, perms, lr,
-    dropout=None, flip=None, momentum=None, prox_target=None, n_rows=None)
-    -> (params, momentum, mean_loss)``.
+    dropout=None, flip=None, momentum=None, prox_target=None, n_rows=None,
+    augment=None) -> (params, momentum, mean_loss)``.
 
     ``params`` is updated in place (pass a copy); the optimizer step is
     clip-by-global-norm, then the masked SGD kernel
@@ -132,6 +135,11 @@ def make_client_update(apply_fn, loss_type: str, hp: HyperParams,
     ``flip`` (a 0-d bool tensor) flips the client's labels through
     ``label_flip(y, flip)``, the ``labelflip`` fault
     (``robust.faults.make_labelflip_fn``).
+    ``augment_fn(xb, draws)`` (``data.cifar.CropFlip``, the reference's
+    RandomCrop and flip) transforms every gathered training batch, step
+    ``s`` with ``augment[s]`` (``[local_steps, 3, batch]``, the client's
+    crop and flip draws, ``data.cifar.crop_flip_draws``); evaluation never
+    sees it.
 
     ``x`` and ``y`` are the whole cohort's ``[C, rows, ...]`` arrays and
     ``client`` a one-element int64 tensor on their device: each batch is
@@ -147,7 +155,8 @@ def make_client_update(apply_fn, loss_type: str, hp: HyperParams,
     buffer, so a CUDA graph of the body serves every count with the same
     steps). A client update reads nothing else the host decides per round:
     the round body of ``algorithms/base.py``, which a CUDA graph can
-    hold."""
+    hold; each step ends at a boundary where that graph's capture may go
+    on in the next graph of a chain (``core.capture``)."""
     per_example = PER_EXAMPLE_LOSSES[loss_type]
     spe, bs = hp.steps_per_epoch, hp.batch_size
     full_batches = full_batches or hp.batching == "replacement"
@@ -165,7 +174,8 @@ def make_client_update(apply_fn, loss_type: str, hp: HyperParams,
                       flip: Optional[torch.Tensor] = None,
                       momentum: Optional[Tree] = None,
                       prox_target: Optional[Tree] = None,
-                      n_rows: Optional[torch.Tensor] = None):
+                      n_rows: Optional[torch.Tensor] = None,
+                      augment: Optional[torch.Tensor] = None):
         n_valid = int(n_valid)
         count = n_valid if n_rows is None else n_rows
         n_rows = x.shape[1]
@@ -186,6 +196,8 @@ def make_client_update(apply_fn, loss_type: str, hp: HyperParams,
             start = (s // spe) * (spe * bs) + pos * bs
             idx = torch.clamp(flat[start:start + bs], max=n_rows - 1)
             xb, yb = x[client, idx], y[client, idx]
+            if augment_fn is not None:
+                xb = augment_fn(xb, augment[s])
             if flip is not None:
                 yb = label_flip(yb, flip)
             drop = None if dropout is None else dropout[s]
@@ -207,6 +219,7 @@ def make_client_update(apply_fn, loss_type: str, hp: HyperParams,
                                masks, lr, hp, mask_grads=mask_grads,
                                pull=pull, targets=targets)
             losses.append(loss.detach())
+            capture.step_boundary()
         mean_loss = (torch.stack(losses).mean() if losses
                      else torch.zeros((), device=x.device))
         out = {k: p.detach() for k, p in zip(names, leaves)}

@@ -27,6 +27,13 @@ class FederatedData:
     the counts stay whole, for every client of the cohort, and
     ``y_train_host`` holds every client's train labels on the host
     (stratified SNIP reads them all); None off the mesh.
+
+    ``aug_pad_value``: set by the image loaders, the per-channel value of a
+    black padding pixel in the dataset's normalized space, ``(0 - mean) /
+    std``. Set, it marks the dataset as augmented in training with the
+    reference's RandomCrop(H, padding=4) and horizontal flip, whose padded
+    ring is that value (torchvision pads the raw image with 0 before
+    normalizing); the algorithms read it (``augment="auto"``).
     """
 
     x_train: torch.Tensor
@@ -41,6 +48,7 @@ class FederatedData:
     n_val: Optional[torch.Tensor] = None
     mesh: Optional[Any] = None
     y_train_host: Optional[torch.Tensor] = None
+    aug_pad_value: Optional[tuple] = None
 
     @property
     def num_clients(self) -> int:

@@ -50,6 +50,7 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..models import MODELS_2D
 from .config import parse_args, run_identity
 from .logging_utils import (
     add_run_file_logger,
@@ -117,9 +118,10 @@ _INERT = {
     "gpu": "--device names the card",
     "type": "it is dead code in the original too",
 }
-#: the models whose first dense layer is sized by the per-sample shape
+#: the models sized by the per-sample shape: the first dense layer's width
+#: (the 3D models), the input channels too (the 2D image models)
 _SIZED_MODELS = ("3dcnn", "3dcnn_deeper", "3dcnn_regression", "3dcnn_s2d",
-                 "3dresnet", "3dresnet_s2d")
+                 "3dresnet", "3dresnet_s2d") + MODELS_2D
 
 
 def seed_everything(seed: int) -> None:
@@ -301,9 +303,6 @@ def refuse_unported(args: argparse.Namespace, algo_name: str) -> None:
     (:func:`refuse_invalid`), else naming the first flag of a feature the
     port has not got, set to anything but its default, and the ROADMAP item
     that ports it."""
-    from ..data import AUGMENTABLE_DATASETS
-    from ..models import MODEL_NAMES
-
     refuse_invalid(args, algo_name)
     if algo_name not in PORTED_ALGOS:
         raise SystemExit(f"--algo {algo_name}: the port runs "
@@ -318,14 +317,6 @@ def refuse_unported(args: argparse.Namespace, algo_name: str) -> None:
             raise SystemExit(
                 f"--{attr} {v!r}: not ported to PyTorch yet (ROADMAP item "
                 f"{item}); drop the flag, or run the JAX package's CLI")
-    if args.dataset.lower() in AUGMENTABLE_DATASETS:
-        raise SystemExit(f"--dataset {args.dataset}: not ported to PyTorch "
-                         "yet (ROADMAP item 11)")
-    key = _model_key(args)
-    if key.lower() not in MODEL_NAMES:
-        raise SystemExit(
-            f"--model {key}: not ported to PyTorch yet (ROADMAP item 11); "
-            f"the port has {', '.join(MODEL_NAMES)}")
     client_mesh_size(args, algo_name)
 
 
@@ -352,9 +343,10 @@ def _dataset_augmentable(dataset: str) -> bool:
 
 def _check_augment_consistency(args, algo) -> None:
     """After the build: the lineage guard's guess of the augmentation
-    against what the built algorithm has, so checkpoint metadata never
-    contradicts the guard (the port builds no augmentation: the
-    augmentable datasets are refused)."""
+    (``--augment`` on an augmentable dataset name) against what the built
+    algorithm has (its loader's ``aug_pad_value``, wired by
+    ``augment="auto"``), so checkpoint metadata never contradicts the
+    guard."""
     expected = bool(getattr(args, "augment", 1)) \
         and _dataset_augmentable(args.dataset)
     actual = getattr(algo, "augment_fn", None) is not None
@@ -575,6 +567,9 @@ def build_algorithm(args: argparse.Namespace, algo_name: str, mesh=None):
         # never enters the run identity
         client_store=getattr(args, "client_store", "device"),
         store_hot_clients=getattr(args, "store_hot_clients", 64),
+        # "auto" applies only to datasets whose loader set aug_pad_value
+        # (cifar10/100, tiny): the original's always-on train transform
+        augment="auto" if getattr(args, "augment", 1) else False,
         device=(mesh.device if mesh is not None
                 else getattr(args, "device", "cuda")),
     )

@@ -18,7 +18,20 @@ from .alexnet3d import (
     SmallCNN3D,
     SmallCNN3DS2D,
 )
+from .cnn2d import (
+    CNNCifar10,
+    CNNCifar100,
+    CNNDropOut,
+    CNNOriginalFedAvg,
+    LeNet5,
+    VGG11,
+    VGG16,
+)
+from .meta import CNNCifar10Meta, MetaNet, MetaResNet20, init_random_mask
+from .resnet2d import OriginalResNet18, ResNet18GN, TinyResNet18
 from .resnet3d import ResNet3DL3, ResNet3DL3S2D, convert_resnet3d_params
+from .resnet_gn import ResNetGN, resnet18_gn, resnet34_gn, resnet50_gn
+from .resnet_ip import ResNetIP
 
 ApplyFn = Callable[..., Any]
 
@@ -40,7 +53,32 @@ _REGISTRY = {
     # CI-scale models
     "small3dcnn": SmallCNN3D,
     "small3dcnn_s2d": SmallCNN3DS2D,
+    # the 2D image models (NHWC input; sample_shape (H, W, C))
+    "resnet18": ResNet18GN,
+    # BatchNorm variant: forward/eval parity with running statistics
+    # (OriginalResNet18.apply_with_stats); the FL trainers use the GN twin
+    "original_resnet18": OriginalResNet18,
+    "resnet_ip": ResNetIP,
+    "resnet_meta": MetaResNet20,
+    "tiny_resnet18": TinyResNet18,
+    "cnn_cifar10": CNNCifar10,
+    "cnn_cifar100": CNNCifar100,
+    "cnn": CNNOriginalFedAvg,
+    "lenet5": LeNet5,
+    "vgg11": VGG11,
+    "vgg16": VGG16,
+    "cnn_dropout": CNNDropOut,
+    "cnn_cifar10_meta": CNNCifar10Meta,
+    "resnet18_gn": resnet18_gn,
+    "resnet34_gn": resnet34_gn,
+    "resnet50_gn": resnet50_gn,
 }
+
+#: the 2D image models' keys (input ``(B, H, W, C)``)
+MODELS_2D = ("cnn", "cnn_cifar10", "cnn_cifar100", "cnn_cifar10_meta",
+             "cnn_dropout", "lenet5", "original_resnet18", "resnet18",
+             "resnet18_gn", "resnet34_gn", "resnet50_gn", "resnet_ip",
+             "resnet_meta", "tiny_resnet18", "vgg11", "vgg16")
 
 
 #: the model keys this package has
@@ -59,7 +97,8 @@ def init_params(model: torch.nn.Module,
                 generator: torch.Generator) -> Dict[str, torch.Tensor]:
     """Fresh parameters from ``generator`` with the reference's initializers,
     as a detached dict on the model's device (the model's own parameters are
-    re-initialized too)."""
+    re-initialized too). A BatchNorm model's running statistics are not
+    parameters (``OriginalResNet18.init_batch_stats``)."""
     for mod in model.modules():
         if mod is not model and hasattr(mod, "reset_parameters"):
             mod.reset_parameters(generator)
@@ -103,6 +142,11 @@ def make_apply_fn(model: torch.nn.Module,
 
 
 __all__ = ["AlexNet3D", "AlexNet3DDeeper", "AlexNet3DRegression",
-           "AlexNet3DS2D", "MODEL_NAMES", "ResNet3DL3", "ResNet3DL3S2D",
-           "SmallCNN3D", "SmallCNN3DS2D", "convert_resnet3d_params",
-           "create_model", "init_params", "make_apply_fn"]
+           "AlexNet3DS2D", "CNNCifar10", "CNNCifar100", "CNNCifar10Meta",
+           "CNNDropOut", "CNNOriginalFedAvg", "LeNet5", "MODELS_2D",
+           "MODEL_NAMES", "MetaNet", "MetaResNet20", "OriginalResNet18",
+           "ResNet18GN", "ResNet3DL3", "ResNet3DL3S2D", "ResNetGN",
+           "ResNetIP", "SmallCNN3D", "SmallCNN3DS2D", "TinyResNet18",
+           "VGG11", "VGG16", "convert_resnet3d_params", "create_model",
+           "init_params", "init_random_mask", "make_apply_fn",
+           "resnet18_gn", "resnet34_gn", "resnet50_gn"]

@@ -95,6 +95,12 @@ def _mask_scores(apply_fn, loss_of, params: Tree, xb, yb, drop) -> Tree:
     flags = kernel_flags(params)
     ones = {k: torch.ones_like(v, requires_grad=True)
             for k, v in params.items() if flags[k]}
+    if not ones:
+        # no maskable leaf (ResNet-IP): every score is zero; the forward
+        # still takes its dropout draws
+        with torch.no_grad():
+            apply_fn(params, xb, train=True, rng=drop)
+        return {k: torch.zeros_like(v) for k, v in params.items()}
     masked = {k: v * ones[k] if flags[k] else v for k, v in params.items()}
     loss = loss_of(apply_fn(masked, xb, train=True, rng=drop), yb)
     grads = torch.autograd.grad(loss, list(ones.values()))
@@ -116,22 +122,40 @@ def balanced_probs(y: torch.Tensor, n_valid: int,
     return p / torch.clamp(p.sum(), min=1e-9)
 
 
+def _augmented(augment_fn, xb, draws, rng):
+    """``xb`` through the training augmentation (``draws``, else drawn from
+    ``rng``), or as it is without one."""
+    if augment_fn is None:
+        return xb
+    if draws is None:
+        from ..data.cifar import crop_flip_draws
+
+        draws = crop_flip_draws(rng, xb.shape[0])
+    return augment_fn(xb, torch.as_tensor(draws).to(xb.device))
+
+
 def make_snip_score_fn(apply_fn, loss_type: str, batch_size: int,
-                       stratified: bool = False,
-                       num_classes: int = 2) -> Callable:
-    """``snip_scores(params, x, y, n_valid, n_iters, *, idx=None, rng=None)``:
-    the mean over ``n_iters`` batches of one client's shard of ``|dL/dm|``
-    per kernel leaf (zeros elsewhere).
+                       stratified: bool = False, num_classes: int = 2,
+                       augment_fn: Optional[Callable] = None) -> Callable:
+    """``snip_scores(params, x, y, n_valid, n_iters, *, idx=None, rng=None,
+    augment=None)``: the mean over ``n_iters`` batches of one client's
+    shard of ``|dL/dm|`` per kernel leaf (zeros elsewhere).
 
     ``idx`` (``[n_iters, batch_size]`` row indices) is the random seam;
     when it is None the batches are drawn with replacement on ``rng``, the
     ``torch.Generator`` that also draws the dropout masks: uniformly from
     the valid rows, or with ``stratified`` from :func:`balanced_probs`
-    (every class weighing the same in the saliency mean)."""
+    (every class weighing the same in the saliency mean).
+    ``augment_fn(xb, draws)`` is the training augmentation, applied to
+    every scoring batch as the local steps apply it (the original scores
+    the transform-bearing train loader's batches): batch ``i`` with
+    ``augment[i]`` (``[n_iters, 3, batch_size]``), else with draws from
+    ``rng`` after the batch's rows and before its dropout masks."""
     loss_fn = make_loss_fn(loss_type)
 
     def snip_scores(params, x, y, n_valid: int, n_iters: int, *,
-                    idx: Optional[torch.Tensor] = None, rng=None):
+                    idx: Optional[torch.Tensor] = None, rng=None,
+                    augment=None):
         params = {k: v.detach() for k, v in params.items()}
         p = None
         if stratified and idx is None:
@@ -147,7 +171,9 @@ def make_snip_score_fn(apply_fn, loss_type: str, batch_size: int,
                 bi = torch.randint(0, max(int(n_valid), 1), (batch_size,),
                                    generator=rng, device=rng.device)
             bi = bi.to(x.device)
-            s = _mask_scores(apply_fn, loss_fn, params, x[bi], y[bi], rng)
+            xb = _augmented(augment_fn, x[bi], None if augment is None
+                            else augment[it], rng)
+            s = _mask_scores(apply_fn, loss_fn, params, xb, y[bi], rng)
             total = s if total is None else {k: total[k] + s[k] for k in s}
         return {k: t / n_iters for k, t in total.items()}
 
@@ -252,14 +278,19 @@ def stacked_fold_schedules(y_all, n_all, n_splits: int = 25,
             np.stack([pad(w, 0.0) for _, w in per]))
 
 
-def make_snip_fold_score_fn(apply_fn, loss_type: str) -> Callable:
-    """``fold_scores(params, x, y, fold_idx, fold_w, rng=None)``: the mean
-    over the ``[n_splits, L]`` schedule's rows of ``|dL/dm|`` of the
-    weighted loss ``sum(w * per_example) / max(sum(w), 1)`` of each row's
-    batch (``rng`` draws the dropout masks)."""
+def make_snip_fold_score_fn(apply_fn, loss_type: str,
+                            augment_fn: Optional[Callable] = None
+                            ) -> Callable:
+    """``fold_scores(params, x, y, fold_idx, fold_w, rng=None,
+    augment=None)``: the mean over the ``[n_splits, L]`` schedule's rows of
+    ``|dL/dm|`` of the weighted loss ``sum(w * per_example) / max(sum(w),
+    1)`` of each row's batch (``rng`` draws the dropout masks). With
+    ``augment_fn`` each row's batch is augmented, with ``augment[k]``
+    (``[n_splits, 3, L]``) or draws from ``rng`` before its dropout
+    masks."""
     per_example = PER_EXAMPLE_LOSSES[loss_type]
 
-    def fold_scores(params, x, y, fold_idx, fold_w, rng=None):
+    def fold_scores(params, x, y, fold_idx, fold_w, rng=None, augment=None):
         params = {k: v.detach() for k, v in params.items()}
         fold_idx = torch.as_tensor(fold_idx).to(x.device, torch.int64)
         fold_w = torch.as_tensor(fold_w).to(x.device, torch.float32)
@@ -272,7 +303,9 @@ def make_snip_fold_score_fn(apply_fn, loss_type: str) -> Callable:
                 per_ex = per_example(logits, yb)
                 return torch.sum(per_ex * w) / torch.clamp(w.sum(), min=1.0)
 
-            s = _mask_scores(apply_fn, loss_of, params, x[bi], y[bi], rng)
+            xb = _augmented(augment_fn, x[bi], None if augment is None
+                            else augment[k], rng)
+            s = _mask_scores(apply_fn, loss_of, params, xb, y[bi], rng)
             total = s if total is None else {k2: total[k2] + s[k2]
                                              for k2 in s}
         return {k: t / n_splits for k, t in total.items()}
@@ -289,6 +322,10 @@ def mask_from_scores(scores: Tree, keep_ratio: float) -> Tree:
 
     flags = kernel_flags(scores)
     names = [k for k in scores if flags[k]]
+    if not names:
+        # a model without a kernel leaf (ResNet-IP's dual leaves): the
+        # reference's concatenation of no score fails with this message
+        raise ValueError("Need at least one array to concatenate.")
     flat = torch.cat([scores[k].reshape(-1) for k in names])
     norm = torch.sum(flat)
     n_keep = max(1, int(flat.numel() * keep_ratio))

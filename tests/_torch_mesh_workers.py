@@ -1208,3 +1208,54 @@ def _eq_np(a, b):
     if b is None:
         return a is None
     return np.array_equal(a, b)
+
+
+# -- the image side: an augmented round ----------------------------------------
+
+def build_image_algo(algo="salientgrads", mesh=None, n_clients=4, samples=8,
+                     seed=3):
+    """SalientGrads (or FedAvg) on ``cnn_cifar10`` over ``n_clients``
+    CIFAR-shaped clients of ``samples`` numpy-seeded images (4 test), 10
+    classes, CE, batch 4, CIFAR-10's black pad value (so every training and
+    SNIP batch is cropped and flipped), sharded over ``mesh`` when given."""
+    from neuroimagedisttraining_torch.algorithms import FedAvg, SalientGrads
+    from neuroimagedisttraining_torch.core.state import HyperParams
+    from neuroimagedisttraining_torch.data.cifar import (
+        CIFAR10_MEAN,
+        CIFAR10_STD,
+        black_pad_value,
+    )
+    from neuroimagedisttraining_torch.data.types import FederatedData
+    from neuroimagedisttraining_torch.models import create_model
+    from neuroimagedisttraining_torch.parallel.mesh import shard_federated
+
+    rng = np.random.RandomState(seed)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a))
+
+    data = FederatedData(
+        x_train=t(rng.randn(n_clients, samples, 32, 32, 3).astype(np.float32)),
+        y_train=t(rng.randint(0, 10, (n_clients, samples)).astype(np.int32)),
+        n_train=t(np.full(n_clients, samples, np.int32)),
+        x_test=t(rng.randn(n_clients, 4, 32, 32, 3).astype(np.float32)),
+        y_test=t(rng.randint(0, 10, (n_clients, 4)).astype(np.int32)),
+        n_test=t(np.full(n_clients, 4, np.int32)), class_num=10,
+        aug_pad_value=black_pad_value(CIFAR10_MEAN, CIFAR10_STD))
+    if mesh is not None:
+        data = shard_federated(data, mesh)
+    hp = HyperParams(lr=0.01, lr_decay=0.998, momentum=0.9,
+                     weight_decay=5e-4, grad_clip=10.0, local_epochs=1,
+                     steps_per_epoch=samples // 4, batch_size=4)
+    torch.manual_seed(0)
+    model = create_model("cnn_cifar10", num_classes=10)
+    kw = dict(loss_type="ce", frac=1.0, seed=0, device="cpu")
+    if algo == "salientgrads":
+        return SalientGrads(model, data, hp, dense_ratio=0.5, **kw)
+    return FedAvg(model, data, hp, **kw)
+
+
+def image_round_case(mesh, algo="salientgrads", rounds=2):
+    """:func:`build_image_algo` on the mesh: SNIP, ``rounds`` rounds and
+    the eval after each (:func:`drive_round`)."""
+    return drive_round(build_image_algo(algo, mesh=mesh), rounds)

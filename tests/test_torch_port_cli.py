@@ -44,6 +44,7 @@ import _torch_port_cohort as pc  # noqa: E402
 from neuroimagedisttraining_tpu.core.trainer import epoch_permutations  # noqa: E402
 from neuroimagedisttraining_tpu.experiments import config as jconfig  # noqa: E402
 from neuroimagedisttraining_tpu.experiments import runner as jrunner  # noqa: E402
+from neuroimagedisttraining_tpu.models import init_params as jinit  # noqa: E402
 from neuroimagedisttraining_tpu.utils import records as jrecords  # noqa: E402
 from neuroimagedisttraining_torch.algorithms import (  # noqa: E402
     FedAvgState,
@@ -172,6 +173,7 @@ REFUSED = [
     (["--fed_role", "aggregator", "--fed_sites", "2", "--fed_site_faults",
       "1:drop=1.0"], "--fed_site_faults"),
     (["--profile_dir", "prof"], "--profile_dir"),
+    # run since the image side was ported (LIFTED below)
     (["--dataset", "cifar10"], "--dataset"),
     (["--model", "resnet18"], "--model"),
 ]
@@ -183,15 +185,91 @@ def _refused_id(extra):
     return " ".join(extra)
 
 
+#: the refusals lifted once the image side was ported (ROADMAP item 11),
+#: by id: each now runs both CLIs on pickled CIFAR-10 batches, with what
+#: completes its command line
+LIFTED = {"--dataset cifar10": ["--model", "cnn_cifar10"],
+          "--model resnet18": ["--dataset", "cifar10"]}
+
+
+def _run_image_cli(tmp_path, argv, reference_run=True):
+    """``argv`` on 2 clients of pickled CIFAR-10 batches, one round of one
+    epoch: the port's CLI in-process against the JAX CLI's: the same
+    identity, ``stat_info`` path and keys, record keys round by round, the
+    built cohort bitwise (pad value included) and the same parameter
+    names; finite losses; the crop and flip wired on both sides. With
+    ``reference_run`` the JAX CLI runs the command too; without it (a
+    full-width ResNet-18, whose XLA:CPU compile would take minutes) the
+    JAX side is built, not run, and the port's ``stat_info`` keys are held
+    to a clean reference run's (``_stat_keys``)."""
+    from test_torch_port_image_data import _write_cifar
+
+    _write_cifar(str(tmp_path), "cifar10", 0)
+    built = {}
+    build = trunner.build_algorithm
+
+    def capture(*args, **kwargs):
+        built["algo"], built["data"] = build(*args, **kwargs)
+        return built["algo"], built["data"]
+
+    argv = argv + ["--data_dir", str(tmp_path), "--client_num_in_total", "2",
+                   "--comm_round", "1", "--epochs", "1", "--batch_size", "16"]
+    jargs = jconfig.parse_args(argv)
+    ja, jd = jrunner.build_algorithm(jargs, jargs.algo)
+    trunner.build_algorithm = capture
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # small ops among the suite's parallel workers
+    try:
+        t = trunner.main(argv + ["--results_dir", str(tmp_path / "t"),
+                                 "--log_dir", "", "--device", "cpu"])
+    finally:
+        trunner.build_algorithm = build
+        torch.set_num_threads(threads)
+    assert t["identity"] == jconfig.run_identity(jargs, jargs.algo)
+    assert os.path.relpath(t["stat_path"], tmp_path / "t") == os.path.join(
+        "cifar10", t["identity"])
+    pc.assert_data_equal(built["data"], jd)
+    assert built["data"].aug_pad_value == jd.aug_pad_value is not None
+    shapes = jax.eval_shape(lambda: jinit(
+        ja.model, jax.random.PRNGKey(0), tuple(jd.sample_shape)))
+    assert sorted(".".join(k.key for k in path) for path, _ in
+                  jax.tree_util.tree_leaves_with_path(shapes)) == \
+        sorted(dict(built["algo"].model.named_parameters()))
+    with open(t["stat_path"], "rb") as f:
+        ts = pickle.load(f)
+    if reference_run:
+        j = jrunner.main(argv + ["--results_dir", str(tmp_path / "j"),
+                                 "--log_dir", ""])
+        assert j["identity"] == t["identity"]
+        assert os.path.relpath(j["stat_path"], tmp_path / "j") == \
+            os.path.relpath(t["stat_path"], tmp_path / "t")
+        assert [sorted(h) for h in t["history"]] == \
+            [sorted(h) for h in j["history"]]
+        with open(j["stat_path"], "rb") as f:
+            assert sorted(ts) == sorted(pickle.load(f))
+    else:
+        assert sorted(ts) == _stat_keys(tmp_path)
+    assert all(np.isfinite(h["train_loss"]) for h in t["history"]
+               if h["round"] >= 0)
+    assert built["algo"].augment_fn is not None and ja.augment_fn is not None
+    assert built["algo"].loss_type == ja.loss_type == "ce"
+
+
 @pytest.mark.parametrize("extra,flag", REFUSED,
                          ids=[_refused_id(e) for e, _ in REFUSED])
 def test_unported_flags_refused_before_any_work(tmp_path, extra, flag):
     """Refused before any work: an unported feature naming its ROADMAP
     item; fused blocks of fedfomo or turboaggregate with the JAX CLI's
-    message, word for word."""
+    message, word for word. The image side's former refusals (``LIFTED``)
+    run instead, each held to the JAX CLI's run."""
     argv = (["--algo", "salientgrads", "--dataset", "synthetic", "--model",
-             "small3dcnn", "--results_dir", str(tmp_path / "res"),
-             "--log_dir", str(tmp_path / "log")] + extra)
+             "small3dcnn"] + extra)
+    if _refused_id(extra) in LIFTED:
+        _run_image_cli(tmp_path, argv + LIFTED[_refused_id(extra)],
+                       reference_run="--model" not in extra)
+        return
+    argv += ["--results_dir", str(tmp_path / "res"), "--log_dir",
+             str(tmp_path / "log")]
     with pytest.raises(SystemExit) as e:
         trunner.main(argv + ["--device", "cpu"])
     msg = str(e.value.code)
@@ -211,7 +289,7 @@ def test_unported_flags_refused_before_any_work(tmp_path, extra, flag):
 @pytest.mark.parametrize("layout", ["s2d", "channels"])
 def test_resnet3d_is_not_refused(layout):
     """The 3D-ResNet and its phased twin are ported: their ABCD command
-    line passes every refusal (the 2D models stay refused, above)."""
+    line passes every refusal."""
     for p in (["salientgrads"], ["fedavg"]):
         args = tconfig.parse_args(
             ["--dataset", "abcd", "--layout", layout, "--model", "3dresnet",

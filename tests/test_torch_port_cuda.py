@@ -669,6 +669,39 @@ def test_cuda_eval_protocol_fused_matches_eager(name, frac, extra):
 
 
 @pytest.mark.cuda
+def test_cuda_round_graph_in_segments_matches_eager(monkeypatch):
+    """A round graph captured as a chain (``core.capture``), its node budget
+    set so low that every local step closes a graph of the chain: two
+    fused rounds equal two ``run_round`` calls bit for bit (losses,
+    parameters, generator), and the chain holds one graph per local step
+    and one for the aggregate, each with the nodes the CUDA driver
+    counted."""
+    dev = _card()
+    from neuroimagedisttraining_torch.core import capture
+
+    monkeypatch.setattr(capture, "SEGMENT_NODES", 1)
+    algo = _narrow_algo(dev, "salientgrads", "dense", steps=3)
+    s0 = algo.init_state()
+    su, losses = algo.clone_state(s0), []
+    for r in range(2):
+        su, met = algo.run_round(su, r)
+        losses.append(float(met["train_loss"]))
+    sf, ys = algo.run_rounds_fused(s0, 0, 2)
+    host = ys.materialize()
+    (graph,) = algo._fused.rounds.values()
+    nodes = graph.graph.nodes
+    algo.release_graphs()
+    assert [float(v) for v in host["train_loss"]] == losses
+    for f in ("global_params", "personal_params"):
+        a, b = getattr(su, f), getattr(sf, f)
+        assert all(torch.equal(a[k], b[k]) for k in a), f
+    assert torch.equal(su.generator.get_state(), sf.generator.get_state())
+    # 4 clients of 3 steps each (shards of 9 to 12 rows, batch 4)
+    assert len(nodes) == 4 * 3 + 1, nodes
+    assert all(n is not None and n > 0 for n in nodes), nodes
+
+
+@pytest.mark.cuda
 def test_cuda_round_graphs_bounded_at_sampled_uneven_cohort():
     """Two of four uneven shards a round, at batch 1 (so each shard's step
     count is its row count), meet more step-count keys than

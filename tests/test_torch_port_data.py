@@ -1,8 +1,9 @@
 """The port's data layer and cost accounting against the JAX package's, on
 the CPU, on the same numpy inputs: the partitioners, the synthetic and ABCD
 loaders (one cohort file written by ``write_abcd_h5`` into ``tmp_path``, read
-by both sides in the channels, flat and s2d layouts) bit for bit, and the
-FLOPs and communication counters exactly.
+by both sides in the channels, flat and s2d layouts) and the image datasets
+through the dispatcher bit for bit, and the FLOPs and communication counters
+exactly.
 """
 import numpy as np
 import pytest
@@ -70,10 +71,23 @@ def test_load_federated_data_synthetic(val_fraction):
                       jdata.load_federated_data("synthetic", **kw))
 
 
-def test_unported_datasets_refused():
-    for name in ("cifar10", "cifar100", "tiny"):
-        with pytest.raises(ValueError, match="ROADMAP item 11"):
-            tdata.load_federated_data(name)
+def test_unported_datasets_refused(tmp_path, tmp_path_factory):
+    """The image datasets, once refused, now load: each through the
+    dispatcher bitwise the reference's, pad value included (the full
+    matrix is ``tests/test_torch_port_image_data.py``)."""
+    import test_tiny_imagenet as tt
+    from test_torch_port_image_data import _write_cifar
+
+    _write_cifar(str(tmp_path), "cifar10", 0)
+    _write_cifar(str(tmp_path), "cifar100", 1)
+    roots = {"cifar10": str(tmp_path), "cifar100": str(tmp_path),
+             "tiny": tt.tin_root.__wrapped__(tmp_path_factory)}
+    for name, root in roots.items():
+        kw = dict(data_dir=root, client_number=2, seed=42)
+        t = tdata.load_federated_data(name, **kw)
+        j = jdata.load_federated_data(name, **kw)
+        assert_data_equal(t, j)
+        assert t.aug_pad_value == j.aug_pad_value is not None
     assert tdata.AUGMENTABLE_DATASETS == jdata.AUGMENTABLE_DATASETS
     for name in ("cifar10", "Tiny", "abcd", "synthetic"):
         assert tdata.dataset_is_augmentable(name) == \
