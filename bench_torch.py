@@ -115,8 +115,31 @@ aggregations after a warm-up, the weights rolled each time. Its line has
 ``bench.py``'s metric, ``weighted_sum_aggregation_ms_alexnet3d_32clients``;
 ``value`` is the dense impl's ms (``bench.py`` takes it from its GSPMD probe
 in ``__graft_entry__``, which has no counterpart here) and ``extra`` holds
-``agg_ms_<impl>`` for every impl and the workload's descriptors. Any other
-``BENCH_CONFIG`` is refused.
+``agg_ms_<impl>`` and ``wire_bytes_<impl>`` (``obs.comm.WireCostModel``) for
+every impl and the workload's descriptors.
+
+    BENCH_CONFIG=cohort python3 bench_torch.py
+
+runs ``bench.py``'s cohort-scale cell (:func:`cohort`): FedAvg on
+``small3dcnn`` over synthetic 16^3 cohorts of C = 32, 64, 128 and 256
+clients (``COHORT_SIZES``), 8 samples a client, 8 of them trained a round
+(``frac = 8 / C``), bf16 compute, the in-state eval cache, in fused blocks
+of 4 rounds (``COHORT_BLOCK``) with the eval every round: one warm
+block (the captures), then 8 timed rounds (``COHORT_ROUNDS``, whole
+blocks). Each cell records rounds/s and the device memory in use with its
+cohort live (``obs.memory.device_memory``; the process peak beside it);
+then the population cells, C = 1k, 4k and 16k (``COHORT_POP_SIZES``) of
+8^3 volumes, 2 samples a client, through ``client_store="host"`` (no
+in-graph eval), with the store's mean gather ms a timed round. Its line's metric is
+``bench.py``'s, ``fedavg_cohort_rounds_per_sec_small3dcnn_c256_fused_
+evcache``, its value the largest resident cell's rounds/s and ``extra.
+cells`` every cell.
+
+Every printed result is also appended, best-effort, to
+``results/bench_torch_history.jsonl`` (``obs.regress.append_history``:
+metric, value, git SHA), each cohort cell's rounds/s and memory as its own
+entries (``cohort_rounds_per_sec_c<C>``, ``cohort_mem_bytes_c<C>``). Any
+other ``BENCH_CONFIG`` is refused.
 """
 from __future__ import annotations
 
@@ -145,9 +168,38 @@ BYZANTINE_VOLUME = (61, 73, 61)
 BYZANTINE_METRIC = "byzantine_robust_fedavg_rounds_per_sec_64clients"
 AGG_CLIENTS = 32
 AGG_METRIC = "weighted_sum_aggregation_ms_alexnet3d_32clients"
+#: BENCH_CONFIG=cohort: the resident cohorts, the store's population
+#: cohorts, the fused block and the timed rounds (whole blocks)
+COHORT_SIZES = (32, 64, 128, 256)
+COHORT_POP_SIZES = (1024, 4096, 16384)
+COHORT_BLOCK = 4
+COHORT_ROUNDS = 8
 #: bench.py's tracked CIFAR configuration (bench_config("cifar"))
 CIFAR_METRIC = ("salientgrads_rounds_per_sec_cifar_resnet18gn_100clients_"
                 "frac0.1")
+#: where every result is appended (results/* is not committed)
+_ROOT = os.path.dirname(os.path.abspath(__file__))
+HISTORY = os.path.join(_ROOT, "results", "bench_torch_history.jsonl")
+
+
+def _append_history(result: dict, source: str = "bench_torch") -> None:
+    """``result`` appended to :data:`HISTORY` (``obs.regress``), best
+    effort: a read-only checkout never fails the bench (the note goes to
+    stderr, never to the one-JSON-line stdout)."""
+    try:
+        from neuroimagedisttraining_torch.obs import regress
+
+        regress.append_history(HISTORY, result, source=source,
+                               repo_root=_ROOT)
+    except Exception as e:  # disk, permissions
+        print(f"# bench history append skipped: {e}", file=sys.stderr,
+              flush=True)
+
+
+def _emit(result: dict) -> None:
+    """The one JSON line, then its history entry."""
+    print(json.dumps(result), flush=True)
+    _append_history(result)
 
 
 def _acc(ev):
@@ -239,6 +291,16 @@ def bench_config(name: str = "", dense: bool = False) -> dict:
     ``dense`` is ``BENCH_DENSE``: the reference-layout ``3dresnet``.
     ``"cifar"`` returns the CIFAR configuration's constants instead
     (:func:`cifar`)."""
+    if name == "cohort":
+        return dict(model_key="small3dcnn", n_clients=max(COHORT_SIZES),
+                    sizes=COHORT_SIZES, pop_sizes=COHORT_POP_SIZES,
+                    uneven=False, samples_per_client=8, test_per_client=4,
+                    volume=(16, 16, 16), pop_volume=(8, 8, 8),
+                    pop_samples_per_client=2, trained_per_round=8,
+                    batch=4, steps=2, block=COHORT_BLOCK,
+                    timed_rounds=COHORT_ROUNDS,
+                    metric=("fedavg_cohort_rounds_per_sec_small3dcnn_"
+                            f"c{max(COHORT_SIZES)}_fused_evcache"))
     if name == "cifar":
         n_per, bs = 500, 16
         return dict(model_key="resnet18", n_clients=100,
@@ -303,6 +365,8 @@ def main(emit: bool = True, config: str = "",
     import torch
 
     cfg = bench_config(config, dense)
+    if config == "cohort":
+        return cohort(emit)
     if not torch.cuda.is_available():
         print("bench_torch: CUDA is not available", file=sys.stderr)
         return None
@@ -314,7 +378,7 @@ def main(emit: bool = True, config: str = "",
     else:
         result = measure(cfg, "cuda")
     if emit:
-        print(json.dumps(result), flush=True)
+        _emit(result)
     return result
 
 
@@ -574,7 +638,7 @@ def byzantine(emit: bool = True) -> Optional[dict]:
         },
     }
     if emit:
-        print(json.dumps(result), flush=True)
+        _emit(result)
     return result
 
 
@@ -649,7 +713,7 @@ def cifar(emit: bool = True) -> Optional[dict]:
     else:
         result = cifar_record(cfg, "cuda")
     if emit:
-        print(json.dumps(result), flush=True)
+        _emit(result)
     return result
 
 
@@ -727,6 +791,120 @@ def cifar_record(cfg: dict, device, mesh=None) -> dict:
     }
 
 
+def cohort(emit: bool = True) -> Optional[dict]:
+    """``bench.py``'s cohort-scale cell (see the module docstring): the
+    record (printed with ``emit``), or None without CUDA. Each cell's
+    rounds/s and device memory are appended to the history as their own
+    entries."""
+    import torch
+
+    from neuroimagedisttraining_torch.algorithms import FedAvg
+    from neuroimagedisttraining_torch.core.state import HyperParams
+    from neuroimagedisttraining_torch.data import (
+        device_synthetic_federated,
+        make_synthetic_federated,
+    )
+    from neuroimagedisttraining_torch.models import create_model
+    from neuroimagedisttraining_torch.obs import memory as obs_memory
+    from neuroimagedisttraining_torch.ops import kernels
+
+    cfg = bench_config("cohort")
+    if not torch.cuda.is_available():
+        print("bench_torch: CUDA is not available", file=sys.stderr)
+        return None
+    dev = torch.device("cuda")
+    kernels.build()
+    hp = HyperParams(lr=1e-3, momentum=0.9, local_epochs=1,
+                     steps_per_epoch=cfg["steps"], batch_size=cfg["batch"])
+    block, rounds = cfg["block"], cfg["timed_rounds"]
+    cells = {}
+
+    def timed(algo, state, eval_every):
+        """Rounds/s of ``rounds`` rounds in whole blocks, after one warm
+        block (the captures), and with a client store the mean gather ms
+        a timed round."""
+        state, ys = algo.run_rounds_fused(state, 0, block,
+                                          eval_every=eval_every)
+        ys.materialize()
+        store = algo._store
+        g0 = store.stats()["store_gather_ms"] if store is not None else 0.0
+        t0 = _start_clock(dev)
+        r0 = block
+        while r0 < block + rounds:
+            state, ys = algo.run_rounds_fused(state, r0, block,
+                                              eval_every=eval_every)
+            r0 += block
+        ys.materialize()
+        rps = rounds / _stop_clock(t0, dev)
+        gather = ((store.stats()["store_gather_ms"] - g0) / rounds
+                  if store is not None else None)
+        return rps, gather
+
+    def cell(key, algo, state, eval_every):
+        rps, gather_ms = timed(algo, state, eval_every)
+        devs = obs_memory.device_memory()
+        # in use while this cohort is live (the earlier ones are freed);
+        # the peak is the process's, informational
+        in_use = max(d["bytes_in_use"] for d in devs)
+        peak = max(d.get("peak_bytes_in_use", 0) for d in devs)
+        cells[key] = {"rounds_per_sec": rps, "mem_bytes": int(in_use),
+                      "mem_peak_process_bytes": int(peak),
+                      "mem_source": devs[0]["source"]}
+        series = [(f"cohort_rounds_per_sec_{key}", rps, "rounds/sec"),
+                  (f"cohort_mem_bytes_{key}", float(in_use), "bytes")]
+        if gather_ms is not None:
+            cells[key]["store_gather_ms"] = gather_ms
+            series.append((f"store_gather_ms_{key[len('pop_'):]}",
+                           gather_ms, "ms/round"))
+        for metric, value, unit in series:
+            _append_history({"metric": metric, "value": value,
+                             "unit": unit}, source="bench_cohort")
+
+    model = create_model("small3dcnn", num_classes=1)
+    for c in cfg["sizes"]:
+        data = device_synthetic_federated(
+            c, cfg["samples_per_client"], tuple(cfg["volume"]) + (1,),
+            torch.Generator(device=dev).manual_seed(0),
+            test_per_client=cfg["test_per_client"])
+        algo = FedAvg(model, data, hp, loss_type="bce",
+                      frac=min(1.0, cfg["trained_per_round"] / c), seed=0,
+                      compute_dtype="bfloat16", eval_cache=True, device=dev)
+        cell(f"c{c}", algo, algo.init_state(), 1)
+        algo.release_graphs()
+        del data, algo
+        torch.cuda.empty_cache()
+    for c in cfg["pop_sizes"]:
+        data = make_synthetic_federated(
+            seed=0, n_clients=c,
+            samples_per_client=cfg["pop_samples_per_client"],
+            test_per_client=1, sample_shape=tuple(cfg["pop_volume"]) + (1,))
+        algo = FedAvg(model, data, hp, loss_type="bce",
+                      frac=cfg["trained_per_round"] / c, seed=0,
+                      client_store="host", store_hot_clients=64,
+                      device=dev)
+        cell(f"pop_c{c}", algo, algo.init_state(), 0)
+        algo.release_graphs()
+        del data, algo
+        torch.cuda.empty_cache()
+    biggest = f"c{max(cfg['sizes'])}"
+    result = {
+        "metric": cfg["metric"],
+        "value": cells[biggest]["rounds_per_sec"],
+        "unit": "rounds/sec",
+        "vs_baseline": 0.0,  # a scaling cell, not a rate target
+        "extra": {"cells": cells, "block": block,
+                  "timed_rounds": rounds,
+                  "trained_per_round": cfg["trained_per_round"],
+                  "volume": list(cfg["volume"]),
+                  "pop_volume": list(cfg["pop_volume"]),
+                  "device": card_name_and_power_limit(),
+                  "torch": torch.__version__, "cuda": torch.version.cuda},
+    }
+    if emit:
+        _emit(result)
+    return result
+
+
 def agg(emit: bool = True, iters: int = 8) -> Optional[dict]:
     """``bench.py``'s ``agg`` configuration (see the module docstring).
     Returns the record (printed with ``emit``), or None without CUDA. With
@@ -745,7 +923,7 @@ def agg(emit: bool = True, iters: int = 8) -> Optional[dict]:
     else:
         result = agg_record("cuda", iters)
     if emit:
-        print(json.dumps(result), flush=True)
+        _emit(result)
     return result
 
 
@@ -791,9 +969,11 @@ def rank_agg(rank: int, world: int, directory: str, iters: int,
 
 if __name__ == "__main__":
     config = os.environ.get("BENCH_CONFIG", "")
-    if config not in MAIN_CONFIGS + ("byzantine", "agg", "cifar"):
+    if config not in MAIN_CONFIGS + ("byzantine", "agg", "cifar", "cohort"):
         sys.exit(f"unknown BENCH_CONFIG {config!r}")
-    if config == "byzantine":
+    if config == "cohort":
+        rec = cohort()
+    elif config == "byzantine":
         rec = byzantine()
     elif config == "cifar":
         rec = cifar()

@@ -237,7 +237,23 @@ Phases, each printing one JSON line:
    CLI's seeding puts cuDNN in its deterministic mode; the script restores
    the two flags after the phase). The ABCD cohort-file step is not here:
    the loaders need ``h5py``, which the card's machine does not have.
-20. bench  — ``bench_torch.main()``, the port's bench of the headline
+20. obs    — the in-process observability tier on the main configuration
+   (see ``obs_path``): (a) SNIP and 2 eager rounds with the session and
+   the round numerics on, bitwise obs off; (b) a fused block of the same
+   rounds, its numerics bitwise the eager rounds', no more host syncs in
+   its dispatch than obs off's, its graph's nodes and the fused rounds/s
+   with obs on and off; (c) ``obs.comm.probe_aggregate`` on the dense and
+   int8 wires; (d) ``utils.profiling.trace_one_round`` and
+   ``obs.devtrace``: the stem's, masked SGD's and the weighted sum's
+   kernels on the device lane, its busy seconds beside the round's
+   CUDA-event ms; (e) ``obs.memory.device_memory()``'s peak against
+   ``torch.cuda.max_memory_allocated()``; (f) a one-rank NCCL mesh round
+   with the session on, profiled, its collectives' NCCL ops in the trace
+   (one rank's communicator launches no kernel:
+   ``scripts/torch_obs_mesh_trace.py`` holds the collectives' device share
+   on several cards); (g) the CLI on ``small3dcnn`` with every lifted obs
+   flag: every artifact written, the run bitwise its obs-off twin.
+21. bench  — ``bench_torch.main()``, the port's bench of the headline
    workload (SNIP; the Python loop: 1 + 10 rounds without eval, 1 + 8 with
    the eval every round, each from a clone of one state; the fused
    spelling: blocks of 10 and of 8 rounds with the eval, each after its
@@ -6259,6 +6275,407 @@ def bench_path(dev):
     return {"bench": launches, "bench/byzantine": byz_launches}
 
 
+#: the obs phase's eager rounds and fused block
+OBS_ROUNDS = 2
+#: the device-lane kernels the obs phase's profiled round must show, by a
+#: piece of their names
+OBS_TRACE_KERNELS = ("stem_fwd", "stem_bwd", "masked_sgd_kernel",
+                     "weighted_sum_kernel")
+#: the obs phase's CLI run: every lifted flag, faults that the guard
+#: quarantines (the flight recorder's bundles) and an objective that
+#: breaches (the events stream)
+OBS_CLI = ["--fault_spec", "nan=0.5", "--obs", "1", "--obs_numerics", "1",
+           "--obs_comm", "1", "--obs_sample_every", "1",
+           "--slo_spec", "p99:train_loss<0.01", "--flight_recorder",
+           "guard", "--flight_window", "4"]
+
+
+class _SyncCount:
+    """Counts the host-side syncs a block makes while it lives: the
+    tensor-to-Python reads (``item``, ``tolist``, ``float``, ``cpu``,
+    ``numpy``) and ``torch.cuda.synchronize``."""
+
+    _TENSOR = ("item", "tolist", "__float__", "cpu", "numpy")
+
+    def __enter__(self):
+        import torch
+
+        self.n, self.saved = 0, []
+
+        def counted(owner, name):
+            fn = getattr(owner, name)
+            self.saved.append((owner, name, owner.__dict__.get(name)))
+
+            def call(*args, **kwargs):
+                self.n += 1
+                return fn(*args, **kwargs)
+            setattr(owner, name, call)
+
+        for name in self._TENSOR:
+            counted(torch.Tensor, name)
+        counted(torch.cuda, "synchronize")
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, own in reversed(self.saved):
+            if own is None:  # inherited: drop the wrapper
+                delattr(owner, name)
+            else:
+                setattr(owner, name, own)
+        return False
+
+
+def _obs_main_algo(dev, data, hp, shape, numerics, impl="dense"):
+    from neuroimagedisttraining_torch.algorithms import SalientGrads
+    from neuroimagedisttraining_torch.models import create_model
+
+    return SalientGrads(
+        create_model("3dcnn_s2d", num_classes=1, sample_shape=shape), data,
+        hp, loss_type="bce", frac=1.0, seed=0, dense_ratio=0.5,
+        itersnip_iterations=1, compute_dtype="bfloat16", agg_impl=impl,
+        obs_numerics=numerics, device=dev)
+
+
+def _obs_rounds(algo, state, session=None):
+    """``OBS_ROUNDS`` eager rounds as the CLI's loop runs them (records
+    fetched one round late; with ``session`` each round under its step
+    span and recorded at the flush). Returns the state and the records."""
+    from neuroimagedisttraining_torch.obs import trace as obs_trace
+    from neuroimagedisttraining_torch.utils.records import DeferredRecords
+
+    recs = []
+
+    def emit_rec(rec):
+        recs.append(rec)
+        if session is not None:
+            session.record_round(rec)
+
+    deferred = DeferredRecords(log=emit_rec)
+    for r in range(OBS_ROUNDS):
+        with obs_trace.step_span("round", r):
+            state, met = algo.run_round(state, r)
+        deferred.push({"round": r, **met})
+    deferred.flush()
+    return state, recs
+
+
+def _devtrace_names(profile_dir):
+    """The kernel names on the device lanes of the traces under
+    ``profile_dir``."""
+    from neuroimagedisttraining_torch.obs import devtrace
+
+    names = set()
+    for path in devtrace.find_trace_files(profile_dir):
+        for e in devtrace.load_trace_doc(path).get("traceEvents", []):
+            if e.get("cat") == devtrace.KERNEL_CAT:
+                names.add(str(e.get("name", "")))
+    return names
+
+
+def _trace_collective_ops(profile_dir):
+    """The names of the host-side collective ops (PyTorch's ``nccl:*``
+    records and ``record_param_comms``) in the traces under
+    ``profile_dir``."""
+    from neuroimagedisttraining_torch.obs import devtrace
+
+    names = set()
+    for path in devtrace.find_trace_files(profile_dir):
+        for e in devtrace.load_trace_doc(path).get("traceEvents", []):
+            name = str(e.get("name", ""))
+            if name.startswith("nccl:") or name == "record_param_comms":
+                names.add(name)
+    return names
+
+
+def obs_path(dev):
+    """The in-process observability tier on the main configuration
+    (``neuroimagedisttraining_torch/obs``): (a) SNIP and ``OBS_ROUNDS``
+    eager rounds with the session and the numerics on, each round under
+    its step span and recorded at its flush, held bitwise (mask, state,
+    records less the numerics) to the same rounds with obs off; (b) a fused
+    block of the same rounds with the numerics, each bitwise the eager
+    round's, its dispatch making no more host syncs than the obs-off
+    block's (``_SyncCount``), its graph's nodes beside obs off's, and the
+    fused rounds/s with obs on and off (one block each, after their
+    captures); (c) ``probe_aggregate`` on the dense and int8 wires (ms,
+    counted FLOPs and bytes, the model's wire bytes); (d)
+    ``trace_one_round`` into a profile directory: ``devtrace`` finds the
+    stem's, masked SGD's and the weighted sum's kernels on the device
+    lane, its ``busy_s`` beside the round's CUDA-event ms; (e)
+    ``device_memory()``'s peak is ``torch.cuda.max_memory_allocated()``;
+    (f) a one-rank NCCL mesh round with the session on under the profiler:
+    its collectives issued through NCCL in the trace (one rank's
+    communicator launches no kernel, so the collectives' device share is
+    held on several cards by ``scripts/torch_obs_mesh_trace.py``), rank 0
+    writing the JSONL; (g) the
+    CLI on ``small3dcnn`` with every lifted flag: the JSONL, metrics JSON,
+    trace, events, catalog entry, flight bundle and devtrace sidecar
+    written, the run bitwise its obs-off twin. cuDNN deterministic
+    throughout (two runs are held bitwise). Returns the launches per
+    part."""
+    import os
+    import tempfile
+
+    import torch
+
+    from neuroimagedisttraining_torch.experiments import runner
+    from neuroimagedisttraining_torch.obs import comm as obs_comm
+    from neuroimagedisttraining_torch.obs import devtrace
+    from neuroimagedisttraining_torch.obs import export as obs_export
+    from neuroimagedisttraining_torch.obs import memory as obs_memory
+    from neuroimagedisttraining_torch.ops import kernels
+    from neuroimagedisttraining_torch.ops.s2d import phased_sample_shape
+    from neuroimagedisttraining_torch.utils.profiling import trace_one_round
+
+    shape = phased_sample_shape(VOLUME)
+    data, hp = _main_config(dev, shape)
+    out, rec = {}, {"phase": "obs"}
+    added = ("num_", "round_time_s")
+
+    def strip(recs):
+        return [{k: v for k, v in r.items() if not k.startswith(added)}
+                for r in recs]
+
+    with tempfile.TemporaryDirectory() as tmp, \
+            _CudnnFlags(deterministic=True, benchmark=False):
+        # (a) eager rounds, session and numerics on against obs off
+        on = _obs_main_algo(dev, data, hp, shape, True)
+        off = _obs_main_algo(dev, data, hp, shape, False)
+        session = obs_export.ObsSession(
+            jsonl_path=os.path.join(tmp, "a", "main.obs.jsonl"),
+            trace_dir=os.path.join(tmp, "a", "tr"), identity="main",
+            comm=True)
+        try:
+            kernels.reset_launches()
+            s0 = on.init_state()
+            s_on, recs_on = _obs_rounds(on, s0, session)
+            torch.cuda.synchronize()
+            out["obs/eager"] = dict(kernels.LAUNCHES)
+            session.finish()
+        finally:
+            session.close()
+        t0 = off.init_state()
+        s_off, recs_off = _obs_rounds(off, t0)
+        if not (_trees_equal(s0, t0, ("mask",))
+                and _trees_equal(s_on, s_off, ("global_params", "mask",
+                                               "personal_params"))
+                and strip(recs_on) == recs_off):
+            raise AssertionError("obs (a): obs on is not bitwise obs off")
+        with open(session.jsonl_path) as f:
+            lines = [json.loads(x) for x in f]
+        num_keys = sorted(k for k in recs_on[0] if k.startswith("num_"))
+        rec["a"] = {"rounds": OBS_ROUNDS, "jsonl_lines": len(lines),
+                    "numerics": len(num_keys),
+                    "num_update_norm": [r["num_update_norm"]
+                                        for r in recs_on],
+                    "spans": sorted({e["name"] for e in
+                                     session.tracer.events})}
+        if len(lines) != OBS_ROUNDS or not num_keys or not all(
+                math.isfinite(r[k]) for r in recs_on for k in num_keys):
+            raise AssertionError(f"obs (a): {rec['a']}")
+
+        # (b) the fused block: numerics bitwise the eager rounds', no extra
+        # host sync, rounds/s with obs on and off
+        rates, syncs, nodes = {}, {}, {}
+        for name, algo, st in (("on", on, s0), ("off", off, t0)):
+            algo.run_rounds_fused(st, 0, OBS_ROUNDS)[1].materialize()
+            torch.cuda.synchronize()
+            with _SyncCount() as sc:
+                t = time.perf_counter()
+                fused, ys = algo.run_rounds_fused(st, 0, OBS_ROUNDS)
+            syncs[name] = sc.n
+            host = ys.materialize()
+            torch.cuda.synchronize()
+            rates[name] = OBS_ROUNDS / (time.perf_counter() - t)
+            nodes[name] = [g.graph.nodes if g.graph is not None else None
+                           for g in algo._fused.rounds.values()]
+            if name == "on":
+                for i, r in enumerate(recs_on):
+                    bad = [k for k in on._round_metric_names
+                           if float(host[k][i]) != r[k]]
+                    if bad:
+                        raise AssertionError(f"obs (b): round {i} {bad}")
+                if not _trees_equal(fused, s_on, ("global_params",)):
+                    raise AssertionError("obs (b): fused state")
+        rec["b"] = {"fused_rounds_per_sec_obs_on": rates["on"],
+                    "fused_rounds_per_sec_obs_off": rates["off"],
+                    "dispatch_syncs_on": syncs["on"],
+                    "dispatch_syncs_off": syncs["off"],
+                    "graph_nodes_on": nodes["on"],
+                    "graph_nodes_off": nodes["off"]}
+        if syncs["on"] > syncs["off"]:
+            raise AssertionError(f"obs (b): {rec['b']}")
+        on.release_graphs()
+        off.release_graphs()
+        del off, s_off, t0
+
+        # (c) the aggregation probe on the dense and int8 wires
+        int8 = _obs_main_algo(dev, data, hp, shape, False, impl="int8")
+        rec["c"] = {}
+        for name, algo in (("dense", on), ("int8", int8)):
+            kernels.reset_launches()
+            probe = obs_comm.probe_aggregate(algo, state=s0, iters=4)
+            torch.cuda.synchronize()
+            out[f"obs/probe_{name}"] = dict(kernels.LAUNCHES)
+            model = obs_comm.WireCostModel.from_algorithm(algo, s0)
+            rec["c"][name] = {**probe,
+                              "wire_bytes": model.bytes_for(name),
+                              "launches": {k: v for k, v in
+                                           kernels.LAUNCHES.items() if v}}
+        del int8
+        if out["obs/probe_dense"]["weighted_sum"] == 0 or \
+                out["obs/probe_int8"]["quantize_reduce"] == 0:
+            raise AssertionError(f"obs (c): {rec['c']}")
+
+        # (d) one profiled round and its device-lane attribution
+        prof = os.path.join(tmp, "prof")
+        kernels.reset_launches()
+        round_ms = trace_one_round(on, s0, prof)
+        out["obs/profile"] = dict(kernels.LAUNCHES)
+        summary = devtrace.analyze_profile_dir(prof)
+        names = _devtrace_names(prof)
+        found = {k: any(k in n for n in names) for k in OBS_TRACE_KERNELS}
+        rec["d"] = {"round_ms_cuda_events": round_ms,
+                    "present": summary["present"],
+                    "busy_s": summary.get("totals", {}).get("busy_s"),
+                    "agg_share": summary.get("totals", {}).get("agg_share"),
+                    "kernels_found": found, "kernel_names": len(names)}
+        if not summary["present"] or not all(found.values()):
+            raise AssertionError(f"obs (d): {rec['d']}")
+
+        # (e) the memory ledger's peak is the allocator's
+        devs = obs_memory.device_memory()
+        peak = max(d["peak_bytes_in_use"] for d in devs)
+        rec["e"] = {"devices": devs,
+                    "max_memory_allocated": torch.cuda.max_memory_allocated()}
+        if peak != rec["e"]["max_memory_allocated"] or \
+                devs[0]["platform"] != "gpu":
+            raise AssertionError(f"obs (e): {rec['e']}")
+        del on, s0, s_on
+        torch.cuda.empty_cache()
+
+        # (f) a one-rank NCCL mesh round with the session on
+        rec["f"], out["obs/mesh"] = _obs_mesh(dev, data, hp, shape, tmp)
+
+        # (g) the CLI with every lifted flag against its obs-off twin
+        rec["g"], out["obs/cli"] = _obs_cli(tmp, runner)
+    emit(rec)
+    return out
+
+
+def _obs_mesh(dev, data, hp, shape, tmp):
+    """(f) of :func:`obs_path`: a one-rank NCCL client mesh, the session
+    on, one round profiled (``trace_one_round``), its collectives' NCCL
+    ops in the trace; returns its record and launches."""
+    import os
+
+    import torch
+
+    from neuroimagedisttraining_torch.obs import devtrace
+    from neuroimagedisttraining_torch.obs import export as obs_export
+    from neuroimagedisttraining_torch.ops import kernels
+    from neuroimagedisttraining_torch.parallel.mesh import (
+        make_mesh,
+        shard_federated,
+    )
+    from neuroimagedisttraining_torch.utils.profiling import trace_one_round
+
+    mesh = make_mesh(1, backend="nccl", rank=0, device=dev,
+                     init_method="file://" + os.path.join(tmp, "rdv"),
+                     timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    algo = None
+    try:
+        algo = _obs_main_algo(dev, shard_federated(data, mesh), hp, shape,
+                              True)
+        session = obs_export.ObsSession(
+            jsonl_path=os.path.join(tmp, "f", "mesh.obs.jsonl"),
+            identity="mesh")
+        try:
+            kernels.reset_launches()
+            state = algo.init_state()
+            prof = os.path.join(tmp, "f", "prof")
+            round_ms = trace_one_round(algo, state, prof)
+            state, recs = _obs_rounds(algo, state, session)
+            torch.cuda.synchronize()
+            launches = dict(kernels.LAUNCHES)
+            exports = session.exports
+            session.finish()
+        finally:
+            session.close()
+        summary = devtrace.analyze_profile_dir(prof)
+        names = _devtrace_names(prof)
+        with open(session.jsonl_path) as f:
+            lines = sum(1 for _ in f)
+        res = {"backend": mesh.backend, "rank": mesh.rank,
+               "round_ms_cuda_events": round_ms,
+               "exports": exports, "jsonl_lines": lines,
+               "nccl_kernels": sorted(n for n in names
+                                      if devtrace.is_collective(n)),
+               "nccl_ops": sorted(_trace_collective_ops(prof)),
+               "totals": summary.get("totals"),
+               "train_loss": [r["train_loss"] for r in recs]}
+        if not (exports and lines == OBS_ROUNDS and summary["present"]
+                and res["nccl_ops"]):
+            raise AssertionError(f"obs (f): {res}")
+        return res, launches
+    finally:
+        if algo is not None:
+            algo.release_graphs()
+        mesh.destroy()
+
+
+def _obs_cli(tmp, runner):
+    """(g) of :func:`obs_path`: the CLI on ``small3dcnn`` with every lifted
+    flag (``OBS_CLI`` plus ``--trace_dir`` and ``--profile_dir``) and its
+    obs-off twin; returns the record and the obs run's launches."""
+    import os
+
+    import torch
+
+    from neuroimagedisttraining_torch.ops import kernels
+
+    base = ["--algo", "salientgrads", "--dataset", "synthetic", "--model",
+            "small3dcnn", "--comm_round", "2", "--log_dir", ""]
+    root = os.path.join(tmp, "g")
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = runner.main(base + OBS_CLI + [
+        "--trace_dir", os.path.join(root, "tr"), "--profile_dir",
+        os.path.join(root, "prof"), "--results_dir",
+        os.path.join(root, "res")])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    twin = runner.main(base + ["--fault_spec", "nan=0.5", "--results_dir",
+                               ""])
+    ident = res["identity"]
+    run_dir = os.path.join(root, "res", "synthetic")
+    want = {"jsonl": os.path.join(run_dir, ident + ".obs.jsonl"),
+            "metrics_json": os.path.join(run_dir, ident + ".metrics.json"),
+            "events": os.path.join(run_dir, ident + ".events.jsonl"),
+            "devtrace": os.path.join(run_dir, ident + ".devtrace.json"),
+            "catalog": os.path.join(root, "res", "runs_index.jsonl"),
+            "trace": os.path.join(root, "tr", ident + ".trace.json"),
+            "flight": os.path.join(run_dir, ident + ".flight")}
+    written = {k: os.path.exists(v) for k, v in want.items()}
+    bundles = (sorted(os.listdir(want["flight"])) if written["flight"]
+               else [])
+    devtrace_totals = None
+    if written["devtrace"]:
+        with open(want["devtrace"]) as f:
+            devtrace_totals = json.load(f)["totals"]
+    added = ("num_", "round_time_s")
+    same = [{k: v for k, v in h.items() if not k.startswith(added)}
+            for h in res["history"]] == twin["history"] and all(
+        torch.equal(res["state"].global_params[k], v)
+        for k, v in twin["state"].global_params.items())
+    rec = {"seconds": seconds, "written": written, "bundles": bundles,
+           "devtrace_totals": devtrace_totals, "bitwise_obs_off": same}
+    if not (all(written.values()) and bundles and same):
+        raise AssertionError(f"obs (g): {rec}")
+    return rec, launches
+
+
 def main() -> int:
     import torch
 
@@ -6319,6 +6736,7 @@ def main() -> int:
     # phase after it measures with the flags the script had before
     with _CudnnFlags():
         paths.update(timed("cli", cli_path))
+        paths.update(timed("obs", obs_path))
     paths.update(timed("bench", bench_path))
 
     line = []

@@ -94,6 +94,7 @@ from ..data.cifar import DRAW_ROWS, CropFlip, crop_flip_draws
 from ..data.types import FederatedData
 from ..models import init_params, make_apply_fn
 from ..models.layers import DropoutProbe
+from ..obs import trace as obs_trace
 from ..ops import kernels
 from ..ops.sparsity import (
     client_mask_densities,
@@ -351,7 +352,8 @@ class _Graph:
     is on the CPU. Calling it returns ``fn``'s output; on the card that is the
     captured output, which each replay rewrites in place. ``launches``: the
     kernel launches one replay makes, added to ``kernels.LAUNCHES`` per
-    replay.
+    replay. The warm-ups and the capture are reported to a live obs
+    session (``obs.compile``, ``graph_capture``, with the chain's nodes).
 
     An error of a warm-up run propagates as it is; an error of the capture
     itself is raised as ``ValueError`` naming ``what``."""
@@ -361,6 +363,7 @@ class _Graph:
         self.graph = self.out = None
         if device.type != "cuda":
             return
+        t0 = time.perf_counter()
         caller = torch.cuda.current_stream(device)
         side = _CAPTURE_STREAMS.get(device)
         if side is None:
@@ -386,6 +389,10 @@ class _Graph:
             kernels.restore_launches(before)
         self.graph, self.out = graph, graph.out
         self.launches = {k: n for k, n in captured.items() if n}
+        from ..obs.compile import note_compile
+
+        note_compile("graph_capture", time.perf_counter() - t0,
+                     nodes=sum(n or 0 for n in graph.nodes), what=what)
 
     def __call__(self):
         if self.graph is None:
@@ -790,7 +797,9 @@ class FedAlgorithm(abc.ABC):
     ``eval_clients`` = K (0 < K < clients) evaluates a fixed seeded subset
     of K clients instead of the whole cohort, its means over the subset.
     ``remat_local`` recomputes each training batch's forward in its
-    backward (``core/trainer.py``).
+    backward (``core/trainer.py``). ``obs_numerics`` adds the numerics
+    telemetry to the round metrics of the algorithms with
+    ``numerics_supported`` (:meth:`_numerics_outputs`).
 
     The robustness tier (the reference's constructor arguments):
     ``fault_spec`` injects deterministic faults after local training
@@ -866,6 +875,13 @@ class FedAlgorithm(abc.ABC):
     #: tree, per leaf, or a tensor), of which a client mesh's rank holds its
     #: block (:meth:`state_to_global`)
     row_fields = ("personal_params", "agg_residual")
+    #: the round body threads the numerics telemetry (``obs_numerics``,
+    #: ``obs/numerics.py``) through its metrics: the central-aggregate
+    #: rounds of :meth:`_round_body` (FedAvg, SalientGrads)
+    numerics_supported = False
+    #: the numerics plan also emits the mask's churn and agreement
+    #: (SalientGrads' fixed SNIP mask)
+    numerics_with_mask = False
 
     def __init__(self, model: torch.nn.Module, data: FederatedData,
                  hp: HyperParams, loss_type: str = "bce", frac: float = 1.0,
@@ -881,7 +897,7 @@ class FedAlgorithm(abc.ABC):
                  robust_norm_bound: float = 5.0,
                  client_store: str = "device", store_hot_clients: int = 64,
                  store_dir: Optional[str] = None, augment="auto",
-                 device=None):
+                 obs_numerics: bool = False, device=None):
         if agg_impl not in collectives.AGG_IMPLS:
             raise ValueError(
                 f"agg_impl {agg_impl!r} not in {collectives.AGG_IMPLS}")
@@ -985,6 +1001,21 @@ class FedAlgorithm(abc.ABC):
         #: channel axis the apply injects
         self.init_sample_shape = tuple(data.sample_shape) + (
             (1,) if channel_inject else ())
+        # obs_numerics: the round's training-dynamics telemetry
+        # (obs/numerics.py) appended to the round metrics as float32
+        # scalars, so the eager records and the fused block's packed metric
+        # stack carry them with no sync; off (the default) the round is
+        # bitwise the same. Like every obs knob it never enters identity.
+        self._numerics_plan = None
+        if obs_numerics and self.numerics_supported:
+            from ..obs.numerics import NumericsPlan
+
+            self._numerics_plan = NumericsPlan.from_params(
+                dict(self.model.named_parameters()),
+                slots=self.clients_per_round,
+                with_mask=self.numerics_with_mask)
+            self._round_metric_names = tuple(self._round_metric_names) \
+                + self._numerics_plan.metric_names
         self._n_train = [int(n) for n in data.n_train]
         self._n_test = [int(n) for n in data.n_test]
         #: the test shards' row counts on the device
@@ -1133,7 +1164,10 @@ class FedAlgorithm(abc.ABC):
         if self._store is not None:
             new_state, metrics = self._store_round(state, round_idx, inp)
         else:
-            new_state, metrics = self._round_body(state, inp)
+            # the time to queue the round's kernels: the card runs them
+            # after the span closes (obs/trace.py)
+            with obs_trace.span("dispatch_round"):
+                new_state, metrics = self._round_body(state, inp)
         return dataclasses.replace(new_state, generator=g), metrics
 
     def _eager_inputs(self, state: Any, round_idx: int,
@@ -1201,7 +1235,28 @@ class FedAlgorithm(abc.ABC):
         if fstats is not None:
             metrics.update(clients_dropped=fstats["clients_dropped"],
                            clients_quarantined=fstats["clients_quarantined"])
+        # after the re-mask of _post_aggregate: the norms see the adopted
+        # global model
+        metrics.update(self._numerics_outputs(
+            state.global_params, new_global, locals_, inp,
+            self._round_mask(state) if self.numerics_with_mask else None))
         return new_state, metrics
+
+    def _numerics_outputs(self, old_global: Tree, new_global: Tree,
+                          locals_: Tree, inp: RoundInputs,
+                          mask: Optional[Tree] = None
+                          ) -> Dict[str, torch.Tensor]:
+        """The numerics telemetry (obs/numerics.py) of this round by metric
+        name — empty when ``obs_numerics`` is off. Computed on the round's
+        own tensors (``locals_`` the trained rows as they arrived at the
+        server, post-fault, pre-guard); on a client mesh the per-row terms
+        of the rank's rows are gathered in draw order
+        (:meth:`_gather_own`)."""
+        if self._numerics_plan is None:
+            return {}
+        return self._numerics_plan.compute(
+            old_global, new_global, locals_, mask=mask,
+            gather=lambda rows: self._gather_own(rows, inp))
 
     def _guarded_personal_update(self, personal: Optional[Tree],
                                  locals_: Tree, sel: torch.Tensor,
@@ -1374,9 +1429,10 @@ class FedAlgorithm(abc.ABC):
         return self._ones
 
     def _selected_client_indexes(self, round_idx: int) -> np.ndarray:
-        return sample_client_indexes(round_idx, self.num_clients,
-                                     self.clients_per_round,
-                                     retry=self._retry_nonce)
+        with obs_trace.span("sample"):
+            return sample_client_indexes(round_idx, self.num_clients,
+                                         self.clients_per_round,
+                                         retry=self._retry_nonce)
 
     def set_retry_nonce(self, nonce: int) -> None:
         """The watchdog's rollback-retry hook: later client draws re-sample
@@ -2324,9 +2380,10 @@ class FedAlgorithm(abc.ABC):
         adopted ones, and is timed in ``store_gather_ms``) and the clients'
         data rows from the host data (a :class:`FederatedData` slab, the
         test rows too with the eval cache)."""
-        kw = {name: self._store.gather(name, ids, self.device)
-              for name in self._store.field_names()}
-        return kw, self._data_slab(ids, test=self.eval_cache)
+        with obs_trace.span("store_gather"):
+            kw = {name: self._store.gather(name, ids, self.device)
+                  for name in self._store.field_names()}
+            return kw, self._data_slab(ids, test=self.eval_cache)
 
     def _data_slab(self, ids: Sequence[int], test: bool = False
                    ) -> FederatedData:
@@ -2378,8 +2435,9 @@ class FedAlgorithm(abc.ABC):
         own = self._store_own(sel)
         kw, slab = self._store_gather_rows(own)
         inp = self._on_slab(inp, slab, len(own))
-        new_state, metrics = self._round_body(
-            dataclasses.replace(state, **kw), inp)
+        with obs_trace.span("dispatch_round"):
+            new_state, metrics = self._round_body(
+                dataclasses.replace(state, **kw), inp)
         new_state = self._store_adopt_round(new_state, own, sel)
         self._store_prefetch_next(
             sample_client_indexes(round_idx + 1, self.num_clients,
@@ -2691,7 +2749,12 @@ class FedAlgorithm(abc.ABC):
         def flush(p):
             nonlocal mark
             r0, k, ys, state_out = p
-            host = dict(ys.materialize())  # waits for the block
+            # the span sits at the one place the fused loop waits on the
+            # card (per-round spans would sync inside the block)
+            with obs_trace.span("fused_block_flush") as sp:
+                sp.add("start_round", r0)
+                sp.add("rounds", k)
+                host = dict(ys.materialize())  # waits for the block
             now = time.perf_counter()
             wall, mark = now - mark, now
             ev = host.pop("eval", None)
@@ -2710,10 +2773,12 @@ class FedAlgorithm(abc.ABC):
         try:
             for r0 in range(start_round, total, block):
                 k = min(block, total - r0)
-                state, ys = self.run_rounds_fused(
-                    state, r0, k, eval_every=eval_every,
-                    on_first_round=(on_first_round if r0 == start_round
-                                    else None))
+                with obs_trace.span("fused_block_dispatch") as sp:
+                    sp.add("start_round", r0)
+                    state, ys = self.run_rounds_fused(
+                        state, r0, k, eval_every=eval_every,
+                        on_first_round=(on_first_round if r0 == start_round
+                                        else None))
                 if pending is not None:
                     # cleared before the flush: if it raises mid-way, the
                     # finally must not emit its records again

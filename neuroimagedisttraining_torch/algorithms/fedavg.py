@@ -28,6 +28,7 @@ from ..core.state import (
     zeros_like_tree,
 )
 from ..core.trainer import make_client_update, round_lr
+from ..obs import trace as obs_trace
 from .base import FedAlgorithm, _to_device
 
 
@@ -54,6 +55,7 @@ class FedAvg(FedAlgorithm):
     supports_fused = True
     store_supported = True
     mesh_supported = True
+    numerics_supported = True
 
     def __init__(self, *args, defense=None, track_personal: bool = True,
                  eval_cache: bool = False, **kwargs):
@@ -122,22 +124,25 @@ class FedAvg(FedAlgorithm):
         c = self.num_clients
         step = c if self._store is None else self.clients_per_round
         rows = []
-        for lo in range(0, c, step):
-            sel = np.arange(lo, min(lo + step, c))
-            inp = self._round_inputs(
-                state.global_params, sel, _to_device(sel, self.device), lr,
-                g, dict(perms=None if perms is None else perms[lo:lo + step],
+        with obs_trace.span("finetune"):
+            for lo in range(0, c, step):
+                sel = np.arange(lo, min(lo + step, c))
+                inp = self._round_inputs(
+                    state.global_params, sel, _to_device(sel, self.device),
+                    lr, g, dict(
+                        perms=None if perms is None else perms[lo:lo + step],
                         dropout=None if dropout is None
                         else dropout[lo:lo + step]), aggregate=False)
-            if self._store is None:
-                rows.append(self._train_clients(state.global_params, ones,
-                                                inp)[0])
-                continue
-            # on a client mesh each rank fine-tunes the clients it holds
-            own = self._store_own(sel)
-            inp = self._on_slab(inp, self._data_slab(own), len(own))
-            self._store.stage("personal_params", own, self._train_clients(
-                state.global_params, ones, inp)[0])
+                if self._store is None:
+                    rows.append(self._train_clients(state.global_params,
+                                                    ones, inp)[0])
+                    continue
+                # on a client mesh each rank fine-tunes the clients it holds
+                own = self._store_own(sel)
+                inp = self._on_slab(inp, self._data_slab(own), len(own))
+                self._store.stage("personal_params", own,
+                                  self._train_clients(state.global_params,
+                                                      ones, inp)[0])
         if self._store is None:
             personal = rows[0]
         else:  # every row retrained: the store eval starts over

@@ -33,6 +33,7 @@ import torch
 from ..core.state import Tree, broadcast_tree, row_sum, zeros_like_tree
 from ..core.trainer import make_client_update
 from ..data.cifar import crop_flip_draws
+from ..obs import trace as obs_trace
 from ..ops import kernels
 from ..ops.sparsity import (
     balanced_probs,
@@ -74,6 +75,8 @@ class SalientGrads(FedAlgorithm):
     supports_fused = True
     store_supported = True
     mesh_supported = True
+    numerics_supported = True
+    numerics_with_mask = True
 
     def __init__(self, *args, dense_ratio: float = 0.5,
                  itersnip_iterations: int = 1, defense=None,
@@ -250,7 +253,8 @@ class SalientGrads(FedAlgorithm):
         g = generator if generator is not None else self.generator()
         params = self._fresh_params(g, params)
         if self.snip_mask:
-            mask = self.global_mask(params, g, snip_idx, snip_augment)
+            with obs_trace.span("snip_mask"):
+                mask = self.global_mask(params, g, snip_idx, snip_augment)
         else:
             mask = {k: torch.ones_like(v) for k, v in params.items()}
         if self._store is not None:

@@ -855,13 +855,17 @@ def derive(args: argparse.Namespace) -> argparse.Namespace:
     # must die at parse time, not silently at the fault it was meant
     # to capture
     if getattr(args, "flight_recorder", ""):
-        _unported("--flight_recorder", 14)
+        from ..obs.recorder import parse_triggers
+
+        parse_triggers(args.flight_recorder)
     # same rule for the SLO spec: a typo'd objective must die at parse
     # time, not silently watch nothing. File specs must exist by now —
     # a missing file gets load_slo_spec's missing-file error here
     # rather than a confusing malformed-DSL one mid-run.
     if getattr(args, "slo_spec", ""):
-        _unported("--slo_spec", 14)
+        from ..obs.slo import load_slo_spec
+
+        load_slo_spec(args.slo_spec)  # raises ValueError on bad specs
     # live-telemetry knobs: range checks at parse time (same rule)
     if float(getattr(args, "obs_heartbeat_every", 0.0) or 0.0) < 0:
         raise ValueError(

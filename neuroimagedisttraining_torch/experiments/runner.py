@@ -26,6 +26,21 @@ JAX CLI's checkpoint identity, and ``--resume`` continues the newest step;
 ``--client_store host|disk`` streams the per-client rows
 (``core/client_store.py``).
 
+``--obs 1`` runs the in-process observability tier (``obs/``) as the JAX CLI
+does: the per-round JSONL ``<results_dir>/<dataset>/<identity>.obs.jsonl``
+(``--obs_jsonl``), the ``.metrics.json`` beside it and the registry snapshot
+in ``stat_info["obs_metrics"]``, the host spans' Chrome trace
+(``--trace_dir``), the memory watermark every ``--obs_sample_every`` rounds
+(with the client store's gauges), the round numerics (``--obs_numerics``),
+the wire-cost model and the aggregation probe (``--obs_comm``), the SLO
+engine and its events stream (``--slo_spec``, ``--slo_enforce``), the run
+catalog (``--obs_catalog``), the flight recorder (``--flight_recorder``,
+``--flight_window``, ``--flight_profile``) and ``--profile_dir`` (one
+eager round under ``torch.profiler``, its attribution in
+``<identity>.devtrace.json`` with ``--obs_comm``). None of it enters the
+identity, and the training is bitwise the same with it off. On a client mesh
+every rank records and rank 0 writes.
+
 A flag of a feature the port has not got (the wire, telemetry, the spatial
 axis, ...) ends the run
 before any work with ``SystemExit`` naming the flag and the ROADMAP item
@@ -87,13 +102,10 @@ _UNPORTED = {
     "serve_push_every": 13, "serve_ckpt_dir": 13, "serve_out": 13,
     "serve_trace": 13, "serve_replay": 13, "serve_store": 13,
     "serve_timeout_s": 13, "serve_workers": 13, "serve_probe_every": 13,
-    # 14: observability
-    "obs": 14, "obs_jsonl": 14, "trace_dir": 14, "xtrace": 14,
-    "xtrace_dir": 14, "obs_heartbeat_every": 14, "obs_prom_port": 14,
-    "obs_watch_every": 14, "obs_watch_color": 14, "obs_sample_every": 14,
-    "obs_tb_dir": 14, "obs_numerics": 14, "obs_comm": 14, "obs_catalog": 14,
-    "slo_spec": 14, "slo_enforce": 14, "flight_recorder": 14,
-    "flight_window": 14, "flight_profile": 14, "profile_dir": 14,
+    # 14: observability, its offline tier and its fed/serve tier (the
+    # in-process tier runs)
+    "xtrace": 14, "xtrace_dir": 14, "obs_heartbeat_every": 14,
+    "obs_prom_port": 14, "obs_watch_every": 14, "obs_watch_color": 14,
     # 15: multi-process and spatial sharding
     "multihost": 15, "coordinator_address": 15, "num_processes": 15,
     "process_id": 15, "multihost_timeout_s": 15, "multihost_retries": 15,
@@ -184,9 +196,12 @@ def _default(attr: str):
 def refuse_invalid(args: argparse.Namespace, algo_name: str) -> None:
     """The JAX CLI's own refusals of flag combinations that the port has
     the features for, with its messages, in its order (the client store,
-    the faults, the guard, the robust statistic, the eval cache, the
-    aggregation wire, the defense, the watchdog in fused blocks, fused
-    blocks of an algorithm with data-dependent host work)."""
+    the faults, the guard, the robust statistic, the eval cache, the round
+    numerics and the wire model on other algorithms, the aggregation
+    wire, the defense, the watchdog in fused blocks, fused
+    blocks of an algorithm with data-dependent host work, the SLO engine
+    without a session, its enforcement without a spec, the flight
+    recorder's ``slo`` trigger without the engine)."""
     store_mode = getattr(args, "client_store", "device")
     if store_mode != "device":
         if algo_name not in _CENTRAL:
@@ -252,6 +267,22 @@ def refuse_invalid(args: argparse.Namespace, algo_name: str) -> None:
                 "--eval_cache indexes the full cohort; the sampled-"
                 "eval subset (--eval_clients) composes poorly with it "
                 "— use one or the other")
+    if getattr(args, "obs_numerics", 0) and \
+            algo_name not in ("fedavg", "salientgrads"):
+        raise SystemExit(
+            "--obs_numerics threads the in-jit numerics telemetry "
+            "through the central-aggregate round outputs "
+            f"(fedavg/salientgrads); {algo_name} does not thread them")
+    if getattr(args, "obs_comm", 0):
+        if not getattr(args, "obs", 0):
+            raise SystemExit(
+                "--obs_comm rides the obs session (per-round JSONL + "
+                "registry); pass --obs 1")
+        if algo_name not in _CENTRAL:
+            raise SystemExit(
+                "--obs_comm models the CENTRAL aggregation wire "
+                f"(fedavg/salientgrads/ditto); {algo_name} has no "
+                "central aggregate to price")
     agg_impl = getattr(args, "agg_impl", "dense")
     if agg_impl != "dense" and algo_name not in _CENTRAL:
         raise SystemExit(
@@ -296,6 +327,24 @@ def refuse_invalid(args: argparse.Namespace, algo_name: str) -> None:
                 "biased neighbor draw / TurboAggregate's interactive "
                 "share protocol); supported: fedavg, salientgrads, "
                 "ditto, local, dpsgd, dispfl(--static)")
+    if getattr(args, "slo_spec", "") and not getattr(args, "obs", 0):
+        raise SystemExit(
+            "--slo_spec rides the obs session (per-round record "
+            "hook, events stream, registry); pass --obs 1")
+    if getattr(args, "slo_enforce", 0) and \
+            not getattr(args, "slo_spec", ""):
+        raise SystemExit(
+            "--slo_enforce needs objectives to enforce; pass "
+            "--slo_spec (inline DSL or a spec file)")
+    if getattr(args, "flight_recorder", ""):
+        from ..obs.recorder import parse_triggers
+
+        if parse_triggers(args.flight_recorder)["slo"] and \
+                not getattr(args, "slo_spec", ""):
+            raise SystemExit(
+                "--flight_recorder slo captures SLO breach/burn/"
+                "FAILING events; pass --slo_spec to arm the "
+                "engine that emits them")
 
 
 def refuse_unported(args: argparse.Namespace, algo_name: str) -> None:
@@ -570,6 +619,8 @@ def build_algorithm(args: argparse.Namespace, algo_name: str, mesh=None):
         # "auto" applies only to datasets whose loader set aug_pad_value
         # (cifar10/100, tiny): the original's always-on train transform
         augment="auto" if getattr(args, "augment", 1) else False,
+        # the round numerics (obs/numerics.py): a readout, never identity
+        obs_numerics=bool(getattr(args, "obs_numerics", 0)),
         device=(mesh.device if mesh is not None
                 else getattr(args, "device", "cuda")),
     )
@@ -634,10 +685,11 @@ def build_algorithm(args: argparse.Namespace, algo_name: str, mesh=None):
 def save_stat_info(args: argparse.Namespace, identity: str,
                    history, final_eval, extras=None, cost=None,
                    avg_inference_flops: float = 0.0,
-                   fault_counters=None) -> Optional[str]:
+                   fault_counters=None, obs_metrics=None) -> Optional[str]:
     """End-of-run artifact: the ``stat_info`` pickle, and its JSON sidecar,
     under ``<results_dir>/<dataset>/<identity>``; ``extras`` (DisPFL's
-    final masks and mask distances) go into the pickle only."""
+    final masks and mask distances) go into the pickle only;
+    ``obs_metrics`` is the obs session's registry snapshot."""
     if not args.results_dir:
         return None
     out_dir = os.path.join(args.results_dir, args.dataset)
@@ -663,6 +715,8 @@ def save_stat_info(args: argparse.Namespace, identity: str,
     }
     if fault_counters is not None:
         stat_info["fault_recovery"] = dict(fault_counters)
+    if obs_metrics is not None:
+        stat_info["obs_metrics"] = obs_metrics
     json_keys = list(stat_info)
     stat_info.update(extras or {})
     with open(path, "wb") as f:
@@ -704,7 +758,8 @@ def _cost_round_record(algo, cost, samples_per_client, state):
 
 def _run_fused_rounds(algo, algo_name, state, start_round, total, block,
                       ev_every, cost, samples_per_client, history, counters,
-                      ckpt_mgr=None, args=None):
+                      ckpt_mgr=None, args=None, obs_session=None,
+                      obs_fault_counts=None, flight=None):
     """The runner's fused round loop (``--fuse_rounds K``): the shared block
     loop (``FedAlgorithm._fused_block_loop``) plus the cost accounting.
     The masks are static, so one snapshot prices every round: that of the
@@ -715,7 +770,10 @@ def _run_fused_rounds(algo, algo_name, state, start_round, total, block,
 
     Checkpoints are saved at block boundaries: the same (round, state)
     pairs the unfused loop saves, so fused and unfused lineages resume each
-    other, a resume starting at the last saved boundary."""
+    other, a resume starting at the last saved boundary. With an obs
+    session the records, already on the host at the block's flush, go to
+    the flight recorder and the session, and carry ``round_time_s`` (the
+    block's time split evenly)."""
     first = {}
 
     def on_record(r, rec, state_out):
@@ -725,6 +783,15 @@ def _run_fused_rounds(algo, algo_name, state, start_round, total, block,
         rec["sum_comm_params"] = crec["sum_comm_params"]
         counters.update(rec)
         history.append(rec)
+        if flight is not None:
+            # before record_round: the SLO trigger's bundles must find
+            # this round in the window
+            flight.observe_record(rec)
+        if obs_session is not None:
+            obs_session.record_round(
+                rec, extra=(obs_fault_counts(r)
+                            if obs_fault_counts is not None and r >= 0
+                            else None))
         logger.info("%s round %d: %s", algo_name, r, rec)
 
     def on_block(end_round, state_out):
@@ -740,7 +807,7 @@ def _run_fused_rounds(algo, algo_name, state, start_round, total, block,
 
     return algo._fused_block_loop(
         state, start_round, total, block, ev_every, on_record,
-        on_block=on_block,
+        on_block=on_block, timed=obs_session is not None,
         # a resumed run's counters continue from the lineage's totals
         on_first_round=None if cost.per_round else on_first_round)
 
@@ -807,6 +874,126 @@ def _run_on_mesh(args: argparse.Namespace, algo_name: str,
             return pickle.load(f)
 
 
+def _obs_session(args: argparse.Namespace, algo_name: str, identity: str):
+    """The run's ``obs.export.ObsSession``: the JSONL path
+    (``--obs_jsonl``, else ``<results_dir>/<dataset>/<identity>.obs.jsonl``),
+    the trace dir, the sampling cadence, TensorBoard, the wire metrics,
+    the SLO engine and its events stream beside the JSONL, and the catalog
+    entry, as the JAX CLI builds them."""
+    from ..obs.export import ObsSession
+
+    jsonl = getattr(args, "obs_jsonl", "") or os.path.join(
+        args.results_dir or ".", args.dataset, identity + ".obs.jsonl")
+    slo_engine = None
+    if getattr(args, "slo_spec", ""):
+        from ..obs.slo import SloEngine, load_slo_spec
+
+        slo_engine = SloEngine(load_slo_spec(args.slo_spec))
+    cat_path, cat_info = "", None
+    if getattr(args, "obs_catalog", 1) and args.results_dir:
+        from ..obs import catalog as obs_catalog
+        from ..obs.regress import git_sha
+
+        cat_path = obs_catalog.catalog_path(args.results_dir)
+        cat_info = {
+            "config": vars(args),
+            "checkpoint_identity": run_identity(args, algo_name,
+                                                for_checkpoint=True),
+            "git_sha": git_sha(),
+            "stat_json": os.path.join(args.results_dir, args.dataset,
+                                      identity + ".json"),
+        }
+    session = ObsSession(
+        jsonl_path=jsonl, trace_dir=getattr(args, "trace_dir", ""),
+        identity=identity,
+        sample_every=getattr(args, "obs_sample_every", 1),
+        tb_dir=getattr(args, "obs_tb_dir", ""),
+        comm=bool(getattr(args, "obs_comm", 0)), slo=slo_engine,
+        # beside the round stream, from the JSONL path (an explicit
+        # --obs_jsonl keeps the two streams together)
+        events_path=((jsonl[:-len(".obs.jsonl")]
+                      if jsonl.endswith(".obs.jsonl") else jsonl)
+                     + ".events.jsonl" if slo_engine is not None else ""),
+        catalog_path=cat_path, catalog_info=cat_info)
+    logger.info("obs: per-round JSONL -> %s", jsonl)
+    if slo_engine is not None:
+        logger.info("obs slo: %d objective(s) armed, events -> %s",
+                    len(slo_engine.objectives), session.events_path)
+    return session
+
+
+def _obs_comm(algo, state, obs_session):
+    """``--obs_comm``: the wire-cost model of the run's aggregate and one
+    probe of it (``obs.comm``), their ``comm_*`` metrics joined onto every
+    JSONL line; returns the model."""
+    from ..obs import comm as obs_comm
+
+    wire_model = obs_comm.WireCostModel.from_algorithm(algo, state)
+    metrics = wire_model.round_metrics()
+    probe = obs_comm.probe_aggregate(algo, state=state,
+                                     registry=obs_session.registry)
+    metrics["comm_agg_ms"] = probe["agg_ms"]
+    for ck, mk in (("flops", "comm_agg_flops"),
+                   ("bytes_accessed", "comm_agg_bytes_accessed")):
+        if isinstance(probe.get(ck), (int, float)):
+            metrics[mk] = float(probe[ck])
+    obs_session.set_comm_metrics(metrics)
+    logger.info("obs comm: %s wire %.2f MB/agg (density %.3f), probed agg "
+                "%.2f ms", algo.agg_impl, metrics["comm_bytes_wire"] / 1e6,
+                metrics["comm_density"], metrics["comm_agg_ms"])
+    return wire_model
+
+
+def _obs_profile(algo, state, args, identity, obs_session, wire_model,
+                 lead: bool) -> None:
+    """``--profile_dir``: one eager round under ``torch.profiler``
+    (``utils.profiling.trace_one_round``, on a copy of the state; on a
+    client mesh every rank runs it and rank 0 writes it); with the wire
+    model, its device-time attribution (``obs.devtrace``) as the
+    ``<identity>.devtrace.json`` sidecar beside the JSONL. The attribution
+    is best-effort: a trace it cannot read never ends the run."""
+    from ..utils.profiling import trace_one_round
+
+    trace_one_round(algo, state, args.profile_dir, export=lead)
+    if wire_model is None or not lead:
+        return
+    from ..obs import devtrace as obs_devtrace
+
+    try:
+        summary = obs_devtrace.analyze_profile_dir(
+            args.profile_dir,
+            modeled_bytes=wire_model.bytes_for(algo.agg_impl))
+        if summary.get("present") and obs_session.exports and \
+                obs_session.jsonl_path:
+            path = obs_devtrace.write_summary(summary, os.path.join(
+                os.path.dirname(obs_session.jsonl_path) or ".",
+                identity + ".devtrace.json"))
+            obs_session.registry.gauge("comm_devtrace_agg_share").set(
+                summary["totals"]["agg_share"])
+            logger.info("obs comm: devtrace %.1f%% collective -> %s",
+                        100 * summary["totals"]["agg_share"], path)
+    except Exception:
+        logger.warning("devtrace attribution failed", exc_info=True)
+
+
+def _slo_verdict(args, identity: str, obs_session) -> None:
+    """The SLO engine's end state logged; ``--slo_enforce`` turns a FAILING
+    run into ``SystemExit`` (every artifact is on disk already)."""
+    from ..obs import slo as slo_mod
+
+    health = obs_session.slo.health
+    if health != slo_mod.OK:
+        logger.warning("obs slo: run ended %s (breached: %s)",
+                       health.upper(),
+                       ", ".join(obs_session.slo.breached)
+                       or "none currently")
+    if getattr(args, "slo_enforce", 0) and health == slo_mod.FAILING:
+        raise SystemExit(
+            f"--slo_enforce: run {identity} ended FAILING (error budget "
+            f"exhausted; see {obs_session.events_path or 'the events stream'}"
+            " and metrics.json slo_* gauges)")
+
+
 def run_experiment(args: argparse.Namespace,
                    algo_name: Optional[str] = None,
                    mesh=None) -> Dict[str, Any]:
@@ -826,6 +1013,7 @@ def run_experiment(args: argparse.Namespace,
     from ..robust.recovery import RoundWatchdog
     from ..utils.checkpoint import CheckpointManager
     from ..utils.flops import CostTracker, avg_inference_flops
+    from ..obs import trace as obs_trace
     from ..utils.records import DeferredRecords, RunCounters, to_float
 
     algo_name = algo_name or getattr(args, "algo", "fedavg")
@@ -845,6 +1033,7 @@ def run_experiment(args: argparse.Namespace,
     log_handler = None
     ckpt_mgr = None
     algo = None
+    obs_session = None
     try:
         # the lineage's semantics first: a knob a defaulted resume adopts
         # enters the run identity below
@@ -871,8 +1060,13 @@ def run_experiment(args: argparse.Namespace,
                 "--mesh_devices %d fitted to %d device(s) for %d clients: no "
                 "mesh", args.mesh_devices, n_mesh, args.client_num_in_total)
         seed_everything(args.seed)
+        if getattr(args, "obs", 0):
+            # built after the identity is fixed (no obs knob enters it) and
+            # inside a mesh rank's process group (rank 0 alone exports)
+            obs_session = _obs_session(args, algo_name, identity)
 
-        algo, data = build_algorithm(args, algo_name, mesh=mesh)
+        with obs_trace.span("build"):
+            algo, data = build_algorithm(args, algo_name, mesh=mesh)
         if ckpt_mgr is not None and mesh is not None:
             # the steps hold the single-process layout: the rows gathered
             # to rank 0 on a save, each rank's block kept on a restore
@@ -881,6 +1075,35 @@ def run_experiment(args: argparse.Namespace,
         fuse = max(1, getattr(args, "fuse_rounds", 1) or 1)
         if fuse > 1:
             refuse_fused(algo, algo_name)
+        if obs_session is not None and algo._store is not None:
+            # the client store's residency ledger joins the memory
+            # watermark's samples (JSONL and registry)
+            obs_session.memory.attach_extra(algo._store.stats)
+        # the fault-count stamper (obs/health.py): the round's effective
+        # stragglers and attackers replayed host-side from its fault draws,
+        # on the JSONL line only
+        obs_fault_counts = None
+        if obs_session is not None and getattr(args, "fault_spec", ""):
+            from ..obs.health import make_fault_counts_fn
+
+            obs_fault_counts = make_fault_counts_fn(
+                args.fault_spec, args.seed, algo.num_clients,
+                algo.clients_per_round)
+        flight = None
+        if getattr(args, "flight_recorder", "") and lead:
+            from ..obs.recorder import FlightRecorder
+
+            flight = FlightRecorder(
+                os.path.join(args.results_dir or ".", args.dataset),
+                identity, spec=args.flight_recorder,
+                window=getattr(args, "flight_window", 16),
+                profile_retry=bool(getattr(args, "flight_profile", 0)),
+                num_clients=algo.num_clients,
+                clients_per_round=algo.clients_per_round)
+            logger.info("flight recorder armed -> %s", flight.dir)
+            if obs_session is not None and \
+                    obs_session.event_bus is not None:
+                obs_session.event_bus.subscribe(flight.observe_event)
         state = None
         start_round = 0
         if ckpt_mgr is not None and args.resume:
@@ -910,8 +1133,25 @@ def run_experiment(args: argparse.Namespace,
             if restored is not None:
                 state, start_round = restored
                 logger.info("resumed from round %d", start_round)
+                if obs_session is not None and start_round > 0:
+                    # the SLO engine's state rebuilt from the run's own
+                    # JSONL (its events are on disk already)
+                    replayed = obs_session.slo_replay_from_stream(
+                        start_round)
+                    if replayed:
+                        logger.info(
+                            "obs slo: rebuilt engine state from %d "
+                            "recorded round(s) (health=%s)", replayed,
+                            obs_session.slo.health)
         if state is None:
-            state = algo.init_state()
+            with obs_trace.span("init_state"):
+                state = algo.init_state()
+        wire_model = None
+        if obs_session is not None and getattr(args, "obs_comm", 0):
+            wire_model = _obs_comm(algo, state, obs_session)
+        if args.profile_dir:
+            _obs_profile(algo, state, args, identity, obs_session,
+                         wire_model, lead)
 
         # per-round cost accounting (stat_info's sum_training_flops /
         # sum_comm_params): with epoch batching each client consumes its
@@ -938,10 +1178,30 @@ def run_experiment(args: argparse.Namespace,
 
         history = []
         final_eval = None
-        counters = RunCounters()
+        counters = RunCounters(
+            registry=obs_session.registry if obs_session else None)
+        # obs-only enrichment by round (the per-site eval vector), joined
+        # to the JSONL line at the flush
+        obs_extra: Dict[int, Dict[str, Any]] = {}
+
+        def _obs_extra_for(rec):
+            r = rec.get("round")
+            extra = obs_extra.pop(r, None)
+            if obs_fault_counts is not None and isinstance(r, int) \
+                    and r >= 0:
+                extra = dict(extra or {})
+                # a retried round's accepted attempt trained the re-drawn
+                # cohort
+                extra.update(obs_fault_counts(
+                    r, retry=int(rec.get("rounds_retried") or 0)))
+            return extra
 
         def _emit(rec):
             counters.update(rec)
+            if flight is not None:
+                flight.observe_record(rec)
+            if obs_session is not None:
+                obs_session.record_round(rec, extra=_obs_extra_for(rec))
             logger.info("%s round %s: %s", algo_name, rec["round"], rec)
 
         watchdog = None
@@ -972,25 +1232,47 @@ def run_experiment(args: argparse.Namespace,
                 algo, algo_name, state, start_round,
                 max(start_round, args.comm_round), fuse,
                 args.frequency_of_the_test or 0, cost, samples_per_client,
-                history, counters, ckpt_mgr=ckpt_mgr, args=args)
+                history, counters, ckpt_mgr=ckpt_mgr, args=args,
+                obs_session=obs_session, obs_fault_counts=obs_fault_counts,
+                flight=flight)
         else:
             # round r's record is converted and logged after round r+1 is
-            # queued (utils/records.py)
-            deferred = DeferredRecords(log=_emit)
+            # queued (utils/records.py); with obs on it carries
+            # round_time_s, stamped at those flushes
+            deferred = DeferredRecords(log=_emit,
+                                       timed=obs_session is not None)
             try:
                 r = start_round
                 while r < args.comm_round:
+                    nonce = 0
                     if watchdog is not None:
                         # a retry re-samples the cohort (nonce 0 = the
                         # reference's draw)
-                        algo.set_retry_nonce(watchdog.retries_at(r))
+                        nonce = watchdog.retries_at(r)
+                        algo.set_retry_nonce(nonce)
+                    prof_dir = (flight.take_retry_profile(r)
+                                if flight is not None else None)
+                    if prof_dir is not None:
+                        # --flight_profile: the watchdog's retry traced
+                        # into its bundle, once a run
+                        flight.start_profile(prof_dir)
                     # the round leaves ``state`` as it was: the last good
                     # state a retry or a skip goes back to
-                    new_state, rec = algo.run_round(state, r)
+                    with obs_trace.step_span("round", r):
+                        new_state, rec = algo.run_round(state, r)
                     record = {"round": r, **dict(rec)}
                     if watchdog is not None:
                         verdict = watchdog.judge(r, record, new_state,
                                                  state)
+                        if prof_dir is not None:
+                            flight.stop_profile()
+                            prof_dir = None
+                        if flight is not None and verdict != recovery.OK:
+                            # RETRY and SKIP never reach the emitter: the
+                            # bundle is taken here, with this attempt's
+                            # cohort nonce
+                            flight.note_watchdog(r, verdict, record,
+                                                 retry=nonce)
                         if verdict == recovery.RETRY:
                             # the discarded attempt's faults happened:
                             # count them (its record is never emitted)
@@ -1004,6 +1286,8 @@ def run_experiment(args: argparse.Namespace,
                             algo.store_discard()
                             record["round_skipped"] = 1.0
                         record.update(watchdog.round_counters())
+                    if prof_dir is not None:  # no watchdog judged it
+                        flight.stop_profile()
                     state = new_state
                     crec = _cost_round_record(algo, cost, samples_per_client,
                                               state)
@@ -1012,10 +1296,17 @@ def run_experiment(args: argparse.Namespace,
                     final_eval = None  # state changed: a cached eval is stale
                     if args.frequency_of_the_test and \
                             (r + 1) % args.frequency_of_the_test == 0:
-                        final_eval = algo.evaluate(state)
+                        with obs_trace.span("eval"):
+                            final_eval = algo.evaluate(state)
                         record.update({
                             k: v for k, v in final_eval.items()
                             if not k.startswith("acc_per")})
+                        if obs_session is not None and \
+                                "acc_per_client" in final_eval:
+                            # the per-site series joins the JSONL line
+                            # only: the history record is obs-off's
+                            obs_extra[r] = {"acc_per_client":
+                                            final_eval["acc_per_client"]}
                     history.append(record)
                     deferred.push(record)
                     if ckpt_mgr is not None:
@@ -1035,12 +1326,15 @@ def run_experiment(args: argparse.Namespace,
         # checkpoints hold pre-finalize states, so a resumed run with no
         # rounds left runs the final pass again from the same state
         if getattr(args, "final_finetune", 1):
-            state, fin_rec = algo.finalize(state)
+            with obs_trace.span("finalize"):
+                state, fin_rec = algo.finalize(state)
         if fin_rec is not None:
             # the final record (round -1)
             record = {k: v if k in ("round", "finetune") else to_float(v)
                       for k, v in fin_rec.items()}
             history.append(record)
+            if obs_session is not None:
+                obs_session.record_round(record)
             logger.info("%s final: %s", algo_name, record)
             # only a finalize that trained (FedAvg's fine-tune) counts
             # toward the FLOPs/comm counters
@@ -1084,10 +1378,35 @@ def run_experiment(args: argparse.Namespace,
             # the JAX store's gauges, each rank's own (all take part)
             store_stats = store_stats_by_rank(algo._store, mesh)
             logger.info("client store: %s", store_stats)
+        if flight is not None:
+            fs = flight.summary()
+            if fs["bundles"] or fs["triggers_skipped"]:
+                logger.info("flight recorder: %d bundle(s), %d trigger(s) "
+                            "over budget: %s", len(fs["bundles"]),
+                            fs["triggers_skipped"], fs["bundles"])
+            if obs_session is not None:
+                obs_session.registry.gauge("flight_bundles").set(
+                    float(len(fs["bundles"])))
+        obs_snapshot = None
+        if obs_session is not None:
+            for k, v in fault_totals.items():
+                # run-level totals (the watchdog's and the checkpoints'
+                # too) in the registry before the final snapshot
+                obs_session.registry.gauge("fault_recovery_" + k).set(v)
+            obs_snapshot = obs_session.finish()
+            if obs_session.metrics_json_path:
+                logger.info("obs: metrics.json -> %s",
+                            obs_session.metrics_json_path)
+            if obs_session.trace_path:
+                logger.info("obs: Perfetto trace -> %s",
+                            obs_session.trace_path)
         stat_path = save_stat_info(
             args, identity, history, final_eval, extras, cost=cost,
             avg_inference_flops=avg_inf,
-            fault_counters=fault_totals) if lead else None
+            fault_counters=fault_totals,
+            obs_metrics=obs_snapshot) if lead else None
+        if obs_session is not None and obs_session.slo is not None:
+            _slo_verdict(args, identity, obs_session)
         return {
             "identity": identity,
             "history": history,
@@ -1098,6 +1417,10 @@ def run_experiment(args: argparse.Namespace,
             "store_stats": store_stats,
         }
     finally:
+        if obs_session is not None:
+            # idempotent: restores the null tracer and closes the sinks
+            # when the run died mid-round too
+            obs_session.close()
         if mesh is not None and algo is not None:
             # before the mesh is torn down (ClientMesh.destroy), also when
             # the run raised: a traceback keeps the algorithm reachable

@@ -135,7 +135,8 @@ def _lib_path(name: str) -> Path:
 
 def build() -> float:
     """Compile every kernel not yet built (one ``nvcc`` per source, all
-    started together) and load them all. Returns the seconds spent."""
+    started together) and load them all. Returns the seconds spent, which
+    a live obs session records (``obs.compile``, ``kernel_build``)."""
     t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = []
@@ -157,10 +158,15 @@ def build() -> float:
             os.replace(tmp, out)
     if failures:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
-    for name in SOURCES:
-        if name not in _LIBS:
-            _LIBS[name] = _bind(name, ctypes.CDLL(str(_lib_path(name))))
-    return time.perf_counter() - t0
+    loaded = [name for name in SOURCES if name not in _LIBS]
+    for name in loaded:
+        _LIBS[name] = _bind(name, ctypes.CDLL(str(_lib_path(name))))
+    seconds = time.perf_counter() - t0
+    if loaded:
+        from ..obs.compile import note_compile
+
+        note_compile("kernel_build", seconds, count=len(procs))
+    return seconds
 
 
 def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:

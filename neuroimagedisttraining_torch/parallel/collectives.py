@@ -886,17 +886,18 @@ def agg_microbench(mesh=None, n_clients: int = 32, iters: int = 8,
                    impls: Tuple[str, ...] = AGG_IMPLS,
                    topk_density: float = 0.1, topk_sample: int = 0,
                    hier_inner: int = 0, hier_wire: str = "bf16",
-                   device=None) -> dict:
+                   device=None, registry=None) -> dict:
     """Time one weighted-mean aggregation per ``agg_impl`` on the model's
     parameter tree stacked over ``n_clients`` (honored-mask locals at
     ``dense_ratio``: a host-random mask on the kernel leaves), sharded over
     ``mesh`` when given (each rank then holds its block), with
-    :func:`time_weighted_agg`. Returns ``{"agg_ms_<impl>": ms, ...}`` and
-    the workload's descriptors. The reference also records each impl's
-    modeled wire bytes (``wire_bytes_<impl>``, from ``obs.comm``'s
-    ``WireCostModel``); the observability tier is not ported, so they are
-    left out, as are its ``overlap`` and ``kernels`` knobs (no counterpart
-    here)."""
+    :func:`time_weighted_agg`. Returns ``{"agg_ms_<impl>": ms,
+    "wire_bytes_<impl>": bytes, ...}`` and the workload's descriptors;
+    each impl's modeled per-device wire bytes come from
+    ``obs.comm.WireCostModel``, as the reference records them. With a
+    ``registry`` (``obs.metrics.Registry``) each timing is also observed
+    into its ``agg_ms`` distribution, labeled by impl. Its ``overlap`` and
+    ``kernels`` knobs have no counterpart here."""
     from .. import resolve_device
     from ..convert import from_reference_layout
     from ..models import create_model
@@ -971,13 +972,21 @@ def agg_microbench(mesh=None, n_clients: int = 32, iters: int = 8,
                 st, wv, wire=hw, hier_inner=hier_inner or -1,
                 uniforms=u_of(i) if hw == "int8" else None, **kw)),
     }
+    from ..obs.comm import WireCostModel
+
+    wire_model = WireCostModel.from_params(
+        shapes, bucket_size=bucket_size, n_devices=n_devices, plan=plan,
+        topk_density=topk_density, hier_wire=hier_wire)
     result = {}
     for name in impls:
         if name not in agg_fns:
             raise ValueError(f"unknown agg impl {name!r}; choose from "
                              f"{tuple(agg_fns)}")
-        result[f"agg_ms_{name}"] = time_weighted_agg(
-            agg_fns[name], stacked, w, iters) * 1e3
+        ms = time_weighted_agg(agg_fns[name], stacked, w, iters) * 1e3
+        if registry is not None:
+            registry.distribution("agg_ms").labels(impl=name).observe(ms)
+        result[f"agg_ms_{name}"] = ms
+        result[f"wire_bytes_{name}"] = wire_model.bytes_for(name)
     result.update(
         n_params=n_params, n_clients=n_clients, n_devices=n_devices,
         bucket_size=bucket_size, sparse_density=plan.density,

@@ -77,15 +77,22 @@ class RunCounters:
 
     FIELDS = ("clients_dropped", "clients_quarantined")
 
-    def __init__(self) -> None:
+    def __init__(self, registry=None) -> None:
+        """``registry`` (an ``obs.metrics.MetricsRegistry``) mirrors each
+        accumulated field into a ``fault_<field>_total`` counter: the obs
+        session's view of the totals."""
         self._totals: Dict[str, float] = {}
+        self._registry = registry
 
     def update(self, record: Dict[str, Any]) -> None:
         for field in self.FIELDS:
             v = record.get(field)
             if v is not None:
-                self._totals[field] = (self._totals.get(field, 0.0)
-                                       + float(to_float(v)))
+                fv = float(to_float(v))
+                self._totals[field] = self._totals.get(field, 0.0) + fv
+                if self._registry is not None and fv:
+                    self._registry.counter(
+                        "fault_" + field + "_total").inc(fv)
 
     def summary(self) -> Dict[str, float]:
         return dict(self._totals)

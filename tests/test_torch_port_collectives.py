@@ -33,6 +33,17 @@ from neuroimagedisttraining_torch.convert import (  # noqa: E402
 from neuroimagedisttraining_torch.core.state import weighted_tree_sum  # noqa: E402
 from neuroimagedisttraining_torch.parallel import collectives as tc  # noqa: E402
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Torch on one thread: among the suite's parallel workers torch's
+    default of a thread per core oversubscribes the machine."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 C, BUCKET = 4, 4096
 SS = phased_sample_shape((69, 69, 69))
 KEY = jax.random.PRNGKey(7)

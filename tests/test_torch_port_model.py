@@ -27,6 +27,17 @@ from neuroimagedisttraining_torch.models import create_model, make_apply_fn  # n
 from neuroimagedisttraining_torch.models.layers import group_norm  # noqa: E402
 from neuroimagedisttraining_torch.ops import s2d as ts2d  # noqa: E402
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Torch on one thread: among the suite's parallel workers torch's
+    default of a thread per core oversubscribes the machine."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 #: narrow AlexNet3DS2D: the smallest cubic volume that survives three pools
 WIDTHS = (8, 16, 16, 16, 16)
 VOLUME = (69, 69, 69)

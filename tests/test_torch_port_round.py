@@ -51,6 +51,17 @@ from neuroimagedisttraining_torch.data import make_synthetic_federated  # noqa: 
 from neuroimagedisttraining_torch.models import create_model, make_apply_fn  # noqa: E402
 from neuroimagedisttraining_torch.ops import sparsity as tsp  # noqa: E402
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Torch on one thread: among the suite's parallel workers torch's
+    default of a thread per core oversubscribes the machine."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 WIDTHS = (8, 16, 16, 16, 16)
 SS = phased_sample_shape((69, 69, 69))
 N_CLIENTS, SAMPLES, TEST, BS = 3, 6, 5, 4

@@ -11,7 +11,10 @@ personal stack, and ``FedAlgorithm.clone_state`` deep-copies a state:
 2. two rounds run from two ``clone_state`` copies of one state give
    bitwise-equal states and losses.
 
-On ``tests/test_torch_port_round.py``'s narrow cohort, with the rounds'
+(2 is in ``tests/test_torch_port_state_clones.py``, the fused block's first
+round in ``tests/test_torch_port_state_fused.py``; both import this
+module's cohort and helpers.) On ``tests/test_torch_port_round.py``'s
+narrow cohort, with the rounds'
 epoch permutations drawn from the state's generator, on the dense wire and
 on the two wires that carry extra state or draws ("topk": the error-feedback
 residual; "int8": the uniforms), at full and at partial participation.
@@ -32,6 +35,17 @@ CASES = [pytest.param(name, impl, frac,
                                   ("salientgrads", "topk", 2 / 3),
                                   ("fedavg", "int8", 1.0),
                                   ("fedavg", "topk", 2 / 3))]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Torch on one thread: these cases run many CPU ops at a narrow width,
+    and among the suite's parallel workers torch's default of a thread per
+    core oversubscribes the machine."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -96,46 +110,3 @@ def test_run_round_leaves_its_input_state_unchanged(cohort, name, impl,
         after = _snapshot(new)
         algo.finalize(new)
         _assert_bitwise(_snapshot(new), after, "after finalize")
-
-
-@pytest.mark.parametrize("name,impl,frac", CASES)
-def test_rounds_from_clones_agree_bitwise(cohort, name, impl, frac):
-    algo = _algo(cohort, name, impl, frac)
-    state = algo.init_state()
-    a, b = algo.clone_state(state), algo.clone_state(state)
-    assert a.generator is not state.generator
-    _assert_bitwise(_snapshot(a), _snapshot(state), "clone")
-    losses = ([], [])
-    for r in range(2):
-        a, ma = algo.run_round(a, r)
-        b, mb = algo.run_round(b, r)
-        losses[0].append(ma["train_loss"])
-        losses[1].append(mb["train_loss"])
-    _assert_bitwise(_snapshot(a), _snapshot(b), "two rounds from clones")
-    assert all(torch.equal(x, y) for x, y in zip(*losses))
-
-
-@pytest.mark.parametrize("name,impl,frac", CASES[:1] + CASES[3:])
-def test_fused_first_round_state_is_the_eager_rounds(cohort, name, impl,
-                                                    frac):
-    """``run_rounds_fused(on_first_round=)`` hands over a copy of the
-    state after the block's first round, bitwise ``run_round``'s (the CLI
-    prices a fused run's cost from it, as the eager loop prices its first
-    round's state), and the block's own result is unchanged by it."""
-    algo = _algo(cohort, name, impl, frac)
-    s0 = algo.init_state()
-    got = []
-    out, ys = algo.run_rounds_fused(algo.clone_state(s0), 0, 2,
-                                    on_first_round=got.append)
-    first, _ = algo.run_round(algo.clone_state(s0), 0)
-    assert len(got) == 1
-    for f in ("global_params", "personal_params", "agg_residual"):
-        a, b = getattr(got[0], f), getattr(first, f)
-        assert (a is None) == (b is None), f
-        if a is not None:
-            assert all(torch.equal(a[k], b[k]) for k in b), f
-    plain, ys2 = algo.run_rounds_fused(algo.clone_state(s0), 0, 2)
-    assert all(torch.equal(out.global_params[k], plain.global_params[k])
-               for k in plain.global_params)
-    assert list(ys.materialize()["train_loss"]) == \
-        list(ys2.materialize()["train_loss"])

@@ -35,6 +35,17 @@ from neuroimagedisttraining_torch.ops.experimental import pallas_stem_bwd as tbw
 from neuroimagedisttraining_torch.ops.experimental import pallas_stem_fused as tfused  # noqa: E402
 from neuroimagedisttraining_torch.ops.experimental import pallas_stem_v3 as tv3  # noqa: E402
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Torch on one thread: among the suite's parallel workers torch's
+    default of a thread per core oversubscribes the machine."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 #: phased per-sample shapes (D', H', 8, W'): ragged pool windows in h, and
 #: in d and w
 SHAPES = [(11, 13, 8, 11), (12, 14, 8, 13)]

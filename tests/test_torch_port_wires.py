@@ -52,6 +52,17 @@ from neuroimagedisttraining_torch.ops import sparsity as tsp  # noqa: E402
 N = pc.N_CLIENTS
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Torch on one thread: these cases run many CPU ops at a narrow width,
+    and among the suite's parallel workers torch's default of a thread per
+    core oversubscribes the machine."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def cohort():
     """The cohort, the reference's SNIP init, the reference's draws for two
@@ -113,10 +124,20 @@ def _jax_run(c, impl):
     return c["jax_runs"][impl]
 
 
-@pytest.mark.parametrize("impl", ["bucketed", "bf16", "int8", "sparse",
-                                  "topk", "hier"])
+#: the wires of ``test_salientgrads_two_rounds_per_wire`` here; the sparse
+#: ones ("sparse", "topk", "hier") are its cases in
+#: ``tests/test_torch_port_wires_sparse.py``
+WIRES = ["bucketed", "bf16", "int8"]
+
+
+@pytest.mark.parametrize("impl", WIRES)
 def test_salientgrads_two_rounds_per_wire(cohort, impl):
-    c = cohort
+    two_rounds_per_wire(cohort, impl)
+
+
+def two_rounds_per_wire(c, impl):
+    """Two rounds of the port on ``impl`` against the reference's on the
+    same draws."""
     # the reference's off-mesh "hier" is its exact f32 bucketed reduce, so
     # the port's "hier" (on the compressed-plan sparse wire here) is held to
     # the reference's "bucketed" rounds
