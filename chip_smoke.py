@@ -202,7 +202,7 @@ Phases, each printing one JSON line:
    62 leaves, 11,173,962 parameters; 100 clients of 500 32x32x3 bf16 images
    made on the card, batch 16, ``dense_ratio`` 0.3, the crop and flip on
    every training and SNIP batch, 10 clients a round, 100 test images a
-   client; cut here to 1 local epoch of 32 steps and an eval of 10 of the
+   client; cut here to 1 local epoch of 16 steps and an eval of 10 of the
    clients): (a) masked SGD over the
    62 leaves, the threshold over the 11,164,352-entry SNIP row, the score
    mask over the 21 kernel leaves and the weighted sum over [10, leaf] x
@@ -237,7 +237,25 @@ Phases, each printing one JSON line:
    CLI's seeding puts cuDNN in its deterministic mode; the script restores
    the two flags after the phase). The ABCD cohort-file step is not here:
    the loaders need ``h5py``, which the card's machine does not have.
-20. obs    — the in-process observability tier on the main configuration
+20. fed    — the distributed federation (``neuroimagedisttraining_torch/
+   fed`` over ``comm/``), FedAvg at the main configuration's width through
+   the CLI's ``--dataset synthetic_volume`` (8 clients x 40 phased bf16
+   volumes, batch 8, 5 steps), one aggregator and 2 sites of 4 clients:
+   (a) the loopback sync federation, 2 rounds, ``--xtrace`` on, its
+   counters zeroed just before and read just after (masked SGD, the stem
+   kernels and the weighted sum, exactly), bitwise the in-process eager
+   ``run`` (global parameters, every round's loss, the final eval), each
+   round's wall ms split into site training, wire and aggregate; (b)
+   ``scripts/torch_run_federation.py --sites 2``: three processes on the
+   card over the native TCP transport, built first from the port's own
+   source, every exit code 0, the parameters and eval bitwise (a), each
+   process's peak memory; (c) the loopback buffered federation at K = 1
+   with site 2 straggling: 3 flushes without site 2, the ``--fed_replay``
+   of its trace bitwise, one flush each on the bf16, int8 and top-k
+   codecs; (d) the four codecs on a full-width delta: frame bytes against
+   the wire-cost model, encode and decode ms (see ``fed_path``). At most
+   ``FED_PHASE_LIMIT_S``.
+21. obs    — the in-process observability tier on the main configuration
    (see ``obs_path``): (a) SNIP and 2 eager rounds with the session and
    the round numerics on, bitwise obs off; (b) a fused block of the same
    rounds, its numerics bitwise the eager rounds', no more host syncs in
@@ -253,7 +271,7 @@ Phases, each printing one JSON line:
    ``scripts/torch_obs_mesh_trace.py`` holds the collectives' device share
    on several cards); (g) the CLI on ``small3dcnn`` with every lifted obs
    flag: every artifact written, the run bitwise its obs-off twin.
-21. bench  — ``bench_torch.main()``, the port's bench of the headline
+22. bench  — ``bench_torch.main()``, the port's bench of the headline
    workload (SNIP; the Python loop: 1 + 10 rounds without eval, 1 + 8 with
    the eval every round, each from a clone of one state; the fused
    spelling: blocks of 10 and of 8 rounds with the eval, each after its
@@ -5542,7 +5560,10 @@ def mesh_path(dev):
 #: CLI cohort (images per pickled train batch file and in the test file,
 #: clients)
 CIFAR_ROUNDS = 1
-CIFAR_CUT, CIFAR_EVAL_CLIENTS = dict(local_epochs=1), 10
+#: the cut: 1 local epoch of 16 steps (256 of a client's 500 images; the
+#: round is 160 steps, a chain of 3 round graphs), the eval on 10 clients
+CIFAR_CUT = dict(local_epochs=1, steps_per_epoch=16)
+CIFAR_EVAL_CLIENTS = 10
 CIFAR_STEP_BATCH, CIFAR_STEP_TOL = 2, 1e-4
 #: (c)'s float32 gradient limits above CIFAR_STEP_TOL, per key, each about
 #: 2.5x its reading (H100, TF32 off, cuDNN deterministic): with cuDNN on
@@ -5860,7 +5881,7 @@ def cifar_path(dev):
     ("cifar")``: SalientGrads on ``resnet18``, 100 clients of 500 32x32x3
     bf16 images, batch 16, epochs of 32 steps, the crop and flip on every
     training and SNIP batch, 10 clients a round; here cut by CIFAR_CUT to 1
-    epoch, the eval to CIFAR_EVAL_CLIENTS clients): (a) its four kernels at
+    epoch of 16 steps, the eval to CIFAR_EVAL_CLIENTS clients): (a) its four kernels at
     ResNet-18-GN's shapes (:func:`cifar_kernels`); (b) SNIP, CIFAR_ROUNDS
     eager rounds with the eval and the same rounds as one fused block from
     the same state, bitwise, cuDNN in the CLI's deterministic mode, the
@@ -6273,6 +6294,297 @@ def bench_path(dev):
         raise AssertionError(f"bench byzantine: {byz}, launches "
                              f"{byz_launches}, want {want}")
     return {"bench": launches, "bench/byzantine": byz_launches}
+
+
+#: the fed phase (``fed_path``): sites, sync rounds, buffered flushes, site
+#: 2's straggle sleep in (c) (cut short once a run ends), the top-k density
+#: of (c) and (d), the codec timings' repeats in (d), the time limits of the
+#: launcher's run in (b) and of the phase
+FED_SITES, FED_ROUNDS, FED_FLUSHES = 2, 2, 3
+FED_STRAGGLE_S, FED_TOPK_DENSITY, FED_CODEC_REPS = 60.0, 0.1, 3
+FED_TCP_TIMEOUT_S, FED_PHASE_LIMIT_S = 300, 120.0
+
+
+def _fed_argv(tmp: str, sub: str, *extra) -> list:
+    """The fed phase's command line: FedAvg at the main configuration's
+    width (``--dataset synthetic_volume``: 8 clients x 40 phased bf16
+    121x145x121 volumes, 10 test volumes a client, batch 8, 5 local steps,
+    bf16 compute), ``FED_ROUNDS`` rounds, no fine-tune."""
+    return ["--algo", "fedavg", "--dataset", "synthetic_volume",
+            "--layout", "s2d", "--model", "3dcnn",
+            "--client_num_in_total", str(N_CLIENTS), "--frac", "1.0",
+            "--batch_size", str(BATCH), "--epochs", "1",
+            "--comm_round", str(FED_ROUNDS), "--lr", "0.001",
+            "--compute_dtype", "bfloat16", "--final_finetune", "0",
+            "--fed_retries", "4", "--log_dir", f"{tmp}/{sub}/log",
+            "--results_dir", f"{tmp}/{sub}/results"] + list(extra)
+
+
+def _fed_round_split(merged_trace: str, rounds: int) -> list:
+    """Per sync round, from the merged cross-process trace (its lanes on
+    the aggregator's clock): the round's wall ms on the aggregator
+    (``fed_round``), the sites' training ms (the union of their ``train``
+    spans: a loopback site's span also holds its wait for the card's
+    lock), the aggregate ms (``combine``) and the rest, the wire: framing,
+    transfer, queueing and unframing on both ends."""
+    with open(merged_trace) as f:
+        doc = json.load(f)
+    out = []
+    for r in range(rounds):
+        evs = [e for e in doc["traceEvents"] if e.get("ph") == "X"
+               and (e.get("args") or {}).get("trace") == f"r{r}"]
+
+        def ms(name):
+            return sum(e["dur"] for e in evs if e["name"] == name) / 1e3
+
+        union, end = 0.0, -math.inf
+        for e in sorted((e for e in evs if e["name"] == "train"),
+                        key=lambda e: e["ts"]):
+            lo, hi = max(e["ts"], end), e["ts"] + e["dur"]
+            union += max(0.0, hi - lo)
+            end = max(end, hi)
+        round_ms, train_ms, combine_ms = (ms("fed_round"), union / 1e3,
+                                          ms("combine"))
+        out.append({"round": r, "round_ms": round_ms,
+                    "site_train_ms": train_ms, "aggregate_ms": combine_ms,
+                    "wire_ms": round_ms - train_ms - combine_ms})
+    return out
+
+
+def fed_path(dev):
+    """The distributed federation (``neuroimagedisttraining_torch/fed`` over
+    ``comm/``) running FedAvg at full width (:func:`_fed_argv`), one
+    aggregator and ``FED_SITES`` sites each training 4 clients: (a) the
+    loopback sync federation (sites as threads, ``--xtrace`` on), its
+    counters zeroed just before and read just after, bitwise the in-process
+    eager ``run`` of the same rounds on the same algorithm (global
+    parameters, every round's ``train_loss``, the final eval), its round's
+    wall ms split into site training, wire and aggregate, its launches
+    exact; (b) ``scripts/torch_run_federation.py --sites 2``: three
+    processes on the card over the native TCP transport, built first from
+    the port's own source, every exit code 0, ``summary.json``'s
+    parameters and eval bitwise (a), its rounds' ms, each process's peak
+    memory; (c) the loopback buffered federation at ``--fed_buffer_k 1``
+    with site 2 straggling: ``FED_FLUSHES`` flushes, site 2 absent from the
+    flush trace, the ``--fed_replay`` of the trace bitwise, then one flush
+    on each of the bf16, int8 and top-k codecs; (d) the four codecs on a
+    full-width delta: each frame's bytes beside the wire-cost model's
+    (``obs.comm.WireCostModel``), encode and decode ms on the host. cuDNN
+    deterministic, as the CLI sets it. Returns the launches of (a) and of
+    (c)."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from neuroimagedisttraining_torch.comm import tcp
+    from neuroimagedisttraining_torch.comm.message import Message
+    from neuroimagedisttraining_torch.experiments import config, runner
+    from neuroimagedisttraining_torch.fed import protocol, runtime, wire
+    from neuroimagedisttraining_torch.obs.comm import WireCostModel
+    from neuroimagedisttraining_torch.ops import kernels
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) loopback sync, bitwise the in-process run
+        args = config.parse_args(_fed_argv(
+            tmp, "a", "--fed_role", "aggregator", "--fed_mode", "sync",
+            "--fed_sites", str(FED_SITES), "--xtrace", "1"))
+        runner.seed_everything(args.seed)
+        t0 = time.perf_counter()
+        algo, _ = runner.build_algorithm(args, "fedavg")
+        torch.cuda.synchronize(dev)
+        build_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        fed = runtime.run_federated(args, "fedavg", algo=algo)
+        torch.cuda.synchronize(dev)
+        fed_s = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        peak_a = torch.cuda.max_memory_allocated(dev)
+        rounds = [r for r in fed["history"] if r["round"] >= 0]
+        t0 = time.perf_counter()
+        state, hist = algo.run(FED_ROUNDS, eval_every=0, finalize=False)
+        ev = algo._eval_global(state.global_params)
+        twin_eval = {"global_acc": float(ev["acc"]),
+                     "global_loss": float(ev["loss"])}
+        twin_s = time.perf_counter() - t0
+        twin = {k: v.cpu().numpy() for k, v in state.global_params.items()}
+        params = fed["global_params"]
+        same = sorted(params) == sorted(twin) and all(
+            np.array_equal(params[k], twin[k]) for k in twin)
+        losses = [r["train_loss"] for r in rounds]
+        twin_losses = [h["train_loss"] for h in hist if h["round"] >= 0]
+        steps = FED_ROUNDS * N_CLIENTS * STEPS
+        want = {"masked_sgd": steps, "stem_bwd": steps,
+                "weighted_sum": FED_ROUNDS,
+                # every step, the final eval's forward a client and the
+                # dropout probe's
+                "stem_fwd": steps + N_CLIENTS * _eval_chunks() + 1}
+        rec_a = {
+            "phase": "fed", "part": "a_loopback_sync", "sites": FED_SITES,
+            "rounds": FED_ROUNDS, "algo_build_s": build_s,
+            "federation_s": fed_s, "twin_s": twin_s,
+            "round_split_ms": _fed_round_split(
+                fed["fed"]["merged_trace"], FED_ROUNDS),
+            "fed_wire_ms": [r.get("fed_wire_ms") for r in rounds],
+            "fed_queue_ms": [r.get("fed_queue_ms") for r in rounds],
+            "train_loss": losses, "twin_train_loss": twin_losses,
+            "final_eval": fed["final_eval"], "twin_eval": twin_eval,
+            "params_bitwise": same, "peak_mem_bytes": peak_a,
+            "comm_bytes_sent": fed["fed"]["comm_bytes_sent"],
+            "comm_bytes_received": fed["fed"]["comm_bytes_received"],
+            "launches": launches}
+        emit(rec_a)
+        if not (same and losses == twin_losses
+                and fed["final_eval"] == twin_eval):
+            raise AssertionError("fed (a): the loopback sync federation is "
+                                 "not bitwise the in-process run")
+        if any(launches[k] != v for k, v in want.items()):
+            raise AssertionError(f"fed (a) launches {launches}, want {want}")
+
+        # (b) the launcher: three processes on the card over native TCP
+        t0 = time.perf_counter()
+        lib = tcp.build_native(force=True)
+        tcp_build_s = time.perf_counter() - t0
+        fed_out = os.path.join(tmp, "b", "fed")
+        cmd = [sys.executable,
+               os.path.join(root, "scripts", "torch_run_federation.py"),
+               "--sites", str(FED_SITES), "--out", fed_out, "--"] + \
+            _fed_argv(tmp, "b", "--fed_mode", "sync", "--xtrace", "1")
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=FED_TCP_TIMEOUT_S, cwd=root)
+        tcp_s = time.perf_counter() - t0
+        lines = [ln for ln in proc.stdout.splitlines()
+                 if ln.startswith('{"launcher_ok"')]
+        if proc.returncode != 0 or not lines:
+            raise AssertionError(
+                f"fed (b): the launcher exited {proc.returncode}: "
+                f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+        launch = json.loads(lines[-1])
+        with open(os.path.join(fed_out, "summary.json")) as f:
+            summary = json.load(f)
+        got = np.load(os.path.join(fed_out, runtime.PARAMS_FILE))
+        same_b = sorted(got.files) == sorted(params) and all(
+            np.array_equal(got[k], params[k]) for k in params) and \
+            summary["params_sha256"] == runtime.params_digest(params)
+        tcp_rounds = [r for r in summary["history"] if r["round"] >= 0]
+        peaks = {"aggregator": summary["fed"].get("peak_mem_bytes")}
+        for k in range(1, FED_SITES + 1):
+            with open(os.path.join(fed_out, f"site{k}.jsonl")) as f:
+                last = [json.loads(ln) for ln in f if ln.strip()][-1]
+            peaks[f"site{k}"] = last.get("peak_mem_bytes")
+        rec_b = {
+            "phase": "fed", "part": "b_tcp_sync", "launcher": launch,
+            "native_lib": os.path.relpath(lib, root),
+            "native_src": os.path.relpath(tcp._SRC, root),
+            "native_build_s": tcp_build_s, "launcher_s": tcp_s,
+            "round_ms": [r.get("fed_round_ms") for r in tcp_rounds],
+            "fed_wire_ms": [r.get("fed_wire_ms") for r in tcp_rounds],
+            "train_loss": [r["train_loss"] for r in tcp_rounds],
+            "final_eval": summary["final_eval"], "params_bitwise": same_b,
+            "peak_mem_bytes": peaks,
+            "comm_bytes_sent": summary["fed"]["comm_bytes_sent"]}
+        emit(rec_b)
+        if not (launch["aggregator_rc"] == 0
+                and all(v == 0 for v in launch["site_rcs"].values())
+                and same_b and summary["final_eval"] == fed["final_eval"]
+                and rec_b["train_loss"] == losses):
+            raise AssertionError("fed (b): the TCP federation is not "
+                                 "bitwise the loopback one")
+
+        # (c) buffered, site 2 straggling; the replay; one flush per codec
+        buf = ["--fed_role", "aggregator", "--fed_mode", "buffered",
+               "--fed_sites", str(FED_SITES), "--fed_buffer_k", "1",
+               "--fed_site_faults", f"2:straggle=1.0:{FED_STRAGGLE_S}",
+               "--agg_topk_density", str(FED_TOPK_DENSITY)]
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        rec_run = runtime.run_federated(config.parse_args(_fed_argv(
+            tmp, "c", *buf, "--comm_round", str(FED_FLUSHES))), "fedavg",
+            algo=algo)
+        buffered_s = time.perf_counter() - t0
+        launches_c = dict(kernels.LAUNCHES)
+        trace_path = rec_run["fed"]["trace_path"]
+        with open(trace_path) as f:
+            trace = json.load(f)
+        t0 = time.perf_counter()
+        rep = runtime.run_federated(config.parse_args(_fed_argv(
+            tmp, "c_replay", *buf, "--comm_round", str(FED_FLUSHES),
+            "--fed_replay", trace_path)), "fedavg", algo=algo)
+        replay_s = time.perf_counter() - t0
+        same_c = all(np.array_equal(rec_run["global_params"][k],
+                                    rep["global_params"][k])
+                     for k in rec_run["global_params"])
+        codecs = {}
+        for impl in ("bf16", "int8", "topk"):
+            t0 = time.perf_counter()
+            one = runtime.run_federated(config.parse_args(_fed_argv(
+                tmp, f"c_{impl}", *buf, "--comm_round", "1", "--agg_impl",
+                impl)), "fedavg", algo=algo)
+            flushes = [r for r in one["history"] if r["round"] >= 0]
+            codecs[impl] = {"seconds": time.perf_counter() - t0,
+                            "flushes": len(flushes),
+                            "train_loss": flushes[0]["train_loss"]
+                            if flushes else None}
+        members = [m for fl in trace["flushes"] for m in fl["members"]]
+        rec_c = {
+            "phase": "fed", "part": "c_loopback_buffered",
+            "flush_trace": trace["flushes"], "buffered_s": buffered_s,
+            "replay_s": replay_s, "replay_bitwise": same_c,
+            "train_loss": [r["train_loss"] for r in rec_run["history"]
+                           if r["round"] >= 0],
+            "codec_flushes": codecs, "launches": launches_c}
+        emit(rec_c)
+        if not (len(trace["flushes"]) == FED_FLUSHES
+                and all(site != 2 for site, _ in members) and same_c
+                and rep["fed"]["replayed"]
+                and all(c["flushes"] == 1 and math.isfinite(c["train_loss"])
+                        for c in codecs.values())):
+            raise AssertionError(f"fed (c): {rec_c}")
+        if any(launches_c[k] == 0 for k in ("masked_sgd", "stem_fwd",
+                                            "stem_bwd", "weighted_sum")):
+            raise AssertionError(f"fed (c) launches {launches_c}")
+
+        # (d) the codecs on a full-width delta
+        init = algo.init_state().global_params
+        delta = {k: params[k] - init[k].cpu().numpy() for k in params}
+        model = WireCostModel.from_params(delta,
+                                          topk_density=FED_TOPK_DENSITY)
+        rec_d = {"phase": "fed", "part": "d_codecs",
+                 "n_params": model.n_params}
+        for impl in wire.WIRE_IMPLS:
+            enc, dec = [], []
+            for _ in range(FED_CODEC_REPS):
+                t0 = time.perf_counter()
+                msg = Message(protocol.MSG_FED_UPDATE, 1, 0)
+                wire.encode_update(msg, delta, impl,
+                                   density=FED_TOPK_DENSITY)
+                raw = msg.to_bytes()
+                enc.append((time.perf_counter() - t0) * 1e3)
+                t0 = time.perf_counter()
+                back = wire.decode_update(Message.from_bytes(raw))
+                dec.append((time.perf_counter() - t0) * 1e3)
+            if impl == "dense" and not all(
+                    np.array_equal(back[k], delta[k]) for k in delta):
+                raise AssertionError("fed (d): the dense codec is lossy")
+            modeled = model.bytes_for(impl)
+            rec_d[impl] = {"frame_bytes": len(raw), "model_bytes": modeled,
+                           "frame_over_model": len(raw) / modeled,
+                           "encode_ms": statistics.median(enc),
+                           "decode_ms": statistics.median(dec)}
+        emit(rec_d)
+    del algo, state
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    if phase_s > FED_PHASE_LIMIT_S:
+        raise AssertionError(f"fed phase took {phase_s:.1f} s, over its "
+                             f"{FED_PHASE_LIMIT_S} s")
+    return {"fed": launches, "fed/buffered": launches_c}
 
 
 #: the obs phase's eager rounds and fused block
@@ -6736,6 +7048,7 @@ def main() -> int:
     # phase after it measures with the flags the script had before
     with _CudnnFlags():
         paths.update(timed("cli", cli_path))
+        paths.update(timed("fed", fed_path))
         paths.update(timed("obs", obs_path))
     paths.update(timed("bench", bench_path))
 

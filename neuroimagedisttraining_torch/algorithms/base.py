@@ -1751,6 +1751,17 @@ class FedAlgorithm(abc.ABC):
         """Every client of ``inp`` trains a copy of the global model on its
         own rows (client ``i`` on flipped labels where ``flips[i]``, the
         ``labelflip`` fault); returns (stacked local models, mean loss)."""
+        stacked, lo = self._train_own(global_params, mask, inp, flips)
+        # the losses of every selected client, in draw order, then the
+        # single-process mean
+        return stacked, self._gather_own(lo, inp).mean()
+
+    def _train_own(self, global_params: Tree, mask: Tree, inp: RoundInputs,
+                   flips: Optional[torch.Tensor] = None):
+        """The clients of ``inp`` this rank trains (:meth:`_own`), each from
+        a copy of the global model, one after another: (their stacked local
+        models, their ``[len(own)]`` losses). A federation site trains its
+        slots of a round through here."""
         d = self._round_data(inp)
         own, rows = self._own(inp)
         locals_, losses = [], []
@@ -1769,9 +1780,7 @@ class FedAlgorithm(abc.ABC):
                     for k, v in global_params.items()})
         lo = torch.stack(losses) if losses else torch.zeros(
             0, device=self.device)
-        # the losses of every selected client, in draw order, then the
-        # single-process mean
-        return stacked, self._gather_own(lo, inp).mean()
+        return stacked, lo
 
     def _train_stacked(self, client_update, params: Tree, masks: Tree,
                        inp: RoundInputs, *, leg: int = 1,

@@ -5,8 +5,7 @@ The port parses every command line the JAX CLI accepts to the same namespace
 plus one flag of its own, ``--device`` (the role ``JAX_PLATFORMS`` plays
 there), and gives the same identity string, so logs and results land at the
 same paths. The flags of subsystems the port has not got are parsed all the
-same; the runner refuses them (``runner.refuse_unported``), and ``derive``
-refuses the three whose specs only those subsystems can validate.
+same; the runner refuses them (``runner.refuse_unported``).
 
 Like the JAX package, it rebuilds the original per-algorithm argparse mains
 (``fedml_experiments/standalone/<algo>/main_<algo>.py``) as one shared flag
@@ -804,12 +803,6 @@ def add_algo_args(p: argparse.ArgumentParser, algo: str) -> None:
         _add_once(p, "--n_groups", type=int, default=3)
 
 
-def _unported(flag: str, item: int):
-    raise SystemExit(
-        f"{flag}: its subsystem is not ported to PyTorch yet (ROADMAP item "
-        f"{item}); drop the flag, or run the JAX package's CLI")
-
-
 def derive(args: argparse.Namespace) -> argparse.Namespace:
     """Post-parse derived fields (main_sailentgrads.py:234; rounding matches
     ``FedAlgorithm.__init__``'s ``int(round(...))`` so the recorded config
@@ -907,7 +900,10 @@ def derive(args: argparse.Namespace) -> argparse.Namespace:
             # slowest site
             args.fed_buffer_k = max(1, args.fed_sites - 1)
         if getattr(args, "fed_site_faults", ""):
-            _unported("--fed_site_faults", 12)
+            # parse-time validation of the per-site fault grammar
+            from ..fed.runtime import parse_site_faults
+
+            parse_site_faults(args.fed_site_faults)  # raises ValueError
         if getattr(args, "fed_replay", "") and \
                 not os.path.isfile(args.fed_replay):
             raise ValueError(

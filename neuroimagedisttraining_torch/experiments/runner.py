@@ -89,12 +89,6 @@ S2D_SPECS = {"3dcnn_s2d": (5, 0), "3dresnet_s2d": (3, 3),
 #: flag attribute -> ROADMAP item of the feature it drives, refused at any
 #: value but its default
 _UNPORTED = {
-    # 12: the wire
-    "fed_role": 12, "fed_mode": 12,
-    "fed_backend": 12, "fed_sites": 12, "fed_site_rank": 12,
-    "fed_endpoints": 12, "fed_buffer_k": 12, "fed_staleness_bound": 12,
-    "fed_timeout_s": 12, "fed_retries": 12, "fed_backoff_s": 12,
-    "fed_trace": 12, "fed_replay": 12, "fed_site_faults": 12, "fed_out": 12,
     # 13: serving
     "serve_role": 13, "serve_backend": 13, "serve_endpoints": 13,
     "serve_requests": 13, "serve_rps": 13, "serve_batch": 13,
@@ -102,9 +96,8 @@ _UNPORTED = {
     "serve_push_every": 13, "serve_ckpt_dir": 13, "serve_out": 13,
     "serve_trace": 13, "serve_replay": 13, "serve_store": 13,
     "serve_timeout_s": 13, "serve_workers": 13, "serve_probe_every": 13,
-    # 14: observability, its offline tier and its fed/serve tier (the
-    # in-process tier runs)
-    "xtrace": 14, "xtrace_dir": 14, "obs_heartbeat_every": 14,
+    # 14: observability, its offline tier and the Prometheus exporter (the
+    # in-process tier and the federation's xtrace and heartbeats run)
     "obs_prom_port": 14, "obs_watch_every": 14, "obs_watch_color": 14,
     # 15: multi-process and spatial sharding
     "multihost": 15, "coordinator_address": 15, "num_processes": 15,
@@ -172,6 +165,14 @@ def client_mesh_size(args: argparse.Namespace, algo_name: str) -> int:
 
     return fit_client_devices(args.client_num_in_total,
                               _mesh_devices_asked(args))
+
+
+#: the port's own dataset name: the synthetic stand-in at the ABCD volume,
+#: made on ``--device`` (:func:`build_data`)
+VOLUME_SYNTH = "synthetic_volume"
+#: its volume and shard: the headline workload's (``bench_torch.py``)
+VOLUME_SYNTH_SHAPE = (121, 145, 121)
+VOLUME_SYNTH_SAMPLES, VOLUME_SYNTH_TEST = 40, 10
 
 
 def _is_abcd_h5(dataset: str) -> bool:
@@ -477,9 +478,37 @@ def _log_inert(args: argparse.Namespace) -> None:
                         attr, v, why)
 
 
+def _volume_synth(args: argparse.Namespace):
+    """``--dataset synthetic_volume``, the port's own: the JAX CLI's
+    synthetic stand-ins are 8^3 volumes, and its full-size runs read an
+    ABCD cohort file (``h5py``). This one is a full-width cohort made on
+    ``--device`` from the split seed (``data.device_synthetic_federated``):
+    ``--client_num_in_total`` clients of 40 training and 10 test
+    121x145x121 volumes in bf16 (the headline workload's shard), stored as
+    the model reads them: phase-decomposed for an s2d-stem model under
+    ``--layout s2d``, else with a channel axis. Every process building it
+    from the same flags on the same kind of device holds the same
+    cohort."""
+    from ..data import device_synthetic_federated
+    from ..ops.s2d import phased_sample_shape
+
+    if getattr(args, "layout", "channels") == "s2d":
+        shape = phased_sample_shape(VOLUME_SYNTH_SHAPE,
+                                    *S2D_SPECS[_model_key(args)])
+    else:  # build_algorithm refuses every other layout but channels
+        shape = VOLUME_SYNTH_SHAPE + (1,)
+    dev = torch.device(getattr(args, "device", "cuda"))
+    return device_synthetic_federated(
+        args.client_num_in_total, VOLUME_SYNTH_SAMPLES, shape,
+        torch.Generator(device=dev).manual_seed(42),
+        test_per_client=VOLUME_SYNTH_TEST)
+
+
 def build_data(args: argparse.Namespace):
     from ..data import load_federated_data
 
+    if args.dataset.lower() == VOLUME_SYNTH:
+        return _volume_synth(args)
     kwargs: Dict[str, Any] = {}
     if args.dataset.lower() in ("synthetic", "abcd_synth"):
         # CI-scale default; real ABCD shapes come from the .h5 itself
@@ -527,7 +556,8 @@ def build_algorithm(args: argparse.Namespace, algo_name: str, mesh=None):
     # the layout/dataset/model coupling, checked before any data IO
     layout = getattr(args, "layout", "channels")
     model_key = args.model
-    if layout != "channels" and not _is_abcd_h5(args.dataset):
+    if layout != "channels" and not (_is_abcd_h5(args.dataset) or (
+            layout == "s2d" and args.dataset.lower() == VOLUME_SYNTH)):
         raise SystemExit(
             f"--layout {layout} requires an ABCD cohort dataset "
             "(abcd | abcd_site | abcd_rescale); other loaders store NDHWC")
@@ -1022,6 +1052,16 @@ def run_experiment(args: argparse.Namespace,
         resolve_device(getattr(args, "device", "cuda"))
     except RuntimeError as e:
         raise SystemExit(f"--device {args.device}: {e}")
+    if getattr(args, "fed_role", ""):
+        # the distributed federation (fed/): its own round loop, obs
+        # streams and lifecycle, dispatched before the mesh, checkpoint
+        # and obs setup, as the JAX CLI does; it refuses the in-process
+        # features it cannot honor
+        from ..fed.runtime import run_federated
+
+        configure_console()
+        seed_everything(args.seed)
+        return run_federated(args, algo_name)
     n_mesh = mesh.size if mesh is not None else client_mesh_size(
         args, algo_name)
     if mesh is None and n_mesh > 1:

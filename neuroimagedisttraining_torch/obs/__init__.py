@@ -27,9 +27,13 @@
   event bus (``--slo_spec``).
 * :mod:`~.catalog` / :mod:`~.regress` — the run catalog and the bench
   history.
+* :mod:`~.xtrace` — cross-process causal tracing over ``Message`` headers
+  for the federation (``--xtrace``).
+* :mod:`~.live` — in-band heartbeats and the fleet ledger of the
+  federation's aggregator (``--obs_heartbeat_every``).
 
-The offline tier (``obs analyze/report/diff``), the live watch, the
-Prometheus exporter and cross-process tracing are not ported.
+The offline tier (``obs analyze/report/diff``), the live watch and the
+Prometheus exporter are not ported.
 
 Nothing here enters run or checkpoint identity, and with ``--obs`` off
 every hook is a no-op (bit-identical to the obs-off run).
@@ -42,6 +46,7 @@ from . import (
     events,
     export,
     health,
+    live,
     memory,
     metrics,
     numerics,
@@ -49,8 +54,9 @@ from . import (
     regress,
     slo,
     trace,
+    xtrace,
 )
 
 __all__ = ["catalog", "comm", "compile", "devtrace", "events", "export",
-           "health", "memory", "metrics", "numerics", "recorder",
-           "regress", "slo", "trace"]
+           "health", "live", "memory", "metrics", "numerics", "recorder",
+           "regress", "slo", "trace", "xtrace"]

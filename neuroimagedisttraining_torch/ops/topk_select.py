@@ -109,3 +109,32 @@ def select_threshold(av: torch.Tensor, k: int,
     if sample and n > sample:
         return sampled_threshold(av, k, sample)
     return threshold_topk(av.contiguous(), k)
+
+
+def host_topk_indices(mag, k: int):
+    """Exactly-k flat indices of the largest magnitudes, on the host, under
+    the wire tie-break contract of the reference's
+    ``ops/topk_select.host_topk_indices``: all ``mag > T`` plus the ties at
+    ``T`` by ascending index, returned ascending int32 (byte-identical to
+    ``np.sort(np.argsort(-mag, kind='stable')[:k])`` without the full sort;
+    ``np.argpartition`` is O(n) expected). NaNs order last, as in the
+    stable-argsort spelling."""
+    import numpy as np
+
+    mag = np.asarray(mag).ravel()
+    n = mag.size
+    k = int(k)
+    if k >= n:
+        return np.arange(n, dtype=np.int32)
+    part = np.argpartition(-mag, k - 1)[:k]
+    vals = mag[part]
+    if np.isnan(vals).any():
+        # >= k non-finites in play: the reference spelling (outside the
+        # contract; correctness over speed)
+        order = np.argsort(-mag, kind="stable")[:k]
+        return np.sort(order).astype(np.int32)
+    thr = vals.min()
+    above = np.flatnonzero(mag > thr)
+    ties = np.flatnonzero(mag == thr)
+    idx = np.concatenate([above, ties[: k - above.size]])
+    return np.sort(idx).astype(np.int32)

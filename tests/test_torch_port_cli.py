@@ -182,6 +182,12 @@ def _refused_id(extra):
 #: completes its command line
 LIFTED = {"--dataset cifar10": ["--model", "cnn_cifar10"],
           "--model resnet18": ["--dataset", "cifar10"]}
+#: the refusals lifted once the federation was ported (ROADMAP item 12),
+#: by id: on SalientGrads both CLIs now reach the federation runtime, which
+#: refuses every algorithm but FedAvg with the same message
+LIFTED_FED = ("--fed_role aggregator --fed_sites 2",
+              "--fed_role aggregator --fed_sites 2 --fed_site_faults "
+              "1:drop=1.0")
 
 
 @pytest.fixture(scope="module")
@@ -214,6 +220,14 @@ def test_unported_flags_refused_before_any_work(tmp_path, request, extra,
     with pytest.raises(SystemExit) as e:
         trunner.main(argv + ["--device", "cpu"])
     msg = str(e.value.code)
+    if _refused_id(extra) in LIFTED_FED:
+        with pytest.raises(SystemExit) as je:
+            jrunner.main([str(tmp_path / "j") if a.startswith(str(tmp_path))
+                          else a for a in argv])
+        assert msg == str(je.value.code) and msg.startswith(
+            "federated deployment: algo 'salientgrads' unsupported"), msg
+        assert not (tmp_path / "res").exists()
+        return
     assert msg.startswith(flag + ":") or msg.startswith(flag + " "), msg
     assert not (tmp_path / "res").exists() and \
         not (tmp_path / "log").exists()
@@ -227,23 +241,33 @@ def test_unported_flags_refused_before_any_work(tmp_path, request, extra,
         assert "ROADMAP item" in msg
 
 
-#: the observability flags of the tiers still to port: the offline tier's
-#: watch and the fed/serve tier's live telemetry and cross-process traces
+#: the observability flags of the later tiers: the offline tier's watch
+#: and the Prometheus exporter (still to port), the federation's live
+#: telemetry and cross-process traces (ported with fed/: ``OBS_LIFTED``)
 OBS_STILL_REFUSED = [
     ["--obs_watch_every", "2"], ["--obs_watch_color", "0"],
     ["--xtrace", "1"], ["--xtrace_dir", "xt"],
     ["--obs_heartbeat_every", "1"], ["--obs_prom_port", "9000"],
 ]
+OBS_LIFTED = ("--xtrace", "--xtrace_dir", "--obs_heartbeat_every")
 
 
 @pytest.mark.parametrize("extra", OBS_STILL_REFUSED,
                          ids=[e[0] for e in OBS_STILL_REFUSED])
 def test_obs_flags_of_later_tiers_stay_refused(tmp_path, extra):
-    """The observability flags the in-process tier does not run end the
-    run before any work, naming ROADMAP item 14."""
+    """The observability flags the port does not run end the run before
+    any work, naming ROADMAP item 14; the federation's (``OBS_LIFTED``)
+    pass every refusal, as in the JAX CLI (they act on ``--fed_role``
+    runs: ``tests/test_torch_port_fed_runtime.py``)."""
     argv = ["--algo", "salientgrads"] + SMALL + ["--obs", "1"] + extra + [
         "--results_dir", str(tmp_path / "res"), "--log_dir",
         str(tmp_path / "log"), "--device", "cpu"]
+    if extra[0] in OBS_LIFTED:
+        args = tconfig.parse_args(argv)
+        trunner.refuse_unported(args, "salientgrads")
+        assert vars(args)[extra[0][2:]] == vars(jconfig.parse_args(
+            argv[:-2]))[extra[0][2:]]
+        return
     with pytest.raises(SystemExit) as e:
         trunner.main(argv)
     msg = str(e.value.code)
