@@ -33,7 +33,8 @@ Phases, each printing one JSON line:
    naming the path and tile its wrapper chose and ptxas's registers for the
    8-client kernel. The stem forward's record also holds its
    persistent launch (grid, tiles, threads, shared memory, registers) and
-   a second launch on the same inputs, bitwise equal to the first. A
+   a second launch on the same inputs, bitwise equal to the first, and the
+   same rule and timings at the serving worker's one volume (B = 1). A
    ``bound_share`` line follows: each kernel's bound over its measured
    time.
 3. parity  — a narrow model, one SalientGrads round on the CPU (plain
@@ -255,7 +256,26 @@ Phases, each printing one JSON line:
    codecs; (d) the four codecs on a full-width delta: frame bytes against
    the wire-cost model, encode and decode ms (see ``fed_path``). At most
    ``FED_PHASE_LIMIT_S``.
-21. obs    — the in-process observability tier on the main configuration
+21. serve  — the serving plane (``neuroimagedisttraining_torch/serve``) on
+   the fed phase's FedAvg configuration with int8 pushes, a disk
+   population of personal deltas with 4 hot clients and micro-batches of
+   16 (see ``serve_path``): (a) the loopback run, the publisher training 2
+   rounds in the calling thread and pushing v0-v2 while the worker answers
+   256 Zipf requests at 200 rps in its own threads: every request served,
+   every push adopted and acked, the served model bitwise its checkpoint,
+   the tick lines' gauges and SLO health, the drain record, ``/metrics``
+   scraped, every ``adopt`` span under a ``publish`` span, launches exact
+   (the publisher's steps and probe, the worker's forwards); (b) 16
+   requests' answers at the final version: a micro-batch bitwise one
+   request at a time, the card within ``SERVE_CPU_RTOL`` of the CPU's plain
+   versions; the 256 requests again with no training beside them; a B = 1
+   answer's wall and device ms; (c) the publisher and the worker as two
+   processes over TCP: exit codes 0, the gate bitwise, the push frames
+   equal to (a)'s, each process's peak memory; (d) ``--serve_workers 2``:
+   both workers' models bitwise at every version, equal ack watermarks. At
+   most ``SERVE_PHASE_LIMIT_S``. The kernels phase also holds ``stem_fwd``
+   at the worker's B = 1 (``at_serve_b1``).
+22. obs    — the in-process observability tier on the main configuration
    (see ``obs_path``): (a) SNIP and 2 eager rounds with the session and
    the round numerics on, bitwise obs off; (b) a fused block of the same
    rounds, its numerics bitwise the eager rounds', no more host syncs in
@@ -271,7 +291,7 @@ Phases, each printing one JSON line:
    ``scripts/torch_obs_mesh_trace.py`` holds the collectives' device share
    on several cards); (g) the CLI on ``small3dcnn`` with every lifted obs
    flag: every artifact written, the run bitwise its obs-off twin.
-22. bench  — ``bench_torch.main()``, the port's bench of the headline
+23. bench  — ``bench_torch.main()``, the port's bench of the headline
    workload (SNIP; the Python loop: 1 + 10 rounds without eval, 1 + 8 with
    the eval every round, each from a clone of one state; the fused
    spelling: blocks of 10 and of 8 rounds with the eval, each after its
@@ -838,6 +858,45 @@ def check_stem_kernels(dev, g, model):
                         "stem_fwd", ""), "stem_fwd_mma_kernel")),
         bound_at_cuda_core_ms=2.0 * macs / CUDA_CORE_OPS_PER_S * 1e3,
         shape=f"x {list(x.shape)} bf16, F={f}, {macs} multiply-adds")
+
+    # -- the serving worker's shape: one volume (B = 1), the same rule -------
+    x1 = x[:1]
+    conv1, _, _, _ = kernels.stem_fwd(x1, w, None, pool=False, stats=False)
+    want1, _, _, _ = kernels.stem_fwd_plain(x1, w, None, pool=False,
+                                            stats=False)
+    terms1, _, _, _ = kernels.stem_fwd_plain(x1.abs(), w.abs(), None,
+                                             pool=False, stats=False)
+    agree1 = _zs_agreement("stem_fwd B=1", conv1, want1, terms1)
+    z1, pool1, s11, s21 = kernels.stem_fwd(x1, w, bias)
+    _bitwise_or_raise("stem_fwd B=1 bias epilogue", [z1], [conv1 + bias])
+    _bitwise_or_raise("stem_fwd B=1 pooled", [pool1], [F.max_pool3d(
+        z1.permute(0, 4, 1, 2, 3), 3, 3).permute(0, 2, 3, 4, 1)])
+    t1, t2 = kernels.stem_stats_plain(z1)
+    s11_rel = float(((s11.double() - t1.double()).abs()
+                     / z1.double().abs().sum((1, 2, 3))).max())
+    s21_rel = float(((s21.double() - t2.double()).abs()
+                     / t2.double()).max())
+    if s11_rel > 1e-5 or s21_rel > 1e-5:
+        raise AssertionError(f"stem_fwd B=1 sums: s1 {s11_rel}, s2 {s21_rel}")
+    _bitwise_or_raise("stem_fwd B=1 repeat launch",
+                      list(kernels.stem_fwd(x1, w, bias)),
+                      [z1, pool1, s11, s21])
+    _, d1, h1, w1, _ = z1.shape
+    macs1 = d1 * h1 * w1 * f * 216
+    b_ms, b_by = bound(2.0 * (x1.numel() + z1.numel() + pool1.numel()
+                              + w.numel() + f) + 8.0 * f, 2.0 * macs1,
+                       TENSOR_CORE_BF16_OPS_PER_S)
+    out["stem_fwd"]["at_serve_b1"] = dict(
+        max_abs_err=agree1["max_abs_err"],
+        ms=device_ms(lambda: kernels.stem_fwd(x1, w, bias)),
+        plain_ms=device_ms(lambda: kernels.stem_fwd_plain(x1, w, bias),
+                           reps=10),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, zs_agreement=agree1,
+        s1_rel_err_over_terms=s11_rel, s2_rel_err=s21_rel,
+        repeat_launch_bitwise=True,
+        launch=kernels.stem_fwd_config(1, d1 + 2, h1 + 2, w1 + 2, f),
+        shape=f"x {list(x1.shape)} bf16, F={f}, {macs1} multiply-adds")
+    del conv1, want1, terms1, z1, pool1
 
     # -- the narrow f32 model's stem (TF32 off) -------------------------------
     nss = phased_sample_shape((69, 69, 69))
@@ -6587,6 +6646,410 @@ def fed_path(dev):
     return {"fed": launches, "fed/buffered": launches_c}
 
 
+#: the serve phase: the loopback run's requests and rate, the fan-out's
+#: requests, the requests of (b)'s served-answer checks, the B = 1 timings'
+#: repeats, the time limits of the TCP pair and of the phase
+SERVE_REQUESTS, SERVE_RPS, SERVE_FANOUT_REQUESTS = 256, 200.0, 64
+SERVE_CHECK_REQUESTS, SERVE_B1_REPS = 16, 20
+SERVE_TCP_TIMEOUT_S, SERVE_PHASE_LIMIT_S = 240, 180.0
+#: (b)'s limit, norm-wise over the 16 requests' logits, of the card's
+#: answers against the CPU's plain versions: bf16 products summed in other
+#: orders (3.1e-2 is eight roundings of 2^-8; the reading was 1.15e-2 in
+#: the first run on the H100); on the card a micro-batch's answers are
+#: bitwise one request's at a time (cuDNN deterministic)
+SERVE_CPU_RTOL = 3.1e-2
+SERVE_SLO = "p99:serve_latency_ms<50@w=200"
+#: the serving gauges every tick line carries
+SERVE_TICK_KEYS = ("serve_latency_ms", "serve_batch_fill", "serve_rps",
+                   "serve_queue_depth", "serve_hit_rate",
+                   "serve_model_version", "serve_model_staleness_s",
+                   "slo_health")
+
+
+def _serve_argv(tmp: str, sub: str, *extra) -> list:
+    """The serve phase's command line: the fed phase's FedAvg configuration
+    (:func:`_fed_argv`) with int8 pushes, a disk population with 4 hot
+    clients, micro-batches of 16 lingering 2 ms, ``SERVE_RPS``."""
+    return _fed_argv(tmp, sub, "--serve_wire", "int8", "--serve_store",
+                     "disk", "--store_hot_clients", "4", "--serve_batch",
+                     "16", "--serve_linger_ms", "2", "--serve_rps",
+                     str(SERVE_RPS), *extra)
+
+
+def _serve_records(jsonl: str):
+    """(the tick records, every record) of a serving stream."""
+    with open(jsonl) as f:
+        recs = [json.loads(ln) for ln in f if ln.strip()]
+    return ([r for r in recs if isinstance(r.get("round"), int)
+             and r["round"] >= 0], recs)
+
+
+def _quantiles(xs) -> dict:
+    """Nearest-rank p50 and p99 (and the count and the max) of ``xs``."""
+    xs = sorted(xs)
+    if not xs:
+        return {"n": 0}
+
+    def q(p):
+        return xs[max(0, math.ceil(p * len(xs)) - 1)]
+
+    return {"n": len(xs), "p50": q(0.5), "p99": q(0.99), "max": xs[-1]}
+
+
+def _tick_summary(ticks) -> dict:
+    """Latency quantiles over the ticks' ``serve_latency_ms`` (each tick's
+    slowest request, what the SLO observes), its requests and the sustained
+    rate from the first tick's requests to the last."""
+    lat = _quantiles([r["serve_latency_ms"] for r in ticks])
+    return {"ticks": len(ticks),
+            "requests": sum(r["serve_requests"] for r in ticks),
+            "latency_ms": lat,
+            "mean_latency_ms": statistics.fmean(
+                r["serve_latency_mean_ms"] for r in ticks) if ticks else None,
+            "batch_fill": statistics.fmean(
+                r["serve_batch_fill"] for r in ticks) if ticks else None}
+
+
+def _free_ports(n: int) -> list:
+    import socket
+
+    socks, ports = [], []
+    for _ in range(n):
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        socks.append(s)
+        ports.append(s.getsockname()[1])
+    for s in socks:
+        s.close()
+    return ports
+
+
+def serve_path(dev):
+    """The serving plane (``neuroimagedisttraining_torch/serve``) on the fed
+    phase's FedAvg configuration (:func:`_serve_argv`): (a) the loopback run
+    through ``serve.runtime.run_serving`` (the CLI's entry): the publisher
+    trains 2 rounds in this thread and pushes v0 (full) and v1, v2 (int8
+    deltas) while the worker answers ``SERVE_REQUESTS`` Zipf requests at
+    ``SERVE_RPS`` in threads of its own against a disk population, probing
+    every 4 ticks, with ``--xtrace``, a live SLO and ``/metrics`` (scraped
+    after the last round): every request served, every push adopted and
+    acked, the served model bitwise its checkpoint, the tick lines'
+    gauges, the drain record, every ``adopt`` span under a ``publish`` span,
+    the launches exact (the worker counts its forwards); (b) the served
+    answers: 16 requests of (a)'s trace at its final version, the
+    micro-batch against one request at a time on the card and against the
+    CPU's plain versions, then (a)'s 256 requests again at ``SERVE_RPS``
+    with no training beside them, and the worker's B = 1 answer timed; (c)
+    ``--serve_backend tcp``: the publisher and the worker as two processes
+    on the card, exit codes 0, the worker's gate bitwise, the push frames
+    equal to (a)'s (their digests); (d) ``--serve_workers 2``, 1 round, 64
+    requests: both workers adopt bitwise-equal models at every version,
+    equal ack watermarks. cuDNN deterministic, as the CLI sets it. At most
+    ``SERVE_PHASE_LIMIT_S``. Returns the launches of (a) and (d)."""
+    import copy
+    import os
+    import tempfile
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from neuroimagedisttraining_torch.comm.local import LocalRouter
+    from neuroimagedisttraining_torch.experiments import config, runner
+    from neuroimagedisttraining_torch.models import make_apply_fn
+    from neuroimagedisttraining_torch.obs import prom, xtrace
+    from neuroimagedisttraining_torch.ops import kernels
+    from neuroimagedisttraining_torch.serve import (publisher, runtime,
+                                                    traffic)
+    from neuroimagedisttraining_torch.serve.worker import PERSONAL_FIELD
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    steps = FED_ROUNDS * N_CLIENTS * STEPS
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) the loopback run, launches counted
+        trace_a = os.path.join(tmp, "a.trace.json")
+        args = config.parse_args(_serve_argv(
+            tmp, "a", "--serve_role", "worker", "--serve_backend", "local",
+            "--comm_round", str(FED_ROUNDS), "--serve_requests",
+            str(SERVE_REQUESTS), "--xtrace", "1", "--serve_probe_every",
+            "4", "--obs_prom_port", "-1", "--slo_spec", SERVE_SLO,
+            "--serve_trace", trace_a))
+        runner.seed_everything(args.seed)
+        t0 = time.perf_counter()
+        algo, _ = runner.build_algorithm(args, "fedavg")
+        torch.cuda.synchronize(dev)
+        build_s = time.perf_counter() - t0
+        servers, mid = [], {}
+        start_prom, train = prom.maybe_prom_server, runtime._train_and_push
+
+        def capture(fn, port):
+            servers.append(start_prom(fn, port))
+            return servers[-1]
+
+        def train_then_scrape(*a, **k):
+            t0 = time.perf_counter()
+            out = train(*a, **k)
+            mid["train_s"] = time.perf_counter() - t0
+            with urllib.request.urlopen(servers[0].url, timeout=10) as r:
+                mid["content_type"] = r.headers["Content-Type"]
+                mid["samples"] = prom.parse_prom_text(r.read().decode())
+            return out
+
+        prom.maybe_prom_server = capture
+        runtime._train_and_push = train_then_scrape
+        torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            out = runtime.run_serving(args, "fedavg", algo=algo)
+        finally:
+            prom.maybe_prom_server = start_prom
+            runtime._train_and_push = train
+        torch.cuda.synchronize(dev)
+        run_s = time.perf_counter() - t0
+        launches = kernels.snapshot_launches()
+        peak_a = torch.cuda.max_memory_allocated(dev)
+        s = out["serve"]
+        ticks, recs = _serve_records(s["jsonl"])
+        # the ticks served before the last round ended (the scrape's count)
+        n_during = int(mid["samples"].get("serve_batches_total", 0))
+        doc = xtrace.load_doc(s["merged_trace"])
+        spans = xtrace.span_index(doc)
+        adopts = [e for e in spans.values() if e["name"] == "adopt"]
+        parents = [spans.get(str(e["args"].get("parent")), {}).get("name")
+                   for e in adopts]
+        want = {k: 0 for k in launches}
+        want.update(masked_sgd=steps, stem_bwd=steps, weighted_sum=FED_ROUNDS,
+                    # the publisher's steps and its dropout probe, the
+                    # worker's forwards (warm-up, one a client of a
+                    # micro-batch, the probes)
+                    stem_fwd=steps + 1 + s["forwards"])
+        rec_a = {
+            "phase": "serve", "part": "a_loopback", "algo_build_s": build_s,
+            "run_s": run_s, "train_s": mid["train_s"],
+            "requests": s["requests"], "batches": s["batches"],
+            "forwards": s["forwards"], "pushes_adopted": s["pushes_adopted"],
+            "model_version": s["model_version"],
+            "acked_version": s["acked_version"],
+            "bit_identical": s["bit_identical"], "rps": s["rps"],
+            "wall_s": s["wall_s"], "hit_rate": s["hit_rate"],
+            "during_training": _tick_summary(ticks[:n_during]),
+            "after_training": _tick_summary(ticks[n_during:]),
+            "adopt_lag_ms": sorted({r["serve_adopt_lag_ms"] for r in ticks
+                                    if "serve_adopt_lag_ms" in r}),
+            "probe_acc": [r["serve_probe_acc"] for r in ticks
+                          if "serve_probe_acc" in r],
+            "push_bytes": s["push_bytes"], "push_digests": s["push_digests"],
+            "bytes_pushed": s["bytes_pushed"], "slo_health":
+                (s["slo"] or {}).get("health"),
+            "adopt_parents": parents, "orphan_spans":
+                xtrace.validate_parentage(doc),
+            "prom_content_type": mid["content_type"],
+            "prom_samples": len(mid["samples"]),
+            "peak_mem_bytes": peak_a, "launches": launches,
+            "want_launches": want}
+        emit(rec_a)
+        if not (s["requests"] == SERVE_REQUESTS and s["pushes_adopted"] == 3
+                and s["model_version"] == s["acked_version"] == FED_ROUNDS
+                and s["bit_identical"] is True):
+            raise AssertionError(f"serve (a): {rec_a}")
+        if not (ticks and all(k in ticks[-1] for k in SERVE_TICK_KEYS)
+                and any(r.get("serve_drained") for r in recs)
+                and rec_a["probe_acc"]):
+            raise AssertionError("serve (a): the tick lines lack the serving "
+                                 f"gauges or the drain record: {ticks[-1:]}")
+        if not (len(adopts) == 3 and parents == ["publish"] * 3
+                and not rec_a["orphan_spans"]):
+            raise AssertionError(f"serve (a): adopt spans' parents {parents}")
+        if not (mid["content_type"] == prom.CONTENT_TYPE
+                and mid["samples"].get("serve_requests_total", 0) > 0):
+            raise AssertionError(f"serve (a): the /metrics scrape {mid}")
+        if launches != want:
+            raise AssertionError(f"serve (a) launches {launches}, want "
+                                 f"{want}")
+
+        # (b) the served answers at the final version; a window without
+        # training; the B = 1 answer
+        _, final = publisher.load_checkpoint(
+            publisher.checkpoint_path(s["ckpt_dir"], FED_ROUNDS))
+        reqs = traffic.trace_load(trace_a)
+        sub = reqs[:SERVE_CHECK_REQUESTS]
+        ids, smp = [c for c, _ in sub], [x for _, x in sub]
+        args_b = config.parse_args(_serve_argv(
+            tmp, "b", "--serve_role", "worker", "--serve_requests",
+            str(SERVE_REQUESTS)))
+        out_b = os.path.join(tmp, "b")
+        os.makedirs(out_b, exist_ok=True)
+        session = runtime._make_session(args_b, "fedavg", "b-serve", out_b,
+                                        catalog=False)
+        w = runtime._make_worker(args_b, algo, LocalRouter(2).manager(1),
+                                 session, out_b, final)
+        w.warmup()
+        batched = w.serve_logits(ids, smp)
+        single = torch.cat([w.serve_logits([c], [x]) for c, x in sub])
+        card_rel = float((batched - single).norm() / single.norm())
+        t0 = time.perf_counter()
+        cpu_apply = make_apply_fn(copy.deepcopy(w.apply_fn.model).cpu(),
+                                  algo.compute_dtype,
+                                  channel_inject=algo.channel_inject)
+        rows = w.store.gather(PERSONAL_FIELD, sorted(set(ids)))
+        cpu = torch.empty_like(batched)
+        with torch.inference_mode():
+            for i, c in enumerate(sorted(set(ids))):
+                at = [j for j, cj in enumerate(ids) if cj == c]
+                params = {k: torch.from_numpy(np.array(final[k])) +
+                          rows[k][i] for k in final}
+                x = algo.data.x_train[c][torch.as_tensor(
+                    [smp[j] for j in at], device=dev)].cpu()
+                cpu[at] = cpu_apply(params, x, False, None)
+        cpu_s = time.perf_counter() - t0
+        cpu_rel = float((batched - cpu).norm() / cpu.norm())
+        # (a)'s requests again at SERVE_RPS, nothing training beside them
+        loop = threading.Thread(target=w.serve_loop, daemon=True)
+        loop.start()
+        t0 = time.perf_counter()
+        runtime._pump_traffic(w, reqs, SERVE_RPS)
+        w._on_finish(None)
+        if not w.drained.wait(60) or w.error is not None:
+            raise AssertionError(f"serve (b): the worker did not drain: "
+                                 f"{w.error!r}")
+        quiet_s = time.perf_counter() - t0
+        session.finish()
+        w.finish()
+        quiet, _ = _serve_records(session.jsonl_path)
+        # the B = 1 answer: the request's wall time (row gather, the copy
+        # to the card, the sum, the forward, the logits back), and the
+        # forward alone in device time
+        c1, x1 = sub[0]
+        walls = []
+        for _ in range(SERVE_B1_REPS):
+            t0 = time.perf_counter()
+            w.serve_logits([c1], [x1])
+            walls.append((time.perf_counter() - t0) * 1e3)
+        row = w.store.gather(PERSONAL_FIELD, [c1], device=dev)
+        with torch.inference_mode():
+            p1 = {k: w._g_dev[k] + row[k][0] for k in w._g_dev}
+            xb = algo.data.x_train[c1][x1:x1 + 1]
+            fwd_ms = device_ms(lambda: w._forward(p1, xb), reps=SERVE_B1_REPS)
+        rec_b = {
+            "phase": "serve", "part": "b_answers",
+            "requests": [list(r) for r in sub],
+            "card_batched_vs_single_rel": card_rel,
+            "card_bitwise": bool(torch.equal(batched, single)),
+            "card_vs_cpu_rel": cpu_rel, "cpu_s": cpu_s,
+            "cpu_limit": SERVE_CPU_RTOL,
+            "logits": batched[:, 0].tolist(),
+            "quiet_window": {**_tick_summary(quiet), "seconds": quiet_s,
+                             "rps": SERVE_REQUESTS / quiet_s,
+                             "hit_rate": w.drain_record()[
+                                 "serve_hit_rate_total"]},
+            "b1_wall_ms": _quantiles(walls), "b1_forward_device_ms": fwd_ms}
+        emit(rec_b)
+        if not (rec_b["card_bitwise"] and cpu_rel <= SERVE_CPU_RTOL
+                and bool(torch.isfinite(batched).all())
+                and w.requests_served == SERVE_REQUESTS):
+            raise AssertionError(f"serve (b): {rec_b}")
+        del w, rows
+
+        # (c) the publisher and the worker as two processes over TCP
+        ports = _free_ports(2)
+        out_c = os.path.join(tmp, "c", "out")
+        common = _serve_argv(
+            tmp, "c", "--serve_backend", "tcp", "--serve_endpoints",
+            ",".join(f"127.0.0.1:{p}" for p in ports), "--comm_round",
+            str(FED_ROUNDS), "--serve_requests", str(SERVE_REQUESTS),
+            "--serve_out", out_c, "--slo_spec", SERVE_SLO)
+        procs, logs = {}, {}
+        t0 = time.perf_counter()
+        try:
+            for role in ("worker", "publisher"):
+                logs[role] = open(os.path.join(tmp, f"c_{role}.log"), "w")
+                procs[role] = subprocess.Popen(
+                    [sys.executable, "-m",
+                     "neuroimagedisttraining_torch.experiments"] + common +
+                    ["--serve_role", role], stdout=logs[role],
+                    stderr=subprocess.STDOUT, cwd=root)
+            rcs = {role: p.wait(timeout=SERVE_TCP_TIMEOUT_S)
+                   for role, p in procs.items()}
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for f in logs.values():
+                f.close()
+        tcp_s = time.perf_counter() - t0
+        if any(rcs.values()):
+            tails = {}
+            for role in procs:
+                with open(os.path.join(tmp, f"c_{role}.log")) as f:
+                    tails[role] = f.read()[-3000:]
+            raise AssertionError(f"serve (c): exit codes {rcs}: {tails}")
+        summ = {}
+        for role in procs:
+            with open(os.path.join(
+                    out_c, f"serve_summary_{role}.json")) as f:
+                summ[role] = json.load(f)
+        sw, sp = summ["worker"], summ["publisher"]
+        tcp_ticks, _ = _serve_records(sw["jsonl"])
+        rec_c = {
+            "phase": "serve", "part": "c_tcp", "seconds": tcp_s, "rcs": rcs,
+            "requests": sw["requests"], "pushes_adopted": sw["pushes_adopted"],
+            "bit_identical": sw["bit_identical"], "rps": sw["rps"],
+            "hit_rate": sw["hit_rate"], "ticks": _tick_summary(tcp_ticks),
+            "frames_equal_a": sp["push_digests"] == s["push_digests"],
+            "push_bytes": sp["push_bytes"],
+            "peak_mem_bytes": {"publisher": sp.get("peak_mem_bytes"),
+                               "worker": sw.get("peak_mem_bytes")},
+            "publisher_wall_s": sp["wall_s"]}
+        emit(rec_c)
+        if not (sw["bit_identical"] is True and sw["pushes_adopted"] == 3
+                and sw["requests"] == SERVE_REQUESTS
+                and rec_c["frames_equal_a"]):
+            raise AssertionError(f"serve (c): {rec_c}")
+
+        # (d) two workers fanned out from one publisher
+        args_d = config.parse_args(_serve_argv(
+            tmp, "d", "--serve_role", "worker", "--serve_backend", "local",
+            "--serve_workers", "2", "--comm_round", "1", "--serve_requests",
+            str(SERVE_FANOUT_REQUESTS)))
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        sd = runtime.run_serving(args_d, "fedavg", algo=algo)["serve"]
+        torch.cuda.synchronize(dev)
+        fan_s = time.perf_counter() - t0
+        launches_d = kernels.snapshot_launches()
+        ws = sd["workers"]
+        want_d = {k: 0 for k in launches_d}
+        want_d.update(masked_sgd=steps // FED_ROUNDS,
+                      stem_bwd=steps // FED_ROUNDS, weighted_sum=1,
+                      stem_fwd=steps // FED_ROUNDS + sum(
+                          x["forwards"] for x in ws))
+        rec_d = {"phase": "serve", "part": "d_fanout", "seconds": fan_s,
+                 "workers": ws, "acked_versions": sd["acked_versions"],
+                 "launches": launches_d, "want_launches": want_d}
+        emit(rec_d)
+        if not (len(ws) == 2 and all(x["bit_identical"] is True
+                                     and x["pushes_adopted"] == 2
+                                     for x in ws)
+                and ws[0]["adopt_digests"] == ws[1]["adopt_digests"]
+                and sorted(ws[0]["adopt_digests"]) == ["0", "1"]
+                and sd["acked_versions"] == {"1": 1, "2": 1}):
+            raise AssertionError(f"serve (d): {rec_d}")
+        if launches_d != want_d:
+            raise AssertionError(f"serve (d) launches {launches_d}, want "
+                                 f"{want_d}")
+    del algo
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    if phase_s > SERVE_PHASE_LIMIT_S:
+        raise AssertionError(f"serve phase took {phase_s:.1f} s, over its "
+                             f"{SERVE_PHASE_LIMIT_S} s")
+    return {"serve": launches, "serve/fanout": launches_d}
+
+
 #: the obs phase's eager rounds and fused block
 OBS_ROUNDS = 2
 #: the device-lane kernels the obs phase's profiled round must show, by a
@@ -7049,6 +7512,7 @@ def main() -> int:
     with _CudnnFlags():
         paths.update(timed("cli", cli_path))
         paths.update(timed("fed", fed_path))
+        paths.update(timed("serve", serve_path))
         paths.update(timed("obs", obs_path))
     paths.update(timed("bench", bench_path))
 

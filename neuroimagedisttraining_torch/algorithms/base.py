@@ -986,6 +986,8 @@ class FedAlgorithm(abc.ABC):
         self.clients_per_round = max(1, int(round(self.num_clients * frac)))
         self.compute_dtype = (getattr(torch, compute_dtype)
                               if compute_dtype is not None else None)
+        #: the apply appends the trailing channel axis (``--layout flat``)
+        self.channel_inject = bool(channel_inject)
         self.apply_fn = make_apply_fn(self.model, self.compute_dtype,
                                       channel_inject=channel_inject)
         self.eval_client = make_eval_fn(self.apply_fn, loss_type, eval_batch)

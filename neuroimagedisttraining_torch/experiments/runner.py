@@ -89,16 +89,9 @@ S2D_SPECS = {"3dcnn_s2d": (5, 0), "3dresnet_s2d": (3, 3),
 #: flag attribute -> ROADMAP item of the feature it drives, refused at any
 #: value but its default
 _UNPORTED = {
-    # 13: serving
-    "serve_role": 13, "serve_backend": 13, "serve_endpoints": 13,
-    "serve_requests": 13, "serve_rps": 13, "serve_batch": 13,
-    "serve_linger_ms": 13, "serve_zipf": 13, "serve_wire": 13,
-    "serve_push_every": 13, "serve_ckpt_dir": 13, "serve_out": 13,
-    "serve_trace": 13, "serve_replay": 13, "serve_store": 13,
-    "serve_timeout_s": 13, "serve_workers": 13, "serve_probe_every": 13,
-    # 14: observability, its offline tier and the Prometheus exporter (the
-    # in-process tier and the federation's xtrace and heartbeats run)
-    "obs_prom_port": 14, "obs_watch_every": 14, "obs_watch_color": 14,
+    # 14: observability's live watch (the in-process tier, the federation's
+    # xtrace and heartbeats and the Prometheus exporter run)
+    "obs_watch_every": 14, "obs_watch_color": 14,
     # 15: multi-process and spatial sharding
     "multihost": 15, "coordinator_address": 15, "num_processes": 15,
     "process_id": 15, "multihost_timeout_s": 15, "multihost_retries": 15,
@@ -328,7 +321,11 @@ def refuse_invalid(args: argparse.Namespace, algo_name: str) -> None:
                 "biased neighbor draw / TurboAggregate's interactive "
                 "share protocol); supported: fedavg, salientgrads, "
                 "ditto, local, dpsgd, dispfl(--static)")
-    if getattr(args, "slo_spec", "") and not getattr(args, "obs", 0):
+    # the serving and federation roles arm the SLO engine on their own
+    # streams, without the in-process obs session (as the JAX CLI does)
+    if getattr(args, "slo_spec", "") and not getattr(args, "obs", 0) \
+            and not getattr(args, "serve_role", "") \
+            and not getattr(args, "fed_role", ""):
         raise SystemExit(
             "--slo_spec rides the obs session (per-round record "
             "hook, events stream, registry); pass --obs 1")
@@ -1052,6 +1049,16 @@ def run_experiment(args: argparse.Namespace,
         resolve_device(getattr(args, "device", "cuda"))
     except RuntimeError as e:
         raise SystemExit(f"--device {args.device}: {e}")
+    if getattr(args, "serve_role", ""):
+        # the serving plane (serve/): the checkpoint-streaming inference
+        # worker / publisher pair, its own lifecycle, obs session and
+        # refusals; dispatched before the federation (the two roles refuse
+        # each other), as the JAX CLI does
+        from ..serve.runtime import run_serving
+
+        configure_console()
+        seed_everything(args.seed)
+        return run_serving(args, algo_name)
     if getattr(args, "fed_role", ""):
         # the distributed federation (fed/): its own round loop, obs
         # streams and lifecycle, dispatched before the mesh, checkpoint

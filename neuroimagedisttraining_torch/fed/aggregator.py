@@ -395,6 +395,23 @@ class FedAggregator(ServerManager):
         if self.writer is not None:
             self.writer.write(rec)
 
+    def prom_snapshot(self) -> Dict[str, Any]:
+        """The ``/metrics`` body source (``obs/prom.py``): the
+        process-global registry snapshot joined with this process's
+        comm counters and (heartbeats on) the live fleet gauges —
+        rendered at scrape time, so the scrape tracks the run."""
+        from ..obs import metrics as obs_metrics
+
+        snap = dict(obs_metrics.get_registry().snapshot())
+        for k, v in self.comm.counters.snapshot().items():
+            snap[k] = {"type": "counter", "value": float(v)}
+        if self.ledger is not None:
+            with self._ledger_lock:
+                fleet = self.ledger.fleet_gauges(time.monotonic())
+            for k, v in fleet.items():
+                snap[k] = {"type": "gauge", "value": float(v)}
+        return snap
+
     def execute(self) -> None:
         """Run the configured number of rounds (sync) or flushes
         (buffered), then tell every site to finish."""

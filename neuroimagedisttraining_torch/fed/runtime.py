@@ -282,6 +282,15 @@ def _fed_heartbeat(args, peer: str):
     return obs_live.HeartbeatConfig(peer, every)
 
 
+def _fed_prom(args, snapshot_fn):
+    """The aggregator's ``/metrics`` endpoint (``--obs_prom_port``;
+    0 = off, -1 = ephemeral port). Returns the server or ``None``."""
+    from ..obs import prom as obs_prom
+
+    return obs_prom.maybe_prom_server(
+        snapshot_fn, int(getattr(args, "obs_prom_port", 0) or 0))
+
+
 def _make_worker(args, comm, rank: int, world: int,
                  trainer: SiteTrainer, out_dir: str,
                  tracer: Optional[XTracer] = None) -> SiteWorker:
@@ -359,7 +368,7 @@ def _fold_obs(out_dir: str, n_sites: int) -> Dict[str, str]:
 
 
 def _finish_aggregator(args, agg: FedAggregator, algo, identity: str,
-                       out_dir: str) -> Dict[str, Any]:
+                       out_dir: str, prom_port: int = 0) -> Dict[str, Any]:
     trace_path = ""
     if agg.mode == "buffered" and agg.replay_trace is None:
         trace_path = getattr(args, "fed_trace", "") or \
@@ -397,6 +406,8 @@ def _finish_aggregator(args, agg: FedAggregator, algo, identity: str,
         fed["merged_trace"] = merged_trace
     if agg.slo is not None:
         fed["slo"] = agg.slo.summary()
+    if prom_port:
+        fed["prom_port"] = int(prom_port)
     if agg.ledger is not None:
         # the final fleet snapshot (+ a disk copy for `obs watch`):
         # per-peer liveness states, heartbeat frame counts, gauges
@@ -444,6 +455,7 @@ def _run_loopback(args, algo_name: str, identity: str, out_dir: str,
                            tracer=_fed_tracer(args, "aggregator"),
                            round_draws=round_draws, lock=trainer.lock)
     agg.run(background=True)
+    prom = _fed_prom(args, agg.prom_snapshot)
     try:
         agg.execute()
     finally:
@@ -454,7 +466,10 @@ def _run_loopback(args, algo_name: str, identity: str, out_dir: str,
             w.finish()
             _write_stream(w.tracer, args, out_dir)
         agg.finish()
-    return _finish_aggregator(args, agg, algo, identity, out_dir)
+        if prom is not None:
+            prom.close()
+    return _finish_aggregator(args, agg, algo, identity, out_dir,
+                              prom_port=prom.port if prom else 0)
 
 
 def _run_tcp(args, algo_name: str, identity: str,
@@ -474,11 +489,15 @@ def _run_tcp(args, algo_name: str, identity: str,
             args, TcpCommManager(0, endpoints), world, algo, out_dir,
             tracer=_fed_tracer(args, "aggregator"))
         agg.run(background=True)
+        prom = _fed_prom(args, agg.prom_snapshot)
         try:
             agg.execute()
         finally:
             agg.finish()
-        return _finish_aggregator(args, agg, algo, identity, out_dir)
+            if prom is not None:
+                prom.close()
+        return _finish_aggregator(args, agg, algo, identity, out_dir,
+                                  prom_port=prom.port if prom else 0)
     rank = int(getattr(args, "fed_site_rank", 0))
     if not 1 <= rank <= args.fed_sites:
         _refuse(f"--fed_site_rank {rank} outside [1, fed_sites="

@@ -48,7 +48,8 @@ def bf16_bits(a) -> np.ndarray:
     bits."""
     import torch
 
-    a = np.ascontiguousarray(np.asarray(a, np.float32))
+    # np.array, not np.ascontiguousarray: that one makes a 0-d leaf 1-d
+    a = np.array(a, np.float32, order="C")
     bits = torch.from_numpy(a).to(torch.bfloat16).view(torch.int16) \
         .numpy().view(np.uint16)
     nan = np.isnan(a)

@@ -119,7 +119,9 @@ def make_apply_fn(model: torch.nn.Module,
 
     ``channel_inject`` appends the trailing channel axis to the batch at
     apply time (the reference's per-batch ``x.unsqueeze(1)``): the cohort
-    of ``--layout flat`` is stored channel-less."""
+    of ``--layout flat`` is stored channel-less.
+
+    ``apply_fn.model`` is ``model``."""
 
     def _out(t):
         return t.float() if t.is_floating_point() else t
@@ -138,6 +140,9 @@ def make_apply_fn(model: torch.nn.Module,
             return [_out(t) for t in out]
         return _out(out)
 
+    #: the module it runs (``functional_call`` swaps its parameters while a
+    #: call runs: two threads must not share one)
+    apply_fn.model = model
     return apply_fn
 
 

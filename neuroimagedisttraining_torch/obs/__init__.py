@@ -31,9 +31,14 @@
   for the federation (``--xtrace``).
 * :mod:`~.live` — in-band heartbeats and the fleet ledger of the
   federation's aggregator (``--obs_heartbeat_every``).
+* :mod:`~.prom` — the Prometheus ``/metrics`` exposition of a registry
+  snapshot (``--obs_prom_port``: the federation's aggregator, the serving
+  worker).
+* :mod:`~.diff` — the cross-run diff engine and the bit-level parameter
+  comparator (the serving plane's bit-identity gate).
 
-The offline tier (``obs analyze/report/diff``), the live watch and the
-Prometheus exporter are not ported.
+The offline tier's command line (``obs analyze/report/diff``) and the live
+watch are not ported.
 
 Nothing here enters run or checkpoint identity, and with ``--obs`` off
 every hook is a no-op (bit-identical to the obs-off run).
@@ -43,6 +48,7 @@ from . import (
     comm,
     compile,
     devtrace,
+    diff,
     events,
     export,
     health,
@@ -50,6 +56,7 @@ from . import (
     memory,
     metrics,
     numerics,
+    prom,
     recorder,
     regress,
     slo,
@@ -57,6 +64,6 @@ from . import (
     xtrace,
 )
 
-__all__ = ["catalog", "comm", "compile", "devtrace", "events", "export",
-           "health", "live", "memory", "metrics", "numerics", "recorder",
-           "regress", "slo", "trace", "xtrace"]
+__all__ = ["catalog", "comm", "compile", "devtrace", "diff", "events",
+           "export", "health", "live", "memory", "metrics", "numerics",
+           "prom", "recorder", "regress", "slo", "trace", "xtrace"]

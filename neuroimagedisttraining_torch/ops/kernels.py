@@ -14,7 +14,10 @@ Every wrapper here:
   there is no fallback;
 * adds one to ``LAUNCHES[name]`` for each call into the C entry that
   launched work on the card, and nowhere else. A CUDA graph's replay of
-  captured launches adds them through :func:`add_launches`.
+  captured launches adds them through :func:`add_launches`. Every read and
+  write of the counts holds one lock (:data:`_LAUNCH_LOCK`): the serving
+  worker launches from its own thread while the training thread does, and
+  an unguarded ``+= 1`` on a dict item can lose a count.
 
 One threshold "launch" is one search: the memset of its scratch
 (``torch.zeros``) and three radix digit passes on the stream (see
@@ -34,6 +37,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, List, Sequence, Tuple
@@ -73,15 +77,19 @@ LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
 #: steps), also counted in ``LAUNCHES["masked_sgd"]``
 BRANCH_LAUNCHES: Dict[str, int] = {"masked_sgd_mask_grads": 0}
 
+#: held by every read and write of the two count dicts
+_LAUNCH_LOCK = threading.Lock()
+
 _LIBS: Dict[str, ctypes.CDLL] = {}
 #: nvcc's stderr (ptxas register/spill report) per kernel, from the last build
 BUILD_LOG: Dict[str, str] = {}
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, BRANCH_LAUNCHES):
-        for name in counts:
-            counts[name] = 0
+    with _LAUNCH_LOCK:
+        for counts in (LAUNCHES, BRANCH_LAUNCHES):
+            for name in counts:
+                counts[name] = 0
 
 
 def _counter(name: str) -> Dict[str, int]:
@@ -90,13 +98,15 @@ def _counter(name: str) -> Dict[str, int]:
 
 def snapshot_launches() -> Dict[str, int]:
     """Every count of :data:`LAUNCHES` and :data:`BRANCH_LAUNCHES`."""
-    return {**LAUNCHES, **BRANCH_LAUNCHES}
+    with _LAUNCH_LOCK:
+        return {**LAUNCHES, **BRANCH_LAUNCHES}
 
 
 def restore_launches(snapshot: Dict[str, int]) -> None:
     """Set the counts back to a :func:`snapshot_launches`."""
-    for name, n in snapshot.items():
-        _counter(name)[name] = n
+    with _LAUNCH_LOCK:
+        for name, n in snapshot.items():
+            _counter(name)[name] = n
 
 
 def add_launches(counts: Dict[str, int]) -> None:
@@ -104,8 +114,15 @@ def add_launches(counts: Dict[str, int]) -> None:
     the launches a CUDA graph replays, which pass through no wrapper (the
     capture counted them, then took them back: a capture queues no
     work)."""
-    for name, n in counts.items():
-        _counter(name)[name] += n
+    with _LAUNCH_LOCK:
+        for name, n in counts.items():
+            _counter(name)[name] += n
+
+
+def _count(name: str) -> None:
+    """One launch of ``name`` (a kernel or a branch)."""
+    with _LAUNCH_LOCK:
+        _counter(name)[name] += 1
 
 
 # -- build ------------------------------------------------------------------
@@ -324,9 +341,9 @@ def fused_masked_sgd_step(params: List[torch.Tensor],
                 _sizes(ps), lr_arg, float(momentum), float(wd),
                 int(mask_grads), _stream(dev))
         _check("masked_sgd", rc)
-        LAUNCHES["masked_sgd"] += 1
+        _count("masked_sgd")
         if mask_grads:
-            BRANCH_LAUNCHES["masked_sgd_mask_grads"] += 1
+            _count("masked_sgd_mask_grads")
 
 
 # -- threshold ----------------------------------------------------------------
@@ -369,7 +386,7 @@ def threshold_topk(av: torch.Tensor, k: int) -> torch.Tensor:
         av.data_ptr(), c, n, int(k), scratch.data_ptr(), out.data_ptr(),
         blocks, _stream(dev))
     _check("threshold", rc)
-    LAUNCHES["threshold"] += 1
+    _count("threshold")
     return out
 
 
@@ -396,7 +413,7 @@ def fused_score_mask(scores: List[torch.Tensor], norm: torch.Tensor,
         rc = fn(len(ss), _ptrs(ss), _ptrs(os_), _sizes(ss), norm.data_ptr(),
                 thr.data_ptr(), _stream(dev))
         _check("score_mask", rc)
-        LAUNCHES["score_mask"] += 1
+        _count("score_mask")
     return outs
 
 
@@ -427,7 +444,7 @@ def fused_mask_apply(tree: Dict[str, torch.Tensor],
         rc = fn(len(ps[sl]), _ptrs(ps[sl]), _ptrs(ks[sl]), _ptrs(outs[sl]),
                 _sizes(ps[sl]), _stream(dev))
         _check("mask_apply", rc)
-        LAUNCHES["mask_apply"] += 1
+        _count("mask_apply")
     return dict(zip(names, outs))
 
 
@@ -470,7 +487,7 @@ def fused_weighted_sum(stacked: Dict[str, torch.Tensor],
         rc = fn(len(xs[sl]), _ptrs(xs[sl]), _ptrs(outs[sl]), _sizes(outs[sl]),
                 flags, weights.data_ptr(), c, _stream(dev))
         _check("weighted_sum", rc)
-        LAUNCHES["weighted_sum"] += 1
+        _count("weighted_sum")
     return dict(zip(names, outs))
 
 
@@ -550,7 +567,7 @@ def fused_quantize_reduce(buckets: torch.Tensor, weights: torch.Tensor,
                 weights.data_ptr(), out.data_ptr(), c, nb, b, c0, chunk,
                 int(plan["vec"]), *plan["grid"], _stream(dev))
         _check("quantize_reduce", rc)
-    LAUNCHES["quantize_reduce"] += 1
+    _count("quantize_reduce")
     return out
 
 
@@ -686,7 +703,7 @@ def stem_fwd(x: torch.Tensor, w: torch.Tensor, bias=None, *,
         f, int(x.dtype == torch.bfloat16), int(pool), int(stats),
         _stream(dev))
     _check("stem_fwd", rc)
-    LAUNCHES["stem_fwd"] += 1
+    _count("stem_fwd")
     return zs, pooled, s1, s2
 
 
@@ -803,7 +820,7 @@ def stem_bwd(zs: torch.Tensor, pooled: torch.Tensor, g_pooled: torch.Tensor,
         None if dbias is None else dbias.data_ptr(), b, d, h, w, f,
         int(zs.dtype == torch.bfloat16), int(ties == "split"), _stream(dev))
     _check("stem_bwd", rc)
-    LAUNCHES["stem_bwd"] += 1
+    _count("stem_bwd")
     return (out, dbias) if bias_grad else out
 
 

@@ -188,6 +188,10 @@ LIFTED = {"--dataset cifar10": ["--model", "cnn_cifar10"],
 LIFTED_FED = ("--fed_role aggregator --fed_sites 2",
               "--fed_role aggregator --fed_sites 2 --fed_site_faults "
               "1:drop=1.0")
+#: the refusal lifted once the serving plane was ported (ROADMAP item 13):
+#: on SalientGrads both CLIs now reach the serving runtime, which refuses
+#: every algorithm but FedAvg with the same message
+LIFTED_SERVE = {"--serve_role worker": "serving deployment"}
 
 
 @pytest.fixture(scope="module")
@@ -220,12 +224,14 @@ def test_unported_flags_refused_before_any_work(tmp_path, request, extra,
     with pytest.raises(SystemExit) as e:
         trunner.main(argv + ["--device", "cpu"])
     msg = str(e.value.code)
-    if _refused_id(extra) in LIFTED_FED:
+    lifted = {**{k: "federated deployment" for k in LIFTED_FED},
+              **LIFTED_SERVE}.get(_refused_id(extra))
+    if lifted:
         with pytest.raises(SystemExit) as je:
             jrunner.main([str(tmp_path / "j") if a.startswith(str(tmp_path))
                           else a for a in argv])
         assert msg == str(je.value.code) and msg.startswith(
-            "federated deployment: algo 'salientgrads' unsupported"), msg
+            f"{lifted}: algo 'salientgrads' unsupported"), msg
         assert not (tmp_path / "res").exists()
         return
     assert msg.startswith(flag + ":") or msg.startswith(flag + " "), msg
@@ -242,23 +248,27 @@ def test_unported_flags_refused_before_any_work(tmp_path, request, extra,
 
 
 #: the observability flags of the later tiers: the offline tier's watch
-#: and the Prometheus exporter (still to port), the federation's live
-#: telemetry and cross-process traces (ported with fed/: ``OBS_LIFTED``)
+#: (still to port), the federation's live telemetry and cross-process
+#: traces (ported with fed/) and the Prometheus exporter (ported with
+#: serve/): ``OBS_LIFTED``
 OBS_STILL_REFUSED = [
     ["--obs_watch_every", "2"], ["--obs_watch_color", "0"],
     ["--xtrace", "1"], ["--xtrace_dir", "xt"],
     ["--obs_heartbeat_every", "1"], ["--obs_prom_port", "9000"],
 ]
-OBS_LIFTED = ("--xtrace", "--xtrace_dir", "--obs_heartbeat_every")
+OBS_LIFTED = ("--xtrace", "--xtrace_dir", "--obs_heartbeat_every",
+              "--obs_prom_port")
 
 
 @pytest.mark.parametrize("extra", OBS_STILL_REFUSED,
                          ids=[e[0] for e in OBS_STILL_REFUSED])
 def test_obs_flags_of_later_tiers_stay_refused(tmp_path, extra):
     """The observability flags the port does not run end the run before
-    any work, naming ROADMAP item 14; the federation's (``OBS_LIFTED``)
-    pass every refusal, as in the JAX CLI (they act on ``--fed_role``
-    runs: ``tests/test_torch_port_fed_runtime.py``)."""
+    any work, naming ROADMAP item 14; the federation's and the serving
+    plane's (``OBS_LIFTED``) pass every refusal, as in the JAX CLI (they
+    act on ``--fed_role`` and ``--serve_role`` runs:
+    ``tests/test_torch_port_fed_runtime.py``,
+    ``tests/test_torch_port_serve_runtime.py``)."""
     argv = ["--algo", "salientgrads"] + SMALL + ["--obs", "1"] + extra + [
         "--results_dir", str(tmp_path / "res"), "--log_dir",
         str(tmp_path / "log"), "--device", "cpu"]

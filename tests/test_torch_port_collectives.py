@@ -337,5 +337,6 @@ def test_port_modules_import_no_jax(module):
                                          "typing", "math", "ctypes",
                                          "hashlib", "os", "shutil",
                                          "subprocess", "time", "pathlib",
-                                         "abc", "logging", "dataclasses"), \
+                                         "abc", "logging", "dataclasses",
+                                         "threading"), \
                 (module, mod)
