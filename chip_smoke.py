@@ -291,7 +291,22 @@ Phases, each printing one JSON line:
    ``scripts/torch_obs_mesh_trace.py`` holds the collectives' device share
    on several cards); (g) the CLI on ``small3dcnn`` with every lifted obs
    flag: every artifact written, the run bitwise its obs-off twin.
-23. bench  — ``bench_torch.main()``, the port's bench of the headline
+23. offline — the offline observability tier (``python -m
+   neuroimagedisttraining_torch.obs``, see ``offline_path``) on the
+   artifacts of full-width runs: SalientGrads on AlexNet3DS2D through the
+   CLI (8 clients x 40 phased bf16 volumes, batch 8, 5 steps, bf16, 4
+   rounds in fused blocks of 2 with the eval after each, stragglers
+   injected, every in-process obs artifact and one profiled round), its
+   launches exact; its twin; a 2-round loopback federation with the
+   cross-process trace, heartbeats and site 2 straggling; then the nine
+   subcommands as processes, each exit code and output checked (the
+   analysis's stragglers the port's fault replay, its compile section the
+   port's kinds, the SLO replay the run's events, the rebuilt catalog the
+   live line, the twin identical, the report byte-identical twice, the
+   gate on a card history, site 2 the federation's straggler, a lane a
+   site), each one's seconds and the phase's beside the card's name and
+   power limit. At most ``OFFLINE_PHASE_LIMIT_S``.
+24. bench  — ``bench_torch.main()``, the port's bench of the headline
    workload (SNIP; the Python loop: 1 + 10 rounds without eval, 1 + 8 with
    the eval every round, each from a clone of one state; the fused
    spelling: blocks of 10 and of 8 rounds with the eval, each after its
@@ -7451,6 +7466,367 @@ def _obs_cli(tmp, runner):
     return rec, launches
 
 
+#: the offline phase (``offline_path``): the SalientGrads run's rounds and
+#: fused block (its graph captures are the compile section's events), its
+#: fault spec and SLO objective, the federation's straggle seconds, the
+#: subcommands' time limit and the phase's
+OFFLINE_ROUNDS, OFFLINE_BLOCK = 4, 2
+OFFLINE_FAULTS, OFFLINE_SLO = "straggle=0.4", "p99:train_loss<0.01"
+OFFLINE_FED_STRAGGLE_S = 1.5
+OFFLINE_CMD_TIMEOUT_S, OFFLINE_PHASE_LIMIT_S = 180, 300.0
+#: the card history's metric (rounds/s of a run's fused rounds)
+OFFLINE_METRIC = "salientgrads_rounds_per_sec_offline_3dcnn_s2d_8clients"
+
+
+def _offline_argv(tmp: str, sub: str) -> list:
+    """The offline phase's training run: SalientGrads on AlexNet3DS2D at
+    full width (``--dataset synthetic_volume``: 8 clients x 40 phased bf16
+    121x145x121 volumes, batch 8, 5 local steps, bf16 compute), SNIP 0.5,
+    ``OFFLINE_ROUNDS`` rounds in fused blocks of ``OFFLINE_BLOCK`` with the
+    eval after each, no fine-tune; stragglers injected; every in-process
+    obs artifact on (the round numerics, the wire model and its probe, an
+    SLO objective, the catalog, host spans, one profiled round)."""
+    out = f"{tmp}/{sub}"
+    return ["--algo", "salientgrads", "--dataset", "synthetic_volume",
+            "--layout", "s2d", "--model", "3dcnn",
+            "--client_num_in_total", str(N_CLIENTS), "--frac", "1.0",
+            "--batch_size", str(BATCH), "--epochs", "1",
+            "--comm_round", str(OFFLINE_ROUNDS), "--lr", "0.001",
+            "--compute_dtype", "bfloat16", "--final_finetune", "0",
+            "--fuse_rounds", str(OFFLINE_BLOCK),
+            "--fault_spec", OFFLINE_FAULTS, "--watchdog", "0",
+            "--obs", "1", "--obs_numerics", "1", "--obs_comm", "1",
+            "--obs_sample_every", "1", "--slo_spec", OFFLINE_SLO,
+            "--obs_catalog", "1", "--trace_dir", f"{out}/tr",
+            "--profile_dir", f"{out}/prof", "--results_dir",
+            f"{out}/results", "--log_dir", ""]
+
+
+def _offline_want() -> dict:
+    """The exact launches of one :func:`_offline_argv` run: SNIP (one
+    forward and backward a client, one threshold, one score mask); the
+    wire probe's 2 x 4 aggregates; the profiled round and its warm-up
+    round, eager (the first adds the dropout probe's forward); the fused
+    rounds, whose round graph and eval graph each run ``FUSED_WARMUPS``
+    times before their one capture; the final eval, eager (the fused loop
+    hands none back); each eval one forward a client and chunk, global and
+    personal; and the FLOP counters' two forwards of one zero sample
+    (``utils.flops.per_layer_flops``: the training cost's, once, and the
+    final model's inference cost)."""
+    from neuroimagedisttraining_torch.algorithms.base import FUSED_WARMUPS
+
+    steps = N_CLIENTS * STEPS
+    graphed = FUSED_WARMUPS + OFFLINE_ROUNDS
+    trained = (2 + graphed) * steps
+    evals = graphed + 1
+    return {"masked_sgd": trained, "threshold": 1, "score_mask": 1,
+            "stem_bwd": N_CLIENTS + trained,
+            "stem_fwd": (N_CLIENTS + 1 + trained
+                         + evals * 2 * N_CLIENTS * _eval_chunks() + 2),
+            "weighted_sum": 2 * 4 + 2 + graphed, "mask_apply": 0,
+            "quantize_reduce": 0}
+
+
+def _offline_fed_argv(tmp: str) -> list:
+    """The federation the ``xtrace`` and ``watch`` subcommands read: the
+    fed phase's FedAvg at full width, 2 sites, loopback sync,
+    ``FED_ROUNDS`` rounds with the cross-process trace and heartbeats on
+    and site 2 straggling ``OFFLINE_FED_STRAGGLE_S`` every round."""
+    return _fed_argv(tmp, "fed", "--fed_role", "aggregator", "--fed_mode",
+                     "sync", "--fed_sites", str(FED_SITES), "--xtrace", "1",
+                     "--obs_heartbeat_every", "0.3", "--fed_site_faults",
+                     f"2:straggle=1.0:{OFFLINE_FED_STRAGGLE_S}")
+
+
+def _obs_cmd(root: str, *argv) -> tuple:
+    """``python -m neuroimagedisttraining_torch.obs <argv>`` from the
+    checkout's root: ``(exit code, stdout, stderr, wall seconds)``."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "neuroimagedisttraining_torch.obs", *argv],
+        capture_output=True, text=True, cwd=root,
+        timeout=OFFLINE_CMD_TIMEOUT_S)
+    return (proc.returncode, proc.stdout, proc.stderr,
+            time.perf_counter() - t0)
+
+
+def _card() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip()
+
+
+def offline_path(dev):
+    """The offline observability tier (``python -m
+    neuroimagedisttraining_torch.obs``) on the artifacts of full-width
+    runs on the card. (a) :func:`_offline_argv` through the CLI
+    (``runner.main``), its counters zeroed just before and read just
+    after and held exactly (:func:`_offline_want`), then the same command
+    line into another results dir (the twin), then the federation of
+    :func:`_offline_fed_argv`. (b) The nine subcommands, each a process
+    (a further case of one, where there is, through the same ``main`` in
+    this process):
+    ``analyze`` (the analysis valid; its straggler rounds from the fault
+    trace exactly the rounds the port's replay of ``OFFLINE_FAULTS`` fires
+    in, at least one; the phases ``train_dispatch`` and
+    ``device_and_wait``; the compile section's entries and its total the
+    port's kinds' sum in ``metrics.json``; the profiled round's kernels
+    (``OBS_TRACE_KERNELS``) in the comm section; the numerics), ``slo``
+    (``--json`` exit 0, health and event count the run's; the replayed
+    events the run's ``events.jsonl`` line for line), ``tail --once`` (a
+    line a record, one a round), ``ls --rebuild`` (the rebuilt line the
+    live one but the fields a rebuild cannot know: the git SHA and the
+    trace path), ``diff`` (the twin: ``--expect identical`` 0,
+    ``--expect different`` 1), ``report`` twice (byte-identical, two
+    processes),
+    ``regress`` (against a card history of the two runs' rounds/s: 0 at
+    their median, 1 at twice the gate's allowed drop below it,
+    2 with no history),
+    ``xtrace --enforce`` (site 2 named the straggler of every round) and
+    ``watch --once`` (a lane per site). (c) Each subcommand's wall seconds
+    and the phase's, beside the card's name and power limit. At most
+    ``OFFLINE_PHASE_LIMIT_S``. Returns the launches of (a)'s three runs."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    import torch
+
+    from neuroimagedisttraining_torch.experiments import runner
+    from neuroimagedisttraining_torch.obs import __main__ as obs_main
+    from neuroimagedisttraining_torch.obs import analyze as obs_analyze
+    from neuroimagedisttraining_torch.obs import catalog as obs_catalog
+    from neuroimagedisttraining_torch.obs import compile as obs_compile
+    from neuroimagedisttraining_torch.obs import events as obs_events
+    from neuroimagedisttraining_torch.obs import export as obs_export
+    from neuroimagedisttraining_torch.obs import health as obs_health
+    from neuroimagedisttraining_torch.obs import regress as obs_regress
+    from neuroimagedisttraining_torch.ops import kernels
+    from neuroimagedisttraining_torch.robust import faults
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    card = _card()
+    out, rec, secs = {}, {"phase": "offline", "card": card}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) the run, its twin and the federation
+        runs, want = {}, _offline_want()
+        for sub in ("run", "twin"):
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            res = runner.main(_offline_argv(tmp, sub))
+            torch.cuda.synchronize(dev)
+            secs[f"train_{sub}"] = time.perf_counter() - t0
+            launches = dict(kernels.LAUNCHES)
+            out["offline" if sub == "run" else "offline/twin"] = launches
+            runs[sub] = res
+            if any(launches[k] != v for k, v in want.items()):
+                raise AssertionError(f"offline (a) {sub} launches "
+                                     f"{launches}, want {want}")
+        ident = runs["run"]["identity"]
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        fed = runner.main(_offline_fed_argv(tmp))
+        torch.cuda.synchronize(dev)
+        secs["train_fed"] = time.perf_counter() - t0
+        out["offline/fed"] = dict(kernels.LAUNCHES)
+        steps = FED_ROUNDS * N_CLIENTS * STEPS
+        want_fed = {"masked_sgd": steps, "stem_bwd": steps,
+                    "weighted_sum": FED_ROUNDS,
+                    "stem_fwd": steps + N_CLIENTS * _eval_chunks() + 1}
+        if any(out["offline/fed"][k] != v for k, v in want_fed.items()):
+            raise AssertionError(f"offline (a) fed launches "
+                                 f"{out['offline/fed']}, want {want_fed}")
+        fed_dir = fed["fed"]["out_dir"]
+        run_dir = os.path.dirname(runs["run"]["stat_path"])
+        twin_dir = os.path.dirname(runs["twin"]["stat_path"])
+        results = os.path.dirname(run_dir)
+        stream = os.path.join(run_dir, ident + ".obs.jsonl")
+        records = obs_export.read_jsonl(stream)
+        rounds = [r for r in records if r["round"] >= 0]
+        rec["a"] = {"identity": ident, "rounds": len(rounds),
+                    "round_time_s": [r["round_time_s"] for r in rounds],
+                    "train_loss": [r["train_loss"] for r in rounds],
+                    "launches": out["offline"], "fed_dir_files":
+                        sorted(os.listdir(fed_dir))}
+
+        # (b) the nine subcommands, each a process (timed); the further
+        # cases of a subcommand through the same ``main`` in this process
+        cmds = {}
+
+        def cmd(name, *argv, want=0):
+            code, so, se, s = _obs_cmd(root, *argv)
+            cmds[name] = {"argv": list(argv), "rc": code, "seconds": s}
+            if code != want:
+                raise AssertionError(
+                    f"offline (b) {name} {argv}: exit {code}, want {want}"
+                    f"\n{so[-2000:]}\n{se[-4000:]}")
+            return so
+
+        def again(*argv, want=0):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf), \
+                    contextlib.redirect_stderr(io.StringIO()):
+                code = obs_main.main(list(argv))
+            if code != want:
+                raise AssertionError(f"offline (b) {argv}: exit {code}, "
+                                     f"want {want}\n{buf.getvalue()[-2000:]}")
+            return buf.getvalue()
+
+        cmd("analyze", "analyze", run_dir, "--trace-dir",
+            os.path.join(tmp, "run", "tr"))
+        with open(os.path.join(run_dir, ident + ".analysis.json")) as f:
+            a = json.load(f)
+        obs_analyze.validate_analysis(a)
+        spec = faults.parse_fault_spec(OFFLINE_FAULTS)
+        fired = []
+        for r in range(OFFLINE_ROUNDS):
+            sel = obs_health.replay_client_indexes(r, N_CLIENTS, N_CLIENTS)
+            if faults.fault_trace_round(spec, 0, r, sel)["straggled"].any():
+                fired.append(r)
+        flagged = [s["round"] for s in a["stragglers"]
+                   if "fault_trace" in s["source"]]
+        with open(os.path.join(run_dir, ident + ".metrics.json")) as f:
+            metrics = json.load(f)
+        compile_sum = sum(float(metrics[k]["value"]["sum"])
+                          for k in obs_compile.COMPILE_KINDS.values()
+                          if k in metrics)
+        kernel_names = [k["name"] for k in
+                        a["comm"].get("devtrace", {}).get("kernels", [])]
+        named = {k: any(k in n for n in kernel_names)
+                 for k in OBS_TRACE_KERNELS}
+        rec["b_analyze"] = {
+            "stragglers": a["stragglers"], "replay_fired": fired,
+            "phases": sorted(a["phases"]), "compile": a["compile"],
+            "compile_kinds_sum_s": compile_sum,
+            "devtrace_kernels_named": named,
+            "devtrace_busy_s": a["comm"].get("devtrace", {}).get("busy_s"),
+            "numerics_present": a["numerics"]["present"],
+            "flags": a["flags"]}
+        if not (fired and flagged == fired
+                and {"train_dispatch", "device_and_wait"} <= set(a["phases"])
+                and a["compile"]["present"] and a["compile"]["by_entry"]
+                and a["compile"]["total_s"] == compile_sum
+                and all(named.values()) and a["numerics"]["present"]):
+            raise AssertionError(f"offline (b) analyze: {rec['b_analyze']}")
+
+        events = obs_export.read_jsonl(
+            os.path.join(run_dir, ident + ".events.jsonl"))
+        summary = json.loads(cmd("slo", "slo", run_dir, "--json"))
+        replayed = [ln[2:] for ln in again("slo", run_dir).splitlines()
+                    if ln.startswith("  round ")]
+        live = [obs_events.format_event_line(e) for e in events]
+        rec["b_slo"] = {"health": summary["health"],
+                        "events_total": summary["events_total"],
+                        "events_live": len(events),
+                        "replayed_equal_live": replayed == live}
+        if not (events and replayed == live
+                and summary["events_total"] == len(events)
+                and summary["health"] == rounds[-1]["slo_health"]):
+            raise AssertionError(f"offline (b) slo: {rec['b_slo']}")
+
+        tail = cmd("tail", "tail", run_dir, "--once").splitlines()
+        rec["b_tail"] = {"lines": len(tail), "records": len(records)}
+        if len(tail) != len(records) or len(rounds) != OFFLINE_ROUNDS:
+            raise AssertionError(f"offline (b) tail: {rec['b_tail']}")
+
+        cat = obs_catalog.catalog_path(results)
+        with open(cat) as f:
+            live_lines = f.read().splitlines()
+        cmd("ls", "ls", results, "--rebuild", "--json")
+        with open(cat) as f:
+            rebuilt = f.read().splitlines()
+        known = []
+        for line in live_lines:
+            e = json.loads(line)
+            e["git_sha"] = ""
+            e["artifacts"].pop("trace", None)
+            known.append(json.dumps(e, sort_keys=True))
+        rec["b_ls"] = {"live_lines": len(live_lines),
+                       "rebuilt_equal": rebuilt == known}
+        if not (len(live_lines) == 1 and rebuilt == known):
+            raise AssertionError(f"offline (b) ls: {live_lines} {rebuilt}")
+
+        twin_stream = os.path.join(twin_dir, ident + ".obs.jsonl")
+        cmd("diff", "diff", stream, twin_stream, "--expect", "identical")
+        again("diff", stream, twin_stream, "--expect", "different", want=1)
+
+        # the card history: each run's rounds/s over its fused rounds'
+        # wall time (the blocks' flush-to-flush seconds, captures included;
+        # a block's time is split evenly over its rounds, so only the sum
+        # is a wall time)
+        hist = os.path.join(tmp, "history.jsonl")
+        rates = []
+        for d in (run_dir, twin_dir):
+            recs = obs_export.read_jsonl(os.path.join(d, ident + ".obs.jsonl"))
+            rates.append(OFFLINE_ROUNDS / sum(r["round_time_s"] for r in recs
+                                              if r["round"] >= 0))
+        for v in rates:
+            obs_regress.append_history(
+                hist, {"metric": OFFLINE_METRIC, "value": v,
+                       "unit": "rounds/s"}, source="chip_smoke_offline",
+                git_sha="", card=card)
+        median = statistics.median(rates)
+        # twice the gate's allowed drop below the median: a regression by
+        # the gate's own band, however noisy the history
+        band = obs_regress.detect_regression(rates, median)["allowed_drop"]
+        cmd("regress", "regress", "--history", hist, "--metric",
+            OFFLINE_METRIC, "--value", repr(median))
+        again("regress", "--history", hist, "--metric", OFFLINE_METRIC,
+              "--value", repr(median - 2 * band), want=1)
+        again("regress", "--history", os.path.join(tmp, "none.jsonl"),
+              "--metric", OFFLINE_METRIC, "--value", repr(median), want=2)
+        rec["b_regress"] = {"rates": rates, "median": median,
+                            "allowed_drop": band}
+
+        html = [os.path.join(tmp, f"fleet{i}.html") for i in (1, 2)]
+        cmd("report", "report", results, "--out", html[0], "--history",
+            hist)
+        again("report", results, "--out", html[1], "--history", hist)
+        with open(html[0], "rb") as f, open(html[1], "rb") as g:
+            page = f.read()
+            same = page == g.read()
+        rec["b_report"] = {"bytes": len(page), "byte_identical": same}
+        if not (same and ident.encode() in page):
+            raise AssertionError(f"offline (b) report: {rec['b_report']}")
+
+        xt = json.loads(cmd("xtrace", "xtrace", fed_dir, "--enforce",
+                            "--json"))
+        frame = cmd("watch", "watch", fed_dir, "--once")
+        rec["b_xtrace"] = {"straggler_counts": xt["straggler_counts"],
+                           "rounds": [{k: r[k] for k in ("trace",
+                                                         "total_ms",
+                                                         "straggler")}
+                                      for r in xt["rounds"]],
+                           "orphans": len(xt["orphans"])}
+        rec["b_watch"] = frame.splitlines()
+        if not (xt["present"] and xt["straggler_counts"] == {
+                "site2": FED_ROUNDS} and not xt["straggler_mismatches"]):
+            raise AssertionError(f"offline (b) xtrace: {rec['b_xtrace']}")
+        if not all(f"site{k}" in frame for k in range(1, FED_SITES + 1)):
+            raise AssertionError(f"offline (b) watch: {frame}")
+
+    # (c) the seconds
+    rec["c"] = {"card": card, "seconds": secs,
+                "subcommands": {k: c["seconds"] for k, c in cmds.items()},
+                "subcommands_total_s": sum(c["seconds"]
+                                           for c in cmds.values())}
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    rec["c"]["phase_s"] = phase_s
+    emit(rec)
+    if sorted(cmds) != sorted(("analyze", "slo", "tail", "ls", "diff",
+                               "regress", "report", "xtrace", "watch")):
+        raise AssertionError(f"offline (b): ran {sorted(cmds)}")
+    if phase_s > OFFLINE_PHASE_LIMIT_S:
+        raise AssertionError(f"offline phase took {phase_s:.1f} s, over its "
+                             f"{OFFLINE_PHASE_LIMIT_S} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -7514,6 +7890,7 @@ def main() -> int:
         paths.update(timed("fed", fed_path))
         paths.update(timed("serve", serve_path))
         paths.update(timed("obs", obs_path))
+        paths.update(timed("offline", offline_path))
     paths.update(timed("bench", bench_path))
 
     line = []

@@ -89,9 +89,6 @@ S2D_SPECS = {"3dcnn_s2d": (5, 0), "3dresnet_s2d": (3, 3),
 #: flag attribute -> ROADMAP item of the feature it drives, refused at any
 #: value but its default
 _UNPORTED = {
-    # 14: observability's live watch (the in-process tier, the federation's
-    # xtrace and heartbeats and the Prometheus exporter run)
-    "obs_watch_every": 14, "obs_watch_color": 14,
     # 15: multi-process and spatial sharding
     "multihost": 15, "coordinator_address": 15, "num_processes": 15,
     "process_id": 15, "multihost_timeout_s": 15, "multihost_retries": 15,

@@ -1,5 +1,6 @@
 """Observability subsystem: tracing, metrics registry, per-round telemetry
-(counterpart of ``neuroimagedisttraining_tpu/obs``, its in-process tier).
+and their offline analysis (counterpart of
+``neuroimagedisttraining_tpu/obs``).
 
 * :mod:`~.trace` — hierarchical host-side span tracer emitting Chrome
   trace-event JSON, each span mirrored into ``torch.profiler.
@@ -21,12 +22,20 @@
   probe (``--obs_comm``).
 * :mod:`~.devtrace` — ``torch.profiler`` trace attribution: collective
   (NCCL) vs compute kernel time.
-* :mod:`~.health` — the per-site ledger and the fault-count replay.
+* :mod:`~.health` — the per-site ledger and the fault-count replay, its
+  fault draws through one seam (``fault_trace``).
+* :mod:`~.analyze` — the offline analyzer (``python -m
+  neuroimagedisttraining_torch.obs analyze <run_dir>``): per-phase
+  round-time attribution, robust outlier/straggler detection, memory
+  trends, faults, numerics, comm, SLO, fleet, xtrace and compile
+  sections; versioned ``analysis.json`` + human report.
 * :mod:`~.recorder` — the anomaly flight recorder (``--flight_recorder``).
 * :mod:`~.slo` / :mod:`~.events` — the online SLO engine and its typed
   event bus (``--slo_spec``).
-* :mod:`~.catalog` / :mod:`~.regress` — the run catalog and the bench
-  history.
+* :mod:`~.catalog` / :mod:`~.regress` — the run catalog (appended live,
+  rebuilt from run dirs) and the bench history with its regression gate.
+* :mod:`~.report` — the byte-deterministic static HTML fleet report
+  (``obs report``).
 * :mod:`~.xtrace` — cross-process causal tracing over ``Message`` headers
   for the federation (``--xtrace``).
 * :mod:`~.live` — in-band heartbeats and the fleet ledger of the
@@ -37,13 +46,15 @@
 * :mod:`~.diff` — the cross-run diff engine and the bit-level parameter
   comparator (the serving plane's bit-identity gate).
 
-The offline tier's command line (``obs analyze/report/diff``) and the live
-watch are not ported.
+``python -m neuroimagedisttraining_torch.obs`` (:mod:`~.__main__`) runs
+the offline tier's nine subcommands: ``analyze``, ``tail``, ``slo``,
+``regress``, ``ls``, ``diff``, ``report``, ``watch`` and ``xtrace``.
 
 Nothing here enters run or checkpoint identity, and with ``--obs`` off
 every hook is a no-op (bit-identical to the obs-off run).
 """
 from . import (
+    analyze,
     catalog,
     comm,
     compile,
@@ -59,11 +70,13 @@ from . import (
     prom,
     recorder,
     regress,
+    report,
     slo,
     trace,
     xtrace,
 )
 
-__all__ = ["catalog", "comm", "compile", "devtrace", "diff", "events",
-           "export", "health", "live", "memory", "metrics", "numerics",
-           "prom", "recorder", "regress", "slo", "trace", "xtrace"]
+__all__ = ["analyze", "catalog", "comm", "compile", "devtrace", "diff",
+           "events", "export", "health", "live", "memory", "metrics",
+           "numerics", "prom", "recorder", "regress", "report", "slo",
+           "trace", "xtrace"]

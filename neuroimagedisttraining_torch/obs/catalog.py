@@ -5,10 +5,11 @@ package's flag census classes ``identity``).
 
 One JSONL line per run under ``<results_dir>/runs_index.jsonl``,
 written by :class:`~.export.ObsSession` at close (process 0 only — the
-same only-process-0-exports rule as every obs sink). (The JAX package's
-rebuild from run dirs, ``obs ls``, is the offline tier's and is not
-ported.) Each entry carries what the fleet tools need to index,
-compare, and summarize a run without opening its artifacts:
+same only-process-0-exports rule as every obs sink) and rebuildable
+from run dirs via :func:`scan` / :func:`rebuild` (``obs ls --rebuild``)
+for runs recorded before the catalog existed. Each entry carries what
+the fleet tools need to index, compare, and summarize a run without
+opening its artifacts:
 
 * run identity + checkpoint identity (the two lineage keys);
 * the identity-bearing flag values (:data:`IDENTITY_FLAGS` — the
@@ -33,12 +34,16 @@ import json
 import os
 from typing import Any, Dict, List, Optional
 
-from .export import OBS_SCHEMA_VERSION, _process_index, read_jsonl
+from .export import (
+    OBS_SCHEMA_VERSION, _process_index, dedupe_events, dedupe_rounds,
+    read_jsonl,
+)
 
 __all__ = [
     "CATALOG_NAME", "CATALOG_SCHEMA_VERSION", "FINAL_METRIC_KEYS",
     "IDENTITY_FLAGS", "append_entry", "build_entry", "catalog_path",
-    "entry_key", "identity_flag_values", "read_catalog",
+    "entry_from_run", "entry_key", "final_metrics_from_records",
+    "identity_flag_values", "read_catalog", "rebuild", "scan",
 ]
 
 #: version stamped on every catalog line
@@ -85,6 +90,25 @@ def identity_flag_values(config: Dict[str, Any]) -> Dict[str, Any]:
     legitimately differ on, as opposed to the inert telemetry knobs."""
     return {name: config[name] for name in IDENTITY_FLAGS
             if name in config}
+
+
+def final_metrics_from_records(
+        records: List[Dict[str, Any]]) -> Dict[str, Any]:
+    """Last-seen value per snapshot key over a (deduped, sorted) round
+    stream — the same fold the live session applies, so a rebuilt
+    entry matches the one written at close. The round=-1 final-eval
+    record sorts FIRST in a deduped stream but was recorded LAST, so
+    it folds last here."""
+    out: Dict[str, Any] = {}
+    ordered = sorted(
+        (r for r in records if isinstance(r.get("round"), int)),
+        key=lambda r: (r["round"] < 0, abs(r["round"])))
+    for rec in ordered:
+        for k in FINAL_METRIC_KEYS:
+            v = rec.get(k)
+            if isinstance(v, (int, float)) and not isinstance(v, bool):
+                out[k] = float(v)
+    return out
 
 
 def _json_safe_config(config: Dict[str, Any]) -> Dict[str, Any]:
@@ -174,3 +198,121 @@ def read_catalog(path: str,
     return [last[k] for k in sorted(last, key=lambda k: (str(k[0]),
                                                          str(k[1])))]
 
+
+def _maybe_json(path: str) -> Optional[Dict[str, Any]]:
+    if not os.path.exists(path):
+        return None
+    try:
+        with open(path) as f:
+            return json.load(f)
+    except (OSError, ValueError):
+        return None
+
+
+def entry_from_run(run_dir: str, identity: str,
+                   git_sha: str = "") -> Dict[str, Any]:
+    """Rebuild one run's catalog entry from its on-disk artifacts (the
+    pre-catalog path): the round stream is authoritative for metrics/
+    health/schema, the stat_info JSON sidecar for config, the events
+    stream for per-type counts. ``git_sha`` defaults to empty — the
+    recording commit is unknowable after the fact unless the sidecar
+    carries it."""
+    jsonl = os.path.join(run_dir, identity + ".obs.jsonl")
+    records = dedupe_rounds(
+        read_jsonl(jsonl, allow_partial_tail=True)) \
+        if os.path.exists(jsonl) else []
+    events_path = os.path.join(run_dir, identity + ".events.jsonl")
+    events = dedupe_events(
+        read_jsonl(events_path, allow_partial_tail=True)) \
+        if os.path.exists(events_path) else []
+    counts: Dict[str, int] = {}
+    for ev in events:
+        t = str(ev.get("event_type"))
+        counts[t] = counts.get(t, 0) + 1
+    stat_json = os.path.join(run_dir, identity + ".json")
+    stat = _maybe_json(stat_json) or {}
+    config = stat.get("config") or {}
+    ckpt_identity = ""
+    if config.get("algo"):
+        # recompute the checkpoint-lineage key from the recorded
+        # config — the same function the live path used
+        import argparse as _argparse
+
+        from ..experiments.config import run_identity
+
+        try:
+            ckpt_identity = run_identity(
+                _argparse.Namespace(**config), str(config["algo"]),
+                for_checkpoint=True)
+        except Exception:  # partial/foreign config: key unknowable
+            ckpt_identity = ""
+    health = ""
+    schema = 1
+    for rec in records:
+        if isinstance(rec.get("slo_health"), str):
+            health = rec["slo_health"]
+        s = rec.get("obs_schema")
+        if isinstance(s, int):
+            schema = max(schema, s)
+    artifacts = {"obs_jsonl": jsonl}
+    if events:
+        artifacts["events_jsonl"] = events_path
+    if os.path.exists(stat_json):
+        artifacts["stat_json"] = stat_json
+    metrics_json = os.path.join(run_dir, identity + ".metrics.json")
+    if os.path.exists(metrics_json):
+        artifacts["metrics_json"] = metrics_json
+    n_rounds = sum(1 for r in records
+                   if isinstance(r.get("round"), int) and r["round"] >= 0)
+    return build_entry(
+        identity=identity, config=config,
+        checkpoint_identity=ckpt_identity,
+        git_sha=git_sha,
+        final_metrics=final_metrics_from_records(records),
+        slo_health=health, event_counts=counts,
+        rounds_recorded=n_rounds, artifacts=artifacts,
+        # finish() leaves one of three traces: the final (round -1)
+        # eval record, the metrics.json snapshot it always writes
+        # before closing, or — serving streams (serve/), which have no
+        # training round -1 — the graceful-drain marker the worker
+        # writes after serving its last request
+        completed=(any(r.get("round") == -1 for r in records)
+                   or any(bool(r.get("serve_drained"))
+                          for r in records)
+                   or os.path.exists(metrics_json)),
+        obs_schema=schema)
+
+
+def scan(run_dir: str, git_sha: str = "") -> List[Dict[str, Any]]:
+    """Rebuild entries for every ``*.obs.jsonl`` stream under one run
+    dir (a ``<results_dir>/<dataset>`` directory), sorted by
+    identity."""
+    if not os.path.isdir(run_dir):
+        return []
+    idents = sorted(f[:-len(".obs.jsonl")] for f in os.listdir(run_dir)
+                    if f.endswith(".obs.jsonl"))
+    return [entry_from_run(run_dir, i, git_sha=git_sha)
+            for i in idents]
+
+
+def rebuild(results_dir: str, path: str = "",
+            force: bool = False) -> int:
+    """Scan every dataset dir under ``results_dir`` and REWRITE the
+    catalog from what is on disk (the pre-catalog migration; the live
+    path appends instead). Returns entries written."""
+    path = path or catalog_path(results_dir)
+    entries: List[Dict[str, Any]] = []
+    if os.path.isdir(results_dir):
+        for name in sorted(os.listdir(results_dir)):
+            sub = os.path.join(results_dir, name)
+            if os.path.isdir(sub):
+                entries.extend(scan(sub))
+    if not force and _process_index() != 0:
+        return 0
+    d = os.path.dirname(path)
+    if d:
+        os.makedirs(d, exist_ok=True)
+    with open(path, "w") as f:
+        for e in entries:
+            f.write(json.dumps(e, sort_keys=True) + "\n")
+    return len(entries)

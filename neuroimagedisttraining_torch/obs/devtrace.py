@@ -12,8 +12,11 @@ write ``*.trace.json`` files) and attributes device time — the events with
 share and, against the wire model's bytes, the achieved wire GB/s — plus
 the collective-vs-compute interval OVERLAP per device (``overlap_s`` /
 ``overlap_frac``: the share of collective seconds concurrent with compute
-kernels on other streams of the same device). A CPU capture has no kernel
-events, so it has no device lane and its summary is ``present: False``.
+kernels on other streams of the same device). The directory summary also
+ranks every compute kernel by its total time (``kernels``, the port's
+addition: it names the hand kernels a round ran, which the offline
+analyzer's comm section carries). A CPU capture has no kernel events, so
+it has no device lane and its summary is ``present: False``.
 
 A trace document without torch's ``cat`` fields (the JAX profiler's) is
 read as the JAX package reads it: device lanes by process name, the
@@ -211,16 +214,10 @@ def _finalize_attribution(devices: Dict[str, Dict[str, float]],
                                 else top_list[:top_k])}
 
 
-def attribute_trace(doc: Dict[str, Any]) -> Dict[str, Any]:
-    """Attribute one trace document's device time.
-
-    Returns per-device totals (``busy_s`` / ``collective_s`` /
-    ``compute_s`` / ``agg_share``), the cross-device totals, and the
-    top collective kernels by total time. Durations are Chrome-trace
-    microseconds; only complete (``ph == "X"``) events count: in a
-    ``torch.profiler`` trace the kernels (``"cat": "kernel"``), in a JAX
-    profiler trace the events on non-aggregate rows of device pids (see
-    :data:`_AGGREGATE_TID_RE`)."""
+def _device_events(doc: Dict[str, Any]):
+    """``(lane, event)`` for every complete event on a device lane of one
+    trace document: in a ``torch.profiler`` trace the kernels, in a JAX
+    profiler trace the events on non-aggregate rows of device pids."""
     events = doc.get("traceEvents") or []
     torch_trace = _is_torch_trace(events)
     if torch_trace:
@@ -229,12 +226,6 @@ def attribute_trace(doc: Dict[str, Any]) -> Dict[str, Any]:
     else:
         device_names = _device_pids(events)
         skip_tids = _aggregate_tids(events)
-    devices: Dict[str, Dict[str, float]] = {}
-    top: Dict[str, Dict[str, float]] = {}
-    # per-lane (start, end) interval lists in trace microseconds, for
-    # the collective-vs-compute overlap measurement
-    coll_iv: Dict[str, List[tuple]] = {}
-    comp_iv: Dict[str, List[tuple]] = {}
     for e in events:
         if e.get("ph") != "X" or not isinstance(e.get("dur"),
                                                 (int, float)):
@@ -246,7 +237,40 @@ def attribute_trace(doc: Dict[str, Any]) -> Dict[str, Any]:
             continue
         if (pid, e.get("tid", 0)) in skip_tids:
             continue
-        lane = device_names.get(pid, f"pid{pid}")
+        yield device_names.get(pid, f"pid{pid}"), e
+
+
+def _compute_kernels(doc: Dict[str, Any]) -> Dict[str, Dict[str, float]]:
+    """``{name: {"total_s", "count"}}`` of one trace document's compute
+    (non-collective) device events, over every lane."""
+    out: Dict[str, Dict[str, float]] = {}
+    for _, e in _device_events(doc):
+        name = str(e.get("name", ""))
+        if is_collective(name):
+            continue
+        t = out.setdefault(name, {"total_s": 0.0, "count": 0})
+        t["total_s"] += float(e["dur"]) / 1e6
+        t["count"] += 1
+    return out
+
+
+def attribute_trace(doc: Dict[str, Any]) -> Dict[str, Any]:
+    """Attribute one trace document's device time.
+
+    Returns per-device totals (``busy_s`` / ``collective_s`` /
+    ``compute_s`` / ``agg_share``), the cross-device totals, and the
+    top collective kernels by total time. Durations are Chrome-trace
+    microseconds; only complete (``ph == "X"``) events count: in a
+    ``torch.profiler`` trace the kernels (``"cat": "kernel"``), in a JAX
+    profiler trace the events on non-aggregate rows of device pids (see
+    :data:`_AGGREGATE_TID_RE`)."""
+    devices: Dict[str, Dict[str, float]] = {}
+    top: Dict[str, Dict[str, float]] = {}
+    # per-lane (start, end) interval lists in trace microseconds, for
+    # the collective-vs-compute overlap measurement
+    coll_iv: Dict[str, List[tuple]] = {}
+    comp_iv: Dict[str, List[tuple]] = {}
+    for lane, e in _device_events(doc):
         d = devices.setdefault(lane, {"busy_s": 0.0, "collective_s": 0.0,
                                       "compute_s": 0.0})
         dur_s = float(e["dur"]) / 1e6
@@ -281,7 +305,10 @@ def analyze_profile_dir(profile_dir: str,
     aggregation) turns the measured collective seconds into achieved
     wire GB/s — the modeled-vs-achieved bandwidth the analyzer reports.
     A dir with no trace files returns ``{"present": False}`` (the
-    cost-analysis fallback's cue)."""
+    cost-analysis fallback's cue). ``kernels`` ranks every compute kernel
+    of the traces by its total seconds (``name``, ``total_s``,
+    ``count``), untruncated: a short kernel launched once a round is
+    named too."""
     files = find_trace_files(profile_dir)
     out: Dict[str, Any] = {"present": False, "files": len(files),
                            "profile_dir": profile_dir}
@@ -289,12 +316,18 @@ def analyze_profile_dir(profile_dir: str,
         return out
     devices: Dict[str, Dict[str, float]] = {}
     top: Dict[str, Dict[str, float]] = {}
+    compute: Dict[str, Dict[str, float]] = {}
     for path in files:
         try:
-            att = attribute_trace(load_trace_doc(path))
+            doc = load_trace_doc(path)
+            att = attribute_trace(doc)
         except (OSError, ValueError, json.JSONDecodeError) as e:
             logger.warning("unreadable trace %s: %s", path, e)
             continue
+        for name, t in _compute_kernels(doc).items():
+            c = compute.setdefault(name, {"total_s": 0.0, "count": 0})
+            c["total_s"] += t["total_s"]
+            c["count"] += t["count"]
         for lane, d in att["devices"].items():
             agg = devices.setdefault(
                 lane, {k: 0.0 for k in _LANE_KEYS})
@@ -308,6 +341,11 @@ def analyze_profile_dir(profile_dir: str,
         return out
     folded = _finalize_attribution(devices, top, top_k=10)
     out.update(present=True, **folded)
+    out["kernels"] = [{"name": k, "total_s": v["total_s"],
+                       "count": int(v["count"])}
+                      for k, v in sorted(compute.items(),
+                                         key=lambda kv: (-kv[1]["total_s"],
+                                                         kv[0]))]
     totals = folded["totals"]
     if modeled_bytes is not None:
         out["modeled_bytes"] = float(modeled_bytes)
